@@ -1,0 +1,284 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA GPU (Hopper, sm_90a).
+
+    python3 chip_smoke.py
+
+Phases, each printing one line with its result and wall time; any failure
+raises and exits non-zero, and nothing falls back to the CPU:
+
+1. device: the card's name, and its name and power limit as
+   ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+   prints them;
+2. build: ``nvcc`` builds the kernels from ``sopht_mpi_tpu_torch/csrc``;
+3. kernels: each kernel against its plain PyTorch version on the card
+   (float32 at 256^3 and (3, 17, 33, 65), float64 at 64^3), with kernel and
+   plain times at 256^3 (CUDA events, median of 20 calls after warm-up);
+4. main path: the 256^3 flow-past-sphere FSI step (sparse IBM window,
+   float32, exact spectral tier), 5 warm-up + 20 timed steps that must not
+   synchronise with the host, with every kernel's launch count over that
+   run;
+5. physics: the 64^3 Re=100 sphere drag case (dense IBM path) to t* = 2,
+   Cd against the JAX package's validated value;
+6. card vs CPU: 3 steps of the 32^3 case from one numpy-seeded state,
+   kernels on the card against the plain versions on the CPU.
+
+The line before the last is the kernel table as JSON; the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+repository beside it, the script exits non-zero and prints no result.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+SOURCE = "sopht_mpi_tpu_torch/csrc/stencils_3d.cu"
+REPLACES = {
+    "rotational_curl_add_3d": "sopht_mpi_tpu/ops/pallas_stencils_3d.py:683",
+    "diffusion_penalise_vector_3d": "sopht_mpi_tpu/ops/pallas_stencils_3d.py:1324",
+    "curl_3d": "sopht_mpi_tpu/ops/pallas_stencils_3d.py:645",
+}
+# Cd at t* = 2 of the 64^3 fused sphere case
+# (doc/validation_sphere_cd_convergence.json, grids["64"]["cd_t2"])
+CD_T2_64 = 1.34141910580261
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def phase(name):
+    """Decorator: run, print ``[name] ok (t s) detail``; failures propagate."""
+
+    def wrap(fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            detail = out[1] if isinstance(out, tuple) else ""
+            print(f"[{name}] ok ({time.perf_counter() - t0:.2f} s) {detail}",
+                  flush=True)
+            return out[0] if isinstance(out, tuple) else out
+
+        return run
+
+    return wrap
+
+
+def median_ms(torch, fn, n=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[n // 2]
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); nothing was run", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(REPO, "sopht_mpi_tpu_torch")):
+        print("chip_smoke: the sopht_mpi_tpu_torch package is not beside "
+              "this script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import numpy as np
+
+    from sopht_mpi_tpu_torch import cases
+    from sopht_mpi_tpu_torch.convert import flow_state_from_numpy
+    from sopht_mpi_tpu_torch.models import scan_steps
+    from sopht_mpi_tpu_torch.ops import cuda_stencils_3d as kernels
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    kind = torch.cuda.get_device_name(0)
+
+    @phase("device")
+    def device_phase():
+        try:
+            smi = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader", "--id=0"],
+                capture_output=True, text=True, timeout=60, check=True,
+            ).stdout.strip()
+        except FileNotFoundError:
+            smi = f"{kind}, power limit not readable (no nvidia-smi)"
+        print(smi, flush=True)
+        return smi, f"{kind}; {torch.cuda.device_count()} device(s); torch " \
+                    f"{torch.__version__}, CUDA {torch.version.cuda}"
+
+    card = device_phase()
+
+    @phase("build")
+    def build_phase():
+        t0 = time.perf_counter()
+        lib = kernels.library()
+        regs = [ln.split(":", 1)[1].strip() for ln in lib.build_log.splitlines()
+                if "registers" in ln]
+        return lib, (f"nvcc sm_90a from {SOURCE} in "
+                     f"{time.perf_counter() - t0:.2f} s; ptxas: {regs}")
+
+    build_phase()
+
+    def max_err(out, ref):
+        return float((out - ref).abs().max()), float(ref.abs().max())
+
+    def run_kernel_checks(shape, dtype, gen):
+        w = torch.randn(shape, dtype=dtype, device=dev, generator=gen)
+        u = torch.randn(shape, dtype=dtype, device=dev, generator=gen)
+        p = torch.tensor(0.05, dtype=dtype, device=dev)
+        add = torch.tensor([1.0, -0.5, 0.25], dtype=dtype, device=dev)
+        calls = {
+            "rotational_curl_add_3d": (
+                lambda: kernels.rotational_curl_add_3d(w, u, p),
+                lambda: kernels.rotational_curl_add_3d_ref(w, u, p)),
+            "diffusion_penalise_vector_3d": (
+                lambda: kernels.diffusion_penalise_vector_3d(w, p, 2),
+                lambda: kernels.diffusion_penalise_vector_3d_ref(w, p, 2)),
+            "curl_3d": (
+                lambda: kernels.curl_3d(w, p, add, True),
+                lambda: kernels.curl_3d_ref(w, p, add, True)),
+        }
+        errs = {}
+        for name, (fn, ref_fn) in calls.items():
+            out, ref = fn(), ref_fn()
+            if name == "curl_3d":
+                (out, l1), (ref, l1_ref) = out, ref
+                rel = abs(float(l1) - float(l1_ref)) / float(l1_ref)
+                check(rel <= 1e-6, f"curl_3d l1_max {shape} {dtype}: rel {rel}")
+            err, scale = max_err(out, ref)
+            tol = 1e-12 if dtype == torch.float64 else 1e-5 * max(1.0, scale)
+            check(err <= tol, f"{name} {shape} {dtype}: max|diff| {err} > {tol}")
+            errs[name] = err
+        torch.cuda.synchronize()
+        return calls, errs
+
+    @phase("kernels")
+    def kernel_phase():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        table = {}
+        for shape, dtype in (((3, 17, 33, 65), torch.float32),
+                             ((3, 64, 64, 64), torch.float64),
+                             ((3, 256, 256, 256), torch.float32)):
+            calls, errs = run_kernel_checks(shape, dtype, gen)
+        # the last shape is the main path's: its errors and times are kept
+        for name, (fn, ref_fn) in calls.items():
+            table[name] = {
+                "name": name, "route": "cuda", "source": SOURCE,
+                "replaces": REPLACES[name], "launches": None,
+                "max_abs_err": errs[name],
+                "ms": median_ms(torch, fn), "plain_ms": median_ms(torch, ref_fn),
+            }
+        detail = "; ".join(
+            f"{k}: err {v['max_abs_err']:.3g}, {v['ms']:.4f} ms vs plain "
+            f"{v['plain_ms']:.4f} ms at 256^3 f32" for k, v in table.items())
+        return table, detail + f" [{card}]"
+
+    table = kernel_phase()
+
+    @phase("main path")
+    def main_path_phase():
+        n = 256
+        step, (carry,) = cases._build_fsi_case((n, n, n), device=dev)
+        check(step.uses_sparse_forcing, "the 256^3 case did not take the "
+              "sparse-window branch")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for fn in kernels.KERNELS:
+            fn.launches = 0
+        carry, _ = scan_steps(step, carry, 5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # the step never waits for the device: a synchronising call raises
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            carry, forces = scan_steps(step, carry, 20)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+        for name, count in launches.items():
+            check(count >= 20, f"{name} launched {count} times on the main path")
+            table[name]["launches"] = count
+        fs = carry.flow_state
+        for what, t in (("vorticity", fs.primary_field),
+                        ("velocity", fs.velocity_field), ("forces", forces)):
+            check(bool(torch.isfinite(t).all()), f"non-finite {what}")
+        check(tuple(fs.velocity_field.shape) == (3, n, n, n), "velocity shape")
+        s_step = elapsed / 20
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        return None, (f"256^3 f32 sparse window {step.window}: {s_step:.6f} "
+                      f"s/step, {n**3 / s_step / 1e6:.3f} Mcells/s, peak "
+                      f"{peak:.2f} GiB, no host sync in the timed steps, "
+                      f"launches {launches} [{card}]")
+
+    main_path_phase()
+
+    @phase("physics")
+    def physics_phase():
+        times, cds = cases.flow_past_sphere_fused_case(
+            nondim_time=2.0, grid_size=(64, 64, 64), window=10, device=dev)
+        check(np.all(np.isfinite(cds)), "non-finite Cd")
+        cd = float(cds[-1])
+        rel = abs(cd - CD_T2_64) / CD_T2_64
+        check(rel <= 0.02, f"Cd {cd} at t*={times[-1]} is {rel:.2%} from "
+              f"{CD_T2_64}")
+        cd_interp = float(np.interp(2.0, times, cds))
+        return None, (f"64^3 dense: Cd {cd:.5f} at t*={times[-1]:.4f} (first "
+                      f"sample past 2; {len(times) * 10} steps), interpolated "
+                      f"at t*=2 {cd_interp:.5f}; JAX reference {CD_T2_64:.5f}, "
+                      f"diff {rel:.3%}")
+
+    physics_phase()
+
+    @phase("card vs cpu")
+    def parity_phase():
+        n = 32
+        vort = np.random.default_rng(0).standard_normal((3, n, n, n)) * 0.1
+        finals = []
+        for device in (dev, torch.device("cpu")):
+            step, (carry,) = cases._build_fsi_case((n, n, n), device=device)
+            state = flow_state_from_numpy(
+                (vort, carry.flow_state.velocity_field.cpu().numpy(),
+                 carry.flow_state.eul_grid_forcing_field.cpu().numpy()),
+                device=device, dtype=torch.float32)
+            carry, _ = scan_steps(step, carry._replace(flow_state=state), 3)
+            finals.append(carry.flow_state)
+        (gpu, cpu) = finals
+        errs = {}
+        for what in ("primary_field", "velocity_field"):
+            ref = getattr(cpu, what)
+            err = float((getattr(gpu, what).cpu() - ref).abs().max())
+            tol = 1e-4 * max(1.0, float(ref.abs().max()))
+            check(err <= tol, f"{what}: card vs cpu {err} > {tol}")
+            errs[what] = err
+        return None, f"32^3, 3 steps, max|diff| {errs}"
+
+    parity_phase()
+
+    print(json.dumps({"kernels": list(table.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,66 @@
+"""State carried across from the JAX package: numpy trees -> the port's
+NamedTuples.
+
+A JAX carry becomes numpy with ``jax.tree_util.tree_map(np.asarray,
+carry)`` (done by the caller; this module never sees a JAX array). Each
+node may be a tuple/NamedTuple (read by position, in the JAX package's
+field order, which the port keeps) or a dict (read by field name).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sopht_mpi_tpu_torch.models.flow.simulator_3d import FlowState3D
+from sopht_mpi_tpu_torch.models.fsi import RigidFSICarry
+from sopht_mpi_tpu_torch.ops.virtual_boundary import VirtualBoundaryState
+
+
+def _fields(node, names):
+    if isinstance(node, dict):
+        return [node.get(name) for name in names]
+    values = list(node)
+    if len(values) > len(names):
+        raise ValueError(f"expected at most {len(names)} fields {names}, "
+                         f"got {len(values)}")
+    return values + [None] * (len(names) - len(values))
+
+
+def _tensor(leaf, device, dtype):
+    if leaf is None:
+        return None
+    return torch.tensor(np.asarray(leaf), dtype=dtype, device=device)
+
+
+def flow_state_from_numpy(tree, *, device, dtype) -> FlowState3D:
+    """(primary_field, velocity_field, eul_grid_forcing_field) numpy
+    arrays -> :class:`FlowState3D` on ``device`` in ``dtype``."""
+    return FlowState3D(
+        *(_tensor(v, device, dtype) for v in _fields(tree, FlowState3D._fields))
+    )
+
+
+def rigid_fsi_carry_from_numpy(tree, *, device, dtype) -> RigidFSICarry:
+    """A JAX ``RigidFSICarry`` as numpy arrays -> the port's
+    :class:`RigidFSICarry`: the flow state, ``vb_state``, the velocity
+    mismatch, time, the Fourier Green's function, ``velocity_l1_max`` and
+    ``ibm_mats`` (None on the dense path)."""
+    (flow, vb, mismatch, time, greens, l1_max, mats) = _fields(
+        tree, RigidFSICarry._fields
+    )
+    return RigidFSICarry(
+        flow_state=flow_state_from_numpy(flow, device=device, dtype=dtype),
+        vb_state=VirtualBoundaryState(
+            *(_tensor(v, device, dtype)
+              for v in _fields(vb, VirtualBoundaryState._fields))
+        ),
+        velocity_mismatch=_tensor(mismatch, device, dtype),
+        time=_tensor(time, device, dtype),
+        greens=_tensor(greens, device, dtype),
+        velocity_l1_max=_tensor(l1_max, device, dtype),
+        ibm_mats=(
+            None if mats is None
+            else tuple(_tensor(m, device, dtype) for m in mats)
+        ),
+    )

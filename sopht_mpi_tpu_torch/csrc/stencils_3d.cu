@@ -1,0 +1,281 @@
+// Hopper (sm_90a) kernels for the three 3D stencils of the Navier-Stokes
+// step, bound to PyTorch through a plain C interface (ctypes); see
+// sopht_mpi_tpu_torch/ops/cuda_stencils_3d.py for the wrappers and the plain
+// PyTorch versions they are held against.
+//
+// Layout: vector fields are (3, nz, ny, nx) contiguous, components (x, y, z),
+// x the fastest array axis. "Ring" is any cell with index 0 or n-1 on any
+// axis. Scalar prefactors are read from device memory (0-d tensors), so the
+// host never has to know dt.
+//
+// Launch shape (all three kernels): one thread per output cell, blocks of
+// 32 x 8 threads over (x, y), one grid row of blocks per z-plane, so a warp
+// reads 32 neighbouring x cells (coalesced) and no thread divides an index.
+//
+// rotational_curl_add_3d
+//   Replaces sopht_mpi_tpu/ops/pallas_stencils_3d.py
+//   rotational_curl_add_3d_pallas (kernel _rotational_kernel).
+//   out = w + pref * curl(u x w), the cross product taken at each of the six
+//   neighbours; ring cells keep w.
+//   Bound: HBM bytes, 2 fields read + 1 written = 36 B/cell at f32. The TPU
+//   kernel streamed z-planes through VMEM; here each thread owns one cell
+//   and re-reads its neighbours through L1/L2 (a block's x/y neighbours sit
+//   in L1, the z-neighbour planes of all blocks in flight fit the 50 MB L2),
+//   so device memory sees each input about once.
+//
+// diffusion_penalise_vector_3d
+//   Replaces diffusion_penalise_vector_3d_pallas (kernel
+//   _diffusion_penalise_kernel).
+//   out = r(z) r(y) r(x) * D[clamp(z), clamp(y), clamp(x)], clamp to
+//   [w-1, n-w], r the sine ramp of the wall sponge, D = f + p * lap7(f) on
+//   the interior and f on the ring.
+//   Bound: 1 field read + 1 written = 24 B/cell at f32. Same one-cell-per-
+//   thread design; the clamp makes sponge cells read their source's stencil
+//   straight away instead of a second pass over the diffused field.
+//
+// curl_3d
+//   Replaces curl_3d_pallas (kernel _curl_kernel).
+//   out = pref * curl(psi) (0 on the ring) + add[c]; optionally
+//   l1 = max over cells of |u_x| + |u_y| + |u_z|.
+//   Bound: 24 B/cell at f32. The TPU carried a per-plane max through its
+//   sequential grid; blocks here run in no order, so each block reduces its
+//   cells (warp shuffles, then shared memory) and folds the result into a
+//   zeroed device scalar with atomicMax on the bit pattern, which orders
+//   non-negative IEEE floats like the values.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBlockX = 32;
+constexpr int kBlockY = 8;
+constexpr int kThreads = kBlockX * kBlockY;
+
+__device__ __forceinline__ float sin_t(float v) { return sinf(v); }
+__device__ __forceinline__ double sin_t(double v) { return sin(v); }
+__device__ __forceinline__ float abs_t(float v) { return fabsf(v); }
+__device__ __forceinline__ double abs_t(double v) { return fabs(v); }
+__device__ __forceinline__ float max_t(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double max_t(double a, double b) {
+  return fmax(a, b);
+}
+
+// The cell this thread owns; false for the ragged edge of the launch.
+struct Cell {
+  int x, y, z;
+  long long i;
+};
+
+__device__ __forceinline__ bool this_cell(int nz, int ny, int nx, Cell& c) {
+  c.x = blockIdx.x * kBlockX + threadIdx.x;
+  c.y = blockIdx.y * kBlockY + threadIdx.y;
+  c.z = blockIdx.z;
+  c.i = ((long long)c.z * ny + c.y) * nx + c.x;
+  return c.x < nx && c.y < ny;
+}
+
+__device__ __forceinline__ bool on_ring(int z, int y, int x, int nz, int ny,
+                                        int nx) {
+  return z == 0 || y == 0 || x == 0 || z == nz - 1 || y == ny - 1 ||
+         x == nx - 1;
+}
+
+template <typename T>
+__device__ __forceinline__ void cross_at(const T* __restrict__ u,
+                                         const T* __restrict__ w,
+                                         long long i, long long n, T q[3]) {
+  const T u0 = __ldg(u + i), u1 = __ldg(u + n + i), u2 = __ldg(u + 2 * n + i);
+  const T w0 = __ldg(w + i), w1 = __ldg(w + n + i), w2 = __ldg(w + 2 * n + i);
+  q[0] = u1 * w2 - u2 * w1;
+  q[1] = u2 * w0 - u0 * w2;
+  q[2] = u0 * w1 - u1 * w0;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    rotational_curl_add_kernel(const T* __restrict__ w,
+                               const T* __restrict__ u,
+                               const T* __restrict__ pref,
+                               T* __restrict__ out, int nz, int ny, int nx) {
+  Cell c;
+  if (!this_cell(nz, ny, nx, c)) return;
+  const long long sy = nx;
+  const long long sz = (long long)ny * nx;
+  const long long n = sz * nz;
+  const long long i = c.i;
+  const T w0 = __ldg(w + i), w1 = __ldg(w + n + i), w2 = __ldg(w + 2 * n + i);
+  if (on_ring(c.z, c.y, c.x, nz, ny, nx)) {
+    out[i] = w0;
+    out[n + i] = w1;
+    out[2 * n + i] = w2;
+    return;
+  }
+  T qxp[3], qxm[3], qyp[3], qym[3], qzp[3], qzm[3];
+  cross_at(u, w, i + 1, n, qxp);
+  cross_at(u, w, i - 1, n, qxm);
+  cross_at(u, w, i + sy, n, qyp);
+  cross_at(u, w, i - sy, n, qym);
+  cross_at(u, w, i + sz, n, qzp);
+  cross_at(u, w, i - sz, n, qzm);
+  const T p = *pref;
+  // component order of _curl_planes: curl_x = d_y q_z - d_z q_y, ...
+  out[i] = w0 + p * ((qyp[2] - qym[2]) - (qzp[1] - qzm[1]));
+  out[n + i] = w1 + p * ((qzp[0] - qzm[0]) - (qxp[2] - qxm[2]));
+  out[2 * n + i] = w2 + p * ((qxp[1] - qxm[1]) - (qyp[0] - qym[0]));
+}
+
+// Sponge ramp: sin(pi/2 k / w) at distance k < w from a wall, 1 inside.
+template <typename T>
+__device__ __forceinline__ T ramp(int i, int n, int w) {
+  const int k = i < w ? i : (i > n - 1 - w ? n - 1 - i : -1);
+  if (k < 0) return T(1);
+  return sin_t(T(0.5 * 3.14159265358979323846) * T(k) / T(w));
+}
+
+// Sponge source: cells within w of a wall take the value of cell w-1
+// (n-w at the high wall).
+__device__ __forceinline__ int clamp_src(int i, int n, int w) {
+  return i < w - 1 ? w - 1 : (i > n - w ? n - w : i);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    diffusion_penalise_kernel(const T* __restrict__ f,
+                              const T* __restrict__ pref,
+                              T* __restrict__ out, int nz, int ny, int nx,
+                              int width) {
+  Cell c;
+  if (!this_cell(nz, ny, nx, c)) return;
+  const long long sy = nx;
+  const long long sz = (long long)ny * nx;
+  const long long n = sz * nz;
+  const int xs = clamp_src(c.x, nx, width);
+  const int ys = clamp_src(c.y, ny, width);
+  const int zs = clamp_src(c.z, nz, width);
+  const long long s = ((long long)zs * ny + ys) * nx + xs;
+  const bool interior = !on_ring(zs, ys, xs, nz, ny, nx);
+  const T rx = ramp<T>(c.x, nx, width);
+  const T ry = ramp<T>(c.y, ny, width);
+  const T rz = ramp<T>(c.z, nz, width);
+  const T p = *pref;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const T* fc = f + k * n;
+    const T center = __ldg(fc + s);
+    T v = center;
+    if (interior) {
+      // summation order of the plain version: -6 f, then the z, y and x
+      // neighbour pairs
+      T lap = T(-6) * center;
+      lap = (lap + __ldg(fc + s + sz)) + __ldg(fc + s - sz);
+      lap = (lap + __ldg(fc + s + sy)) + __ldg(fc + s - sy);
+      lap = (lap + __ldg(fc + s + 1)) + __ldg(fc + s - 1);
+      v = center + p * lap;
+    }
+    // the plain version ramps along x, then y, then z
+    out[k * n + c.i] = ((v * rx) * ry) * rz;
+  }
+}
+
+__device__ __forceinline__ void atomic_max_nonneg(float* addr, float v) {
+  atomicMax(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
+}
+
+__device__ __forceinline__ void atomic_max_nonneg(double* addr, double v) {
+  atomicMax(reinterpret_cast<unsigned long long*>(addr),
+            static_cast<unsigned long long>(__double_as_longlong(v)));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    curl_kernel(const T* __restrict__ psi, const T* __restrict__ pref,
+                const T* __restrict__ add, T* __restrict__ out,
+                T* __restrict__ l1_max, int nz, int ny, int nx) {
+  Cell c;
+  const bool valid = this_cell(nz, ny, nx, c);
+  T l1 = T(0);
+  if (valid) {
+    const long long sy = nx;
+    const long long sz = (long long)ny * nx;
+    const long long n = sz * nz;
+    const long long i = c.i;
+    T c0 = T(0), c1 = T(0), c2 = T(0);
+    if (!on_ring(c.z, c.y, c.x, nz, ny, nx)) {
+      const T* p0 = psi;
+      const T* p1 = psi + n;
+      const T* p2 = psi + 2 * n;
+      const T p = *pref;
+      c0 = p * ((__ldg(p2 + i + sy) - __ldg(p2 + i - sy)) -
+                (__ldg(p1 + i + sz) - __ldg(p1 + i - sz)));
+      c1 = p * ((__ldg(p0 + i + sz) - __ldg(p0 + i - sz)) -
+                (__ldg(p2 + i + 1) - __ldg(p2 + i - 1)));
+      c2 = p * ((__ldg(p1 + i + 1) - __ldg(p1 + i - 1)) -
+                (__ldg(p0 + i + sy) - __ldg(p0 + i - sy)));
+    }
+    if (add != nullptr) {
+      c0 = c0 + add[0];
+      c1 = c1 + add[1];
+      c2 = c2 + add[2];
+    }
+    out[i] = c0;
+    out[n + i] = c1;
+    out[2 * n + i] = c2;
+    l1 = (abs_t(c0) + abs_t(c1)) + abs_t(c2);
+  }
+  if (l1_max == nullptr) return;  // uniform across the launch
+  // block max: warp shuffles, then one value per warp through shared memory
+  for (int off = 16; off > 0; off >>= 1)
+    l1 = max_t(l1, __shfl_down_sync(0xffffffffu, l1, off));
+  __shared__ T warp_max[kThreads / 32];
+  const int tid = threadIdx.y * kBlockX + threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  if (lane == 0) warp_max[warp] = l1;
+  __syncthreads();
+  if (warp == 0) {
+    l1 = lane < kThreads / 32 ? warp_max[lane] : T(0);
+    for (int off = 16; off > 0; off >>= 1)
+      l1 = max_t(l1, __shfl_down_sync(0xffffffffu, l1, off));
+    if (lane == 0) atomic_max_nonneg(l1_max, l1);
+  }
+}
+
+inline dim3 grid_of(int nz, int ny, int nx) {
+  return dim3((nx + kBlockX - 1) / kBlockX, (ny + kBlockY - 1) / kBlockY, nz);
+}
+
+}  // namespace
+
+#define SOPHT_DEFINE_ENTRIES(T, SUFFIX)                                        \
+  extern "C" int sopht_rotational_curl_add_3d_##SUFFIX(                        \
+      const T* w, const T* u, const T* pref, T* out, int nz, int ny, int nx,  \
+      void* stream) {                                                          \
+    rotational_curl_add_kernel<T>                                              \
+        <<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,                     \
+           (cudaStream_t)stream>>>(w, u, pref, out, nz, ny, nx);               \
+    return (int)cudaGetLastError();                                            \
+  }                                                                            \
+  extern "C" int sopht_diffusion_penalise_vector_3d_##SUFFIX(                  \
+      const T* f, const T* pref, T* out, int nz, int ny, int nx, int width,    \
+      void* stream) {                                                          \
+    diffusion_penalise_kernel<T>                                               \
+        <<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,                     \
+           (cudaStream_t)stream>>>(f, pref, out, nz, ny, nx, width);           \
+    return (int)cudaGetLastError();                                            \
+  }                                                                            \
+  extern "C" int sopht_curl_3d_##SUFFIX(const T* psi, const T* pref,           \
+                                        const T* add, T* out, T* l1_max,       \
+                                        int nz, int ny, int nx,                \
+                                        void* stream) {                        \
+    curl_kernel<T><<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,           \
+                     (cudaStream_t)stream>>>(psi, pref, add, out, l1_max, nz,  \
+                                             ny, nx);                          \
+    return (int)cudaGetLastError();                                            \
+  }
+
+SOPHT_DEFINE_ENTRIES(float, f32)
+SOPHT_DEFINE_ENTRIES(double, f64)
+
+extern "C" const char* sopht_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

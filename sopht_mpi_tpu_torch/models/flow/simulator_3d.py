@@ -1,0 +1,376 @@
+"""3D unbounded flow simulator, rotational-form vorticity Navier-Stokes
+(counterpart of ``sopht_mpi_tpu/models/flow/simulator_3d.py``, single
+device, flow types ``navier_stokes`` and ``navier_stokes_with_forcing``).
+
+The transport is the rotational form: ``omega += dt/(2dx) curl(u x omega)``,
+then vector diffusion, then optional filtering, then velocity recovery
+(wall penalisation -> vector Poisson solve -> curl -> free stream).
+
+With ``use_kernels`` (the default on a CUDA device) the three stencil
+passes run the Hopper kernels of :mod:`sopht_mpi_tpu_torch.ops.cuda_stencils_3d`
+(on CPU tensors those wrappers run their plain versions). The step keeps
+dt, its prefactors and ``max |u|_1`` as 0-d tensors on the device: nothing
+in it waits for the device.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from sopht_mpi_tpu_torch.ops import cuda_stencils_3d as kernels
+from sopht_mpi_tpu_torch.ops.elementwise import add_fixed_val, cross_product_3d
+from sopht_mpi_tpu_torch.ops.poisson import UnboundedPoissonSolver3D
+from sopht_mpi_tpu_torch.ops.stencils_3d import (
+    curl_3d,
+    diffusion_timestep_vector_3d,
+    laplacian_filter_vector_3d,
+    penalise_field_boundary_vector_3d,
+    update_vorticity_from_velocity_forcing_3d,
+)
+from sopht_mpi_tpu_torch.utils.types import get_test_tol
+
+
+class FlowState3D(NamedTuple):
+    """``primary_field`` is the (3, nz, ny, nx) vorticity."""
+
+    primary_field: torch.Tensor
+    velocity_field: torch.Tensor
+    eul_grid_forcing_field: torch.Tensor | None = None
+
+
+# options of the JAX simulator that the port takes only at their
+# single-device exact values, with the ROADMAP item that lifts each
+_SINGLE_DEVICE_ONLY = {
+    "fast_spectral": ((None, False), "queue B, the FFT-pass kernel PR"),
+    "overlap_chunks": ((None, 1), "queue A #11, multi-device"),
+    "comm_bf16": ((False,), "queue A #11, multi-device"),
+}
+
+
+class UnboundedFlowSimulator3D:
+    """3D unbounded flow simulator on one device.
+
+    :param grid_size: (nz, ny, nx).
+    :param device: the torch device every field lives on; required, no
+        default is taken from the environment.
+    :param filter_vorticity: apply the Laplacian filter (default
+        ``{"order": 2, "type": "multiplicative"}``); on CUDA its kernels
+        are not ported yet and the step raises.
+
+    Float32 matmuls run in full precision: building a simulator turns TF32
+    off for CUDA matmuls and cuDNN (``torch.backends.cuda.matmul.allow_tf32``
+    and ``torch.backends.cudnn.allow_tf32``), matching the JAX package's
+    ``Precision.HIGHEST`` IBM einsums.
+    """
+
+    grid_dim = 3
+
+    SUPPORTED_FLOW_TYPES = ["navier_stokes", "navier_stokes_with_forcing"]
+
+    def __init__(
+        self,
+        grid_size,
+        x_range,
+        kinematic_viscosity,
+        *,
+        device,
+        time=0.0,
+        CFL=0.1,
+        flow_type="navier_stokes",
+        with_free_stream_flow=False,
+        real_t=torch.float32,
+        mesh=None,
+        filter_vorticity=False,
+        **kwargs,
+    ):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.device = torch.device(device)
+        self.grid_size = tuple(int(n) for n in grid_size)
+        self.grid_size_z, self.grid_size_y, self.grid_size_x = self.grid_size
+        self.x_range = x_range
+        self.real_t = real_t
+        self.flow_type = flow_type
+        self.with_free_stream_flow = with_free_stream_flow
+        self.kinematic_viscosity = kinematic_viscosity
+        self.CFL = CFL
+        self.time = time
+        self.filter_vorticity = filter_vorticity
+        if flow_type not in self.SUPPORTED_FLOW_TYPES:
+            raise ValueError("Invalid flow type given")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: multi-device runs are not ported yet "
+                "(ROADMAP.md queue A #11)"
+            )
+        self.penalty_zone_width = kwargs.get("penalty_zone_width", 2)
+        self.use_kernels = kwargs.get("use_kernels", self.device.type == "cuda")
+        self.filter_setting_dict = kwargs.get(
+            "filter_setting_dict", {"order": 2, "type": "multiplicative"}
+        ) or {"order": 2, "type": "multiplicative"}
+        known_kwargs = {"penalty_zone_width", "use_kernels", "filter_setting_dict"}
+        known_kwargs |= set(_SINGLE_DEVICE_ONLY)
+        unknown = set(kwargs) - known_kwargs
+        if unknown:
+            # a typo'd option silently running the defaults would poison a
+            # benchmark's control arm
+            raise TypeError(
+                f"Unknown keyword argument(s) {sorted(unknown)}; "
+                f"supported: {sorted(known_kwargs)}"
+            )
+        for name, (allowed, item) in _SINGLE_DEVICE_ONLY.items():
+            if name in kwargs and kwargs[name] not in allowed:
+                raise NotImplementedError(
+                    f"{name}={kwargs[name]!r} is not ported yet "
+                    f"(ROADMAP.md {item}); allowed: {allowed}"
+                )
+        self._init_domain()
+        self._init_fields()
+
+    def _init_domain(self):
+        gx = self.grid_size_x
+        self.y_range = self.x_range * self.grid_size_y / gx
+        self.z_range = self.x_range * self.grid_size_z / gx
+        self.dx = float(self.x_range / gx)
+        shift = self.dx / 2.0
+        axes = [
+            np.linspace(shift, rng - shift, n)
+            for rng, n in (
+                (self.x_range, self.grid_size_x),
+                (self.y_range, self.grid_size_y),
+                (self.z_range, self.grid_size_z),
+            )
+        ]
+        zg, yg, xg = np.meshgrid(axes[2], axes[1], axes[0], indexing="ij")
+        self.position_field = torch.as_tensor(
+            np.stack([xg, yg, zg]), dtype=self.real_t, device=self.device
+        )
+
+    def _zeros(self):
+        return torch.zeros(
+            (3, *self.grid_size), dtype=self.real_t, device=self.device
+        )
+
+    def _init_fields(self):
+        self.primary_field = self._zeros()
+        self.velocity_field = self._zeros()
+        self.eul_grid_forcing_field = (
+            self._zeros() if self.flow_type == "navier_stokes_with_forcing"
+            else None
+        )
+        self.unbounded_poisson_solver = UnboundedPoissonSolver3D(
+            grid_size_z=self.grid_size_z,
+            grid_size_y=self.grid_size_y,
+            grid_size_x=self.grid_size_x,
+            x_range=self.x_range,
+            real_t=self.real_t,
+            device=self.device,
+        )
+
+    @property
+    def vorticity_field(self):
+        return self.primary_field
+
+    @vorticity_field.setter
+    def vorticity_field(self, value):
+        self.primary_field = value
+
+    def step_config(self, flow_type=None) -> dict:
+        """Keyword arguments of :func:`flow_step_3d` for this simulator
+        (``flow_type`` overrides the simulator's own)."""
+        return dict(
+            dx=self.dx,
+            nu=self.kinematic_viscosity,
+            flow_type=flow_type or self.flow_type,
+            with_free_stream=self.with_free_stream_flow,
+            penalty_zone_width=self.penalty_zone_width,
+            filter_order=(
+                int(self.filter_setting_dict["order"])
+                if self.filter_vorticity
+                else 0
+            ),
+            filter_type=self.filter_setting_dict["type"],
+            poisson_solver=self.unbounded_poisson_solver,
+            use_kernels=self.use_kernels,
+        )
+
+    @property
+    def _poisson_greens(self):
+        return self.unbounded_poisson_solver.fourier_greens_times_dx_pow_dim
+
+    def _get_state(self) -> FlowState3D:
+        return FlowState3D(
+            self.primary_field, self.velocity_field, self.eul_grid_forcing_field
+        )
+
+    def _set_state(self, state: FlowState3D):
+        self.primary_field = state.primary_field
+        self.velocity_field = state.velocity_field
+        self.eul_grid_forcing_field = state.eul_grid_forcing_field
+
+    # -- public API ----------------------------------------------------------
+
+    def time_step(self, dt, free_stream_velocity=(0.0, 0.0, 0.0)):
+        fsv = torch.as_tensor(
+            free_stream_velocity, dtype=self.real_t, device=self.device
+        )
+        dt_t = torch.as_tensor(dt, dtype=self.real_t, device=self.device)
+        self._set_state(
+            flow_step_3d(
+                self._get_state(), dt_t, fsv,
+                poisson_greens=self._poisson_greens, **self.step_config(),
+            )
+        )
+        self.time += float(dt)
+
+    def compute_stable_timestep(self, dt_prefac=1.0, precision="single") -> float:
+        dt = compute_stable_timestep_3d(
+            self.velocity_field,
+            CFL=self.CFL,
+            dx=self.dx,
+            nu=self.kinematic_viscosity,
+            tol=get_test_tol(precision),
+        )
+        return float(dt) * dt_prefac
+
+
+# ---------------------------------------------------------------------------
+# Functional core
+# ---------------------------------------------------------------------------
+
+
+def compute_flow_velocity_3d(
+    vorticity, free_stream_velocity, *,
+    dx, penalty_zone_width, poisson_solver, with_free_stream,
+    poisson_greens=None,
+    use_kernels=False,
+    return_velocity_l1_max=False,
+    skip_penalise=False,
+):
+    """Wall-penalise vorticity -> vector Poisson -> curl -> free stream.
+    Returns (vorticity, velocity), plus the global ``max |u|_1`` of the new
+    velocity (a 0-d tensor, reduced inside the curl kernel on the kernel
+    path) when ``return_velocity_l1_max``."""
+    if not skip_penalise:
+        vorticity = penalise_field_boundary_vector_3d(
+            vorticity, penalty_zone_width
+        )
+    stream_func = poisson_solver.vector_field_solve(vorticity, poisson_greens)
+    pref = 0.5 / dx
+    l1_max = None
+    if use_kernels:
+        # free-stream add folded into the curl kernel
+        res = kernels.curl_3d(
+            stream_func, pref,
+            add_vector=free_stream_velocity if with_free_stream else None,
+            compute_l1_max=return_velocity_l1_max,
+        )
+        velocity, l1_max = res if return_velocity_l1_max else (res, None)
+    else:
+        velocity = curl_3d(stream_func, pref)
+        if with_free_stream:
+            velocity = add_fixed_val(velocity, free_stream_velocity)
+        if return_velocity_l1_max:
+            l1_max = velocity.abs().sum(dim=0).max()
+    if return_velocity_l1_max:
+        return vorticity, velocity, l1_max
+    return vorticity, velocity
+
+
+def flow_step_3d(
+    state: FlowState3D,
+    dt,
+    free_stream_velocity,
+    *,
+    dx,
+    nu,
+    flow_type,
+    with_free_stream,
+    penalty_zone_width,
+    filter_order,
+    filter_type,
+    poisson_solver,
+    poisson_greens=None,
+    use_kernels=False,
+    return_velocity_l1_max=False,
+):
+    """One full 3D flow timestep (pure). ``dt`` is a 0-d tensor on the
+    fields' device. ``return_velocity_l1_max=True`` returns
+    ``(state, l1_max)`` with the new velocity's ``max |u|_1``."""
+    field = state.primary_field
+    velocity = state.velocity_field
+    forcing = state.eul_grid_forcing_field
+    if flow_type not in UnboundedFlowSimulator3D.SUPPORTED_FLOW_TYPES:
+        raise NotImplementedError(
+            f"flow_type {flow_type!r} is not ported yet (ROADMAP.md queue A #7)"
+        )
+    nu_dt_by_dx2 = nu * dt / dx / dx
+    pref = dt / (2.0 * dx)
+    if flow_type == "navier_stokes_with_forcing":
+        field = update_vorticity_from_velocity_forcing_3d(field, forcing, pref)
+    penalised_in_transport = False
+    if use_kernels:
+        field = kernels.rotational_curl_add_3d(field, velocity, pref)
+        if filter_order == 0 and kernels.diffusion_penalise_supported(
+            field.shape, penalty_zone_width
+        ):
+            # boundary penalisation fused into the diffusion pass (the
+            # velocity-recovery stage then skips it)
+            field = kernels.diffusion_penalise_vector_3d(
+                field, nu_dt_by_dx2, penalty_zone_width
+            )
+            penalised_in_transport = True
+        elif field.device.type == "cuda":
+            raise NotImplementedError(
+                "the filtered or sponge-less transport needs the "
+                "diffusion, Laplacian-filter and penalise kernels, not "
+                "ported yet (ROADMAP.md queue B)"
+            )
+        else:
+            field = diffusion_timestep_vector_3d(field, nu_dt_by_dx2)
+            if filter_order > 0:
+                field = laplacian_filter_vector_3d(
+                    field, filter_order, filter_type
+                )
+    else:
+        field = update_vorticity_from_velocity_forcing_3d(
+            field, cross_product_3d(velocity, field), pref
+        )
+        field = diffusion_timestep_vector_3d(field, nu_dt_by_dx2)
+        if filter_order > 0:
+            field = laplacian_filter_vector_3d(field, filter_order, filter_type)
+    res = compute_flow_velocity_3d(
+        field,
+        free_stream_velocity,
+        dx=dx,
+        penalty_zone_width=penalty_zone_width,
+        poisson_solver=poisson_solver,
+        with_free_stream=with_free_stream,
+        poisson_greens=poisson_greens,
+        use_kernels=use_kernels,
+        return_velocity_l1_max=return_velocity_l1_max,
+        skip_penalise=penalised_in_transport,
+    )
+    if return_velocity_l1_max:
+        field, velocity, l1_max = res
+    else:
+        field, velocity = res
+    if flow_type == "navier_stokes_with_forcing":
+        forcing = torch.zeros_like(forcing)
+    new_state = FlowState3D(field, velocity, forcing)
+    if return_velocity_l1_max:
+        return new_state, l1_max
+    return new_state
+
+
+def compute_stable_timestep_3d(velocity_field, *, CFL, dx, nu, tol):
+    """CFL and diffusion limited dt, a 0-d tensor on the field's device."""
+    velocity_mag = velocity_field.abs().sum(dim=0)
+    num = torch.full((), CFL * dx, dtype=velocity_field.dtype,
+                     device=velocity_field.device)
+    dt_advection = num / (velocity_mag.max() + tol)
+    dt_diffusion = 0.9 * dx**2 / (2 * 3) / (nu + tol)
+    return torch.clamp(dt_advection, max=dt_diffusion)

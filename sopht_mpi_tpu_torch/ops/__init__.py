@@ -1,0 +1,36 @@
+"""Numerics on tensors: stencil ops and their Hopper kernels, the
+free-space Poisson solver, immersed-boundary transfers and forcing."""
+
+from sopht_mpi_tpu_torch.ops.elementwise import add_fixed_val, cross_product_3d
+from sopht_mpi_tpu_torch.ops.stencils_3d import (
+    curl_3d,
+    diffusion_timestep_vector_3d,
+    laplacian_filter_3d,
+    laplacian_filter_vector_3d,
+    penalise_field_boundary_3d,
+    penalise_field_boundary_vector_3d,
+    update_vorticity_from_velocity_forcing_3d,
+)
+from sopht_mpi_tpu_torch.ops.poisson import UnboundedPoissonSolver3D
+from sopht_mpi_tpu_torch.ops.ibm import (
+    INTERP_KERNEL_WIDTH,
+    axis_delta_weight_matrices,
+    cosine_delta_weights_1d,
+    eulerian_to_lagrangian_interpolation,
+    eulerian_to_lagrangian_interpolation_mm,
+    interpolation_weights,
+    lagrangian_to_eulerian_spread,
+    lagrangian_to_eulerian_spread_mm,
+    nearest_grid_index_and_support,
+    peskin_delta_weights_1d,
+)
+from sopht_mpi_tpu_torch.ops.virtual_boundary import (
+    LagGridInteraction,
+    VirtualBoundaryForcingParams,
+    VirtualBoundaryState,
+    compute_interaction_force_on_eul_and_lag_grid,
+    compute_interaction_force_on_lag_grid,
+    compute_penalty_force,
+    init_virtual_boundary_state,
+    virtual_boundary_time_step,
+)

@@ -1,0 +1,234 @@
+"""Hopper CUDA kernels for the three 3D stencils of the Navier-Stokes step,
+with their plain PyTorch versions.
+
+Each wrapper takes (3, nz, ny, nx) float32 or float64 fields and:
+
+- on a CUDA tensor launches its kernel from ``csrc/stencils_3d.cu`` on the
+  current stream, without synchronising, and adds one to its ``launches``
+  count (or raises: there is no fallback);
+- on a CPU tensor returns its plain version (``*_ref``), the composition
+  the JAX package uses as the kernel's VJP reference.
+
+Prefactors may be numbers or 0-d tensors on the field's device; the kernels
+read them from device memory, so a step needs no host sync. Forward only:
+no ``torch.autograd.Function`` wraps these yet.
+
+Replaced TPU kernels (``sopht_mpi_tpu/ops/pallas_stencils_3d.py``):
+:func:`rotational_curl_add_3d` <- ``rotational_curl_add_3d_pallas``,
+:func:`diffusion_penalise_vector_3d` <- ``diffusion_penalise_vector_3d_pallas``,
+:func:`curl_3d` <- ``curl_3d_pallas``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from sopht_mpi_tpu_torch.ops import stencils_3d as _plain
+from sopht_mpi_tpu_torch.ops.elementwise import cross_product_3d
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "sopht_rotational_curl_add_3d": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "sopht_diffusion_penalise_vector_3d": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "sopht_curl_3d": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+}
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/stencils_3d.cu``."""
+    from sopht_mpi_tpu_torch._build import load_library
+
+    lib = load_library("stencils_3d", ("stencils_3d.cu",))
+    for base, argtypes in _SIGNATURES.items():
+        for suffix in _SUFFIX.values():
+            fn = getattr(lib, f"{base}_{suffix}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    lib.sopht_error_string.argtypes = (ctypes.c_int,)
+    lib.sopht_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def rotational_curl_add_3d_ref(vorticity, velocity, prefactor):
+    """``w + prefactor * curl(u x w)``, the wall ring of ``w`` unchanged."""
+    return _plain.update_vorticity_from_velocity_forcing_3d(
+        vorticity, cross_product_3d(velocity, vorticity), prefactor
+    )
+
+
+def diffusion_penalise_vector_3d_ref(vector_field, nu_dt_by_dx2, width: int):
+    """``penalise_field_boundary_vector_3d(diffusion_timestep_vector_3d(f,
+    nu_dt_by_dx2), width)``."""
+    return _plain.penalise_field_boundary_vector_3d(
+        _plain.diffusion_timestep_vector_3d(vector_field, nu_dt_by_dx2), width
+    )
+
+
+def curl_3d_ref(field, prefactor, add_vector=None, compute_l1_max=False):
+    """``curl_3d(field, prefactor)`` plus an optional per-component
+    constant; with ``compute_l1_max`` also ``max |u_x|+|u_y|+|u_z|``."""
+    out = _plain.curl_3d(field, prefactor)
+    if add_vector is not None:
+        out = out + add_vector.to(out.dtype).reshape(3, 1, 1, 1)
+    if compute_l1_max:
+        return out, out.abs().sum(dim=0).max()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def diffusion_penalise_supported(shape, width: int) -> bool:
+    """The fused kernel needs a sponge (``width > 0``) and more than
+    ``2 width`` cells on every axis."""
+    _, nz, ny, nx = shape
+    return width > 0 and min(nz, ny, nx) > 2 * width
+
+
+def _check_field(name, t, like=None):
+    if not torch.is_tensor(t) or t.ndim != 4 or t.shape[0] != 3:
+        raise ValueError(f"{name}: expected a (3, nz, ny, nx) tensor")
+    if t.dtype not in _SUFFIX:
+        raise TypeError(f"{name}: dtype {t.dtype} is not float32/float64")
+    if min(t.shape) == 0:
+        raise ValueError(f"{name}: empty grid {tuple(t.shape)}")
+    if like is not None and (
+        t.shape != like.shape or t.dtype != like.dtype
+        or t.device != like.device
+    ):
+        raise ValueError(
+            f"{name}: shape/dtype/device {tuple(t.shape)}/{t.dtype}/"
+            f"{t.device} differ from {tuple(like.shape)}/{like.dtype}/"
+            f"{like.device}"
+        )
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    if t.device.type == "cuda" and not t.is_contiguous():
+        raise ValueError(f"{name}: the kernel needs a contiguous tensor")
+
+
+def _device_tensor(field, value, numel, name):
+    """``value`` as a contiguous tensor of the field's dtype on its device.
+    A number is filled in on the device (no host copy); a sequence is
+    copied from the host; a tensor must already lie on the device."""
+    if not torch.is_tensor(value):
+        if numel == 1:
+            return torch.full((), float(value), dtype=field.dtype,
+                              device=field.device)
+        value = torch.tensor(value, dtype=field.dtype, device=field.device)
+    if value.device != field.device:
+        raise ValueError(
+            f"{name} lies on {value.device}, the field on {field.device}"
+        )
+    if value.numel() != numel:
+        raise ValueError(f"{name}: expected {numel} values, got {value.numel()}")
+    return value.to(field.dtype).contiguous()
+
+
+def _launch(fn_base, field, *args):
+    fn = getattr(library(), f"{fn_base}_{_SUFFIX[field.dtype]}")
+    with torch.cuda.device(field.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        msg = library().sopht_error_string(err).decode()
+        raise RuntimeError(f"{fn_base} launch failed: CUDA error {err} ({msg})")
+
+
+def rotational_curl_add_3d(vorticity, velocity, prefactor):
+    """Fused rotational-form transport ``w + prefactor * curl(u x w)``
+    (``prefactor = dt/(2 dx)``), the wall ring of ``w`` unchanged.
+    Forward only."""
+    _check_field("vorticity", vorticity)
+    _check_field("velocity", velocity, like=vorticity)
+    if vorticity.device.type == "cpu":
+        return rotational_curl_add_3d_ref(vorticity, velocity, prefactor)
+    pref = _device_tensor(vorticity, prefactor, 1, "prefactor")
+    out = torch.empty_like(vorticity)
+    _, nz, ny, nx = vorticity.shape
+    _launch(
+        "sopht_rotational_curl_add_3d", vorticity,
+        vorticity.data_ptr(), velocity.data_ptr(), pref.data_ptr(),
+        out.data_ptr(), nz, ny, nx,
+    )
+    rotational_curl_add_3d.launches += 1
+    return out
+
+
+def diffusion_penalise_vector_3d(vector_field, nu_dt_by_dx2, width: int):
+    """Fused diffusion Euler step and wall sponge:
+    ``penalise_field_boundary_vector_3d(diffusion_timestep_vector_3d(f,
+    nu_dt_by_dx2), width)``. Needs :func:`diffusion_penalise_supported`.
+    Forward only."""
+    _check_field("vector_field", vector_field)
+    width = int(width)
+    if not diffusion_penalise_supported(vector_field.shape, width):
+        raise ValueError(
+            f"diffusion_penalise_vector_3d needs width > 0 and more than "
+            f"2 * width cells per axis; got width {width}, shape "
+            f"{tuple(vector_field.shape)}"
+        )
+    if vector_field.device.type == "cpu":
+        return diffusion_penalise_vector_3d_ref(vector_field, nu_dt_by_dx2, width)
+    pref = _device_tensor(vector_field, nu_dt_by_dx2, 1, "nu_dt_by_dx2")
+    out = torch.empty_like(vector_field)
+    _, nz, ny, nx = vector_field.shape
+    _launch(
+        "sopht_diffusion_penalise_vector_3d", vector_field,
+        vector_field.data_ptr(), pref.data_ptr(), out.data_ptr(),
+        nz, ny, nx, width,
+    )
+    diffusion_penalise_vector_3d.launches += 1
+    return out
+
+
+def curl_3d(field, prefactor, add_vector=None, compute_l1_max=False):
+    """``prefactor * 2 * curl(field)`` (``prefactor = 0.5/dx``, zero on
+    the wall ring) plus the optional (3,) ``add_vector`` on every cell;
+    with ``compute_l1_max`` returns ``(u, max |u_x|+|u_y|+|u_z|)``, the
+    maximum a 0-d tensor on the field's device. Forward only."""
+    _check_field("field", field)
+    if field.device.type == "cpu":
+        if add_vector is not None and not torch.is_tensor(add_vector):
+            add_vector = torch.tensor(add_vector, dtype=field.dtype)
+        return curl_3d_ref(field, prefactor, add_vector, compute_l1_max)
+    pref = _device_tensor(field, prefactor, 1, "prefactor")
+    add = (
+        None if add_vector is None
+        else _device_tensor(field, add_vector, 3, "add_vector")
+    )
+    out = torch.empty_like(field)
+    l1 = (
+        torch.zeros((), dtype=field.dtype, device=field.device)
+        if compute_l1_max else None
+    )
+    _, nz, ny, nx = field.shape
+    _launch(
+        "sopht_curl_3d", field,
+        field.data_ptr(), pref.data_ptr(),
+        None if add is None else add.data_ptr(), out.data_ptr(),
+        None if l1 is None else l1.data_ptr(), nz, ny, nx,
+    )
+    curl_3d.launches += 1
+    return (out, l1) if compute_l1_max else out
+
+
+rotational_curl_add_3d.launches = 0
+diffusion_penalise_vector_3d.launches = 0
+curl_3d.launches = 0
+
+#: the wrappers, for code that resets or reads every launch count
+KERNELS = (rotational_curl_add_3d, diffusion_penalise_vector_3d, curl_3d)

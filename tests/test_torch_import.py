@@ -1,0 +1,45 @@
+"""The port imports without JAX and builds nothing at import time."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys\n"
+        "import sopht_mpi_tpu_torch, sopht_mpi_tpu_torch.cases\n"
+        "import sopht_mpi_tpu_torch.convert\n"
+        "from sopht_mpi_tpu_torch.ops import cuda_stencils_3d\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'sopht_mpi_tpu' not in sys.modules, 'JAX package imported'\n"
+        "assert cuda_stencils_3d.library.cache_info().currsize == 0\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_port_sources_name_no_jax():
+    """No module of the port imports JAX, lazily or not."""
+    root = os.path.join(REPO, "sopht_mpi_tpu_torch")
+    offenders = []
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.join(dirpath, name)
+                with open(path) as f:
+                    for line in f:
+                        words = line.split()
+                        if words[:2] in (["import", "jax"], ["from", "jax"]) or (
+                            words[:1] in (["import"], ["from"])
+                            and len(words) > 1
+                            and words[1].split(".")[0] in ("jax", "sopht_mpi_tpu")
+                        ):
+                            offenders.append(f"{path}: {line.strip()}")
+    assert not offenders, offenders
