@@ -9,17 +9,24 @@ raises and exits non-zero, and nothing falls back to the CPU:
 1. device: the card's name, and its name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    prints them;
-2. build: ``nvcc`` builds the kernels from ``sopht_mpi_tpu_torch/csrc``;
-3. kernels: each kernel against its plain PyTorch version on the card
-   (float32 at 256^3 and (3, 17, 33, 65), float64 at 64^3), with kernel and
-   plain times at 256^3 (CUDA events, median of 20 calls after warm-up);
-4. main path: the 256^3 flow-past-sphere FSI step (sparse IBM window,
-   float32, exact spectral tier), 5 warm-up + 20 timed steps that must not
-   synchronise with the host, with every kernel's launch count over that
-   run;
-5. physics: the 64^3 Re=100 sphere drag case (dense IBM path) to t* = 2,
-   Cd against the JAX package's validated value;
-6. card vs CPU: 3 steps of the 32^3 case from one numpy-seeded state,
+2. build: ``nvcc`` builds both sources of ``sopht_mpi_tpu_torch/csrc``
+   at once (one compiler process each) and prints ptxas' register lines;
+3. kernels: each stencil kernel against its plain PyTorch version on the
+   card (float32 at 256^3 and (3, 17, 33, 65), float64 at 64^3), and each
+   FFT-pass kernel against its plain ``torch.fft`` version (float32 at the
+   256^3 main-path shapes and at those of a (48, 32, 64) grid), with
+   kernel and plain times at 256^3 (CUDA events, median of 20 calls after
+   warm-up);
+4. solve: the 256^3 vector Poisson solve on the kernel route against the
+   same solver's dense ``torch.fft`` route, values and times;
+5. main path: the 256^3 flow-past-sphere FSI step (sparse IBM window,
+   float32, exact spectral tier, Poisson solve on the kernel route), 5
+   warm-up + 20 timed steps that must not synchronise with the host, with
+   every kernel's launch count over the timed steps;
+6. physics: the 64^3 Re=100 sphere drag case (dense IBM path) to t* = 2 on
+   the kernel route, Cd against the JAX package's validated value and
+   against the same run on the dense ``torch.fft`` route;
+7. card vs CPU: 3 steps of the 32^3 case from one numpy-seeded state,
    kernels on the card against the plain versions on the CPU.
 
 The line before the last is the kernel table as JSON; the last line is
@@ -32,14 +39,27 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "sopht_mpi_tpu_torch/csrc/stencils_3d.cu"
+FFT_SOURCE = "sopht_mpi_tpu_torch/csrc/fft_passes.cu"
 REPLACES = {
     "rotational_curl_add_3d": "sopht_mpi_tpu/ops/pallas_stencils_3d.py:683",
     "diffusion_penalise_vector_3d": "sopht_mpi_tpu/ops/pallas_stencils_3d.py:1324",
     "curl_3d": "sopht_mpi_tpu/ops/pallas_stencils_3d.py:645",
 }
+FFT_REPLACES = {
+    "rfft_pass_padded_split": "sopht_mpi_tpu/parallel/pallas_fft.py:730",
+    "fft_pass_padded": "sopht_mpi_tpu/parallel/pallas_fft.py:260",
+    "fft_greens_ifft_pass": "sopht_mpi_tpu/parallel/pallas_fft.py:384",
+    "ifft_pass_truncated": "sopht_mpi_tpu/parallel/pallas_fft.py:307",
+    "irfft_pass_merge": "sopht_mpi_tpu/parallel/pallas_fft.py:757",
+}
+# FFT passes against torch.fft: float32 rounding of two differently
+# factored length-m DFTs grows like log m; the JAX package holds its passes
+# to 2e-6 of numpy's at m <= 128, and m = 512 here
+FFT_TOL = 5e-6
 # Cd at t* = 2 of the 64^3 fused sphere case
 # (doc/validation_sphere_cd_convergence.json, grids["64"]["cd_t2"])
 CD_T2_64 = 1.34141910580261
@@ -105,6 +125,8 @@ def main():
     from sopht_mpi_tpu_torch.convert import flow_state_from_numpy
     from sopht_mpi_tpu_torch.models import scan_steps
     from sopht_mpi_tpu_torch.ops import cuda_stencils_3d as kernels
+    from sopht_mpi_tpu_torch.ops import poisson
+    from sopht_mpi_tpu_torch.parallel import cuda_fft
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -129,11 +151,17 @@ def main():
     @phase("build")
     def build_phase():
         t0 = time.perf_counter()
-        lib = kernels.library()
-        regs = [ln.split(":", 1)[1].strip() for ln in lib.build_log.splitlines()
-                if "registers" in ln]
-        return lib, (f"nvcc sm_90a from {SOURCE} in "
-                     f"{time.perf_counter() - t0:.2f} s; ptxas: {regs}")
+        with ThreadPoolExecutor(2) as pool:
+            libs = list(pool.map(lambda load: load(),
+                                 (kernels.library, cuda_fft.library)))
+        for src, lib in zip((SOURCE, FFT_SOURCE), libs):
+            for ln in lib.build_log.splitlines():
+                if ("Compiling entry" in ln or "registers" in ln or (
+                        "spill" in ln and "0 bytes spill stores, 0 bytes "
+                        "spill loads" not in ln)):
+                    print(f"  {os.path.basename(src)}: {ln.strip()}")
+        return libs, (f"nvcc sm_90a from {SOURCE} and {FFT_SOURCE} in "
+                      f"{time.perf_counter() - t0:.2f} s")
 
     build_phase()
 
@@ -170,6 +198,56 @@ def main():
         torch.cuda.synchronize()
         return calls, errs
 
+    def fft_pass_args(grid, gen):
+        """Each FFT pass's inputs at the shapes the vector solve of a
+        (nz, ny, nx) grid gives it (3 components, doubled axes)."""
+        nz, ny, nx = grid
+        c, mz, my, mx = 3, 2 * nz, 2 * ny, 2 * nx
+
+        def r(*shape):
+            return torch.randn(shape, dtype=torch.float32, device=dev,
+                               generator=gen)
+
+        rows = c * nz * ny
+        return {
+            "rfft_pass_padded_split": (r(rows, nx), mx),
+            "fft_pass_padded": (r(c * nz, ny, nx), r(c * nz, ny, nx), my),
+            "fft_greens_ifft_pass": (r(c, nz, my * nx), r(c, nz, my * nx),
+                                     r(1, mz, my * nx)),
+            "ifft_pass_truncated": (r(c * nz, my, nx), r(c * nz, my, nx)),
+            "irfft_pass_merge": (r(rows, nx), r(rows, nx), r(rows, 1),
+                                 r(rows, 1), mx, nx),
+        }
+
+    def run_fft_checks(grid, gen):
+        calls = {
+            name: (lambda f=getattr(cuda_fft, name), a=args: f(*a),
+                   lambda f=getattr(cuda_fft, name + "_ref"), a=args: f(*a))
+            for name, args in fft_pass_args(grid, gen).items()
+        }
+        a, m, b = 3 * grid[0], 2 * grid[1], grid[2]
+        for lead in (1, a):  # the optional Green's fold, shared and not
+            xr, xi, g = (torch.randn(shape, device=dev, generator=gen)
+                         for shape in ((a, m, b), (a, m, b), (lead, m, b)))
+            calls[f"ifft_pass_truncated greens ({lead}, m, B)"] = (
+                lambda x=(xr, xi, g): cuda_fft.ifft_pass_truncated(*x),
+                lambda x=(xr, xi, g): cuda_fft.ifft_pass_truncated_ref(*x))
+        errs = {}
+        for name, (fn, ref_fn) in calls.items():
+            out, ref = fn(), ref_fn()
+            out = out if isinstance(out, tuple) else (out,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            check(len(out) == len(ref) and all(
+                o.shape == q.shape for o, q in zip(out, ref)),
+                f"{name} {grid}: output shapes differ")
+            err = max(float((o - q).abs().max()) for o, q in zip(out, ref))
+            scale = max(float(q.abs().max()) for q in ref)
+            check(err <= FFT_TOL * scale,
+                  f"{name} {grid}: max|diff| {err} > {FFT_TOL} * {scale}")
+            errs[name] = err
+        torch.cuda.synchronize()
+        return calls, errs
+
     @phase("kernels")
     def kernel_phase():
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -186,6 +264,19 @@ def main():
                 "max_abs_err": errs[name],
                 "ms": median_ms(torch, fn), "plain_ms": median_ms(torch, ref_fn),
             }
+        del calls
+        run_fft_checks((48, 32, 64), gen)  # m = 96, 64, 128
+        calls, errs = run_fft_checks((256, 256, 256), gen)
+        for name in FFT_REPLACES:
+            fn, ref_fn = calls[name]
+            table[name] = {
+                "name": name, "route": "cuda", "source": FFT_SOURCE,
+                "replaces": FFT_REPLACES[name], "launches": None,
+                "max_abs_err": errs[name],
+                "ms": median_ms(torch, fn), "plain_ms": median_ms(torch, ref_fn),
+            }
+        del calls
+        torch.cuda.empty_cache()
         detail = "; ".join(
             f"{k}: err {v['max_abs_err']:.3g}, {v['ms']:.4f} ms vs plain "
             f"{v['plain_ms']:.4f} ms at 256^3 f32" for k, v in table.items())
@@ -193,18 +284,54 @@ def main():
 
     table = kernel_phase()
 
+    class dense_route:
+        """Within: every solve takes the dense ``torch.fft`` route."""
+
+        def __enter__(self):
+            poisson.FORCE_KERNEL_CONVOLVE = False
+
+        def __exit__(self, *exc):
+            poisson.FORCE_KERNEL_CONVOLVE = None
+
+    @phase("solve")
+    def solve_phase():
+        n = 256
+        solver = poisson.UnboundedPoissonSolver3D(n, n, n, device=dev)
+        check(isinstance(solver.fourier_greens_times_dx_pow_dim, tuple),
+              "the 256^3 solver does not store the split Green's pair")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        rhs = torch.randn((3, n, n, n), device=dev, generator=gen)
+        check(solver.uses_kernel_route(rhs), "256^3 solve is not on the "
+              "kernel route")
+        out = solver.vector_field_solve(rhs)
+        ms = median_ms(torch, lambda: solver.vector_field_solve(rhs))
+        with dense_route():
+            check(not solver.uses_kernel_route(rhs), "dense route not taken")
+            ref = solver.vector_field_solve(rhs)
+            plain_ms = median_ms(torch, lambda: solver.vector_field_solve(rhs))
+        err = float((out - ref).abs().max()) / float(ref.abs().max())
+        check(err <= 1e-5, f"kernel vs dense solve: relative {err}")
+        return None, (f"256^3 vector solve: kernel route {ms:.4f} ms, dense "
+                      f"torch.fft route {plain_ms:.4f} ms, relative max|diff| "
+                      f"{err:.3g} [{card}]")
+
+    solve_phase()
+
     @phase("main path")
     def main_path_phase():
         n = 256
         step, (carry,) = cases._build_fsi_case((n, n, n), device=dev)
         check(step.uses_sparse_forcing, "the 256^3 case did not take the "
               "sparse-window branch")
+        check(isinstance(carry.greens, tuple), "the 256^3 case's Poisson "
+              "solve is not on the kernel route")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        for fn in kernels.KERNELS:
-            fn.launches = 0
         carry, _ = scan_steps(step, carry, 5)
         torch.cuda.synchronize()
+        all_kernels = kernels.KERNELS + cuda_fft.KERNELS
+        for fn in all_kernels:
+            fn.launches = 0
         t0 = time.perf_counter()
         # the step never waits for the device: a synchronising call raises
         torch.cuda.set_sync_debug_mode("error")
@@ -214,7 +341,7 @@ def main():
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+        launches = {fn.__name__: fn.launches for fn in all_kernels}
         for name, count in launches.items():
             check(count >= 20, f"{name} launched {count} times on the main path")
             table[name]["launches"] = count
@@ -234,18 +361,35 @@ def main():
 
     @phase("physics")
     def physics_phase():
-        times, cds = cases.flow_past_sphere_fused_case(
-            nondim_time=2.0, grid_size=(64, 64, 64), window=10, device=dev)
-        check(np.all(np.isfinite(cds)), "non-finite Cd")
-        cd = float(cds[-1])
+        def drag():
+            return cases.flow_past_sphere_fused_case(
+                nondim_time=2.0, grid_size=(64, 64, 64), window=10,
+                device=dev)
+
+        check(poisson._kernel_convolve_supported(
+            (128, 128, 128), torch.float32, dev), "64^3 not on the kernel route")
+        times, cds = drag()
+        with dense_route():
+            times_d, cds_d = drag()
+        check(np.all(np.isfinite(cds)) and np.all(np.isfinite(cds_d)),
+              "non-finite Cd")
+        cd, cd_d = float(cds[-1]), float(cds_d[-1])
         rel = abs(cd - CD_T2_64) / CD_T2_64
         check(rel <= 0.02, f"Cd {cd} at t*={times[-1]} is {rel:.2%} from "
               f"{CD_T2_64}")
+        # both routes are exact-tier float32 (solve error ~1e-7): a larger
+        # gap than 1e-3 is a kernel fault, not physics
+        rel_routes = abs(cd - cd_d) / abs(cd_d)
+        check(len(times) == len(times_d) and rel_routes <= 1e-3,
+              f"Cd {cd} (kernel route) vs {cd_d} (torch.fft route): "
+              f"relative {rel_routes}")
         cd_interp = float(np.interp(2.0, times, cds))
-        return None, (f"64^3 dense: Cd {cd:.5f} at t*={times[-1]:.4f} (first "
-                      f"sample past 2; {len(times) * 10} steps), interpolated "
-                      f"at t*=2 {cd_interp:.5f}; JAX reference {CD_T2_64:.5f}, "
-                      f"diff {rel:.3%}")
+        return None, (f"64^3 dense IBM, kernel route: Cd {cd:.6f} at "
+                      f"t*={times[-1]:.4f} (first sample past 2; "
+                      f"{len(times) * 10} steps), interpolated at t*=2 "
+                      f"{cd_interp:.5f}; torch.fft route Cd {cd_d:.6f} "
+                      f"(relative {rel_routes:.3g}); JAX reference "
+                      f"{CD_T2_64:.5f}, diff {rel:.3%}")
 
     physics_phase()
 

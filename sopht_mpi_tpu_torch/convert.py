@@ -33,6 +33,14 @@ def _tensor(leaf, device, dtype):
     return torch.tensor(np.asarray(leaf), dtype=dtype, device=device)
 
 
+def _greens(leaf, device, dtype):
+    """The dense Green's spectrum, or the (bulk, side) pair a JAX solver
+    stores when it takes the Pallas route."""
+    if isinstance(leaf, (tuple, list)):
+        return tuple(_tensor(v, device, dtype) for v in leaf)
+    return _tensor(leaf, device, dtype)
+
+
 def flow_state_from_numpy(tree, *, device, dtype) -> FlowState3D:
     """(primary_field, velocity_field, eul_grid_forcing_field) numpy
     arrays -> :class:`FlowState3D` on ``device`` in ``dtype``."""
@@ -44,7 +52,8 @@ def flow_state_from_numpy(tree, *, device, dtype) -> FlowState3D:
 def rigid_fsi_carry_from_numpy(tree, *, device, dtype) -> RigidFSICarry:
     """A JAX ``RigidFSICarry`` as numpy arrays -> the port's
     :class:`RigidFSICarry`: the flow state, ``vb_state``, the velocity
-    mismatch, time, the Fourier Green's function, ``velocity_l1_max`` and
+    mismatch, time, the Fourier Green's function (dense, or the split
+    (bulk, side) pair), ``velocity_l1_max`` and
     ``ibm_mats`` (None on the dense path)."""
     (flow, vb, mismatch, time, greens, l1_max, mats) = _fields(
         tree, RigidFSICarry._fields
@@ -57,7 +66,7 @@ def rigid_fsi_carry_from_numpy(tree, *, device, dtype) -> RigidFSICarry:
         ),
         velocity_mismatch=_tensor(mismatch, device, dtype),
         time=_tensor(time, device, dtype),
-        greens=_tensor(greens, device, dtype),
+        greens=_greens(greens, device, dtype),
         velocity_l1_max=_tensor(l1_max, device, dtype),
         ibm_mats=(
             None if mats is None

@@ -1,0 +1,945 @@
+// Hopper (sm_90a) kernels for the five exact-tier FFT passes of the
+// doubled-domain free-space Poisson solve, bound to PyTorch through a plain C
+// interface (ctypes); see sopht_mpi_tpu_torch/parallel/cuda_fft.py for the
+// wrappers and the plain torch.fft versions they are held against.
+//
+// Layout. Spectra are split real/imag float32 pairs. The middle-axis passes
+// work on (A, L, B) arrays, B contiguous, transform along L. A block owns a
+// tile of `t` neighbouring B columns (threadIdx.x) over the whole transform
+// length, so every global load and store of a warp covers t consecutive
+// floats of one or more rows. The x-edge passes transform along the
+// contiguous axis: a block loads a tile of `t` rows with coalesced reads,
+// transposes them through shared memory, runs the same column machinery
+// (threadIdx.x = row of the tile) and transposes the result back.
+//
+// Arithmetic (every kernel). Four-step factorisation of the length m into
+// m = m1 * m2 (m1 the largest divisor <= sqrt(m), m2 even; the JAX package's
+// mxu_fft._best_factors), n = n1 + m1 n2, k = k2 + m2 k1:
+//   X[k2 + m2 k1] = sum_n1 W_m1^(k1 n1) W_m^(n1 k2) sum_n2 W_m2^(k2 n2) x[n1 + m1 n2]
+// Zero padding on input is n2 < m2/2; truncation on output keeps n2 < m2/2.
+// One thread owns one (n1 or k2, column) task and holds that factor's
+// inputs in a register array sized by the template class (M1 >= m1,
+// H2 >= m2/2, zero padded). A factor whose length fills its class as a
+// power of two (every factor of m = 64, 128, 256, 512, 1024) runs as an
+// unrolled radix-2 FFT in those registers; any other factor (m = 96 =
+// 8 * 12, 544 = 17 * 32, ...) runs as direct sums that stream the outputs.
+// The twiddles W_m1, W_m2 (as (row, column) tables, so the direct sums
+// index them with compile-time offsets) and W_m are computed on the host in
+// float64, rounded to float32, uploaded once per length and copied to
+// shared memory by each block; every read of them is a warp broadcast. The
+// intermediate between the two factors lives in shared memory only, in the
+// slot k2 * m1 + n1 of its column. Plain FP32 FMA throughout: no TF32, no
+// fast math. At m = 512 = 16 * 32 a complex output costs ~5 log2 m flop
+// (radix-2), against ~8 (m1 + m2/2) for direct factor sums and ~4 m for a
+// dense DFT.
+//
+// Tile choice. Shared data <= 96 KB a block, so two blocks (plus their
+// twiddle tables, <= 20 KB) fit one SM's 227 KB: t = 32, 16, 8 or 4. At
+// m = 512 the middle passes take t = 16 and the x edges t = 8, three
+// blocks an SM.
+//
+// fft_pass_padded
+//   Replaces sopht_mpi_tpu/parallel/pallas_fft.py _fft_pass_padded_impl
+//   (kernel _fwd_kernel): forward DFT along L of (A, m/2, B) into (A, m, B).
+//   Bound: HBM, 24 B per output column element (8 B read, 16 B written).
+//
+// ifft_pass_truncated
+//   Replaces _ifft_pass_truncated_impl (kernel _inv_kernel): inverse DFT
+//   along L of (A, m, B), optionally times a real spectrum (A or 1, m, B),
+//   keeping the first m/2 outputs, 1/m applied. Same bound as above.
+//
+// fft_greens_ifft_pass
+//   Replaces _fft_greens_ifft_pass_impl (kernel _conv_kernel): forward DFT of
+//   the zero-padded column, times the real Green's spectrum (1, m, B), inverse
+//   DFT, first m/2 kept. The length-m spectrum exists only in shared memory.
+//   The block loads its Green's tile once and applies it to every one of the
+//   A components (the TPU kernel's grid order served the same purpose). Bound:
+//   HBM (16 B per input element plus the Green's read once) with radix-2
+//   factors; FP32 issue with direct sums (two transforms per column).
+//
+// rfft_pass_padded_split
+//   Replaces _rfft_pass_padded_split_impl (kernel _r2c_split_kernel): r2c of
+//   each row of (R, n_in), zero-padded to m, bulk k < m/2 and the Nyquist
+//   column k = m/2 returned apart. The TPU contracted a dense (n_in, m/2)
+//   DFT matrix on the MXU (~52 GFLOP at 256^3, > 0.8 ms of FP32 here); here
+//   the factored transform of the real row (direct first-factor sums use its
+//   Hermitian symmetry), keeping k <= m/2. Rows are read and written
+//   contiguously and transposed through shared memory. Bound: HBM (12 B per
+//   input element).
+//
+// irfft_pass_merge
+//   Replaces _irfft_pass_merge_impl (kernel _c2r_merge_kernel): c2r of the
+//   bulk plus Nyquist column, keeping the first n_out <= m/2 reals. The half
+//   spectrum k <= m/2 sits in shared memory and k > m/2 is read as
+//   conj(X[m - k]) (imaginary parts of k = 0 and k = m/2 dropped: the JAX
+//   weights w = 1 there, 2 elsewhere); the factored inverse runs and keeps
+//   the real part. Bound: HBM.
+
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <type_traits>
+#include <utility>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr long long kDataBudget = 96 * 1024;
+// The x-edge kernels keep three blocks on an SM (their shared data fits
+// three): registers are capped at 85 a thread to match.
+constexpr int kEdgeBlocks = 3;
+
+struct Plan {
+  int m, m1, m2, m1c, h2c;
+  // float2 entries of the twiddle table: W1 (m1 x m1c), W2 (m2 x h2c), T (m)
+  int table_len() const { return m1 * m1c + m2 * h2c + m; }
+};
+
+bool make_plan(int m, Plan* p) {
+  if (m < 64 || m > 1024) return false;
+  int r = 0;
+  while ((r + 1) * (r + 1) <= m) ++r;
+  int m1 = 1;
+  for (int c = r; c > 0; --c) {
+    if (m % c == 0) {
+      m1 = c;
+      break;
+    }
+  }
+  const int m2 = m / m1;
+  if (m1 < 4 || m2 % 2 != 0) return false;
+  const int h2 = m2 / 2;
+  if (m1 > 32 || h2 > 24) return false;
+  p->m = m;
+  p->m1 = m1;
+  p->m2 = m2;
+  p->m1c = m1 <= 8 ? 8 : (m1 <= 16 ? 16 : 32);
+  p->h2c = h2 <= 8 ? 8 : (h2 <= 16 ? 16 : 24);
+  return true;
+}
+
+// exp(-2 pi i j / n) in float64, j reduced mod n first
+void twiddle(long long j, int n, float* out) {
+  const double ang = -2.0 * 3.14159265358979323846 * (double)(j % n) / n;
+  out[0] = (float)std::cos(ang);
+  out[1] = (float)std::sin(ang);
+}
+
+__device__ __forceinline__ void cmac(float& ar, float& ai, const float2 w,
+                                     const float xr, const float xi) {
+  ar = fmaf(w.x, xr, ar);
+  ar = fmaf(-w.y, xi, ar);
+  ai = fmaf(w.x, xi, ai);
+  ai = fmaf(w.y, xr, ai);
+}
+
+// accumulate conj(w) * x
+__device__ __forceinline__ void cmac_conj(float& ar, float& ai, const float2 w,
+                                          const float xr, const float xi) {
+  ar = fmaf(w.x, xr, ar);
+  ar = fmaf(w.y, xi, ar);
+  ai = fmaf(w.x, xi, ai);
+  ai = fmaf(-w.y, xr, ai);
+}
+
+__device__ __forceinline__ float2 cmul(const float2 w, const float2 x) {
+  return make_float2(w.x * x.x - w.y * x.y, w.x * x.y + w.y * x.x);
+}
+
+__device__ __forceinline__ float2 cmul_conj(const float2 w, const float2 x) {
+  return make_float2(w.x * x.x + w.y * x.y, w.x * x.y - w.y * x.x);
+}
+
+// The twiddle tables in shared memory: w1[k1 * M1 + n1] = W_m1^(k1 n1)
+// (zero for n1 >= m1), w2[k2 * H2 + n2] = W_m2^(k2 n2) (zero for
+// n2 >= m2/2), tw[n1 * m2 + k2] = W_m^(n1 k2).
+struct Twiddles {
+  const float2* w1;
+  const float2* w2;
+  const float2* tw;
+};
+
+template <int M1, int H2>
+__device__ __forceinline__ Twiddles load_twiddles(
+    const float2* __restrict__ table, float2* smem, int m1, int m2, int m) {
+  const int n = m1 * M1 + m2 * H2 + m;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nt = blockDim.x * blockDim.y;
+  for (int i = tid; i < n; i += nt) smem[i] = table[i];
+  Twiddles s;
+  s.w1 = smem;
+  s.w2 = smem + m1 * M1;
+  s.tw = s.w2 + m2 * H2;
+  return s;
+}
+
+// sum_n w[n] y[n] over the register array
+template <int N>
+__device__ __forceinline__ float2 dot(const float (&yr)[N],
+                                      const float (&yi)[N],
+                                      const float2* w) {
+  float ar = 0.f, ai = 0.f;
+#pragma unroll
+  for (int n = 0; n < N; ++n) cmac(ar, ai, w[n], yr[n], yi[n]);
+  return make_float2(ar, ai);
+}
+
+// sum_n conj(w[n]) y[n]
+template <int N>
+__device__ __forceinline__ float2 dot_conj(const float (&yr)[N],
+                                           const float (&yi)[N],
+                                           const float2* w) {
+  float ar = 0.f, ai = 0.f;
+#pragma unroll
+  for (int n = 0; n < N; ++n) cmac_conj(ar, ai, w[n], yr[n], yi[n]);
+  return make_float2(ar, ai);
+}
+
+// y[j] = col[(base + j) * ld] for j < count, zero beyond
+template <int N>
+__device__ __forceinline__ void load_slots(float (&yr)[N], float (&yi)[N],
+                                           const float2* col, int base,
+                                           int count, int ld) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    float2 v = make_float2(0.f, 0.f);
+    if (j < count) v = col[(base + j) * ld];
+    yr[j] = v.x;
+    yi[j] = v.y;
+  }
+}
+
+__host__ __device__ constexpr bool is_pow2(int n) {
+  return n > 0 && (n & (n - 1)) == 0;
+}
+
+// k with its log2(N) bits reversed
+template <int N>
+__host__ __device__ constexpr int bit_reverse(int k) {
+  int r = 0;
+  for (int b = 1; b < N; b <<= 1) {
+    r = (r << 1) | (k & 1);
+    k >>= 1;
+  }
+  return r;
+}
+
+// In-register radix-2 DFT of length N (a power of two), decimation in
+// frequency: on return re/im[bit_reverse<N>(k)] holds
+// sum_n W_N^(+-k n) x[n] (conjugate twiddles when INV). w[j] = W_N^j,
+// j < N/2. Each stage is a template instance with a fixed trip count, so
+// every index is a compile-time constant once unrolled and the arrays stay
+// in registers.
+template <int N, int HALF, bool INV>
+struct Radix2 {
+  static __device__ __forceinline__ void stages(float (&re)[N], float (&im)[N],
+                                                const float2* w) {
+#pragma unroll
+    for (int q = 0; q < N / 2; ++q) {
+      const int j = q % HALF;
+      const int a = (q / HALF) * (2 * HALF) + j, b = a + HALF;
+      const int e = j * (N / (2 * HALF));
+      const float tr = re[a] - re[b], ti = im[a] - im[b];
+      re[a] += re[b];
+      im[a] += im[b];
+      if (e == 0) {
+        re[b] = tr;
+        im[b] = ti;
+      } else if (4 * e == N) {  // W = -i, or +i for the inverse
+        re[b] = INV ? -ti : ti;
+        im[b] = INV ? tr : -tr;
+      } else {
+        const float2 t = w[e];
+        const float ty = INV ? -t.y : t.y;
+        re[b] = tr * t.x - ti * ty;
+        im[b] = tr * ty + ti * t.x;
+      }
+    }
+    Radix2<N, HALF / 2, INV>::stages(re, im, w);
+  }
+};
+
+template <int N, bool INV>
+struct Radix2<N, 0, INV> {
+  static __device__ __forceinline__ void stages(float (&)[N], float (&)[N],
+                                                const float2*) {}
+};
+
+template <int N, bool INV>
+__device__ __forceinline__ void reg_fft(float (&re)[N], float (&im)[N],
+                                        const float2* w) {
+  Radix2<N, N / 2, INV>::stages(re, im, w);
+}
+
+// f(k, r) for k < COUNT with r = bit_reverse<N>(k) a compile-time
+// constant: output k of reg_fft<N> sits at index r.
+template <int N, class F, int... K>
+__device__ __forceinline__ void each_output(F&& f,
+                                            std::integer_sequence<int, K...>) {
+  (f(K, std::integral_constant<int, bit_reverse<N>(K)>::value), ...);
+}
+
+template <int N, int COUNT = N, class F>
+__device__ __forceinline__ void each_output(F&& f) {
+  each_output<N>(f, std::make_integer_sequence<int, COUNT>{});
+}
+
+// The length-m1 factor: sum_n W_m1^(+-k n) y[n] for every k < m1, handed to
+// emit(k, value). Radix-2 in registers when m1 fills the class M1, else
+// direct sums. Clobbers y.
+template <int M1, bool INV, class Emit>
+__device__ __forceinline__ void dft_m1(float (&yr)[M1], float (&yi)[M1],
+                                       const Twiddles& s, int m1, Emit emit) {
+  if (m1 == M1) {
+    reg_fft<M1, INV>(yr, yi, s.w1 + M1);
+    each_output<M1>([&](int k, int r) { emit(k, make_float2(yr[r], yi[r])); });
+    return;
+  }
+  for (int k = 0; k < m1; ++k)
+    emit(k, INV ? dot_conj(yr, yi, s.w1 + k * M1) : dot(yr, yi, s.w1 + k * M1));
+}
+
+// Whether the length-m2 factor runs radix-2 in registers.
+template <int H2>
+__device__ __forceinline__ bool radix2_m2(int m2) {
+  return is_pow2(H2) && m2 == 2 * H2;
+}
+
+// Forward first factor for one n1: slot (k2 m1 + n1) <- W_m^(n1 k2) *
+// sum_n2 W_m2^(k2 n2) v[n2], every k2 < m2 (v zero past m2/2).
+template <int H2>
+__device__ __forceinline__ void forward_first(const float (&vr)[H2],
+                                              const float (&vi)[H2],
+                                              const Twiddles& s, int n1,
+                                              int m1, int m2, float2* col,
+                                              int ld) {
+  if constexpr (is_pow2(H2)) {
+    if (radix2_m2<H2>(m2)) {
+      float re[2 * H2], im[2 * H2];
+#pragma unroll
+      for (int j = 0; j < 2 * H2; ++j) {
+        re[j] = j < H2 ? vr[j] : 0.f;
+        im[j] = j < H2 ? vi[j] : 0.f;
+      }
+      reg_fft<2 * H2, false>(re, im, s.w2 + H2);
+      each_output<2 * H2>([&](int k2, int r) {
+        col[(k2 * m1 + n1) * ld] =
+            cmul(s.tw[n1 * m2 + k2], make_float2(re[r], im[r]));
+      });
+      return;
+    }
+  }
+  for (int k2 = 0; k2 < m2; ++k2) {
+    const float2 y = dot(vr, vi, s.w2 + k2 * H2);
+    col[(k2 * m1 + n1) * ld] = cmul(s.tw[n1 * m2 + k2], y);
+  }
+}
+
+// Inverse first factor for one k2 from v[k1] = X[k2 + m2 k1]: slot
+// (k2 m1 + n1) <- conj(W_m^(n1 k2)) sum_k1 conj(W_m1^(n1 k1)) v[k1].
+// Clobbers v.
+template <int M1>
+__device__ __forceinline__ void inverse_first(float (&vr)[M1], float (&vi)[M1],
+                                              const Twiddles& s, int k2,
+                                              int m1, int m2, float2* col,
+                                              int ld) {
+  dft_m1<M1, true>(vr, vi, s, m1, [&](int n1, float2 z) {
+    col[(k2 * m1 + n1) * ld] = cmul_conj(s.tw[n1 * m2 + k2], z);
+  });
+}
+
+// Inverse second factor for one n1: acc[n2] = sum_k2 conj(W_m2^(k2 n2))
+// slot(k2 m1 + n1), n2 < m2/2 (unscaled).
+template <int H2>
+__device__ __forceinline__ void inverse_second(float (&ar)[H2],
+                                               float (&ai)[H2],
+                                               const Twiddles& s,
+                                               const float2* col, int n1,
+                                               int m1, int m2, int ld) {
+  if constexpr (is_pow2(H2)) {
+    if (radix2_m2<H2>(m2)) {
+      float re[2 * H2], im[2 * H2];
+#pragma unroll
+      for (int k2 = 0; k2 < 2 * H2; ++k2) {
+        const float2 z = col[(k2 * m1 + n1) * ld];
+        re[k2] = z.x;
+        im[k2] = z.y;
+      }
+      reg_fft<2 * H2, true>(re, im, s.w2 + H2);
+      each_output<2 * H2, H2>([&](int n2, int r) {
+        ar[n2] = re[r];
+        ai[n2] = im[r];
+      });
+      return;
+    }
+  }
+#pragma unroll
+  for (int n2 = 0; n2 < H2; ++n2) ar[n2] = ai[n2] = 0.f;
+  for (int k2 = 0; k2 < m2; ++k2) {
+    const float2 z = col[(k2 * m1 + n1) * ld];
+    const float2* w = s.w2 + k2 * H2;
+#pragma unroll
+    for (int n2 = 0; n2 < H2; ++n2) cmac_conj(ar[n2], ai[n2], w[n2], z.x, z.y);
+  }
+}
+
+template <int M1, int H2>
+__global__ void __launch_bounds__(kThreads)
+    fft_pass_padded_kernel(const float* __restrict__ xr,
+                           const float* __restrict__ xi,
+                           float* __restrict__ out_r, float* __restrict__ out_i,
+                           const float2* __restrict__ table, long long B,
+                           int m, int m1, int m2) {
+  extern __shared__ float2 smem[];
+  const Twiddles s = load_twiddles<M1, H2>(table, smem, m1, m2, m);
+  const int t = blockDim.x;
+  float2* col = smem + (m1 * M1 + m2 * H2 + m) + threadIdx.x;
+  const long long b = (long long)blockIdx.x * t + threadIdx.x;
+  const bool live = b < B;
+  const long long a = blockIdx.y;
+  const int h = m / 2, h2 = m2 / 2;
+  __syncthreads();
+  for (int n1 = threadIdx.y; n1 < m1; n1 += blockDim.y) {
+    float vr[H2], vi[H2];
+#pragma unroll
+    for (int n2 = 0; n2 < H2; ++n2) {
+      vr[n2] = vi[n2] = 0.f;
+      if (live && n2 < h2) {
+        const long long i = (a * h + n1 + (long long)m1 * n2) * B + b;
+        vr[n2] = xr[i];
+        vi[n2] = xi[i];
+      }
+    }
+    forward_first(vr, vi, s, n1, m1, m2, col, t);
+  }
+  __syncthreads();
+  for (int k2 = threadIdx.y; k2 < m2; k2 += blockDim.y) {
+    float yr[M1], yi[M1];
+    load_slots(yr, yi, col, k2 * m1, m1, t);
+    dft_m1<M1, false>(yr, yi, s, m1, [&](int k1, float2 v) {
+      if (live) {
+        const long long i = (a * m + k2 + (long long)m2 * k1) * B + b;
+        out_r[i] = v.x;
+        out_i[i] = v.y;
+      }
+    });
+  }
+}
+
+template <int M1, int H2>
+__global__ void __launch_bounds__(kThreads)
+    ifft_pass_truncated_kernel(const float* __restrict__ xr,
+                               const float* __restrict__ xi,
+                               const float* __restrict__ g, int g_shared,
+                               float* __restrict__ out_r,
+                               float* __restrict__ out_i,
+                               const float2* __restrict__ table, long long B,
+                               int m, int m1, int m2) {
+  extern __shared__ float2 smem[];
+  const Twiddles s = load_twiddles<M1, H2>(table, smem, m1, m2, m);
+  const int t = blockDim.x;
+  float2* col = smem + (m1 * M1 + m2 * H2 + m) + threadIdx.x;
+  const long long b = (long long)blockIdx.x * t + threadIdx.x;
+  const bool live = b < B;
+  const long long a = blockIdx.y;
+  const long long ga = g_shared ? 0 : a;
+  const int h = m / 2, h2 = m2 / 2;
+  const float inv_m = 1.0f / (float)m;
+  __syncthreads();
+  for (int k2 = threadIdx.y; k2 < m2; k2 += blockDim.y) {
+    float vr[M1], vi[M1];
+#pragma unroll
+    for (int k1 = 0; k1 < M1; ++k1) {
+      vr[k1] = vi[k1] = 0.f;
+      if (live && k1 < m1) {
+        const long long k = k2 + (long long)m2 * k1;
+        float gv = 1.f;
+        if (g != nullptr) gv = g[(ga * m + k) * B + b];
+        vr[k1] = xr[(a * m + k) * B + b] * gv;
+        vi[k1] = xi[(a * m + k) * B + b] * gv;
+      }
+    }
+    inverse_first(vr, vi, s, k2, m1, m2, col, t);
+  }
+  __syncthreads();
+  for (int n1 = threadIdx.y; n1 < m1; n1 += blockDim.y) {
+    float ar[H2], ai[H2];
+    inverse_second(ar, ai, s, col, n1, m1, m2, t);
+#pragma unroll
+    for (int n2 = 0; n2 < H2; ++n2) {
+      if (live && n2 < h2) {
+        const long long i = (a * h + n1 + (long long)m1 * n2) * B + b;
+        out_r[i] = ar[n2] * inv_m;
+        out_i[i] = ai[n2] * inv_m;
+      }
+    }
+  }
+}
+
+template <int M1, int H2>
+__global__ void __launch_bounds__(kThreads)
+    fft_greens_ifft_pass_kernel(const float* __restrict__ xr,
+                                const float* __restrict__ xi,
+                                const float* __restrict__ g,
+                                float* __restrict__ out_r,
+                                float* __restrict__ out_i,
+                                const float2* __restrict__ table, int A,
+                                long long B, int m, int m1, int m2) {
+  extern __shared__ float2 smem[];
+  const Twiddles s = load_twiddles<M1, H2>(table, smem, m1, m2, m);
+  const int t = blockDim.x;
+  float2* slots = smem + (m1 * M1 + m2 * H2 + m);
+  float2* col = slots + threadIdx.x;
+  float* gcol = reinterpret_cast<float*>(slots + (long long)m * t) + threadIdx.x;
+  const long long b = (long long)blockIdx.x * t + threadIdx.x;
+  const bool live = b < B;
+  const int h = m / 2, h2 = m2 / 2;
+  const float inv_m = 1.0f / (float)m;
+  // the block's Green's tile, read once for all A components
+  for (int k = threadIdx.y; k < m; k += blockDim.y)
+    gcol[k * t] = live ? g[(long long)k * B + b] : 0.f;
+  __syncthreads();
+  for (long long a = 0; a < A; ++a) {
+    for (int n1 = threadIdx.y; n1 < m1; n1 += blockDim.y) {
+      float vr[H2], vi[H2];
+#pragma unroll
+      for (int n2 = 0; n2 < H2; ++n2) {
+        vr[n2] = vi[n2] = 0.f;
+        if (live && n2 < h2) {
+          const long long i = (a * h + n1 + (long long)m1 * n2) * B + b;
+          vr[n2] = xr[i];
+          vi[n2] = xi[i];
+        }
+      }
+      forward_first(vr, vi, s, n1, m1, m2, col, t);
+    }
+    __syncthreads();
+    for (int k2 = threadIdx.y; k2 < m2; k2 += blockDim.y) {
+      float yr[M1], yi[M1];
+      load_slots(yr, yi, col, k2 * m1, m1, t);
+      // forward second factor times the Green's spectrum, back into this
+      // thread's own slots (k2 m1 + k1)
+      dft_m1<M1, false>(yr, yi, s, m1, [&](int k1, float2 v) {
+        const float gv = gcol[(k2 + m2 * k1) * t];
+        col[(k2 * m1 + k1) * t] = make_float2(v.x * gv, v.y * gv);
+      });
+      load_slots(yr, yi, col, k2 * m1, m1, t);
+      inverse_first(yr, yi, s, k2, m1, m2, col, t);
+    }
+    __syncthreads();
+    for (int n1 = threadIdx.y; n1 < m1; n1 += blockDim.y) {
+      float ar[H2], ai[H2];
+      inverse_second(ar, ai, s, col, n1, m1, m2, t);
+#pragma unroll
+      for (int n2 = 0; n2 < H2; ++n2) {
+        if (live && n2 < h2) {
+          const long long i = (a * h + n1 + (long long)m1 * n2) * B + b;
+          out_r[i] = ar[n2] * inv_m;
+          out_i[i] = ai[n2] * inv_m;
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <int M1, int H2>
+__global__ void __launch_bounds__(kThreads, kEdgeBlocks)
+    rfft_pass_padded_split_kernel(const float* __restrict__ x,
+                                  float* __restrict__ br,
+                                  float* __restrict__ bi,
+                                  float* __restrict__ sr,
+                                  float* __restrict__ si,
+                                  const float2* __restrict__ table,
+                                  long long R, int n_in, int m, int m1,
+                                  int m2) {
+  extern __shared__ float2 smem[];
+  const Twiddles s = load_twiddles<M1, H2>(table, smem, m1, m2, m);
+  const int t = blockDim.x, tp = t + 1;
+  float2* slots = smem + (m1 * M1 + m2 * H2 + m);
+  float2* col = slots + threadIdx.x;
+  float2* stage = slots + (long long)m * t;     // (m/2 + 1) x tp outputs
+  float* xs = reinterpret_cast<float*>(stage);  // n_in x tp inputs
+  const int tid = threadIdx.y * t + threadIdx.x;
+  const int nt = t * blockDim.y;
+  const long long row0 = (long long)blockIdx.x * t;
+  const int h = m / 2, h2 = m2 / 2;
+  // several rows in flight per thread
+#pragma unroll 4
+  for (int r = 0; r < t; ++r) {
+    const long long row = row0 + r;
+    for (int n = tid; n < n_in; n += nt)
+      xs[n * tp + r] = row < R ? x[row * n_in + n] : 0.f;
+  }
+  __syncthreads();
+  for (int n1 = threadIdx.y; n1 < m1; n1 += blockDim.y) {
+    float v[H2], zero[H2];
+#pragma unroll
+    for (int n2 = 0; n2 < H2; ++n2) {
+      const int n = n1 + m1 * n2;
+      v[n2] = (n2 < h2 && n < n_in) ? xs[n * tp + threadIdx.x] : 0.f;
+      zero[n2] = 0.f;
+    }
+    if (radix2_m2<H2>(m2)) {
+      forward_first(v, zero, s, n1, m1, m2, col, t);
+      continue;
+    }
+    // direct sums on real input: the first factor is Hermitian in k2
+    for (int k2 = 0; k2 <= h2; ++k2) {
+      const float2* w = s.w2 + k2 * H2;
+      float ar = 0.f, ai = 0.f;
+#pragma unroll
+      for (int n2 = 0; n2 < H2; ++n2) {
+        ar = fmaf(w[n2].x, v[n2], ar);
+        ai = fmaf(w[n2].y, v[n2], ai);
+      }
+      col[(k2 * m1 + n1) * t] = cmul(s.tw[n1 * m2 + k2], make_float2(ar, ai));
+      if (k2 > 0 && k2 < h2)
+        col[((m2 - k2) * m1 + n1) * t] =
+            cmul(s.tw[n1 * m2 + m2 - k2], make_float2(ar, -ai));
+    }
+  }
+  __syncthreads();
+  for (int k2 = threadIdx.y; k2 < m2; k2 += blockDim.y) {
+    float yr[M1], yi[M1];
+    load_slots(yr, yi, col, k2 * m1, m1, t);
+    if (m1 == M1) {  // radix-2 computes every k1; keep k <= m/2
+      dft_m1<M1, false>(yr, yi, s, m1, [&](int k1, float2 v) {
+        if (k2 + m2 * k1 <= h) stage[(k2 + m2 * k1) * tp + threadIdx.x] = v;
+      });
+      continue;
+    }
+    for (int k1 = 0; k1 < m1 && k2 + m2 * k1 <= h; ++k1)
+      stage[(k2 + m2 * k1) * tp + threadIdx.x] = dot(yr, yi, s.w1 + k1 * M1);
+  }
+  __syncthreads();
+  // several rows in flight per thread
+#pragma unroll 4
+  for (int r = 0; r < t && row0 + r < R; ++r) {
+    const long long row = row0 + r;
+    for (int k = tid; k < h; k += nt) {
+      const float2 v = stage[k * tp + r];
+      br[row * h + k] = v.x;
+      bi[row * h + k] = v.y;
+    }
+  }
+  for (int r = tid; r < t; r += nt) {
+    const long long row = row0 + r;
+    if (row < R) {
+      const float2 v = stage[h * tp + r];
+      sr[row] = v.x;
+      si[row] = v.y;
+    }
+  }
+}
+
+template <int M1, int H2>
+__global__ void __launch_bounds__(kThreads, kEdgeBlocks)
+    irfft_pass_merge_kernel(const float* __restrict__ br,
+                            const float* __restrict__ bi,
+                            const float* __restrict__ sr,
+                            const float* __restrict__ si,
+                            float* __restrict__ out,
+                            const float2* __restrict__ table, long long R,
+                            int n_out, int m, int m1, int m2) {
+  extern __shared__ float2 smem[];
+  const Twiddles s = load_twiddles<M1, H2>(table, smem, m1, m2, m);
+  const int t = blockDim.x, tp = t + 1;
+  float2* slots = smem + (m1 * M1 + m2 * H2 + m);
+  float2* col = slots + threadIdx.x;
+  // k <= m/2 of the Hermitian spectrum, (m/2 + 1) x tp; k > m/2 is read as
+  // conj(X[m - k])
+  float2* xf = slots + (long long)m * t;
+  float* ys = reinterpret_cast<float*>(xf);  // m/2 x tp real outputs
+  const int tid = threadIdx.y * t + threadIdx.x;
+  const int nt = t * blockDim.y;
+  const long long row0 = (long long)blockIdx.x * t;
+  const int h = m / 2, h2 = m2 / 2;
+  const float inv_m = 1.0f / (float)m;
+  // several rows in flight per thread
+#pragma unroll 4
+  for (int r = 0; r < t; ++r) {
+    const long long row = row0 + r;
+    for (int k = tid; k < h; k += nt) {
+      float2 v = make_float2(0.f, 0.f);
+      if (row < R) v = make_float2(br[row * h + k], bi[row * h + k]);
+      if (k == 0) v.y = 0.f;
+      xf[k * tp + r] = v;
+    }
+  }
+  for (int r = tid; r < t; r += nt) {
+    const long long row = row0 + r;
+    xf[h * tp + r] = make_float2(row < R ? sr[row] : 0.f, 0.f);
+  }
+  __syncthreads();
+  for (int k2 = threadIdx.y; k2 < m2; k2 += blockDim.y) {
+    float vr[M1], vi[M1];
+#pragma unroll
+    for (int k1 = 0; k1 < M1; ++k1) {
+      float2 v = make_float2(0.f, 0.f);
+      const int k = k2 + m2 * k1;
+      if (k1 < m1) {
+        if (k <= h) {
+          v = xf[k * tp + threadIdx.x];
+        } else {
+          v = xf[(m - k) * tp + threadIdx.x];
+          v.y = -v.y;
+        }
+      }
+      vr[k1] = v.x;
+      vi[k1] = v.y;
+    }
+    inverse_first(vr, vi, s, k2, m1, m2, col, t);
+  }
+  __syncthreads();
+  for (int n1 = threadIdx.y; n1 < m1; n1 += blockDim.y) {
+    if (radix2_m2<H2>(m2)) {
+      float ar[H2], ai[H2];
+      inverse_second(ar, ai, s, col, n1, m1, m2, t);
+#pragma unroll
+      for (int n2 = 0; n2 < H2; ++n2)
+        ys[(n1 + m1 * n2) * tp + threadIdx.x] = ar[n2] * inv_m;
+      continue;
+    }
+    // direct sums, real part only: sum_k2 Re(conj(W_m2^(k2 n2)) z)
+    float acc[H2];
+#pragma unroll
+    for (int n2 = 0; n2 < H2; ++n2) acc[n2] = 0.f;
+    for (int k2 = 0; k2 < m2; ++k2) {
+      const float2 z = col[(k2 * m1 + n1) * t];
+      const float2* w = s.w2 + k2 * H2;
+#pragma unroll
+      for (int n2 = 0; n2 < H2; ++n2)
+        acc[n2] = fmaf(w[n2].y, z.y, fmaf(w[n2].x, z.x, acc[n2]));
+    }
+#pragma unroll
+    for (int n2 = 0; n2 < H2; ++n2)
+      if (n2 < h2) ys[(n1 + m1 * n2) * tp + threadIdx.x] = acc[n2] * inv_m;
+  }
+  __syncthreads();
+  // several rows in flight per thread
+#pragma unroll 4
+  for (int r = 0; r < t && row0 + r < R; ++r) {
+    const long long row = row0 + r;
+    for (int n = tid; n < n_out; n += nt) out[row * n_out + n] = ys[n * tp + r];
+  }
+}
+
+// Largest tile t in {32, 16, 8, 4} whose shared data fits the budget.
+template <class Bytes>
+int pick_tile(Bytes bytes) {
+  for (int t = 32; t >= 4; t /= 2)
+    if (bytes(t) <= kDataBudget) return t;
+  return 0;
+}
+
+template <class Kernel, class... Args>
+int launch(Kernel kernel, dim3 grid, int t, size_t smem, cudaStream_t stream,
+           Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, dim3(t, kThreads / t), smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+inline size_t table_bytes(const Plan& p) {
+  return sizeof(float2) * (size_t)p.table_len();
+}
+
+struct FftPassPadded {
+  template <int M1, int H2>
+  static int go(const Plan& p, const float* xr, const float* xi, float* out_r,
+                float* out_i, const float* table, int A, long long B,
+                cudaStream_t st) {
+    const int t = pick_tile([&](int t) { return 8LL * p.m * t; });
+    if (t == 0) return (int)cudaErrorInvalidValue;
+    const size_t smem = table_bytes(p) + 8ull * p.m * t;
+    const dim3 grid((unsigned)((B + t - 1) / t), (unsigned)A);
+    return launch(fft_pass_padded_kernel<M1, H2>, grid, t, smem, st, xr, xi,
+                  out_r, out_i, (const float2*)table, B, p.m, p.m1, p.m2);
+  }
+};
+
+struct IfftPassTruncated {
+  template <int M1, int H2>
+  static int go(const Plan& p, const float* xr, const float* xi,
+                const float* g, int g_shared, float* out_r, float* out_i,
+                const float* table, int A, long long B, cudaStream_t st) {
+    const int t = pick_tile([&](int t) { return 8LL * p.m * t; });
+    if (t == 0) return (int)cudaErrorInvalidValue;
+    const size_t smem = table_bytes(p) + 8ull * p.m * t;
+    const dim3 grid((unsigned)((B + t - 1) / t), (unsigned)A);
+    return launch(ifft_pass_truncated_kernel<M1, H2>, grid, t, smem, st, xr,
+                  xi, g, g_shared, out_r, out_i, (const float2*)table, B, p.m,
+                  p.m1, p.m2);
+  }
+};
+
+struct FftGreensIfftPass {
+  template <int M1, int H2>
+  static int go(const Plan& p, const float* xr, const float* xi,
+                const float* g, float* out_r, float* out_i,
+                const float* table, int A, long long B, cudaStream_t st) {
+    const int t = pick_tile([&](int t) { return 12LL * p.m * t; });
+    if (t == 0) return (int)cudaErrorInvalidValue;
+    const size_t smem = table_bytes(p) + 12ull * p.m * t;
+    const dim3 grid((unsigned)((B + t - 1) / t));
+    return launch(fft_greens_ifft_pass_kernel<M1, H2>, grid, t, smem, st, xr,
+                  xi, g, out_r, out_i, (const float2*)table, A, B, p.m, p.m1,
+                  p.m2);
+  }
+};
+
+struct RfftPassPaddedSplit {
+  template <int M1, int H2>
+  static int go(const Plan& p, const float* x, float* br, float* bi,
+                float* sr, float* si, const float* table, long long R,
+                int n_in, cudaStream_t st) {
+    const long long h = p.m / 2;
+    auto bytes = [&](int t) {
+      const long long stage = 8LL * (h + 1) * (t + 1);
+      const long long in = 4LL * n_in * (t + 1);
+      return 8LL * p.m * t + (stage > in ? stage : in);
+    };
+    const int t = pick_tile(bytes);
+    if (t == 0) return (int)cudaErrorInvalidValue;
+    const size_t smem = table_bytes(p) + (size_t)bytes(t);
+    const dim3 grid((unsigned)((R + t - 1) / t));
+    return launch(rfft_pass_padded_split_kernel<M1, H2>, grid, t, smem, st, x,
+                  br, bi, sr, si, (const float2*)table, R, n_in, p.m, p.m1,
+                  p.m2);
+  }
+};
+
+struct IrfftPassMerge {
+  template <int M1, int H2>
+  static int go(const Plan& p, const float* br, const float* bi,
+                const float* sr, const float* si, float* out,
+                const float* table, long long R, int n_out, cudaStream_t st) {
+    auto bytes = [&](int t) {
+      return 8LL * p.m * t + 8LL * (p.m / 2 + 1) * (t + 1);
+    };
+    const int t = pick_tile(bytes);
+    if (t == 0) return (int)cudaErrorInvalidValue;
+    const size_t smem = table_bytes(p) + (size_t)bytes(t);
+    const dim3 grid((unsigned)((R + t - 1) / t));
+    return launch(irfft_pass_merge_kernel<M1, H2>, grid, t, smem, st, br, bi,
+                  sr, si, out, (const float2*)table, R, n_out, p.m, p.m1,
+                  p.m2);
+  }
+};
+
+// Instantiate the kernel for the plan's register classes.
+template <class Run, class... Args>
+int dispatch(const Plan& p, Args... args) {
+  switch (p.m1c * 100 + p.h2c) {
+    case 808: return Run::template go<8, 8>(p, args...);
+    case 816: return Run::template go<8, 16>(p, args...);
+    case 824: return Run::template go<8, 24>(p, args...);
+    case 1608: return Run::template go<16, 8>(p, args...);
+    case 1616: return Run::template go<16, 16>(p, args...);
+    case 1624: return Run::template go<16, 24>(p, args...);
+    case 3208: return Run::template go<32, 8>(p, args...);
+    case 3216: return Run::template go<32, 16>(p, args...);
+    case 3224: return Run::template go<32, 24>(p, args...);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Number of floats of the twiddle table for length m (0: unsupported).
+extern "C" int sopht_fft_table_floats(int m) {
+  Plan p;
+  return make_plan(m, &p) ? 2 * p.table_len() : 0;
+}
+
+// Fill the host buffer `out` (sopht_fft_table_floats(m) floats) with the
+// twiddle table of length m, computed in float64 and rounded to float32.
+extern "C" int sopht_fft_fill_table(int m, float* out) {
+  Plan p;
+  if (!make_plan(m, &p)) return (int)cudaErrorInvalidValue;
+  float* w1 = out;
+  float* w2 = w1 + 2 * p.m1 * p.m1c;
+  float* tw = w2 + 2 * p.m2 * p.h2c;
+  for (int k1 = 0; k1 < p.m1; ++k1) {
+    for (int n1 = 0; n1 < p.m1c; ++n1) {
+      float* e = w1 + 2 * (k1 * p.m1c + n1);
+      e[0] = e[1] = 0.f;
+      if (n1 < p.m1) twiddle((long long)k1 * n1, p.m1, e);
+    }
+  }
+  for (int k2 = 0; k2 < p.m2; ++k2) {
+    for (int n2 = 0; n2 < p.h2c; ++n2) {
+      float* e = w2 + 2 * (k2 * p.h2c + n2);
+      e[0] = e[1] = 0.f;
+      if (n2 < p.m2 / 2) twiddle((long long)k2 * n2, p.m2, e);
+    }
+  }
+  for (int n1 = 0; n1 < p.m1; ++n1)
+    for (int k2 = 0; k2 < p.m2; ++k2)
+      twiddle((long long)n1 * k2, p.m, tw + 2 * (n1 * p.m2 + k2));
+  return 0;
+}
+
+extern "C" int sopht_fft_pass_padded_f32(const float* xr, const float* xi,
+                                         float* out_r, float* out_i,
+                                         const float* table, int A,
+                                         long long B, int m, void* stream) {
+  Plan p;
+  if (!make_plan(m, &p) || A <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
+  return dispatch<FftPassPadded>(p, xr, xi, out_r, out_i, table, A, B,
+                                 (cudaStream_t)stream);
+}
+
+extern "C" int sopht_ifft_pass_truncated_f32(const float* xr, const float* xi,
+                                             const float* g, int g_shared,
+                                             float* out_r, float* out_i,
+                                             const float* table, int A,
+                                             long long B, int m,
+                                             void* stream) {
+  Plan p;
+  if (!make_plan(m, &p) || A <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
+  return dispatch<IfftPassTruncated>(p, xr, xi, g, g_shared, out_r, out_i,
+                                     table, A, B, (cudaStream_t)stream);
+}
+
+extern "C" int sopht_fft_greens_ifft_pass_f32(const float* xr, const float* xi,
+                                              const float* g, float* out_r,
+                                              float* out_i, const float* table,
+                                              int A, long long B, int m,
+                                              void* stream) {
+  Plan p;
+  if (!make_plan(m, &p) || A <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
+  return dispatch<FftGreensIfftPass>(p, xr, xi, g, out_r, out_i, table, A, B,
+                                     (cudaStream_t)stream);
+}
+
+extern "C" int sopht_rfft_pass_padded_split_f32(const float* x, float* br,
+                                                float* bi, float* sr,
+                                                float* si, const float* table,
+                                                long long R, int n_in, int m,
+                                                void* stream) {
+  Plan p;
+  if (!make_plan(m, &p) || R <= 0 || n_in <= 0 || n_in > m / 2)
+    return (int)cudaErrorInvalidValue;
+  return dispatch<RfftPassPaddedSplit>(p, x, br, bi, sr, si, table, R, n_in,
+                                       (cudaStream_t)stream);
+}
+
+extern "C" int sopht_irfft_pass_merge_f32(const float* br, const float* bi,
+                                          const float* sr, const float* si,
+                                          float* out, const float* table,
+                                          long long R, int m, int n_out,
+                                          void* stream) {
+  Plan p;
+  if (!make_plan(m, &p) || R <= 0 || n_out <= 0 || n_out > m / 2)
+    return (int)cudaErrorInvalidValue;
+  return dispatch<IrfftPassMerge>(p, br, bi, sr, si, out, table, R, n_out,
+                                  (cudaStream_t)stream);
+}
+
+extern "C" const char* sopht_fft_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

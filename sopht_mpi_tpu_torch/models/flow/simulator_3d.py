@@ -8,9 +8,11 @@ then vector diffusion, then optional filtering, then velocity recovery
 
 With ``use_kernels`` (the default on a CUDA device) the three stencil
 passes run the Hopper kernels of :mod:`sopht_mpi_tpu_torch.ops.cuda_stencils_3d`
-(on CPU tensors those wrappers run their plain versions). The step keeps
-dt, its prefactors and ``max |u|_1`` as 0-d tensors on the device: nothing
-in it waits for the device.
+(on CPU tensors those wrappers run their plain versions), and the
+vector Poisson solve takes the solver's kernel route on a CUDA device (the
+five FFT-pass kernels of :mod:`sopht_mpi_tpu_torch.parallel.cuda_fft`).
+The step keeps dt, its prefactors and ``max |u|_1`` as 0-d tensors on the
+device: nothing in it waits for the device.
 """
 
 from __future__ import annotations
@@ -44,7 +46,11 @@ class FlowState3D(NamedTuple):
 # options of the JAX simulator that the port takes only at their
 # single-device exact values, with the ROADMAP item that lifts each
 _SINGLE_DEVICE_ONLY = {
-    "fast_spectral": ((None, False), "queue B, the FFT-pass kernel PR"),
+    "fast_spectral": (
+        (None, False),
+        "queue B, the fused-curl pair fft_greens_curl_ifft_pass / "
+        "irfft_pass_merge_velocity",
+    ),
     "overlap_chunks": ((None, 1), "queue A #11, multi-device"),
     "comm_bf16": ((False,), "queue A #11, multi-device"),
 }
@@ -199,6 +205,8 @@ class UnboundedFlowSimulator3D:
 
     @property
     def _poisson_greens(self):
+        """The solver's stored spectrum: dense, or the kernel route's
+        (bulk, side) pair."""
         return self.unbounded_poisson_solver.fourier_greens_times_dx_pow_dim
 
     def _get_state(self) -> FlowState3D:

@@ -40,8 +40,9 @@ class RigidFSICarry(NamedTuple):
     vb_state: object
     velocity_mismatch: torch.Tensor  # from the previous step's interaction
     time: torch.Tensor
-    # the Poisson solver's Fourier Green's function, threaded unchanged
-    greens: torch.Tensor = None
+    # the Poisson solver's Fourier Green's function, threaded unchanged:
+    # the dense spectrum, or the (bulk, side) pair of the kernel route
+    greens: torch.Tensor | tuple = None
     # max |u|_1 of flow_state.velocity_field, carried so the CFL dt needs
     # no fresh velocity read (on the kernel path the curl kernel reduces it)
     velocity_l1_max: torch.Tensor = None

@@ -7,17 +7,101 @@ Hockney-Eastwood domain doubling: the right-hand side is zero-padded to
 even-reflected Green's function ``1/(4 pi r)``, and the first (nz, ny, nx)
 cells of the inverse are kept. Solves ``-del^2(solution) = rhs``.
 
-The doubled-domain transforms are ``torch.fft`` (the place XLA's FFT holds
-in the JAX package when its Pallas convolve is off). The Green's spectrum
-is built as the JAX package builds it: the half-grid kernel in float64 on
-the host, then per-axis symmetric DFTs (DCT-I) - contracted here in float64
-on the target device and cast - and stored dense, (2nz, 2ny, nx+1).
+Two routes, selected as the JAX package selects its own:
+
+- the kernel route (counterpart of the Pallas convolve,
+  ``_pallas_convolve_local``): float32, every doubled axis length passing
+  :func:`~sopht_mpi_tpu_torch.parallel.cuda_fft.kernel_fft_supported`, and
+  a CUDA device (or ``FORCE_KERNEL_CONVOLVE``). The five split real/imag
+  passes of :mod:`sopht_mpi_tpu_torch.parallel.cuda_fft` run x r2c, y
+  forward, z forward x Green's x z inverse, y inverse and x c2r; the kx
+  Nyquist column is convolved on a small ``torch.fft`` side path. The
+  Green's spectrum is stored as the (bulk, side) pair the route consumes.
+- otherwise the dense route: ``torch.fft`` rfftn/irfftn on the doubled
+  grid (where XLA's FFT serves the JAX package), with the dense spectrum.
+
+The Green's spectrum is built as the JAX package builds it: the half-grid
+kernel in float64 on the host, then per-axis symmetric DFTs (DCT-I) -
+contracted here in float64 on the target device and cast - giving the
+dense (2nz, 2ny, nx+1) real spectrum.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from sopht_mpi_tpu_torch.parallel import cuda_fft
+
+# Tests force the kernel route on CPU tensors (the passes then run their
+# plain versions): None = auto (on for a CUDA device), True/False = override.
+FORCE_KERNEL_CONVOLVE: bool | None = None
+
+# cells above which the vector solve runs the components one after another
+# through the kernel route instead of batching them (512^3 class)
+_COMPONENT_MAP_THRESHOLD = 2**27
+
+
+def _kernel_convolve_supported(doubled, dtype, device) -> bool:
+    """The kernel route: float32, a CUDA device unless
+    ``FORCE_KERNEL_CONVOLVE`` says otherwise, and every doubled axis length
+    supported by the FFT-pass kernels (at most 1024: the JAX gate's cap on
+    the minor axis, applied to every axis)."""
+    device_ok = (
+        torch.device(device).type == "cuda"
+        if FORCE_KERNEL_CONVOLVE is None
+        else FORCE_KERNEL_CONVOLVE
+    )
+    return (
+        bool(device_ok)
+        and dtype == torch.float32
+        and all(cuda_fft.kernel_fft_supported(m) for m in doubled)
+    )
+
+
+def split_kernel_greens(greens):
+    """Split a dense real Fourier Green's function (.., fx) into the
+    contiguous (bulk, nyquist-column) pair the kernel route consumes
+    (``split_pallas_greens``)."""
+    return greens[..., :-1].contiguous(), greens[..., -1].contiguous()
+
+
+def _kernel_convolve_local(rhs, greens, doubled):
+    """Free-space convolution through the five FFT-pass kernels
+    (``_pallas_convolve_local``, 3D, unfused edge passes). ``rhs`` is
+    (nz, ny, nx) or (c, nz, ny, nx), the components folded into the
+    kernels' batch axis; ``greens`` is the pair of
+    :func:`split_kernel_greens`."""
+    g_bulk, g_side = greens
+    batched = rhs.ndim == 4
+    if not batched:
+        rhs = rhs[None]
+    c, nz, ny, nx = rhs.shape
+    mz, my, mx = doubled
+    bx = mx // 2
+    fr, fi, sr, si = cuda_fft.rfft_pass_padded_split(
+        rhs.reshape(c * nz * ny, nx), mx)
+    fr, fi = cuda_fft.fft_pass_padded(
+        fr.view(c * nz, ny, bx), fi.view(c * nz, ny, bx), my)
+    fr, fi = cuda_fft.fft_greens_ifft_pass(
+        fr.view(c, nz, my * bx), fi.view(c, nz, my * bx),
+        g_bulk.view(1, mz, my * bx))
+    # kx Nyquist column, (c, nz, ny) complex, on torch.fft
+    s = torch.complex(sr, si).reshape(c, nz, ny)
+    s = torch.fft.fft(s, n=my, dim=2)
+    s = torch.fft.fft(s, n=mz, dim=1)
+    s = s * g_side
+    s = torch.fft.ifft(s, dim=1)[:, :nz]
+    s = torch.fft.ifft(s, dim=2)[:, :, :ny]
+    fr, fi = cuda_fft.ifft_pass_truncated(
+        fr.view(c * nz, my, bx), fi.view(c * nz, my, bx))
+    sol = cuda_fft.irfft_pass_merge(
+        fr.view(c * nz * ny, bx), fi.view(c * nz * ny, bx),
+        s.real.reshape(c * nz * ny, 1).contiguous(),
+        s.imag.reshape(c * nz * ny, 1).contiguous(),
+        mx, nx,
+    ).view(c, nz, ny, nx)
+    return sol if batched else sol[0]
 
 
 def _even_reflected_axis_dist(n_doubled: int, dx: float, axis_range: float, dtype):
@@ -109,27 +193,60 @@ class UnboundedPoissonSolver3D:
             1.0 / (4.0 * np.pi * self.dx),
             np.float64,
         )
-        self.fourier_greens_times_dx_pow_dim = _fourier_greens_from_half(
+        dense = _fourier_greens_from_half(
             half, self.dx**self.grid_dim, real_t, self.device
         )
+        if _kernel_convolve_supported(self.doubled, real_t, self.device):
+            self.fourier_greens_times_dx_pow_dim = split_kernel_greens(dense)
+        else:
+            self.fourier_greens_times_dx_pow_dim = dense
 
     @property
     def doubled(self) -> tuple[int, int, int]:
         return (2 * self.grid_size_z, 2 * self.grid_size_y, 2 * self.grid_size_x)
 
+    def _dense_greens(self, greens=None):
+        """The dense (.., fx) real Fourier Green's function, reassembled
+        from the split pair if that is the stored form."""
+        if greens is None:
+            greens = self.fourier_greens_times_dx_pow_dim
+        if isinstance(greens, tuple):
+            bulk, side = greens
+            return torch.cat([bulk, side[..., None]], dim=-1)
+        return greens
+
+    def uses_kernel_route(self, rhs_field) -> bool:
+        """Whether a solve of ``rhs_field`` takes the kernel route."""
+        return _kernel_convolve_supported(
+            self.doubled, rhs_field.dtype, rhs_field.device)
+
     def solve(self, rhs_field, greens=None):
         """Solve ``-del^2(solution) = rhs`` for a (nz, ny, nx) field, or
         for each component of a (c, nz, ny, nx) field. ``greens`` defaults
-        to ``self.fourier_greens_times_dx_pow_dim``. Returns a contiguous
-        tensor of the input's shape."""
+        to ``self.fourier_greens_times_dx_pow_dim``, dense or split. Returns
+        a contiguous tensor of the input's shape."""
         if greens is None:
             greens = self.fourier_greens_times_dx_pow_dim
+        if self.uses_kernel_route(rhs_field):
+            if not isinstance(greens, tuple):
+                greens = split_kernel_greens(greens)
+            return _kernel_convolve_local(
+                rhs_field.contiguous(), greens, self.doubled)
         nz, ny, nx = self.grid_size_z, self.grid_size_y, self.grid_size_x
         fhat = torch.fft.rfftn(rhs_field, s=self.doubled, dim=(-3, -2, -1))
-        sol = torch.fft.irfftn(fhat * greens, s=self.doubled, dim=(-3, -2, -1))
+        sol = torch.fft.irfftn(fhat * self._dense_greens(greens),
+                               s=self.doubled, dim=(-3, -2, -1))
         return sol[..., :nz, :ny, :nx].contiguous()
 
     def vector_field_solve(self, rhs_vector_field, greens=None):
-        """Component-wise solve for a (3, nz, ny, nx) vector field, the
-        components batched through one transform."""
+        """Component-wise solve for a (3, nz, ny, nx) vector field: the
+        components batched through one pipeline, or, on the kernel route
+        at ``nz*ny*nx >= 2**27`` (512^3 class, where the batched spectra
+        outgrow device memory), one component after another."""
+        if (
+            self.uses_kernel_route(rhs_vector_field)
+            and self.grid_size_z * self.grid_size_y * self.grid_size_x
+            >= _COMPONENT_MAP_THRESHOLD
+        ):
+            return torch.stack([self.solve(f, greens) for f in rhs_vector_field])
         return self.solve(rhs_vector_field, greens)

@@ -1,0 +1,361 @@
+"""Hopper CUDA kernels for the five exact-tier FFT passes of the free-space
+Poisson convolution, with their plain ``torch.fft`` versions.
+
+The passes keep the JAX package's layout at their signatures: spectra are
+split real/imag float32 pairs; the middle-axis passes take (A, L, B) arrays
+with the transform along L; the x-edge passes take (R, n) rows with the
+transform along the last axis and the kx Nyquist column split off. Each
+wrapper:
+
+- on a CUDA tensor launches its kernel from ``csrc/fft_passes.cu`` on the
+  current stream, without synchronising, and adds one to its ``launches``
+  count (or raises: there is no fallback);
+- on a CPU tensor returns its plain version (``*_ref``): ``torch.fft`` with
+  the padding and truncation written out, as the JAX package writes each
+  pass's VJP reference.
+
+Every pass takes float32 only, and lengths ``m`` with
+:func:`kernel_fft_supported`. Forward only: no ``torch.autograd.Function``
+wraps these yet.
+
+Replaced TPU kernels (``sopht_mpi_tpu/parallel/pallas_fft.py``):
+:func:`rfft_pass_padded_split` <- ``_rfft_pass_padded_split_impl``,
+:func:`fft_pass_padded` <- ``_fft_pass_padded_impl``,
+:func:`fft_greens_ifft_pass` <- ``_fft_greens_ifft_pass_impl``,
+:func:`ifft_pass_truncated` <- ``_ifft_pass_truncated_impl``,
+:func:`irfft_pass_merge` <- ``_irfft_pass_merge_impl``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    "sopht_fft_pass_padded_f32": (_P, _P, _P, _P, _P, _I, _L, _I, _P),
+    "sopht_ifft_pass_truncated_f32": (_P, _P, _P, _I, _P, _P, _P, _I, _L, _I,
+                                      _P),
+    "sopht_fft_greens_ifft_pass_f32": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _P),
+    "sopht_rfft_pass_padded_split_f32": (_P, _P, _P, _P, _P, _P, _L, _I, _I,
+                                         _P),
+    "sopht_irfft_pass_merge_f32": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
+}
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/fft_passes.cu``."""
+    from sopht_mpi_tpu_torch._build import load_library
+
+    return _bind(load_library("fft_passes", ("fft_passes.cu",)))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.sopht_fft_table_floats.argtypes = (_I,)
+    lib.sopht_fft_table_floats.restype = ctypes.c_int
+    lib.sopht_fft_fill_table.argtypes = (_I, _P)
+    lib.sopht_fft_fill_table.restype = ctypes.c_int
+    lib.sopht_fft_error_string.argtypes = (_I,)
+    lib.sopht_fft_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def best_factors(m: int) -> tuple[int, int]:
+    """``m = m1 * m2`` with ``m1`` the largest divisor ``<= sqrt(m)`` (the
+    JAX package's ``mxu_fft._best_factors``)."""
+    for m1 in range(math.isqrt(m), 0, -1):
+        if m % m1 == 0:
+            return m1, m // m1
+    raise ValueError(f"no factors of {m}")
+
+
+def kernel_fft_supported(m: int) -> bool:
+    """Transform lengths the kernels take: ``64 <= m <= 1024`` with
+    ``m1 >= 4`` and ``m2`` even (the JAX package's
+    ``pallas_fft_supported``)."""
+    if not 64 <= m <= 1024:
+        return False
+    m1, m2 = best_factors(m)
+    return m1 >= 4 and m2 % 2 == 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _split(z):
+    return z.real.contiguous(), z.imag.contiguous()
+
+
+def rfft_pass_padded_split_ref(x, m: int):
+    """r2c of each row of (R, n_in) zero-padded to ``m``:
+    ``(bulk_r, bulk_i, side_r, side_i)``, bulk (R, m/2) = k < m/2, side
+    (R, 1) = k = m/2."""
+    z = torch.fft.rfft(x, n=m, dim=1)
+    return (*_split(z[:, : m // 2]), *_split(z[:, m // 2:]))
+
+
+def fft_pass_padded_ref(xr, xi, axis_len_out: int):
+    """Forward DFT along the middle axis of (A, m/2, B), zero-padded to
+    ``m = axis_len_out``: (A, m, B) pair."""
+    return _split(torch.fft.fft(torch.complex(xr, xi), n=axis_len_out, dim=1))
+
+
+def fft_greens_ifft_pass_ref(xr, xi, greens):
+    """``ifft_pass_truncated(*fft_pass_padded(xr, xi, m), greens)`` with
+    ``m = 2 L`` for (A, L, B) pairs; ``greens`` (1, m, B)."""
+    half = xr.shape[1]
+    f = torch.fft.fft(torch.complex(xr, xi), n=2 * half, dim=1)
+    return _split(torch.fft.ifft(f * greens, dim=1)[:, :half])
+
+
+def ifft_pass_truncated_ref(xr, xi, greens=None):
+    """Inverse DFT along the middle axis of (A, m, B), optionally times the
+    real ``greens`` (A or 1, m, B), keeping the first m/2 outputs."""
+    f = torch.complex(xr, xi)
+    if greens is not None:
+        f = f * greens
+    return _split(torch.fft.ifft(f, dim=1)[:, : xr.shape[1] // 2])
+
+
+def irfft_pass_merge_ref(br, bi, sr, si, m: int, n_out: int):
+    """c2r of rows from the bulk (R, m/2) and Nyquist (R, 1) pairs, keeping
+    the first ``n_out`` reals. The imaginary parts of k = 0 and k = m/2 do
+    not enter (the JAX package's c2r weights)."""
+    re = torch.cat([br, sr], dim=1)
+    im = torch.cat([bi, si], dim=1).clone()
+    im[:, 0] = 0.0
+    im[:, -1] = 0.0
+    return torch.fft.irfft(torch.complex(re, im), n=m, dim=1)[:, :n_out] \
+        .contiguous()
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+_TABLES: dict = {}
+
+
+def _table(m: int, device) -> torch.Tensor:
+    """The twiddle table of length ``m`` on ``device``, built once in
+    float64 on the host by the library and kept."""
+    key = (m, str(device))
+    if key not in _TABLES:
+        lib = library()
+        host = torch.empty(lib.sopht_fft_table_floats(m), dtype=torch.float32)
+        _check_err("sopht_fft_fill_table", lib.sopht_fft_fill_table(
+            m, host.data_ptr()))
+        _TABLES[key] = host.to(device)
+    return _TABLES[key]
+
+
+def _check_err(name, err):
+    if err != 0:
+        msg = library().sopht_fft_error_string(err).decode()
+        raise RuntimeError(f"{name} failed: CUDA error {err} ({msg})")
+
+
+def _launch(name, device, *args):
+    stream = None
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream().cuda_stream
+    _check_err(name, getattr(library(), name)(*args, stream))
+
+
+def _check(name, t, ndim, like=None):
+    if not torch.is_tensor(t) or t.ndim != ndim:
+        raise ValueError(f"{name}: expected a {ndim}-d tensor")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: dtype {t.dtype} is not float32")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    if t.device.type == "cuda" and not t.is_contiguous():
+        raise ValueError(f"{name}: the kernel needs a contiguous tensor")
+    if min(t.shape) == 0:
+        raise ValueError(f"{name}: empty tensor {tuple(t.shape)}")
+    if like is not None and t.device != like.device:
+        raise ValueError(f"{name} lies on {t.device}, the input on "
+                         f"{like.device}")
+
+
+def _check_length(m):
+    if not kernel_fft_supported(m):
+        raise ValueError(f"transform length {m} is not supported "
+                         "(kernel_fft_supported)")
+
+
+def _check_shape(name, t, shape):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+
+
+def _empty(like, *shape):
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+
+def rfft_pass_padded_split(x, m: int):
+    """r2c of the minor axis of a real (R, n_in) view zero-padded to ``m``
+    (``n_in <= m/2``), the Nyquist column split off:
+    ``(bulk_r, bulk_i, side_r, side_i)`` of shapes (R, m/2) and (R, 1)."""
+    _check("x", x, 2)
+    _check_length(m)
+    rows, n_in = x.shape
+    if n_in > m // 2:
+        raise ValueError(f"rows of {n_in} do not fit the padded half of {m}")
+    if x.device.type == "cpu":
+        return rfft_pass_padded_split_ref(x, m)
+    out = _k_rfft_pass_padded_split(x, m)
+    rfft_pass_padded_split.launches += 1
+    return out
+
+
+def _k_rfft_pass_padded_split(x, m):
+    rows, n_in = x.shape
+    br, bi = _empty(x, rows, m // 2), _empty(x, rows, m // 2)
+    sr, si = _empty(x, rows, 1), _empty(x, rows, 1)
+    _launch("sopht_rfft_pass_padded_split_f32", x.device, x.data_ptr(),
+            br.data_ptr(), bi.data_ptr(), sr.data_ptr(), si.data_ptr(),
+            _table(m, x.device).data_ptr(), rows, n_in, m)
+    return br, bi, sr, si
+
+
+def fft_pass_padded(xr, xi, axis_len_out: int):
+    """Forward padded FFT along the middle axis of (A, L, B) float32 pairs:
+    input L = m/2 (zero-padded semantics), output L = m = axis_len_out."""
+    m = axis_len_out
+    _check("xr", xr, 3)
+    _check("xi", xi, 3, like=xr)
+    _check_shape("xi", xi, xr.shape)
+    _check_length(m)
+    _check_shape("xr", xr, (xr.shape[0], m // 2, xr.shape[2]))
+    if xr.device.type == "cpu":
+        return fft_pass_padded_ref(xr, xi, m)
+    out = _k_fft_pass_padded(xr, xi, m)
+    fft_pass_padded.launches += 1
+    return out
+
+
+def _k_fft_pass_padded(xr, xi, m):
+    a, _, b = xr.shape
+    zr, zi = _empty(xr, a, m, b), _empty(xr, a, m, b)
+    _launch("sopht_fft_pass_padded_f32", xr.device, xr.data_ptr(),
+            xi.data_ptr(), zr.data_ptr(), zi.data_ptr(),
+            _table(m, xr.device).data_ptr(), a, b, m)
+    return zr, zi
+
+
+def fft_greens_ifft_pass(xr, xi, greens):
+    """Fused ``ifft_pass_truncated(*fft_pass_padded(xr, xi, m), greens)``
+    along the middle axis of (A, m/2, B) float32 pairs; ``greens`` is the
+    real multiplier (1, m, B), one copy shared by every A."""
+    _check("xr", xr, 3)
+    _check("xi", xi, 3, like=xr)
+    _check("greens", greens, 3, like=xr)
+    _check_shape("xi", xi, xr.shape)
+    a, half, b = xr.shape
+    m = 2 * half
+    _check_length(m)
+    _check_shape("greens", greens, (1, m, b))
+    if xr.device.type == "cpu":
+        return fft_greens_ifft_pass_ref(xr, xi, greens)
+    out = _k_fft_greens_ifft_pass(xr, xi, greens)
+    fft_greens_ifft_pass.launches += 1
+    return out
+
+
+def _k_fft_greens_ifft_pass(xr, xi, greens):
+    a, half, b = xr.shape
+    yr, yi = _empty(xr, a, half, b), _empty(xr, a, half, b)
+    _launch("sopht_fft_greens_ifft_pass_f32", xr.device, xr.data_ptr(),
+            xi.data_ptr(), greens.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            _table(2 * half, xr.device).data_ptr(), a, b, 2 * half)
+    return yr, yi
+
+
+def ifft_pass_truncated(xr, xi, greens=None):
+    """Inverse FFT along the middle axis of (A, m, B) float32 pairs, keeping
+    the first m/2 outputs. ``greens`` (float32, shape (A, m, B) or
+    (1, m, B)) is an optional real spectral multiplier folded into the
+    load."""
+    _check("xr", xr, 3)
+    _check("xi", xi, 3, like=xr)
+    _check_shape("xi", xi, xr.shape)
+    a, m, b = xr.shape
+    _check_length(m)
+    if greens is not None:
+        _check("greens", greens, 3, like=xr)
+        if greens.shape[0] not in (1, a):
+            raise ValueError(f"greens: leading axis {greens.shape[0]} is "
+                             f"neither 1 nor {a}")
+        _check_shape("greens", greens, (greens.shape[0], m, b))
+    if xr.device.type == "cpu":
+        return ifft_pass_truncated_ref(xr, xi, greens)
+    out = _k_ifft_pass_truncated(xr, xi, greens)
+    ifft_pass_truncated.launches += 1
+    return out
+
+
+def _k_ifft_pass_truncated(xr, xi, greens):
+    a, m, b = xr.shape
+    yr, yi = _empty(xr, a, m // 2, b), _empty(xr, a, m // 2, b)
+    _launch("sopht_ifft_pass_truncated_f32", xr.device, xr.data_ptr(),
+            xi.data_ptr(), None if greens is None else greens.data_ptr(),
+            int(greens is not None and greens.shape[0] == 1),
+            yr.data_ptr(), yi.data_ptr(), _table(m, xr.device).data_ptr(),
+            a, b, m)
+    return yr, yi
+
+
+def irfft_pass_merge(br, bi, sr, si, m: int, n_out: int):
+    """c2r of the minor axis from split bulk (R, m/2) / Nyquist (R, 1)
+    float32 pairs, keeping the first ``n_out <= m/2`` real outputs."""
+    _check("br", br, 2)
+    for name, t in (("bi", bi), ("sr", sr), ("si", si)):
+        _check(name, t, 2, like=br)
+    _check_length(m)
+    rows = br.shape[0]
+    _check_shape("br", br, (rows, m // 2))
+    _check_shape("bi", bi, (rows, m // 2))
+    _check_shape("sr", sr, (rows, 1))
+    _check_shape("si", si, (rows, 1))
+    if not 0 < n_out <= m // 2:
+        raise ValueError(f"n_out {n_out} is not in (0, {m // 2}]")
+    if br.device.type == "cpu":
+        return irfft_pass_merge_ref(br, bi, sr, si, m, n_out)
+    out = _k_irfft_pass_merge(br, bi, sr, si, m, n_out)
+    irfft_pass_merge.launches += 1
+    return out
+
+
+def _k_irfft_pass_merge(br, bi, sr, si, m, n_out):
+    rows = br.shape[0]
+    out = _empty(br, rows, n_out)
+    _launch("sopht_irfft_pass_merge_f32", br.device, br.data_ptr(),
+            bi.data_ptr(), sr.data_ptr(), si.data_ptr(), out.data_ptr(),
+            _table(m, br.device).data_ptr(), rows, m, n_out)
+    return out
+
+
+rfft_pass_padded_split.launches = 0
+fft_pass_padded.launches = 0
+fft_greens_ifft_pass.launches = 0
+ifft_pass_truncated.launches = 0
+irfft_pass_merge.launches = 0
+
+#: the wrappers, for code that resets or reads every launch count
+KERNELS = (rfft_pass_padded_split, fft_pass_padded, fft_greens_ifft_pass,
+           ifft_pass_truncated, irfft_pass_merge)

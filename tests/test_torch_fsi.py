@@ -36,11 +36,24 @@ def _close(out, ref, tol, what):
 
 
 @pytest.mark.parametrize(
-    "precision,sparse_forcing",
-    [("single", None), ("single", False), ("double", None)],
-    ids=["single-sparse", "single-dense", "double-sparse"],
+    "precision,sparse_forcing,kernel_route",
+    [("single", None, False), ("single", False, False),
+     ("double", None, False), ("single", None, True)],
+    ids=["single-sparse", "single-dense", "double-sparse",
+         "single-sparse-kernel-route"],
 )
-def test_sphere_fsi_steps_match_jax(precision, sparse_forcing):
+def test_sphere_fsi_steps_match_jax(precision, sparse_forcing, kernel_route,
+                                    monkeypatch):
+    """``kernel_route`` forces both packages onto the split-spectrum Poisson
+    route (the JAX Pallas convolve, the port's FFT passes): the carry then
+    holds the (bulk, side) Green's pair, which the conversion carries
+    over."""
+    if kernel_route:
+        import sopht_mpi_tpu.ops.poisson as jax_poisson
+        from sopht_mpi_tpu_torch.ops import poisson
+
+        monkeypatch.setattr(jax_poisson, "FORCE_PALLAS_CONVOLVE", True)
+        monkeypatch.setattr(poisson, "FORCE_KERNEL_CONVOLVE", True)
     jax_step, (jax_carry,) = jax_entry._build_fsi_case(
         (32, 32, 32), precision=precision, sparse_forcing=sparse_forcing,
         sim_kwargs={"use_pallas": True},
@@ -59,8 +72,17 @@ def test_sphere_fsi_steps_match_jax(precision, sparse_forcing):
 
     # what the port builds on its own agrees with what JAX built
     rtol = SETUP_RTOL[precision]
-    g_ref = np.asarray(start.greens)
-    _close(own_carry.greens, g_ref, rtol * np.abs(g_ref).max(), "greens")
+    assert isinstance(start.greens, tuple) == kernel_route
+    assert isinstance(own_carry.greens, tuple) == kernel_route
+    assert isinstance(carry.greens, tuple) == kernel_route
+    pairs = (zip(own_carry.greens, start.greens) if kernel_route
+             else [(own_carry.greens, start.greens)])
+    # the split pair is two slices of the dense spectrum, each held to the
+    # dense spectrum's bound
+    g_bulk = start.greens[0] if kernel_route else start.greens
+    g_scale = np.abs(np.asarray(g_bulk)).max()
+    for own_g, g_ref in pairs:
+        _close(own_g, np.asarray(g_ref), rtol * g_scale, "greens")
     if step.uses_sparse_forcing:
         for a, b in zip(own_carry.ibm_mats, start.ibm_mats):
             _close(a, b, rtol * np.abs(b).max(), "ibm_mats")

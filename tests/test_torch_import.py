@@ -13,9 +13,11 @@ def test_port_imports_without_jax():
         "import sopht_mpi_tpu_torch, sopht_mpi_tpu_torch.cases\n"
         "import sopht_mpi_tpu_torch.convert\n"
         "from sopht_mpi_tpu_torch.ops import cuda_stencils_3d\n"
+        "from sopht_mpi_tpu_torch.parallel import cuda_fft\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'sopht_mpi_tpu' not in sys.modules, 'JAX package imported'\n"
         "assert cuda_stencils_3d.library.cache_info().currsize == 0\n"
+        "assert cuda_fft.library.cache_info().currsize == 0\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
