@@ -12,11 +12,12 @@ raises and exits non-zero, and nothing falls back to the CPU:
 2. build: ``nvcc`` builds both sources of ``sopht_mpi_tpu_torch/csrc``
    at once (one compiler process each) and prints ptxas' register lines;
 3. kernels: each stencil kernel against its plain PyTorch version on the
-   card (float32 at 256^3 and (3, 17, 33, 65), float64 at 64^3), and each
-   FFT-pass kernel against its plain ``torch.fft`` version (float32 at the
-   256^3 main-path shapes and at those of a (48, 32, 64) grid), with
-   kernel and plain times at 256^3 (CUDA events, median of 20 calls after
-   warm-up);
+   card (float32 at 256^3 and (3, 17, 33, 65), float64 at 64^3; the
+   filtered-transport trio also at the rod's (3, 256, 64, 256), both filter
+   types, orders 1 and 2), and each FFT-pass kernel against its plain
+   ``torch.fft`` version (float32 at the 256^3 main-path shapes and at
+   those of a (48, 32, 64) grid), with kernel and plain times at the main
+   paths' shapes (CUDA events, median of 20 calls after warm-up);
 4. solve: the 256^3 vector Poisson solve on the kernel route against the
    same solver's dense ``torch.fft`` route, values and times;
 5. main path: the 256^3 flow-past-sphere FSI step (sparse IBM window,
@@ -27,7 +28,18 @@ raises and exits non-zero, and nothing falls back to the CPU:
    the kernel route, Cd against the JAX package's validated value and
    against the same run on the dense ``torch.fft`` route;
 7. card vs CPU: 3 steps of the 32^3 case from one numpy-seeded state,
-   kernels on the card against the plain versions on the CPU.
+   kernels on the card against the plain versions on the CPU;
+8. rod main path: the (256, 64, 256) flexible-rod FSI step (float32 flow,
+   float64 rod, sparse moving window, order-1 multiplicative filter,
+   dynamic substeps, Poisson solve on the kernel route), 5 warm-up + 20
+   timed steps with every kernel's launch count, 3 steps with their host
+   syncs counted, then a profiled window for the device busy share and the
+   time by kernel (written to ``build/rod_profile.txt``);
+9. rod physics: the (128, 32, 128) rod case to t = 0.2, its tip against
+   the JAX package's CPU trajectory
+   (``sopht_mpi_tpu_torch/data/rod_tip_reference.json``);
+10. rod card vs CPU: 3 steps of the (64, 16, 64) rod case from one
+    numpy-seeded state.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -39,6 +51,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -48,7 +61,22 @@ REPLACES = {
     "rotational_curl_add_3d": "sopht_mpi_tpu/ops/pallas_stencils_3d.py:683",
     "diffusion_penalise_vector_3d": "sopht_mpi_tpu/ops/pallas_stencils_3d.py:1324",
     "curl_3d": "sopht_mpi_tpu/ops/pallas_stencils_3d.py:645",
+    "diffusion_timestep_vector_3d": "sopht_mpi_tpu/ops/pallas_stencils_3d.py:606",
+    "laplacian_filter_vector_3d": "sopht_mpi_tpu/ops/pallas_stencils_3d.py:922",
+    "penalise_field_boundary_vector_3d":
+        "sopht_mpi_tpu/ops/pallas_stencils_3d.py:1144",
 }
+# the kernels of the sphere path; the rod path runs the filtered-transport
+# trio in place of diffusion_penalise_vector_3d
+SPHERE_KERNELS = ("rotational_curl_add_3d", "diffusion_penalise_vector_3d",
+                  "curl_3d")
+TRANSPORT_KERNELS = ("diffusion_timestep_vector_3d",
+                     "laplacian_filter_vector_3d",
+                     "penalise_field_boundary_vector_3d")
+ROD_SHAPE = (3, 256, 64, 256)
+# the rod tip against the JAX package's trajectory: the bound to which
+# doc/validation_rod_sparse_vs_dense.json holds sparse against dense
+TIP_TOL = 2e-5
 FFT_REPLACES = {
     "rfft_pass_padded_split": "sopht_mpi_tpu/parallel/pallas_fft.py:730",
     "fft_pass_padded": "sopht_mpi_tpu/parallel/pallas_fft.py:260",
@@ -184,6 +212,35 @@ def main():
                 lambda: kernels.curl_3d(w, p, add, True),
                 lambda: kernels.curl_3d_ref(w, p, add, True)),
         }
+        return check_calls(calls, shape, dtype)
+
+    def transport_calls(shape, dtype, gen):
+        """The filtered-transport trio at ``shape``: diffusion, the filter
+        (both types, orders 1 and 2) and the sponge."""
+        w = torch.randn(shape, dtype=dtype, device=dev, generator=gen)
+        p = torch.tensor(0.13, dtype=dtype, device=dev)
+        calls = {
+            "diffusion_timestep_vector_3d": (
+                lambda: kernels.diffusion_timestep_vector_3d(w, p),
+                lambda: kernels.diffusion_timestep_vector_3d_ref(w, p)),
+            "penalise_field_boundary_vector_3d": (
+                lambda: kernels.penalise_field_boundary_vector_3d(w, 2),
+                lambda: kernels.penalise_field_boundary_vector_3d_ref(w, 2)),
+        }
+        # the main path's filter first: its entry carries the kernel's name
+        for ftype, order in (("multiplicative", 1), ("multiplicative", 2),
+                             ("convolution", 1), ("convolution", 2)):
+            name = "laplacian_filter_vector_3d"
+            if (ftype, order) != ("multiplicative", 1):
+                name += f" {ftype} {order}"
+            calls[name] = (
+                lambda f=ftype, o=order: kernels.laplacian_filter_vector_3d(
+                    w, o, f),
+                lambda f=ftype, o=order:
+                    kernels.laplacian_filter_vector_3d_ref(w, o, f))
+        return check_calls(calls, shape, dtype)
+
+    def check_calls(calls, shape, dtype):
         errs = {}
         for name, (fn, ref_fn) in calls.items():
             out, ref = fn(), ref_fn()
@@ -265,6 +322,25 @@ def main():
                 "ms": median_ms(torch, fn), "plain_ms": median_ms(torch, ref_fn),
             }
         del calls
+        for shape, dtype in (((3, 17, 33, 65), torch.float32),
+                             ((3, 64, 64, 64), torch.float64),
+                             (ROD_SHAPE, torch.float32)):
+            calls, errs = transport_calls(shape, dtype, gen)
+        # the rod path's shape: errors and times kept, the other filter
+        # variants' times printed
+        variants = []
+        for name, (fn, ref_fn) in calls.items():
+            ms, plain_ms = median_ms(torch, fn), median_ms(torch, ref_fn)
+            if name in REPLACES:
+                table[name] = {
+                    "name": name, "route": "cuda", "source": SOURCE,
+                    "replaces": REPLACES[name], "launches": None,
+                    "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                }
+            else:
+                variants.append(f"{name}: err {errs[name]:.3g}, {ms:.4f} ms "
+                                f"vs plain {plain_ms:.4f} ms")
+        del calls
         run_fft_checks((48, 32, 64), gen)  # m = 96, 64, 128
         calls, errs = run_fft_checks((256, 256, 256), gen)
         for name in FFT_REPLACES:
@@ -279,7 +355,10 @@ def main():
         torch.cuda.empty_cache()
         detail = "; ".join(
             f"{k}: err {v['max_abs_err']:.3g}, {v['ms']:.4f} ms vs plain "
-            f"{v['plain_ms']:.4f} ms at 256^3 f32" for k, v in table.items())
+            f"{v['plain_ms']:.4f} ms at "
+            f"{'(3, 256, 64, 256)' if k in TRANSPORT_KERNELS else '256^3'} f32"
+            for k, v in table.items())
+        detail += "; at (3, 256, 64, 256) f32: " + "; ".join(variants)
         return table, detail + f" [{card}]"
 
     table = kernel_phase()
@@ -329,8 +408,9 @@ def main():
         torch.cuda.reset_peak_memory_stats(dev)
         carry, _ = scan_steps(step, carry, 5)
         torch.cuda.synchronize()
-        all_kernels = kernels.KERNELS + cuda_fft.KERNELS
-        for fn in all_kernels:
+        all_kernels = [fn for fn in kernels.KERNELS
+                       if fn.__name__ in SPHERE_KERNELS] + list(cuda_fft.KERNELS)
+        for fn in kernels.KERNELS + cuda_fft.KERNELS:
             fn.launches = 0
         t0 = time.perf_counter()
         # the step never waits for the device: a synchronising call raises
@@ -417,6 +497,174 @@ def main():
         return None, f"32^3, 3 steps, max|diff| {errs}"
 
     parity_phase()
+
+    rod_kernels = [fn for fn in kernels.KERNELS
+                   if fn.__name__ != "diffusion_penalise_vector_3d"]
+    rod_kernels += list(cuda_fft.KERNELS)
+
+    def count_syncs(fn):
+        """Run ``fn`` with every synchronising CUDA call reported; returns
+        (its result, the number of synchronising calls)."""
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return out, sum("synchroniz" in str(w.message) for w in caught)
+
+    @phase("rod main path")
+    def rod_main_path_phase():
+        grid = (256, 64, 256)
+        step, (carry,) = cases._build_rod_bench_case(grid, device=dev)
+        check(step.sparse_forcing_window == (181, 64, 181),
+              f"sparse window {step.sparse_forcing_window}, not (181, 64, 181)")
+        check(isinstance(carry.greens, tuple), "the rod case's Poisson solve "
+              "is not on the kernel route")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        carry, _ = scan_steps(step, carry, 5)
+        torch.cuda.synchronize()
+        for fn in kernels.KERNELS + cuda_fft.KERNELS:
+            fn.launches = 0
+        n_steps = 20
+        stats0 = dict(step.stats)
+        t0 = time.perf_counter()
+        carry, (forces, window_ok) = scan_steps(step, carry, n_steps)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in rod_kernels}
+        for name, count in launches.items():
+            check(count >= n_steps,
+                  f"{name} launched {count} times on the rod path")
+            table[name]["launches"] = count
+        substeps = step.stats["substeps"] - stats0["substeps"]
+        # the host syncs, counted on 3 more steps: the sync debug mode costs
+        # host time, which this host-bound step would show in its s/step
+        stats0 = dict(step.stats)
+        (carry, _), syncs = count_syncs(lambda: scan_steps(step, carry, 3))
+        host_reads = step.stats["host_syncs"] - stats0["host_syncs"]
+        check(syncs == host_reads == 3,
+              f"{syncs} synchronising calls, {host_reads} substep-count "
+              f"reads in 3 steps")
+        fs, rs = carry.flow_state, carry.rod_state
+        for what, t in (("vorticity", fs.primary_field),
+                        ("velocity", fs.velocity_field), ("forces", forces),
+                        ("rod", rs.position), ("tip", rs.position[:, -1])):
+            check(bool(torch.isfinite(t).all()), f"non-finite {what}")
+        check(bool(window_ok.all()), "the rod's support left the window")
+        check(tuple(fs.velocity_field.shape) == (3, *grid), "velocity shape")
+        s_step = elapsed / n_steps
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+
+        # the device's busy share and the time by kernel over 3 more steps
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            carry, _ = scan_steps(step, carry, 3)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t1) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA"]
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        n_launch = sum(e.count for e in events)
+        os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+        with open(os.path.join(REPO, "build", "rod_profile.txt"), "w") as f:
+            f.write(f"{card}\n(256, 64, 256) rod step, 3 steps, wall "
+                    f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms\n")
+            f.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=40,
+                max_name_column_width=90))
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+        return None, (
+            f"(256, 64, 256) f32 flow, f64 rod, window "
+            f"{step.sparse_forcing_window}: {s_step:.6f} s/step, "
+            f"{np.prod(grid) / s_step / 1e6:.3f} Mcells/s, peak {peak:.2f} "
+            f"GiB, {substeps / n_steps:.2f} substeps/step, "
+            f"{syncs / 3:.2f} host syncs/step, launches {launches}; "
+            f"profiled 3 steps: wall {wall_ms:.3f} ms, device busy "
+            f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%} of the profiled "
+            f"wall, {busy_ms / 3e3 / s_step:.1%} of an unprofiled step), "
+            f"{n_launch / 3:.0f} CUDA kernels/step, top "
+            + ", ".join(f"{e.key[:60]} {e.self_device_time_total / 3e3:.3f} "
+                        f"ms/step x{e.count // 3}" for e in top)
+            + f" [{card}]")
+
+    rod_main_path_phase()
+
+    @phase("rod physics")
+    def rod_physics_phase():
+        with open(os.path.join(REPO, "sopht_mpi_tpu_torch", "data",
+                               "rod_tip_reference.json")) as f:
+            ref = json.load(f)
+        grid = tuple(ref["grid_size"])
+        step, (carry,) = cases._build_rod_bench_case(grid, device=dev)
+        check(step.sparse_forcing_window is not None, "no sparse window")
+        times = [float(carry.time)]
+        tips = [carry.rod_state.position[:, -1].cpu().numpy()]
+        while times[-1] < ref["t_end"]:
+            carry, _ = step(carry)
+            times.append(float(carry.time))
+            tips.append(carry.rod_state.position[:, -1].cpu().numpy())
+        times, tips = np.asarray(times), np.asarray(tips)
+        ref_t, ref_tip = np.asarray(ref["times"]), np.asarray(ref["tip"])
+        check(np.isfinite(tips).all(), "non-finite tip")
+        # the JAX tip at the card's times (the step sizes agree to float32
+        # rounding); the card's run stops at the first step past t_end
+        inside = times <= ref_t[-1]
+        ref_at = np.stack([np.interp(times[inside], ref_t, ref_tip[:, c])
+                           for c in range(3)], axis=1)
+        dev_max = float(np.abs(tips[inside] - ref_at).max())
+        rel = dev_max / ref["rod_length"]
+        check(rel <= TIP_TOL, f"tip deviates {rel:.3g} L from the JAX "
+              f"trajectory (> {TIP_TOL})")
+        moved = float(np.abs(tips[-1] - tips[0]).max())
+        return None, (
+            f"{grid} rod case to t = {times[-1]:.5f} in {len(times) - 1} steps "
+            f"(JAX CPU: {len(ref_t) - 1}), {step.stats['substeps']} substeps; "
+            f"tip moved {moved:.6g}, max deviation from the JAX trajectory "
+            f"{dev_max:.3g} = {rel:.3g} L (bound {TIP_TOL} L)")
+
+    rod_physics_phase()
+
+    @phase("rod card vs cpu")
+    def rod_parity_phase():
+        grid = (64, 16, 64)
+        vort = np.random.default_rng(0).standard_normal((3, *grid)) * 0.1
+        finals = []
+        for device in (dev, torch.device("cpu")):
+            step, (carry,) = cases._build_rod_bench_case(grid, device=device)
+            check(step.sparse_forcing_window is not None, "no sparse window")
+            fs = carry.flow_state
+            state = flow_state_from_numpy(
+                (vort, fs.velocity_field.cpu().numpy(),
+                 fs.eul_grid_forcing_field.cpu().numpy()),
+                device=device, dtype=torch.float32)
+            carry, _ = scan_steps(step, carry._replace(flow_state=state), 3)
+            finals.append((carry, step.stats["substeps"]))
+        (gpu, n_gpu), (cpu, n_cpu) = finals
+        errs = {}
+        for what, out, ref in (
+                ("vorticity", gpu.flow_state.primary_field,
+                 cpu.flow_state.primary_field),
+                ("velocity", gpu.flow_state.velocity_field,
+                 cpu.flow_state.velocity_field),
+                ("rod position", gpu.rod_state.position,
+                 cpu.rod_state.position),
+                ("position mismatch", gpu.vb_state.position_mismatch,
+                 cpu.vb_state.position_mismatch)):
+            err = float((out.cpu() - ref).abs().max())
+            tol = 1e-4 * max(1.0, float(ref.abs().max()))
+            check(err <= tol, f"rod {what}: card vs cpu {err} > {tol}")
+            errs[what] = err
+        return None, (f"(64, 16, 64), 3 steps, {n_gpu} substeps (cpu "
+                      f"{n_cpu}), max|diff| {errs}")
+
+    rod_parity_phase()
 
     print(json.dumps({"kernels": list(table.values())}))
     print(json.dumps({"ok": True, "device": {

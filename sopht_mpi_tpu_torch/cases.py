@@ -1,6 +1,8 @@
-"""The flow-past-sphere FSI cases a user runs (counterparts of
+"""The FSI cases a user runs: flow past a sphere (counterparts of
 ``__graft_entry__._build_fsi_case`` and
-``examples/3d/flow_past_sphere.py:flow_past_sphere_fused_case``).
+``examples/3d/flow_past_sphere.py:flow_past_sphere_fused_case``) and flow
+past a flexible rod (``__graft_entry__._build_rod_fsi_case`` and
+``_build_rod_bench_case``).
 """
 
 from __future__ import annotations
@@ -9,13 +11,23 @@ import numpy as np
 import torch
 
 from sopht_mpi_tpu_torch.models import (
+    AnalyticalLinearDamper,
+    BaseSystemCollection,
+    CosseratRod,
+    CosseratRodFlowInteraction,
+    CosseratRodSurfaceForcingGrid,
+    GravityForces,
+    OneEndFixedBC,
     RigidBodyFlowInteraction,
     Sphere,
     SphereForcingGrid,
     UnboundedFlowSimulator3D,
     build_rigid_fsi_step,
+    build_rod_fsi_step,
     init_rigid_fsi_carry,
+    init_rod_fsi_carry,
     scan_steps,
+    suggest_rod_forcing_window,
 )
 from sopht_mpi_tpu_torch.utils import get_real_t
 
@@ -151,3 +163,183 @@ def flow_past_sphere_fused_case(
         times.append(float(carry.time) / timescale)
         drag_coeffs.append(float(lag_forces[-1, 0].abs()) / drag_scale)
     return np.asarray(times), np.asarray(drag_coeffs)
+
+
+def _build_rod_fsi_case(grid_size, *, device, surface_density=4,
+                        sparse_forcing=False):
+    """A small 3D flexible-rod FSI case (float32 flow, float64 rod,
+    surface forcing grid, one rod substep per flow step); returns (fused
+    step, carry). ``sparse_forcing=True`` takes the moving-window sparse
+    IBM path; the step's diagnostics then include the window_ok flag."""
+    real_t = torch.float32
+    flow_sim = UnboundedFlowSimulator3D(
+        grid_size=grid_size,
+        x_range=1.0,
+        kinematic_viscosity=1e-3,
+        flow_type="navier_stokes_with_forcing",
+        with_free_stream_flow=True,
+        real_t=real_t,
+        device=device,
+    )
+    flow_sim.velocity_field = flow_sim.velocity_field + 1.0
+    rod = CosseratRod.straight_rod(
+        6,
+        np.array([0.5, 0.4, 0.4]),
+        np.array([0.0, 1.0, 0.0]),
+        np.array([0.0, 0.0, 1.0]),
+        base_length=0.3,
+        base_radius=0.02,
+        density=1e3,
+        youngs_modulus=1e5,
+        shear_modulus=1e5 / 1.5,
+        device=flow_sim.device,
+    )
+    collection = BaseSystemCollection()
+    collection.append(rod)
+    collection.constrain(rod).using(
+        OneEndFixedBC,
+        constrained_position_idx=(0,),
+        constrained_director_idx=(0,),
+    )
+    collection.finalize()
+    interactor = CosseratRodFlowInteraction(
+        flow_sim=flow_sim,
+        cosserat_rod=rod,
+        virtual_boundary_stiffness_coeff=-1e3,
+        virtual_boundary_damping_coeff=-1e0,
+        forcing_grid_cls=CosseratRodSurfaceForcingGrid,
+        surface_grid_density_for_largest_element=surface_density,
+    )
+    window = None
+    if sparse_forcing:
+        window = suggest_rod_forcing_window(interactor, rod, grid_size)
+        if window is None:
+            raise RuntimeError("sparse rod case: no window fits this grid")
+    free_stream = torch.tensor([1.0, 0.0, 0.0], dtype=real_t,
+                               device=flow_sim.device)
+    step = build_rod_fsi_step(
+        flow_sim,
+        interactor,
+        collection,
+        rod_substeps=1,
+        dt_prefac=0.5,
+        free_stream_fn=lambda t: free_stream,
+        sparse_forcing_window=window,
+    )
+    return step, init_rod_fsi_carry(flow_sim, interactor, rod)
+
+
+def _build_rod_bench_case(grid_size, *, device, sparse_forcing=None,
+                          precision="single", substep_load_refresh="every",
+                          sim_kwargs=None):
+    """The flexible-rod FSI benchmark case, sized as the reference's own
+    driver (flow_past_rod_case.py): grid (nx, nx/4, nx), n_elem = 5 nx / 16,
+    surface grid density nx / 8, Cauchy 0.1, mass ratio 100, Re 100,
+    stretch stiffening of the experimental filament, gravity, the linear
+    damper, dynamic substeps from the rod's dt, and the multiplicative
+    order-1 vorticity filter. The rod is float64, the flow float32
+    (``precision="single"``). Returns (fused step, (carry,)).
+
+    ``sparse_forcing=False`` forces the dense IBM path; None takes the
+    moving sparse window that :func:`suggest_rod_forcing_window` gives.
+    ``sim_kwargs`` are extra :class:`UnboundedFlowSimulator3D` options."""
+    grid_size_z, grid_size_y, grid_size_x = grid_size
+    real_t = get_real_t(precision)
+    n_elem = 5 * grid_size_x // 16
+    surface_density = max(4, grid_size_x // 8)
+    rho_f, u_free_stream, base_length = 1.0, 1.0, 1.0
+    cauchy_number, mass_ratio, froude_number, reynolds = 0.1, 100.0, 0.5, 100.0
+    x_range = 1.8 * base_length
+    y_range = grid_size_y / grid_size_x * x_range
+    z_range = grid_size_z / grid_size_x * x_range
+
+    start = np.array([0.2 * x_range, 0.5 * y_range, 0.75 * z_range])
+    direction = np.array([0.0, 0.0, -1.0])
+    normal = np.array([0.0, 1.0, 0.0])
+    base_diameter = y_range / 5.0
+    base_radius = base_diameter / 2.0
+    base_area = np.pi * base_radius**2
+    rho_s = mass_ratio * rho_f
+    moment_of_inertia = np.pi / 4 * base_radius**4
+    youngs_modulus = (
+        rho_f * u_free_stream**2 * base_length**3 * base_diameter
+    ) / (cauchy_number * moment_of_inertia)
+    gravitational_acc = froude_number * u_free_stream**2 / base_diameter
+    exp_radius, exp_length = 0.2e-3, 25e-3
+    stretch_bending_ratio = (
+        np.pi * exp_radius**2 * exp_length**2 / (np.pi / 4 * exp_radius**4)
+    )
+    es_eb = stretch_bending_ratio * moment_of_inertia / (
+        base_area * base_length**2
+    )
+
+    device = torch.device(device)
+    collection = BaseSystemCollection()
+    rod = CosseratRod.straight_rod(
+        n_elem,
+        start,
+        direction,
+        normal,
+        base_length,
+        base_radius,
+        rho_s,
+        youngs_modulus=youngs_modulus,
+        shear_modulus=youngs_modulus / 1.5,
+        device=device,
+    )
+    shear_diag = rod.params.shear_diag.clone()
+    shear_diag[2] *= es_eb
+    rod.params = rod.params._replace(shear_diag=shear_diag)
+    collection.append(rod)
+    collection.constrain(rod).using(
+        OneEndFixedBC,
+        constrained_position_idx=(0,),
+        constrained_director_idx=(0,),
+    )
+    collection.add_forcing_to(rod).using(
+        GravityForces, acc_gravity=np.array([0.0, 0.0, -gravitational_acc])
+    )
+    dl = base_length / n_elem
+    axial_wave_speed = np.sqrt(youngs_modulus * es_eb / rho_s)
+    rod_dt = min(0.01 * dl, 0.3 * dl / axial_wave_speed)
+    collection.dampen(rod).using(
+        AnalyticalLinearDamper, damping_constant=1e-3, time_step=rod_dt
+    )
+    collection.finalize()
+
+    flow_sim = UnboundedFlowSimulator3D(
+        grid_size=grid_size,
+        x_range=x_range,
+        kinematic_viscosity=u_free_stream * base_diameter / reynolds,
+        flow_type="navier_stokes_with_forcing",
+        with_free_stream_flow=True,
+        real_t=real_t,
+        device=device,
+        filter_vorticity=True,
+        filter_setting_dict={"order": 1, "type": "multiplicative"},
+        **(sim_kwargs or {}),
+    )
+    interactor = CosseratRodFlowInteraction(
+        flow_sim=flow_sim,
+        cosserat_rod=rod,
+        virtual_boundary_stiffness_coeff=-2e5,
+        virtual_boundary_damping_coeff=-1e2,
+        forcing_grid_cls=CosseratRodSurfaceForcingGrid,
+        surface_grid_density_for_largest_element=surface_density,
+    )
+    sparse_window = None
+    if sparse_forcing is not False:
+        sparse_window = suggest_rod_forcing_window(interactor, rod, grid_size)
+    free_stream = torch.tensor([1.0, 0.0, 0.0], dtype=real_t, device=device)
+    step = build_rod_fsi_step(
+        flow_sim,
+        interactor,
+        collection,
+        dt_prefac=0.25,
+        free_stream_fn=lambda t: free_stream,
+        rod_dt=rod_dt,
+        sparse_forcing_window=sparse_window,
+        substep_load_refresh=substep_load_refresh,
+    )
+    carry = init_rod_fsi_carry(flow_sim, interactor, rod, step)
+    return step, (carry,)

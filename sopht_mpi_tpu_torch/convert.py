@@ -12,8 +12,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sopht_mpi_tpu_torch.models.elastica.rod import (
+    CosseratRodParams,
+    CosseratRodState,
+)
 from sopht_mpi_tpu_torch.models.flow.simulator_3d import FlowState3D
-from sopht_mpi_tpu_torch.models.fsi import RigidFSICarry
+from sopht_mpi_tpu_torch.models.fsi import RigidFSICarry, RodFSICarry
 from sopht_mpi_tpu_torch.ops.virtual_boundary import VirtualBoundaryState
 
 
@@ -60,10 +64,7 @@ def rigid_fsi_carry_from_numpy(tree, *, device, dtype) -> RigidFSICarry:
     )
     return RigidFSICarry(
         flow_state=flow_state_from_numpy(flow, device=device, dtype=dtype),
-        vb_state=VirtualBoundaryState(
-            *(_tensor(v, device, dtype)
-              for v in _fields(vb, VirtualBoundaryState._fields))
-        ),
+        vb_state=_vb_state(vb, device, dtype),
         velocity_mismatch=_tensor(mismatch, device, dtype),
         time=_tensor(time, device, dtype),
         greens=_greens(greens, device, dtype),
@@ -71,5 +72,58 @@ def rigid_fsi_carry_from_numpy(tree, *, device, dtype) -> RigidFSICarry:
         ibm_mats=(
             None if mats is None
             else tuple(_tensor(m, device, dtype) for m in mats)
+        ),
+    )
+
+
+def _vb_state(tree, device, dtype) -> VirtualBoundaryState:
+    return VirtualBoundaryState(
+        *(_tensor(v, device, dtype)
+          for v in _fields(tree, VirtualBoundaryState._fields))
+    )
+
+
+def rod_state_from_numpy(tree, *, device, dtype=torch.float64
+                         ) -> CosseratRodState:
+    """(position, velocity, director, omega) numpy arrays ->
+    :class:`CosseratRodState` on ``device`` in ``dtype``."""
+    return CosseratRodState(
+        *(_tensor(v, device, dtype)
+          for v in _fields(tree, CosseratRodState._fields))
+    )
+
+
+def rod_params_from_numpy(tree, *, device, dtype=torch.float64
+                          ) -> CosseratRodParams:
+    """A JAX rod's ``CosseratRodParams`` as numpy arrays ->
+    :class:`CosseratRodParams` on ``device`` in ``dtype``."""
+    return CosseratRodParams(
+        *(_tensor(v, device, dtype)
+          for v in _fields(tree, CosseratRodParams._fields))
+    )
+
+
+def rod_fsi_carry_from_numpy(tree, *, device, dtype, rod_dtype=torch.float64
+                             ) -> RodFSICarry:
+    """A JAX ``RodFSICarry`` as numpy arrays -> the port's
+    :class:`RodFSICarry`: the flow state, ``vb_state``, time, the Green's
+    function (dense, or the split (bulk, side) pair) and
+    ``velocity_l1_max`` in the flow's ``dtype``; the rod state in
+    ``rod_dtype``; the frozen loads (None unless the step freezes them) in
+    the promotion of the two, the dtype the markers' math runs in."""
+    (flow, vb, rod, time, greens, l1_max, frozen) = _fields(
+        tree, RodFSICarry._fields
+    )
+    marker_dtype = torch.promote_types(dtype, rod_dtype)
+    return RodFSICarry(
+        flow_state=flow_state_from_numpy(flow, device=device, dtype=dtype),
+        vb_state=_vb_state(vb, device, dtype),
+        rod_state=rod_state_from_numpy(rod, device=device, dtype=rod_dtype),
+        time=_tensor(time, device, dtype),
+        greens=_greens(greens, device, dtype),
+        velocity_l1_max=_tensor(l1_max, device, dtype),
+        frozen_loads=(
+            None if frozen is None
+            else tuple(_tensor(v, device, marker_dtype) for v in frozen)
         ),
     )

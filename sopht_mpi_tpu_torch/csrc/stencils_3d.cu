@@ -1,5 +1,5 @@
-// Hopper (sm_90a) kernels for the three 3D stencils of the Navier-Stokes
-// step, bound to PyTorch through a plain C interface (ctypes); see
+// Hopper (sm_90a) kernels for the 3D stencils of the Navier-Stokes step,
+// bound to PyTorch through a plain C interface (ctypes); see
 // sopht_mpi_tpu_torch/ops/cuda_stencils_3d.py for the wrappers and the plain
 // PyTorch versions they are held against.
 //
@@ -8,9 +8,10 @@
 // axis. Scalar prefactors are read from device memory (0-d tensors), so the
 // host never has to know dt.
 //
-// Launch shape (all three kernels): one thread per output cell, blocks of
-// 32 x 8 threads over (x, y), one grid row of blocks per z-plane, so a warp
-// reads 32 neighbouring x cells (coalesced) and no thread divides an index.
+// Launch shape (every kernel but conv_filter_line_3d): one thread per output
+// cell, blocks of 32 x 8 threads over (x, y), one grid row of blocks per
+// z-plane, so a warp reads 32 neighbouring x cells (coalesced) and no thread
+// divides an index.
 //
 // rotational_curl_add_3d
 //   Replaces sopht_mpi_tpu/ops/pallas_stencils_3d.py
@@ -42,6 +43,42 @@
 //   cells (warp shuffles, then shared memory) and folds the result into a
 //   zeroed device scalar with atomicMax on the bit pattern, which orders
 //   non-negative IEEE floats like the values.
+//
+// The filtered transport (filter on, or no sponge) runs the next three
+// kernels in turn: diffusion, the Laplacian filter, the wall sponge.
+//
+// diffusion_vector_3d
+//   Replaces diffusion_timestep_vector_3d_pallas (kernel _diffusion_kernel).
+//   out = f + p * lap7(f) on the interior, f on the ring. Bound: 24 B/cell
+//   at f32; the same one-cell-per-thread design as the fused kernel.
+//
+// mult_filter_pass_3d
+//   Replaces laplacian_filter_vector_3d_pallas, multiplicative type (kernel
+//   _mult_filter_kernel), one launch per filter application.
+//   res = clear . H_z . clear . H_y . clear . H_x (buf), H = 0.25 (2f - f+ -
+//   f-) along one axis, "clear" zeroing the ring (the z-wall planes
+//   included); with orig given, out = orig - res (the last application).
+//   The output cell needs the 27-point neighbourhood: each thread forms
+//   H_x, then H_y, of the planes z-1, z, z+1 at its (y, x) and then H_z, so
+//   no intermediate touches device memory. Bound: 24 B/cell (32 with orig)
+//   at f32; the 27 reads per component hit L1/L2 as in the stencils above.
+//
+// conv_filter_line_3d, conv_filter_z_pass_3d
+//   Replace the same function's convolution type (kernels
+//   _conv_inplane_kernel and _conv_z_single_kernel): per axis a,
+//   field - (clear . H_a)^k field. The in-plane stage is one launch: a thread
+//   owns one x-line (or y-line) and sweeps it k times in place in the output
+//   (one register holds the old left neighbour), then subtracts. y-lines
+//   are coalesced across a warp, x-lines are not: this type is off the main
+//   path. The z stage is k launches of a 3-plane pass, the last fused with
+//   the subtraction.
+//
+// penalise_vector_3d
+//   Replaces penalise_field_boundary_vector_3d_pallas (kernel
+//   _penalise_kernel). out = r(z) r(y) r(x) * f[clamp(z), clamp(y),
+//   clamp(x)], the clamp and ramp of the fused kernel above, with the ramp
+//   values sin(pi k / 2w) read from device memory (computed in double on
+//   the host). Bound: 24 B/cell at f32, one pass.
 
 #include <cuda_runtime.h>
 
@@ -240,6 +277,176 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    diffusion_kernel(const T* __restrict__ f, const T* __restrict__ pref,
+                     T* __restrict__ out, int nz, int ny, int nx) {
+  Cell c;
+  if (!this_cell(nz, ny, nx, c)) return;
+  const long long sy = nx;
+  const long long sz = (long long)ny * nx;
+  const long long n = sz * nz;
+  const long long i = c.i;
+  const bool interior = !on_ring(c.z, c.y, c.x, nz, ny, nx);
+  const T p = *pref;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const T* fc = f + k * n;
+    const T center = __ldg(fc + i);
+    T v = center;
+    if (interior) {
+      // summation order of the plain version (see diffusion_penalise_kernel)
+      T lap = T(-6) * center;
+      lap = (lap + __ldg(fc + i + sz)) + __ldg(fc + i - sz);
+      lap = (lap + __ldg(fc + i + sy)) + __ldg(fc + i - sy);
+      lap = (lap + __ldg(fc + i + 1)) + __ldg(fc + i - 1);
+      v = center + p * lap;
+    }
+    out[k * n + i] = v;
+  }
+}
+
+// One directional high-pass, in the plain version's order.
+template <typename T>
+__device__ __forceinline__ T highpass(T center, T plus, T minus) {
+  return T(0.25) * ((T(2) * center - plus) - minus);
+}
+
+// clear . H_x of plane-row `row` (a pointer to x = 0) at interior column x:
+// zero on the in-plane ring rows.
+template <typename T>
+__device__ __forceinline__ T hx_cleared(const T* __restrict__ row, int y,
+                                        int x, int ny) {
+  if (y == 0 || y == ny - 1) return T(0);
+  return highpass(__ldg(row + x), __ldg(row + x + 1), __ldg(row + x - 1));
+}
+
+// clear . H_y . clear . H_x of the plane `plane` (pointer to its (0, 0)) at
+// interior (y, x).
+template <typename T>
+__device__ __forceinline__ T hyx_cleared(const T* __restrict__ plane, int y,
+                                         int x, int ny, int nx) {
+  const T q_c = hx_cleared(plane + (long long)y * nx, y, x, ny);
+  const T q_p = hx_cleared(plane + (long long)(y + 1) * nx, y + 1, x, ny);
+  const T q_m = hx_cleared(plane + (long long)(y - 1) * nx, y - 1, x, ny);
+  return highpass(q_c, q_p, q_m);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    mult_filter_pass_kernel(const T* __restrict__ buf,
+                            const T* __restrict__ orig, T* __restrict__ out,
+                            int nz, int ny, int nx) {
+  Cell c;
+  if (!this_cell(nz, ny, nx, c)) return;
+  const long long sz = (long long)ny * nx;
+  const long long n = sz * nz;
+  const bool interior = !on_ring(c.z, c.y, c.x, nz, ny, nx);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    T res = T(0);
+    if (interior) {
+      const T* fc = buf + k * n;
+      // the neighbour planes z +- 1 are zero on the z walls
+      const T t_c = hyx_cleared(fc + c.z * sz, c.y, c.x, ny, nx);
+      const T t_p = c.z + 1 == nz - 1
+                        ? T(0)
+                        : hyx_cleared(fc + (c.z + 1) * sz, c.y, c.x, ny, nx);
+      const T t_m = c.z - 1 == 0
+                        ? T(0)
+                        : hyx_cleared(fc + (c.z - 1) * sz, c.y, c.x, ny, nx);
+      res = highpass(t_c, t_p, t_m);
+    }
+    out[k * n + c.i] = orig != nullptr ? __ldg(orig + k * n + c.i) - res : res;
+  }
+}
+
+// A thread owns one line of the in-plane stage: an x-line (axis 0) indexed
+// by (component, z, y), or a y-line (axis 1) indexed by (component, z, x).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    conv_filter_line_kernel(const T* __restrict__ f, T* __restrict__ out,
+                            int nz, int ny, int nx, int axis, int k) {
+  const long long line = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const int across = axis == 0 ? ny : nx;  // the other in-plane axis
+  const long long n_lines = 3LL * nz * across;
+  if (line >= n_lines) return;
+  const int a = (int)(line % across);
+  const int z = (int)((line / across) % nz);
+  const long long comp = line / ((long long)across * nz);
+  const int len = axis == 0 ? nx : ny;
+  const long long stride = axis == 0 ? 1 : nx;
+  const long long base = comp * nz * ny * nx + (long long)z * ny * nx +
+                         (axis == 0 ? (long long)a * nx : (long long)a);
+  const T* src = f + base;
+  T* dst = out + base;
+  for (int i = 0; i < len; ++i) dst[i * stride] = src[i * stride];
+  // H^k is zero on a line on a z wall or on the other in-plane axis' ring,
+  // and on a line with no interior cell: out = f there
+  if (z == 0 || z == nz - 1 || a == 0 || a == across - 1 || len < 3) return;
+  for (int it = 0; it < k; ++it) {
+    T prev = dst[0];  // the old left neighbour
+    dst[0] = T(0);
+    for (int i = 1; i < len - 1; ++i) {
+      const T cur = dst[i * stride];
+      dst[i * stride] = highpass(cur, dst[(i + 1) * stride], prev);
+      prev = cur;
+    }
+    dst[(len - 1) * stride] = T(0);
+  }
+  for (int i = 0; i < len; ++i) dst[i * stride] = src[i * stride] - dst[i * stride];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    conv_filter_z_pass_kernel(const T* __restrict__ buf,
+                              const T* __restrict__ orig,
+                              T* __restrict__ out, int nz, int ny, int nx) {
+  Cell c;
+  if (!this_cell(nz, ny, nx, c)) return;
+  const long long sz = (long long)ny * nx;
+  const long long n = sz * nz;
+  const bool interior = !on_ring(c.z, c.y, c.x, nz, ny, nx);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const T* fc = buf + k * n;
+    const T res = interior ? highpass(__ldg(fc + c.i), __ldg(fc + c.i + sz),
+                                      __ldg(fc + c.i - sz))
+                           : T(0);
+    out[k * n + c.i] = orig != nullptr ? __ldg(orig + k * n + c.i) - res : res;
+  }
+}
+
+// Sponge weight at index i of an n-cell axis: ramp[k] at distance k < w
+// from a wall, 1 inside.
+template <typename T>
+__device__ __forceinline__ T ramp_at(const T* __restrict__ ramp, int i, int n,
+                                     int w) {
+  const int k = i < w ? i : (i > n - 1 - w ? n - 1 - i : -1);
+  return k < 0 ? T(1) : __ldg(ramp + k);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    penalise_kernel(const T* __restrict__ f, const T* __restrict__ ramp,
+                    T* __restrict__ out, int nz, int ny, int nx, int width) {
+  Cell c;
+  if (!this_cell(nz, ny, nx, c)) return;
+  const long long n = (long long)nz * ny * nx;
+  const long long s =
+      ((long long)clamp_src(c.z, nz, width) * ny + clamp_src(c.y, ny, width)) *
+          nx +
+      clamp_src(c.x, nx, width);
+  const T rx = ramp_at(ramp, c.x, nx, width);
+  const T ry = ramp_at(ramp, c.y, ny, width);
+  const T rz = ramp_at(ramp, c.z, nz, width);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    // the plain version ramps along x, then y, then z
+    out[k * n + c.i] = ((__ldg(f + k * n + s) * rx) * ry) * rz;
+  }
+}
+
 inline dim3 grid_of(int nz, int ny, int nx) {
   return dim3((nx + kBlockX - 1) / kBlockX, (ny + kBlockY - 1) / kBlockY, nz);
 }
@@ -270,6 +477,46 @@ inline dim3 grid_of(int nz, int ny, int nx) {
     curl_kernel<T><<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,           \
                      (cudaStream_t)stream>>>(psi, pref, add, out, l1_max, nz,  \
                                              ny, nx);                          \
+    return (int)cudaGetLastError();                                            \
+  }                                                                            \
+  extern "C" int sopht_diffusion_vector_3d_##SUFFIX(                           \
+      const T* f, const T* pref, T* out, int nz, int ny, int nx,               \
+      void* stream) {                                                          \
+    diffusion_kernel<T><<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,      \
+                          (cudaStream_t)stream>>>(f, pref, out, nz, ny, nx);   \
+    return (int)cudaGetLastError();                                            \
+  }                                                                            \
+  extern "C" int sopht_mult_filter_pass_3d_##SUFFIX(                           \
+      const T* buf, const T* orig, T* out, int nz, int ny, int nx,             \
+      void* stream) {                                                          \
+    mult_filter_pass_kernel<T>                                                 \
+        <<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,                     \
+           (cudaStream_t)stream>>>(buf, orig, out, nz, ny, nx);                \
+    return (int)cudaGetLastError();                                            \
+  }                                                                            \
+  extern "C" int sopht_conv_filter_line_3d_##SUFFIX(                           \
+      const T* f, T* out, int nz, int ny, int nx, int axis, int k,             \
+      void* stream) {                                                          \
+    const long long lines = 3LL * nz * (axis == 0 ? ny : nx);                  \
+    conv_filter_line_kernel<T>                                                 \
+        <<<(unsigned)((lines + kThreads - 1) / kThreads), kThreads, 0,         \
+           (cudaStream_t)stream>>>(f, out, nz, ny, nx, axis, k);               \
+    return (int)cudaGetLastError();                                            \
+  }                                                                            \
+  extern "C" int sopht_conv_filter_z_pass_3d_##SUFFIX(                         \
+      const T* buf, const T* orig, T* out, int nz, int ny, int nx,             \
+      void* stream) {                                                          \
+    conv_filter_z_pass_kernel<T>                                               \
+        <<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,                     \
+           (cudaStream_t)stream>>>(buf, orig, out, nz, ny, nx);                \
+    return (int)cudaGetLastError();                                            \
+  }                                                                            \
+  extern "C" int sopht_penalise_vector_3d_##SUFFIX(                            \
+      const T* f, const T* ramp, T* out, int nz, int ny, int nx, int width,    \
+      void* stream) {                                                          \
+    penalise_kernel<T><<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,       \
+                         (cudaStream_t)stream>>>(f, ramp, out, nz, ny, nx,     \
+                                                 width);                       \
     return (int)cudaGetLastError();                                            \
   }
 

@@ -1,17 +1,38 @@
-"""Physics models: the 3D flow simulator, the rigid sphere, its forcing
-grid and interactor, and the fused rigid-body FSI step."""
+"""Physics models: the 3D flow simulator, the rigid sphere and the Cosserat
+rod, their forcing grids and interactors, and the fused FSI steps."""
 
 from sopht_mpi_tpu_torch.models.flow.simulator_3d import UnboundedFlowSimulator3D
 from sopht_mpi_tpu_torch.models.rigid_body import RigidBodyState, Sphere
 from sopht_mpi_tpu_torch.models.immersed_body import (
+    CosseratRodEdgeForcingGrid,
+    CosseratRodElementCentricForcingGrid,
+    CosseratRodFlowInteraction,
+    CosseratRodSurfaceForcingGrid,
     ImmersedBodyFlowInteraction,
     ImmersedBodyForcingGrid,
     RigidBodyFlowInteraction,
     SphereForcingGrid,
 )
+from sopht_mpi_tpu_torch.models import elastica
 from sopht_mpi_tpu_torch.models.fsi import (
     RigidFSICarry,
+    RodFSICarry,
     build_rigid_fsi_step,
+    build_rod_fsi_step,
     init_rigid_fsi_carry,
+    init_rod_fsi_carry,
     scan_steps,
+    suggest_rod_forcing_window,
+)
+from sopht_mpi_tpu_torch.models.elastica import (
+    AnalyticalLinearDamper,
+    BaseSystemCollection,
+    CosseratRod,
+    EndpointForces,
+    FlowForces,
+    GeneralConstraint,
+    GravityForces,
+    OneEndFixedBC,
+    PositionVerlet,
+    extend_stepper_interface,
 )

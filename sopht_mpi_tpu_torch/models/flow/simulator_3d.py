@@ -6,11 +6,14 @@ The transport is the rotational form: ``omega += dt/(2dx) curl(u x omega)``,
 then vector diffusion, then optional filtering, then velocity recovery
 (wall penalisation -> vector Poisson solve -> curl -> free stream).
 
-With ``use_kernels`` (the default on a CUDA device) the three stencil
-passes run the Hopper kernels of :mod:`sopht_mpi_tpu_torch.ops.cuda_stencils_3d`
-(on CPU tensors those wrappers run their plain versions), and the
-vector Poisson solve takes the solver's kernel route on a CUDA device (the
-five FFT-pass kernels of :mod:`sopht_mpi_tpu_torch.parallel.cuda_fft`).
+With ``use_kernels`` (the default on a CUDA device) the stencil passes
+run the Hopper kernels of :mod:`sopht_mpi_tpu_torch.ops.cuda_stencils_3d`
+(on CPU tensors those wrappers run their plain versions): the rotational
+transport, then either diffusion fused with the wall sponge (filter off) or
+diffusion, the Laplacian filter and the sponge as three kernels (filter on,
+the rod cases), then the curl. The vector Poisson solve takes the solver's
+kernel route on a CUDA device (the five FFT-pass kernels of
+:mod:`sopht_mpi_tpu_torch.parallel.cuda_fft`).
 The step keeps dt, its prefactors and ``max |u|_1`` as 0-d tensors on the
 device: nothing in it waits for the device.
 """
@@ -63,8 +66,8 @@ class UnboundedFlowSimulator3D:
     :param device: the torch device every field lives on; required, no
         default is taken from the environment.
     :param filter_vorticity: apply the Laplacian filter (default
-        ``{"order": 2, "type": "multiplicative"}``); on CUDA its kernels
-        are not ported yet and the step raises.
+        ``{"order": 2, "type": "multiplicative"}``, set with
+        ``filter_setting_dict``).
 
     Float32 matmuls run in full precision: building a simulator turns TF32
     off for CUDA matmuls and cuDNN (``torch.backends.cuda.matmul.allow_tf32``
@@ -244,6 +247,15 @@ class UnboundedFlowSimulator3D:
         )
         return float(dt) * dt_prefac
 
+    def diffusion_limited_timestep(self, dt_prefac=1.0) -> float:
+        """Upper bound on every CFL/diffusion timestep this simulator can
+        return: the diffusion limit ``0.9 dx^2 / (2 dim nu)`` times
+        ``dt_prefac``."""
+        return float(
+            dt_prefac * 0.9 * self.dx**2
+            / (2 * self.grid_dim * self.kinematic_viscosity)
+        )
+
 
 # ---------------------------------------------------------------------------
 # Functional core
@@ -331,18 +343,19 @@ def flow_step_3d(
                 field, nu_dt_by_dx2, penalty_zone_width
             )
             penalised_in_transport = True
-        elif field.device.type == "cuda":
-            raise NotImplementedError(
-                "the filtered or sponge-less transport needs the "
-                "diffusion, Laplacian-filter and penalise kernels, not "
-                "ported yet (ROADMAP.md queue B)"
-            )
         else:
-            field = diffusion_timestep_vector_3d(field, nu_dt_by_dx2)
+            # the filtered (or sponge-less) transport: diffusion, the
+            # filter, then the wall sponge, each its own kernel
+            field = kernels.diffusion_timestep_vector_3d(field, nu_dt_by_dx2)
             if filter_order > 0:
-                field = laplacian_filter_vector_3d(
+                field = kernels.laplacian_filter_vector_3d(
                     field, filter_order, filter_type
                 )
+            if penalty_zone_width > 0:
+                field = kernels.penalise_field_boundary_vector_3d(
+                    field, penalty_zone_width
+                )
+                penalised_in_transport = True
     else:
         field = update_vorticity_from_velocity_forcing_3d(
             field, cross_product_3d(velocity, field), pref

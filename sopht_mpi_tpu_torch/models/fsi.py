@@ -1,17 +1,20 @@
-"""Fused rigid-body FSI stepping (counterpart of ``build_rigid_fsi_step``
-and its carry in ``sopht_mpi_tpu/models/fsi.py``).
+"""Fused FSI stepping (counterpart of ``sopht_mpi_tpu/models/fsi.py``):
+the rigid-body step :func:`build_rigid_fsi_step` and the Cosserat-rod step
+:func:`build_rod_fsi_step`, with their carries.
 
 One coupled iteration - CFL timestep control from the carried
-``max |u|_1``, penalty IBM interaction with a fixed body, and the flow
-step - is a pure function of a :class:`RigidFSICarry`; :func:`scan_steps`
-rolls it out with a Python loop. Every scalar of the step (dt, time,
-``max |u|_1``) stays a 0-d tensor on the device, so a run of steps queues
-on the device without waiting for it.
+``max |u|_1``, the penalty IBM interaction, the rod substeps (rod step
+only) and the flow step - is a pure function of the carry;
+:func:`scan_steps` rolls it out with a Python loop. Every scalar of the
+step (dt, time, ``max |u|_1``) stays a 0-d tensor on the device. The rigid
+step never waits for the device; the rod step with dynamic substeps reads
+its substep count once per step (see :func:`build_rod_fsi_step`).
 """
 
 from __future__ import annotations
 
 import logging
+import math
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -27,12 +30,18 @@ from sopht_mpi_tpu_torch.ops.ibm import (
 from sopht_mpi_tpu_torch.ops.stencils_3d import curl_3d
 from sopht_mpi_tpu_torch.ops.virtual_boundary import (
     compute_interaction_force_on_eul_and_lag_grid,
+    compute_interaction_force_on_lag_grid,
     compute_penalty_force,
     virtual_boundary_time_step,
 )
 from sopht_mpi_tpu_torch.utils.types import get_test_tol
 
 logger = logging.getLogger("sopht_mpi_tpu_torch")
+
+# substep_interp="auto" crossover of the JAX package (its fsi.py): the
+# substeps' E->L takes the full-field gather instead of the windowed
+# matmul once the sparse window holds this many cells
+_GATHER_SUBSTEP_WINDOW_CELLS = 3_000_000
 
 
 class RigidFSICarry(NamedTuple):
@@ -49,6 +58,19 @@ class RigidFSICarry(NamedTuple):
     # sparse-window path: per-axis delta weight matrices (Az, Ay, Ax), each
     # (n_markers, W_axis), threaded unchanged through every step
     ibm_mats: tuple = None
+
+
+class RodFSICarry(NamedTuple):
+    flow_state: object
+    vb_state: object
+    rod_state: object
+    time: torch.Tensor
+    greens: torch.Tensor | tuple = None  # see RigidFSICarry.greens
+    velocity_l1_max: torch.Tensor = None  # see RigidFSICarry
+    # substep_load_refresh="flow_step": (forces, torques, velocity_mismatch)
+    # of the last full interaction, applied frozen through the next step's
+    # substeps; None with the default per-substep refresh
+    frozen_loads: tuple | None = None
 
 
 def velocity_l1_max(velocity_field):
@@ -308,11 +330,376 @@ def init_rigid_fsi_carry(flow_sim, interactor, step=None) -> RigidFSICarry:
     )
 
 
+def _sparse_window_tools(flow_sim, params, wshape):
+    """The moving-window machinery of the sparse rod path, for a static
+    ``(Wz, Wy, Wx)`` window tracking a body's marker support:
+
+    - ``window_mats(lagp) -> (start, axis_mats, ok)``: the window start
+      (components x, y, z; a device tensor), the per-axis matmul weight
+      matrices in window coordinates, and the validity flag (support >= 2
+      cells inside the window per side, or the window flush with the
+      domain wall there, so the clipping matches the dense path's);
+    - ``e2l_interp(field, start, mats)``: the separable-matmul E->L
+      interpolation of a grid vector field over the window;
+    - ``windowed_add(field, win, start)``: a copy of ``field`` with ``win``
+      added into the window.
+
+    The JAX package slices with ``dynamic_slice`` at the device start; here
+    the window is a gather (and its add an ``index_put_``) at index tensors
+    built on the device from the start, so nothing reads it on the host.
+    """
+    Wz, Wy, Wx = (int(w) for w in wshape)
+    nz, ny, nx = flow_sim.grid_size
+    if Wz > nz or Wy > ny or Wx > nx:
+        raise ValueError(
+            f"sparse forcing window {wshape} exceeds the grid "
+            f"{flow_sim.grid_size}"
+        )
+    device = flow_sim.device
+    n_xyz = torch.tensor([nx, ny, nz], dtype=torch.int32, device=device)
+    w_xyz = torch.tensor([Wx, Wy, Wz], dtype=torch.int32, device=device)
+    zero = torch.zeros(3, dtype=torch.int32, device=device)
+    ranges = [torch.arange(w, device=device) for w in (Wz, Wy, Wx)]
+
+    def window_mats(lagp):
+        _, support_idx, support_disp = nearest_grid_index_and_support(
+            lagp, params.dx, params.eul_grid_coord_shift,
+            params.interp_kernel_width,
+        )
+        mins = support_idx.amin(dim=(1, 2))  # (3,) components x, y, z
+        maxs = support_idx.amax(dim=(1, 2))
+        start = torch.clamp(mins - 2, min=zero, max=n_xyz - w_xyz)
+        lo_ok = (start == 0) | (mins - start >= 2)
+        hi_ok = (start + w_xyz == n_xyz) | (maxs - start <= w_xyz - 3)
+        ok = (lo_ok & hi_ok).all()
+        shifted = support_idx - start[:, None, None]
+        mats = axis_delta_weight_matrices(
+            shifted, support_disp, params.dx, (Wz, Wy, Wx), params.delta_kind
+        )
+        return start, mats, ok
+
+    def window_index(start):
+        z = (start[2] + ranges[0])[:, None, None]
+        y = (start[1] + ranges[1])[None, :, None]
+        x = (start[0] + ranges[2])[None, None, :]
+        return slice(None), z, y, x
+
+    def e2l_interp(field, start, mats):
+        return eulerian_to_lagrangian_interpolation_mm(
+            field[window_index(start)], mats, params.dx
+        )
+
+    def windowed_add(field, win, start):
+        idx = window_index(start)
+        field = field.clone()
+        field[idx] = field[idx] + win
+        return field
+
+    return window_mats, e2l_interp, windowed_add
+
+
+def build_rod_fsi_step(
+    flow_sim,
+    interactor,
+    rod_collection,
+    rod_substeps: int | None = None,
+    dt_prefac=0.5,
+    free_stream_fn: Callable | None = None,
+    *,
+    rod_dt: float | None = None,
+    max_rod_substeps: int | None = None,
+    sparse_forcing_window: tuple[int, int, int] | None = None,
+    substep_load_refresh: str = "every",
+    substep_interp: str = "auto",
+):
+    """One fused coupled step for a two-way coupled Cosserat rod: per flow
+    step the rod takes position-Verlet substeps, then the full penalty
+    interaction runs, the Lagrangian forcing is spread onto the Eulerian
+    forcing field (or its windowed curl adds straight into the vorticity on
+    the sparse path) and the flow advances.
+
+    ``substep_load_refresh``: ``"every"`` (default, the reference's
+    semantics) recomputes the penalty flow loads at each substep from the
+    frozen flow velocity; ``"flow_step"`` (an approximation) applies the
+    loads of the last full interaction, frozen (build the carry with
+    ``init_rod_fsi_carry(..., step=step)``).
+
+    Substeps: static (``rod_substeps=k``, exactly ``k`` per flow step) or
+    dynamic (``rod_dt``): the reference's count
+    ``clip(floor(dt / min(dt, rod_dt)), 1, max_rod_substeps)``, in the flow
+    dtype. The JAX package runs a scan of ``max_rod_substeps`` iterations
+    and masks the inactive ones; here the count is read on the host once per
+    flow step (the step's only host sync) and exactly that many substeps
+    run. ``max_rod_substeps`` defaults to
+    ``ceil(flow_sim.diffusion_limited_timestep(dt_prefac) / rod_dt) + 2``,
+    a bound the count can never reach, as in the JAX package.
+
+    ``sparse_forcing_window`` (3D ``navier_stokes_with_forcing``): static
+    ``(Wz, Wy, Wx)`` cell counts of a moving window tracking the marker
+    support (see :func:`suggest_rod_forcing_window`); the IBM spread and
+    the forcing curl act on the window and the flow advances through the
+    no-forcing step. The diagnostic is then ``(lag_force_sum, window_ok)``,
+    ``window_ok`` a device bool that is False on a step whose support did
+    not fit the window.
+
+    ``substep_interp`` (sparse path only) picks the substeps' E->L:
+    ``"window_mm"`` (the windowed separable matmul), ``"gather"`` (the
+    full-field support gather), ``"auto"`` (gather from
+    ``_GATHER_SUBSTEP_WINDOW_CELLS`` window cells). The JAX package ignores
+    a non-default value without a sparse window; the port raises.
+
+    The rod must be the only system in ``rod_collection``, already
+    finalized, with the ``FlowForces`` coupling not registered.
+
+    The returned step carries ``stats``, host-side counts of the steps,
+    substeps and host reads it made.
+    """
+    if substep_interp not in ("auto", "window_mm", "gather"):
+        raise ValueError(
+            "substep_interp must be 'auto', 'window_mm' or 'gather', got "
+            f"{substep_interp!r}"
+        )
+    if substep_load_refresh not in ("every", "flow_step"):
+        raise ValueError(
+            "substep_load_refresh must be 'every' or 'flow_step', got "
+            f"{substep_load_refresh!r}"
+        )
+    frozen_mode = substep_load_refresh == "flow_step"
+    dynamic = rod_substeps is None
+    if dynamic and rod_dt is None:
+        raise ValueError(
+            "pass either rod_substeps (static) or rod_dt (dynamic)"
+        )
+    if not dynamic and (rod_dt is not None or max_rod_substeps is not None):
+        raise ValueError(
+            "rod_substeps (static mode) conflicts with rod_dt/"
+            "max_rod_substeps (dynamic mode) - pass one or the other"
+        )
+    sparse = sparse_forcing_window is not None
+    if substep_interp != "auto" and not sparse:
+        raise ValueError(
+            f"substep_interp={substep_interp!r} picks the sparse window's "
+            "substep interpolation and needs sparse_forcing_window"
+        )
+    if dynamic and max_rod_substeps is None:
+        max_rod_substeps = (
+            math.ceil(flow_sim.diffusion_limited_timestep(dt_prefac) / rod_dt)
+            + 2
+        )
+    assert rod_collection._finalized
+    assert len(rod_collection._systems) == 1
+    rod_step = rod_collection._step_fns[0]
+    grid = interactor.forcing_grid
+    params = interactor.params
+    flow_dt = _flow_dt_fn(flow_sim, dt_prefac)
+    free_stream = _free_stream(free_stream_fn, flow_sim)
+    real_t = flow_sim.real_t
+
+    if sparse:
+        if flow_sim.flow_type != "navier_stokes_with_forcing":
+            raise ValueError(
+                "sparse_forcing_window needs a navier_stokes_with_forcing "
+                "simulator"
+            )
+        Wz, Wy, Wx = (int(w) for w in sparse_forcing_window)
+        flow_step_l1 = _flow_step_l1(flow_sim, "navier_stokes")
+        gather_substeps = substep_interp == "gather" or (
+            substep_interp == "auto"
+            and Wz * Wy * Wx >= _GATHER_SUBSTEP_WINDOW_CELLS
+        )
+        window_mats, e2l_interp, windowed_add = _sparse_window_tools(
+            flow_sim, params, (Wz, Wy, Wx)
+        )
+    else:
+        flow_step_l1 = _flow_step_l1(flow_sim)
+        gather_substeps = False
+
+    def rod_flow_loads(rod_state, vb_state, velocity_field):
+        interaction = compute_interaction_force_on_lag_grid(
+            vb_state,
+            velocity_field,
+            grid.lag_positions(rod_state),
+            grid.lag_velocities(rod_state),
+            params,
+        )
+        forces, torques = grid.body_loads(rod_state, interaction.lag_forcing)
+        return forces, torques, interaction.velocity_mismatch
+
+    def rod_flow_loads_windowed(rod_state, vb_state, velocity_field):
+        """The loads of rod_flow_loads, the E->L reading only the moving
+        support window through the separable matmul."""
+        start, mats, ok = window_mats(grid.lag_positions(rod_state))
+        flow_velocity = e2l_interp(velocity_field, start, mats)
+        mismatch = flow_velocity - grid.lag_velocities(rod_state)
+        lag_forcing = compute_penalty_force(
+            vb_state.position_mismatch, mismatch, params
+        )
+        forces, torques = grid.body_loads(rod_state, lag_forcing)
+        return forces, torques, mismatch, ok
+
+    stats = {"steps": 0, "substeps": 0, "host_syncs": 0}
+
+    def substep_count(dt):
+        if not dynamic:
+            return rod_substeps
+        # reference: int(dt / min(dt, rod_dt)), >= 1, in the flow dtype
+        n_raw = torch.floor(dt / torch.clamp(dt, max=rod_dt))
+        stats["host_syncs"] += 1
+        return int(min(max(int(n_raw.item()), 1), max_rod_substeps))
+
+    def step(carry: RodFSICarry):
+        (flow_state, vb_state, rod_state, time, greens, u_l1,
+         frozen) = carry
+        if frozen_mode and frozen is None:
+            raise ValueError(
+                "substep_load_refresh='flow_step' needs the frozen-loads "
+                "carry leaves - build the carry with init_rod_fsi_carry("
+                "flow_sim, interactor, rod, step) passing THIS step"
+            )
+        dt = flow_dt(u_l1)
+        n_sub = substep_count(dt)
+        sub_dt = dt / n_sub
+        rod_t = rod_state.position.dtype
+        velocity_field = flow_state.velocity_field
+        t = time
+        substeps_ok = torch.ones((), dtype=torch.bool, device=time.device)
+        for _ in range(n_sub):
+            if frozen_mode:
+                forces, torques, mismatch = frozen
+            elif sparse and not gather_substeps:
+                forces, torques, mismatch, sub_ok = rod_flow_loads_windowed(
+                    rod_state, vb_state, velocity_field
+                )
+                substeps_ok = substeps_ok & sub_ok
+            else:
+                forces, torques, mismatch = rod_flow_loads(
+                    rod_state, vb_state, velocity_field
+                )
+            rod_state = rod_step(
+                rod_state, t.to(rod_t), sub_dt.to(rod_t),
+                forces.to(rod_t), torques.to(rod_t),
+            )
+            vb_state = virtual_boundary_time_step(vb_state, mismatch, sub_dt)
+            t = t + sub_dt
+        stats["steps"] += 1
+        stats["substeps"] += n_sub
+
+        lagp = grid.lag_positions(rod_state)
+        if sparse:
+            # the windowed interaction at the post-substep state
+            start, mats, window_ok = window_mats(lagp)
+            window_ok = window_ok & substeps_ok
+            flow_velocity = e2l_interp(velocity_field, start, mats)
+            velocity_mismatch = flow_velocity - grid.lag_velocities(rod_state)
+            lag_forcing = compute_penalty_force(
+                vb_state.position_mismatch, velocity_mismatch, params
+            )
+            if frozen_mode:
+                frozen = (*grid.body_loads(rod_state, lag_forcing),
+                          velocity_mismatch)
+            win = torch.zeros((3, Wz, Wy, Wx), dtype=real_t,
+                              device=velocity_field.device)
+            win = lagrangian_to_eulerian_spread_mm(win, lag_forcing, mats)
+            curl_win = curl_3d(win, dt / (2.0 * params.dx))
+            flow_state = flow_state._replace(
+                primary_field=windowed_add(
+                    flow_state.primary_field, curl_win, start
+                )
+            )
+        else:
+            eul_forcing, interaction = compute_interaction_force_on_eul_and_lag_grid(
+                vb_state,
+                flow_state.eul_grid_forcing_field,
+                velocity_field,
+                lagp,
+                grid.lag_velocities(rod_state),
+                params,
+                reset_eul_grid_forcing_field=True,
+            )
+            lag_forcing = interaction.lag_forcing
+            if frozen_mode:
+                frozen = (*grid.body_loads(rod_state, lag_forcing),
+                          interaction.velocity_mismatch)
+            flow_state = flow_state._replace(eul_grid_forcing_field=eul_forcing)
+        flow_state, new_l1 = flow_step_l1(
+            flow_state, dt, free_stream(time), greens
+        )
+        lag_force_sum = lag_forcing.sum(dim=1)
+        new_carry = RodFSICarry(
+            flow_state, vb_state, rod_state, time + dt, greens, new_l1,
+            frozen if frozen_mode else None,
+        )
+        return new_carry, (lag_force_sum, window_ok) if sparse else lag_force_sum
+
+    step.uses_frozen_loads = frozen_mode
+    step.sparse_forcing_window = (Wz, Wy, Wx) if sparse else None
+    step.gather_substeps = gather_substeps
+    step.stats = stats
+    return step
+
+
+def suggest_rod_forcing_window(
+    interactor, rod, grid_size, margin=1.1, max_grid_fraction=0.7
+):
+    """Static ``(Wz, Wy, Wx)`` window cells for
+    ``build_rod_fsi_step(sparse_forcing_window=...)``, sized from the
+    rod's reachable envelope: an (almost) inextensible rod of length L and
+    radius r always fits a per-axis box of ``L + 2r``, so the window (that
+    envelope times ``margin``, plus the delta-support and curl margins)
+    covers the marker support for the whole run. None when the window
+    would exceed ``max_grid_fraction`` of the grid (the dense path is then
+    the better choice)."""
+    params = interactor.params
+    lengths = rod.params.rest_lengths.cpu().numpy()
+    radius = float(rod.params.radius.max())
+    reach = float(lengths.sum()) + 2.0 * radius
+    cells = int(np.ceil(margin * reach / params.dx))
+    w = cells + 2 * params.interp_kernel_width + 6
+    nz, ny, nx = (int(v) for v in grid_size)
+    win = (min(w, nz), min(w, ny), min(w, nx))
+    if np.prod(win) > max_grid_fraction * nz * ny * nx:
+        return None
+    return win
+
+
+def init_rod_fsi_carry(flow_sim, interactor, rod, step=None) -> RodFSICarry:
+    """Initial carry for :func:`build_rod_fsi_step`. Pass the built
+    ``step`` when it uses ``substep_load_refresh='flow_step'``: the carry
+    then gains zero frozen-loads leaves (forces (3, n+1), torques (3, n),
+    mismatch (3, markers)) in the marker dtype, the promotion of the flow's
+    and the rod's."""
+    frozen = None
+    if getattr(step, "uses_frozen_loads", False):
+        dtype = torch.promote_types(flow_sim.real_t, rod.state.position.dtype)
+        n = rod.n_elems
+        zeros = lambda *shape: torch.zeros(
+            shape, dtype=dtype, device=flow_sim.device
+        )
+        frozen = (
+            zeros(3, n + 1), zeros(3, n),
+            zeros(3, interactor.forcing_grid.num_lag_nodes),
+        )
+    return RodFSICarry(
+        flow_state=flow_sim._get_state(),
+        vb_state=interactor.state,
+        rod_state=rod.state,
+        time=torch.tensor(
+            flow_sim.time, dtype=flow_sim.real_t, device=flow_sim.device
+        ),
+        greens=flow_sim._poisson_greens,
+        velocity_l1_max=velocity_l1_max(flow_sim.velocity_field),
+        frozen_loads=frozen,
+    )
+
+
 def scan_steps(step_fn, carry, n_steps: int):
     """Roll ``n_steps`` coupled steps; returns (final carry, per-step
-    diagnostics stacked on a leading axis). Nothing waits for the device."""
+    diagnostics stacked on a leading axis, each element of a tuple
+    diagnostic stacked on its own)."""
     diags = []
     for _ in range(n_steps):
         carry, diag = step_fn(carry)
         diags.append(diag)
+    if isinstance(diags[0], tuple):
+        return carry, tuple(torch.stack(d) for d in zip(*diags))
     return carry, torch.stack(diags)

@@ -1,6 +1,6 @@
 """Immersed body <-> flow interaction (counterpart of
-``sopht_mpi_tpu/models/immersed_body/interaction.py``; the port covers the
-base class and the rigid-body interactor).
+``sopht_mpi_tpu/models/immersed_body/interaction.py``: the base class, the
+rigid-body and the Cosserat-rod interactors).
 
 Bridges a flow simulator and a body's forcing grid through the penalty
 virtual-boundary forcing::
@@ -158,3 +158,51 @@ class RigidBodyFlowInteraction(ImmersedBodyFlowInteraction):
     def __init__(self, flow_sim, rigid_body, forcing_grid, **kwargs):
         self.rigid_body = rigid_body
         super().__init__(flow_sim, forcing_grid, body_dim=1, **kwargs)
+
+
+class CosseratRodFlowInteraction(ImmersedBodyFlowInteraction):
+    """Cosserat rod interactor: body forces on nodes (3, n_elems+1),
+    torques on elements (3, n_elems).
+
+    :param forcing_grid_cls: e.g. ``CosseratRodSurfaceForcingGrid`` (3D);
+        the grid's own keyword arguments
+        (``surface_grid_density_for_largest_element``, ``with_cap``,
+        ``num_forcing_points``) go to it, the rest to the base class.
+    """
+
+    def __init__(
+        self,
+        flow_sim,
+        cosserat_rod,
+        virtual_boundary_stiffness_coeff,
+        virtual_boundary_damping_coeff,
+        forcing_grid_cls,
+        **kwargs,
+    ):
+        self.cosserat_rod = cosserat_rod
+        grid_kwargs = {
+            k: kwargs.pop(k)
+            for k in list(kwargs)
+            if k
+            in (
+                "surface_grid_density_for_largest_element",
+                "with_cap",
+                "num_forcing_points",
+            )
+        }
+        forcing_grid = forcing_grid_cls(cosserat_rod=cosserat_rod, **grid_kwargs)
+        super().__init__(
+            flow_sim,
+            forcing_grid,
+            virtual_boundary_stiffness_coeff,
+            virtual_boundary_damping_coeff,
+            body_dim=cosserat_rod.n_elems,
+            **kwargs,
+        )
+        n = cosserat_rod.n_elems
+        self.body_flow_forces = torch.zeros(
+            (3, n + 1), dtype=flow_sim.real_t, device=flow_sim.device
+        )
+        self.body_flow_torques = torch.zeros(
+            (3, n), dtype=flow_sim.real_t, device=flow_sim.device
+        )

@@ -1,5 +1,5 @@
-"""Hopper CUDA kernels for the three 3D stencils of the Navier-Stokes step,
-with their plain PyTorch versions.
+"""Hopper CUDA kernels for the 3D stencils of the Navier-Stokes step, with
+their plain PyTorch versions.
 
 Each wrapper takes (3, nz, ny, nx) float32 or float64 fields and:
 
@@ -16,7 +16,11 @@ no ``torch.autograd.Function`` wraps these yet.
 Replaced TPU kernels (``sopht_mpi_tpu/ops/pallas_stencils_3d.py``):
 :func:`rotational_curl_add_3d` <- ``rotational_curl_add_3d_pallas``,
 :func:`diffusion_penalise_vector_3d` <- ``diffusion_penalise_vector_3d_pallas``,
-:func:`curl_3d` <- ``curl_3d_pallas``.
+:func:`curl_3d` <- ``curl_3d_pallas``,
+:func:`diffusion_timestep_vector_3d` <- ``diffusion_timestep_vector_3d_pallas``,
+:func:`laplacian_filter_vector_3d` <- ``laplacian_filter_vector_3d_pallas``,
+:func:`penalise_field_boundary_vector_3d` <-
+``penalise_field_boundary_vector_3d_pallas``.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from sopht_mpi_tpu_torch.ops import stencils_3d as _plain
@@ -36,6 +41,11 @@ _SIGNATURES = {
     "sopht_rotational_curl_add_3d": (_P, _P, _P, _P, _I, _I, _I, _P),
     "sopht_diffusion_penalise_vector_3d": (_P, _P, _P, _I, _I, _I, _I, _P),
     "sopht_curl_3d": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "sopht_diffusion_vector_3d": (_P, _P, _P, _I, _I, _I, _P),
+    "sopht_mult_filter_pass_3d": (_P, _P, _P, _I, _I, _I, _P),
+    "sopht_conv_filter_line_3d": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "sopht_conv_filter_z_pass_3d": (_P, _P, _P, _I, _I, _I, _P),
+    "sopht_penalise_vector_3d": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -84,6 +94,24 @@ def curl_3d_ref(field, prefactor, add_vector=None, compute_l1_max=False):
     if compute_l1_max:
         return out, out.abs().sum(dim=0).max()
     return out
+
+
+def diffusion_timestep_vector_3d_ref(vector_field, nu_dt_by_dx2):
+    """``f + nu_dt_by_dx2 * lap7(f)``, the wall ring unchanged."""
+    return _plain.diffusion_timestep_vector_3d(vector_field, nu_dt_by_dx2)
+
+
+def laplacian_filter_vector_3d_ref(vector_field, filter_order: int,
+                                   filter_type: str):
+    """The Laplacian filter of ``ops/stencils_3d.py``."""
+    return _plain.laplacian_filter_vector_3d(
+        vector_field, filter_order, filter_type
+    )
+
+
+def penalise_field_boundary_vector_3d_ref(vector_field, width: int):
+    """The wall sponge of ``ops/stencils_3d.py``."""
+    return _plain.penalise_field_boundary_vector_3d(vector_field, width)
 
 
 # ---------------------------------------------------------------------------
@@ -226,9 +254,127 @@ def curl_3d(field, prefactor, add_vector=None, compute_l1_max=False):
     return (out, l1) if compute_l1_max else out
 
 
-rotational_curl_add_3d.launches = 0
-diffusion_penalise_vector_3d.launches = 0
-curl_3d.launches = 0
+def diffusion_timestep_vector_3d(vector_field, nu_dt_by_dx2):
+    """Diffusion Euler step ``f + nu_dt_by_dx2 * lap7(f)``, the wall ring
+    unchanged. Forward only."""
+    _check_field("vector_field", vector_field)
+    if vector_field.device.type == "cpu":
+        return diffusion_timestep_vector_3d_ref(vector_field, nu_dt_by_dx2)
+    pref = _device_tensor(vector_field, nu_dt_by_dx2, 1, "nu_dt_by_dx2")
+    out = torch.empty_like(vector_field)
+    _, nz, ny, nx = vector_field.shape
+    _launch(
+        "sopht_diffusion_vector_3d", vector_field,
+        vector_field.data_ptr(), pref.data_ptr(), out.data_ptr(), nz, ny, nx,
+    )
+    diffusion_timestep_vector_3d.launches += 1
+    return out
+
+
+def laplacian_filter_vector_3d(vector_field, filter_order: int,
+                               filter_type: str):
+    """Laplacian (vorticity-stabilisation) filter, per-application wall
+    clearing included. ``multiplicative``: ``f - (H_z H_y H_x)^order f``,
+    one launch per application; ``convolution``: per axis x, y, z
+    ``f - H_axis^order f``, one launch for each in-plane axis and ``order``
+    launches for z. ``launches`` counts every launch. Forward only."""
+    _check_field("vector_field", vector_field)
+    if not isinstance(filter_order, int) or filter_order < 0:
+        raise ValueError("Invalid filter order")
+    if filter_type not in ("multiplicative", "convolution"):
+        raise ValueError("Invalid filter type")
+    if filter_order == 0:
+        return vector_field
+    if vector_field.device.type == "cpu":
+        return laplacian_filter_vector_3d_ref(
+            vector_field, filter_order, filter_type
+        )
+    _, nz, ny, nx = vector_field.shape
+
+    def three_plane_pass(fn_base, buf, orig):
+        out = torch.empty_like(vector_field)
+        _launch(
+            fn_base, vector_field, buf.data_ptr(),
+            None if orig is None else orig.data_ptr(), out.data_ptr(),
+            nz, ny, nx,
+        )
+        laplacian_filter_vector_3d.launches += 1
+        return out
+
+    if filter_type == "multiplicative":
+        buf = vector_field
+        for it in range(filter_order):
+            last = it == filter_order - 1
+            buf = three_plane_pass(
+                "sopht_mult_filter_pass_3d", buf, vector_field if last else None
+            )
+        return buf
+    field = vector_field
+    for axis in (0, 1):  # the x stage, then the y stage
+        out = torch.empty_like(vector_field)
+        _launch(
+            "sopht_conv_filter_line_3d", vector_field, field.data_ptr(),
+            out.data_ptr(), nz, ny, nx, axis, filter_order,
+        )
+        laplacian_filter_vector_3d.launches += 1
+        field = out
+    buf = field
+    for it in range(filter_order):
+        last = it == filter_order - 1
+        buf = three_plane_pass(
+            "sopht_conv_filter_z_pass_3d", buf, field if last else None
+        )
+    return buf
+
+
+def penalise_supported(shape, width: int) -> bool:
+    """The sponge kernel runs for ``width > 0`` and more than ``2 width``
+    cells on every axis; elsewhere the JAX package's Pallas function takes
+    its jnp path, and so does :func:`penalise_field_boundary_vector_3d`."""
+    _, nz, ny, nx = shape
+    return width > 0 and min(nz, ny, nx) > 2 * width
+
+
+@functools.cache
+def _sponge_ramp(width: int, dtype, device) -> torch.Tensor:
+    """``sin(pi k / 2 width)``, k < width, computed in double on the host
+    and copied to the device once."""
+    ramp = np.sin(0.5 * np.pi * np.arange(width) / width)
+    return torch.tensor(ramp, dtype=dtype, device=device)
+
+
+def penalise_field_boundary_vector_3d(vector_field, width: int):
+    """Wall sponge: ``r(z) r(y) r(x) f[clamp(z), clamp(y), clamp(x)]`` with
+    the clamp to ``[width - 1, n - width]`` and the sine ramp over the
+    ``width`` cells next to each wall. Where :func:`penalise_supported` is
+    False it returns the plain version on any device, as the JAX function
+    does (the identity at ``width == 0``). Forward only."""
+    _check_field("vector_field", vector_field)
+    width = int(width)
+    if vector_field.device.type == "cpu" or not penalise_supported(
+        vector_field.shape, width
+    ):
+        return penalise_field_boundary_vector_3d_ref(vector_field, width)
+    ramp = _sponge_ramp(width, vector_field.dtype, vector_field.device)
+    out = torch.empty_like(vector_field)
+    _, nz, ny, nx = vector_field.shape
+    _launch(
+        "sopht_penalise_vector_3d", vector_field,
+        vector_field.data_ptr(), ramp.data_ptr(), out.data_ptr(),
+        nz, ny, nx, width,
+    )
+    penalise_field_boundary_vector_3d.launches += 1
+    return out
+
 
 #: the wrappers, for code that resets or reads every launch count
-KERNELS = (rotational_curl_add_3d, diffusion_penalise_vector_3d, curl_3d)
+KERNELS = (
+    rotational_curl_add_3d,
+    diffusion_penalise_vector_3d,
+    curl_3d,
+    diffusion_timestep_vector_3d,
+    laplacian_filter_vector_3d,
+    penalise_field_boundary_vector_3d,
+)
+for _fn in KERNELS:
+    _fn.launches = 0

@@ -88,6 +88,51 @@ def test_flow_steps_match_jax(precision, flow_type, use_kernels,
         assert not sim.eul_grid_forcing_field.any()
 
 
+@pytest.mark.parametrize(
+    "filter_setting,penalty_zone_width",
+    [
+        ({"order": 1, "type": "multiplicative"}, 2),
+        ({"order": 2, "type": "convolution"}, 2),
+        ({"order": 1, "type": "multiplicative"}, 0),
+        (None, 0),
+    ],
+    ids=["rod-filter", "convolution", "filter-no-sponge", "no-sponge"],
+)
+def test_filtered_transport_steps_match_jax(precision, filter_setting,
+                                            penalty_zone_width):
+    """The filtered (or sponge-less) transport on the kernel branch - the
+    diffusion, filter and sponge wrappers in turn - against the JAX
+    ``use_pallas=True`` step, forcing on as in the rod cases."""
+    vort, vel, forcing = _state(precision, seed=2)
+    forcing = 0.1 * forcing
+    fsv = (1.0, 0.0, 0.0)
+    common = dict(grid_size=GRID, x_range=1.0, kinematic_viscosity=2e-3,
+                  flow_type="navier_stokes_with_forcing",
+                  with_free_stream_flow=True,
+                  filter_vorticity=filter_setting is not None,
+                  filter_setting_dict=filter_setting,
+                  penalty_zone_width=penalty_zone_width)
+    jax_t = {"single": jnp.float32, "double": jnp.float64}[precision]
+    jsim = JaxSim(**common, real_t=jax_t, use_pallas=True)
+    sim = UnboundedFlowSimulator3D(**common, real_t=get_real_t(precision),
+                                   device="cpu", use_kernels=True)
+    jsim.vorticity_field = jnp.asarray(vort)
+    jsim.velocity_field = jnp.asarray(vel)
+    sim._set_state(flow_state_from_numpy(
+        (vort, vel, forcing), device="cpu", dtype=get_real_t(precision)))
+    for _ in range(2):
+        jsim.eul_grid_forcing_field = jnp.asarray(forcing)
+        sim.eul_grid_forcing_field = torch.tensor(forcing)
+        dt = jsim.compute_stable_timestep(dt_prefac=0.5)
+        jsim.time_step(dt, free_stream_velocity=fsv)
+        sim.time_step(dt, free_stream_velocity=fsv)
+    tol = TOL[precision]
+    _close(sim.vorticity_field, jsim.vorticity_field, tol, "vorticity")
+    _close(sim.velocity_field, jsim.velocity_field, tol, "velocity")
+    assert sim.diffusion_limited_timestep(0.25) == pytest.approx(
+        jsim.diffusion_limited_timestep(0.25), rel=1e-15)
+
+
 def test_stable_timestep_matches_jax(precision):
     _, vel, _ = _state(precision, seed=4)
     kw = dict(CFL=0.1, dx=1.0 / 20, nu=2e-3, tol=1e-6)

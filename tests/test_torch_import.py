@@ -12,6 +12,9 @@ def test_port_imports_without_jax():
         "import sys\n"
         "import sopht_mpi_tpu_torch, sopht_mpi_tpu_torch.cases\n"
         "import sopht_mpi_tpu_torch.convert\n"
+        "import sopht_mpi_tpu_torch.models.elastica\n"
+        "import sopht_mpi_tpu_torch.models.immersed_body.rod_forcing_grids\n"
+        "from sopht_mpi_tpu_torch.models import build_rod_fsi_step\n"
         "from sopht_mpi_tpu_torch.ops import cuda_stencils_3d\n"
         "from sopht_mpi_tpu_torch.parallel import cuda_fft\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"

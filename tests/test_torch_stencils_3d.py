@@ -20,13 +20,19 @@ from sopht_mpi_tpu.ops import stencils_3d as jax_stencils
 from sopht_mpi_tpu.ops.pallas_stencils_3d import (
     curl_3d_pallas,
     diffusion_penalise_vector_3d_pallas,
+    diffusion_timestep_vector_3d_pallas,
+    laplacian_filter_vector_3d_pallas,
+    penalise_field_boundary_vector_3d_pallas,
     rotational_curl_add_3d_pallas,
 )
 from sopht_mpi_tpu_torch.ops import cuda_stencils_3d as kernels
 from sopht_mpi_tpu_torch.ops import elementwise, stencils_3d
 
 SHAPES = [(3, 16, 16, 16), (3, 12, 16, 20)]
+# the filtered-transport kernels' shapes: odd and thin axes
+TRANSPORT_SHAPES = [(3, 17, 33, 65), (3, 16, 8, 24)]
 DTYPES = {"f32": (np.float32, torch.float32), "f64": (np.float64, torch.float64)}
+FILTER_TYPES = ["multiplicative", "convolution"]
 
 
 def _fields(shape, np_dtype, n=2, seed=0):
@@ -49,12 +55,21 @@ def _check(out, ref):
         np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5 * scale)
 
 
-pytestmark = [
-    pytest.mark.parametrize("shape", SHAPES, ids=["16^3", "12x16x20"]),
-    pytest.mark.parametrize("dtype", list(DTYPES)),
-]
+def _grids(shapes, ids):
+    """Parametrize over ``shapes`` then the dtypes (outermost decorator)."""
+
+    def mark(fn):
+        fn = pytest.mark.parametrize("shape", shapes, ids=ids)(fn)
+        return pytest.mark.parametrize("dtype", list(DTYPES))(fn)
+
+    return mark
 
 
+on_sphere_grids = _grids(SHAPES, ["16^3", "12x16x20"])
+on_transport_grids = _grids(TRANSPORT_SHAPES, ["17x33x65", "16x8x24"])
+
+
+@on_sphere_grids
 def test_rotational_curl_add_matches_pallas(shape, dtype):
     np_t, t_t = DTYPES[dtype]
     w, u = _fields(shape, np_t)
@@ -65,6 +80,7 @@ def test_rotational_curl_add_matches_pallas(shape, dtype):
     _check(kernels.rotational_curl_add_3d(_t(w, t_t), _t(u, t_t), float(p)), ref)
 
 
+@on_sphere_grids
 @pytest.mark.parametrize("width", [1, 2, 3])
 def test_diffusion_penalise_matches_pallas(shape, dtype, width):
     np_t, t_t = DTYPES[dtype]
@@ -78,6 +94,7 @@ def test_diffusion_penalise_matches_pallas(shape, dtype, width):
     )
 
 
+@on_sphere_grids
 @pytest.mark.parametrize("add", [False, True], ids=["no-add", "add"])
 @pytest.mark.parametrize("l1", [False, True], ids=["no-l1", "l1"])
 def test_curl_matches_pallas(shape, dtype, add, l1):
@@ -101,6 +118,7 @@ def test_curl_matches_pallas(shape, dtype, add, l1):
     _check(out, ref)
 
 
+@on_sphere_grids
 def test_plain_ops_match_jnp(shape, dtype):
     np_t, t_t = DTYPES[dtype]
     a, b = _fields(shape, np_t, seed=3)
@@ -127,6 +145,7 @@ def test_plain_ops_match_jnp(shape, dtype):
                jax_stencils.laplacian_filter_vector_3d(ja, 2, kind))
 
 
+@on_sphere_grids
 def test_wrapper_contract(shape, dtype):
     """Shape/dtype/size checks raise; a CPU tensor takes the plain version
     and adds nothing to the launch counts."""
@@ -150,6 +169,7 @@ def test_wrapper_contract(shape, dtype):
         kernels.diffusion_penalise_vector_3d(tf, 1.0, 0)
 
 
+@on_sphere_grids
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card(shape, dtype):
     if not torch.cuda.is_available():
@@ -167,6 +187,111 @@ def test_kernels_match_plain_on_card(shape, dtype):
         (kernels.curl_3d(w, p, add, True)[1],
          kernels.curl_3d_ref(w, p, add, True)[1]),
     ]
+    torch.cuda.synchronize()
+    for out, ref in pairs:
+        _check(out.cpu(), ref.cpu().numpy())
+
+
+# -- the filtered transport: diffusion, Laplacian filter, wall sponge -------
+
+
+@on_transport_grids
+def test_diffusion_matches_pallas(shape, dtype):
+    np_t, t_t = DTYPES[dtype]
+    (f,) = _fields(shape, np_t, n=1, seed=11)
+    p = np_t(0.13)
+    ref = diffusion_timestep_vector_3d_pallas(
+        jnp.asarray(f), jnp.asarray(p), interpret=True
+    )
+    _check(kernels.diffusion_timestep_vector_3d(_t(f, t_t), _t(p, t_t)), ref)
+
+
+@on_transport_grids
+@pytest.mark.parametrize("filter_type", FILTER_TYPES)
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_laplacian_filter_matches_pallas(shape, dtype, filter_type, order):
+    np_t, t_t = DTYPES[dtype]
+    (f,) = _fields(shape, np_t, n=1, seed=order)
+    ref = laplacian_filter_vector_3d_pallas(
+        jnp.asarray(f), order, filter_type, interpret=True
+    )
+    _check(kernels.laplacian_filter_vector_3d(_t(f, t_t), order, filter_type),
+           ref)
+
+
+@on_transport_grids
+@pytest.mark.parametrize("width", [1, 2, 3])
+def test_penalise_matches_pallas(shape, dtype, width):
+    np_t, t_t = DTYPES[dtype]
+    (f,) = _fields(shape, np_t, n=1, seed=20 + width)
+    assert kernels.penalise_supported(shape, width)
+    ref = penalise_field_boundary_vector_3d_pallas(
+        jnp.asarray(f), width, interpret=True
+    )
+    _check(kernels.penalise_field_boundary_vector_3d(_t(f, t_t), width), ref)
+
+
+@pytest.mark.parametrize(
+    "shape,width",
+    [((3, 16, 8, 24), 0), ((3, 4, 8, 24), 2), ((3, 16, 6, 24), 3),
+     ((3, 9, 8, 4), 2)],
+    ids=["w0", "nz=2w", "ny=2w", "nx=2w"],
+)
+def test_penalise_jnp_path_shapes(shape, width):
+    """Where the JAX function takes its jnp path (no sponge, or an axis of
+    2 width cells; fewer fail in the JAX package) the wrapper runs the
+    plain version on any device, and the two agree."""
+    (f,) = _fields(shape, np.float64, n=1, seed=5)
+    assert not kernels.penalise_supported(shape, width)
+    ref = penalise_field_boundary_vector_3d_pallas(
+        jnp.asarray(f), width, interpret=True
+    )
+    before = kernels.penalise_field_boundary_vector_3d.launches
+    _check(kernels.penalise_field_boundary_vector_3d(_t(f, torch.float64),
+                                                     width), ref)
+    assert kernels.penalise_field_boundary_vector_3d.launches == before
+
+
+def test_transport_wrapper_contract():
+    """The three wrappers take the plain versions on CPU tensors, count no
+    launch there, and reject what the kernels do not take."""
+    (f,) = _fields((3, 8, 8, 8), np.float32, n=1)
+    tf = _t(f, torch.float32)
+    counts = [fn.launches for fn in kernels.KERNELS]
+    kernels.diffusion_timestep_vector_3d(tf, 0.1)
+    for filter_type in FILTER_TYPES:
+        kernels.laplacian_filter_vector_3d(tf, 2, filter_type)
+    kernels.penalise_field_boundary_vector_3d(tf, 2)
+    assert [fn.launches for fn in kernels.KERNELS] == counts
+    assert kernels.laplacian_filter_vector_3d(tf, 0, "multiplicative") is tf
+    with pytest.raises(ValueError, match="filter type"):
+        kernels.laplacian_filter_vector_3d(tf, 1, "gaussian")
+    with pytest.raises(ValueError, match="filter order"):
+        kernels.laplacian_filter_vector_3d(tf, -1, "multiplicative")
+    with pytest.raises(ValueError):
+        kernels.diffusion_timestep_vector_3d(tf[0], 0.1)
+    with pytest.raises(TypeError):
+        kernels.penalise_field_boundary_vector_3d(tf.to(torch.float16), 2)
+
+
+@pytest.mark.cuda
+@on_transport_grids
+def test_transport_kernels_match_plain_on_card(shape, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    np_t, t_t = DTYPES[dtype]
+    (f,) = (_t(a, t_t).cuda() for a in _fields(shape, np_t, n=1))
+    p = torch.tensor(0.13, dtype=t_t, device="cuda")
+    pairs = [(kernels.diffusion_timestep_vector_3d(f, p),
+              kernels.diffusion_timestep_vector_3d_ref(f, p))]
+    for filter_type in FILTER_TYPES:
+        for order in (1, 2, 3):
+            pairs.append((
+                kernels.laplacian_filter_vector_3d(f, order, filter_type),
+                kernels.laplacian_filter_vector_3d_ref(f, order, filter_type)))
+    for width in (1, 2, 3):
+        pairs.append((kernels.penalise_field_boundary_vector_3d(f, width),
+                      kernels.penalise_field_boundary_vector_3d_ref(f, width)))
     torch.cuda.synchronize()
     for out, ref in pairs:
         _check(out.cpu(), ref.cpu().numpy())
