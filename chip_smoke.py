@@ -39,9 +39,32 @@ raises and exits non-zero, and nothing falls back to the CPU:
    the JAX package's CPU trajectory
    (``sopht_mpi_tpu_torch/data/rod_tip_reference.json``);
 10. rod card vs CPU: 3 steps of the (64, 16, 64) rod case from one
-    numpy-seeded state.
+    numpy-seeded state;
+11. fast tier: the 256^3 sphere step with ``fast_spectral=True`` (the
+    fused-curl route: ``fft_greens_curl_ifft_pass`` and
+    ``irfft_pass_merge_velocity`` in place of the z conv, the c2r merge and
+    the curl) timed in turns with the exact tier, with launch counts, and
+    the 64^3 Cd at t* = 2 on the fast tier against phase 6's;
+12. multibody main path: the (128, 128, 256) rod + sphere FSI step
+    (``cases._build_multibody_bench_case``, fast tier, per-body sparse
+    windows, dynamic substeps, order-1 filter), 5 warm-up + 20 timed steps
+    with every kernel's launch count, 3 steps with their host syncs
+    counted, a profiled window (written to
+    ``build/multibody_profile.txt``), and the exact tier in turns;
+13. multibody physics: the same case at (64, 64, 128), the grid of
+    ``doc/validation_rod_and_sphere_64x64x128.csv``, for the reference's
+    320 steps on the fast tier, the rod tip and the sphere's x-force
+    against the JAX package's CPU trajectory
+    (``sopht_mpi_tpu_torch/data/multibody_reference.json``);
+14. multibody card vs CPU: 3 steps of the (32, 32, 64) case from one
+    numpy-seeded state, the fast tier on the card against the plain passes
+    on the CPU.
 
-The line before the last is the kernel table as JSON; the last line is
+Phase 3 also checks the fused-curl pair against its plain versions at the
+256^3 sphere's, the (128, 128, 256) multi-body case's and a (48, 32, 64)
+grid's shapes. The line before the last is the kernel table as JSON (each
+kernel's launches on a main path, error, kernel / plain / one-PyTorch-call
+times and its bound at the main path's shape); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -84,6 +107,18 @@ FFT_REPLACES = {
     "ifft_pass_truncated": "sopht_mpi_tpu/parallel/pallas_fft.py:307",
     "irfft_pass_merge": "sopht_mpi_tpu/parallel/pallas_fft.py:757",
 }
+# the fast tier's fused-curl pair
+FUSED_REPLACES = {
+    "fft_greens_curl_ifft_pass": "sopht_mpi_tpu/parallel/pallas_fft.py:517",
+    "irfft_pass_merge_velocity": "sopht_mpi_tpu/parallel/pallas_fft.py:844",
+}
+# the exact tier's kernels that the fused route replaces
+EXACT_ONLY = ("curl_3d", "fft_greens_ifft_pass", "irfft_pass_merge")
+MULTIBODY_GRID = (128, 128, 256)
+# the card's peak rates (NVIDIA's data sheet, H100 SXM): HBM3 bytes/s and
+# FP32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 # FFT passes against torch.fft: float32 rounding of two differently
 # factored length-m DFTs grows like log m; the JAX package holds its passes
 # to 2e-6 of numpy's at m <= 128, and m = 512 here
@@ -133,6 +168,82 @@ def median_ms(torch, fn, n=20, warmup=3):
         times.append(start.elapsed_time(end))
     times.sort()
     return times[n // 2]
+
+
+def bound(nbytes, ops):
+    """The least time the card could take: (ms, "bytes" or "operations"),
+    the larger of the bytes over the HBM rate and the FP32 operations over
+    the FP32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+def fft_ops(m):
+    """Operations of one complex transform of length m (5 m log2 m)."""
+    import math
+
+    return 5.0 * m * math.log2(m)
+
+
+# operations a cell of each stencil kernel does (3 components, float32),
+# counted from its formula: rotational transport 6 products of the cross
+# product at 4 neighbours a component and the differences; the 7-point
+# Laplacian and its update; the curl's 4 differences and scale a
+# component with the free stream and the |u| sum; the 27-point
+# multiplicative filter as three 3-point passes; the sponge's ramp
+STENCIL_OPS = {
+    "rotational_curl_add_3d": 51, "diffusion_penalise_vector_3d": 42,
+    "curl_3d": 25, "diffusion_timestep_vector_3d": 30,
+    "laplacian_filter_vector_3d": 45, "penalise_field_boundary_vector_3d": 9,
+}
+
+
+def stencil_work(name, shape, nfields_in):
+    """(bytes, operations) of a stencil kernel on (3, nz, ny, nx) float32
+    fields: each input field read once, the output written once."""
+    cells = shape[1] * shape[2] * shape[3]
+    return 4 * 3 * cells * (nfields_in + 1), STENCIL_OPS[name] * cells
+
+
+def fft_work(name, args):
+    """(bytes, operations) of an FFT pass on its arguments: each input byte
+    read once, each output byte written once, 5 m log2 m operations a
+    complex transform (half that for a real one)."""
+    if name == "rfft_pass_padded_split":
+        x, m = args
+        r, n_in = x.shape
+        return 4 * r * n_in + 8 * r * (m // 2 + 1), 0.5 * fft_ops(m) * r
+    if name == "fft_pass_padded":
+        xr, _, m = args
+        a, h, b = xr.shape
+        return 8 * a * b * (h + m), fft_ops(m) * a * b
+    if name == "fft_greens_ifft_pass":
+        xr, _, g = args
+        a, h, b = xr.shape
+        m = 2 * h
+        return 16 * a * h * b + 4 * m * b, (2 * fft_ops(m) + 2 * m) * a * b
+    if name == "ifft_pass_truncated":
+        xr, _ = args[:2]
+        a, m, b = xr.shape
+        return 8 * a * b * (m + m // 2), fft_ops(m) * a * b
+    if name == "irfft_pass_merge":
+        br, _, _, _, m, n_out = args
+        r = br.shape[0]
+        return 8 * r * (m // 2 + 1) + 4 * r * n_out, 0.5 * fft_ops(m) * r
+    if name == "fft_greens_curl_ifft_pass":
+        xr, _, g, sym_z, sym_yx = args
+        _, h, b = xr.shape
+        m = 2 * h
+        nbytes = 2 * 24 * h * b + 4 * m * b + 4 * (m + 2 * b)
+        # three transforms each way, the Green's product and the curl
+        return nbytes, 3 * b * 2 * fft_ops(m) + 24 * m * b
+    assert name == "irfft_pass_merge_velocity"
+    br, _, _, _, _, m, n_out, _, _ = args
+    r = br.shape[1]
+    nbytes = 24 * r * (m // 2 + 1) + 12 * r * n_out + 16
+    return nbytes, 3 * r * 0.5 * fft_ops(m) + 9 * r * n_out
 
 
 def main():
@@ -276,11 +387,11 @@ def main():
                                  r(rows, 1), mx, nx),
         }
 
-    def run_fft_checks(grid, gen):
+    def run_fft_checks(grid, gen, args=None):
         calls = {
             name: (lambda f=getattr(cuda_fft, name), a=args: f(*a),
                    lambda f=getattr(cuda_fft, name + "_ref"), a=args: f(*a))
-            for name, args in fft_pass_args(grid, gen).items()
+            for name, args in (args or fft_pass_args(grid, gen)).items()
         }
         a, m, b = 3 * grid[0], 2 * grid[1], grid[2]
         for lead in (1, a):  # the optional Green's fold, shared and not
@@ -305,6 +416,83 @@ def main():
         torch.cuda.synchronize()
         return calls, errs
 
+    def fused_pair_args(grid, gen):
+        """The fused-curl pair's inputs at the shapes the fast-tier velocity
+        recovery of a (nz, ny, nx) grid gives them, with the grid's curl
+        symbols (unit x range)."""
+        nz, ny, nx = grid
+        doubled = (2 * nz, 2 * ny, 2 * nx)
+
+        def r(*shape):
+            return torch.randn(shape, dtype=torch.float32, device=dev,
+                               generator=gen)
+
+        sym_z, _, sym_yx = poisson._curl_symbols(doubled, 1.0 / nx, dev)
+        b, rows = 2 * ny * nx, nz * ny
+        return {
+            "fft_greens_curl_ifft_pass": (r(3, nz, b), r(3, nz, b),
+                                          r(1, 2 * nz, b), sym_z, sym_yx),
+            "irfft_pass_merge_velocity": (
+                r(3, rows, nx), r(3, rows, nx), r(3, rows, 1), r(3, rows, 1),
+                torch.tensor([1.0, -0.5, 0.25], device=dev), 2 * nx, nx, ny,
+                nz),
+        }
+
+    def run_fused_checks(grid, args):
+        calls, errs = {}, {}
+        for name, a in args.items():
+            fn = lambda f=getattr(cuda_fft, name), a=a: f(*a)
+            ref_fn = lambda f=getattr(cuda_fft, name + "_ref"), a=a: f(*a)
+            out, ref = fn(), ref_fn()
+            check(all(o.shape == q.shape for o, q in zip(out, ref)),
+                  f"{name} {grid}: output shapes differ")
+            scale = max(float(q.abs().max()) for q in ref)
+            err = max(float((o - q).abs().max()) for o, q in zip(out, ref))
+            check(err <= FFT_TOL * scale,
+                  f"{name} {grid}: max|diff| {err} > {FFT_TOL} * {scale}")
+            if name == "irfft_pass_merge_velocity":
+                l1_err = abs(float(out[1]) - float(ref[1])) / float(ref[1])
+                check(l1_err <= FFT_TOL,
+                      f"{name} {grid}: l1_max relative {l1_err} > {FFT_TOL}")
+                errs["l1_max"] = l1_err
+            calls[name], errs[name] = (fn, ref_fn), err
+        torch.cuda.synchronize()
+        return calls, errs
+
+    def library_call(name, args):
+        """One PyTorch call that computes the pass's function on its inputs
+        (prepared outside the timing), or None where there is none."""
+        if name == "rfft_pass_padded_split":
+            x, m = args
+            return lambda: torch.fft.rfft(x, n=m, dim=1)
+        if name == "fft_pass_padded":
+            z, m = torch.complex(args[0], args[1]), args[2]
+            return lambda: torch.fft.fft(z, n=m, dim=1)
+        if name == "ifft_pass_truncated":
+            z = torch.complex(args[0], args[1])
+            return lambda: torch.fft.ifft(z, dim=1)
+        if name == "irfft_pass_merge":
+            br, bi, sr, si, m, _ = args
+            z = torch.complex(torch.cat([br, sr], 1), torch.cat([bi, si], 1))
+            return lambda: torch.fft.irfft(z, n=m, dim=1)
+        return None
+
+    def entry(name, source, replaces, err, fn, ref_fn, work, shape,
+              library_fn=None, times=None):
+        """A row of the kernel table: kernel, plain and library times
+        (CUDA events) and the bound from (bytes, operations)."""
+        ms, plain_ms = times or (median_ms(torch, fn), median_ms(torch, ref_fn))
+        bound_ms, bound_by = bound(*work)
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None if library_fn is None
+            else median_ms(torch, library_fn),
+            "shape": str(shape),
+        }
+
     @phase("kernels")
     def kernel_phase():
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -315,12 +503,11 @@ def main():
             calls, errs = run_kernel_checks(shape, dtype, gen)
         # the last shape is the main path's: its errors and times are kept
         for name, (fn, ref_fn) in calls.items():
-            table[name] = {
-                "name": name, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[name], "launches": None,
-                "max_abs_err": errs[name],
-                "ms": median_ms(torch, fn), "plain_ms": median_ms(torch, ref_fn),
-            }
+            table[name] = entry(
+                name, SOURCE, REPLACES[name], errs[name], fn, ref_fn,
+                stencil_work(name, shape,
+                             2 if name == "rotational_curl_add_3d" else 1),
+                shape)
         del calls
         for shape, dtype in (((3, 17, 33, 65), torch.float32),
                              ((3, 64, 64, 64), torch.float64),
@@ -332,36 +519,122 @@ def main():
         for name, (fn, ref_fn) in calls.items():
             ms, plain_ms = median_ms(torch, fn), median_ms(torch, ref_fn)
             if name in REPLACES:
-                table[name] = {
-                    "name": name, "route": "cuda", "source": SOURCE,
-                    "replaces": REPLACES[name], "launches": None,
-                    "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-                }
+                table[name] = entry(
+                    name, SOURCE, REPLACES[name], errs[name], None, None,
+                    stencil_work(name, ROD_SHAPE, 1), ROD_SHAPE,
+                    times=(ms, plain_ms))
             else:
                 variants.append(f"{name}: err {errs[name]:.3g}, {ms:.4f} ms "
                                 f"vs plain {plain_ms:.4f} ms")
         del calls
         run_fft_checks((48, 32, 64), gen)  # m = 96, 64, 128
-        calls, errs = run_fft_checks((256, 256, 256), gen)
+        args = fft_pass_args((256, 256, 256), gen)
+        calls, errs = run_fft_checks((256, 256, 256), gen, args)
         for name in FFT_REPLACES:
             fn, ref_fn = calls[name]
-            table[name] = {
-                "name": name, "route": "cuda", "source": FFT_SOURCE,
-                "replaces": FFT_REPLACES[name], "launches": None,
-                "max_abs_err": errs[name],
-                "ms": median_ms(torch, fn), "plain_ms": median_ms(torch, ref_fn),
-            }
-        del calls
+            table[name] = entry(
+                name, FFT_SOURCE, FFT_REPLACES[name], errs[name], fn, ref_fn,
+                fft_work(name, args[name]), "256^3",
+                library_fn=library_call(name, args[name]))
+        del calls, args
         torch.cuda.empty_cache()
-        detail = "; ".join(
-            f"{k}: err {v['max_abs_err']:.3g}, {v['ms']:.4f} ms vs plain "
-            f"{v['plain_ms']:.4f} ms at "
-            f"{'(3, 256, 64, 256)' if k in TRANSPORT_KERNELS else '256^3'} f32"
-            for k, v in table.items())
+        # the fused-curl pair: an odd-factor grid (m = 96, 64, 128), the
+        # sphere's 256^3 and the multi-body case's (128, 128, 256), whose
+        # errors and times go into the table
+        fused = []
+        for grid in ((48, 32, 64), (256, 256, 256), MULTIBODY_GRID):
+            args = fused_pair_args(grid, gen)
+            calls, errs = run_fused_checks(grid, args)
+            for name, (fn, ref_fn) in calls.items():
+                e = entry(name, FFT_SOURCE, FUSED_REPLACES[name], errs[name],
+                          fn, ref_fn, fft_work(name, args[name]), str(grid))
+                if grid == MULTIBODY_GRID:
+                    table[name] = e
+                if grid[0] > 48:
+                    l1 = (f", l1_max relative {errs['l1_max']:.3g}"
+                          if "l1_max" in errs and "merge" in name else "")
+                    fused.append(
+                        f"{name} at {grid}: err {errs[name]:.3g}{l1}, "
+                        f"{e['ms']:.4f} ms vs plain {e['plain_ms']:.4f} ms, "
+                        f"bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
+            del calls, args
+            torch.cuda.empty_cache()
+        def line(k, v):
+            lib = v["library_ms"]
+            lib = "none" if lib is None else f"{lib:.4f} ms"
+            return (f"{k}: err {v['max_abs_err']:.3g}, {v['ms']:.4f} ms vs "
+                    f"plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} "
+                    f"ms ({v['bound_by']}), one torch call {lib} at "
+                    f"{v['shape']} f32")
+
+        detail = "; ".join(line(k, v) for k, v in table.items())
         detail += "; at (3, 256, 64, 256) f32: " + "; ".join(variants)
+        detail += "; " + "; ".join(fused)
         return table, detail + f" [{card}]"
 
     table = kernel_phase()
+    exact_fft = [fn for fn in cuda_fft.KERNELS
+                 if fn.__name__ not in FUSED_REPLACES]
+    by_name = {fn.__name__: fn for fn in kernels.KERNELS + cuda_fft.KERNELS}
+
+    def reset_counts():
+        for fn in by_name.values():
+            fn.launches = 0
+
+    def check_not_launched(names, where):
+        for name in names:
+            check(by_name[name].launches == 0,
+                  f"{name} launched {by_name[name].launches} times on {where}")
+
+    def timed_steps(step, carry, n, no_sync=True):
+        """``n`` steps timed on the host clock around a synchronise;
+        ``no_sync`` raises on any synchronising call inside them."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if no_sync:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            carry, diag = scan_steps(step, carry, n)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return carry, diag, (time.perf_counter() - t0) / n
+
+    def profile_steps(step, carry, n, path, title):
+        """Device busy time and time by kernel over ``n`` steps under
+        ``torch.profiler``, the table written to ``path``: (carry, wall ms,
+        busy ms, CUDA kernels a step, the top entries)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            carry, _ = scan_steps(step, carry, n)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t1) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA"]
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        n_launch = sum(e.count for e in events)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(f"{card}\n{title}, {n} steps, wall {wall_ms:.3f} ms, "
+                    f"device busy {busy_ms:.3f} ms\n")
+            f.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=40,
+                max_name_column_width=90))
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+        return carry, wall_ms, busy_ms, n_launch / n, top
+
+    def profile_detail(wall_ms, busy_ms, per_step, top, s_step):
+        return (f"profiled 3 steps: wall {wall_ms:.3f} ms, device busy "
+                f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%} of the profiled "
+                f"wall, {busy_ms / 3e3 / s_step:.1%} of an unprofiled step), "
+                f"{per_step:.0f} CUDA kernels/step, top "
+                + ", ".join(f"{e.key[:60]} "
+                            f"{e.self_device_time_total / 3e3:.3f} ms/step "
+                            f"x{e.count // 3}" for e in top))
 
     class dense_route:
         """Within: every solve takes the dense ``torch.fft`` route."""
@@ -409,28 +682,20 @@ def main():
         carry, _ = scan_steps(step, carry, 5)
         torch.cuda.synchronize()
         all_kernels = [fn for fn in kernels.KERNELS
-                       if fn.__name__ in SPHERE_KERNELS] + list(cuda_fft.KERNELS)
-        for fn in kernels.KERNELS + cuda_fft.KERNELS:
-            fn.launches = 0
-        t0 = time.perf_counter()
+                       if fn.__name__ in SPHERE_KERNELS] + exact_fft
+        reset_counts()
         # the step never waits for the device: a synchronising call raises
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            carry, forces = scan_steps(step, carry, 20)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
+        carry, forces, s_step = timed_steps(step, carry, 20)
         launches = {fn.__name__: fn.launches for fn in all_kernels}
         for name, count in launches.items():
             check(count >= 20, f"{name} launched {count} times on the main path")
             table[name]["launches"] = count
+        check_not_launched(FUSED_REPLACES, "the exact-tier sphere path")
         fs = carry.flow_state
         for what, t in (("vorticity", fs.primary_field),
                         ("velocity", fs.velocity_field), ("forces", forces)):
             check(bool(torch.isfinite(t).all()), f"non-finite {what}")
         check(tuple(fs.velocity_field.shape) == (3, n, n, n), "velocity shape")
-        s_step = elapsed / 20
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         return None, (f"256^3 f32 sparse window {step.window}: {s_step:.6f} "
                       f"s/step, {n**3 / s_step / 1e6:.3f} Mcells/s, peak "
@@ -464,14 +729,14 @@ def main():
               f"Cd {cd} (kernel route) vs {cd_d} (torch.fft route): "
               f"relative {rel_routes}")
         cd_interp = float(np.interp(2.0, times, cds))
-        return None, (f"64^3 dense IBM, kernel route: Cd {cd:.6f} at "
+        return cd, (f"64^3 dense IBM, kernel route: Cd {cd:.6f} at "
                       f"t*={times[-1]:.4f} (first sample past 2; "
                       f"{len(times) * 10} steps), interpolated at t*=2 "
                       f"{cd_interp:.5f}; torch.fft route Cd {cd_d:.6f} "
                       f"(relative {rel_routes:.3g}); JAX reference "
                       f"{CD_T2_64:.5f}, diff {rel:.3%}")
 
-    physics_phase()
+    cd_exact = physics_phase()
 
     @phase("card vs cpu")
     def parity_phase():
@@ -500,7 +765,7 @@ def main():
 
     rod_kernels = [fn for fn in kernels.KERNELS
                    if fn.__name__ != "diffusion_penalise_vector_3d"]
-    rod_kernels += list(cuda_fft.KERNELS)
+    rod_kernels += exact_fft
 
     def count_syncs(fn):
         """Run ``fn`` with every synchronising CUDA call reported; returns
@@ -526,19 +791,17 @@ def main():
         torch.cuda.reset_peak_memory_stats(dev)
         carry, _ = scan_steps(step, carry, 5)
         torch.cuda.synchronize()
-        for fn in kernels.KERNELS + cuda_fft.KERNELS:
-            fn.launches = 0
+        reset_counts()
         n_steps = 20
         stats0 = dict(step.stats)
-        t0 = time.perf_counter()
-        carry, (forces, window_ok) = scan_steps(step, carry, n_steps)
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
+        carry, (forces, window_ok), s_step = timed_steps(
+            step, carry, n_steps, no_sync=False)
         launches = {fn.__name__: fn.launches for fn in rod_kernels}
         for name, count in launches.items():
             check(count >= n_steps,
                   f"{name} launched {count} times on the rod path")
             table[name]["launches"] = count
+        check_not_launched(FUSED_REPLACES, "the exact-tier rod path")
         substeps = step.stats["substeps"] - stats0["substeps"]
         # the host syncs, counted on 3 more steps: the sync debug mode costs
         # host time, which this host-bound step would show in its s/step
@@ -555,44 +818,18 @@ def main():
             check(bool(torch.isfinite(t).all()), f"non-finite {what}")
         check(bool(window_ok.all()), "the rod's support left the window")
         check(tuple(fs.velocity_field.shape) == (3, *grid), "velocity shape")
-        s_step = elapsed / n_steps
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
-
         # the device's busy share and the time by kernel over 3 more steps
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t1 = time.perf_counter()
-            carry, _ = scan_steps(step, carry, 3)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t1) * 1e3
-        events = [e for e in prof.key_averages()
-                  if e.device_type.name == "CUDA"]
-        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-        n_launch = sum(e.count for e in events)
-        os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
-        with open(os.path.join(REPO, "build", "rod_profile.txt"), "w") as f:
-            f.write(f"{card}\n(256, 64, 256) rod step, 3 steps, wall "
-                    f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms\n")
-            f.write(prof.key_averages().table(
-                sort_by="self_device_time_total", row_limit=40,
-                max_name_column_width=90))
-        top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+        carry, *prof = profile_steps(
+            step, carry, 3, os.path.join(REPO, "build", "rod_profile.txt"),
+            "(256, 64, 256) rod step")
         return None, (
             f"(256, 64, 256) f32 flow, f64 rod, window "
             f"{step.sparse_forcing_window}: {s_step:.6f} s/step, "
             f"{np.prod(grid) / s_step / 1e6:.3f} Mcells/s, peak {peak:.2f} "
             f"GiB, {substeps / n_steps:.2f} substeps/step, "
             f"{syncs / 3:.2f} host syncs/step, launches {launches}; "
-            f"profiled 3 steps: wall {wall_ms:.3f} ms, device busy "
-            f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%} of the profiled "
-            f"wall, {busy_ms / 3e3 / s_step:.1%} of an unprofiled step), "
-            f"{n_launch / 3:.0f} CUDA kernels/step, top "
-            + ", ".join(f"{e.key[:60]} {e.self_device_time_total / 3e3:.3f} "
-                        f"ms/step x{e.count // 3}" for e in top)
-            + f" [{card}]")
+            + profile_detail(*prof, s_step) + f" [{card}]")
 
     rod_main_path_phase()
 
@@ -665,6 +902,277 @@ def main():
                       f"{n_cpu}), max|diff| {errs}")
 
     rod_parity_phase()
+
+    fast_kernels = [by_name[n] for n in (
+        "rfft_pass_padded_split", "fft_pass_padded",
+        "fft_greens_curl_ifft_pass", "ifft_pass_truncated",
+        "irfft_pass_merge_velocity")]
+
+    def check_fast_route(n_steps, where):
+        """Over ``n_steps`` fast-tier steps: the fused pair once a step, the
+        exact tier's z conv, c2r merge and curl never."""
+        for name in FUSED_REPLACES:
+            count = by_name[name].launches
+            check(count == n_steps, f"{name} launched {count} times in "
+                  f"{n_steps} steps on {where}")
+        check_not_launched(EXACT_ONLY, where)
+
+    @phase("fast tier")
+    def fast_tier_phase():
+        n, n_steps = 256, 20
+        runs = {}
+        for fast in (False, True):
+            step, (carry,) = cases._build_fsi_case(
+                (n, n, n), device=dev, sim_kwargs={"fast_spectral": fast})
+            check(step.uses_sparse_forcing, "no sparse window")
+            check(isinstance(carry.greens, tuple), "the 256^3 case's Poisson "
+                  "solve is not on the kernel route")
+            carry, _ = scan_steps(step, carry, 5)
+            runs[fast] = [step, carry, []]
+        launches = None
+        # in turns: exact, fast, fast, exact
+        for fast in (False, True, True, False):
+            step, carry, times = runs[fast]
+            reset_counts()
+            carry, forces, s_step = timed_steps(step, carry, n_steps)
+            if fast:
+                check_fast_route(n_steps, "the fast-tier sphere path")
+                launches = {fn.__name__: fn.launches for fn in fast_kernels}
+            else:
+                check_not_launched(FUSED_REPLACES, "the exact-tier sphere path")
+            runs[fast][1] = carry
+            times.append(s_step)
+            fs = carry.flow_state
+            for what, t in (("vorticity", fs.primary_field),
+                            ("velocity", fs.velocity_field), ("forces", forces)):
+                check(bool(torch.isfinite(t).all()), f"non-finite {what}")
+        exact, fast = runs[False][2], runs[True][2]
+
+        # the 64^3 Cd on the fast tier, through the package default
+        import sopht_mpi_tpu_torch
+
+        sopht_mpi_tpu_torch.enable_fast_spectral(True)
+        try:
+            reset_counts()
+            times, cds = cases.flow_past_sphere_fused_case(
+                nondim_time=2.0, grid_size=(64, 64, 64), window=10, device=dev)
+            n_drag = len(times) * 10
+            check_fast_route(n_drag, "the fast-tier 64^3 drag run")
+        finally:
+            sopht_mpi_tpu_torch.enable_fast_spectral(None)
+        cd = float(cds[-1])
+        rel = abs(cd - cd_exact) / abs(cd_exact)
+        check(np.isfinite(cd) and rel <= 1e-3,
+              f"fast-tier Cd {cd} vs exact {cd_exact}: relative {rel}")
+        mc = lambda t: n**3 / t / 1e6
+        return None, (
+            f"256^3 sphere, {n_steps} timed steps a run, in turns: exact "
+            f"{exact[0]:.6f} / {exact[1]:.6f} s/step ({mc(exact[0]):.3f} / "
+            f"{mc(exact[1]):.3f} Mcells/s), fast {fast[0]:.6f} / "
+            f"{fast[1]:.6f} s/step ({mc(fast[0]):.3f} / {mc(fast[1]):.3f} "
+            f"Mcells/s), no host sync; fast-tier launches {launches}, "
+            f"{', '.join(EXACT_ONLY)} 0; 64^3 Cd at t*={times[-1]:.4f}: fast "
+            f"{cd:.6f} vs exact {cd_exact:.6f} (relative {rel:.3g}) [{card}]")
+
+    fast_tier_phase()
+
+    multibody_kernels = [
+        by_name[n] for n in ("rotational_curl_add_3d",) + TRANSPORT_KERNELS
+    ] + fast_kernels
+
+    @phase("multibody main path")
+    def multibody_main_path_phase():
+        grid, n_steps = MULTIBODY_GRID, 20
+        runs = {}
+        torch.cuda.reset_peak_memory_stats(dev)
+        for fast in (True, False):
+            step, (carry,) = cases._build_multibody_bench_case(
+                grid, device=dev, fast_spectral=fast)
+            check(step.uses_sparse_forcing, "no sparse windows")
+            check(isinstance(carry.greens, tuple), "the multi-body case's "
+                  "Poisson solve is not on the kernel route")
+            carry, _ = scan_steps(step, carry, 5)
+            torch.cuda.synchronize()
+            runs[fast] = [step, carry, [], []]
+        launches = None
+        # in turns: fast, exact, exact, fast; one host read a step, so the
+        # sync debug mode stays off (it costs a host-bound step host time)
+        for fast in (True, False, False, True):
+            step, carry, times, subs = runs[fast]
+            reset_counts()
+            stats0 = dict(step.stats)
+            carry, (forces, ok), s_step = timed_steps(step, carry, n_steps,
+                                                      no_sync=False)
+            check(bool(ok.all()), "a body's support left its window")
+            if fast:
+                check_fast_route(n_steps, "the multi-body path")
+                counts = {fn.__name__: fn.launches for fn in multibody_kernels}
+                for name, count in counts.items():
+                    check(count >= n_steps, f"{name} launched {count} times "
+                          "on the multi-body path")
+                if launches is None:
+                    launches = counts
+                    for name, count in counts.items():
+                        table[name]["launches"] = count
+            else:
+                check_not_launched(FUSED_REPLACES, "the exact-tier multi-body "
+                                   "path")
+            runs[fast][1] = carry
+            times.append(s_step)
+            subs.append((step.stats["substeps"] - stats0["substeps"]) / n_steps)
+            fs = carry.flow_state
+            rod = carry.body_states[0]
+            for what, t in (("vorticity", fs.primary_field),
+                            ("velocity", fs.velocity_field),
+                            ("rod", rod.position),
+                            ("forces", torch.stack(forces))):
+                check(bool(torch.isfinite(t).all()), f"non-finite {what}")
+            check(tuple(fs.velocity_field.shape) == (3, *grid),
+                  "velocity shape")
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        step, carry, _, _ = runs[True]
+        stats0 = dict(step.stats)
+        (carry, _), syncs = count_syncs(lambda: scan_steps(step, carry, 3))
+        host_reads = step.stats["host_syncs"] - stats0["host_syncs"]
+        check(syncs == host_reads == 3,
+              f"{syncs} synchronising calls, {host_reads} substep-count "
+              f"reads in 3 steps")
+        carry, *prof = profile_steps(
+            step, carry, 3, os.path.join(REPO, "build",
+                                         "multibody_profile.txt"),
+            f"{grid} multi-body step, fast tier")
+        # the exact tier's profile beside it: where its step time goes
+        _, e_wall, e_busy, e_per_step, _ = profile_steps(
+            runs[False][0], runs[False][1], 3,
+            os.path.join(REPO, "build", "multibody_exact_profile.txt"),
+            f"{grid} multi-body step, exact tier")
+        (f0, f1), (e0, e1) = runs[True][2], runs[False][2]
+        mc = lambda t: np.prod(grid) / t / 1e6
+        return None, (
+            f"{grid} f32 flow, f64 rod, fixed sphere, windows "
+            f"{step.body_windows}, in turns: fast {f0:.6f} / {f1:.6f} "
+            f"s/step ({mc(f0):.3f} / {mc(f1):.3f} Mcells/s), exact "
+            f"{e0:.6f} / {e1:.6f} s/step ({mc(e0):.3f} / {mc(e1):.3f} "
+            f"Mcells/s); substeps/step fast {runs[True][3]}, exact "
+            f"{runs[False][3]}; peak {peak:.2f} GiB, {syncs / 3:.2f} host "
+            f"syncs/step, windows ok; fast-tier launches {launches}, "
+            f"{', '.join(EXACT_ONLY)} 0; fast tier "
+            + profile_detail(*prof, f1)
+            + f"; exact tier profiled 3 steps: wall {e_wall:.3f} ms, device "
+            f"busy {e_busy:.3f} ms, {e_per_step:.0f} CUDA kernels/step "
+            f"[{card}]")
+
+    multibody_main_path_phase()
+
+    @phase("multibody physics")
+    def multibody_physics_phase():
+        with open(os.path.join(REPO, "sopht_mpi_tpu_torch", "data",
+                               "multibody_reference.json")) as f:
+            ref = json.load(f)
+        grid, n_steps = tuple(ref["grid_size"]), ref["n_steps"]
+        step, (carry,) = cases._build_multibody_bench_case(
+            grid, device=dev, fast_spectral=True)
+        check(step.uses_sparse_forcing, "no sparse windows")
+        reset_counts()
+        times = [float(carry.time)]
+        tips = [carry.body_states[0].position[:, -1].cpu().numpy()]
+        forces, oks = [], []
+        for _ in range(n_steps):
+            carry, (sums, ok) = step(carry)
+            oks.append(ok)
+            times.append(float(carry.time))
+            tips.append(carry.body_states[0].position[:, -1].cpu().numpy())
+            forces.append(float(sums[1][0]))
+        check_fast_route(n_steps, "the multi-body physics run")
+        check(bool(torch.stack(oks).all()), "a body left its window")
+        times, tips = np.asarray(times), np.asarray(tips)
+        check(np.isfinite(tips).all() and np.isfinite(forces).all(),
+              "non-finite tip or force")
+        ref_t, ref_tip = np.asarray(ref["times"]), np.asarray(ref["tip"])
+        inside = times <= ref_t[-1]
+        ref_at = np.stack([np.interp(times[inside], ref_t, ref_tip[:, c])
+                           for c in range(3)], axis=1)
+        dev_max = float(np.abs(tips[inside] - ref_at).max())
+        rel = dev_max / ref["rod_length"]
+        check(rel <= TIP_TOL, f"tip deviates {rel:.3g} L from the JAX "
+              f"trajectory (> {TIP_TOL})")
+        # the same step of both runs (their times agree to float32 rounding)
+        f_ref = ref["sphere_force_x"][n_steps]
+        f_rel = abs(forces[-1] - f_ref) / abs(f_ref)
+        check(f_rel <= 1e-3, f"sphere x-force {forces[-1]} vs JAX {f_ref}: "
+              f"relative {f_rel:.3g} > 1e-3")
+        # the TPU's fast-tier run of this grid (bf16 matmuls), ungated
+        csv = np.loadtxt(os.path.join(
+            REPO, "doc", "validation_rod_and_sphere_64x64x128.csv"),
+            delimiter=",", skiprows=1)
+        sphere_d = 0.4 * ref["rod_length"]
+        drag_scale = 0.5 * 0.25 * np.pi * sphere_d**2
+        rows = []
+        for t_csv, *tip_csv, cd_csv in csv[csv[:, 0] <= times[-1]]:
+            k = int(np.argmin(np.abs(times - t_csv)))
+            cd = -forces[k - 1] / drag_scale if k > 0 else float("nan")
+            rows.append(f"t {t_csv:.4f}: tip x {tip_csv[0]:.6f} (card "
+                        f"{tips[k, 0]:.6f} at t {times[k]:.4f}), Cd "
+                        f"{cd_csv:.3f} (card {cd:.3f})")
+        return None, (
+            f"{grid} fast tier, {n_steps} steps to t = {times[-1]:.5f} (JAX "
+            f"CPU: {ref_t[-1]:.5f}), {step.stats['substeps']} substeps; tip "
+            f"moved {float(np.abs(tips[-1] - tips[0]).max()):.6g}, max "
+            f"deviation from the JAX trajectory {dev_max:.3g} = {rel:.3g} L "
+            f"(bound {TIP_TOL} L); sphere x-force at the last step "
+            f"{forces[-1]:.8g} vs JAX {f_ref:.8g} (relative {f_rel:.3g}, "
+            f"bound 1e-3); the TPU's validation run, ungated: "
+            + "; ".join(rows))
+
+    multibody_physics_phase()
+
+    @phase("multibody card vs cpu")
+    def multibody_parity_phase():
+        grid = (32, 32, 64)
+        vort = np.random.default_rng(0).standard_normal((3, *grid)) * 0.1
+        finals = []
+        # the CPU takes the fused route's plain passes
+        poisson.FORCE_KERNEL_CONVOLVE = True
+        try:
+            for device in (dev, torch.device("cpu")):
+                step, (carry,) = cases._build_multibody_bench_case(
+                    grid, device=device, fast_spectral=True,
+                    sim_kwargs={"use_kernels": True})
+                check(step.uses_sparse_forcing, "no sparse windows")
+                fs = carry.flow_state
+                state = flow_state_from_numpy(
+                    (vort, fs.velocity_field.cpu().numpy(),
+                     fs.eul_grid_forcing_field.cpu().numpy()),
+                    device=device, dtype=torch.float32)
+                reset_counts()
+                carry, _ = scan_steps(step, carry._replace(flow_state=state),
+                                      3)
+                if device.type == "cuda":
+                    check_fast_route(3, "the multi-body parity run")
+                finals.append((carry, step.stats["substeps"]))
+        finally:
+            poisson.FORCE_KERNEL_CONVOLVE = None
+        (gpu, n_gpu), (cpu, n_cpu) = finals
+        errs = {}
+        for what, out, ref in (
+                ("vorticity", gpu.flow_state.primary_field,
+                 cpu.flow_state.primary_field),
+                ("velocity", gpu.flow_state.velocity_field,
+                 cpu.flow_state.velocity_field),
+                ("rod position", gpu.body_states[0].position,
+                 cpu.body_states[0].position),
+                ("rod mismatch", gpu.vb_states[0].position_mismatch,
+                 cpu.vb_states[0].position_mismatch),
+                ("sphere mismatch", gpu.vb_states[1].position_mismatch,
+                 cpu.vb_states[1].position_mismatch)):
+            err = float((out.cpu() - ref).abs().max())
+            tol = 1e-4 * max(1.0, float(ref.abs().max()))
+            check(err <= tol, f"multi-body {what}: card vs cpu {err} > {tol}")
+            errs[what] = err
+        return None, (f"{grid}, 3 steps, {n_gpu} substeps (cpu {n_cpu}), "
+                      f"max|diff| {errs}")
+
+    multibody_parity_phase()
 
     print(json.dumps({"kernels": list(table.values())}))
     print(json.dumps({"ok": True, "device": {

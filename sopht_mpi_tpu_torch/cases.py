@@ -1,8 +1,9 @@
 """The FSI cases a user runs: flow past a sphere (counterparts of
 ``__graft_entry__._build_fsi_case`` and
-``examples/3d/flow_past_sphere.py:flow_past_sphere_fused_case``) and flow
+``examples/3d/flow_past_sphere.py:flow_past_sphere_fused_case``), flow
 past a flexible rod (``__graft_entry__._build_rod_fsi_case`` and
-``_build_rod_bench_case``).
+``_build_rod_bench_case``) and a rod with a sphere in its wake
+(``_build_multibody_case`` and ``_build_multibody_bench_case``).
 """
 
 from __future__ import annotations
@@ -16,14 +17,18 @@ from sopht_mpi_tpu_torch.models import (
     CosseratRod,
     CosseratRodFlowInteraction,
     CosseratRodSurfaceForcingGrid,
+    FixedRigidBody,
     GravityForces,
     OneEndFixedBC,
     RigidBodyFlowInteraction,
+    RodBody,
     Sphere,
     SphereForcingGrid,
     UnboundedFlowSimulator3D,
+    build_multi_body_fsi_step,
     build_rigid_fsi_step,
     build_rod_fsi_step,
+    init_multi_body_fsi_carry,
     init_rigid_fsi_carry,
     init_rod_fsi_carry,
     scan_steps,
@@ -343,3 +348,215 @@ def _build_rod_bench_case(grid_size, *, device, sparse_forcing=None,
     )
     carry = init_rod_fsi_carry(flow_sim, interactor, rod, step)
     return step, (carry,)
+
+
+def _build_multibody_bench_case(grid_size, *, device, sparse_forcing=None,
+                                precision="single",
+                                substep_load_refresh="every",
+                                fast_spectral=None, sim_kwargs=None):
+    """The mixed rod + rigid-sphere FSI benchmark case
+    (``__graft_entry__._build_multibody_bench_case``, BASELINE config 5, the
+    physics of ``examples/3d/rod_and_sphere.py``): a Cosserat rod hanging
+    from 0.85 of the height, half the height long, n_elem = max(8,
+    5 nx / 16), surface grid density max(4, nx / 8), Cauchy 0.1, mass ratio
+    100, Re 100, stretch stiffening, the linear damper, no gravity; a fixed
+    sphere of 0.4 rod lengths in its wake at (0.65, 0.5, 0.5) of the
+    domain; both bodies sharing the forcing, dynamic substeps from the
+    rod's dt, the order-1 multiplicative filter. Float64 rod, float32 flow
+    (``precision="single"``). Meant for (nx/2, nx/2, nx) grids. Returns
+    (fused step, (carry,)).
+
+    ``sparse_forcing`` is the step's (None: per-body moving windows where
+    they fit); ``fast_spectral`` the simulator's; ``sim_kwargs`` are extra
+    :class:`UnboundedFlowSimulator3D` options."""
+    grid_size_z, grid_size_y, grid_size_x = grid_size
+    real_t = get_real_t(precision)
+    n_elem = max(8, 5 * grid_size_x // 16)
+    surface_density = max(4, grid_size_x // 8)
+    rho_f, u_free_stream = 1.0, 1.0
+    cauchy_number, mass_ratio, reynolds = 0.1, 100.0, 100.0
+    x_range = 1.8
+    y_range = grid_size_y / grid_size_x * x_range
+    z_range = grid_size_z / grid_size_x * x_range
+    base_length = 0.5 * z_range
+
+    device = torch.device(device)
+    collection = BaseSystemCollection()
+    start = np.array([0.25 * x_range, 0.5 * y_range, 0.85 * z_range])
+    direction = np.array([0.0, 0.0, -1.0])
+    normal = np.array([0.0, 1.0, 0.0])
+    base_diameter = base_length / 5.0
+    base_radius = base_diameter / 2.0
+    base_area = np.pi * base_radius**2
+    rho_s = mass_ratio * rho_f
+    moment_of_inertia = np.pi / 4 * base_radius**4
+    youngs_modulus = (
+        rho_f * u_free_stream**2 * base_length**3 * base_diameter
+    ) / (cauchy_number * moment_of_inertia)
+    exp_radius, exp_length = 0.2e-3, 25e-3
+    stretch_bending_ratio = (
+        np.pi * exp_radius**2 * exp_length**2 / (np.pi / 4 * exp_radius**4)
+    )
+    es_eb = stretch_bending_ratio * moment_of_inertia / (
+        base_area * base_length**2
+    )
+    rod = CosseratRod.straight_rod(
+        n_elem,
+        start,
+        direction,
+        normal,
+        base_length,
+        base_radius,
+        rho_s,
+        youngs_modulus=youngs_modulus,
+        shear_modulus=youngs_modulus / 1.5,
+        device=device,
+    )
+    shear_diag = rod.params.shear_diag.clone()
+    shear_diag[2] *= es_eb
+    rod.params = rod.params._replace(shear_diag=shear_diag)
+    collection.append(rod)
+    collection.constrain(rod).using(
+        OneEndFixedBC,
+        constrained_position_idx=(0,),
+        constrained_director_idx=(0,),
+    )
+    dl = base_length / n_elem
+    axial_wave_speed = np.sqrt(youngs_modulus * es_eb / rho_s)
+    rod_dt = min(0.01 * dl, 0.3 * dl / axial_wave_speed)
+    collection.dampen(rod).using(
+        AnalyticalLinearDamper, damping_constant=1e-3, time_step=rod_dt
+    )
+    collection.finalize()
+
+    flow_sim = UnboundedFlowSimulator3D(
+        grid_size=grid_size,
+        x_range=x_range,
+        kinematic_viscosity=u_free_stream * base_diameter / reynolds,
+        flow_type="navier_stokes_with_forcing",
+        with_free_stream_flow=True,
+        real_t=real_t,
+        device=device,
+        filter_vorticity=True,
+        filter_setting_dict={"order": 1, "type": "multiplicative"},
+        fast_spectral=fast_spectral,
+        **(sim_kwargs or {}),
+    )
+    rod_interactor = CosseratRodFlowInteraction(
+        flow_sim=flow_sim,
+        cosserat_rod=rod,
+        virtual_boundary_stiffness_coeff=-2e5,
+        virtual_boundary_damping_coeff=-1e2,
+        forcing_grid_cls=CosseratRodSurfaceForcingGrid,
+        surface_grid_density_for_largest_element=surface_density,
+    )
+    sphere_diameter = 0.4 * base_length
+    sphere = Sphere(
+        center=np.array([0.65 * x_range, 0.5 * y_range, 0.5 * z_range]),
+        radius=sphere_diameter / 2.0,
+        device=device,
+        dtype=real_t,
+    )
+    sphere_grid = SphereForcingGrid(
+        rigid_body=sphere,
+        num_forcing_points_along_equator=max(
+            8, int(1.875 * sphere_diameter / x_range * grid_size_x)
+        ),
+    )
+    sphere_interactor = RigidBodyFlowInteraction(
+        flow_sim=flow_sim,
+        rigid_body=sphere,
+        forcing_grid=sphere_grid,
+        virtual_boundary_stiffness_coeff=-2e5,
+        virtual_boundary_damping_coeff=-1e2,
+    )
+    bodies = (
+        RodBody(rod_interactor, collection),
+        FixedRigidBody(sphere_interactor),
+    )
+    free_stream = torch.tensor([u_free_stream, 0.0, 0.0], dtype=real_t,
+                               device=device)
+    step = build_multi_body_fsi_step(
+        flow_sim,
+        bodies,
+        dt_prefac=0.25,
+        free_stream_fn=lambda t: free_stream,
+        sub_dt=rod_dt,
+        sparse_forcing=sparse_forcing,
+        substep_load_refresh=substep_load_refresh,
+    )
+    carry = init_multi_body_fsi_carry(flow_sim, bodies, step)
+    return step, (carry,)
+
+
+def _build_multibody_case(grid_size, *, device, fast_spectral=None):
+    """A small mixed rod + rigid-sphere case
+    (``__graft_entry__._build_multibody_case``): a clamped 5-element rod
+    and a fixed sphere sharing the forcing, a unit-velocity flow, float32
+    flow, float64 rod, one substep a flow step; returns (fused step,
+    carry)."""
+    real_t = torch.float32
+    flow_sim = UnboundedFlowSimulator3D(
+        grid_size=grid_size,
+        x_range=1.0,
+        kinematic_viscosity=1e-3,
+        flow_type="navier_stokes_with_forcing",
+        with_free_stream_flow=True,
+        real_t=real_t,
+        device=device,
+        fast_spectral=fast_spectral,
+    )
+    flow_sim.velocity_field = flow_sim.velocity_field + 1.0
+    rod = CosseratRod.straight_rod(
+        5,
+        np.array([0.3, 0.4, 0.4]),
+        np.array([0.0, 1.0, 0.0]),
+        np.array([0.0, 0.0, 1.0]),
+        base_length=0.25,
+        base_radius=0.02,
+        density=1e3,
+        youngs_modulus=1e5,
+        shear_modulus=1e5 / 1.5,
+        device=flow_sim.device,
+    )
+    collection = BaseSystemCollection()
+    collection.append(rod)
+    collection.constrain(rod).using(
+        OneEndFixedBC,
+        constrained_position_idx=(0,),
+        constrained_director_idx=(0,),
+    )
+    collection.finalize()
+    rod_interactor = CosseratRodFlowInteraction(
+        flow_sim=flow_sim,
+        cosserat_rod=rod,
+        virtual_boundary_stiffness_coeff=-1e3,
+        virtual_boundary_damping_coeff=-1e0,
+        forcing_grid_cls=CosseratRodSurfaceForcingGrid,
+        surface_grid_density_for_largest_element=4,
+    )
+    sphere = Sphere(center=np.array([0.7, 0.5, 0.5]), radius=0.1,
+                    device=flow_sim.device, dtype=real_t)
+    sph_grid = SphereForcingGrid(
+        rigid_body=sphere, num_forcing_points_along_equator=8
+    )
+    sph_interactor = RigidBodyFlowInteraction(
+        flow_sim=flow_sim,
+        rigid_body=sphere,
+        forcing_grid=sph_grid,
+        virtual_boundary_stiffness_coeff=-1e3,
+        virtual_boundary_damping_coeff=-1e0,
+    )
+    bodies = (
+        RodBody(rod_interactor, collection),
+        FixedRigidBody(sph_interactor),
+    )
+    free_stream = torch.tensor([1.0, 0.0, 0.0], dtype=real_t,
+                               device=flow_sim.device)
+    step = build_multi_body_fsi_step(
+        flow_sim,
+        bodies,
+        dt_prefac=0.5,
+        free_stream_fn=lambda t: free_stream,
+    )
+    return step, init_multi_body_fsi_carry(flow_sim, bodies)

@@ -17,7 +17,12 @@ from sopht_mpi_tpu_torch.models.elastica.rod import (
     CosseratRodState,
 )
 from sopht_mpi_tpu_torch.models.flow.simulator_3d import FlowState3D
-from sopht_mpi_tpu_torch.models.fsi import RigidFSICarry, RodFSICarry
+from sopht_mpi_tpu_torch.models.fsi import (
+    MultiBodyFSICarry,
+    RigidFSICarry,
+    RodFSICarry,
+)
+from sopht_mpi_tpu_torch.models.rigid_body import RigidBodyState
 from sopht_mpi_tpu_torch.ops.virtual_boundary import VirtualBoundaryState
 
 
@@ -126,4 +131,64 @@ def rod_fsi_carry_from_numpy(tree, *, device, dtype, rod_dtype=torch.float64
             None if frozen is None
             else tuple(_tensor(v, device, marker_dtype) for v in frozen)
         ),
+    )
+
+
+def rigid_body_state_from_numpy(tree, *, device, dtype) -> RigidBodyState:
+    """(position, velocity, omega, director) numpy arrays ->
+    :class:`RigidBodyState` on ``device`` in ``dtype``."""
+    return RigidBodyState(
+        *(_tensor(v, device, dtype)
+          for v in _fields(tree, RigidBodyState._fields))
+    )
+
+
+def _is_rigid_state(tree) -> bool:
+    """A rigid body's position is a (3,) vector, a rod's (3, n + 1)."""
+    position = tree["position"] if isinstance(tree, dict) else list(tree)[0]
+    return np.ndim(position) == 1
+
+
+def multi_body_fsi_carry_from_numpy(tree, *, device, dtype,
+                                    rod_dtype=torch.float64
+                                    ) -> MultiBodyFSICarry:
+    """A JAX ``MultiBodyFSICarry`` as numpy arrays -> the port's
+    :class:`MultiBodyFSICarry`. Per body: a rod state in ``rod_dtype``, a
+    rigid-body state in ``dtype``, None for a fixed body; the flow state,
+    the virtual-boundary states, the previous mismatches, time, the Green's
+    function and ``velocity_l1_max`` in ``dtype``; the frozen loads (None
+    unless the step freezes them; None entries for fixed bodies) in the
+    promotion of ``dtype`` and the body's dtype."""
+    (flow, bodies, vbs, prev, time, greens, l1_max, frozen) = _fields(
+        tree, MultiBodyFSICarry._fields
+    )
+    states, body_dtypes = [], []
+    for body in bodies:
+        if body is None:
+            states.append(None)
+            body_dtypes.append(dtype)
+        elif _is_rigid_state(body):
+            states.append(rigid_body_state_from_numpy(
+                body, device=device, dtype=dtype))
+            body_dtypes.append(dtype)
+        else:
+            states.append(rod_state_from_numpy(
+                body, device=device, dtype=rod_dtype))
+            body_dtypes.append(rod_dtype)
+    if frozen is not None:
+        frozen = tuple(
+            None if loads is None else tuple(
+                _tensor(v, device, torch.promote_types(dtype, body_dtype))
+                for v in loads)
+            for loads, body_dtype in zip(frozen, body_dtypes)
+        )
+    return MultiBodyFSICarry(
+        flow_state=flow_state_from_numpy(flow, device=device, dtype=dtype),
+        body_states=tuple(states),
+        vb_states=tuple(_vb_state(vb, device, dtype) for vb in vbs),
+        prev_mismatches=tuple(_tensor(v, device, dtype) for v in prev),
+        time=_tensor(time, device, dtype),
+        greens=_greens(greens, device, dtype),
+        velocity_l1_max=_tensor(l1_max, device, dtype),
+        frozen_loads=frozen,
     )

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) kernels for the five exact-tier FFT passes of the
-// doubled-domain free-space Poisson solve, bound to PyTorch through a plain C
+// Hopper (sm_90a) kernels for the FFT passes of the doubled-domain
+// free-space Poisson solve (the five exact-tier passes and the fast tier's
+// fused-curl pair), bound to PyTorch through a plain C
 // interface (ctypes); see sopht_mpi_tpu_torch/parallel/cuda_fft.py for the
 // wrappers and the plain torch.fft versions they are held against.
 //
@@ -36,7 +37,8 @@
 // Tile choice. Shared data <= 96 KB a block, so two blocks (plus their
 // twiddle tables, <= 20 KB) fit one SM's 227 KB: t = 32, 16, 8 or 4. At
 // m = 512 the middle passes take t = 16 and the x edges t = 8, three
-// blocks an SM.
+// blocks an SM. The fused-curl z pass keeps three components' slots and
+// takes half the middle passes' tile (see below).
 //
 // fft_pass_padded
 //   Replaces sopht_mpi_tpu/parallel/pallas_fft.py _fft_pass_padded_impl
@@ -74,6 +76,34 @@
 //   conj(X[m - k]) (imaginary parts of k = 0 and k = m/2 dropped: the JAX
 //   weights w = 1 there, 2 elsewhere); the factored inverse runs and keeps
 //   the real part. Bound: HBM.
+//
+// The fast tier's fused-curl pair (the velocity recovery without the
+// streamfunction):
+//
+// fft_greens_curl_ifft_pass
+//   Replaces _fft_greens_curl_ifft_pass_impl (kernel _conv_curl_kernel):
+//   fft_greens_ifft_pass over the three vorticity components of (3, m/2, B)
+//   with the spectral central-difference curl mixed in at the full-spectral
+//   point: u_hat = i s x (G w_hat), s = (sx[b], sy[b], sz[k]). The slots of
+//   all three components of a column tile are live at once (3 m t float2),
+//   so the mixing stays in shared memory; the Green's spectrum is read from
+//   device memory where it is applied, once per element. Tile: t = 8 at
+//   m = 512 (96 KB of slots + 10 KB of twiddles, two blocks an SM, a warp's
+//   loads one full 32-byte sector a row), t = 16 at m = 256, t = 4 at
+//   m = 1024 (one block an SM). Bound: HBM, 16 B per input element of the
+//   three components plus the Green's read once (the arithmetic, ~5 log2 m
+//   flop a complex output a transform, is below the FP32 rate).
+//
+// irfft_pass_merge_velocity
+//   Replaces _irfft_pass_merge_velocity_impl (kernel
+//   _c2r_merge_velocity_kernel): irfft_pass_merge of the three velocity
+//   components of (3, R, m/2) + (3, R, 1), R = nz ny, a block taking the
+//   same row tile of each component in turn, then the epilogue: the
+//   width-1 wall ring zeroed (row z ny + y with z or y on a wall, or x on
+//   one), the free stream added on every cell, and max over cells of
+//   sum_c |u_c| (a shared-memory sum per cell, a block max, atomicMax on the
+//   float bits of a zeroed device scalar: the values are non-negative, so
+//   the bit order is the value order and the result exact). Bound: HBM.
 
 #include <cuda_runtime.h>
 
@@ -725,6 +755,221 @@ __global__ void __launch_bounds__(kThreads, kEdgeBlocks)
   }
 }
 
+// fft_greens_ifft_pass_kernel over the three components at once, the curl
+// mixed in between the Green's multiply and the inverse transform.
+template <int M1, int H2>
+__global__ void __launch_bounds__(kThreads, 2)
+    fft_greens_curl_ifft_pass_kernel(const float* __restrict__ xr,
+                                     const float* __restrict__ xi,
+                                     const float* __restrict__ g,
+                                     const float* __restrict__ sym_z,
+                                     const float* __restrict__ sym_yx,
+                                     float* __restrict__ out_r,
+                                     float* __restrict__ out_i,
+                                     const float2* __restrict__ table,
+                                     long long B, int m, int m1, int m2) {
+  extern __shared__ float2 smem[];
+  const Twiddles s = load_twiddles<M1, H2>(table, smem, m1, m2, m);
+  const int t = blockDim.x;
+  // component a's slot j of this thread's column: slots[a cs + j t + x]
+  float2* slots = smem + (m1 * M1 + m2 * H2 + m);
+  const long long cs = (long long)m * t;
+  const long long b = (long long)blockIdx.x * t + threadIdx.x;
+  const bool live = b < B;
+  const int h = m / 2, h2 = m2 / 2;
+  const float inv_m = 1.0f / (float)m;
+  const float sy = live ? sym_yx[b] : 0.f;
+  const float sx = live ? sym_yx[B + b] : 0.f;
+  __syncthreads();
+  for (int task = threadIdx.y; task < 3 * m1; task += blockDim.y) {
+    const int a = task / m1, n1 = task - a * m1;
+    float vr[H2], vi[H2];
+#pragma unroll
+    for (int n2 = 0; n2 < H2; ++n2) {
+      vr[n2] = vi[n2] = 0.f;
+      if (live && n2 < h2) {
+        const long long i = ((long long)a * h + n1 + (long long)m1 * n2) * B + b;
+        vr[n2] = xr[i];
+        vi[n2] = xi[i];
+      }
+    }
+    forward_first(vr, vi, s, n1, m1, m2, slots + a * cs + threadIdx.x, t);
+  }
+  __syncthreads();
+  for (int k2 = threadIdx.y; k2 < m2; k2 += blockDim.y) {
+    // forward second factor times the Green's spectrum, per component,
+    // back into this thread's own slots (k2 m1 + k1)
+    for (int a = 0; a < 3; ++a) {
+      float2* col = slots + a * cs + threadIdx.x;
+      float yr[M1], yi[M1];
+      load_slots(yr, yi, col, k2 * m1, m1, t);
+      dft_m1<M1, false>(yr, yi, s, m1, [&](int k1, float2 v) {
+        const float gv =
+            live ? g[(long long)(k2 + m2 * k1) * B + b] : 0.f;
+        col[(k2 * m1 + k1) * t] = make_float2(v.x * gv, v.y * gv);
+      });
+    }
+    // u = i s x psi at k = k2 + m2 k1: re(u) = -(s x im psi),
+    // im(u) = s x re psi, components (x, y, z)
+    for (int k1 = 0; k1 < m1; ++k1) {
+      const long long i = (long long)(k2 * m1 + k1) * t + threadIdx.x;
+      const float2 p0 = slots[i], p1 = slots[cs + i], p2 = slots[2 * cs + i];
+      const float sz = sym_z[k2 + m2 * k1];
+      slots[i] = make_float2(sz * p1.y - sy * p2.y, sy * p2.x - sz * p1.x);
+      slots[cs + i] =
+          make_float2(sx * p2.y - sz * p0.y, sz * p0.x - sx * p2.x);
+      slots[2 * cs + i] =
+          make_float2(sy * p0.y - sx * p1.y, sx * p1.x - sy * p0.x);
+    }
+    for (int a = 0; a < 3; ++a) {
+      float2* col = slots + a * cs + threadIdx.x;
+      float yr[M1], yi[M1];
+      load_slots(yr, yi, col, k2 * m1, m1, t);
+      inverse_first(yr, yi, s, k2, m1, m2, col, t);
+    }
+  }
+  __syncthreads();
+  for (int task = threadIdx.y; task < 3 * m1; task += blockDim.y) {
+    const int a = task / m1, n1 = task - a * m1;
+    float ar[H2], ai[H2];
+    inverse_second(ar, ai, s, slots + a * cs + threadIdx.x, n1, m1, m2, t);
+#pragma unroll
+    for (int n2 = 0; n2 < H2; ++n2) {
+      if (live && n2 < h2) {
+        const long long i = ((long long)a * h + n1 + (long long)m1 * n2) * B + b;
+        out_r[i] = ar[n2] * inv_m;
+        out_i[i] = ai[n2] * inv_m;
+      }
+    }
+  }
+}
+
+// irfft_pass_merge_kernel over the three components of a row tile, with
+// the ring / free-stream / max |u|_1 epilogue.
+template <int M1, int H2>
+__global__ void __launch_bounds__(kThreads, kEdgeBlocks)
+    irfft_pass_merge_velocity_kernel(const float* __restrict__ br,
+                                     const float* __restrict__ bi,
+                                     const float* __restrict__ sr,
+                                     const float* __restrict__ si,
+                                     const float* __restrict__ fsv,
+                                     float* __restrict__ out,
+                                     float* __restrict__ l1_max,
+                                     const float2* __restrict__ table,
+                                     long long R, int n_out, int ny, int nz,
+                                     int m, int m1, int m2) {
+  extern __shared__ float2 smem[];
+  const Twiddles s = load_twiddles<M1, H2>(table, smem, m1, m2, m);
+  const int t = blockDim.x, tp = t + 1;
+  const int h = m / 2, h2 = m2 / 2;
+  float2* slots = smem + (m1 * M1 + m2 * H2 + m);
+  float2* col = slots + threadIdx.x;
+  float2* xf = slots + (long long)m * t;     // (m/2 + 1) x tp spectrum
+  float* ys = reinterpret_cast<float*>(xf);  // m/2 x tp real outputs
+  // sum_c |u_c| of each cell of the tile, n_out x tp
+  float* l1 = reinterpret_cast<float*>(xf + (long long)(h + 1) * tp);
+  const int tid = threadIdx.y * t + threadIdx.x;
+  const int nt = t * blockDim.y;
+  const long long row0 = (long long)blockIdx.x * t;
+  const float inv_m = 1.0f / (float)m;
+  for (int c = 0; c < 3; ++c) {
+    const float* cbr = br + c * R * h;
+    const float* cbi = bi + c * R * h;
+    // several rows in flight per thread
+#pragma unroll 4
+    for (int r = 0; r < t; ++r) {
+      const long long row = row0 + r;
+      for (int k = tid; k < h; k += nt) {
+        float2 v = make_float2(0.f, 0.f);
+        if (row < R) v = make_float2(cbr[row * h + k], cbi[row * h + k]);
+        if (k == 0) v.y = 0.f;
+        xf[k * tp + r] = v;
+      }
+    }
+    for (int r = tid; r < t; r += nt) {
+      const long long row = row0 + r;
+      xf[h * tp + r] = make_float2(row < R ? sr[c * R + row] : 0.f, 0.f);
+    }
+    __syncthreads();
+    for (int k2 = threadIdx.y; k2 < m2; k2 += blockDim.y) {
+      float vr[M1], vi[M1];
+#pragma unroll
+      for (int k1 = 0; k1 < M1; ++k1) {
+        float2 v = make_float2(0.f, 0.f);
+        const int k = k2 + m2 * k1;
+        if (k1 < m1) {
+          if (k <= h) {
+            v = xf[k * tp + threadIdx.x];
+          } else {
+            v = xf[(m - k) * tp + threadIdx.x];
+            v.y = -v.y;
+          }
+        }
+        vr[k1] = v.x;
+        vi[k1] = v.y;
+      }
+      inverse_first(vr, vi, s, k2, m1, m2, col, t);
+    }
+    __syncthreads();
+    for (int n1 = threadIdx.y; n1 < m1; n1 += blockDim.y) {
+      if (radix2_m2<H2>(m2)) {
+        float ar[H2], ai[H2];
+        inverse_second(ar, ai, s, col, n1, m1, m2, t);
+#pragma unroll
+        for (int n2 = 0; n2 < H2; ++n2)
+          ys[(n1 + m1 * n2) * tp + threadIdx.x] = ar[n2] * inv_m;
+        continue;
+      }
+      float acc[H2];
+#pragma unroll
+      for (int n2 = 0; n2 < H2; ++n2) acc[n2] = 0.f;
+      for (int k2 = 0; k2 < m2; ++k2) {
+        const float2 z = col[(k2 * m1 + n1) * t];
+        const float2* w = s.w2 + k2 * H2;
+#pragma unroll
+        for (int n2 = 0; n2 < H2; ++n2)
+          acc[n2] = fmaf(w[n2].y, z.y, fmaf(w[n2].x, z.x, acc[n2]));
+      }
+#pragma unroll
+      for (int n2 = 0; n2 < H2; ++n2)
+        if (n2 < h2) ys[(n1 + m1 * n2) * tp + threadIdx.x] = acc[n2] * inv_m;
+    }
+    __syncthreads();
+    // the epilogue: wall ring zeroed, free stream added, |u_c| summed
+    const float add = fsv[c];
+    float* cout = out + c * R * n_out;
+#pragma unroll 4
+    for (int r = 0; r < t && row0 + r < R; ++r) {
+      const long long row = row0 + r;
+      const long long z = row / ny, y = row - z * ny;
+      const bool wall = z == 0 || z == nz - 1 || y == 0 || y == ny - 1;
+      for (int n = tid; n < n_out; n += nt) {
+        float v = (wall || n == 0 || n == n_out - 1) ? 0.f : ys[n * tp + r];
+        v += add;
+        cout[row * n_out + n] = v;
+        l1[n * tp + r] = c == 0 ? fabsf(v) : l1[n * tp + r] + fabsf(v);
+      }
+    }
+    __syncthreads();  // xf, ys and the slots serve the next component
+  }
+  float best = 0.f;
+  for (int r = 0; r < t && row0 + r < R; ++r)
+    for (int n = tid; n < n_out; n += nt) best = fmaxf(best, l1[n * tp + r]);
+  for (int off = 16; off > 0; off >>= 1)
+    best = fmaxf(best, __shfl_down_sync(0xffffffffu, best, off));
+  __shared__ float warp_max[kThreads / 32];
+  const int lane = tid & 31, warp = tid >> 5;
+  if (lane == 0) warp_max[warp] = best;
+  __syncthreads();
+  if (warp == 0) {
+    best = lane < nt / 32 ? warp_max[lane] : 0.f;
+    for (int off = 16; off > 0; off >>= 1)
+      best = fmaxf(best, __shfl_down_sync(0xffffffffu, best, off));
+    if (lane == 0)
+      atomicMax(reinterpret_cast<unsigned int*>(l1_max), __float_as_uint(best));
+  }
+}
+
 // Largest tile t in {32, 16, 8, 4} whose shared data fits the budget.
 template <class Bytes>
 int pick_tile(Bytes bytes) {
@@ -827,6 +1072,43 @@ struct IrfftPassMerge {
     return launch(irfft_pass_merge_kernel<M1, H2>, grid, t, smem, st, br, bi,
                   sr, si, out, (const float2*)table, R, n_out, p.m, p.m1,
                   p.m2);
+  }
+};
+
+struct FftGreensCurlIfftPass {
+  template <int M1, int H2>
+  static int go(const Plan& p, const float* xr, const float* xi,
+                const float* g, const float* sym_z, const float* sym_yx,
+                float* out_r, float* out_i, const float* table, long long B,
+                cudaStream_t st) {
+    // three components' slots: 24 B per slot
+    const int t = pick_tile([&](int t) { return 24LL * p.m * t; });
+    if (t == 0) return (int)cudaErrorInvalidValue;
+    const size_t smem = table_bytes(p) + 24ull * p.m * t;
+    const dim3 grid((unsigned)((B + t - 1) / t));
+    return launch(fft_greens_curl_ifft_pass_kernel<M1, H2>, grid, t, smem,
+                  st, xr, xi, g, sym_z, sym_yx, out_r, out_i,
+                  (const float2*)table, B, p.m, p.m1, p.m2);
+  }
+};
+
+struct IrfftPassMergeVelocity {
+  template <int M1, int H2>
+  static int go(const Plan& p, const float* br, const float* bi,
+                const float* sr, const float* si, const float* fsv,
+                float* out, float* l1_max, const float* table, long long R,
+                int n_out, int ny, int nz, cudaStream_t st) {
+    auto bytes = [&](int t) {
+      return 8LL * p.m * t + 8LL * (p.m / 2 + 1) * (t + 1) +
+             4LL * n_out * (t + 1);
+    };
+    const int t = pick_tile(bytes);
+    if (t == 0) return (int)cudaErrorInvalidValue;
+    const size_t smem = table_bytes(p) + (size_t)bytes(t);
+    const dim3 grid((unsigned)((R + t - 1) / t));
+    return launch(irfft_pass_merge_velocity_kernel<M1, H2>, grid, t, smem, st,
+                  br, bi, sr, si, fsv, out, l1_max, (const float2*)table, R,
+                  n_out, ny, nz, p.m, p.m1, p.m2);
   }
 };
 
@@ -938,6 +1220,31 @@ extern "C" int sopht_irfft_pass_merge_f32(const float* br, const float* bi,
     return (int)cudaErrorInvalidValue;
   return dispatch<IrfftPassMerge>(p, br, bi, sr, si, out, table, R, n_out,
                                   (cudaStream_t)stream);
+}
+
+extern "C" int sopht_fft_greens_curl_ifft_pass_f32(
+    const float* xr, const float* xi, const float* g, const float* sym_z,
+    const float* sym_yx, float* out_r, float* out_i, const float* table,
+    long long B, int m, void* stream) {
+  Plan p;
+  if (!make_plan(m, &p) || B <= 0) return (int)cudaErrorInvalidValue;
+  return dispatch<FftGreensCurlIfftPass>(p, xr, xi, g, sym_z, sym_yx, out_r,
+                                         out_i, table, B,
+                                         (cudaStream_t)stream);
+}
+
+// l1_max: a zeroed device float, raised to max over cells of sum_c |u_c|
+extern "C" int sopht_irfft_pass_merge_velocity_f32(
+    const float* br, const float* bi, const float* sr, const float* si,
+    const float* fsv, float* out, float* l1_max, const float* table,
+    long long R, int m, int n_out, int ny, int nz, void* stream) {
+  Plan p;
+  if (!make_plan(m, &p) || R <= 0 || n_out <= 0 || n_out > m / 2 ||
+      ny <= 0 || nz <= 0 || (long long)ny * nz != R)
+    return (int)cudaErrorInvalidValue;
+  return dispatch<IrfftPassMergeVelocity>(p, br, bi, sr, si, fsv, out, l1_max,
+                                          table, R, n_out, ny, nz,
+                                          (cudaStream_t)stream);
 }
 
 extern "C" const char* sopht_fft_error_string(int code) {

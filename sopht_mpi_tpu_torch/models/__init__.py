@@ -1,8 +1,13 @@
 """Physics models: the 3D flow simulator, the rigid sphere and the Cosserat
-rod, their forcing grids and interactors, and the fused FSI steps."""
+rod, their forcing grids and interactors, and the fused FSI steps (rigid,
+rod and multi-body)."""
 
 from sopht_mpi_tpu_torch.models.flow.simulator_3d import UnboundedFlowSimulator3D
-from sopht_mpi_tpu_torch.models.rigid_body import RigidBodyState, Sphere
+from sopht_mpi_tpu_torch.models.rigid_body import (
+    RigidBodyState,
+    Sphere,
+    rigid_body_position_verlet_step,
+)
 from sopht_mpi_tpu_torch.models.immersed_body import (
     CosseratRodEdgeForcingGrid,
     CosseratRodElementCentricForcingGrid,
@@ -17,12 +22,19 @@ from sopht_mpi_tpu_torch.models import elastica
 from sopht_mpi_tpu_torch.models.fsi import (
     RigidFSICarry,
     RodFSICarry,
+    MultiBodyFSICarry,
+    RodBody,
+    DynamicRigidBody,
+    FixedRigidBody,
     build_rigid_fsi_step,
     build_rod_fsi_step,
+    build_multi_body_fsi_step,
+    suggest_rigid_forcing_window,
+    suggest_rod_forcing_window,
     init_rigid_fsi_carry,
     init_rod_fsi_carry,
+    init_multi_body_fsi_carry,
     scan_steps,
-    suggest_rod_forcing_window,
 )
 from sopht_mpi_tpu_torch.models.elastica import (
     AnalyticalLinearDamper,

@@ -13,7 +13,12 @@ transport, then either diffusion fused with the wall sponge (filter off) or
 diffusion, the Laplacian filter and the sponge as three kernels (filter on,
 the rod cases), then the curl. The vector Poisson solve takes the solver's
 kernel route on a CUDA device (the five FFT-pass kernels of
-:mod:`sopht_mpi_tpu_torch.parallel.cuda_fft`).
+:mod:`sopht_mpi_tpu_torch.parallel.cuda_fft`). With ``fast_spectral=True``
+(the fast spectral tier) and the kernels on, the velocity recovery is the
+solver's fused route instead - the curl mixed into the Poisson z pass, the
+ring, free stream and ``max |u|_1`` in its last pass - wherever the solver
+supports it (``fused_curl_supported``), and the solve + curl elsewhere, as
+the JAX package routes.
 The step keeps dt, its prefactors and ``max |u|_1`` as 0-d tensors on the
 device: nothing in it waits for the device.
 """
@@ -49,11 +54,6 @@ class FlowState3D(NamedTuple):
 # options of the JAX simulator that the port takes only at their
 # single-device exact values, with the ROADMAP item that lifts each
 _SINGLE_DEVICE_ONLY = {
-    "fast_spectral": (
-        (None, False),
-        "queue B, the fused-curl pair fft_greens_curl_ifft_pass / "
-        "irfft_pass_merge_velocity",
-    ),
     "overlap_chunks": ((None, 1), "queue A #11, multi-device"),
     "comm_bf16": ((False,), "queue A #11, multi-device"),
 }
@@ -68,6 +68,9 @@ class UnboundedFlowSimulator3D:
     :param filter_vorticity: apply the Laplacian filter (default
         ``{"order": 2, "type": "multiplicative"}``, set with
         ``filter_setting_dict``).
+    :param fast_spectral: keyword option, the Poisson solver's fast spectral
+        tier (None takes the package default; see
+        ``sopht_mpi_tpu_torch.enable_fast_spectral``).
 
     Float32 matmuls run in full precision: building a simulator turns TF32
     off for CUDA matmuls and cuDNN (``torch.backends.cuda.matmul.allow_tf32``
@@ -120,7 +123,9 @@ class UnboundedFlowSimulator3D:
         self.filter_setting_dict = kwargs.get(
             "filter_setting_dict", {"order": 2, "type": "multiplicative"}
         ) or {"order": 2, "type": "multiplicative"}
-        known_kwargs = {"penalty_zone_width", "use_kernels", "filter_setting_dict"}
+        self.fast_spectral = kwargs.get("fast_spectral")
+        known_kwargs = {"penalty_zone_width", "use_kernels",
+                        "filter_setting_dict", "fast_spectral"}
         known_kwargs |= set(_SINGLE_DEVICE_ONLY)
         unknown = set(kwargs) - known_kwargs
         if unknown:
@@ -177,6 +182,7 @@ class UnboundedFlowSimulator3D:
             x_range=self.x_range,
             real_t=self.real_t,
             device=self.device,
+            fast_spectral=self.fast_spectral,
         )
 
     @property
@@ -273,11 +279,33 @@ def compute_flow_velocity_3d(
     """Wall-penalise vorticity -> vector Poisson -> curl -> free stream.
     Returns (vorticity, velocity), plus the global ``max |u|_1`` of the new
     velocity (a 0-d tensor, reduced inside the curl kernel on the kernel
-    path) when ``return_velocity_l1_max``."""
+    path) when ``return_velocity_l1_max``.
+
+    With the kernels on and a solver built with ``fast_spectral=True`` that
+    supports the fused route for this field, the solve, the curl and the
+    epilogue are the solver's ``velocity_from_vorticity_fused``."""
     if not skip_penalise:
         vorticity = penalise_field_boundary_vector_3d(
             vorticity, penalty_zone_width
         )
+    if (
+        use_kernels
+        and getattr(poisson_solver, "fast_spectral", False)
+        and poisson_solver.fused_curl_supported(
+            vorticity.dtype, vorticity.device)
+    ):
+        fsv = (
+            torch.as_tensor(free_stream_velocity, dtype=vorticity.dtype,
+                            device=vorticity.device)
+            if with_free_stream
+            else torch.zeros(3, dtype=vorticity.dtype, device=vorticity.device)
+        )
+        velocity, l1_max = poisson_solver.velocity_from_vorticity_fused(
+            vorticity, poisson_greens, fsv
+        )
+        if return_velocity_l1_max:
+            return vorticity, velocity, l1_max
+        return vorticity, velocity
     stream_func = poisson_solver.vector_field_solve(vorticity, poisson_greens)
     pref = 0.5 / dx
     l1_max = None

@@ -692,14 +692,479 @@ def init_rod_fsi_carry(flow_sim, interactor, rod, step=None) -> RodFSICarry:
     )
 
 
+class RodBody(NamedTuple):
+    """Multi-body spec: a two-way coupled Cosserat rod. ``rod_collection``
+    is finalized and holds exactly this rod (one collection per rod), with
+    the ``FlowForces`` coupling not registered."""
+
+    interactor: object  # CosseratRodFlowInteraction
+    rod_collection: object  # BaseSystemCollection with one finalized rod
+
+
+class DynamicRigidBody(NamedTuple):
+    """Multi-body spec: a two-way coupled rigid body with dynamics; the
+    body carries ``mass`` and ``inertia_body`` (built with a ``density``).
+    ``load_fn(state, time) -> (force (3,), torque (3,))`` adds user loads
+    on top of the flow loads."""
+
+    interactor: object  # RigidBodyFlowInteraction
+    rigid_body: object
+    load_fn: Callable | None = None
+
+
+class FixedRigidBody(NamedTuple):
+    """Multi-body spec: a fixed rigid body; its markers are constants."""
+
+    interactor: object  # RigidBodyFlowInteraction
+
+
+class MultiBodyFSICarry(NamedTuple):
+    flow_state: object
+    body_states: tuple  # per body: rod state | RigidBodyState | None (fixed)
+    vb_states: tuple  # per body VirtualBoundaryState
+    prev_mismatches: tuple  # per body; read by the FixedRigidBody entries
+    time: torch.Tensor
+    greens: torch.Tensor | tuple = None  # see RigidFSICarry.greens
+    velocity_l1_max: torch.Tensor = None  # see RigidFSICarry
+    # substep_load_refresh="flow_step": per body (forces, torques, mismatch)
+    # of the last full interaction (None for fixed bodies); None otherwise
+    frozen_loads: tuple | None = None
+
+
+def build_multi_body_fsi_step(
+    flow_sim,
+    bodies,
+    dt_prefac=0.5,
+    free_stream_fn: Callable | None = None,
+    substeps: int | None = None,
+    *,
+    sub_dt: float | None = None,
+    max_substeps: int | None = None,
+    sparse_forcing: bool | None = None,
+    substep_load_refresh: str = "every",
+    substep_interp: str = "auto",
+):
+    """One fused coupled step for any mix of Cosserat rods
+    (:class:`RodBody`), dynamic rigid bodies (:class:`DynamicRigidBody`) and
+    fixed rigid bodies (:class:`FixedRigidBody`), the reference's stacked
+    interactors accumulating onto one forcing field before the flow step:
+
+    - all substepped bodies (rods and dynamic rigid bodies) take the same
+      ``n_sub`` substeps a flow step; each substep computes the body's
+      penalty flow loads from the frozen flow velocity, advances the body
+      (position Verlet) and integrates its IBM position mismatch;
+    - fixed bodies integrate their mismatch once a flow step with the
+      previous interaction's velocity mismatch;
+    - every body's penalty forcing then spreads onto one shared Eulerian
+      forcing field (in body order), and the flow advances.
+
+    Substeps: static (``substeps=k``) or dynamic (``sub_dt``, optional
+    ``max_substeps``), as in :func:`build_rod_fsi_step`: the dynamic count
+    ``clip(floor(dt / min(dt, sub_dt)), 1, max_substeps)`` is read on the
+    host once a flow step. With no substepped body both may be omitted.
+
+    ``sparse_forcing``: per-body moving sparse windows
+    (:func:`suggest_rod_forcing_window`, :func:`suggest_rigid_forcing_window`).
+    None engages them on a ``navier_stokes_with_forcing`` simulator when
+    every body's window stays under 70% of the grid; True requires them;
+    False takes the dense path. Each body's windowed forcing curl adds into
+    the vorticity in body order, the flow advancing through the no-forcing
+    step; the step then has ``uses_sparse_forcing = True`` and its
+    diagnostic is ``(lag_force_sums, windows_ok)``. ``substep_interp``
+    picks each body's substep E->L on the sparse path as in
+    :func:`build_rod_fsi_step` ("auto" by that body's window size); the
+    JAX package ignores a non-default value on the dense path, the port
+    raises.
+
+    :returns: ``step(carry) -> (carry, lag_force_sums)``, a per-body tuple
+        of summed Lagrangian forcing (3,). The step carries ``stats``
+        (steps, substeps, host reads).
+    """
+    from sopht_mpi_tpu_torch.models.rigid_body import (
+        rigid_body_position_verlet_step,
+    )
+
+    bodies = tuple(bodies)
+    if not bodies:
+        raise ValueError("bodies must be non-empty")
+    if substep_interp not in ("auto", "window_mm", "gather"):
+        raise ValueError(
+            "substep_interp must be 'auto', 'window_mm' or 'gather', got "
+            f"{substep_interp!r}"
+        )
+    if substep_load_refresh not in ("every", "flow_step"):
+        raise ValueError(
+            "substep_load_refresh must be 'every' or 'flow_step', got "
+            f"{substep_load_refresh!r}"
+        )
+    frozen_mode = substep_load_refresh == "flow_step"
+    substepped = [isinstance(b, (RodBody, DynamicRigidBody)) for b in bodies]
+    any_sub = any(substepped)
+    dynamic = substeps is None and sub_dt is not None
+    if any_sub and substeps is None and sub_dt is None:
+        substeps = 1
+    if substeps is not None and (sub_dt is not None or max_substeps is not None):
+        raise ValueError(
+            "substeps (static mode) conflicts with sub_dt/max_substeps "
+            "(dynamic mode) - pass one or the other"
+        )
+    if dynamic and max_substeps is None:
+        max_substeps = (
+            math.ceil(flow_sim.diffusion_limited_timestep(dt_prefac) / sub_dt)
+            + 2
+        )
+
+    rod_steps = {}
+    for i, spec in enumerate(bodies):
+        if isinstance(spec, RodBody):
+            assert spec.rod_collection._finalized
+            assert len(spec.rod_collection._systems) == 1, (
+                "one rod per RodBody/collection; use several RodBody "
+                "entries for several rods"
+            )
+            rod_steps[i] = spec.rod_collection._step_fns[0]
+        elif isinstance(spec, DynamicRigidBody):
+            if not hasattr(spec.rigid_body, "mass"):
+                raise ValueError(
+                    "DynamicRigidBody needs a rigid body constructed with "
+                    "a density (mass/inertia_body)"
+                )
+
+    flow_dt = _flow_dt_fn(flow_sim, dt_prefac)
+    free_stream = _free_stream(free_stream_fn, flow_sim)
+    real_t = flow_sim.real_t
+    fixed_lag = {
+        i: (
+            spec.interactor.forcing_grid.compute_lag_grid_position_field(),
+            spec.interactor.forcing_grid.compute_lag_grid_velocity_field(),
+        )
+        for i, spec in enumerate(bodies)
+        if isinstance(spec, FixedRigidBody)
+    }
+
+    body_windows = None
+    if (
+        sparse_forcing is not False
+        and flow_sim.flow_type == "navier_stokes_with_forcing"
+    ):
+        wins = [
+            suggest_rod_forcing_window(
+                spec.interactor, spec.rod_collection._systems[0],
+                flow_sim.grid_size,
+            )
+            if isinstance(spec, RodBody)
+            else suggest_rigid_forcing_window(spec.interactor,
+                                              flow_sim.grid_size)
+            for spec in bodies
+        ]
+        if all(w is not None for w in wins):
+            body_windows = tuple(wins)
+    if sparse_forcing is True and body_windows is None:
+        raise ValueError(
+            "sparse_forcing=True requested but unsupported here (needs a "
+            "navier_stokes_with_forcing simulator and per-body support "
+            "windows each under 70% of the grid)"
+        )
+    sparse = body_windows is not None
+    if substep_interp != "auto" and not sparse:
+        raise ValueError(
+            f"substep_interp={substep_interp!r} picks the sparse windows' "
+            "substep interpolation and needs sparse forcing"
+        )
+    gather_sub = tuple(
+        sparse and (
+            substep_interp == "gather"
+            or (substep_interp == "auto"
+                and math.prod(body_windows[i]) >= _GATHER_SUBSTEP_WINDOW_CELLS)
+        )
+        for i in range(len(bodies))
+    )
+    if sparse:
+        flow_step_l1 = _flow_step_l1(flow_sim, "navier_stokes")
+        body_tools = tuple(
+            _sparse_window_tools(flow_sim, spec.interactor.params, w)
+            for spec, w in zip(bodies, body_windows)
+        )
+        logger.info(
+            "build_multi_body_fsi_step: per-body sparse-window IBM forcing "
+            f"engaged (windows {body_windows})"
+        )
+    else:
+        flow_step_l1 = _flow_step_l1(flow_sim)
+
+    def windowed_interaction(i, vb, velocity_field, pos, vel):
+        """Body i's penalty interaction through its moving window:
+        (lag_forcing, velocity_mismatch, start, mats, ok)."""
+        window_mats, e2l_interp, _ = body_tools[i]
+        start, mats, ok = window_mats(pos)
+        mismatch = e2l_interp(velocity_field, start, mats) - vel
+        lag_forcing = compute_penalty_force(
+            vb.position_mismatch, mismatch, bodies[i].interactor.params
+        )
+        return lag_forcing, mismatch, start, mats, ok
+
+    def interaction_on_lag_grid(i, state, vb, velocity_field):
+        """Body i's (lag_forcing, velocity_mismatch, window ok) at ``state``
+        (sparse window or dense support)."""
+        grid = bodies[i].interactor.forcing_grid
+        pos, vel = grid.lag_positions(state), grid.lag_velocities(state)
+        if sparse and not gather_sub[i]:
+            lag_forcing, mismatch, _, _, ok = windowed_interaction(
+                i, vb, velocity_field, pos, vel)
+            return lag_forcing, mismatch, ok
+        interaction = compute_interaction_force_on_lag_grid(
+            vb, velocity_field, pos, vel, bodies[i].interactor.params
+        )
+        return interaction.lag_forcing, interaction.velocity_mismatch, None
+
+    def body_substep(i, spec, state, vb, velocity_field, t, dt_sub,
+                     frozen_i=None):
+        """One substep of body i: (state, vb, window ok or None)."""
+        grid = spec.interactor.forcing_grid
+        ok = None
+        if frozen_mode:
+            forces, torques, mismatch = frozen_i
+        else:
+            lag_forcing, mismatch, ok = interaction_on_lag_grid(
+                i, state, vb, velocity_field)
+            forces, torques = grid.body_loads(state, lag_forcing)
+        pdtype = state.position.dtype
+        if isinstance(spec, RodBody):
+            state = rod_steps[i](
+                state, t.to(pdtype), dt_sub.to(pdtype),
+                forces.to(pdtype), torques.to(pdtype),
+            )
+        else:  # DynamicRigidBody
+            force = forces.reshape(3)
+            torque = torques.reshape(3)
+            if spec.load_fn is not None:
+                f_extra, t_extra = spec.load_fn(state, t)
+                force = force + torch.as_tensor(
+                    f_extra, dtype=force.dtype, device=force.device
+                ).reshape(3)
+                torque = torque + torch.as_tensor(
+                    t_extra, dtype=torque.dtype, device=torque.device
+                ).reshape(3)
+            state = rigid_body_position_verlet_step(
+                state, dt_sub.to(pdtype), force.to(pdtype),
+                torque.to(pdtype), spec.rigid_body.mass,
+                torch.as_tensor(spec.rigid_body.inertia_body, dtype=pdtype,
+                                device=state.position.device),
+            )
+        vb = virtual_boundary_time_step(vb, mismatch, dt_sub)
+        return state, vb, ok
+
+    stats = {"steps": 0, "substeps": 0, "host_syncs": 0}
+
+    def substep_count(dt):
+        if not dynamic:
+            return substeps
+        # reference: int(dt / min(dt, sub_dt)), >= 1, in the flow dtype
+        n_raw = torch.floor(dt / torch.clamp(dt, max=sub_dt))
+        stats["host_syncs"] += 1
+        return int(min(max(int(n_raw.item()), 1), max_substeps))
+
+    def step(carry: MultiBodyFSICarry):
+        (flow_state, body_states, vb_states, prev_mis, time, greens, u_l1,
+         frozen) = carry
+        if frozen_mode and frozen is None:
+            raise ValueError(
+                "substep_load_refresh='flow_step' needs the frozen-loads "
+                "carry leaves - build the carry with "
+                "init_multi_body_fsi_carry(flow_sim, bodies, step) passing "
+                "THIS step"
+            )
+        dt = flow_dt(u_l1)
+        velocity_field = flow_state.velocity_field
+        windows_ok = torch.ones((), dtype=torch.bool, device=time.device)
+        body_states, vb_states = list(body_states), list(vb_states)
+        n_sub = 0
+        if any_sub:
+            n_sub = substep_count(dt)
+            dt_sub = dt / n_sub
+            t = time
+            for _ in range(n_sub):
+                for i, spec in enumerate(bodies):
+                    if not substepped[i]:
+                        continue
+                    body_states[i], vb_states[i], ok = body_substep(
+                        i, spec, body_states[i], vb_states[i],
+                        velocity_field, t, dt_sub,
+                        frozen[i] if frozen_mode else None,
+                    )
+                    if ok is not None:
+                        windows_ok = windows_ok & ok
+                t = t + dt_sub
+        stats["steps"] += 1
+        stats["substeps"] += n_sub
+
+        # fixed bodies integrate their mismatch with the previous one, then
+        # every body spreads its forcing, in body order: onto the shared
+        # forcing field (dense) or as its windowed forcing curl added into
+        # the vorticity (sparse; the curl is linear)
+        new_vbs, new_prev, lag_sums, new_frozen = [], [], [], []
+        if sparse:
+            field = flow_state.primary_field
+        else:
+            eul_forcing = torch.zeros_like(flow_state.eul_grid_forcing_field)
+        for i, spec in enumerate(bodies):
+            vb = vb_states[i]
+            params = spec.interactor.params
+            grid = spec.interactor.forcing_grid
+            if isinstance(spec, FixedRigidBody):
+                vb = virtual_boundary_time_step(vb, prev_mis[i], dt)
+                pos, vel = fixed_lag[i]
+            else:
+                pos = grid.lag_positions(body_states[i])
+                vel = grid.lag_velocities(body_states[i])
+            if sparse:
+                lag_forcing, mismatch, start, mats, ok = windowed_interaction(
+                    i, vb, velocity_field, pos, vel)
+                windows_ok = windows_ok & ok
+                win = torch.zeros((3, *body_windows[i]), dtype=real_t,
+                                  device=velocity_field.device)
+                win = lagrangian_to_eulerian_spread_mm(win, lag_forcing, mats)
+                curl_win = curl_3d(win, dt / (2.0 * params.dx))
+                field = body_tools[i][2](field, curl_win, start)
+            else:
+                eul_forcing, interaction = (
+                    compute_interaction_force_on_eul_and_lag_grid(
+                        vb, eul_forcing, velocity_field, pos, vel, params)
+                )
+                lag_forcing = interaction.lag_forcing
+                mismatch = interaction.velocity_mismatch
+            new_vbs.append(vb)
+            # the carried dtype: f64 rod kinematics feeding an f32 flow must
+            # not promote the leaf
+            new_prev.append(mismatch.to(prev_mis[i].dtype))
+            lag_sums.append(lag_forcing.sum(dim=1))
+            if frozen_mode and substepped[i]:
+                new_frozen.append(
+                    (*grid.body_loads(body_states[i], lag_forcing), mismatch))
+            else:
+                new_frozen.append(None)
+
+        if sparse:
+            flow_state = flow_state._replace(primary_field=field)
+        else:
+            flow_state = flow_state._replace(eul_grid_forcing_field=eul_forcing)
+        flow_state, new_l1 = flow_step_l1(
+            flow_state, dt, free_stream(time), greens
+        )
+        new_carry = MultiBodyFSICarry(
+            flow_state, tuple(body_states), tuple(new_vbs), tuple(new_prev),
+            time + dt, greens, new_l1,
+            tuple(new_frozen) if frozen_mode else None,
+        )
+        diag = tuple(lag_sums)
+        return new_carry, (diag, windows_ok) if sparse else diag
+
+    def frozen_loads_template(body_states, vb_states, velocity_field):
+        """Per body, the (forces, torques, mismatch) the step stores as
+        frozen loads, at the given state (None for fixed bodies)."""
+        out = []
+        for i, spec in enumerate(bodies):
+            if not substepped[i]:
+                out.append(None)
+                continue
+            lag_forcing, mismatch, _ = interaction_on_lag_grid(
+                i, body_states[i], vb_states[i], velocity_field)
+            forces, torques = spec.interactor.forcing_grid.body_loads(
+                body_states[i], lag_forcing)
+            out.append((forces, torques, mismatch))
+        return tuple(out)
+
+    step.uses_sparse_forcing = sparse
+    step.uses_frozen_loads = frozen_mode
+    step.body_windows = body_windows
+    step.gather_substeps = gather_sub
+    step.frozen_loads_template = frozen_loads_template
+    step.stats = stats
+    return step
+
+
+def init_multi_body_fsi_carry(flow_sim, bodies, step=None) -> MultiBodyFSICarry:
+    """Initial carry for :func:`build_multi_body_fsi_step` (fresh
+    interactors, zero mismatch). Pass the built ``step``: with per-body
+    sparse windows the never-read full-field forcing leaf shrinks to a
+    zero-size placeholder, and with ``substep_load_refresh='flow_step'``
+    the carry gains zero frozen loads of the shapes and dtypes the step
+    stores."""
+    body_states, vb_states, prev = [], [], []
+    for spec in bodies:
+        if isinstance(spec, RodBody):
+            body_states.append(spec.rod_collection._systems[0].state)
+        elif isinstance(spec, DynamicRigidBody):
+            body_states.append(spec.rigid_body.state)
+        else:
+            body_states.append(None)
+        vb_states.append(spec.interactor.state)
+        prev.append(torch.zeros_like(spec.interactor.state.position_mismatch))
+    flow_state = flow_sim._get_state()
+    if getattr(step, "uses_sparse_forcing", False):
+        forcing = flow_state.eul_grid_forcing_field
+        flow_state = flow_state._replace(
+            eul_grid_forcing_field=forcing.new_zeros(
+                (forcing.shape[0],) + (0,) * (forcing.ndim - 1)
+            )
+        )
+    frozen = None
+    if getattr(step, "uses_frozen_loads", False):
+        loads = step.frozen_loads_template(
+            tuple(body_states), tuple(vb_states), flow_sim.velocity_field)
+        frozen = tuple(
+            None if body is None else tuple(torch.zeros_like(v) for v in body)
+            for body in loads
+        )
+    return MultiBodyFSICarry(
+        flow_state=flow_state,
+        body_states=tuple(body_states),
+        vb_states=tuple(vb_states),
+        prev_mismatches=tuple(prev),
+        time=torch.tensor(
+            flow_sim.time, dtype=flow_sim.real_t, device=flow_sim.device
+        ),
+        greens=flow_sim._poisson_greens,
+        velocity_l1_max=velocity_l1_max(flow_sim.velocity_field),
+        frozen_loads=frozen,
+    )
+
+
+def suggest_rigid_forcing_window(
+    interactor, grid_size, margin=1.1, max_grid_fraction=0.7
+):
+    """Static ``(Wz, Wy, Wx)`` window cells for a (possibly moving) rigid
+    body's sparse IBM forcing, sized from its rotation-safe envelope (the
+    markers fit a box of the circumscribing diameter however the body
+    turns; the window start follows the translation on the device). None
+    when the window would exceed ``max_grid_fraction`` of the grid."""
+    params = interactor.params
+    pos = (interactor.forcing_grid.compute_lag_grid_position_field()
+           .detach().cpu().numpy())
+    centroid = pos.mean(axis=1, keepdims=True)
+    diameter = 2.0 * float(np.linalg.norm(pos - centroid, axis=0).max())
+    cells = int(np.ceil(margin * diameter / params.dx))
+    w = cells + 2 * params.interp_kernel_width + 6
+    nz, ny, nx = (int(v) for v in grid_size)
+    win = (min(w, nz), min(w, ny), min(w, nx))
+    if np.prod(win) > max_grid_fraction * nz * ny * nx:
+        return None
+    return win
+
+
+def _stack(diags):
+    """Stack per-step diagnostics on a leading axis, tuples element-wise."""
+    if isinstance(diags[0], tuple):
+        return tuple(_stack(list(d)) for d in zip(*diags))
+    return torch.stack(diags)
+
+
 def scan_steps(step_fn, carry, n_steps: int):
     """Roll ``n_steps`` coupled steps; returns (final carry, per-step
-    diagnostics stacked on a leading axis, each element of a tuple
-    diagnostic stacked on its own)."""
+    diagnostics stacked on a leading axis, each element of a (nested)
+    tuple diagnostic stacked on its own)."""
     diags = []
     for _ in range(n_steps):
         carry, diag = step_fn(carry)
         diags.append(diag)
-    if isinstance(diags[0], tuple):
-        return carry, tuple(torch.stack(d) for d in zip(*diags))
-    return carry, torch.stack(diags)
+    return carry, _stack(diags)

@@ -24,9 +24,21 @@ The Green's spectrum is built as the JAX package builds it: the half-grid
 kernel in float64 on the host, then per-axis symmetric DFTs (DCT-I) -
 contracted here in float64 on the target device and cast - giving the
 dense (2nz, 2ny, nx+1) real spectrum.
+
+The fast spectral tier (``fast_spectral=True``, counterpart of the JAX
+package's) recovers the velocity of a vorticity field in one pipeline,
+:meth:`UnboundedPoissonSolver3D.velocity_from_vorticity_fused`: the
+central-difference curl is mixed into the z pass as the spectral symbols
+``i sin(2 pi k / M) / dx``, and the wall-ring zeroing, the free-stream add
+and ``max |u|_1`` ride the final c2r pass, so the streamfunction and the
+curl pass never exist. The JAX tier also swaps its matmuls to 3-pass bf16;
+the port's passes stay plain FP32, so the tier keeps the exact tier's
+solve error.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -36,6 +48,22 @@ from sopht_mpi_tpu_torch.parallel import cuda_fft
 # Tests force the kernel route on CPU tensors (the passes then run their
 # plain versions): None = auto (on for a CUDA device), True/False = override.
 FORCE_KERNEL_CONVOLVE: bool | None = None
+
+# Construction-time default of the solvers' ``fast_spectral`` parameter
+# (a None argument takes this value), set with
+# ``sopht_mpi_tpu_torch.enable_fast_spectral``. Read only when a solver is
+# built: built solvers keep their mode. None resolves to False on every
+# device (the JAX package's resolution off the TPU).
+DEFAULT_FAST_SPECTRAL: bool | None = None
+
+
+def resolve_fast_spectral(flag: bool | None) -> bool:
+    """A solver's ``fast_spectral`` argument: an explicit bool wins, then
+    ``DEFAULT_FAST_SPECTRAL``; unset, False."""
+    if flag is not None:
+        return bool(flag)
+    return bool(DEFAULT_FAST_SPECTRAL)
+
 
 # cells above which the vector solve runs the components one after another
 # through the kernel route instead of batching them (512^3 class)
@@ -104,6 +132,74 @@ def _kernel_convolve_local(rhs, greens, doubled):
     return sol if batched else sol[0]
 
 
+def _curl_symbol(m: int, dx: float, device) -> torch.Tensor:
+    """``sin(2 pi k / m) / dx`` for k < m in float32 on ``device``, the
+    symbol of the width-2 central difference on a periodic axis of m
+    cells."""
+    k = torch.arange(m, dtype=torch.float32, device=device)
+    return torch.sin(2.0 * math.pi * k / m) / dx
+
+
+def _curl_symbols(doubled, dx, device):
+    """The fused route's curl symbols on ``device``: ``sym_z`` (mz,),
+    ``sym_y`` (my,) and ``sym_yx`` (2, my*bx), the B-major axis (ky), then
+    the B-minor one (bulk kx, k < mx/2)."""
+    mz, my, mx = doubled
+    bx = mx // 2
+    sym_y = _curl_symbol(my, dx, device)
+    sym_x = _curl_symbol(mx, dx, device)[:bx]
+    sym_yx = torch.stack([sym_y.repeat_interleave(bx), sym_x.repeat(my)])
+    return _curl_symbol(mz, dx, device), sym_y, sym_yx
+
+
+def _kernel_convolve_curl_local(rhs, greens, doubled, symbols, free_stream):
+    """Velocity recovery ``u = FD-curl(G * omega)`` (wall ring zeroed)
+    ``+ free_stream`` through the FFT-pass kernels, with ``max |u|_1``
+    (``_pallas_convolve_curl_local``): x r2c split, y forward, the z pass
+    with the curl mixed in (``fft_greens_curl_ifft_pass``), the kx Nyquist
+    column's curl on ``torch.fft``, y inverse, and the c2r merge with the
+    ring / free-stream / max epilogue (``irfft_pass_merge_velocity``).
+    ``rhs`` is the (3, nz, ny, nx) vorticity, ``symbols`` those of
+    :func:`_curl_symbols`; returns ``(u, l1_max)``."""
+    g_bulk, g_side = greens
+    sym_z, sym_y, sym_yx = symbols
+    c, nz, ny, nx = rhs.shape
+    mz, my, mx = doubled
+    bx = mx // 2
+    fr, fi, sr, si = cuda_fft.rfft_pass_padded_split(
+        rhs.reshape(c * nz * ny, nx), mx)
+    fr, fi = cuda_fft.fft_pass_padded(
+        fr.view(c * nz, ny, bx), fi.view(c * nz, ny, bx), my)
+    fr, fi = cuda_fft.fft_greens_curl_ifft_pass(
+        fr.view(c, nz, my * bx), fi.view(c, nz, my * bx),
+        g_bulk.view(1, mz, my * bx), sym_z, sym_yx)
+
+    # kx Nyquist column: its x symbol sin(pi) is 0, so no x term enters
+    s = torch.complex(sr, si).reshape(c, nz, ny)
+    s = torch.fft.fft(s, n=my, dim=2)
+    s = torch.fft.fft(s, n=mz, dim=1)
+    psi = s * g_side  # (3, mz, my)
+    szc = sym_z.view(mz, 1)
+    syc = sym_y.view(1, my)
+    s = 1j * torch.stack([
+        syc * psi[2] - szc * psi[1],
+        szc * psi[0],
+        -syc * psi[0],
+    ])
+    s = torch.fft.ifft(s, dim=1)[:, :nz]
+    s = torch.fft.ifft(s, dim=2)[:, :, :ny]
+
+    fr, fi = cuda_fft.ifft_pass_truncated(
+        fr.view(c * nz, my, bx), fi.view(c * nz, my, bx))
+    u, l1_max = cuda_fft.irfft_pass_merge_velocity(
+        fr.view(c, nz * ny, bx), fi.view(c, nz * ny, bx),
+        s.real.reshape(c, nz * ny, 1).contiguous(),
+        s.imag.reshape(c, nz * ny, 1).contiguous(),
+        free_stream, mx, nx, ny, nz,
+    )
+    return u.view(c, nz, ny, nx), l1_max
+
+
 def _even_reflected_axis_dist(n_doubled: int, dx: float, axis_range: float, dtype):
     """Per-axis distance ``min(x, 2 L - x)`` on the doubled grid."""
     x = np.arange(n_doubled, dtype=np.float64) * dx
@@ -161,15 +257,24 @@ class UnboundedPoissonSolver3D:
 
     Green's function ``1/(4 pi r)`` with origin regularization
     ``1/(4 pi dx)``.
+
+    :param device: the torch device of the Green's spectrum; required, no
+        default is taken from the environment.
+    :param fast_spectral: the fast spectral tier (velocity recovery through
+        :meth:`velocity_from_vorticity_fused` where
+        :meth:`fused_curl_supported`); None takes ``DEFAULT_FAST_SPECTRAL``.
     """
 
     grid_dim = 3
 
     def __init__(self, grid_size_z, grid_size_y, grid_size_x, x_range=1.0,
-                 real_t=torch.float32, device="cpu"):
+                 real_t=torch.float32, *, device,
+                 fast_spectral: bool | None = None):
         self.grid_size_z = grid_size_z
         self.grid_size_y = grid_size_y
         self.grid_size_x = grid_size_x
+        self.fast_spectral = resolve_fast_spectral(fast_spectral)
+        self._symbols = {}  # the fused route's curl symbols, by device
         self.x_range = x_range
         self.y_range = x_range * (grid_size_y / grid_size_x)
         self.z_range = x_range * (grid_size_z / grid_size_x)
@@ -250,3 +355,85 @@ class UnboundedPoissonSolver3D:
         ):
             return torch.stack([self.solve(f, greens) for f in rhs_vector_field])
         return self.solve(rhs_vector_field, greens)
+
+    def fused_curl_supported(self, dtype, device) -> bool:
+        """Whether :meth:`velocity_from_vorticity_fused` applies to a field
+        of ``dtype`` on ``device``: the kernel route with the components
+        batched (below the 512^3-class threshold, where the component loop
+        cannot mix them). The JAX gate's VMEM tile checks
+        (``conv_curl_pass_tile_ok``, ``merge_velocity_epilogue_ok``) have
+        no counterpart: the kernels take every length of the route."""
+        nz, ny, nx = self.grid_size_z, self.grid_size_y, self.grid_size_x
+        return (
+            _kernel_convolve_supported(self.doubled, dtype, device)
+            and nz * ny * nx < _COMPONENT_MAP_THRESHOLD
+        )
+
+    def velocity_from_vorticity_fused(self, vorticity, greens=None,
+                                      free_stream=None):
+        """Biot-Savart velocity recovery without the streamfunction:
+        ``u = FD-curl(G * omega)`` (width-1 wall ring zeroed) ``+
+        free_stream``, and the global ``max |u|_1`` as a 0-d tensor (see
+        :func:`_kernel_convolve_curl_local`). Equal in exact arithmetic to
+        ``curl_3d(vector_field_solve(omega), 0.5/dx) + free_stream``. Only
+        valid where :meth:`fused_curl_supported`; returns ``(u, l1_max)``."""
+        if not self.fused_curl_supported(vorticity.dtype, vorticity.device):
+            raise ValueError(
+                "velocity_from_vorticity_fused needs the kernel route "
+                f"(float32, supported lengths {self.doubled}) below the "
+                "512^3-class threshold; see fused_curl_supported"
+            )
+        if greens is None:
+            greens = self.fourier_greens_times_dx_pow_dim
+        if not isinstance(greens, tuple):
+            greens = split_kernel_greens(greens)
+        if free_stream is None:
+            free_stream = torch.zeros(3, dtype=vorticity.dtype,
+                                      device=vorticity.device)
+        key = str(vorticity.device)
+        if key not in self._symbols:  # built once a device, on it
+            self._symbols[key] = _curl_symbols(self.doubled, self.dx,
+                                               vorticity.device)
+        return _kernel_convolve_curl_local(
+            vorticity.contiguous(), greens, self.doubled, self._symbols[key],
+            free_stream,
+        )
+
+    def _fd_curl_symbols(self, dtype):
+        """Spectral symbols ``i sin(2 pi k / M) / dx`` of the width-2
+        central difference on the doubled periodic grid, per axis (z, y
+        full length, x the rfft half), shaped to broadcast."""
+        nz, ny, nx = self.grid_size_z, self.grid_size_y, self.grid_size_x
+        ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
+
+        def mk(freqs):
+            sym = 1j * np.sin(2.0 * np.pi * freqs) / self.dx
+            return torch.as_tensor(sym, dtype=ctype, device=self.device)
+
+        return (
+            mk(np.fft.fftfreq(2 * nz)).view(-1, 1, 1),
+            mk(np.fft.fftfreq(2 * ny)).view(1, -1, 1),
+            mk(np.fft.rfftfreq(2 * nx)).view(1, 1, -1),
+        )
+
+    def velocity_from_vorticity_spectral(self, vorticity, greens=None):
+        """Velocity recovery ``u = FD-curl(G * omega)`` with the width-1
+        wall ring zeroed, all in the doubled Fourier domain on dense
+        ``torch.fft`` (no free stream): the plain form of the fused route
+        on any device, numerically equal to ``curl_3d(vector_field_solve(
+        omega), 0.5/dx)``."""
+        nz, ny, nx = self.grid_size_z, self.grid_size_y, self.grid_size_x
+        dims = (-3, -2, -1)
+        psi_hat = torch.fft.rfftn(vorticity, s=self.doubled, dim=dims) \
+            * self._dense_greens(greens)
+        dz, dy, dxs = self._fd_curl_symbols(self.real_t)
+        # component order (x, y, z) over array axes (z, y, x)
+        u_hat = torch.stack([
+            dy * psi_hat[2] - dz * psi_hat[1],
+            dz * psi_hat[0] - dxs * psi_hat[2],
+            dxs * psi_hat[1] - dy * psi_hat[0],
+        ])
+        u = torch.fft.irfftn(u_hat, s=self.doubled, dim=dims)[..., :nz, :ny, :nx]
+        mask = torch.zeros((nz, ny, nx), dtype=u.dtype, device=u.device)
+        mask[1:-1, 1:-1, 1:-1] = 1.0
+        return u * mask

@@ -1,5 +1,6 @@
-"""Hopper CUDA kernels for the five exact-tier FFT passes of the free-space
-Poisson convolution, with their plain ``torch.fft`` versions.
+"""Hopper CUDA kernels for the FFT passes of the free-space Poisson
+convolution (the five exact-tier passes and the fast tier's fused-curl
+pair), with their plain ``torch.fft`` versions.
 
 The passes keep the JAX package's layout at their signatures: spectra are
 split real/imag float32 pairs; the middle-axis passes take (A, L, B) arrays
@@ -23,7 +24,9 @@ Replaced TPU kernels (``sopht_mpi_tpu/parallel/pallas_fft.py``):
 :func:`fft_pass_padded` <- ``_fft_pass_padded_impl``,
 :func:`fft_greens_ifft_pass` <- ``_fft_greens_ifft_pass_impl``,
 :func:`ifft_pass_truncated` <- ``_ifft_pass_truncated_impl``,
-:func:`irfft_pass_merge` <- ``_irfft_pass_merge_impl``.
+:func:`irfft_pass_merge` <- ``_irfft_pass_merge_impl``,
+:func:`fft_greens_curl_ifft_pass` <- ``_fft_greens_curl_ifft_pass_impl``,
+:func:`irfft_pass_merge_velocity` <- ``_irfft_pass_merge_velocity_impl``.
 """
 
 from __future__ import annotations
@@ -45,6 +48,10 @@ _SIGNATURES = {
     "sopht_rfft_pass_padded_split_f32": (_P, _P, _P, _P, _P, _P, _L, _I, _I,
                                          _P),
     "sopht_irfft_pass_merge_f32": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
+    "sopht_fft_greens_curl_ifft_pass_f32": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                            _L, _I, _P),
+    "sopht_irfft_pass_merge_velocity_f32": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                            _L, _I, _I, _I, _I, _P),
 }
 
 
@@ -139,6 +146,50 @@ def irfft_pass_merge_ref(br, bi, sr, si, m: int, n_out: int):
     im[:, -1] = 0.0
     return torch.fft.irfft(torch.complex(re, im), n=m, dim=1)[:, :n_out] \
         .contiguous()
+
+
+def fft_greens_curl_ifft_pass_ref(xr, xi, greens, sym_z, sym_yx):
+    """``fft_greens_ifft_pass`` of the three components of (3, L, B) pairs
+    with the spectral curl mixed in at the full spectrum:
+    ``u_hat = i s x (greens * x_hat)``, ``s = (sym_yx[1], sym_yx[0],
+    sym_z)`` per component (x, y, z), ``sym_z`` (2L,) along the transform
+    axis, ``sym_yx`` (2, B) along the two axes flattened into B (B-major,
+    then B-minor)."""
+    half, b = xr.shape[1], xr.shape[2]
+    m = 2 * half
+    psi = torch.fft.fft(torch.complex(xr, xi), n=m, dim=1) * greens
+    sz = sym_z.view(m, 1)
+    sy = sym_yx[0].view(1, b)
+    sx = sym_yx[1].view(1, b)
+    u_hat = 1j * torch.stack([
+        sy * psi[2] - sz * psi[1],
+        sz * psi[0] - sx * psi[2],
+        sx * psi[1] - sy * psi[0],
+    ])
+    return _split(torch.fft.ifft(u_hat, dim=1)[:, :half])
+
+
+def _interior_mask(nz, ny, nx, device):
+    ring = lambda n: (torch.arange(n, device=device) > 0) & (
+        torch.arange(n, device=device) < n - 1)
+    return (ring(nz)[:, None, None] & ring(ny)[None, :, None]
+            & ring(nx)[None, None, :])
+
+
+def irfft_pass_merge_velocity_ref(br, bi, sr, si, fsv, m: int, n_out: int,
+                                  ny: int, nz: int):
+    """``irfft_pass_merge`` of the three components of (3, nz*ny, m/2) and
+    (3, nz*ny, 1) pairs, the width-1 wall ring zeroed, ``fsv`` (3,) added
+    on every cell: ``(u (3, nz*ny, n_out), max over cells of sum_c
+    |u_c|)``, the maximum a 0-d tensor."""
+    rows = br.shape[1]
+    u = irfft_pass_merge_ref(
+        br.reshape(3 * rows, -1), bi.reshape(3 * rows, -1),
+        sr.reshape(3 * rows, 1), si.reshape(3 * rows, 1), m, n_out,
+    ).view(3, nz, ny, n_out)
+    u = torch.where(_interior_mask(nz, ny, n_out, u.device), u, 0.0) \
+        + fsv.view(3, 1, 1, 1)
+    return u.reshape(3, rows, n_out), u.abs().sum(dim=0).max()
 
 
 # ---------------------------------------------------------------------------
@@ -350,12 +401,95 @@ def _k_irfft_pass_merge(br, bi, sr, si, m, n_out):
     return out
 
 
+def fft_greens_curl_ifft_pass(xr, xi, greens, sym_z, sym_yx):
+    """The fast tier's z pass: :func:`fft_greens_ifft_pass` of the three
+    vorticity components of (3, m/2, B) float32 pairs with the spectral
+    central-difference curl mixed in (see
+    :func:`fft_greens_curl_ifft_pass_ref`); ``greens`` (1, m, B),
+    ``sym_z`` (m,), ``sym_yx`` (2, B). Returns the velocity spectrum's
+    (3, m/2, B) pair."""
+    _check("xr", xr, 3)
+    _check("xi", xi, 3, like=xr)
+    _check("greens", greens, 3, like=xr)
+    _check("sym_z", sym_z, 1, like=xr)
+    _check("sym_yx", sym_yx, 2, like=xr)
+    _check_shape("xi", xi, xr.shape)
+    a, half, b = xr.shape
+    m = 2 * half
+    if a != 3:
+        raise ValueError(f"xr: {a} components, the curl needs 3")
+    _check_length(m)
+    _check_shape("greens", greens, (1, m, b))
+    _check_shape("sym_z", sym_z, (m,))
+    _check_shape("sym_yx", sym_yx, (2, b))
+    if xr.device.type == "cpu":
+        return fft_greens_curl_ifft_pass_ref(xr, xi, greens, sym_z, sym_yx)
+    out = _k_fft_greens_curl_ifft_pass(xr, xi, greens, sym_z, sym_yx)
+    fft_greens_curl_ifft_pass.launches += 1
+    return out
+
+
+def _k_fft_greens_curl_ifft_pass(xr, xi, greens, sym_z, sym_yx):
+    _, half, b = xr.shape
+    yr, yi = _empty(xr, 3, half, b), _empty(xr, 3, half, b)
+    _launch("sopht_fft_greens_curl_ifft_pass_f32", xr.device, xr.data_ptr(),
+            xi.data_ptr(), greens.data_ptr(), sym_z.data_ptr(),
+            sym_yx.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            _table(2 * half, xr.device).data_ptr(), b, 2 * half)
+    return yr, yi
+
+
+def irfft_pass_merge_velocity(br, bi, sr, si, fsv, m: int, n_out: int,
+                              ny: int, nz: int):
+    """The fast tier's x c2r: :func:`irfft_pass_merge` of the three
+    velocity components of (3, nz*ny, m/2) bulk and (3, nz*ny, 1) Nyquist
+    float32 pairs, then the width-1 wall ring zeroed, the free stream
+    ``fsv`` (3,) added, and ``max |u|_1`` reduced. Returns ``(u (3, nz*ny,
+    n_out), l1_max)``, the maximum a 0-d tensor on the input's device (no
+    host sync)."""
+    _check("br", br, 3)
+    for name, t in (("bi", bi), ("sr", sr), ("si", si)):
+        _check(name, t, 3, like=br)
+    _check("fsv", fsv, 1, like=br)
+    _check_length(m)
+    rows = br.shape[1]
+    if rows != nz * ny:
+        raise ValueError(f"{rows} rows are not nz * ny = {nz} * {ny}")
+    _check_shape("br", br, (3, rows, m // 2))
+    _check_shape("bi", bi, (3, rows, m // 2))
+    _check_shape("sr", sr, (3, rows, 1))
+    _check_shape("si", si, (3, rows, 1))
+    _check_shape("fsv", fsv, (3,))
+    if not 0 < n_out <= m // 2:
+        raise ValueError(f"n_out {n_out} is not in (0, {m // 2}]")
+    if br.device.type == "cpu":
+        return irfft_pass_merge_velocity_ref(br, bi, sr, si, fsv, m, n_out,
+                                             ny, nz)
+    out = _k_irfft_pass_merge_velocity(br, bi, sr, si, fsv, m, n_out, ny, nz)
+    irfft_pass_merge_velocity.launches += 1
+    return out
+
+
+def _k_irfft_pass_merge_velocity(br, bi, sr, si, fsv, m, n_out, ny, nz):
+    rows = br.shape[1]
+    out = _empty(br, 3, rows, n_out)
+    l1_max = torch.zeros((), dtype=br.dtype, device=br.device)
+    _launch("sopht_irfft_pass_merge_velocity_f32", br.device, br.data_ptr(),
+            bi.data_ptr(), sr.data_ptr(), si.data_ptr(), fsv.data_ptr(),
+            out.data_ptr(), l1_max.data_ptr(), _table(m, br.device).data_ptr(),
+            rows, m, n_out, ny, nz)
+    return out, l1_max
+
+
 rfft_pass_padded_split.launches = 0
 fft_pass_padded.launches = 0
 fft_greens_ifft_pass.launches = 0
 ifft_pass_truncated.launches = 0
 irfft_pass_merge.launches = 0
+fft_greens_curl_ifft_pass.launches = 0
+irfft_pass_merge_velocity.launches = 0
 
 #: the wrappers, for code that resets or reads every launch count
 KERNELS = (rfft_pass_padded_split, fft_pass_padded, fft_greens_ifft_pass,
-           ifft_pass_truncated, irfft_pass_merge)
+           ifft_pass_truncated, irfft_pass_merge, fft_greens_curl_ifft_pass,
+           irfft_pass_merge_velocity)

@@ -152,11 +152,14 @@ def test_constructor_option_checks():
         UnboundedFlowSimulator3D(**common, overlap_chunk=1)
     with pytest.raises(ValueError):
         UnboundedFlowSimulator3D(**common, flow_type="passive_scalar")
-    for option, value in (("fast_spectral", True), ("overlap_chunks", 4),
-                          ("comm_bf16", True), ("mesh", object())):
+    for option, value in (("overlap_chunks", 4), ("comm_bf16", True),
+                          ("mesh", object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             UnboundedFlowSimulator3D(**common, **{option: value})
-    # the exact single-device values are accepted
+    # the single-device values are accepted, the fast tier among them
+    for fast in (False, True):
+        sim = UnboundedFlowSimulator3D(**common, fast_spectral=fast)
+        assert sim.unbounded_poisson_solver.fast_spectral is fast
     sim = UnboundedFlowSimulator3D(**common, fast_spectral=False,
                                    overlap_chunks=None, comm_bf16=False)
     assert sim.use_kernels is False  # the default follows the device

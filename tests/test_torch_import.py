@@ -15,6 +15,11 @@ def test_port_imports_without_jax():
         "import sopht_mpi_tpu_torch.models.elastica\n"
         "import sopht_mpi_tpu_torch.models.immersed_body.rod_forcing_grids\n"
         "from sopht_mpi_tpu_torch.models import build_rod_fsi_step\n"
+        "from sopht_mpi_tpu_torch.models import build_multi_body_fsi_step\n"
+        "from sopht_mpi_tpu_torch.models import rigid_body\n"
+        "from sopht_mpi_tpu_torch.ops.poisson import resolve_fast_spectral\n"
+        "from sopht_mpi_tpu_torch.convert import multi_body_fsi_carry_from_numpy\n"
+        "from sopht_mpi_tpu_torch import enable_fast_spectral\n"
         "from sopht_mpi_tpu_torch.ops import cuda_stencils_3d\n"
         "from sopht_mpi_tpu_torch.parallel import cuda_fft\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
@@ -30,21 +35,23 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-def test_port_sources_name_no_jax():
-    """No module of the port imports JAX, lazily or not."""
-    root = os.path.join(REPO, "sopht_mpi_tpu_torch")
-    offenders = []
-    for dirpath, _, files in os.walk(root):
+def _port_sources():
+    yield os.path.join(REPO, "chip_smoke.py")
+    for dirpath, _, files in os.walk(os.path.join(REPO, "sopht_mpi_tpu_torch")):
         for name in files:
             if name.endswith(".py"):
-                path = os.path.join(dirpath, name)
-                with open(path) as f:
-                    for line in f:
-                        words = line.split()
-                        if words[:2] in (["import", "jax"], ["from", "jax"]) or (
-                            words[:1] in (["import"], ["from"])
-                            and len(words) > 1
-                            and words[1].split(".")[0] in ("jax", "sopht_mpi_tpu")
-                        ):
-                            offenders.append(f"{path}: {line.strip()}")
+                yield os.path.join(dirpath, name)
+
+
+def test_port_sources_name_no_jax():
+    """No module of the port, nor ``chip_smoke.py``, imports JAX or the JAX
+    package, lazily or not."""
+    offenders = []
+    for path in _port_sources():
+        with open(path) as f:
+            for line in f:
+                words = line.split()
+                if words[:1] in (["import"], ["from"]) and len(words) > 1 \
+                        and words[1].split(".")[0] in ("jax", "sopht_mpi_tpu"):
+                    offenders.append(f"{path}: {line.strip()}")
     assert not offenders, offenders
