@@ -6,8 +6,8 @@ and public names mirror ``sopht_mpi_tpu`` so each counterpart is easy to
 find. Plain tensor work is PyTorch; each Pallas kernel of the JAX package
 becomes a hand-written Hopper kernel (``csrc/``, built at first use by
 ``_build``). The port covers the fused 3D FSI steps of a rigid sphere, a
-Cosserat rod and any mix of rods and rigid bodies; see ROADMAP.md for what
-follows.
+Cosserat rod and any mix of rods and rigid bodies, and the 2D flow
+(Lamb-Oseen vortex, flow past a cylinder); see ROADMAP.md for what follows.
 """
 
 from sopht_mpi_tpu_torch import models, ops, utils

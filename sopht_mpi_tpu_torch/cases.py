@@ -1,4 +1,7 @@
-"""The FSI cases a user runs: flow past a sphere (counterparts of
+"""The cases a user runs: the 2D Lamb-Oseen vortex and flow past a cylinder
+(counterparts of ``examples/2d/lamb_oseen_vortex.py`` and
+``examples/2d/flow_past_cylinder.py:flow_past_cylinder_fused_case``), flow
+past a sphere (counterparts of
 ``__graft_entry__._build_fsi_case`` and
 ``examples/3d/flow_past_sphere.py:flow_past_sphere_fused_case``), flow
 past a flexible rod (``__graft_entry__._build_rod_fsi_case`` and
@@ -14,9 +17,11 @@ import torch
 from sopht_mpi_tpu_torch.models import (
     AnalyticalLinearDamper,
     BaseSystemCollection,
+    CircularCylinderForcingGrid,
     CosseratRod,
     CosseratRodFlowInteraction,
     CosseratRodSurfaceForcingGrid,
+    Cylinder,
     FixedRigidBody,
     GravityForces,
     OneEndFixedBC,
@@ -24,6 +29,7 @@ from sopht_mpi_tpu_torch.models import (
     RodBody,
     Sphere,
     SphereForcingGrid,
+    UnboundedFlowSimulator2D,
     UnboundedFlowSimulator3D,
     build_multi_body_fsi_step,
     build_rigid_fsi_step,
@@ -167,6 +173,158 @@ def flow_past_sphere_fused_case(
         carry, lag_forces = scan_steps(step, carry, window)
         times.append(float(carry.time) / timescale)
         drag_coeffs.append(float(lag_forces[-1, 0].abs()) / drag_scale)
+    return np.asarray(times), np.asarray(drag_coeffs)
+
+
+def compute_lamb_oseen_vorticity(x, y, x_cm, y_cm, nu, gamma, t):
+    """Vorticity of the Lamb-Oseen vortex of circulation ``gamma`` centred
+    at (x_cm, y_cm) at time ``t`` (numpy)."""
+    return (
+        gamma
+        / (4 * np.pi * nu * t)
+        * np.exp(-((x - x_cm) ** 2 + (y - y_cm) ** 2) / (4 * nu * t))
+    )
+
+
+def compute_lamb_oseen_velocity(x, y, x_cm, y_cm, nu, gamma, t):
+    """Velocity (2, ...) of the same vortex (numpy)."""
+    r2 = np.maximum((x - x_cm) ** 2 + (y - y_cm) ** 2, 1e-14)
+    r = np.sqrt(r2)
+    u_theta = gamma / (2 * np.pi * r) * (1 - np.exp(-r2 / (4 * nu * t)))
+    return np.stack([-u_theta * (y - y_cm) / r, u_theta * (x - x_cm) / r])
+
+
+def _build_lamb_oseen_sim(grid_size, *, device, precision="single",
+                          t_start=1.0):
+    """The Lamb-Oseen simulator at ``t_start``: nu = 1e-3, circulation
+    ``4 pi nu t_start`` (maximum vorticity 1), the vortex at (0.3, 0.3), a
+    unit free stream in x and y. Returns (simulator, free stream (2,)
+    numpy, analytic vorticity ``t -> (ny, nx) numpy`` of the advected,
+    diffused vortex)."""
+    real_t = get_real_t(precision)
+    nu = 1e-3
+    x_cm_start = y_cm_start = 0.3
+    gamma = 4 * np.pi * nu * t_start
+    flow_sim = UnboundedFlowSimulator2D(
+        grid_size=grid_size,
+        x_range=1.0,
+        kinematic_viscosity=nu,
+        flow_type="navier_stokes",
+        with_free_stream_flow=True,
+        real_t=real_t,
+        time=t_start,
+        device=device,
+    )
+    x = flow_sim.position_field[0].cpu().numpy().astype(np.float64)
+    y = flow_sim.position_field[1].cpu().numpy().astype(np.float64)
+    free_stream = np.ones(2)
+
+    def to_field(a):
+        return torch.as_tensor(a, dtype=real_t, device=flow_sim.device)
+
+    flow_sim.vorticity_field = to_field(compute_lamb_oseen_vorticity(
+        x, y, x_cm_start, y_cm_start, nu, gamma, t_start))
+    flow_sim.velocity_field = to_field(
+        compute_lamb_oseen_velocity(
+            x, y, x_cm_start, y_cm_start, nu, gamma, t_start)
+        + free_stream[:, None, None])
+
+    def analytic_vorticity(t):
+        return compute_lamb_oseen_vorticity(
+            x, y, x_cm_start + free_stream[0] * (t - t_start),
+            y_cm_start + free_stream[1] * (t - t_start), nu, gamma, t)
+
+    return flow_sim, free_stream, analytic_vorticity
+
+
+def lamb_oseen_vortex_case(grid_size=(256, 256), precision="single",
+                           t_end=1.4, *, device):
+    """Lamb-Oseen vortex against its analytic solution: the vortex advects
+    with the free stream and diffuses from t = 1.0 to ``t_end``, the
+    timestep the stable one capped at the time left. Returns the (L2, Linf)
+    vorticity errors, L2 = ||err||_2 dx."""
+    flow_sim, free_stream, analytic_vorticity = _build_lamb_oseen_sim(
+        grid_size, device=device, precision=precision)
+    while flow_sim.time < t_end - 1e-10:
+        dt = min(flow_sim.compute_stable_timestep(), t_end - flow_sim.time)
+        flow_sim.time_step(dt=dt, free_stream_velocity=free_stream)
+    error = np.abs(
+        flow_sim.vorticity_field.cpu().numpy().astype(np.float64)
+        - analytic_vorticity(flow_sim.time)
+    )
+    return float(np.linalg.norm(error) * flow_sim.dx), float(error.max())
+
+
+def _build_cylinder_fsi_case(grid_size=(256, 512), *, device, reynolds=200.0,
+                             coupling_stiffness=-5e4, coupling_damping=-20.0,
+                             precision="single"):
+    """Flow past a fixed circular cylinder: radius 0.03 of a unit x range,
+    centred 2.5 radii from the inflow wall at mid height, unit free stream
+    in x, Re on the radius, 60 forcing points, the dense IBM path. Returns
+    (fused step fn, (initial carry,))."""
+    real_t = get_real_t(precision)
+    velocity_scale = 1.0
+    cyl_radius = 0.03
+    flow_sim = UnboundedFlowSimulator2D(
+        grid_size=grid_size,
+        x_range=1.0,
+        kinematic_viscosity=cyl_radius * velocity_scale / reynolds,
+        flow_type="navier_stokes_with_forcing",
+        with_free_stream_flow=True,
+        real_t=real_t,
+        device=device,
+    )
+    cylinder = Cylinder(
+        center=(2.5 * cyl_radius, 0.5 * grid_size[0] / grid_size[1]),
+        radius=cyl_radius,
+        device=flow_sim.device,
+        dtype=real_t,
+    )
+    interactor = RigidBodyFlowInteraction(
+        flow_sim,
+        cylinder,
+        CircularCylinderForcingGrid(cylinder, 60),
+        virtual_boundary_stiffness_coeff=coupling_stiffness,
+        virtual_boundary_damping_coeff=coupling_damping,
+    )
+    free_stream = torch.tensor([velocity_scale, 0.0], dtype=real_t,
+                               device=flow_sim.device)
+    step = build_rigid_fsi_step(
+        flow_sim, interactor, dt_prefac=1.0,
+        free_stream_fn=lambda t: free_stream,
+    )
+    return step, (init_rigid_fsi_carry(flow_sim, interactor, step),)
+
+
+def flow_past_cylinder_fused_case(
+    nondim_final_time=200.0,
+    grid_size=(256, 512),
+    reynolds=200.0,
+    coupling_stiffness=-5e4,
+    coupling_damping=-20.0,
+    precision="single",
+    window=500,
+    *,
+    device,
+):
+    """Flow past a fixed cylinder at Re = 200 (vortex shedding and drag,
+    :func:`_build_cylinder_fsi_case`). The coupled loop runs ``window``
+    steps between host reads of the drag; returns (t* = t U / r at each
+    window end, Cd = |F_x| / (U^2 r) at the window's last step)."""
+    step, (carry,) = _build_cylinder_fsi_case(
+        grid_size, device=device, reynolds=reynolds,
+        coupling_stiffness=coupling_stiffness,
+        coupling_damping=coupling_damping, precision=precision,
+    )
+    velocity_scale, cyl_radius = 1.0, 0.03
+    timescale = cyl_radius / velocity_scale
+    t_end = nondim_final_time * timescale
+    times, drag_coeffs = [], []
+    while float(carry.time) < t_end:
+        carry, lag_forces = scan_steps(step, carry, window)
+        times.append(float(carry.time) / timescale)
+        drag_coeffs.append(
+            float(lag_forces[-1, 0].abs()) / (velocity_scale**2 * cyl_radius))
     return np.asarray(times), np.asarray(drag_coeffs)
 
 

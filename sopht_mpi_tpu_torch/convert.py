@@ -16,6 +16,7 @@ from sopht_mpi_tpu_torch.models.elastica.rod import (
     CosseratRodParams,
     CosseratRodState,
 )
+from sopht_mpi_tpu_torch.models.flow.simulator_2d import FlowState2D
 from sopht_mpi_tpu_torch.models.flow.simulator_3d import FlowState3D
 from sopht_mpi_tpu_torch.models.fsi import (
     MultiBodyFSICarry,
@@ -50,16 +51,21 @@ def _greens(leaf, device, dtype):
     return _tensor(leaf, device, dtype)
 
 
-def flow_state_from_numpy(tree, *, device, dtype) -> FlowState3D:
-    """(primary_field, velocity_field, eul_grid_forcing_field) numpy
-    arrays -> :class:`FlowState3D` on ``device`` in ``dtype``."""
-    return FlowState3D(
-        *(_tensor(v, device, dtype) for v in _fields(tree, FlowState3D._fields))
-    )
+def flow_state_from_numpy(tree, *, device, dtype):
+    """(primary field, velocity_field, eul_grid_forcing_field) numpy arrays
+    -> :class:`FlowState3D`, or :class:`FlowState2D` when the primary field
+    is a 2D scalar (a dict names it ``primary_scalar_field``), on ``device``
+    in ``dtype``."""
+    if isinstance(tree, dict):
+        two_d = "primary_scalar_field" in tree
+    else:
+        two_d = np.asarray(list(tree)[0]).ndim == 2
+    cls = FlowState2D if two_d else FlowState3D
+    return cls(*(_tensor(v, device, dtype) for v in _fields(tree, cls._fields)))
 
 
 def rigid_fsi_carry_from_numpy(tree, *, device, dtype) -> RigidFSICarry:
-    """A JAX ``RigidFSICarry`` as numpy arrays -> the port's
+    """A JAX ``RigidFSICarry`` (2D or 3D) as numpy arrays -> the port's
     :class:`RigidFSICarry`: the flow state, ``vb_state``, the velocity
     mismatch, time, the Fourier Green's function (dense, or the split
     (bulk, side) pair), ``velocity_l1_max`` and

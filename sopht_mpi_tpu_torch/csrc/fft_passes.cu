@@ -1,6 +1,7 @@
 // Hopper (sm_90a) kernels for the FFT passes of the doubled-domain
-// free-space Poisson solve (the five exact-tier passes and the fast tier's
-// fused-curl pair), bound to PyTorch through a plain C
+// free-space Poisson solve (the five exact-tier passes, the fast tier's
+// fused-curl pair, the unsplit x passes and the fused edge passes), bound to
+// PyTorch through a plain C
 // interface (ctypes); see sopht_mpi_tpu_torch/parallel/cuda_fft.py for the
 // wrappers and the plain torch.fft versions they are held against.
 //
@@ -76,6 +77,22 @@
 //   conj(X[m - k]) (imaginary parts of k = 0 and k = m/2 dropped: the JAX
 //   weights w = 1 there, 2 elsewhere); the factored inverse runs and keeps
 //   the real part. Bound: HBM.
+//
+// rfft_pass_padded, irfft_pass_truncated
+//   Replace _rfft_pass_padded_impl (kernel _r2c_kernel) and
+//   _irfft_pass_truncated_impl (kernel _c2r_kernel): the two x-edge passes
+//   above with the Nyquist column kept in the row, (R, m/2 + 1) pairs. The
+//   same kernels with `unsplit` set: the row pitch is m/2 + 1 floats (rows
+//   lose their 16-byte alignment; every access of the kernels is scalar) and
+//   no side column is read or written. Bound: HBM, as their split twins.
+//
+// rfft_fft_pass_fused, ifft_irfft_pass_fused
+//   Replace _rfft_fft_pass_fused_impl (kernel _r2c_fwd_kernel) and
+//   _ifft_irfft_pass_fused_impl (kernel _inv_c2r_kernel), which hold a whole
+//   slab in VMEM; see the note above the two kernels for what they do
+//   instead. Bound by HBM bytes as functions (4 B in, 16 B out a bulk
+//   element); as written, FP32 issue and shared-memory bandwidth (dense x
+//   sums).
 //
 // The fast tier's fused-curl pair (the velocity recovery without the
 // streamfunction):
@@ -582,7 +599,7 @@ __global__ void __launch_bounds__(kThreads, kEdgeBlocks)
                                   float* __restrict__ si,
                                   const float2* __restrict__ table,
                                   long long R, int n_in, int m, int m1,
-                                  int m2) {
+                                  int m2, int unsplit) {
   extern __shared__ float2 smem[];
   const Twiddles s = load_twiddles<M1, H2>(table, smem, m1, m2, m);
   const int t = blockDim.x, tp = t + 1;
@@ -643,16 +660,20 @@ __global__ void __launch_bounds__(kThreads, kEdgeBlocks)
       stage[(k2 + m2 * k1) * tp + threadIdx.x] = dot(yr, yi, s.w1 + k1 * M1);
   }
   __syncthreads();
+  // unsplit: the Nyquist column stays in the row, rows of m/2 + 1 floats
+  // (row starts then lose their 16-byte alignment: scalar stores only)
+  const int ld = unsplit ? h + 1 : h;
   // several rows in flight per thread
 #pragma unroll 4
   for (int r = 0; r < t && row0 + r < R; ++r) {
     const long long row = row0 + r;
-    for (int k = tid; k < h; k += nt) {
+    for (int k = tid; k < ld; k += nt) {
       const float2 v = stage[k * tp + r];
-      br[row * h + k] = v.x;
-      bi[row * h + k] = v.y;
+      br[row * ld + k] = v.x;
+      bi[row * ld + k] = v.y;
     }
   }
+  if (unsplit) return;
   for (int r = tid; r < t; r += nt) {
     const long long row = row0 + r;
     if (row < R) {
@@ -671,7 +692,7 @@ __global__ void __launch_bounds__(kThreads, kEdgeBlocks)
                             const float* __restrict__ si,
                             float* __restrict__ out,
                             const float2* __restrict__ table, long long R,
-                            int n_out, int m, int m1, int m2) {
+                            int n_out, int m, int m1, int m2, int unsplit) {
   extern __shared__ float2 smem[];
   const Twiddles s = load_twiddles<M1, H2>(table, smem, m1, m2, m);
   const int t = blockDim.x, tp = t + 1;
@@ -686,20 +707,24 @@ __global__ void __launch_bounds__(kThreads, kEdgeBlocks)
   const long long row0 = (long long)blockIdx.x * t;
   const int h = m / 2, h2 = m2 / 2;
   const float inv_m = 1.0f / (float)m;
+  // unsplit: the Nyquist column is the last of the row's m/2 + 1 floats
+  const int ld = unsplit ? h + 1 : h;
   // several rows in flight per thread
 #pragma unroll 4
   for (int r = 0; r < t; ++r) {
     const long long row = row0 + r;
-    for (int k = tid; k < h; k += nt) {
+    for (int k = tid; k < ld; k += nt) {
       float2 v = make_float2(0.f, 0.f);
-      if (row < R) v = make_float2(br[row * h + k], bi[row * h + k]);
-      if (k == 0) v.y = 0.f;
+      if (row < R) v = make_float2(br[row * ld + k], bi[row * ld + k]);
+      if (k == 0 || k == h) v.y = 0.f;
       xf[k * tp + r] = v;
     }
   }
-  for (int r = tid; r < t; r += nt) {
-    const long long row = row0 + r;
-    xf[h * tp + r] = make_float2(row < R ? sr[row] : 0.f, 0.f);
+  if (!unsplit) {
+    for (int r = tid; r < t; r += nt) {
+      const long long row = row0 + r;
+      xf[h * tp + r] = make_float2(row < R ? sr[row] : 0.f, 0.f);
+    }
   }
   __syncthreads();
   for (int k2 = threadIdx.y; k2 < m2; k2 += blockDim.y) {
@@ -970,6 +995,281 @@ __global__ void __launch_bounds__(kThreads, kEdgeBlocks)
   }
 }
 
+// The fused edge passes: the x r2c folded into the y forward pass, and the
+// y inverse folded into the x c2r. A slab's bulk spectrum between the two
+// transforms (ny x mx/2 complex, 512 KB at 256^3) exceeds an SM's shared
+// memory, so neither kernel holds a slab: the x transform of a column tile
+// is a dense DFT against the table xw[j] = W_mx^j (mx entries, built by the
+// wrapper in float64), and only the y transform is the factored one. The
+// dense sums make both kernels FP32-issue bound (2 nx FMA a bulk output
+// against ~5 log2 mx for a factored row transform).
+//
+// The x table sits in shared memory skewed, entry j at j + j / 16: a warp
+// reads it at a stride (the column or the cell index), and unskewed every
+// stride that is a multiple of 16 would hit one bank.
+constexpr int kXChunk = 16;  // x cells of a slab staged at a time
+constexpr int kXLd = 20;     // their row pitch in floats (16-byte rows)
+
+__device__ __forceinline__ int skew(int j) { return j + (j >> 4); }
+
+// entries of the skewed table, even so that what follows it in shared
+// memory stays 16-byte aligned
+__host__ __device__ constexpr int skewed_len(int mx) {
+  return (mx + mx / 16 + 2) & ~1;
+}
+
+__device__ __forceinline__ void load_x_table(const float2* __restrict__ xw,
+                                             float2* xws, int mx, int tid,
+                                             int nt) {
+  for (int j = tid; j < mx; j += nt) xws[skew(j)] = xw[j];
+}
+
+// rfft_fft_pass_fused: a block owns t bulk kx columns of one slab. The
+// slab's rows pass through shared memory kXChunk cells at a time (coalesced
+// loads; every column tile re-reads the slab, which stays in L2), and the
+// thread (column b, n1) sums the x r2c of its own rows n1 + m1 n2 at kx = b
+// straight into the registers the y first factor takes, so the x spectrum
+// never exists in memory. Block column 0 also writes the slab's Nyquist
+// column sum_n (-1)^n x[n] (its imaginary part is zero).
+static_assert(2 * kThreads >= 512, "the Nyquist sum covers 2 rows a thread");
+
+template <int M1, int H2>
+__global__ void __launch_bounds__(kThreads, 2)
+    rfft_fft_pass_fused_kernel(const float* __restrict__ x,
+                               float* __restrict__ out_r,
+                               float* __restrict__ out_i,
+                               float* __restrict__ side_r,
+                               float* __restrict__ side_i,
+                               const float2* __restrict__ table,
+                               const float2* __restrict__ xw, int nx, int mx,
+                               int m, int m1, int m2) {
+  extern __shared__ float2 smem[];
+  const Twiddles s = load_twiddles<M1, H2>(table, smem, m1, m2, m);
+  const int t = blockDim.x;
+  float2* xws = smem + (m1 * M1 + m2 * H2 + m);
+  float2* slots = xws + skewed_len(mx);
+  float2* col = slots + threadIdx.x;
+  float* xs = reinterpret_cast<float*>(slots + (long long)m * t);
+  const int tid = threadIdx.y * t + threadIdx.x;
+  const int nt = t * blockDim.y;
+  load_x_table(xw, xws, mx, tid, nt);
+  const int B = mx / 2;
+  const int b = blockIdx.x * t + threadIdx.x;
+  const bool live = b < B;
+  const long long a = blockIdx.y;
+  const int h = m / 2, h2 = m2 / 2;  // h = ny rows of the slab
+  const float* xa = x + a * h * nx;
+  // block column 0 sums the Nyquist column from the staged chunks: rows tid
+  // and tid + nt (ny <= 512 = 2 nt)
+  float side[2] = {0.f, 0.f};
+  for (int n1base = 0; n1base < m1; n1base += blockDim.y) {
+    const int n1 = n1base + threadIdx.y;
+    const bool active = live && n1 < m1;
+    float vr[H2], vi[H2];
+#pragma unroll
+    for (int n2 = 0; n2 < H2; ++n2) vr[n2] = vi[n2] = 0.f;
+    int idx = 0;  // (b n) mod mx
+    for (int n0 = 0; n0 < nx; n0 += kXChunk) {
+      const int quads = (nx - n0 < kXChunk ? nx - n0 : kXChunk) / 4;
+      __syncthreads();  // the table is loaded, the last chunk consumed
+      for (int i = tid; i < h * quads; i += nt) {
+        const int row = i / quads, q = i - row * quads;
+        *reinterpret_cast<float4*>(xs + row * kXLd + 4 * q) =
+            *reinterpret_cast<const float4*>(xa + (long long)row * nx + n0 +
+                                             4 * q);
+      }
+      __syncthreads();
+      if (blockIdx.x == 0 && n1base == 0) {
+        for (int i = 0; i < 2; ++i) {
+          const int y = tid + i * nt;
+          if (y < h)
+            for (int c = 0; c < 4 * quads; c += 2)
+              side[i] += xs[y * kXLd + c] - xs[y * kXLd + c + 1];
+        }
+      }
+      if (!active) continue;
+      for (int q = 0; q < quads; ++q) {
+        float2 w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          w[e] = xws[skew(idx)];
+          idx += b;
+          if (idx >= mx) idx -= mx;
+        }
+        // no branch in here, so that the loads and the 8 H2 sums schedule
+        // as one block: a register row past m2/2 re-reads row n1 and is
+        // zeroed after the loop
+#pragma unroll
+        for (int n2 = 0; n2 < H2; ++n2) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              xs + (n2 < h2 ? n1 + m1 * n2 : n1) * kXLd + 4 * q);
+          vr[n2] = fmaf(v.x, w[0].x, vr[n2]);
+          vi[n2] = fmaf(v.x, w[0].y, vi[n2]);
+          vr[n2] = fmaf(v.y, w[1].x, vr[n2]);
+          vi[n2] = fmaf(v.y, w[1].y, vi[n2]);
+          vr[n2] = fmaf(v.z, w[2].x, vr[n2]);
+          vi[n2] = fmaf(v.z, w[2].y, vi[n2]);
+          vr[n2] = fmaf(v.w, w[3].x, vr[n2]);
+          vi[n2] = fmaf(v.w, w[3].y, vi[n2]);
+        }
+      }
+    }
+#pragma unroll
+    for (int n2 = 0; n2 < H2; ++n2)
+      if (n2 >= h2) vr[n2] = vi[n2] = 0.f;
+    if (n1 < m1) forward_first(vr, vi, s, n1, m1, m2, col, t);
+  }
+  __syncthreads();
+  for (int k2 = threadIdx.y; k2 < m2; k2 += blockDim.y) {
+    float yr[M1], yi[M1];
+    load_slots(yr, yi, col, k2 * m1, m1, t);
+    dft_m1<M1, false>(yr, yi, s, m1, [&](int k1, float2 v) {
+      if (live) {
+        const long long i = (a * m + k2 + (long long)m2 * k1) * B + b;
+        out_r[i] = v.x;
+        out_i[i] = v.y;
+      }
+    });
+  }
+  if (blockIdx.x != 0) return;
+  for (int i = 0; i < 2; ++i) {
+    const int y = tid + i * nt;
+    if (y < h) {
+      side_r[a * h + y] = side[i];
+      side_i[a * h + y] = 0.f;
+    }
+  }
+}
+
+// ifft_irfft_pass_fused: a block owns kBlockRowsC2r output rows x
+// kBlockColsC2r cells of one slab, every thread a register tile of
+// kRowsC2r rows x kColsC2r cells (lanes over cells, so a warp's stores
+// cover whole 128-byte lines), and walks the slab's bulk kx columns a tile
+// of t at a time. Per tile: the factored y inverse (as ifft_pass_truncated)
+// of the whole column tile, of which the block keeps its own rows, with the
+// c2r weights (1 at kx = 0, 2 elsewhere, over mx my; the imaginary part of
+// kx = 0 dropped), in shared memory; then every thread adds the tile's terms
+// sum_k Re(z[k][y] conj(W_mx^(k n))) to its cells. The sums stay in
+// registers over all tiles and start from the Nyquist column's term
+// (-1)^n sr / mx, so the output is written once, by plain stores, and the
+// order of each sum is fixed. The price is that the ny / kBlockRowsC2r row
+// blocks of a slab each repeat its y inverse (from L2).
+constexpr int kRowsC2r = 8;
+constexpr int kColsC2r = 8;
+constexpr int kBlockRowsC2r = (kThreads / 32) * kRowsC2r;
+constexpr int kBlockColsC2r = 32 * kColsC2r;
+
+template <int M1, int H2>
+__global__ void __launch_bounds__(kThreads, 2)
+    ifft_irfft_pass_fused_kernel(const float* __restrict__ br,
+                                 const float* __restrict__ bi,
+                                 const float* __restrict__ sr,
+                                 float* __restrict__ out,
+                                 const float2* __restrict__ table,
+                                 const float2* __restrict__ xw, int nx, int mx,
+                                 int m, int m1, int m2) {
+  extern __shared__ float2 smem[];
+  const Twiddles s = load_twiddles<M1, H2>(table, smem, m1, m2, m);
+  const int t = blockDim.x;
+  float2* xws = smem + (m1 * M1 + m2 * H2 + m);
+  float2* slots = xws + skewed_len(mx);
+  float2* col = slots + threadIdx.x;
+  // the block's rows of the y inverse of a column tile, z[k][row], behind
+  // the slots, which also serve as t x kBlockColsC2r twiddles
+  float2* z = slots + (long long)(m > kBlockColsC2r ? m : kBlockColsC2r) * t;
+  const int tid = threadIdx.y * t + threadIdx.x;
+  const int nt = t * blockDim.y;
+  load_x_table(xw, xws, mx, tid, nt);
+  const int B = mx / 2;
+  const long long a = blockIdx.z;
+  const int h = m / 2, h2 = m2 / 2;  // h = ny rows of the slab
+  const float inv_my = 1.0f / (float)m, inv_mx = 1.0f / (float)mx;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int block_row0 = blockIdx.y * kBlockRowsC2r;
+  const int row0 = block_row0 + warp * kRowsC2r;
+  const int nb = blockIdx.x * kBlockColsC2r;
+  float acc[kRowsC2r][kColsC2r];
+#pragma unroll
+  for (int q = 0; q < kColsC2r; ++q) {
+    const int n = nb + lane + 32 * q;
+#pragma unroll
+    for (int r = 0; r < kRowsC2r; ++r)
+      acc[r][q] = row0 + r < h ? (n & 1 ? -inv_mx : inv_mx) * sr[a * h + row0 + r]
+                               : 0.f;
+  }
+  __syncthreads();
+  for (int c0 = 0; c0 < B; c0 += t) {
+    const int b = c0 + threadIdx.x;
+    const bool live = b < B;
+    for (int k2 = threadIdx.y; k2 < m2; k2 += blockDim.y) {
+      float vr[M1], vi[M1];
+#pragma unroll
+      for (int k1 = 0; k1 < M1; ++k1) {
+        vr[k1] = vi[k1] = 0.f;
+        if (live && k1 < m1) {
+          const long long i = (a * m + k2 + (long long)m2 * k1) * B + b;
+          vr[k1] = br[i];
+          vi[k1] = bi[i];
+        }
+      }
+      inverse_first(vr, vi, s, k2, m1, m2, col, t);
+    }
+    __syncthreads();
+    const float wk = (b == 0 ? 1.0f : 2.0f) * inv_my * inv_mx;
+    for (int n1 = threadIdx.y; n1 < m1; n1 += blockDim.y) {
+      float ar[H2], ai[H2];
+      inverse_second(ar, ai, s, col, n1, m1, m2, t);
+#pragma unroll
+      for (int n2 = 0; n2 < H2; ++n2) {
+        const int row = n1 + m1 * n2 - block_row0;
+        if (n2 < h2 && row >= 0 && row < kBlockRowsC2r)
+          z[threadIdx.x * kBlockRowsC2r + row] =
+              make_float2(ar[n2] * wk, b == 0 ? 0.f : ai[n2] * wk);
+      }
+    }
+    __syncthreads();
+    // the tile's twiddles W_mx^(k n) for the block's cells, laid out by
+    // cell in the slots (free until the next tile's y inverse): the sums
+    // below then read them without bank conflicts, which the strided reads
+    // of the table itself would have (5 wavefronts a load on average)
+    const int kt = B - c0 < t ? B - c0 : t;  // live columns of the tile
+    for (int i = tid; i < kt * kBlockColsC2r; i += nt) {
+      const int j = i / kBlockColsC2r, c = i - j * kBlockColsC2r;
+      slots[i] = xws[skew(((c0 + j) * (nb + c)) % mx)];
+    }
+    __syncthreads();
+    for (int j = 0; j < kt; ++j) {
+      float2 w[kColsC2r];
+#pragma unroll
+      for (int q = 0; q < kColsC2r; ++q)
+        w[q] = slots[j * kBlockColsC2r + lane + 32 * q];
+      // rows in 16-byte pairs; no branch in here, so that the loads and
+      // the sums schedule as one block (a row past the slab holds whatever
+      // the shared memory did and is never stored)
+      const float4* zj = reinterpret_cast<const float4*>(
+          z + j * kBlockRowsC2r + warp * kRowsC2r);
+#pragma unroll
+      for (int r = 0; r < kRowsC2r; r += 2) {
+        const float4 v = zj[r / 2];
+#pragma unroll
+        for (int q = 0; q < kColsC2r; ++q) {
+          acc[r][q] = fmaf(v.y, w[q].y, fmaf(v.x, w[q].x, acc[r][q]));
+          acc[r + 1][q] = fmaf(v.w, w[q].y, fmaf(v.z, w[q].x, acc[r + 1][q]));
+        }
+      }
+    }
+    __syncthreads();  // the slots and z serve the next tile
+  }
+  float* outa = out + a * h * nx;
+#pragma unroll
+  for (int q = 0; q < kColsC2r; ++q) {
+    const int n = nb + lane + 32 * q;
+#pragma unroll
+    for (int r = 0; r < kRowsC2r; ++r)
+      if (row0 + r < h && n < nx) outa[(long long)(row0 + r) * nx + n] = acc[r][q];
+  }
+}
+
 // Largest tile t in {32, 16, 8, 4} whose shared data fits the budget.
 template <class Bytes>
 int pick_tile(Bytes bytes) {
@@ -1040,7 +1340,7 @@ struct RfftPassPaddedSplit {
   template <int M1, int H2>
   static int go(const Plan& p, const float* x, float* br, float* bi,
                 float* sr, float* si, const float* table, long long R,
-                int n_in, cudaStream_t st) {
+                int n_in, int unsplit, cudaStream_t st) {
     const long long h = p.m / 2;
     auto bytes = [&](int t) {
       const long long stage = 8LL * (h + 1) * (t + 1);
@@ -1053,7 +1353,7 @@ struct RfftPassPaddedSplit {
     const dim3 grid((unsigned)((R + t - 1) / t));
     return launch(rfft_pass_padded_split_kernel<M1, H2>, grid, t, smem, st, x,
                   br, bi, sr, si, (const float2*)table, R, n_in, p.m, p.m1,
-                  p.m2);
+                  p.m2, unsplit);
   }
 };
 
@@ -1061,7 +1361,8 @@ struct IrfftPassMerge {
   template <int M1, int H2>
   static int go(const Plan& p, const float* br, const float* bi,
                 const float* sr, const float* si, float* out,
-                const float* table, long long R, int n_out, cudaStream_t st) {
+                const float* table, long long R, int n_out, int unsplit,
+                cudaStream_t st) {
     auto bytes = [&](int t) {
       return 8LL * p.m * t + 8LL * (p.m / 2 + 1) * (t + 1);
     };
@@ -1071,7 +1372,7 @@ struct IrfftPassMerge {
     const dim3 grid((unsigned)((R + t - 1) / t));
     return launch(irfft_pass_merge_kernel<M1, H2>, grid, t, smem, st, br, bi,
                   sr, si, out, (const float2*)table, R, n_out, p.m, p.m1,
-                  p.m2);
+                  p.m2, unsplit);
   }
 };
 
@@ -1109,6 +1410,49 @@ struct IrfftPassMergeVelocity {
     return launch(irfft_pass_merge_velocity_kernel<M1, H2>, grid, t, smem, st,
                   br, bi, sr, si, fsv, out, l1_max, (const float2*)table, R,
                   n_out, ny, nz, p.m, p.m1, p.m2);
+  }
+};
+
+struct RfftFftPassFused {
+  template <int M1, int H2>
+  static int go(const Plan& p, const float* x, float* out_r, float* out_i,
+                float* side_r, float* side_i, const float* table,
+                const float* xw, int A, int nx, int mx, cudaStream_t st) {
+    // slots (m x t) plus the staged chunk of the slab's rows; the x table
+    // rides beside the y twiddles, off the budget
+    auto bytes = [&](int t) { return 8LL * p.m * t + 4LL * (p.m / 2) * kXLd; };
+    const int t = pick_tile(bytes);
+    if (t == 0) return (int)cudaErrorInvalidValue;
+    const size_t smem =
+        table_bytes(p) + (size_t)bytes(t) + 8ull * skewed_len(mx);
+    const dim3 grid((unsigned)((mx / 2 + t - 1) / t), (unsigned)A);
+    return launch(rfft_fft_pass_fused_kernel<M1, H2>, grid, t, smem, st, x,
+                  out_r, out_i, side_r, side_i, (const float2*)table,
+                  (const float2*)xw, nx, mx, p.m, p.m1, p.m2);
+  }
+};
+
+struct IfftIrfftPassFused {
+  template <int M1, int H2>
+  static int go(const Plan& p, const float* br, const float* bi,
+                const float* sr, float* out, const float* table,
+                const float* xw, int A, int nx, int mx, cudaStream_t st) {
+    // slots (m x t, which also hold the tile's t x kBlockColsC2r twiddles)
+    // plus the block's rows of a column tile's y inverse
+    auto bytes = [&](int t) {
+      const long long slots = p.m > kBlockColsC2r ? p.m : kBlockColsC2r;
+      return 8LL * slots * t + 8LL * kBlockRowsC2r * t;
+    };
+    const int t = pick_tile(bytes);
+    if (t == 0) return (int)cudaErrorInvalidValue;
+    const size_t smem =
+        table_bytes(p) + (size_t)bytes(t) + 8ull * skewed_len(mx);
+    const dim3 grid((unsigned)((nx + kBlockColsC2r - 1) / kBlockColsC2r),
+                    (unsigned)((p.m / 2 + kBlockRowsC2r - 1) / kBlockRowsC2r),
+                    (unsigned)A);
+    return launch(ifft_irfft_pass_fused_kernel<M1, H2>, grid, t, smem, st, br,
+                  bi, sr, out, (const float2*)table, (const float2*)xw, nx,
+                  mx, p.m, p.m1, p.m2);
   }
 };
 
@@ -1207,6 +1551,18 @@ extern "C" int sopht_rfft_pass_padded_split_f32(const float* x, float* br,
   if (!make_plan(m, &p) || R <= 0 || n_in <= 0 || n_in > m / 2)
     return (int)cudaErrorInvalidValue;
   return dispatch<RfftPassPaddedSplit>(p, x, br, bi, sr, si, table, R, n_in,
+                                       0, (cudaStream_t)stream);
+}
+
+// the unsplit r2c: xr, xi (R, m/2 + 1), the Nyquist column kept in the row
+extern "C" int sopht_rfft_pass_padded_f32(const float* x, float* xr, float* xi,
+                                          const float* table, long long R,
+                                          int n_in, int m, void* stream) {
+  Plan p;
+  if (!make_plan(m, &p) || R <= 0 || n_in <= 0 || n_in > m / 2)
+    return (int)cudaErrorInvalidValue;
+  return dispatch<RfftPassPaddedSplit>(p, x, xr, xi, (float*)nullptr,
+                                       (float*)nullptr, table, R, n_in, 1,
                                        (cudaStream_t)stream);
 }
 
@@ -1218,8 +1574,21 @@ extern "C" int sopht_irfft_pass_merge_f32(const float* br, const float* bi,
   Plan p;
   if (!make_plan(m, &p) || R <= 0 || n_out <= 0 || n_out > m / 2)
     return (int)cudaErrorInvalidValue;
-  return dispatch<IrfftPassMerge>(p, br, bi, sr, si, out, table, R, n_out,
+  return dispatch<IrfftPassMerge>(p, br, bi, sr, si, out, table, R, n_out, 0,
                                   (cudaStream_t)stream);
+}
+
+// the unsplit c2r: xr, xi (R, m/2 + 1) with the Nyquist column in the row
+extern "C" int sopht_irfft_pass_truncated_f32(const float* xr, const float* xi,
+                                              float* out, const float* table,
+                                              long long R, int m, int n_out,
+                                              void* stream) {
+  Plan p;
+  if (!make_plan(m, &p) || R <= 0 || n_out <= 0 || n_out > m / 2)
+    return (int)cudaErrorInvalidValue;
+  return dispatch<IrfftPassMerge>(p, xr, xi, (const float*)nullptr,
+                                  (const float*)nullptr, out, table, R, n_out,
+                                  1, (cudaStream_t)stream);
 }
 
 extern "C" int sopht_fft_greens_curl_ifft_pass_f32(
@@ -1245,6 +1614,35 @@ extern "C" int sopht_irfft_pass_merge_velocity_f32(
   return dispatch<IrfftPassMergeVelocity>(p, br, bi, sr, si, fsv, out, l1_max,
                                           table, R, n_out, ny, nz,
                                           (cudaStream_t)stream);
+}
+
+// x: (A, ny, nx) real, my = 2 ny = m, mx = 2 nx; xw: (mx, 2) floats,
+// xw[j] = exp(-2 pi i j / mx). out: (A, my, mx/2) pair, side: (A, ny) pair.
+extern "C" int sopht_rfft_fft_pass_fused_f32(const float* x, float* out_r,
+                                             float* out_i, float* side_r,
+                                             float* side_i, const float* table,
+                                             const float* xw, int A, int nx,
+                                             int mx, int m, void* stream) {
+  Plan p;
+  if (!make_plan(m, &p) || A <= 0 || nx <= 0 || mx != 2 * nx || nx % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  return dispatch<RfftFftPassFused>(p, x, out_r, out_i, side_r, side_i, table,
+                                    xw, A, nx, mx, (cudaStream_t)stream);
+}
+
+// br, bi: (A, my, mx/2), sr: (A, ny) (the Nyquist column's imaginary part
+// does not enter); out: (A, ny, nx) real, every cell written.
+extern "C" int sopht_ifft_irfft_pass_fused_f32(const float* br,
+                                               const float* bi,
+                                               const float* sr, float* out,
+                                               const float* table,
+                                               const float* xw, int A, int nx,
+                                               int mx, int m, void* stream) {
+  Plan p;
+  if (!make_plan(m, &p) || A <= 0 || nx <= 0 || mx != 2 * nx)
+    return (int)cudaErrorInvalidValue;
+  return dispatch<IfftIrfftPassFused>(p, br, bi, sr, out, table, xw, A, nx,
+                                      mx, (cudaStream_t)stream);
 }
 
 extern "C" const char* sopht_fft_error_string(int code) {

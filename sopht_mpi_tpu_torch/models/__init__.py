@@ -1,14 +1,18 @@
-"""Physics models: the 3D flow simulator, the rigid sphere and the Cosserat
-rod, their forcing grids and interactors, and the fused FSI steps (rigid,
+"""Physics models: the 2D and 3D flow simulators, the rigid cylinder and
+sphere and the Cosserat rod, their forcing grids and interactors, and the fused FSI steps (rigid,
 rod and multi-body)."""
 
+from sopht_mpi_tpu_torch.models.flow.simulator_2d import UnboundedFlowSimulator2D
 from sopht_mpi_tpu_torch.models.flow.simulator_3d import UnboundedFlowSimulator3D
 from sopht_mpi_tpu_torch.models.rigid_body import (
+    Cylinder,
     RigidBodyState,
     Sphere,
     rigid_body_position_verlet_step,
 )
 from sopht_mpi_tpu_torch.models.immersed_body import (
+    CircularCylinderForcingGrid,
+    EmptyForcingGrid,
     CosseratRodEdgeForcingGrid,
     CosseratRodElementCentricForcingGrid,
     CosseratRodFlowInteraction,

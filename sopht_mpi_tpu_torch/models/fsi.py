@@ -1,6 +1,7 @@
 """Fused FSI stepping (counterpart of ``sopht_mpi_tpu/models/fsi.py``):
-the rigid-body step :func:`build_rigid_fsi_step` and the Cosserat-rod step
-:func:`build_rod_fsi_step`, with their carries.
+the rigid-body step :func:`build_rigid_fsi_step` (on a 2D or a 3D
+simulator) and the Cosserat-rod step :func:`build_rod_fsi_step`, with
+their carries.
 
 One coupled iteration - CFL timestep control from the carried
 ``max |u|_1``, the penalty IBM interaction, the rod substeps (rod step
@@ -99,6 +100,8 @@ def _flow_dt_fn(flow_sim, dt_prefac):
 
 def _flow_step_l1(flow_sim, flow_type=None):
     """``(state, dt, free_stream, greens) -> (state, max |u|_1)``."""
+    if flow_sim.grid_dim == 2:
+        return flow_sim._step_l1_fn
     cfg = flow_sim.step_config(flow_type)
 
     def step(state, dt, free_stream_velocity, greens):
@@ -111,7 +114,8 @@ def _flow_step_l1(flow_sim, flow_type=None):
 
 
 def _free_stream(free_stream_fn, flow_sim):
-    """``time -> (3,) free-stream tensor`` on the simulator's device."""
+    """``time -> (grid_dim,) free-stream tensor`` on the simulator's
+    device."""
     dtype, device = flow_sim.real_t, flow_sim.device
     if free_stream_fn is None:
         zero = torch.zeros(flow_sim.grid_dim, dtype=dtype, device=device)
@@ -157,13 +161,14 @@ def build_rigid_fsi_step(
 ):
     """One fused coupled step for a fixed rigid body.
 
-    :param free_stream_fn: optional ``time -> (3,) velocity``; defaults to
-        the zero vector. Return a tensor on the simulator's device to keep
+    :param free_stream_fn: optional ``time -> (grid_dim,) velocity``;
+        defaults to the zero vector. Return a tensor on the simulator's device to keep
         the step free of host-to-device copies.
     :param sparse_forcing: apply the IBM forcing as a static sparse-window
         vorticity update (spread + curl on the support window only, flow
-        stepped without the full-field forcing pass). None = auto (an
-        interior window that covers less than half the domain). When it
+        stepped without the full-field forcing pass), 3D only. None = auto
+        (3D with an interior window that covers less than half the domain;
+        a 2D simulator always takes the dense path). When it
         engages, the step has ``uses_sparse_forcing = True``, ``window``
         and ``ibm_mats``; build the carry with
         ``init_rigid_fsi_carry(flow_sim, interactor, step)``.
@@ -179,6 +184,7 @@ def build_rigid_fsi_step(
     window = None
     if (
         sparse_forcing is not False
+        and flow_sim.grid_dim == 3
         and flow_sim.flow_type == "navier_stokes_with_forcing"
     ):
         window = _static_rigid_forcing_window(
@@ -186,7 +192,7 @@ def build_rigid_fsi_step(
         )
     if sparse_forcing is True and window is None:
         raise ValueError(
-            "sparse_forcing=True requested but unsupported here (needs "
+            "sparse_forcing=True requested but unsupported here (needs 3D "
             "navier_stokes_with_forcing and an interior window)"
         )
     if window is not None:

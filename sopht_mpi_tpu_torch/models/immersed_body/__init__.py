@@ -1,4 +1,6 @@
 from sopht_mpi_tpu_torch.models.immersed_body.forcing_grids import (
+    CircularCylinderForcingGrid,
+    EmptyForcingGrid,
     ImmersedBodyForcingGrid,
     SphereForcingGrid,
 )

@@ -1,6 +1,6 @@
 """Forcing grids: Lagrangian marker sets attached to immersed bodies
 (counterpart of ``sopht_mpi_tpu/models/immersed_body/forcing_grids.py``;
-the port covers the base class and the sphere).
+the base class, the empty grid, the 2D cylinder and the sphere).
 
 A forcing grid computes marker positions/velocities from the body state
 each call, and ``transfer_forcing_from_grid_to_body`` returns the body
@@ -31,6 +31,89 @@ class ImmersedBodyForcingGrid:
 
     def get_maximum_lagrangian_grid_spacing(self) -> float:
         raise NotImplementedError
+
+
+class EmptyForcingGrid(ImmersedBodyForcingGrid):
+    """Zero-node grid.
+
+    :param device: the torch device of the (empty) marker tensors."""
+
+    def __init__(self, grid_dim, *, device, dtype=torch.float32):
+        self.grid_dim = grid_dim
+        self.num_lag_nodes = 0
+        self._device, self._dtype = torch.device(device), dtype
+
+    def _zeros(self, *shape):
+        return torch.zeros(shape, dtype=self._dtype, device=self._device)
+
+    def compute_lag_grid_position_field(self):
+        return self._zeros(self.grid_dim, 0)
+
+    def compute_lag_grid_velocity_field(self):
+        return self._zeros(self.grid_dim, 0)
+
+    def transfer_forcing_from_grid_to_body(self, lag_grid_forcing_field):
+        return self._zeros(3, 1), self._zeros(3, 1)
+
+    def get_maximum_lagrangian_grid_spacing(self):
+        return 0.0
+
+
+class CircularCylinderForcingGrid(ImmersedBodyForcingGrid):
+    """Markers on the perimeter of a 2D circular cylinder."""
+
+    grid_dim = 2
+
+    def __init__(self, rigid_body, num_forcing_points: int):
+        self.body = rigid_body
+        self.num_lag_nodes = num_forcing_points
+        theta = np.linspace(
+            0.0, 2.0 * np.pi, num_forcing_points, endpoint=False
+        )
+        position = self.body.state.position
+        self._local_points = torch.as_tensor(
+            rigid_body.radius * np.stack([np.cos(theta), np.sin(theta)]),
+            dtype=position.dtype, device=position.device,
+        )
+
+    def compute_lag_grid_position_field(self):
+        return self.lag_positions(self.body.state)
+
+    def compute_lag_grid_velocity_field(self):
+        return self.lag_velocities(self.body.state)
+
+    def lag_positions(self, state):
+        return state.position[:2, None] + self._rotated_points(state)
+
+    def lag_velocities(self, state):
+        # v + omega x r (z-rotation only in 2D)
+        omega_z = state.omega[2]
+        r = self._rotated_points(state)
+        rot = torch.stack([-omega_z * r[1], omega_z * r[0]])
+        return state.velocity[:2, None] + rot
+
+    def body_loads(self, state, lag_grid_forcing_field):
+        """(3, 1) global-frame force and torque about the centre of mass
+        from the Lagrangian penalty forcing."""
+        f = lag_grid_forcing_field
+        zero = f.new_zeros(())
+        forces = torch.stack([-f[0].sum(), -f[1].sum(), zero]).reshape(3, 1)
+        r = self._rotated_points(state)
+        torque_z = -(r[0] * f[1] - r[1] * f[0]).sum()
+        torques = torch.stack([zero, zero, torque_z]).reshape(3, 1)
+        return forces, torques
+
+    def _rotated_points(self, state):
+        """Body-frame marker offsets rotated into the global frame."""
+        return (state.director[:2, :2] @ self._local_points).to(
+            self._local_points.dtype
+        )
+
+    def transfer_forcing_from_grid_to_body(self, lag_grid_forcing_field):
+        return self.body_loads(self.body.state, lag_grid_forcing_field)
+
+    def get_maximum_lagrangian_grid_spacing(self):
+        return 2.0 * np.pi * self.body.radius / self.num_lag_nodes
 
 
 class SphereForcingGrid(ImmersedBodyForcingGrid):

@@ -1,5 +1,5 @@
 """Rigid bodies (counterpart of ``sopht_mpi_tpu/models/rigid_body.py``): the
-body state, the 3D sphere and the position-Verlet rigid-body dynamics that
+body state, the 2D cylinder, the 3D sphere and the position-Verlet rigid-body dynamics that
 two-way coupling hands the flow loads to. A body built with a ``density``
 carries ``mass`` and ``inertia_body``; without one it stays kinematic
 (fixed or prescribed)."""
@@ -14,8 +14,9 @@ import torch
 
 class RigidBodyState(NamedTuple):
     """Rigid body kinematic state: position/velocity/angular velocity in
-    the global frame, shape (3,); ``director`` the body->global rotation
-    matrix, shape (3, 3)."""
+    the global frame, shape (3,) (a 2D body uses the x-y components and the
+    z rotation); ``director`` the body->global rotation matrix, shape
+    (3, 3)."""
 
     position: torch.Tensor
     velocity: torch.Tensor
@@ -27,6 +28,8 @@ class RigidBodyState(NamedTuple):
                device, dtype=None):
         position = torch.as_tensor(position, dtype=dtype, device=device)
         dtype = position.dtype
+        if position.shape[0] == 2:
+            position = torch.cat([position, position.new_zeros(1)])
 
         def vec(v, default):
             return (
@@ -107,10 +110,29 @@ def rigid_body_position_verlet_step(state: RigidBodyState, dt, force, torque,
     )
 
 
+class Cylinder:
+    """2D circular cylinder (axis out of plane). ``density`` (per unit
+    span) enables dynamics: ``mass = rho pi r^2``, axial inertia
+    ``m r^2 / 2`` (in-plane entries the thin-disk values ``m r^2 / 4``)."""
+
+    def __init__(self, center, radius, *, device, dtype=torch.float32,
+                 density=None):
+        self.radius = float(radius)
+        self.state = RigidBodyState.create(
+            np.asarray(center), device=device, dtype=dtype
+        )
+        self.density = density
+        if density is not None:
+            self.mass = float(density) * np.pi * self.radius**2
+            i_axis = 0.5 * self.mass * self.radius**2
+            self.inertia_body = np.array([0.5 * i_axis, 0.5 * i_axis, i_axis])
+
+    n_elems = 1
+
+
 class Sphere:
     """Rigid sphere. ``density`` enables dynamics: ``mass = rho 4/3 pi
-    r^3``, isotropic inertia ``2/5 m r^2`` (PyElastica ``Sphere`` values).
-    The 2D ``Cylinder`` comes with the 2D flow (ROADMAP.md queue A #8)."""
+    r^3``, isotropic inertia ``2/5 m r^2`` (PyElastica ``Sphere`` values)."""
 
     def __init__(self, center, radius, *, device, dtype=torch.float32,
                  density=None):

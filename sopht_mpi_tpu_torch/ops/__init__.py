@@ -11,7 +11,21 @@ from sopht_mpi_tpu_torch.ops.stencils_3d import (
     penalise_field_boundary_vector_3d,
     update_vorticity_from_velocity_forcing_3d,
 )
-from sopht_mpi_tpu_torch.ops.poisson import UnboundedPoissonSolver3D
+from sopht_mpi_tpu_torch.ops.stencils_2d import (
+    advection_flux_conservative_eno3_2d,
+    advection_timestep_eno3_2d,
+    brinkmann_penalise_2d,
+    char_func_from_level_set_via_sine_heaviside_2d,
+    diffusion_flux_2d,
+    diffusion_timestep_2d,
+    outplane_field_curl_2d,
+    penalise_field_boundary_2d,
+    update_vorticity_from_velocity_forcing_2d,
+)
+from sopht_mpi_tpu_torch.ops.poisson import (
+    UnboundedPoissonSolver2D,
+    UnboundedPoissonSolver3D,
+)
 from sopht_mpi_tpu_torch.ops.ibm import (
     INTERP_KERNEL_WIDTH,
     axis_delta_weight_matrices,

@@ -1,10 +1,10 @@
 """Eulerian <-> Lagrangian grid transfer ops for the immersed boundary
-method (counterpart of ``sopht_mpi_tpu/ops/ibm.py``, 3D).
+method (counterpart of ``sopht_mpi_tpu/ops/ibm.py``, 2D and 3D).
 
 Nearest-index and support computation, cosine / Peskin-2002 delta weights,
 the gather interpolation E->L and the scatter-add spreading L->E, and the
 separable-matmul (``*_mm``) form of both transfers. Marker arrays are
-``(3, n)`` with components (x, y, z); grid axes are (z, y, x).
+``(grid_dim, n)`` with components (x, y[, z]); grid axes are ([z,] y, x).
 
 The einsums of the matmul form run in full float32: the simulator turns
 TF32 off for CUDA matmuls (``torch.backends.cuda.matmul.allow_tf32``), as
@@ -27,8 +27,8 @@ def nearest_grid_index_and_support(
     ``idx = floor((pos - shift) / dx)``, support ``idx + (-w+1 .. w)``,
     displacements = support position - marker position.
 
-    :returns: (nearest (3, n) int32, support_idx (3, 2w, n) int32,
-        support_disp (3, 2w, n) in the positions' dtype).
+    :returns: (nearest (grid_dim, n) int32, support_idx (grid_dim, 2w, n)
+        int32, support_disp (grid_dim, 2w, n) in the positions' dtype).
     """
     w = interp_kernel_width
     nearest = torch.floor((lag_positions - eul_grid_coord_shift) / dx).to(
@@ -72,9 +72,12 @@ _DELTA_KERNELS = {
 
 
 def interpolation_weights(support_disp, dx, kind="cosine"):
-    """Full tensor-product weights (2w, 2w, 2w, n), offsets ordered
+    """Full tensor-product weights from (grid_dim, 2w, n) displacements:
+    (2w, 2w, n) in 2D, offsets ordered [y, x]; (2w, 2w, 2w, n) in 3D,
     [z, y, x]."""
     d1 = _DELTA_KERNELS[kind](support_disp, dx)
+    if support_disp.shape[0] == 2:
+        return d1[1][:, None, :] * d1[0][None, :, :]
     return (
         d1[2][:, None, None, :]
         * d1[1][None, :, None, :]
@@ -83,9 +86,13 @@ def interpolation_weights(support_disp, dx, kind="cosine"):
 
 
 def _support_gather_indices(support_idx, grid_shape):
-    """Broadcast (2w, 2w, 2w, n) index tensors selecting every support
-    point of every marker, clipped to the grid."""
+    """Broadcast (2w, [2w,] 2w, n) index tensors, one per grid axis,
+    selecting every support point of every marker, clipped to the grid."""
     s, n = support_idx.shape[1], support_idx.shape[2]
+    if support_idx.shape[0] == 2:
+        iy = support_idx[1][:, None, :].clamp(0, grid_shape[0] - 1)
+        ix = support_idx[0][None, :, :].clamp(0, grid_shape[1] - 1)
+        return tuple(i.long().expand((s, s, n)) for i in (iy, ix))
     shape = (s, s, s, n)
     iz = support_idx[2][:, None, None, :].clamp(0, grid_shape[0] - 1)
     iy = support_idx[1][None, :, None, :].clamp(0, grid_shape[1] - 1)
@@ -96,14 +103,15 @@ def _support_gather_indices(support_idx, grid_shape):
 def axis_delta_weight_matrices(
     support_idx, support_disp, dx, window_shape, kind="cosine"
 ):
-    """Per-grid-axis (n, W_axis) delta-factor matrices (Az, Ay, Ax) such
+    """Per-grid-axis (n, W_axis) delta-factor matrices ((Az,) Ay, Ax) such
     that the full weight of marker m at window cell (z, y, x) is
     ``Az[m, z] * Ay[m, y] * Ax[m, x]``. Support indices are clipped to the
     window per axis, matching :func:`_support_gather_indices`."""
-    d1 = _DELTA_KERNELS[kind](support_disp, dx)  # (3, 2w, n)
+    grid_dim = support_idx.shape[0]
+    d1 = _DELTA_KERNELS[kind](support_disp, dx)  # (grid_dim, 2w, n)
     mats = []
-    for g in range(3):
-        comp = 2 - g  # marker components ordered (x, y, z)
+    for g in range(grid_dim):
+        comp = grid_dim - 1 - g  # marker components ordered (x, y[, z])
         w_axis = int(window_shape[g])
         idx = support_idx[comp].long().clamp(0, w_axis - 1)  # (2w, n)
         oh = torch.nn.functional.one_hot(idx, w_axis).to(d1.dtype)
@@ -112,20 +120,26 @@ def axis_delta_weight_matrices(
 
 
 def eulerian_to_lagrangian_interpolation_mm(eul_grid_field, axis_mats, dx):
-    """Separable-matmul E->L interpolation of a (3, Wz, Wy, Wx) field:
-    ``lag_m = sum_zyx E[z,y,x] Az[m,z] Ay[m,y] Ax[m,x] dx^3``; z and y
-    contract through the combined (n, Wz*Wy) matrix."""
-    vector = eul_grid_field.ndim == 4
+    """Separable-matmul E->L interpolation of a (c, [Wz,] Wy, Wx) field:
+    ``lag_m = sum_zyx E[z,y,x] Az[m,z] Ay[m,y] Ax[m,x] dx^dim``; in 3D z
+    and y contract through the combined (n, Wz*Wy) matrix."""
+    grid_dim = len(axis_mats)
+    vector = eul_grid_field.ndim == grid_dim + 1
     eul = eul_grid_field if vector else eul_grid_field[None]
     out_dtype = torch.promote_types(eul.dtype, axis_mats[0].dtype)
     eul = eul.to(out_dtype)
-    a_z, a_y, a_x = (m.to(out_dtype) for m in axis_mats)
-    n = a_z.shape[0]
-    a_zy = (a_z[:, :, None] * a_y[:, None, :]).reshape(n, -1)
-    u = torch.einsum(
-        "ns,csx->cnx", a_zy, eul.reshape(eul.shape[0], -1, eul.shape[-1])
-    )
-    lag = torch.einsum("cnx,nx->cn", u, a_x) * dx**3
+    mats = [m.to(out_dtype) for m in axis_mats]
+    if grid_dim == 2:
+        a_y, a_x = mats
+        u = torch.einsum("ny,cyx->cnx", a_y, eul)
+    else:
+        a_z, a_y, a_x = mats
+        n = a_z.shape[0]
+        a_zy = (a_z[:, :, None] * a_y[:, None, :]).reshape(n, -1)
+        u = torch.einsum(
+            "ns,csx->cnx", a_zy, eul.reshape(eul.shape[0], -1, eul.shape[-1])
+        )
+    lag = torch.einsum("cnx,nx->cn", u, a_x) * dx**grid_dim
     return lag if vector else lag[0]
 
 
@@ -135,31 +149,37 @@ def lagrangian_to_eulerian_spread_mm(eul_grid_field, lag_grid_field, axis_mats):
     vector = lag_grid_field.ndim == 2
     lag = lag_grid_field if vector else lag_grid_field[None]
     lag = lag.to(eul_grid_field.dtype)
-    a_z, a_y, a_x = (m.to(eul_grid_field.dtype) for m in axis_mats)
-    n = a_z.shape[0]
-    a_zy = (a_z[:, :, None] * a_y[:, None, :]).reshape(n, -1)
-    g = lag[:, :, None] * a_x[None]
-    add = torch.einsum("ns,cnx->csx", a_zy, g).reshape(
-        lag.shape[0], a_z.shape[1], a_y.shape[1], a_x.shape[1]
-    )
+    mats = [m.to(eul_grid_field.dtype) for m in axis_mats]
+    g = lag[:, :, None] * mats[-1][None]  # (c, n, Wx)
+    if len(mats) == 2:
+        add = torch.einsum("ny,cnx->cyx", mats[0], g)
+    else:
+        a_z, a_y, a_x = mats
+        n = a_z.shape[0]
+        a_zy = (a_z[:, :, None] * a_y[:, None, :]).reshape(n, -1)
+        add = torch.einsum("ns,cnx->csx", a_zy, g).reshape(
+            lag.shape[0], a_z.shape[1], a_y.shape[1], a_x.shape[1]
+        )
     return eul_grid_field + (add if vector else add[0])
 
 
 def eulerian_to_lagrangian_interpolation(
     eul_grid_field, interp_weights, support_idx, dx
 ):
-    """Gather interpolation ``lag_i = sum_support eul * w * dx^3`` of a
-    scalar (nz, ny, nx) or vector (c, nz, ny, nx) field; returns (n,) or
-    (c, n)."""
-    vector = eul_grid_field.ndim == 4
+    """Gather interpolation ``lag_i = sum_support eul * w * dx^dim`` of a
+    scalar ([nz,] ny, nx) or vector (c, [nz,] ny, nx) field; returns (n,)
+    or (c, n)."""
+    grid_dim = support_idx.shape[0]
+    vector = eul_grid_field.ndim == grid_dim + 1
     grid_shape = eul_grid_field.shape[1:] if vector else eul_grid_field.shape
     idx = _support_gather_indices(support_idx, grid_shape)
-    scale = dx**3
+    scale = dx**grid_dim
     if vector:
         gathered = eul_grid_field[(slice(None), *idx)]
-        return (gathered * interp_weights[None]).sum(dim=(1, 2, 3)) * scale
+        return (gathered * interp_weights[None]).sum(
+            dim=tuple(range(1, grid_dim + 1))) * scale
     gathered = eul_grid_field[idx]
-    return (gathered * interp_weights).sum(dim=(0, 1, 2)) * scale
+    return (gathered * interp_weights).sum(dim=tuple(range(grid_dim))) * scale
 
 
 def lagrangian_to_eulerian_spread(
@@ -175,8 +195,9 @@ def lagrangian_to_eulerian_spread(
     out = eul_grid_field.clone()
     if vector:
         n_comp = lag_grid_field.shape[0]
-        updates = interp_weights[None] * lag_grid_field[:, None, None, None, :]
-        comp = torch.arange(n_comp, device=out.device).reshape(n_comp, 1, 1, 1, 1)
+        lead = (n_comp,) + (1,) * (interp_weights.ndim - 1)
+        updates = interp_weights[None] * lag_grid_field.reshape(*lead, -1)
+        comp = torch.arange(n_comp, device=out.device).reshape(*lead, 1)
         bidx = (comp.expand(updates.shape),) + tuple(
             i[None].expand(updates.shape) for i in idx
         )

@@ -1,6 +1,7 @@
-"""Unbounded (free-space) 3D Poisson solver via Green's-function convolution
-(counterpart of ``UnboundedPoissonSolver3D`` in ``sopht_mpi_tpu/ops/poisson.py``,
-single device).
+"""Unbounded (free-space) 2D and 3D Poisson solvers via Green's-function
+convolution (counterparts of ``UnboundedPoissonSolver2D`` and
+``UnboundedPoissonSolver3D`` in ``sopht_mpi_tpu/ops/poisson.py``, single
+device).
 
 Hockney-Eastwood domain doubling: the right-hand side is zero-padded to
 (2nz, 2ny, 2nx), multiplied in Fourier space by the real spectrum of the
@@ -19,6 +20,17 @@ Two routes, selected as the JAX package selects its own:
   Green's spectrum is stored as the (bulk, side) pair the route consumes.
 - otherwise the dense route: ``torch.fft`` rfftn/irfftn on the doubled
   grid (where XLA's FFT serves the JAX package), with the dense spectrum.
+
+With ``cuda_fft.USE_FUSED_EDGE_PASSES`` on (default off, as in the JAX
+package), the 3D kernel route swaps its four edge passes for the two fused
+ones (``rfft_fft_pass_fused``, ``ifft_irfft_pass_fused``); the fused-curl
+route keeps the unfused edges.
+
+The 2D solver (Green's function ``-log(r)/(2 pi)``) takes the same two
+routes. Its kernel route runs three passes: x r2c split on (c*ny, nx) rows,
+the y pass ``fft_greens_ifft_pass`` on (c, ny, mx/2) with the bulk Green's
+spectrum as (1, my, mx/2), and the c2r merge; the Nyquist column again on
+``torch.fft``.
 
 The Green's spectrum is built as the JAX package builds it: the half-grid
 kernel in float64 on the host, then per-axis symmetric DFTs (DCT-I) -
@@ -95,22 +107,54 @@ def split_kernel_greens(greens):
 
 
 def _kernel_convolve_local(rhs, greens, doubled):
-    """Free-space convolution through the five FFT-pass kernels
-    (``_pallas_convolve_local``, 3D, unfused edge passes). ``rhs`` is
-    (nz, ny, nx) or (c, nz, ny, nx), the components folded into the
-    kernels' batch axis; ``greens`` is the pair of
-    :func:`split_kernel_greens`."""
+    """Free-space convolution through the FFT-pass kernels
+    (``_pallas_convolve_local``). ``rhs`` is a field on the grid of
+    ``len(doubled)`` axes, or carries a leading component axis that is
+    folded into the kernels' batch axis; ``greens`` is the pair of
+    :func:`split_kernel_greens`. In 3D the edge passes are the fused ones
+    where :func:`~sopht_mpi_tpu_torch.parallel.cuda_fft.fused_edge_pass_ok`."""
     g_bulk, g_side = greens
-    batched = rhs.ndim == 4
+    nd = len(doubled)
+    batched = rhs.ndim == nd + 1
     if not batched:
         rhs = rhs[None]
-    c, nz, ny, nx = rhs.shape
-    mz, my, mx = doubled
+    c = rhs.shape[0]
+    mx = doubled[-1]
     bx = mx // 2
-    fr, fi, sr, si = cuda_fft.rfft_pass_padded_split(
-        rhs.reshape(c * nz * ny, nx), mx)
-    fr, fi = cuda_fft.fft_pass_padded(
-        fr.view(c * nz, ny, bx), fi.view(c * nz, ny, bx), my)
+
+    def side_pair(s, rows):
+        return (s.real.reshape(*rows, 1).contiguous(),
+                s.imag.reshape(*rows, 1).contiguous())
+
+    if nd == 2:
+        ny, nx = rhs.shape[1:]
+        my = doubled[0]
+        fr, fi, sr, si = cuda_fft.rfft_pass_padded_split(
+            rhs.reshape(c * ny, nx), mx)
+        fr, fi = cuda_fft.fft_greens_ifft_pass(
+            fr.view(c, ny, bx), fi.view(c, ny, bx), g_bulk.view(1, my, bx))
+        # kx Nyquist column, (c, ny) complex, on torch.fft
+        s = torch.complex(sr, si).reshape(c, ny)
+        s = torch.fft.fft(s, n=my, dim=1) * g_side
+        s = torch.fft.ifft(s, dim=1)[:, :ny]
+        sol = cuda_fft.irfft_pass_merge(
+            fr.view(c * ny, bx), fi.view(c * ny, bx),
+            *side_pair(s, (c * ny,)), mx, nx,
+        ).view(c, ny, nx)
+        return sol if batched else sol[0]
+
+    nz, ny, nx = rhs.shape[1:]
+    mz, my = doubled[0], doubled[1]
+    fused_edges = cuda_fft.fused_edge_pass_ok(ny, nx, my, mx)
+    if fused_edges:
+        # (c*nz, my, bx) bulk pair + (c*nz, ny, 1) side pair
+        fr, fi, sr, si = cuda_fft.rfft_fft_pass_fused(
+            rhs.reshape(c * nz, ny, nx), mx, my)
+    else:
+        fr, fi, sr, si = cuda_fft.rfft_pass_padded_split(
+            rhs.reshape(c * nz * ny, nx), mx)
+        fr, fi = cuda_fft.fft_pass_padded(
+            fr.view(c * nz, ny, bx), fi.view(c * nz, ny, bx), my)
     fr, fi = cuda_fft.fft_greens_ifft_pass(
         fr.view(c, nz, my * bx), fi.view(c, nz, my * bx),
         g_bulk.view(1, mz, my * bx))
@@ -121,14 +165,18 @@ def _kernel_convolve_local(rhs, greens, doubled):
     s = s * g_side
     s = torch.fft.ifft(s, dim=1)[:, :nz]
     s = torch.fft.ifft(s, dim=2)[:, :, :ny]
-    fr, fi = cuda_fft.ifft_pass_truncated(
-        fr.view(c * nz, my, bx), fi.view(c * nz, my, bx))
-    sol = cuda_fft.irfft_pass_merge(
-        fr.view(c * nz * ny, bx), fi.view(c * nz * ny, bx),
-        s.real.reshape(c * nz * ny, 1).contiguous(),
-        s.imag.reshape(c * nz * ny, 1).contiguous(),
-        mx, nx,
-    ).view(c, nz, ny, nx)
+    if fused_edges:
+        sol = cuda_fft.ifft_irfft_pass_fused(
+            fr.view(c * nz, my, bx), fi.view(c * nz, my, bx),
+            *side_pair(s, (c * nz, ny)), mx, nx,
+        ).view(c, nz, ny, nx)
+    else:
+        fr, fi = cuda_fft.ifft_pass_truncated(
+            fr.view(c * nz, my, bx), fi.view(c * nz, my, bx))
+        sol = cuda_fft.irfft_pass_merge(
+            fr.view(c * nz * ny, bx), fi.view(c * nz * ny, bx),
+            *side_pair(s, (c * nz * ny,)), mx, nx,
+        ).view(c, nz, ny, nx)
     return sol if batched else sol[0]
 
 
@@ -252,7 +300,107 @@ def _fourier_greens_from_half(greens_half: np.ndarray, scale: float,
     return (h * scale).to(dtype).contiguous()
 
 
-class UnboundedPoissonSolver3D:
+class _UnboundedPoissonSolver:
+    """What the 2D and 3D solvers share: the stored Green's spectrum (dense,
+    or the kernel route's (bulk, side) pair), the route choice and the two
+    convolutions. Subclasses give ``grid_dim``, ``grid_size`` (slow axis
+    first) and build the half-grid Green's kernel."""
+
+    grid_dim: int
+
+    def _init_greens(self, greens_half: np.ndarray):
+        dense = _fourier_greens_from_half(
+            greens_half, self.dx**self.grid_dim, self.real_t, self.device
+        )
+        if _kernel_convolve_supported(self.doubled, self.real_t, self.device):
+            self.fourier_greens_times_dx_pow_dim = split_kernel_greens(dense)
+        else:
+            self.fourier_greens_times_dx_pow_dim = dense
+
+    @property
+    def doubled(self) -> tuple[int, ...]:
+        return tuple(2 * n for n in self.grid_size)
+
+    def _dense_greens(self, greens=None):
+        """The dense (.., fx) real Fourier Green's function, reassembled
+        from the split pair if that is the stored form."""
+        if greens is None:
+            greens = self.fourier_greens_times_dx_pow_dim
+        if isinstance(greens, tuple):
+            bulk, side = greens
+            return torch.cat([bulk, side[..., None]], dim=-1)
+        return greens
+
+    def uses_kernel_route(self, rhs_field) -> bool:
+        """Whether a solve of ``rhs_field`` takes the kernel route."""
+        return _kernel_convolve_supported(
+            self.doubled, rhs_field.dtype, rhs_field.device)
+
+    def solve(self, rhs_field, greens=None):
+        """Solve ``-del^2(solution) = rhs`` for a field on the grid, or for
+        each component of a field with a leading component axis. ``greens``
+        defaults to ``self.fourier_greens_times_dx_pow_dim``, dense or
+        split. Returns a contiguous tensor of the input's shape."""
+        if greens is None:
+            greens = self.fourier_greens_times_dx_pow_dim
+        if self.uses_kernel_route(rhs_field):
+            if not isinstance(greens, tuple):
+                greens = split_kernel_greens(greens)
+            return _kernel_convolve_local(
+                rhs_field.contiguous(), greens, self.doubled)
+        dims = tuple(range(-self.grid_dim, 0))
+        fhat = torch.fft.rfftn(rhs_field, s=self.doubled, dim=dims)
+        sol = torch.fft.irfftn(fhat * self._dense_greens(greens),
+                               s=self.doubled, dim=dims)
+        keep = (Ellipsis, *(slice(0, n) for n in self.grid_size))
+        return sol[keep].contiguous()
+
+
+class UnboundedPoissonSolver2D(_UnboundedPoissonSolver):
+    """Free-space Poisson solver on a 2D (ny, nx) grid on one device.
+
+    Green's function ``-log(r)/(2 pi)`` with the origin regularization
+    ``-(2 log(dx/sqrt(pi)) - 1)/(4 pi)``.
+
+    :param device: the torch device of the Green's spectrum; required, no
+        default is taken from the environment.
+    :param fast_spectral: accepted and stored; it changes nothing in 2D
+        (the JAX tier's only 2D effect is the precision of its matmuls).
+    """
+
+    grid_dim = 2
+
+    def __init__(self, grid_size_y, grid_size_x, x_range=1.0,
+                 real_t=torch.float32, *, device,
+                 fast_spectral: bool | None = None):
+        self.grid_size_y = grid_size_y
+        self.grid_size_x = grid_size_x
+        self.fast_spectral = resolve_fast_spectral(fast_spectral)
+        self.x_range = x_range
+        self.y_range = x_range * (grid_size_y / grid_size_x)
+        self.dx = float(x_range / grid_size_x)
+        self.real_t = real_t
+        self.device = torch.device(device)
+
+        dy = _even_reflected_axis_dist(
+            2 * grid_size_y, self.dx, self.y_range, np.float64
+        )
+        dxs = _even_reflected_axis_dist(
+            2 * grid_size_x, self.dx, self.x_range, np.float64
+        )
+        self._init_greens(_build_greens_kernel(
+            (dy[: grid_size_y + 1], dxs[: grid_size_x + 1]),
+            lambda xp, r: -xp.log(r) / (2.0 * np.pi),
+            -(2.0 * np.log(self.dx / np.sqrt(np.pi)) - 1.0) / (4.0 * np.pi),
+            np.float64,
+        ))
+
+    @property
+    def grid_size(self) -> tuple[int, int]:
+        return (self.grid_size_y, self.grid_size_x)
+
+
+class UnboundedPoissonSolver3D(_UnboundedPoissonSolver):
     """Free-space Poisson solver on a 3D (nz, ny, nx) grid on one device.
 
     Green's function ``1/(4 pi r)`` with origin regularization
@@ -291,57 +439,17 @@ class UnboundedPoissonSolver3D:
         dxs = _even_reflected_axis_dist(
             2 * grid_size_x, self.dx, self.x_range, np.float64
         )
-        half = _build_greens_kernel(
+        self._init_greens(_build_greens_kernel(
             (dz[: grid_size_z + 1], dy[: grid_size_y + 1],
              dxs[: grid_size_x + 1]),
             lambda xp, r: 1.0 / (4.0 * np.pi * r),
             1.0 / (4.0 * np.pi * self.dx),
             np.float64,
-        )
-        dense = _fourier_greens_from_half(
-            half, self.dx**self.grid_dim, real_t, self.device
-        )
-        if _kernel_convolve_supported(self.doubled, real_t, self.device):
-            self.fourier_greens_times_dx_pow_dim = split_kernel_greens(dense)
-        else:
-            self.fourier_greens_times_dx_pow_dim = dense
+        ))
 
     @property
-    def doubled(self) -> tuple[int, int, int]:
-        return (2 * self.grid_size_z, 2 * self.grid_size_y, 2 * self.grid_size_x)
-
-    def _dense_greens(self, greens=None):
-        """The dense (.., fx) real Fourier Green's function, reassembled
-        from the split pair if that is the stored form."""
-        if greens is None:
-            greens = self.fourier_greens_times_dx_pow_dim
-        if isinstance(greens, tuple):
-            bulk, side = greens
-            return torch.cat([bulk, side[..., None]], dim=-1)
-        return greens
-
-    def uses_kernel_route(self, rhs_field) -> bool:
-        """Whether a solve of ``rhs_field`` takes the kernel route."""
-        return _kernel_convolve_supported(
-            self.doubled, rhs_field.dtype, rhs_field.device)
-
-    def solve(self, rhs_field, greens=None):
-        """Solve ``-del^2(solution) = rhs`` for a (nz, ny, nx) field, or
-        for each component of a (c, nz, ny, nx) field. ``greens`` defaults
-        to ``self.fourier_greens_times_dx_pow_dim``, dense or split. Returns
-        a contiguous tensor of the input's shape."""
-        if greens is None:
-            greens = self.fourier_greens_times_dx_pow_dim
-        if self.uses_kernel_route(rhs_field):
-            if not isinstance(greens, tuple):
-                greens = split_kernel_greens(greens)
-            return _kernel_convolve_local(
-                rhs_field.contiguous(), greens, self.doubled)
-        nz, ny, nx = self.grid_size_z, self.grid_size_y, self.grid_size_x
-        fhat = torch.fft.rfftn(rhs_field, s=self.doubled, dim=(-3, -2, -1))
-        sol = torch.fft.irfftn(fhat * self._dense_greens(greens),
-                               s=self.doubled, dim=(-3, -2, -1))
-        return sol[..., :nz, :ny, :nx].contiguous()
+    def grid_size(self) -> tuple[int, int, int]:
+        return (self.grid_size_z, self.grid_size_y, self.grid_size_x)
 
     def vector_field_solve(self, rhs_vector_field, greens=None):
         """Component-wise solve for a (3, nz, ny, nx) vector field: the

@@ -48,7 +48,7 @@ class VirtualBoundaryForcingParams:
 
     :param virtual_boundary_stiffness_coeff: penalty stiffness (negative).
     :param virtual_boundary_damping_coeff: penalty damping (negative).
-    :param grid_dim: 3 (the 2D flow is not ported yet).
+    :param grid_dim: 2 or 3.
     :param dx: Eulerian grid spacing.
     :param eul_grid_coord_shift: grid-start offset (default dx/2).
     :param interp_kernel_width: delta support half-width (must be 2).
@@ -64,10 +64,9 @@ class VirtualBoundaryForcingParams:
     delta_kind: str = "cosine"
 
     def __post_init__(self):
-        if self.grid_dim != 3:
+        if self.grid_dim not in (2, 3):
             raise ValueError(
-                "Invalid grid dimensions for virtual boundary forcing "
-                "(the port covers 3D)!"
+                "Invalid grid dimensions for virtual boundary forcing!"
             )
         if self.eul_grid_coord_shift is None:
             object.__setattr__(self, "eul_grid_coord_shift", self.dx / 2.0)

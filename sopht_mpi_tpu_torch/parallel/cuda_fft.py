@@ -1,6 +1,7 @@
 """Hopper CUDA kernels for the FFT passes of the free-space Poisson
-convolution (the five exact-tier passes and the fast tier's fused-curl
-pair), with their plain ``torch.fft`` versions.
+convolution (the five exact-tier passes, the fast tier's fused-curl pair,
+the unsplit x passes and the fused edge passes), with their plain
+``torch.fft`` versions.
 
 The passes keep the JAX package's layout at their signatures: spectra are
 split real/imag float32 pairs; the middle-axis passes take (A, L, B) arrays
@@ -26,7 +27,18 @@ Replaced TPU kernels (``sopht_mpi_tpu/parallel/pallas_fft.py``):
 :func:`ifft_pass_truncated` <- ``_ifft_pass_truncated_impl``,
 :func:`irfft_pass_merge` <- ``_irfft_pass_merge_impl``,
 :func:`fft_greens_curl_ifft_pass` <- ``_fft_greens_curl_ifft_pass_impl``,
-:func:`irfft_pass_merge_velocity` <- ``_irfft_pass_merge_velocity_impl``.
+:func:`irfft_pass_merge_velocity` <- ``_irfft_pass_merge_velocity_impl``,
+:func:`rfft_pass_padded` <- ``_rfft_pass_padded_impl``,
+:func:`irfft_pass_truncated` <- ``_irfft_pass_truncated_impl``,
+:func:`rfft_fft_pass_fused` <- ``_rfft_fft_pass_fused_impl``,
+:func:`ifft_irfft_pass_fused` <- ``_ifft_irfft_pass_fused_impl``.
+
+The unsplit x passes keep the kx Nyquist column in the row ((R, m/2 + 1)
+pairs); no solver route calls them, they are the public pass API. The fused
+edge passes fold the x r2c into the y forward pass and the y inverse into
+the x c2r, so the (A, ny, mx/2) spectrum between them never reaches device
+memory; the 3D convolve takes them where :func:`fused_edge_pass_ok`, which
+the module flag ``USE_FUSED_EDGE_PASSES`` keeps off by default.
 """
 
 from __future__ import annotations
@@ -52,6 +64,12 @@ _SIGNATURES = {
                                             _L, _I, _P),
     "sopht_irfft_pass_merge_velocity_f32": (_P, _P, _P, _P, _P, _P, _P, _P,
                                             _L, _I, _I, _I, _I, _P),
+    "sopht_rfft_pass_padded_f32": (_P, _P, _P, _P, _L, _I, _I, _P),
+    "sopht_irfft_pass_truncated_f32": (_P, _P, _P, _P, _L, _I, _I, _P),
+    "sopht_rfft_fft_pass_fused_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _P),
+    "sopht_ifft_irfft_pass_fused_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        _P),
 }
 
 
@@ -96,6 +114,28 @@ def kernel_fft_supported(m: int) -> bool:
     return m1 >= 4 and m2 % 2 == 0
 
 
+# The 3D convolve's fused edge passes (the JAX package's flag and default):
+# off, so the solve runs the four unfused edge kernels. Read at each solve.
+USE_FUSED_EDGE_PASSES = False
+
+
+def fused_edge_pass_ok(ny: int, nx: int, my: int, mx: int) -> bool:
+    """Whether the 3D convolve takes :func:`rfft_fft_pass_fused` and
+    :func:`ifft_irfft_pass_fused` for a (.., ny, nx) field doubled to
+    (my, mx): the flag on and the sizes the kernels take (the JAX gate's
+    conditions; its VMEM budget ``_fused_edge_vmem_ok`` has no counterpart
+    here, the kernels hold no slab in shared memory)."""
+    return (
+        USE_FUSED_EDGE_PASSES
+        and kernel_fft_supported(my)
+        and kernel_fft_supported(mx)
+        and my == 2 * ny
+        and mx == 2 * nx
+        and nx % 4 == 0  # the forward kernel stages rows 16 bytes at a time
+        and (my // 2) % best_factors(my)[0] == 0
+    )
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -136,16 +176,53 @@ def ifft_pass_truncated_ref(xr, xi, greens=None):
     return _split(torch.fft.ifft(f, dim=1)[:, : xr.shape[1] // 2])
 
 
+def _c2r(re, im, m: int, n_out: int):
+    """c2r of (.., m/2 + 1) rows along the last axis, the first ``n_out``
+    reals kept. The imaginary parts of k = 0 and k = m/2 do not enter (the
+    JAX package's c2r weights, 1 there and 2 elsewhere)."""
+    im = im.clone()
+    im[..., 0] = 0.0
+    im[..., -1] = 0.0
+    return torch.fft.irfft(torch.complex(re, im), n=m, dim=-1)[..., :n_out] \
+        .contiguous()
+
+
 def irfft_pass_merge_ref(br, bi, sr, si, m: int, n_out: int):
     """c2r of rows from the bulk (R, m/2) and Nyquist (R, 1) pairs, keeping
-    the first ``n_out`` reals. The imaginary parts of k = 0 and k = m/2 do
-    not enter (the JAX package's c2r weights)."""
-    re = torch.cat([br, sr], dim=1)
-    im = torch.cat([bi, si], dim=1).clone()
-    im[:, 0] = 0.0
-    im[:, -1] = 0.0
-    return torch.fft.irfft(torch.complex(re, im), n=m, dim=1)[:, :n_out] \
-        .contiguous()
+    the first ``n_out`` reals."""
+    return _c2r(torch.cat([br, sr], dim=1), torch.cat([bi, si], dim=1), m,
+                n_out)
+
+
+def rfft_pass_padded_ref(x, m: int):
+    """r2c of each row of (R, n_in) zero-padded to ``m``: the (R, m/2 + 1)
+    pair, the Nyquist column kept in the row."""
+    return _split(torch.fft.rfft(x, n=m, dim=1))
+
+
+def irfft_pass_truncated_ref(xr, xi, m: int, n_out: int):
+    """c2r of rows of the (R, m/2 + 1) pair, keeping the first ``n_out``
+    reals."""
+    return _c2r(xr, xi, m, n_out)
+
+
+def rfft_fft_pass_fused_ref(x, mx: int, my: int):
+    """``rfft_pass_padded_split`` along x, then ``fft_pass_padded`` along y
+    of the bulk, of a real (A, ny, nx) array: the bulk (A, my, mx/2) pair
+    and the r2c Nyquist column's (A, ny, 1) pair."""
+    z = torch.fft.rfft(x, n=mx, dim=2)
+    bulk = torch.fft.fft(z[..., : mx // 2], n=my, dim=1)
+    return (*_split(bulk), *_split(z[..., mx // 2:]))
+
+
+def ifft_irfft_pass_fused_ref(br, bi, sr, si, mx: int, nx: int):
+    """``ifft_pass_truncated`` along y of the bulk (A, my, mx/2) pair, then
+    ``irfft_pass_merge`` along x with the Nyquist column's (A, ny, 1) pair:
+    the real (A, ny, nx) array."""
+    my = br.shape[1]
+    bulk = torch.fft.ifft(torch.complex(br, bi), dim=1)[:, : my // 2]
+    return _c2r(torch.cat([bulk.real, sr], dim=2),
+                torch.cat([bulk.imag, si], dim=2), mx, nx)
 
 
 def fft_greens_curl_ifft_pass_ref(xr, xi, greens, sym_z, sym_yx):
@@ -481,6 +558,140 @@ def _k_irfft_pass_merge_velocity(br, bi, sr, si, fsv, m, n_out, ny, nz):
     return out, l1_max
 
 
+def rfft_pass_padded(x, m: int):
+    """r2c of the minor axis of a real (R, n_in) view zero-padded to ``m``
+    (``n_in <= m/2``): the (R, m/2 + 1) float32 pair, the Nyquist column
+    kept in the row."""
+    _check("x", x, 2)
+    _check_length(m)
+    rows, n_in = x.shape
+    if n_in > m // 2:
+        raise ValueError(f"rows of {n_in} do not fit the padded half of {m}")
+    if x.device.type == "cpu":
+        return rfft_pass_padded_ref(x, m)
+    out = _k_rfft_pass_padded(x, m)
+    rfft_pass_padded.launches += 1
+    return out
+
+
+def _k_rfft_pass_padded(x, m):
+    rows, n_in = x.shape
+    xr, xi = _empty(x, rows, m // 2 + 1), _empty(x, rows, m // 2 + 1)
+    _launch("sopht_rfft_pass_padded_f32", x.device, x.data_ptr(),
+            xr.data_ptr(), xi.data_ptr(), _table(m, x.device).data_ptr(),
+            rows, n_in, m)
+    return xr, xi
+
+
+def irfft_pass_truncated(xr, xi, m: int, n_out: int):
+    """c2r of the minor axis of the (R, m/2 + 1) float32 pair, keeping the
+    first ``n_out <= m/2`` real outputs."""
+    _check("xr", xr, 2)
+    _check("xi", xi, 2, like=xr)
+    _check_length(m)
+    rows = xr.shape[0]
+    _check_shape("xr", xr, (rows, m // 2 + 1))
+    _check_shape("xi", xi, (rows, m // 2 + 1))
+    if not 0 < n_out <= m // 2:
+        raise ValueError(f"n_out {n_out} is not in (0, {m // 2}]")
+    if xr.device.type == "cpu":
+        return irfft_pass_truncated_ref(xr, xi, m, n_out)
+    out = _k_irfft_pass_truncated(xr, xi, m, n_out)
+    irfft_pass_truncated.launches += 1
+    return out
+
+
+def _k_irfft_pass_truncated(xr, xi, m, n_out):
+    rows = xr.shape[0]
+    out = _empty(xr, rows, n_out)
+    _launch("sopht_irfft_pass_truncated_f32", xr.device, xr.data_ptr(),
+            xi.data_ptr(), out.data_ptr(), _table(m, xr.device).data_ptr(),
+            rows, m, n_out)
+    return out
+
+
+_X_TABLES: dict = {}
+
+
+def _x_table(mx: int, device) -> torch.Tensor:
+    """``exp(-2 pi i j / mx)`` for j < mx as (mx, 2) float32 on ``device``,
+    computed once in float64: the dense x transform of the fused edge
+    passes."""
+    key = (mx, str(device))
+    if key not in _X_TABLES:
+        ang = -2.0 * math.pi * torch.arange(mx, dtype=torch.float64) / mx
+        _X_TABLES[key] = torch.stack([torch.cos(ang), torch.sin(ang)], dim=1) \
+            .to(torch.float32).to(device)
+    return _X_TABLES[key]
+
+
+def _check_fused_sizes(ny, nx, my, mx):
+    _check_length(my)
+    _check_length(mx)
+    if my != 2 * ny or mx != 2 * nx or nx % 4:
+        raise ValueError(
+            f"the fused edge passes need my = 2 ny, mx = 2 nx and nx a "
+            f"multiple of 4, got ({ny}, {nx}) doubled to ({my}, {mx})")
+
+
+def rfft_fft_pass_fused(x, mx: int, my: int):
+    """Fused :func:`rfft_pass_padded_split` (minor axis, zero-padded to
+    ``mx = 2 nx``) and :func:`fft_pass_padded` (middle axis, zero-padded to
+    ``my = 2 ny``) of a real float32 (A, ny, nx) array: the bulk
+    (A, my, mx/2) pair and the r2c Nyquist column's (A, ny, 1) pair."""
+    _check("x", x, 3)
+    a, ny, nx = x.shape
+    _check_fused_sizes(ny, nx, my, mx)
+    if x.device.type == "cpu":
+        return rfft_fft_pass_fused_ref(x, mx, my)
+    out = _k_rfft_fft_pass_fused(x, mx, my)
+    rfft_fft_pass_fused.launches += 1
+    return out
+
+
+def _k_rfft_fft_pass_fused(x, mx, my):
+    a, ny, nx = x.shape
+    br, bi = _empty(x, a, my, mx // 2), _empty(x, a, my, mx // 2)
+    sr, si = _empty(x, a, ny, 1), _empty(x, a, ny, 1)
+    _launch("sopht_rfft_fft_pass_fused_f32", x.device, x.data_ptr(),
+            br.data_ptr(), bi.data_ptr(), sr.data_ptr(), si.data_ptr(),
+            _table(my, x.device).data_ptr(), _x_table(mx, x.device).data_ptr(),
+            a, nx, mx, my)
+    return br, bi, sr, si
+
+
+def ifft_irfft_pass_fused(br, bi, sr, si, mx: int, nx: int):
+    """Fused :func:`ifft_pass_truncated` (middle axis) and
+    :func:`irfft_pass_merge` (minor axis): the bulk (A, my, mx/2) float32
+    pair and the Nyquist column's (A, ny, 1) pair to the real (A, ny, nx)
+    array."""
+    _check("br", br, 3)
+    for name, t in (("bi", bi), ("sr", sr), ("si", si)):
+        _check(name, t, 3, like=br)
+    a, my, bx = br.shape
+    _check_fused_sizes(my // 2, nx, my, mx)
+    _check_shape("br", br, (a, my, mx // 2))
+    _check_shape("bi", bi, (a, my, mx // 2))
+    _check_shape("sr", sr, (a, my // 2, 1))
+    _check_shape("si", si, (a, my // 2, 1))
+    if br.device.type == "cpu":
+        return ifft_irfft_pass_fused_ref(br, bi, sr, si, mx, nx)
+    out = _k_ifft_irfft_pass_fused(br, bi, sr, mx, nx)
+    ifft_irfft_pass_fused.launches += 1
+    return out
+
+
+def _k_ifft_irfft_pass_fused(br, bi, sr, mx, nx):
+    # the Nyquist column's imaginary part does not enter the c2r
+    a, my, _ = br.shape
+    out = _empty(br, a, my // 2, nx)
+    _launch("sopht_ifft_irfft_pass_fused_f32", br.device, br.data_ptr(),
+            bi.data_ptr(), sr.data_ptr(), out.data_ptr(),
+            _table(my, br.device).data_ptr(),
+            _x_table(mx, br.device).data_ptr(), a, nx, mx, my)
+    return out
+
+
 rfft_pass_padded_split.launches = 0
 fft_pass_padded.launches = 0
 fft_greens_ifft_pass.launches = 0
@@ -488,8 +699,13 @@ ifft_pass_truncated.launches = 0
 irfft_pass_merge.launches = 0
 fft_greens_curl_ifft_pass.launches = 0
 irfft_pass_merge_velocity.launches = 0
+rfft_pass_padded.launches = 0
+irfft_pass_truncated.launches = 0
+rfft_fft_pass_fused.launches = 0
+ifft_irfft_pass_fused.launches = 0
 
 #: the wrappers, for code that resets or reads every launch count
 KERNELS = (rfft_pass_padded_split, fft_pass_padded, fft_greens_ifft_pass,
            ifft_pass_truncated, irfft_pass_merge, fft_greens_curl_ifft_pass,
-           irfft_pass_merge_velocity)
+           irfft_pass_merge_velocity, rfft_pass_padded, irfft_pass_truncated,
+           rfft_fft_pass_fused, ifft_irfft_pass_fused)

@@ -64,6 +64,19 @@ def _pass_inputs(name, m, rng):
     if name == "ifft_pass_truncated_shared_greens":
         xr, xi, g = _f32(rng, a, m, b), _f32(rng, a, m, b), _f32(rng, 1, m, b)
         return (xr, xi, g), (xr, xi, g)
+    if name == "rfft_pass_padded":
+        x = _f32(rng, rows, h)
+        return (x, m), (x, m)
+    if name == "irfft_pass_truncated":
+        args = (_f32(rng, rows, h + 1), _f32(rng, rows, h + 1), m, h)
+        return args, args
+    if name == "rfft_fft_pass_fused":  # (A, ny, nx), mx = 64, my = m
+        x = _f32(rng, a, h, 32)
+        return (x, 64, m), (x, 64, m)
+    if name == "ifft_irfft_pass_fused":
+        args = (_f32(rng, a, m, 32), _f32(rng, a, m, 32), _f32(rng, a, h, 1),
+                _f32(rng, a, h, 1), 64, 32)
+        return args, args
     assert name == "irfft_pass_merge"
     args = (_f32(rng, rows, h), _f32(rng, rows, h), _f32(rng, rows, 1),
             _f32(rng, rows, 1), m, h)
@@ -78,6 +91,10 @@ PASSES = [
     "ifft_pass_truncated_greens",
     "ifft_pass_truncated_shared_greens",
     "irfft_pass_merge",
+    "rfft_pass_padded",
+    "irfft_pass_truncated",
+    "rfft_fft_pass_fused",
+    "ifft_irfft_pass_fused",
 ]
 
 
@@ -172,6 +189,65 @@ def test_kernel_route_solve_matches_dense(grid, per_component, monkeypatch):
            dense_solver.fourier_greens_times_dx_pow_dim.numpy(), 0.0)
 
 
+@pytest.mark.parametrize("grid", [(32, 32, 32), (48, 32, 64)],
+                         ids=["32^3", "48x32x64"])
+def test_fused_edge_convolve_matches_jax_pallas(grid, monkeypatch):
+    """The 3D convolve with the fused edge passes on (plain versions on
+    CPU) against the JAX package's ``_pallas_convolve_local`` with its flag
+    on (Pallas kernels in interpret mode), and against the port's unfused
+    arm: 1e-5 relative, as for the whole solve."""
+    from sopht_mpi_tpu.ops import poisson as jax_poisson
+
+    rng = np.random.default_rng(11)
+    rhs = _f32(rng, 3, *grid)
+    doubled = tuple(2 * n for n in grid)
+    bulk = _f32(rng, doubled[0], doubled[1], grid[2])
+    side = _f32(rng, doubled[0], doubled[1])
+    monkeypatch.setattr(jax_fft, "USE_FUSED_EDGE_PASSES", True)
+    assert jax_fft.fused_edge_pass_ok(grid[1], grid[2], doubled[1], doubled[2])
+    ref = np.asarray(jax_poisson._pallas_convolve_local(
+        jnp.asarray(rhs), (jnp.asarray(bulk), jnp.asarray(side)), doubled))
+    greens = (torch.tensor(bulk), torch.tensor(side))
+    unfused = poisson._kernel_convolve_local(torch.tensor(rhs), greens, doubled)
+    monkeypatch.setattr(cuda_fft, "USE_FUSED_EDGE_PASSES", True)
+    calls = []
+    for name in ("rfft_fft_pass_fused", "ifft_irfft_pass_fused"):
+        fn = getattr(cuda_fft, name)
+        monkeypatch.setattr(
+            cuda_fft, name,
+            lambda *a, _fn=fn, _n=name: (calls.append(_n), _fn(*a))[1])
+    fused = poisson._kernel_convolve_local(torch.tensor(rhs), greens, doubled)
+    assert calls == ["rfft_fft_pass_fused", "ifft_irfft_pass_fused"]
+    _close(fused, ref, 1e-5)
+    _close(fused, unfused.numpy(), 1e-5)
+
+
+# (ny, nx, my, mx); the last three differ from the JAX gate only where its
+# VMEM budget (no counterpart on the card) or its dense x matrices (any mx)
+# decide
+FUSED_GATE_SHAPES = [
+    (32, 32, 64, 64), (32, 64, 64, 128), (48, 32, 96, 64), (256, 256, 512, 512),
+    (32, 32, 64, 96), (30, 32, 60, 64), (32, 1024, 64, 2048),
+    (17, 32, 34, 64),
+]
+
+
+@pytest.mark.parametrize("shape", FUSED_GATE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fused_edge_gate_matches_jax_gate(shape, monkeypatch):
+    assert not cuda_fft.USE_FUSED_EDGE_PASSES  # the default, as in JAX
+    assert not jax_fft.USE_FUSED_EDGE_PASSES
+    assert not cuda_fft.fused_edge_pass_ok(*shape)
+    monkeypatch.setattr(cuda_fft, "USE_FUSED_EDGE_PASSES", True)
+    monkeypatch.setattr(jax_fft, "USE_FUSED_EDGE_PASSES", True)
+    ny, nx, my, mx = shape
+    # the JAX gate leaves mx to the route gate above it (mx <= 1024) and
+    # transforms x with dense matrices; the port also asks for a supported mx
+    jax_ok = jax_fft.fused_edge_pass_ok(*shape) and mx <= 1024 \
+        and jax_fft.pallas_fft_supported(mx)
+    assert cuda_fft.fused_edge_pass_ok(*shape) == jax_ok
+
+
 def test_route_gate():
     gate = poisson._kernel_convolve_supported
     assert not gate((64, 64, 64), torch.float32, "cpu")
@@ -180,6 +256,8 @@ def test_route_gate():
     assert not gate((2048, 64, 64), torch.float32, "cuda")
     assert not gate((64, 64, 2048), torch.float32, "cuda")
     assert not gate((64, 60, 64), torch.float32, "cuda")  # 60 < 64
+    assert gate((64, 128), torch.float32, "cuda")  # the 2D solver's pair
+    assert not gate((64, 2048), torch.float32, "cuda")
 
 
 @pytest.mark.cuda

@@ -20,6 +20,12 @@ def test_port_imports_without_jax():
         "from sopht_mpi_tpu_torch.ops.poisson import resolve_fast_spectral\n"
         "from sopht_mpi_tpu_torch.convert import multi_body_fsi_carry_from_numpy\n"
         "from sopht_mpi_tpu_torch import enable_fast_spectral\n"
+        "from sopht_mpi_tpu_torch.models import UnboundedFlowSimulator2D\n"
+        "from sopht_mpi_tpu_torch.models import Cylinder\n"
+        "from sopht_mpi_tpu_torch.ops import stencils_2d\n"
+        "from sopht_mpi_tpu_torch.ops.poisson import UnboundedPoissonSolver2D\n"
+        "from sopht_mpi_tpu_torch.cases import lamb_oseen_vortex_case\n"
+        "import sopht_mpi_tpu_torch.tools.probe_edge_passes\n"
         "from sopht_mpi_tpu_torch.ops import cuda_stencils_3d\n"
         "from sopht_mpi_tpu_torch.parallel import cuda_fft\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
