@@ -78,13 +78,35 @@ raises and exits non-zero, and nothing falls back to the CPU:
     after a fixed number of steps against the JAX package's CPU run
     (``sopht_mpi_tpu_torch/data/cylinder_reference.json``);
 18. 2D card vs CPU: 3 steps of the (32, 64) cylinder case from one
-    numpy-seeded state.
+    numpy-seeded state;
+19. sharded kernels: the four sharded stencils (one launch for all shards
+    of an in-process (pz, py) mesh, after the halo exchange) against their
+    plain versions and against their single-device twins on the assembled
+    field: float32 and float64 at (3, 34, 66, 65) on (2, 2), (2, 3) and
+    (17, 1), float64 at 64^3, float32 at 256^3 on (8, 1), (4, 2) and
+    (2, 2), with wrapper, plain and twin times at the last;
+20. sharded solve: the 256^3 vector Poisson solve on a (2, 2) mesh (the
+    distributed convolve: ``torch.fft`` along x, the y and z pass kernels
+    per shard, four ``all_to_all`` transposes) against the single-device
+    kernel route, values, times, launches and transposes;
+21. sharded main path: ``cases.sharded_flow_case`` at 256^3 on a (2, 2)
+    mesh and on one device from the same field: the fields after 3 steps
+    against each other, 5 warm-up + 20 timed steps of each that must not
+    synchronise with the host, launch counts of the sharded stencils and
+    the per-shard passes, halo exchanges and transposes a step, peak
+    memory, a profiled window (``build/sharded_flow_profile.txt``); then
+    the same with the order-1 multiplicative filter, whose step runs the
+    sharded diffusion kernel alone and gathers the field once for the
+    filter and the sponge;
+22. sharded card vs CPU: 3 steps of the (16, 32, 128) case on a (4, 2)
+    mesh from one numpy-seeded state.
 
 Phase 3 also checks the fused-curl pair against its plain versions at the
 256^3 sphere's, the (128, 128, 256) multi-body case's and a (48, 32, 64)
 grid's shapes, the unsplit x passes and the fused edge passes at the 256^3
 solve's, a (48, 32, 64) grid's and the (256, 512) cylinder grid's shapes,
-and the 2D route's three passes at the cylinder grid's shapes. The line before the last is the kernel table as JSON (each
+and the 2D route's three passes at the cylinder grid's shapes. The line
+before the last is the kernel table as JSON (each
 kernel's launches on a main path, error, kernel / plain / one-PyTorch-call
 times and its bound at the main path's shape); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -141,19 +163,29 @@ EDGE_REPLACES = {
     "rfft_fft_pass_fused": "sopht_mpi_tpu/parallel/pallas_fft.py:1300",
     "ifft_irfft_pass_fused": "sopht_mpi_tpu/parallel/pallas_fft.py:1341",
 }
-# the four sharded stencils, still to port: their single-device twin (whose
-# operation count they share) and the fields they read beside the one they
-# write
-SHARDED_TO_PORT = {
-    "sopht_mpi_tpu/ops/pallas_stencils_sharded.py:219 _diffusion_sharded_impl":
-        ("diffusion_timestep_vector_3d", 1),
-    "sopht_mpi_tpu/ops/pallas_stencils_sharded.py:297 _curl_sharded_impl":
-        ("curl_3d", 1),
-    "sopht_mpi_tpu/ops/pallas_stencils_sharded.py:379 _rotational_sharded_impl":
-        ("rotational_curl_add_3d", 2),
-    "sopht_mpi_tpu/ops/pallas_stencils_sharded.py:653 _diffpen_sharded_impl":
-        ("diffusion_penalise_vector_3d", 1),
+# the four sharded stencils: the TPU kernel each replaces, its single-device
+# twin (whose operation count it shares) and the fields it reads beside the
+# one it writes
+SHARDED_REPLACES = {
+    "diffusion_timestep_vector_3d_sharded": (
+        "sopht_mpi_tpu/ops/pallas_stencils_sharded.py:219",
+        "diffusion_timestep_vector_3d", 1),
+    "curl_3d_sharded": (
+        "sopht_mpi_tpu/ops/pallas_stencils_sharded.py:297", "curl_3d", 1),
+    "rotational_curl_add_3d_sharded": (
+        "sopht_mpi_tpu/ops/pallas_stencils_sharded.py:379",
+        "rotational_curl_add_3d", 2),
+    "diffusion_penalise_vector_3d_sharded": (
+        "sopht_mpi_tpu/ops/pallas_stencils_sharded.py:653",
+        "diffusion_penalise_vector_3d", 1),
 }
+SHARDED_GRID = (256, 256, 256)
+SHARDED_MESH = (2, 2)
+# the distributed convolve's three per-shard passes and their launches a
+# vector solve on SHARDED_MESH: the y passes fold every shard into one
+# launch, the z pass is launched once a shard with that shard's Green's block
+SHARDED_FFT_LAUNCHES = {"fft_pass_padded": 1, "fft_greens_ifft_pass": 4,
+                        "ifft_pass_truncated": 1}
 FUSED_EDGE_PASSES = ("rfft_fft_pass_fused", "ifft_irfft_pass_fused")
 UNFUSED_EDGE_PASSES = ("rfft_pass_padded_split", "fft_pass_padded",
                        "ifft_pass_truncated", "irfft_pass_merge")
@@ -256,19 +288,17 @@ def stencil_work(name, shape, nfields_in):
     return 4 * 3 * cells * (nfields_in + 1), STENCIL_OPS[name] * cells
 
 
-def sharded_stencil_bounds(grid=(256, 256, 256), mesh=(2, 2)):
-    """The bound of each sharded stencil still to port, on one shard of
-    ``grid`` over a (pz, py) mesh: every input field read once with its
-    width-1 halo planes and rows (as the exchange hands them over), the
-    output written once, the twin kernel's operations a cell."""
+def sharded_stencil_work(name, grid, mesh):
+    """(bytes, operations) of a sharded stencil on a float32 ``grid`` over a
+    (pz, py) mesh, all shards: every input field read once with its width-1
+    halo planes and rows (as the exchange hands them over), the output
+    written once, the twin kernel's operations a cell."""
     nz, ny, nx = grid[0] // mesh[0], grid[1] // mesh[1], grid[2]
     cells, halo_cells = nz * ny * nx, (nz + 2) * (ny + 2) * nx
-    out = {}
-    for site, (twin, n_in) in SHARDED_TO_PORT.items():
-        ms, by = bound(12 * (n_in * halo_cells + cells),
-                       STENCIL_OPS[twin] * cells)
-        out[site] = f"{ms:.4f} ms ({by})"
-    return (3, nz, ny, nx), out
+    _, twin, n_in = SHARDED_REPLACES[name]
+    shards = mesh[0] * mesh[1]
+    return (12 * (n_in * halo_cells + cells) * shards,
+            STENCIL_OPS[twin] * cells * shards)
 
 
 def fft_work(name, args):
@@ -349,8 +379,17 @@ def main():
     from sopht_mpi_tpu_torch.convert import flow_state_from_numpy
     from sopht_mpi_tpu_torch.models import scan_steps
     from sopht_mpi_tpu_torch.ops import cuda_stencils_3d as kernels
+    from sopht_mpi_tpu_torch.ops import cuda_stencils_3d_sharded as sharded
     from sopht_mpi_tpu_torch.ops import poisson
-    from sopht_mpi_tpu_torch.parallel import cuda_fft
+    from sopht_mpi_tpu_torch.parallel import collectives, cuda_fft
+    from sopht_mpi_tpu_torch.parallel.mesh import (
+        create_mesh,
+        shard_vector_field,
+        unshard_vector_field,
+    )
+    from sopht_mpi_tpu_torch.tools.probe_sharded import (
+        stencil_calls as sharded_stencil_calls,
+    )
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -737,14 +776,12 @@ def main():
         detail = "; ".join(line(k, v) for k, v in table.items())
         detail += "; at (3, 256, 64, 256) f32: " + "; ".join(variants)
         detail += "; " + "; ".join(fused) + "; " + "; ".join(edge)
-        shard, bounds = sharded_stencil_bounds()
-        detail += (f"; still to port, bounds on a {shard} shard of 256^3 over "
-                   f"a (2, 2) mesh with width-1 halos: {bounds}")
         return table, detail + f" [{card}]"
 
     table = kernel_phase()
     exact_fft = [fn for fn in cuda_fft.KERNELS if fn.__name__ in FFT_REPLACES]
-    by_name = {fn.__name__: fn for fn in kernels.KERNELS + cuda_fft.KERNELS}
+    by_name = {fn.__name__: fn for fn in
+               kernels.KERNELS + cuda_fft.KERNELS + sharded.KERNELS}
 
     def reset_counts():
         for fn in by_name.values():
@@ -1561,6 +1598,308 @@ def main():
         return None, f"{grid} cylinder, 3 steps, max|diff| {errs}"
 
     parity_2d_phase()
+
+    def check_sharded_calls(shape, mesh_shape, dtype, gen):
+        """Every sharded stencil at ``shape`` over ``mesh_shape`` against
+        its plain version and against its single-device twin on the
+        assembled field: (calls, errors against the plain versions, the
+        largest difference from a twin, the sharded field)."""
+        mesh = create_mesh(3, mesh_shape, device=dev)
+        w = torch.randn(shape, dtype=dtype, device=dev, generator=gen)
+        u = torch.randn(shape, dtype=dtype, device=dev, generator=gen)
+        # name -> (the sharded wrapper, its plain version, its single-device
+        # twin on the assembled field); the fused sponge only where its gate
+        # holds
+        calls = sharded_stencil_calls(w, u, mesh, dtype)
+        errs, twin_err = {}, 0.0
+        where = f"{shape} on {mesh_shape} {dtype}"
+        for name, (fn, ref_fn, twin_fn) in calls.items():
+            before = by_name[name].launches
+            out, ref, twin = fn(), ref_fn(), twin_fn()
+            check(by_name[name].launches == before + 1,
+                  f"{name} {where}: the wrapper did not count one launch")
+            if name == "curl_3d_sharded":
+                (out, l1), (ref, l1_ref), (twin, l1_twin) = out, ref, twin
+                check(l1.ndim == 0 and l1.device == dev,
+                      f"{name} {where}: max |u|_1 is not a 0-d device tensor")
+                for other in (l1_ref, l1_twin):
+                    rel = abs(float(l1) - float(other)) / float(other)
+                    check(rel <= 1e-6, f"{name} {where}: l1_max rel {rel}")
+            tol = (1e-12 if dtype == torch.float64
+                   else 1e-5 * max(1.0, float(ref.abs().max())))
+            err, _ = max_err(out, ref)
+            check(err <= tol, f"{name} {where}: max|diff| {err} > {tol} "
+                  "against the plain version")
+            err_twin, _ = max_err(unshard_vector_field(out, mesh), twin)
+            check(err_twin <= tol, f"{name} {where}: max|diff| {err_twin} > "
+                  f"{tol} against the single-device kernel")
+            errs[name], twin_err = err, max(twin_err, err_twin)
+        torch.cuda.synchronize()
+        return calls, errs, twin_err, (shard_vector_field(w, mesh), mesh)
+
+    @phase("sharded kernels")
+    def sharded_kernel_phase():
+        gen = torch.Generator(device=dev).manual_seed(3)
+        odd = (3, 34, 66, 65)
+        twin_err = 0.0
+        n_checked = 0
+        for shape, mesh_shape, dtype in (
+                (odd, (2, 2), torch.float32), (odd, (2, 3), torch.float64),
+                (odd, (17, 1), torch.float32),
+                ((3, 64, 64, 64), (2, 2), torch.float64),
+                ((3, *SHARDED_GRID), (8, 1), torch.float32),
+                ((3, *SHARDED_GRID), (4, 2), torch.float32),
+                ((3, *SHARDED_GRID), SHARDED_MESH, torch.float32)):
+            calls, errs, e, (ws, mesh) = check_sharded_calls(
+                shape, mesh_shape, dtype, gen)
+            twin_err = max(twin_err, e)
+            n_checked += len(calls)
+        # the last is the main path's shape: its errors and times are kept
+        check(set(calls) == set(SHARDED_REPLACES), "the fused sponge's gate "
+              "is closed at the main path's shape")
+        shape = tuple(ws.shape)
+        twins = []
+        for name, (fn, ref_fn, twin_fn) in calls.items():
+            table[name] = entry(
+                name, SOURCE, SHARDED_REPLACES[name][0], errs[name], fn,
+                ref_fn, sharded_stencil_work(name, SHARDED_GRID, SHARDED_MESH),
+                shape)
+            twins.append(f"{name}: single-device twin on the assembled field "
+                         f"{median_ms(torch, twin_fn):.4f} ms")
+        # what of a wrapper's time is the exchange: one field's ghosted copy
+        # and its two y rows
+        halo_ms = median_ms(torch, lambda: (sharded._ghost_z(ws, mesh),
+                                            sharded._halo_y_rows(ws, mesh)))
+        detail = "; ".join(line(k, table[k]) for k in SHARDED_REPLACES)
+        return None, (
+            f"{n_checked} checks at {odd} on (2, 2), (2, 3), (17, 1), 64^3 "
+            f"f64 on (2, 2), 256^3 on (8, 1), (4, 2), (2, 2): largest "
+            f"max|diff| from a single-device twin {twin_err:.3g}; one launch "
+            f"for all four shards: {detail}; {'; '.join(twins)}; the halo "
+            f"exchange of one field alone {halo_ms:.4f} ms [{card}]")
+
+    sharded_kernel_phase()
+
+    sharded_fft = [by_name[name] for name in SHARDED_FFT_LAUNCHES]
+
+    def check_sharded_solves(n_solves, where):
+        """Over ``n_solves`` vector solves on SHARDED_MESH: the three
+        per-shard passes at their counts, no other FFT pass."""
+        for name, per_solve in SHARDED_FFT_LAUNCHES.items():
+            count = by_name[name].launches
+            check(count == per_solve * n_solves, f"{name} launched {count} "
+                  f"times in {n_solves} solves on {where}")
+        check_not_launched(
+            [fn.__name__ for fn in cuda_fft.KERNELS if fn not in sharded_fft],
+            where)
+
+    @phase("sharded solve")
+    def sharded_solve_phase():
+        n = SHARDED_GRID[0]
+        mesh = create_mesh(3, SHARDED_MESH, device=dev)
+        one = poisson.UnboundedPoissonSolver3D(n, n, n, device=dev)
+        many = poisson.UnboundedPoissonSolver3D(n, n, n, device=dev, mesh=mesh)
+        pz, py = SHARDED_MESH
+        fxp = many.fourier_greens_times_dx_pow_dim.shape[-1] * py
+        check(tuple(many.fourier_greens_times_dx_pow_dim.shape)
+              == (pz, py, 2 * n, 2 * n // pz, fxp // py) and fxp >= n + 1,
+              "the sharded Green's is not in the Fourier layout")
+        gen = torch.Generator(device=dev).manual_seed(4)
+        rhs = torch.randn((3, n, n, n), device=dev, generator=gen)
+        rhs_s = shard_vector_field(rhs, mesh)
+        ref = one.vector_field_solve(rhs)
+        reset_counts()
+        collectives.reset_counts()
+        out = many.vector_field_solve(rhs_s)
+        check_sharded_solves(1, "the sharded solve")
+        counts = collectives.counts()
+        check(counts == {"ppermute": 0, "all_to_all": 4, "pmax": 0, "psum": 0,
+                         "apply_assembled": 0},
+              f"collectives of a sharded vector solve: {counts}")
+        check(tuple(out.shape) == tuple(rhs_s.shape), "solution layout")
+        err = (float((unshard_vector_field(out, mesh) - ref).abs().max())
+               / float(ref.abs().max()))
+        check(err <= 2e-5, f"sharded vs single-device solve: relative {err}")
+        ms = median_ms(torch, lambda: many.vector_field_solve(rhs_s))
+        one_ms = median_ms(torch, lambda: one.vector_field_solve(rhs))
+        return None, (
+            f"256^3 vector solve on an in-process {SHARDED_MESH} mesh "
+            f"(x-frequency axis padded to {fxp}): {ms:.4f} ms against the "
+            f"single-device kernel route's {one_ms:.4f} ms, relative "
+            f"max|diff| {err:.3g}; launches a solve {SHARDED_FFT_LAUNCHES}, "
+            f"{counts['all_to_all']} all_to_all [{card}]")
+
+    sharded_solve_phase()
+
+    @phase("sharded main path")
+    def sharded_main_path_phase():
+        n_steps = 20
+        runs = {}
+        torch.cuda.reset_peak_memory_stats(dev)
+        for mesh_shape in (None, SHARDED_MESH):
+            step, (carry,) = cases.sharded_flow_case(SHARDED_GRID, mesh_shape,
+                                                     device=dev)
+            carry, _ = scan_steps(step, carry, 3)
+            runs[mesh_shape] = [step, carry]
+            if mesh_shape is None:
+                peak_one = torch.cuda.max_memory_allocated(dev) / 2**30
+                torch.cuda.reset_peak_memory_stats(dev)
+        mesh = runs[SHARDED_MESH][0].flow_sim.mesh
+        check(mesh is not None and mesh.axis_sizes == SHARDED_MESH,
+              "the sharded case holds no mesh")
+        # the same initial field on both: after 3 steps the assembled fields
+        # agree with the single-device run
+        errs = {}
+        for what in ("primary_field", "velocity_field"):
+            ref = getattr(runs[None][1].flow_state, what)
+            field = getattr(runs[SHARDED_MESH][1].flow_state, what)
+            check(tuple(field.shape) == (*SHARDED_MESH, 3, 128, 128, 256),
+                  f"{what} is not sharded: {tuple(field.shape)}")
+            err, scale = max_err(unshard_vector_field(field, mesh), ref)
+            check(err <= 1e-4 * max(1.0, scale), f"{what} after 3 steps: "
+                  f"sharded vs single-device {err} (|ref| max {scale})")
+            errs[what] = err
+        results = {}
+        for mesh_shape, (step, carry) in runs.items():
+            carry, _ = scan_steps(step, carry, 2)
+            reset_counts()
+            collectives.reset_counts()
+            # the step never waits for the device: a synchronising call raises
+            carry, dts, s_step = timed_steps(step, carry, n_steps)
+            launches = {name: fn.launches for name, fn in by_name.items()
+                        if fn.launches}
+            results[mesh_shape] = (s_step, launches, collectives.counts())
+            fs = carry.flow_state
+            for what, t in (("vorticity", fs.primary_field),
+                            ("velocity", fs.velocity_field), ("dt", dts)):
+                check(bool(torch.isfinite(t).all()), f"non-finite {what}")
+            check(bool((dts > 0).all()), "a non-positive timestep")
+            runs[mesh_shape][1] = carry
+        s_one, launches_one, counts_one = results[None]
+        s_many, launches, counts = results[SHARDED_MESH]
+        check(not any(counts_one.values()) and not any(
+            name in launches_one for name in SHARDED_REPLACES),
+            "the single-device step moved data between shards")
+        # the forcing curl and the stream function's curl: two a step
+        expected = {name: n_steps for name in SHARDED_REPLACES}
+        expected["curl_3d_sharded"] = 2 * n_steps
+        expected.pop("diffusion_timestep_vector_3d_sharded")  # fused sponge
+        expected.update({name: per_solve * n_steps for name, per_solve
+                         in SHARDED_FFT_LAUNCHES.items()})
+        check(launches == expected, f"launches on the sharded path "
+              f"{launches}, expected {expected}")
+        for name in expected:
+            if name in SHARDED_REPLACES:
+                table[name]["launches"] = launches[name]
+        per_step = {k: v / n_steps for k, v in counts.items()}
+        check(per_step == {"ppermute": 20, "all_to_all": 4, "pmax": 1,
+                           "psum": 0, "apply_assembled": 0},
+              f"collectives a step on the sharded path: {per_step}")
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        step, carry = runs[SHARDED_MESH]
+        carry, *prof = profile_steps(
+            step, carry, 3,
+            os.path.join(REPO, "build", "sharded_flow_profile.txt"),
+            f"{SHARDED_GRID} flow step on an in-process {SHARDED_MESH} mesh")
+        del runs, step, carry
+        torch.cuda.empty_cache()
+        # the filtered arm (the rod cases' order-1 multiplicative filter):
+        # the sharded diffusion kernel alone, then the filter and the sponge
+        # on the assembled field, one gather a step
+        filtered = {"filter_vorticity": True,
+                    "filter_setting_dict": {"order": 1,
+                                            "type": "multiplicative"}}
+        f_fields, f_times = {}, {}
+        for mesh_shape in (None, SHARDED_MESH):
+            step, (carry,) = cases.sharded_flow_case(
+                SHARDED_GRID, mesh_shape, device=dev, sim_kwargs=filtered)
+            carry, _ = scan_steps(step, carry, 3)
+            f_fields[mesh_shape] = unshard_vector_field(
+                carry.flow_state.primary_field, step.flow_sim.mesh)
+            reset_counts()
+            collectives.reset_counts()
+            carry, _, f_times[mesh_shape] = timed_steps(step, carry, 10)
+            del step, carry
+        f_err, f_scale = max_err(f_fields[SHARDED_MESH], f_fields[None])
+        check(f_err <= 1e-4 * max(1.0, f_scale), "filtered vorticity after 3 "
+              f"steps: sharded vs single-device {f_err}")
+        f_launches = {name: by_name[name].launches for name in SHARDED_REPLACES}
+        check(f_launches == {"diffusion_timestep_vector_3d_sharded": 10,
+                             "curl_3d_sharded": 20,
+                             "rotational_curl_add_3d_sharded": 10,
+                             "diffusion_penalise_vector_3d_sharded": 0},
+              f"launches on the filtered sharded path: {f_launches}")
+        f_counts = collectives.counts()
+        check(f_counts["apply_assembled"] == 10 and f_counts["ppermute"] == 200,
+              f"collectives on the filtered sharded path: {f_counts}")
+        check(by_name["laplacian_filter_vector_3d"].launches == 10
+              and by_name["penalise_field_boundary_vector_3d"].launches == 10,
+              "the filter and the sponge did not run once a step on the "
+              "assembled field")
+        name = "diffusion_timestep_vector_3d_sharded"
+        table[name]["launches"] = f_launches[name]
+        cells = np.prod(SHARDED_GRID)
+        return None, (
+            f"256^3 f32 flow only (forcing flow type, free stream, sponge "
+            f"2) on an in-process {SHARDED_MESH} mesh: {s_many:.6f} s/step "
+            f"({cells / s_many / 1e6:.3f} Mcells/s) against {s_one:.6f} "
+            f"s/step ({cells / s_one / 1e6:.3f} Mcells/s) on one device from "
+            f"the same field, no host sync in either; after 3 steps "
+            f"max|diff| {errs}; launches over {n_steps} steps {launches} "
+            f"(single device {launches_one}); a step {per_step}; peak "
+            f"{peak:.2f} GiB (single device {peak_one:.2f} GiB); "
+            + profile_detail(*prof, s_many)
+            + f"; with the order-1 multiplicative filter (filter and sponge "
+            f"on the assembled field once a step), 10 timed steps: "
+            f"{f_times[SHARDED_MESH]:.6f} s/step against "
+            f"{f_times[None]:.6f} on one device, vorticity after 3 steps "
+            f"max|diff| {f_err:.3g}, launches {f_launches} [{card}]")
+
+    sharded_main_path_phase()
+
+    @phase("sharded card vs cpu")
+    def sharded_parity_phase():
+        grid, mesh_shape = (16, 32, 128), (4, 2)
+        vort = np.random.default_rng(0).standard_normal((3, *grid)) * 0.1
+        finals = []
+        for device in (dev, torch.device("cpu")):
+            # on the CPU the wrappers run their per-shard plain computation
+            # on the exchanged halos
+            step, (carry,) = cases.sharded_flow_case(
+                grid, mesh_shape, device=device,
+                sim_kwargs={"use_kernels": True})
+            mesh = step.flow_sim.mesh
+            fs = carry.flow_state
+            state = flow_state_from_numpy(
+                (vort, unshard_vector_field(fs.velocity_field, mesh).cpu()
+                 .numpy(), np.zeros_like(vort)),
+                device=device, dtype=torch.float32, mesh=mesh)
+            reset_counts()
+            carry, _ = scan_steps(step, carry._replace(flow_state=state), 3)
+            if device.type == "cuda":
+                # 2 nz = 32 is below the passes' range: the z pass is
+                # torch.fft here, the y passes the kernels
+                for name in SHARDED_REPLACES:
+                    check((by_name[name].launches > 0) == (
+                        name != "diffusion_timestep_vector_3d_sharded"),
+                        f"{name}: {by_name[name].launches} launches in the "
+                        "sharded parity run")
+                check(by_name["fft_pass_padded"].launches == 3
+                      and by_name["ifft_pass_truncated"].launches == 3,
+                      "the y passes did not run once a step")
+            finals.append((carry.flow_state, mesh))
+        (gpu, gmesh), (cpu, cmesh) = finals
+        errs = {}
+        for what in ("primary_field", "velocity_field"):
+            ref = unshard_vector_field(getattr(cpu, what), cmesh)
+            out = unshard_vector_field(getattr(gpu, what), gmesh).cpu()
+            err = float((out - ref).abs().max())
+            tol = 1e-4 * max(1.0, float(ref.abs().max()))
+            check(err <= tol, f"sharded {what}: card vs cpu {err} > {tol}")
+            errs[what] = err
+        return None, f"{grid} on {mesh_shape}, 3 steps, max|diff| {errs}"
+
+    sharded_parity_phase()
 
     for row in table.values():
         check(row["launches"], f"{row['name']} was launched on no path")

@@ -5,8 +5,9 @@ past a sphere (counterparts of
 ``__graft_entry__._build_fsi_case`` and
 ``examples/3d/flow_past_sphere.py:flow_past_sphere_fused_case``), flow
 past a flexible rod (``__graft_entry__._build_rod_fsi_case`` and
-``_build_rod_bench_case``) and a rod with a sphere in its wake
-(``_build_multibody_case`` and ``_build_multibody_bench_case``).
+``_build_rod_bench_case``), a rod with a sphere in its wake
+(``_build_multibody_case`` and ``_build_multibody_bench_case``), and a
+flow-only 3D case on a mesh of shards (:func:`sharded_flow_case`).
 """
 
 from __future__ import annotations
@@ -31,15 +32,21 @@ from sopht_mpi_tpu_torch.models import (
     SphereForcingGrid,
     UnboundedFlowSimulator2D,
     UnboundedFlowSimulator3D,
+    build_flow_only_step,
     build_multi_body_fsi_step,
     build_rigid_fsi_step,
     build_rod_fsi_step,
+    init_flow_only_carry,
     init_multi_body_fsi_carry,
     init_rigid_fsi_carry,
     init_rod_fsi_carry,
     scan_steps,
     suggest_rod_forcing_window,
 )
+from sopht_mpi_tpu_torch.models.flow.simulator_3d import (
+    compute_flow_velocity_3d,
+)
+from sopht_mpi_tpu_torch.parallel.mesh import create_mesh, shard_vector_field
 from sopht_mpi_tpu_torch.utils import get_real_t
 
 
@@ -101,6 +108,65 @@ def _build_fsi_case(grid_size, *, device, precision="single",
     )
     carry = init_rigid_fsi_carry(flow_sim, interactor, fsi_step)
     return fsi_step, (carry,)
+
+
+def sharded_flow_case(grid_size, mesh_shape, *, device, precision="single",
+                      seed=0, sim_kwargs=None):
+    """A flow-only 3D case on an in-process (pz, py) mesh: the sphere
+    case's flow (``navier_stokes_with_forcing`` with a zero forcing field,
+    unit free stream in x, viscosity 0.0025, sponge width 2, no filter)
+    from a smooth seeded vorticity field, three Gaussian blobs of random
+    centre, width and orientation. ``mesh_shape=None`` builds the same case
+    on one device. Returns (flow-only step fn, (initial carry,)); the step
+    is :func:`~sopht_mpi_tpu_torch.models.build_flow_only_step` with
+    ``dt_prefac`` 0.5."""
+    real_t = get_real_t(precision)
+    mesh = (None if mesh_shape is None
+            else create_mesh(3, mesh_shape, device=device))
+    flow_sim = UnboundedFlowSimulator3D(
+        grid_size=grid_size,
+        x_range=1.0,
+        kinematic_viscosity=0.0025,
+        flow_type="navier_stokes_with_forcing",
+        with_free_stream_flow=True,
+        real_t=real_t,
+        device=device,
+        mesh=mesh,
+        **(sim_kwargs or {}),
+    )
+    rng = np.random.default_rng(seed)
+    nz, ny, nx = flow_sim.grid_size
+    axes = [(np.arange(n) + 0.5) / nx for n in (nz, ny, nx)]
+    extent = np.array([nz, ny, nx]) / nx
+    vort = np.zeros((3, nz, ny, nx))
+    for _ in range(3):
+        centre = (0.3 + 0.4 * rng.random(3)) * extent
+        width = (0.08 + 0.04 * rng.random()) * extent.min()
+        direction = rng.standard_normal(3)
+        direction /= np.linalg.norm(direction)
+        blob = np.ones(())
+        for k, axis in enumerate(axes):
+            shape = [1, 1, 1]
+            shape[k] = -1
+            blob = blob * np.exp(
+                -0.5 * ((axis - centre[k]) / width) ** 2).reshape(shape)
+        vort += 4.0 * direction.reshape(3, 1, 1, 1) * blob
+    flow_sim.primary_field = shard_vector_field(
+        torch.as_tensor(vort, dtype=real_t, device=flow_sim.device),
+        flow_sim.mesh)
+    free_stream = torch.tensor([1.0, 0.0, 0.0], dtype=real_t,
+                               device=flow_sim.device)
+    # start from the velocity the vorticity induces
+    flow_sim.primary_field, flow_sim.velocity_field = compute_flow_velocity_3d(
+        flow_sim.primary_field, free_stream,
+        poisson_greens=flow_sim._poisson_greens,
+        **{k: v for k, v in flow_sim.step_config().items()
+           if k in ("dx", "penalty_zone_width", "poisson_solver",
+                    "with_free_stream", "use_kernels", "mesh")})
+    step = build_flow_only_step(
+        flow_sim, dt_prefac=0.5, free_stream_fn=lambda t: free_stream)
+    step.flow_sim = flow_sim
+    return step, (init_flow_only_carry(flow_sim),)
 
 
 def flow_past_sphere_fused_case(

@@ -25,6 +25,8 @@ from sopht_mpi_tpu_torch.models.fsi import (
 )
 from sopht_mpi_tpu_torch.models.rigid_body import RigidBodyState
 from sopht_mpi_tpu_torch.ops.virtual_boundary import VirtualBoundaryState
+from sopht_mpi_tpu_torch.parallel.fft import FOURIER_SHARDED_DIMS
+from sopht_mpi_tpu_torch.parallel.mesh import shard_dims, shard_vector_field
 
 
 def _fields(node, names):
@@ -51,17 +53,34 @@ def _greens(leaf, device, dtype):
     return _tensor(leaf, device, dtype)
 
 
-def flow_state_from_numpy(tree, *, device, dtype):
+def flow_state_from_numpy(tree, *, device, dtype, mesh=None):
     """(primary field, velocity_field, eul_grid_forcing_field) numpy arrays
     -> :class:`FlowState3D`, or :class:`FlowState2D` when the primary field
     is a 2D scalar (a dict names it ``primary_scalar_field``), on ``device``
-    in ``dtype``."""
+    in ``dtype``. With a 3D ``mesh`` of more than one shard the global
+    arrays are sharded over it, as a simulator on that mesh holds them."""
     if isinstance(tree, dict):
         two_d = "primary_scalar_field" in tree
     else:
         two_d = np.asarray(list(tree)[0]).ndim == 2
     cls = FlowState2D if two_d else FlowState3D
-    return cls(*(_tensor(v, device, dtype) for v in _fields(tree, cls._fields)))
+    leaves = [_tensor(v, device, dtype) for v in _fields(tree, cls._fields)]
+    if mesh is not None and mesh.size > 1:
+        if two_d:
+            raise NotImplementedError(
+                "a sharded 2D flow state is not ported yet (ROADMAP.md "
+                "queue A #11d)")
+        leaves = [None if v is None else shard_vector_field(v, mesh)
+                  for v in leaves]
+    return cls(*leaves)
+
+
+def sharded_greens_from_numpy(greens, mesh, *, device, dtype):
+    """A JAX solver's dense Fourier-layout Green's function on a mesh, as
+    one global numpy array (2 nz, 2 ny, fxp), -> the port's sharded one,
+    (pz, py, 2 nz, 2 ny/pz, fxp/py), on ``device`` in ``dtype``."""
+    return shard_dims(_tensor(greens, device, dtype), mesh,
+                      FOURIER_SHARDED_DIMS)
 
 
 def rigid_fsi_carry_from_numpy(tree, *, device, dtype) -> RigidFSICarry:

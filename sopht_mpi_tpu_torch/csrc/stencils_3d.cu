@@ -11,7 +11,31 @@
 // Launch shape (every kernel but conv_filter_line_3d): one thread per output
 // cell, blocks of 32 x 8 threads over (x, y), one grid row of blocks per
 // z-plane, so a warp reads 32 neighbouring x cells (coalesced) and no thread
-// divides an index.
+// divides an index by a cell count.
+//
+// Sharded launches. The first four kernels below (rotational transport,
+// diffusion + sponge, curl, diffusion) are each one template with two
+// instances: the single-device one, and the sharded one, which replaces
+// sopht_mpi_tpu/ops/pallas_stencils_sharded.py (_rotational_sharded_kernel,
+// _diffpen_sharded_kernel, _curl_sharded_kernel, _diffusion_sharded_kernel).
+// A sharded field is (S, 3, nz, ny, nx), S = pz * py shards of a (pz, py)
+// mesh over (z, y), each shard a contiguous block of its own. One launch
+// covers all shards: blockIdx.z runs over (shard, local plane). A thread
+// reads only its own shard's block and the halo buffers the exchange made
+// for it: the input comes z-ghosted, (S, 3, nz + 2, ny, nx) with the
+// neighbour shards' planes at indices 0 and nz + 1, and the neighbour
+// shards' y rows come as two (S, 3, nz, 1, nx) arrays, read in place of the
+// in-shard y neighbour on the shard's first and last row. Three-point
+// stencils need no corner halos. Wall masks, clamps and ramps take the
+// cell's GLOBAL (z, y) from the shard's offsets (coords[2 s], coords[2 s +
+// 1]) and the grid's (NZ, NY), so a shard seam is interior; the wraparound
+// halo of a shard on a physical wall is only ever next to ring cells, which
+// read no neighbour. The TPU kernels' y tiles, 8-row seam strips and plane
+// selects are VMEM bookkeeping with no counterpart here. The sponge's clamp
+// source lies at most width - 1 cells from the cell, in the same shard when
+// nz >= 2 width and ny >= 2 width (the wrapper's gate). Bounds: as the
+// single-device instance plus the halo planes and rows read once. The
+// single-device instance compiles every halo branch away (if constexpr).
 //
 // rotational_curl_add_3d
 //   Replaces sopht_mpi_tpu/ops/pallas_stencils_3d.py
@@ -97,18 +121,50 @@ __device__ __forceinline__ double max_t(double a, double b) {
   return fmax(a, b);
 }
 
-// The cell this thread owns; false for the ragged edge of the launch.
+// The extent of a launch: the (nz, ny, nx) block a plane row of blocks walks
+// (the grid, or one shard) and the grid's extent along the sharded axes
+// (NZ = nz, NY = ny on a single-device launch).
+struct Geom {
+  int nz, ny, nx;
+  int NZ, NY;
+};
+
+// The cell this thread owns: (z, y, x) in its block, (gz, gy) in the grid,
+// the shard s (0 on a single-device launch) and the cell's index i in an
+// (nz, ny, nx) component.
 struct Cell {
   int x, y, z;
+  int gz, gy;
+  int s;
   long long i;
 };
 
-__device__ __forceinline__ bool this_cell(int nz, int ny, int nx, Cell& c) {
+// False for the ragged edge of the launch. On a sharded launch blockIdx.z
+// runs over (shard, local plane) and coords holds each shard's global
+// (z0, y0).
+template <bool kSharded>
+__device__ __forceinline__ bool this_cell(const Geom& g,
+                                          const int* __restrict__ coords,
+                                          Cell& c) {
   c.x = blockIdx.x * kBlockX + threadIdx.x;
   c.y = blockIdx.y * kBlockY + threadIdx.y;
-  c.z = blockIdx.z;
-  c.i = ((long long)c.z * ny + c.y) * nx + c.x;
-  return c.x < nx && c.y < ny;
+  if constexpr (kSharded) {
+    c.s = blockIdx.z / g.nz;  // uniform over the block
+    c.z = blockIdx.z - c.s * g.nz;
+    c.gz = coords[2 * c.s] + c.z;
+    c.gy = coords[2 * c.s + 1] + c.y;
+  } else {
+    c.s = 0;
+    c.z = blockIdx.z;
+    c.gz = c.z;
+    c.gy = c.y;
+  }
+  c.i = ((long long)c.z * g.ny + c.y) * g.nx + c.x;
+  return c.x < g.nx && c.y < g.ny;
+}
+
+__device__ __forceinline__ bool this_cell(int nz, int ny, int nx, Cell& c) {
+  return this_cell<false>(Geom{nz, ny, nx, nz, ny}, nullptr, c);
 }
 
 __device__ __forceinline__ bool on_ring(int z, int y, int x, int nz, int ny,
@@ -116,6 +172,60 @@ __device__ __forceinline__ bool on_ring(int z, int y, int x, int nz, int ny,
   return z == 0 || y == 0 || x == 0 || z == nz - 1 || y == ny - 1 ||
          x == nx - 1;
 }
+
+// One input field as a thread reads it. f is component 0 of the thread's
+// block with the cell index i valid in it: on a sharded launch the shard's
+// z-ghosted block moved up one plane, so i - plane and i + plane reach the
+// ghost planes. lo and hi are component 0 of the shard's low and high
+// neighbour y rows (sharded launches only), indexed by (z, x). n and nr are
+// the component strides of f and of the row arrays.
+template <typename T, bool kSharded>
+struct Src {
+  const T* f;
+  const T* lo;
+  const T* hi;
+  long long n, nr;
+
+  __device__ __forceinline__ Src(const T* __restrict__ field,
+                                 const T* __restrict__ ylo,
+                                 const T* __restrict__ yhi, const Geom& g,
+                                 int s) {
+    const long long plane = (long long)g.ny * g.nx;
+    if constexpr (kSharded) {
+      n = plane * (g.nz + 2);
+      nr = (long long)g.nz * g.nx;
+      f = field + 3 * n * s + plane;
+      lo = ylo + 3 * nr * s;
+      hi = yhi + 3 * nr * s;
+    } else {
+      n = plane * g.nz;
+      nr = 0;
+      f = field;
+      lo = hi = nullptr;
+    }
+  }
+
+  // Whether the y - 1 (y + 1) neighbour of a cell on row y of the block
+  // lies in the low (high) row array.
+  __device__ __forceinline__ bool below(int y) const {
+    return kSharded && y == 0;
+  }
+  __device__ __forceinline__ bool above(int y, const Geom& g) const {
+    return kSharded && y == g.ny - 1;
+  }
+
+  // Component k at the y - 1 / y + 1 neighbour of cell (z, y, x), index i.
+  __device__ __forceinline__ T ym(int k, long long i, int z, int y, int x,
+                                  const Geom& g) const {
+    if (below(y)) return __ldg(lo + k * nr + (long long)z * g.nx + x);
+    return __ldg(f + k * n + i - g.nx);
+  }
+  __device__ __forceinline__ T yp(int k, long long i, int z, int y, int x,
+                                  const Geom& g) const {
+    if (above(y, g)) return __ldg(hi + k * nr + (long long)z * g.nx + x);
+    return __ldg(f + k * n + i + g.nx);
+  }
+};
 
 template <typename T>
 __device__ __forceinline__ void cross_at(const T* __restrict__ u,
@@ -128,37 +238,53 @@ __device__ __forceinline__ void cross_at(const T* __restrict__ u,
   q[2] = u0 * w1 - u1 * w0;
 }
 
-template <typename T>
+template <typename T, bool kSharded>
 __global__ void __launch_bounds__(kThreads)
     rotational_curl_add_kernel(const T* __restrict__ w,
+                               const T* __restrict__ w_ylo,
+                               const T* __restrict__ w_yhi,
                                const T* __restrict__ u,
+                               const T* __restrict__ u_ylo,
+                               const T* __restrict__ u_yhi,
+                               const int* __restrict__ coords,
                                const T* __restrict__ pref,
-                               T* __restrict__ out, int nz, int ny, int nx) {
+                               T* __restrict__ out, Geom g) {
   Cell c;
-  if (!this_cell(nz, ny, nx, c)) return;
-  const long long sy = nx;
-  const long long sz = (long long)ny * nx;
-  const long long n = sz * nz;
+  if (!this_cell<kSharded>(g, coords, c)) return;
+  const long long sy = g.nx;
+  const long long sz = (long long)g.ny * g.nx;
+  const long long n = sz * g.nz;
   const long long i = c.i;
-  const T w0 = __ldg(w + i), w1 = __ldg(w + n + i), w2 = __ldg(w + 2 * n + i);
-  if (on_ring(c.z, c.y, c.x, nz, ny, nx)) {
-    out[i] = w0;
-    out[n + i] = w1;
-    out[2 * n + i] = w2;
+  const Src<T, kSharded> ws(w, w_ylo, w_yhi, g, c.s);
+  const Src<T, kSharded> us(u, u_ylo, u_yhi, g, c.s);
+  T* o = out + 3 * n * c.s;
+  const T w0 = __ldg(ws.f + i), w1 = __ldg(ws.f + ws.n + i),
+          w2 = __ldg(ws.f + 2 * ws.n + i);
+  if (on_ring(c.gz, c.gy, c.x, g.NZ, g.NY, g.nx)) {
+    o[i] = w0;
+    o[n + i] = w1;
+    o[2 * n + i] = w2;
     return;
   }
   T qxp[3], qxm[3], qyp[3], qym[3], qzp[3], qzm[3];
-  cross_at(u, w, i + 1, n, qxp);
-  cross_at(u, w, i - 1, n, qxm);
-  cross_at(u, w, i + sy, n, qyp);
-  cross_at(u, w, i - sy, n, qym);
-  cross_at(u, w, i + sz, n, qzp);
-  cross_at(u, w, i - sz, n, qzm);
+  cross_at(us.f, ws.f, i + 1, ws.n, qxp);
+  cross_at(us.f, ws.f, i - 1, ws.n, qxm);
+  const long long row = (long long)c.z * g.nx + c.x;
+  if (ws.above(c.y, g))
+    cross_at(us.hi, ws.hi, row, ws.nr, qyp);
+  else
+    cross_at(us.f, ws.f, i + sy, ws.n, qyp);
+  if (ws.below(c.y))
+    cross_at(us.lo, ws.lo, row, ws.nr, qym);
+  else
+    cross_at(us.f, ws.f, i - sy, ws.n, qym);
+  cross_at(us.f, ws.f, i + sz, ws.n, qzp);
+  cross_at(us.f, ws.f, i - sz, ws.n, qzm);
   const T p = *pref;
   // component order of _curl_planes: curl_x = d_y q_z - d_z q_y, ...
-  out[i] = w0 + p * ((qyp[2] - qym[2]) - (qzp[1] - qzm[1]));
-  out[n + i] = w1 + p * ((qzp[0] - qzm[0]) - (qxp[2] - qxm[2]));
-  out[2 * n + i] = w2 + p * ((qxp[1] - qxm[1]) - (qyp[0] - qym[0]));
+  o[i] = w0 + p * ((qyp[2] - qym[2]) - (qzp[1] - qzm[1]));
+  o[n + i] = w1 + p * ((qzp[0] - qzm[0]) - (qxp[2] - qxm[2]));
+  o[2 * n + i] = w2 + p * ((qxp[1] - qxm[1]) - (qyp[0] - qym[0]));
 }
 
 // Sponge ramp: sin(pi/2 k / w) at distance k < w from a wall, 1 inside.
@@ -175,29 +301,36 @@ __device__ __forceinline__ int clamp_src(int i, int n, int w) {
   return i < w - 1 ? w - 1 : (i > n - w ? n - w : i);
 }
 
-template <typename T>
+template <typename T, bool kSharded>
 __global__ void __launch_bounds__(kThreads)
     diffusion_penalise_kernel(const T* __restrict__ f,
+                              const T* __restrict__ ylo,
+                              const T* __restrict__ yhi,
+                              const int* __restrict__ coords,
                               const T* __restrict__ pref,
-                              T* __restrict__ out, int nz, int ny, int nx,
-                              int width) {
+                              T* __restrict__ out, Geom g, int width) {
   Cell c;
-  if (!this_cell(nz, ny, nx, c)) return;
-  const long long sy = nx;
-  const long long sz = (long long)ny * nx;
-  const long long n = sz * nz;
-  const int xs = clamp_src(c.x, nx, width);
-  const int ys = clamp_src(c.y, ny, width);
-  const int zs = clamp_src(c.z, nz, width);
-  const long long s = ((long long)zs * ny + ys) * nx + xs;
-  const bool interior = !on_ring(zs, ys, xs, nz, ny, nx);
-  const T rx = ramp<T>(c.x, nx, width);
-  const T ry = ramp<T>(c.y, ny, width);
-  const T rz = ramp<T>(c.z, nz, width);
+  if (!this_cell<kSharded>(g, coords, c)) return;
+  const long long sz = (long long)g.ny * g.nx;
+  const long long n = sz * g.nz;
+  const Src<T, kSharded> src(f, ylo, yhi, g, c.s);
+  T* o = out + 3 * n * c.s;
+  // the clamp source in the grid, then in this block: at most width - 1
+  // cells away, inside the shard where nz >= 2 width and ny >= 2 width
+  const int xs = clamp_src(c.x, g.nx, width);
+  const int gys = clamp_src(c.gy, g.NY, width);
+  const int gzs = clamp_src(c.gz, g.NZ, width);
+  const int ys = gys - (c.gy - c.y);
+  const int zs = gzs - (c.gz - c.z);
+  const long long s = ((long long)zs * g.ny + ys) * g.nx + xs;
+  const bool interior = !on_ring(gzs, gys, xs, g.NZ, g.NY, g.nx);
+  const T rx = ramp<T>(c.x, g.nx, width);
+  const T ry = ramp<T>(c.gy, g.NY, width);
+  const T rz = ramp<T>(c.gz, g.NZ, width);
   const T p = *pref;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const T* fc = f + k * n;
+    const T* fc = src.f + k * src.n;
     const T center = __ldg(fc + s);
     T v = center;
     if (interior) {
@@ -205,12 +338,12 @@ __global__ void __launch_bounds__(kThreads)
       // neighbour pairs
       T lap = T(-6) * center;
       lap = (lap + __ldg(fc + s + sz)) + __ldg(fc + s - sz);
-      lap = (lap + __ldg(fc + s + sy)) + __ldg(fc + s - sy);
+      lap = (lap + src.yp(k, s, zs, ys, xs, g)) + src.ym(k, s, zs, ys, xs, g);
       lap = (lap + __ldg(fc + s + 1)) + __ldg(fc + s - 1);
       v = center + p * lap;
     }
     // the plain version ramps along x, then y, then z
-    out[k * n + c.i] = ((v * rx) * ry) * rz;
+    o[k * n + c.i] = ((v * rx) * ry) * rz;
   }
 }
 
@@ -223,40 +356,44 @@ __device__ __forceinline__ void atomic_max_nonneg(double* addr, double v) {
             static_cast<unsigned long long>(__double_as_longlong(v)));
 }
 
-template <typename T>
+template <typename T, bool kSharded>
 __global__ void __launch_bounds__(kThreads)
-    curl_kernel(const T* __restrict__ psi, const T* __restrict__ pref,
-                const T* __restrict__ add, T* __restrict__ out,
-                T* __restrict__ l1_max, int nz, int ny, int nx) {
+    curl_kernel(const T* __restrict__ psi, const T* __restrict__ ylo,
+                const T* __restrict__ yhi, const int* __restrict__ coords,
+                const T* __restrict__ pref, const T* __restrict__ add,
+                T* __restrict__ out, T* __restrict__ l1_max, Geom g) {
   Cell c;
-  const bool valid = this_cell(nz, ny, nx, c);
+  const bool valid = this_cell<kSharded>(g, coords, c);
   T l1 = T(0);
   if (valid) {
-    const long long sy = nx;
-    const long long sz = (long long)ny * nx;
-    const long long n = sz * nz;
+    const long long sz = (long long)g.ny * g.nx;
+    const long long n = sz * g.nz;
     const long long i = c.i;
+    const Src<T, kSharded> src(psi, ylo, yhi, g, c.s);
+    T* o = out + 3 * n * c.s;
     T c0 = T(0), c1 = T(0), c2 = T(0);
-    if (!on_ring(c.z, c.y, c.x, nz, ny, nx)) {
-      const T* p0 = psi;
-      const T* p1 = psi + n;
-      const T* p2 = psi + 2 * n;
+    if (!on_ring(c.gz, c.gy, c.x, g.NZ, g.NY, g.nx)) {
+      const T* p0 = src.f;
+      const T* p1 = src.f + src.n;
+      const T* p2 = src.f + 2 * src.n;
       const T p = *pref;
-      c0 = p * ((__ldg(p2 + i + sy) - __ldg(p2 + i - sy)) -
+      c0 = p * ((src.yp(2, i, c.z, c.y, c.x, g) -
+                 src.ym(2, i, c.z, c.y, c.x, g)) -
                 (__ldg(p1 + i + sz) - __ldg(p1 + i - sz)));
       c1 = p * ((__ldg(p0 + i + sz) - __ldg(p0 + i - sz)) -
                 (__ldg(p2 + i + 1) - __ldg(p2 + i - 1)));
       c2 = p * ((__ldg(p1 + i + 1) - __ldg(p1 + i - 1)) -
-                (__ldg(p0 + i + sy) - __ldg(p0 + i - sy)));
+                (src.yp(0, i, c.z, c.y, c.x, g) -
+                 src.ym(0, i, c.z, c.y, c.x, g)));
     }
     if (add != nullptr) {
       c0 = c0 + add[0];
       c1 = c1 + add[1];
       c2 = c2 + add[2];
     }
-    out[i] = c0;
-    out[n + i] = c1;
-    out[2 * n + i] = c2;
+    o[i] = c0;
+    o[n + i] = c1;
+    o[2 * n + i] = c2;
     l1 = (abs_t(c0) + abs_t(c1)) + abs_t(c2);
   }
   if (l1_max == nullptr) return;  // uniform across the launch
@@ -273,36 +410,42 @@ __global__ void __launch_bounds__(kThreads)
     l1 = lane < kThreads / 32 ? warp_max[lane] : T(0);
     for (int off = 16; off > 0; off >>= 1)
       l1 = max_t(l1, __shfl_down_sync(0xffffffffu, l1, off));
-    if (lane == 0) atomic_max_nonneg(l1_max, l1);
+    // one slot a shard: a block lies in one shard
+    if (lane == 0) atomic_max_nonneg(l1_max + c.s, l1);
   }
 }
 
-template <typename T>
+template <typename T, bool kSharded>
 __global__ void __launch_bounds__(kThreads)
-    diffusion_kernel(const T* __restrict__ f, const T* __restrict__ pref,
-                     T* __restrict__ out, int nz, int ny, int nx) {
+    diffusion_kernel(const T* __restrict__ f, const T* __restrict__ ylo,
+                     const T* __restrict__ yhi,
+                     const int* __restrict__ coords,
+                     const T* __restrict__ pref, T* __restrict__ out,
+                     Geom g) {
   Cell c;
-  if (!this_cell(nz, ny, nx, c)) return;
-  const long long sy = nx;
-  const long long sz = (long long)ny * nx;
-  const long long n = sz * nz;
+  if (!this_cell<kSharded>(g, coords, c)) return;
+  const long long sz = (long long)g.ny * g.nx;
+  const long long n = sz * g.nz;
   const long long i = c.i;
-  const bool interior = !on_ring(c.z, c.y, c.x, nz, ny, nx);
+  const Src<T, kSharded> src(f, ylo, yhi, g, c.s);
+  T* o = out + 3 * n * c.s;
+  const bool interior = !on_ring(c.gz, c.gy, c.x, g.NZ, g.NY, g.nx);
   const T p = *pref;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const T* fc = f + k * n;
+    const T* fc = src.f + k * src.n;
     const T center = __ldg(fc + i);
     T v = center;
     if (interior) {
       // summation order of the plain version (see diffusion_penalise_kernel)
       T lap = T(-6) * center;
       lap = (lap + __ldg(fc + i + sz)) + __ldg(fc + i - sz);
-      lap = (lap + __ldg(fc + i + sy)) + __ldg(fc + i - sy);
+      lap = (lap + src.yp(k, i, c.z, c.y, c.x, g)) +
+            src.ym(k, i, c.z, c.y, c.x, g);
       lap = (lap + __ldg(fc + i + 1)) + __ldg(fc + i - 1);
       v = center + p * lap;
     }
-    out[k * n + i] = v;
+    o[k * n + i] = v;
   }
 }
 
@@ -451,39 +594,95 @@ inline dim3 grid_of(int nz, int ny, int nx) {
   return dim3((nx + kBlockX - 1) / kBlockX, (ny + kBlockY - 1) / kBlockY, nz);
 }
 
+// A sharded launch's grid: blockIdx.z over (shard, local plane).
+inline bool sharded_grid_ok(int nshards, int nz) {
+  return nshards > 0 && nz > 0 && (long long)nshards * nz <= 65535;
+}
+
 }  // namespace
 
 #define SOPHT_DEFINE_ENTRIES(T, SUFFIX)                                        \
   extern "C" int sopht_rotational_curl_add_3d_##SUFFIX(                        \
       const T* w, const T* u, const T* pref, T* out, int nz, int ny, int nx,  \
       void* stream) {                                                          \
-    rotational_curl_add_kernel<T>                                              \
+    rotational_curl_add_kernel<T, false>                                       \
         <<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,                     \
-           (cudaStream_t)stream>>>(w, u, pref, out, nz, ny, nx);               \
+           (cudaStream_t)stream>>>(w, nullptr, nullptr, u, nullptr, nullptr,   \
+                                   nullptr, pref, out,                         \
+                                   Geom{nz, ny, nx, nz, ny});                  \
+    return (int)cudaGetLastError();                                            \
+  }                                                                            \
+  extern "C" int sopht_rotational_curl_add_3d_sharded_##SUFFIX(                \
+      const T* wg, const T* w_ylo, const T* w_yhi, const T* ug,                \
+      const T* u_ylo, const T* u_yhi, const int* coords, const T* pref,        \
+      T* out, int nshards, int nz, int ny, int nx, int NZ, int NY,             \
+      void* stream) {                                                          \
+    if (!sharded_grid_ok(nshards, nz)) return (int)cudaErrorInvalidValue;      \
+    rotational_curl_add_kernel<T, true>                                        \
+        <<<grid_of(nshards * nz, ny, nx), dim3(kBlockX, kBlockY), 0,           \
+           (cudaStream_t)stream>>>(wg, w_ylo, w_yhi, ug, u_ylo, u_yhi, coords, \
+                                   pref, out, Geom{nz, ny, nx, NZ, NY});       \
     return (int)cudaGetLastError();                                            \
   }                                                                            \
   extern "C" int sopht_diffusion_penalise_vector_3d_##SUFFIX(                  \
       const T* f, const T* pref, T* out, int nz, int ny, int nx, int width,    \
       void* stream) {                                                          \
-    diffusion_penalise_kernel<T>                                               \
+    diffusion_penalise_kernel<T, false>                                        \
         <<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,                     \
-           (cudaStream_t)stream>>>(f, pref, out, nz, ny, nx, width);           \
+           (cudaStream_t)stream>>>(f, nullptr, nullptr, nullptr, pref, out,    \
+                                   Geom{nz, ny, nx, nz, ny}, width);           \
+    return (int)cudaGetLastError();                                            \
+  }                                                                            \
+  extern "C" int sopht_diffusion_penalise_vector_3d_sharded_##SUFFIX(          \
+      const T* fg, const T* ylo, const T* yhi, const int* coords,              \
+      const T* pref, T* out, int nshards, int nz, int ny, int nx, int NZ,      \
+      int NY, int width, void* stream) {                                       \
+    if (!sharded_grid_ok(nshards, nz)) return (int)cudaErrorInvalidValue;      \
+    diffusion_penalise_kernel<T, true>                                         \
+        <<<grid_of(nshards * nz, ny, nx), dim3(kBlockX, kBlockY), 0,           \
+           (cudaStream_t)stream>>>(fg, ylo, yhi, coords, pref, out,            \
+                                   Geom{nz, ny, nx, NZ, NY}, width);           \
     return (int)cudaGetLastError();                                            \
   }                                                                            \
   extern "C" int sopht_curl_3d_##SUFFIX(const T* psi, const T* pref,           \
                                         const T* add, T* out, T* l1_max,       \
                                         int nz, int ny, int nx,                \
                                         void* stream) {                        \
-    curl_kernel<T><<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,           \
-                     (cudaStream_t)stream>>>(psi, pref, add, out, l1_max, nz,  \
-                                             ny, nx);                          \
+    curl_kernel<T, false>                                                      \
+        <<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,                     \
+           (cudaStream_t)stream>>>(psi, nullptr, nullptr, nullptr, pref, add,  \
+                                   out, l1_max, Geom{nz, ny, nx, nz, ny});     \
+    return (int)cudaGetLastError();                                            \
+  }                                                                            \
+  extern "C" int sopht_curl_3d_sharded_##SUFFIX(                               \
+      const T* psig, const T* ylo, const T* yhi, const int* coords,            \
+      const T* pref, const T* add, T* out, T* l1_max, int nshards, int nz,     \
+      int ny, int nx, int NZ, int NY, void* stream) {                          \
+    if (!sharded_grid_ok(nshards, nz)) return (int)cudaErrorInvalidValue;      \
+    curl_kernel<T, true>                                                       \
+        <<<grid_of(nshards * nz, ny, nx), dim3(kBlockX, kBlockY), 0,           \
+           (cudaStream_t)stream>>>(psig, ylo, yhi, coords, pref, add, out,     \
+                                   l1_max, Geom{nz, ny, nx, NZ, NY});          \
     return (int)cudaGetLastError();                                            \
   }                                                                            \
   extern "C" int sopht_diffusion_vector_3d_##SUFFIX(                           \
       const T* f, const T* pref, T* out, int nz, int ny, int nx,               \
       void* stream) {                                                          \
-    diffusion_kernel<T><<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,      \
-                          (cudaStream_t)stream>>>(f, pref, out, nz, ny, nx);   \
+    diffusion_kernel<T, false>                                                 \
+        <<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,                     \
+           (cudaStream_t)stream>>>(f, nullptr, nullptr, nullptr, pref, out,    \
+                                   Geom{nz, ny, nx, nz, ny});                  \
+    return (int)cudaGetLastError();                                            \
+  }                                                                            \
+  extern "C" int sopht_diffusion_vector_3d_sharded_##SUFFIX(                   \
+      const T* fg, const T* ylo, const T* yhi, const int* coords,              \
+      const T* pref, T* out, int nshards, int nz, int ny, int nx, int NZ,      \
+      int NY, void* stream) {                                                  \
+    if (!sharded_grid_ok(nshards, nz)) return (int)cudaErrorInvalidValue;      \
+    diffusion_kernel<T, true>                                                  \
+        <<<grid_of(nshards * nz, ny, nx), dim3(kBlockX, kBlockY), 0,           \
+           (cudaStream_t)stream>>>(fg, ylo, yhi, coords, pref, out,            \
+                                   Geom{nz, ny, nx, NZ, NY});                  \
     return (int)cudaGetLastError();                                            \
   }                                                                            \
   extern "C" int sopht_mult_filter_pass_3d_##SUFFIX(                           \

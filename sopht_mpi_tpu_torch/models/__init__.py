@@ -24,17 +24,20 @@ from sopht_mpi_tpu_torch.models.immersed_body import (
 )
 from sopht_mpi_tpu_torch.models import elastica
 from sopht_mpi_tpu_torch.models.fsi import (
+    FlowOnlyCarry,
     RigidFSICarry,
     RodFSICarry,
     MultiBodyFSICarry,
     RodBody,
     DynamicRigidBody,
     FixedRigidBody,
+    build_flow_only_step,
     build_rigid_fsi_step,
     build_rod_fsi_step,
     build_multi_body_fsi_step,
     suggest_rigid_forcing_window,
     suggest_rod_forcing_window,
+    init_flow_only_carry,
     init_rigid_fsi_carry,
     init_rod_fsi_carry,
     init_multi_body_fsi_carry,

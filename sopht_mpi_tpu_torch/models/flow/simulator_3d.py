@@ -1,6 +1,7 @@
 """3D unbounded flow simulator, rotational-form vorticity Navier-Stokes
-(counterpart of ``sopht_mpi_tpu/models/flow/simulator_3d.py``, single
-device, flow types ``navier_stokes`` and ``navier_stokes_with_forcing``).
+(counterpart of ``sopht_mpi_tpu/models/flow/simulator_3d.py``: flow types
+``navier_stokes`` and ``navier_stokes_with_forcing``, on one device or on
+an in-process (pz, py) mesh of shards).
 
 The transport is the rotational form: ``omega += dt/(2dx) curl(u x omega)``,
 then vector diffusion, then optional filtering, then velocity recovery
@@ -21,6 +22,20 @@ supports it (``fused_curl_supported``), and the solve + curl elsewhere, as
 the JAX package routes.
 The step keeps dt, its prefactors and ``max |u|_1`` as 0-d tensors on the
 device: nothing in it waits for the device.
+
+With a mesh (``mesh=create_mesh(3, (pz, py), device=...)``) every field is
+sharded, (pz, py, 3, nz/pz, ny/py, nx)
+(:mod:`sopht_mpi_tpu_torch.parallel.mesh`), and the step is the JAX
+package's mesh branch: the four sharded stencils of
+:mod:`sopht_mpi_tpu_torch.ops.cuda_stencils_3d_sharded` with their halo
+exchanges, and the Poisson solve through the distributed convolve; the fused
+velocity recovery is never taken. The ops the JAX package leaves to its
+SPMD partitioner there have no sharded kernel and run on the assembled
+field (:func:`~sopht_mpi_tpu_torch.parallel.mesh.apply_assembled`): the
+Laplacian filter with the sponge after it, and the sponge where the fused
+sharded kernel does not apply. The forcing update ``omega + dt/(2dx)
+curl(f)`` is the sharded curl kernel and an add. With ``use_kernels`` off
+the whole transport and the curl are the plain ops on the assembled fields.
 """
 
 from __future__ import annotations
@@ -31,6 +46,7 @@ import numpy as np
 import torch
 
 from sopht_mpi_tpu_torch.ops import cuda_stencils_3d as kernels
+from sopht_mpi_tpu_torch.ops import cuda_stencils_3d_sharded as sharded
 from sopht_mpi_tpu_torch.ops.elementwise import add_fixed_val, cross_product_3d
 from sopht_mpi_tpu_torch.ops.poisson import UnboundedPoissonSolver3D
 from sopht_mpi_tpu_torch.ops.stencils_3d import (
@@ -40,22 +56,30 @@ from sopht_mpi_tpu_torch.ops.stencils_3d import (
     penalise_field_boundary_vector_3d,
     update_vorticity_from_velocity_forcing_3d,
 )
+from sopht_mpi_tpu_torch.parallel import collectives
+from sopht_mpi_tpu_torch.parallel.mesh import (
+    MESH_AXES_3D,
+    apply_assembled,
+    check_grid_divisibility,
+    shard_vector_field,
+)
 from sopht_mpi_tpu_torch.utils.types import get_test_tol
 
 
 class FlowState3D(NamedTuple):
-    """``primary_field`` is the (3, nz, ny, nx) vorticity."""
+    """``primary_field`` is the (3, nz, ny, nx) vorticity; on a mesh every
+    field is sharded, (pz, py, 3, nz/pz, ny/py, nx)."""
 
     primary_field: torch.Tensor
     velocity_field: torch.Tensor
     eul_grid_forcing_field: torch.Tensor | None = None
 
 
-# options of the JAX simulator that the port takes only at their
-# single-device exact values, with the ROADMAP item that lifts each
-_SINGLE_DEVICE_ONLY = {
-    "overlap_chunks": ((None, 1), "queue A #11, multi-device"),
-    "comm_bf16": ((False,), "queue A #11, multi-device"),
+# options of the JAX simulator that the port takes only at some values,
+# with the place in ROADMAP.md that says why
+_RESTRICTED = {
+    "comm_bf16": ((False,), "'Do not port': the TPU transposes' bf16 wire "
+                            "format"),
 }
 
 
@@ -65,6 +89,13 @@ class UnboundedFlowSimulator3D:
     :param grid_size: (nz, ny, nx).
     :param device: the torch device every field lives on; required, no
         default is taken from the environment.
+    :param mesh: a mesh from ``parallel.create_mesh(3, (pz, py),
+        device=...)``, slab (n, 1) or pencil (pz, py), on the same device:
+        the fields are sharded over it and the step takes its mesh branch.
+        A mesh of one shard is the single-device simulator.
+    :param overlap_chunks: keyword option, the JAX package's pipelining
+        request of the sharded Poisson solve: any value >= 1 (or None) is
+        accepted and one chunk is realised.
     :param filter_vorticity: apply the Laplacian filter (default
         ``{"order": 2, "type": "multiplicative"}``, set with
         ``filter_setting_dict``).
@@ -114,19 +145,27 @@ class UnboundedFlowSimulator3D:
         if flow_type not in self.SUPPORTED_FLOW_TYPES:
             raise ValueError("Invalid flow type given")
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-device runs are not ported yet "
-                "(ROADMAP.md queue A #11)"
-            )
+            if getattr(mesh, "axis_names", None) != MESH_AXES_3D:
+                raise ValueError(
+                    "mesh: the 3D simulator needs a mesh from "
+                    "create_mesh(3, (pz, py), device=...)")
+            if mesh.device != self.device:
+                raise ValueError(
+                    f"mesh lies on {mesh.device}, the simulator on "
+                    f"{self.device}")
+            check_grid_divisibility(self.grid_size, mesh)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.penalty_zone_width = kwargs.get("penalty_zone_width", 2)
         self.use_kernels = kwargs.get("use_kernels", self.device.type == "cuda")
         self.filter_setting_dict = kwargs.get(
             "filter_setting_dict", {"order": 2, "type": "multiplicative"}
         ) or {"order": 2, "type": "multiplicative"}
         self.fast_spectral = kwargs.get("fast_spectral")
+        self.overlap_chunks = kwargs.get("overlap_chunks")
         known_kwargs = {"penalty_zone_width", "use_kernels",
-                        "filter_setting_dict", "fast_spectral"}
-        known_kwargs |= set(_SINGLE_DEVICE_ONLY)
+                        "filter_setting_dict", "fast_spectral",
+                        "overlap_chunks"}
+        known_kwargs |= set(_RESTRICTED)
         unknown = set(kwargs) - known_kwargs
         if unknown:
             # a typo'd option silently running the defaults would poison a
@@ -135,10 +174,10 @@ class UnboundedFlowSimulator3D:
                 f"Unknown keyword argument(s) {sorted(unknown)}; "
                 f"supported: {sorted(known_kwargs)}"
             )
-        for name, (allowed, item) in _SINGLE_DEVICE_ONLY.items():
+        for name, (allowed, item) in _RESTRICTED.items():
             if name in kwargs and kwargs[name] not in allowed:
                 raise NotImplementedError(
-                    f"{name}={kwargs[name]!r} is not ported yet "
+                    f"{name}={kwargs[name]!r} is not ported "
                     f"(ROADMAP.md {item}); allowed: {allowed}"
                 )
         self._init_domain()
@@ -159,14 +198,14 @@ class UnboundedFlowSimulator3D:
             )
         ]
         zg, yg, xg = np.meshgrid(axes[2], axes[1], axes[0], indexing="ij")
-        self.position_field = torch.as_tensor(
+        self.position_field = shard_vector_field(torch.as_tensor(
             np.stack([xg, yg, zg]), dtype=self.real_t, device=self.device
-        )
+        ), self.mesh)
 
     def _zeros(self):
-        return torch.zeros(
+        return shard_vector_field(torch.zeros(
             (3, *self.grid_size), dtype=self.real_t, device=self.device
-        )
+        ), self.mesh)
 
     def _init_fields(self):
         self.primary_field = self._zeros()
@@ -183,6 +222,8 @@ class UnboundedFlowSimulator3D:
             real_t=self.real_t,
             device=self.device,
             fast_spectral=self.fast_spectral,
+            mesh=self.mesh,
+            overlap_chunks=self.overlap_chunks,
         )
 
     @property
@@ -210,12 +251,13 @@ class UnboundedFlowSimulator3D:
             filter_type=self.filter_setting_dict["type"],
             poisson_solver=self.unbounded_poisson_solver,
             use_kernels=self.use_kernels,
+            mesh=self.mesh,
         )
 
     @property
     def _poisson_greens(self):
-        """The solver's stored spectrum: dense, or the kernel route's
-        (bulk, side) pair."""
+        """The solver's stored spectrum: dense (on a mesh in the sharded
+        Fourier layout), or the kernel route's (bulk, side) pair."""
         return self.unbounded_poisson_solver.fourier_greens_times_dx_pow_dim
 
     def _get_state(self) -> FlowState3D:
@@ -250,6 +292,7 @@ class UnboundedFlowSimulator3D:
             dx=self.dx,
             nu=self.kinematic_viscosity,
             tol=get_test_tol(precision),
+            mesh=self.mesh,
         )
         return float(dt) * dt_prefac
 
@@ -273,17 +316,28 @@ def compute_flow_velocity_3d(
     dx, penalty_zone_width, poisson_solver, with_free_stream,
     poisson_greens=None,
     use_kernels=False,
+    mesh=None,
     return_velocity_l1_max=False,
     skip_penalise=False,
 ):
     """Wall-penalise vorticity -> vector Poisson -> curl -> free stream.
     Returns (vorticity, velocity), plus the global ``max |u|_1`` of the new
     velocity (a 0-d tensor, reduced inside the curl kernel on the kernel
-    path) when ``return_velocity_l1_max``.
+    path, and over the mesh after it) when ``return_velocity_l1_max``.
 
     With the kernels on and a solver built with ``fast_spectral=True`` that
     supports the fused route for this field, the solve, the curl and the
-    epilogue are the solver's ``velocity_from_vorticity_fused``."""
+    epilogue are the solver's ``velocity_from_vorticity_fused`` (never on a
+    mesh). On a ``mesh`` the fields are sharded: the sponge runs on the
+    assembled field, the curl is the sharded kernel."""
+    if mesh is not None:
+        return _compute_flow_velocity_3d_sharded(
+            vorticity, free_stream_velocity, mesh, dx=dx,
+            penalty_zone_width=penalty_zone_width,
+            poisson_solver=poisson_solver, with_free_stream=with_free_stream,
+            poisson_greens=poisson_greens, use_kernels=use_kernels,
+            return_velocity_l1_max=return_velocity_l1_max,
+            skip_penalise=skip_penalise)
     if not skip_penalise:
         vorticity = penalise_field_boundary_vector_3d(
             vorticity, penalty_zone_width
@@ -328,6 +382,85 @@ def compute_flow_velocity_3d(
     return vorticity, velocity
 
 
+def _sponge(use_kernels: bool):
+    return (kernels.penalise_field_boundary_vector_3d if use_kernels
+            else penalise_field_boundary_vector_3d)
+
+
+def _compute_flow_velocity_3d_sharded(
+    vorticity, free_stream_velocity, mesh, *,
+    dx, penalty_zone_width, poisson_solver, with_free_stream,
+    poisson_greens, use_kernels, return_velocity_l1_max, skip_penalise,
+):
+    """The mesh branch of :func:`compute_flow_velocity_3d`."""
+    if not skip_penalise and penalty_zone_width > 0:
+        sponge = _sponge(use_kernels)
+        vorticity = apply_assembled(
+            lambda w: sponge(w, penalty_zone_width), mesh, vorticity)
+    stream_func = poisson_solver.vector_field_solve(vorticity, poisson_greens)
+    pref = 0.5 / dx
+    add_vector = free_stream_velocity if with_free_stream else None
+    if use_kernels:
+        res = sharded.curl_3d_sharded(
+            stream_func, pref, mesh, add_vector=add_vector,
+            compute_l1_max=return_velocity_l1_max)
+        velocity, l1_max = res if return_velocity_l1_max else (res, None)
+    else:
+        velocity = apply_assembled(
+            lambda psi: kernels.curl_3d_ref(
+                psi, pref,
+                None if add_vector is None else torch.as_tensor(
+                    add_vector, dtype=psi.dtype, device=psi.device)),
+            mesh, stream_func)
+        l1_max = (velocity_l1_max_3d(velocity, mesh)
+                  if return_velocity_l1_max else None)
+    if return_velocity_l1_max:
+        return vorticity, velocity, l1_max
+    return vorticity, velocity
+
+
+def velocity_l1_max_3d(velocity, mesh=None):
+    """``max |u_x| + |u_y| + |u_z|`` over the grid, a 0-d tensor: on a mesh
+    each shard's maximum, then the maximum over the mesh."""
+    magnitude = velocity.abs().sum(dim=-4)
+    if mesh is None:
+        return magnitude.max()
+    return collectives.pmax(magnitude.amax(dim=(-3, -2, -1)), mesh)
+
+
+def _transport_3d_sharded(field, velocity, mesh, *, pref, nu_dt_by_dx2,
+                          penalty_zone_width, filter_order, filter_type,
+                          use_kernels):
+    """The mesh branch of the transport of :func:`flow_step_3d`: (field,
+    whether the wall sponge was applied)."""
+    if not use_kernels:
+        def plain(w, u):
+            w = update_vorticity_from_velocity_forcing_3d(
+                w, cross_product_3d(u, w), pref)
+            w = diffusion_timestep_vector_3d(w, nu_dt_by_dx2)
+            if filter_order > 0:
+                w = laplacian_filter_vector_3d(w, filter_order, filter_type)
+            return w
+
+        return apply_assembled(plain, mesh, field, velocity), False
+    field = sharded.rotational_curl_add_3d_sharded(field, velocity, pref, mesh)
+    if filter_order == 0:
+        # the wall sponge fused into the sharded diffusion pass where every
+        # clamp source lies in its shard; the sharded diffusion kernel and
+        # the sponge on the assembled field elsewhere
+        return sharded.diffusion_penalise_vector_3d_sharded(
+            field, nu_dt_by_dx2, penalty_zone_width, mesh), True
+    field = sharded.diffusion_timestep_vector_3d_sharded(
+        field, nu_dt_by_dx2, mesh)
+
+    def filter_and_sponge(w):
+        w = kernels.laplacian_filter_vector_3d(w, filter_order, filter_type)
+        return kernels.penalise_field_boundary_vector_3d(
+            w, penalty_zone_width)
+
+    return apply_assembled(filter_and_sponge, mesh, field), True
+
+
 def flow_step_3d(
     state: FlowState3D,
     dt,
@@ -343,11 +476,14 @@ def flow_step_3d(
     poisson_solver,
     poisson_greens=None,
     use_kernels=False,
+    mesh=None,
     return_velocity_l1_max=False,
 ):
     """One full 3D flow timestep (pure). ``dt`` is a 0-d tensor on the
     fields' device. ``return_velocity_l1_max=True`` returns
-    ``(state, l1_max)`` with the new velocity's ``max |u|_1``."""
+    ``(state, l1_max)`` with the new velocity's ``max |u|_1``. With a
+    ``mesh`` the state's fields are sharded and the step takes the mesh
+    branch."""
     field = state.primary_field
     velocity = state.velocity_field
     forcing = state.eul_grid_forcing_field
@@ -357,10 +493,22 @@ def flow_step_3d(
         )
     nu_dt_by_dx2 = nu * dt / dx / dx
     pref = dt / (2.0 * dx)
-    if flow_type == "navier_stokes_with_forcing":
+    if flow_type == "navier_stokes_with_forcing" and mesh is None:
         field = update_vorticity_from_velocity_forcing_3d(field, forcing, pref)
+    elif flow_type == "navier_stokes_with_forcing" and use_kernels:
+        # omega + pref * 2 curl(f), the curl by the sharded kernel
+        field = field + sharded.curl_3d_sharded(forcing, pref, mesh)
+    elif flow_type == "navier_stokes_with_forcing":
+        field = apply_assembled(
+            lambda w, f: update_vorticity_from_velocity_forcing_3d(w, f, pref),
+            mesh, field, forcing)
     penalised_in_transport = False
-    if use_kernels:
+    if mesh is not None:
+        field, penalised_in_transport = _transport_3d_sharded(
+            field, velocity, mesh, pref=pref, nu_dt_by_dx2=nu_dt_by_dx2,
+            penalty_zone_width=penalty_zone_width, filter_order=filter_order,
+            filter_type=filter_type, use_kernels=use_kernels)
+    elif use_kernels:
         field = kernels.rotational_curl_add_3d(field, velocity, pref)
         if filter_order == 0 and kernels.diffusion_penalise_supported(
             field.shape, penalty_zone_width
@@ -400,6 +548,7 @@ def flow_step_3d(
         with_free_stream=with_free_stream,
         poisson_greens=poisson_greens,
         use_kernels=use_kernels,
+        mesh=mesh,
         return_velocity_l1_max=return_velocity_l1_max,
         skip_penalise=penalised_in_transport,
     )
@@ -415,11 +564,12 @@ def flow_step_3d(
     return new_state
 
 
-def compute_stable_timestep_3d(velocity_field, *, CFL, dx, nu, tol):
-    """CFL and diffusion limited dt, a 0-d tensor on the field's device."""
-    velocity_mag = velocity_field.abs().sum(dim=0)
+def compute_stable_timestep_3d(velocity_field, *, CFL, dx, nu, tol, mesh=None):
+    """CFL and diffusion limited dt, a 0-d tensor on the field's device;
+    with a ``mesh`` the velocity is sharded and its maximum reduced over
+    the mesh."""
     num = torch.full((), CFL * dx, dtype=velocity_field.dtype,
                      device=velocity_field.device)
-    dt_advection = num / (velocity_mag.max() + tol)
+    dt_advection = num / (velocity_l1_max_3d(velocity_field, mesh) + tol)
     dt_diffusion = 0.9 * dx**2 / (2 * 3) / (nu + tol)
     return torch.clamp(dt_advection, max=dt_diffusion)

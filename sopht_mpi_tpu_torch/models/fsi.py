@@ -21,7 +21,10 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from sopht_mpi_tpu_torch.models.flow.simulator_3d import flow_step_3d
+from sopht_mpi_tpu_torch.models.flow.simulator_3d import (
+    flow_step_3d,
+    velocity_l1_max_3d,
+)
 from sopht_mpi_tpu_torch.ops.ibm import (
     axis_delta_weight_matrices,
     eulerian_to_lagrangian_interpolation_mm,
@@ -1165,10 +1168,56 @@ def _stack(diags):
     return torch.stack(diags)
 
 
-def scan_steps(step_fn, carry, n_steps: int):
+class FlowOnlyCarry(NamedTuple):
+    flow_state: object
+    time: torch.Tensor
+    greens: object
+    velocity_l1_max: torch.Tensor = None  # see RigidFSICarry
+
+
+def build_flow_only_step(
+    flow_sim,
+    dt_prefac=1.0,
+    free_stream_fn: Callable | None = None,
+):
+    """One flow-only step (CFL dt control from the carried ``max |u|_1`` +
+    flow step) for the cases without a body, on one device or on the
+    simulator's mesh: nothing in it waits for the device. Compose with
+    :func:`scan_steps` using :func:`init_flow_only_carry`; the per-step
+    diagnostic is dt."""
+    flow_step_l1 = _flow_step_l1(flow_sim)
+    flow_dt = _flow_dt_fn(flow_sim, dt_prefac)
+    free_stream = _free_stream(free_stream_fn, flow_sim)
+
+    def step(carry: FlowOnlyCarry):
+        flow_state, time, greens, u_l1 = carry
+        dt = flow_dt(u_l1)
+        flow_state, new_l1 = flow_step_l1(
+            flow_state, dt, free_stream(time), greens)
+        return FlowOnlyCarry(flow_state, time + dt, greens, new_l1), dt
+
+    return step
+
+
+def init_flow_only_carry(flow_sim) -> FlowOnlyCarry:
+    velocity = flow_sim.velocity_field
+    return FlowOnlyCarry(
+        flow_state=flow_sim._get_state(),
+        time=torch.as_tensor(flow_sim.time, dtype=flow_sim.real_t,
+                             device=flow_sim.device),
+        greens=flow_sim._poisson_greens,
+        velocity_l1_max=(
+            velocity_l1_max(velocity) if flow_sim.grid_dim == 2
+            else velocity_l1_max_3d(velocity, flow_sim.mesh)),
+    )
+
+
+def scan_steps(step_fn, carry, n_steps: int, *, donate: bool = False):
     """Roll ``n_steps`` coupled steps; returns (final carry, per-step
     diagnostics stacked on a leading axis, each element of a (nested)
-    tuple diagnostic stacked on its own)."""
+    tuple diagnostic stacked on its own). ``donate`` (the JAX package's
+    buffer donation of the carry) is accepted and changes nothing: eager
+    PyTorch frees each step's carry as the next replaces it."""
     diags = []
     for _ in range(n_steps):
         carry, diag = step_fn(carry)

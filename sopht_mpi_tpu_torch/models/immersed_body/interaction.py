@@ -44,6 +44,10 @@ class ImmersedBodyFlowInteraction:
         start_time=0.0,
         body_dim=3,
     ):
+        if getattr(flow_sim, "mesh", None) is not None:
+            raise NotImplementedError(
+                "immersed bodies on a sharded simulator are not ported yet "
+                "(ROADMAP.md queue A #11d)")
         self.flow_sim = flow_sim
         self.forcing_grid = forcing_grid
         grid_dim = forcing_grid.grid_dim

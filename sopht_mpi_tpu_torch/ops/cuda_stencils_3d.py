@@ -46,6 +46,18 @@ _SIGNATURES = {
     "sopht_conv_filter_line_3d": (_P, _P, _I, _I, _I, _I, _I, _P),
     "sopht_conv_filter_z_pass_3d": (_P, _P, _P, _I, _I, _I, _P),
     "sopht_penalise_vector_3d": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # the sharded instances (wrappers in cuda_stencils_3d_sharded.py): the
+    # z-ghosted field(s) with their two y-row arrays, the shards' global
+    # offsets, ..., then (shards, nz, ny, nx) of a shard and the grid's
+    # (NZ, NY)
+    "sopht_rotational_curl_add_3d_sharded": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "sopht_diffusion_penalise_vector_3d_sharded": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "sopht_curl_3d_sharded": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "sopht_diffusion_vector_3d_sharded": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,0 +1,436 @@
+"""The four 3D stencils of the Navier-Stokes step on a sharded field: halo
+exchange, Hopper kernels, plain versions (counterpart of
+``sopht_mpi_tpu/ops/pallas_stencils_sharded.py``).
+
+A field is sharded over a (pz, py) mesh as (pz, py, 3, nzl, nyl, nx)
+(:mod:`sopht_mpi_tpu_torch.parallel.mesh`). Each public op
+
+1. exchanges the width-1 halos with
+   :func:`~sopht_mpi_tpu_torch.parallel.collectives.ppermute`: whole z
+   planes along "z" (:func:`_ghost_z`), single y rows along "y"
+   (:func:`_halo_y_rows`). These 3-point stencils need no corner halos;
+2. on a CUDA tensor launches the sharded instance of its kernel in
+   ``csrc/stencils_3d.cu`` once for all shards (the shard index rides in
+   ``blockIdx.z``), on the current stream, without synchronising, and adds
+   one to its ``launches`` count (or raises: there is no fallback). A thread
+   reads its own shard's block and the halo buffers only. Wall masks, clamps
+   and ramps use GLOBAL coordinates (:func:`_shard_coords`), so a shard seam
+   is interior and a physical wall behaves as in the single-device kernel;
+   the wraparound halo at a physical wall is garbage that no unmasked cell
+   reads;
+3. on a CPU tensor runs the same per-shard computation in plain PyTorch on
+   the exchanged halos (``_*_on_halos``).
+
+Beside each op stands its plain version ``*_sharded_ref``: the
+single-device plain op on the assembled field, sharded again. It serves
+the tests and the comparison on the card, and nothing on a path.
+
+Forward only: no ``torch.autograd.Function`` wraps these yet.
+
+Replaced TPU kernels: :func:`diffusion_timestep_vector_3d_sharded` <-
+``_diffusion_sharded_impl``, :func:`curl_3d_sharded` <-
+``_curl_sharded_impl``, :func:`rotational_curl_add_3d_sharded` <-
+``_rotational_sharded_impl``,
+:func:`diffusion_penalise_vector_3d_sharded` <- ``_diffpen_sharded_impl``.
+The JAX functions fall back to the global op unless the shard's y extent
+is a multiple of 8 (their VMEM tiling); these kernels take every shard
+shape, and the fused sponge needs only the clamp sources in the shard
+(:func:`diffusion_penalise_sharded_supported`).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from sopht_mpi_tpu_torch.ops import cuda_stencils_3d as _single
+from sopht_mpi_tpu_torch.ops import stencils_3d as _plain
+from sopht_mpi_tpu_torch.parallel import collectives
+from sopht_mpi_tpu_torch.parallel.mesh import (
+    Mesh,
+    apply_assembled,
+    on_assembled,
+    shard_vector_field,
+    unshard_vector_field,
+)
+
+# ---------------------------------------------------------------------------
+# halo exchange
+# ---------------------------------------------------------------------------
+
+
+def _ghost_z(f, mesh: Mesh):
+    """(pz, py, 3, nzl + 2, nyl, nx): ``f`` with one exchanged ghost plane a
+    z side (wraparound garbage at the physical walls, wall-masked)."""
+    last, first = f[:, :, :, -1:], f[:, :, :, :1]
+    if mesh.shape["z"] > 1:
+        lo = collectives.ppermute(last, mesh, "z", +1)   # prev shard's last
+        hi = collectives.ppermute(first, mesh, "z", -1)  # next shard's first
+    else:
+        lo, hi = last, first
+    return torch.cat([lo, f, hi], dim=3)
+
+
+def _halo_y_rows(f, mesh: Mesh):
+    """((pz, py, 3, nzl, 1, nx) ylo, yhi): the y-neighbour shards' edge
+    rows."""
+    last, first = f[:, :, :, :, -1:], f[:, :, :, :, :1]
+    if mesh.shape["y"] > 1:
+        ylo = collectives.ppermute(last, mesh, "y", +1)
+        yhi = collectives.ppermute(first, mesh, "y", -1)
+    else:
+        ylo, yhi = last, first
+    return ylo.contiguous(), yhi.contiguous()
+
+
+@functools.cache
+def _shard_coords(mesh_shape, nzl: int, nyl: int, device):
+    """(pz, py, 2) int32 [z0 plane, y0 row]: each shard's global offsets."""
+    pz, py = mesh_shape
+    z0 = torch.arange(pz, dtype=torch.int32).view(pz, 1) * nzl
+    y0 = torch.arange(py, dtype=torch.int32).view(1, py) * nyl
+    return torch.stack(
+        [z0.expand(pz, py), y0.expand(pz, py)], dim=-1
+    ).contiguous().to(device)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def diffusion_timestep_vector_3d_sharded_ref(vector_field, nu_dt_by_dx2, mesh):
+    """The single-device plain diffusion step on the assembled field,
+    sharded again."""
+    return on_assembled(
+        lambda f: _single.diffusion_timestep_vector_3d_ref(f, nu_dt_by_dx2),
+        mesh, vector_field)
+
+
+def curl_3d_sharded_ref(field, prefactor, mesh, add_vector=None,
+                        compute_l1_max=False):
+    """The single-device plain curl (+ constant, + ``max |u|_1``) on the
+    assembled field, sharded again."""
+    res = _single.curl_3d_ref(unshard_vector_field(field, mesh), prefactor,
+                              add_vector, compute_l1_max)
+    if compute_l1_max:
+        return shard_vector_field(res[0], mesh), res[1]
+    return shard_vector_field(res, mesh)
+
+
+def rotational_curl_add_3d_sharded_ref(vorticity, velocity, prefactor, mesh):
+    """The single-device plain rotational transport on the assembled
+    fields, sharded again."""
+    return on_assembled(
+        lambda w, u: _single.rotational_curl_add_3d_ref(w, u, prefactor),
+        mesh, vorticity, velocity)
+
+
+def diffusion_penalise_vector_3d_sharded_ref(vector_field, nu_dt_by_dx2,
+                                             width: int, mesh):
+    """The single-device plain diffusion step and wall sponge on the
+    assembled field, sharded again."""
+    return on_assembled(
+        lambda f: _single.diffusion_penalise_vector_3d_ref(
+            f, nu_dt_by_dx2, width),
+        mesh, vector_field)
+
+
+# the per-shard computation in plain PyTorch, on the exchanged halos: what a
+# CPU tensor runs
+
+
+def _extended(fg, ylo, yhi):
+    """(pz, py, 3, nzl + 2, nyl + 2, nx): the z-ghosted block with its y
+    rows attached; the four z-y corner lines, which no 3-point stencil
+    reads, are zero."""
+    corner = fg.new_zeros((*fg.shape[:3], 1, 1, fg.shape[-1]))
+    lo = torch.cat([corner, ylo, corner], dim=3)
+    hi = torch.cat([corner, yhi, corner], dim=3)
+    return torch.cat([lo, fg, hi], dim=4)
+
+
+def _global_index(mesh, nzl, nyl, device):
+    """((pz, 1, nzl, 1) gz, (1, py, 1, nyl) gy): every shard cell's global
+    z plane and y row."""
+    pz, py = mesh.axis_sizes
+    gz = torch.arange(pz * nzl, device=device).view(pz, 1, nzl, 1)
+    gy = torch.arange(py * nyl, device=device).view(1, py, 1, nyl)
+    return gz, gy
+
+
+def _zy_wall(mesh, nzl, nyl, device):
+    """(pz, py, 1, nzl, nyl, 1) bool: the cell lies on a global z or y
+    wall."""
+    gz, gy = _global_index(mesh, nzl, nyl, device)
+    pz, py = mesh.axis_sizes
+    wall = ((gz == 0) | (gz == pz * nzl - 1) | (gy == 0)
+            | (gy == py * nyl - 1))
+    return wall.view(pz, py, 1, nzl, nyl, 1)
+
+
+def _per_shard(op, *extended):
+    """``op`` of each shard's extended block(s), the halo cut off again."""
+    pz, py = extended[0].shape[:2]
+    return torch.stack([
+        torch.stack([
+            op(*(e[i, j] for e in extended))[:, 1:-1, 1:-1]
+            for j in range(py)])
+        for i in range(pz)])
+
+
+def _diffusion_on_halos(f, fg, ylo, yhi, nu_dt_by_dx2, mesh):
+    res = _per_shard(
+        lambda e: _plain.diffusion_timestep_vector_3d(e, nu_dt_by_dx2),
+        _extended(fg, ylo, yhi))
+    wall = _zy_wall(mesh, f.shape[3], f.shape[4], f.device)
+    return torch.where(wall, f, res)
+
+
+def _rotational_on_halos(w, u, w_halos, u_halos, prefactor, mesh):
+    res = _per_shard(
+        lambda we, ue: _single.rotational_curl_add_3d_ref(we, ue, prefactor),
+        _extended(*w_halos), _extended(*u_halos))
+    wall = _zy_wall(mesh, w.shape[3], w.shape[4], w.device)
+    return torch.where(wall, w, res)
+
+
+def _curl_on_halos(f, fg, ylo, yhi, prefactor, add_vector, mesh):
+    res = _per_shard(lambda e: _plain.curl_3d(e, prefactor),
+                     _extended(fg, ylo, yhi))
+    wall = _zy_wall(mesh, f.shape[3], f.shape[4], f.device)
+    out = torch.where(wall, torch.zeros((), dtype=f.dtype, device=f.device),
+                      res)
+    if add_vector is not None:
+        out = out + add_vector.to(out.dtype).reshape(3, 1, 1, 1)
+    return out
+
+
+def _sponge_in_shards(d, width, mesh):
+    """The wall sponge of the sharded field ``d`` with every clamp source
+    in its own shard (``nzl, nyl >= 2 width``): clamp and ramp by global
+    index along z and y, along x as on one device."""
+    pz, py, _, nzl, nyl, nx = d.shape
+    gz, gy = _global_index(mesh, nzl, nyl, d.device)
+
+    def clamp_and_ramp(g, n):
+        src = g.clamp(width - 1, n - width)
+        k = torch.minimum(g, n - 1 - g)  # the distance to the nearer wall
+        ramp = torch.sin(0.5 * math.pi * k.to(d.dtype) / width)
+        return src, torch.where(k < width, ramp, torch.ones_like(ramp))
+
+    d = _plain._penalise_axes(d, width, (5,))
+    ys, ry = clamp_and_ramp(gy, py * nyl)           # (1, py, 1, nyl)
+    yl = (ys - ys.new_tensor(range(0, py * nyl, nyl)).view(1, py, 1, 1))
+    d = torch.gather(
+        d, 4, yl.view(1, py, 1, 1, nyl, 1).expand(pz, py, 3, nzl, nyl, nx))
+    d = d * ry.view(1, py, 1, 1, nyl, 1)
+    zs, rz = clamp_and_ramp(gz, pz * nzl)           # (pz, 1, nzl, 1)
+    zl = (zs - zs.new_tensor(range(0, pz * nzl, nzl)).view(pz, 1, 1, 1))
+    d = torch.gather(
+        d, 3, zl.view(pz, 1, 1, nzl, 1, 1).expand(pz, py, 3, nzl, nyl, nx))
+    return d * rz.view(pz, 1, 1, nzl, 1, 1)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_sharded(name, t, mesh: Mesh, like=None):
+    if mesh.axis_names != ("z", "y"):
+        raise ValueError(f"{name}: the sharded stencils need a 3D (z, y) mesh")
+    if not torch.is_tensor(t) or t.ndim != 6 or t.shape[2] != 3 \
+            or tuple(t.shape[:2]) != mesh.axis_sizes:
+        raise ValueError(
+            f"{name}: expected a (pz, py, 3, nzl, nyl, nx) tensor on the "
+            f"mesh {mesh.shape}, got "
+            f"{tuple(t.shape) if torch.is_tensor(t) else type(t)}")
+    if t.dtype not in _single._SUFFIX:
+        raise TypeError(f"{name}: dtype {t.dtype} is not float32/float64")
+    if min(t.shape) == 0:
+        raise ValueError(f"{name}: empty shard {tuple(t.shape)}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    if like is not None and (
+        t.shape != like.shape or t.dtype != like.dtype
+        or t.device != like.device
+    ):
+        raise ValueError(
+            f"{name}: shape/dtype/device {tuple(t.shape)}/{t.dtype}/"
+            f"{t.device} differ from {tuple(like.shape)}/{like.dtype}/"
+            f"{like.device}")
+
+
+def _geometry(f):
+    """The kernels' integer arguments: shards, a shard's (nzl, nyl, nx) and
+    the grid's (NZ, NY)."""
+    pz, py, _, nzl, nyl, nx = f.shape
+    return pz * py, nzl, nyl, nx, pz * nzl, py * nyl
+
+
+def _coords(f):
+    pz, py, _, nzl, nyl, _ = f.shape
+    return _shard_coords((pz, py), nzl, nyl, f.device)
+
+
+def diffusion_timestep_vector_3d_sharded(vector_field, nu_dt_by_dx2,
+                                         mesh: Mesh):
+    """Diffusion Euler step ``f + nu_dt_by_dx2 * lap7(f)`` of a sharded
+    field, the global wall ring unchanged. Forward only."""
+    _check_sharded("vector_field", vector_field, mesh)
+    f = vector_field.contiguous()
+    fg = _ghost_z(f, mesh)
+    ylo, yhi = _halo_y_rows(f, mesh)
+    if f.device.type == "cpu":
+        return _diffusion_on_halos(f, fg, ylo, yhi, nu_dt_by_dx2, mesh)
+    pref = _single._device_tensor(f, nu_dt_by_dx2, 1, "nu_dt_by_dx2")
+    out = torch.empty_like(f)
+    _single._launch(
+        "sopht_diffusion_vector_3d_sharded", f,
+        fg.data_ptr(), ylo.data_ptr(), yhi.data_ptr(),
+        _coords(f).data_ptr(), pref.data_ptr(), out.data_ptr(), *_geometry(f),
+    )
+    diffusion_timestep_vector_3d_sharded.launches += 1
+    return out
+
+
+def curl_3d_sharded(field, prefactor, mesh: Mesh, add_vector=None, *,
+                    compute_l1_max=False):
+    """``prefactor * 2 * curl(field)`` of a sharded field (zero on the
+    global wall ring) plus the optional (3,) ``add_vector`` on every cell;
+    with ``compute_l1_max`` returns ``(u, max |u|_1)``: each shard's
+    maximum, then :func:`~sopht_mpi_tpu_torch.parallel.collectives.pmax`
+    over the mesh, a 0-d tensor on the field's device. Forward only."""
+    _check_sharded("field", field, mesh)
+    f = field.contiguous()
+    fg = _ghost_z(f, mesh)
+    ylo, yhi = _halo_y_rows(f, mesh)
+    if f.device.type == "cpu":
+        if add_vector is not None and not torch.is_tensor(add_vector):
+            add_vector = torch.tensor(add_vector, dtype=f.dtype)
+        out = _curl_on_halos(f, fg, ylo, yhi, prefactor, add_vector, mesh)
+        if compute_l1_max:
+            shard_max = out.abs().sum(dim=2).amax(dim=(2, 3, 4))
+            return out, collectives.pmax(shard_max, mesh)
+        return out
+    pref = _single._device_tensor(f, prefactor, 1, "prefactor")
+    add = (
+        None if add_vector is None
+        else _single._device_tensor(f, add_vector, 3, "add_vector")
+    )
+    out = torch.empty_like(f)
+    shard_max = (
+        torch.zeros(mesh.axis_sizes, dtype=f.dtype, device=f.device)
+        if compute_l1_max else None
+    )
+    _single._launch(
+        "sopht_curl_3d_sharded", f,
+        fg.data_ptr(), ylo.data_ptr(), yhi.data_ptr(),
+        _coords(f).data_ptr(), pref.data_ptr(),
+        None if add is None else add.data_ptr(), out.data_ptr(),
+        None if shard_max is None else shard_max.data_ptr(), *_geometry(f),
+    )
+    curl_3d_sharded.launches += 1
+    if compute_l1_max:
+        return out, collectives.pmax(shard_max, mesh)
+    return out
+
+
+def rotational_curl_add_3d_sharded(vorticity, velocity, prefactor, mesh: Mesh):
+    """Fused rotational-form transport ``w + prefactor * curl(u x w)`` of
+    sharded fields, the global wall ring of ``w`` unchanged; halos of both
+    fields are exchanged. Forward only."""
+    _check_sharded("vorticity", vorticity, mesh)
+    _check_sharded("velocity", velocity, mesh, like=vorticity)
+    w, u = vorticity.contiguous(), velocity.contiguous()
+    w_halos = (_ghost_z(w, mesh), *_halo_y_rows(w, mesh))
+    u_halos = (_ghost_z(u, mesh), *_halo_y_rows(u, mesh))
+    if w.device.type == "cpu":
+        return _rotational_on_halos(w, u, w_halos, u_halos, prefactor, mesh)
+    pref = _single._device_tensor(w, prefactor, 1, "prefactor")
+    out = torch.empty_like(w)
+    _single._launch(
+        "sopht_rotational_curl_add_3d_sharded", w,
+        *(t.data_ptr() for t in w_halos), *(t.data_ptr() for t in u_halos),
+        _coords(w).data_ptr(), pref.data_ptr(), out.data_ptr(), *_geometry(w),
+    )
+    rotational_curl_add_3d_sharded.launches += 1
+    return out
+
+
+def diffusion_penalise_sharded_supported(global_shape, mesh: Mesh,
+                                         width: int) -> bool:
+    """Whether the fused sharded diffusion + sponge kernel handles this
+    (global shape, mesh, sponge width): a sponge, more than ``2 width``
+    cells on every global axis, the grid dividing over the mesh, and every
+    clamp source in its own shard (``nzl >= 2 width``, ``nyl >= 2 width``).
+    Otherwise :func:`diffusion_penalise_vector_3d_sharded` runs the sharded
+    diffusion kernel and the sponge on the assembled field. The JAX gate's
+    tiling terms (rows a multiple of 8, the VMEM budget) have no
+    counterpart."""
+    if width <= 0:
+        return False
+    _, nz, ny, nx = global_shape
+    if nz <= 2 * width or ny <= 2 * width or nx <= 2 * width:
+        return False
+    pz, py = mesh.shape["z"], mesh.shape["y"]
+    if nz % pz or ny % py:
+        return False
+    return nz // pz >= 2 * width and ny // py >= 2 * width
+
+
+def _global_shape(f):
+    pz, py, _, nzl, nyl, nx = f.shape
+    return (3, pz * nzl, py * nyl, nx)
+
+
+def diffusion_penalise_vector_3d_sharded(vector_field, nu_dt_by_dx2,
+                                         width: int, mesh: Mesh):
+    """Fused diffusion Euler step and wall sponge of a sharded field,
+    ``penalise_field_boundary_vector_3d(diffusion_timestep_vector_3d(f,
+    nu_dt_by_dx2), width)`` on the global grid. Where
+    :func:`diffusion_penalise_sharded_supported` is False it runs the
+    sharded diffusion kernel and then the single-device sponge on the
+    assembled field. Forward only."""
+    _check_sharded("vector_field", vector_field, mesh)
+    width = int(width)
+    if not diffusion_penalise_sharded_supported(
+            _global_shape(vector_field), mesh, width):
+        out = diffusion_timestep_vector_3d_sharded(
+            vector_field, nu_dt_by_dx2, mesh)
+        if width == 0:
+            return out
+        return apply_assembled(
+            lambda f: _single.penalise_field_boundary_vector_3d(f, width),
+            mesh, out)
+    f = vector_field.contiguous()
+    fg = _ghost_z(f, mesh)
+    ylo, yhi = _halo_y_rows(f, mesh)
+    if f.device.type == "cpu":
+        return _sponge_in_shards(
+            _diffusion_on_halos(f, fg, ylo, yhi, nu_dt_by_dx2, mesh),
+            width, mesh)
+    pref = _single._device_tensor(f, nu_dt_by_dx2, 1, "nu_dt_by_dx2")
+    out = torch.empty_like(f)
+    _single._launch(
+        "sopht_diffusion_penalise_vector_3d_sharded", f,
+        fg.data_ptr(), ylo.data_ptr(), yhi.data_ptr(),
+        _coords(f).data_ptr(), pref.data_ptr(), out.data_ptr(),
+        *_geometry(f), width,
+    )
+    diffusion_penalise_vector_3d_sharded.launches += 1
+    return out
+
+
+#: the wrappers, for code that resets or reads every launch count
+KERNELS = (
+    rotational_curl_add_3d_sharded,
+    diffusion_penalise_vector_3d_sharded,
+    curl_3d_sharded,
+    diffusion_timestep_vector_3d_sharded,
+)
+for _fn in KERNELS:
+    _fn.launches = 0

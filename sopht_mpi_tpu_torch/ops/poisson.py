@@ -1,7 +1,7 @@
 """Unbounded (free-space) 2D and 3D Poisson solvers via Green's-function
 convolution (counterparts of ``UnboundedPoissonSolver2D`` and
-``UnboundedPoissonSolver3D`` in ``sopht_mpi_tpu/ops/poisson.py``, single
-device).
+``UnboundedPoissonSolver3D`` in ``sopht_mpi_tpu/ops/poisson.py``; single
+device, and the 3D solver also on a (pz, py) mesh of shards).
 
 Hockney-Eastwood domain doubling: the right-hand side is zero-padded to
 (2nz, 2ny, 2nx), multiplied in Fourier space by the real spectrum of the
@@ -37,6 +37,13 @@ kernel in float64 on the host, then per-axis symmetric DFTs (DCT-I) -
 contracted here in float64 on the target device and cast - giving the
 dense (2nz, 2ny, nx+1) real spectrum.
 
+On a mesh of more than one shard (``mesh=``, 3D only) fields and the
+Green's spectrum are sharded (:mod:`sopht_mpi_tpu_torch.parallel.mesh`):
+the full doubled kernel goes through
+:func:`~sopht_mpi_tpu_torch.parallel.fft.distributed_rfftn` once, its real
+part times dx^3 is stored dense in the Fourier layout, and the solves are
+:func:`~sopht_mpi_tpu_torch.parallel.fft.distributed_free_space_convolve`.
+
 The fast spectral tier (``fast_spectral=True``, counterpart of the JAX
 package's) recovers the velocity of a vorticity field in one pipeline,
 :meth:`UnboundedPoissonSolver3D.velocity_from_vorticity_fused`: the
@@ -56,6 +63,8 @@ import numpy as np
 import torch
 
 from sopht_mpi_tpu_torch.parallel import cuda_fft
+from sopht_mpi_tpu_torch.parallel import fft as _dist
+from sopht_mpi_tpu_torch.parallel.mesh import shard_scalar_field
 
 # Tests force the kernel route on CPU tensors (the passes then run their
 # plain versions): None = auto (on for a CUDA device), True/False = override.
@@ -411,13 +420,36 @@ class UnboundedPoissonSolver3D(_UnboundedPoissonSolver):
     :param fast_spectral: the fast spectral tier (velocity recovery through
         :meth:`velocity_from_vorticity_fused` where
         :meth:`fused_curl_supported`); None takes ``DEFAULT_FAST_SPECTRAL``.
+        Accepted and inert on a mesh, which never takes the fused route.
+    :param mesh: a 3D mesh from ``parallel.create_mesh(3, (pz, py))``. With
+        more than one shard the solver takes and returns sharded fields,
+        (pz, py, [c,] nz/pz, ny/py, nx), and stores the Green's spectrum
+        dense in the sharded Fourier layout; a mesh of one shard is the
+        single-device solver.
+    :param overlap_chunks: the JAX package's comm/compute pipelining request
+        of the distributed convolve: any value >= 1 (or None) is accepted
+        and one chunk is realised.
+    :param comm_bf16: the JAX package's bf16 wire format of the transposes;
+        True is refused.
     """
 
     grid_dim = 3
+    mesh = None  # the single-device solver, unless the constructor is given one
 
     def __init__(self, grid_size_z, grid_size_y, grid_size_x, x_range=1.0,
                  real_t=torch.float32, *, device,
-                 fast_spectral: bool | None = None):
+                 fast_spectral: bool | None = None, mesh=None,
+                 overlap_chunks: int | None = None, comm_bf16: bool = False):
+        if comm_bf16:
+            raise NotImplementedError(
+                "comm_bf16=True is not ported (ROADMAP.md, 'Do not port': "
+                "the bf16 wire format of the TPU transposes)")
+        if overlap_chunks is not None and overlap_chunks < 1:
+            raise ValueError(
+                f"overlap_chunks must be >= 1 (got {overlap_chunks}); "
+                "pass 1 to disable the comm/compute pipeline")
+        self.overlap_chunks = overlap_chunks
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.grid_size_z = grid_size_z
         self.grid_size_y = grid_size_y
         self.grid_size_x = grid_size_x
@@ -439,23 +471,55 @@ class UnboundedPoissonSolver3D(_UnboundedPoissonSolver):
         dxs = _even_reflected_axis_dist(
             2 * grid_size_x, self.dx, self.x_range, np.float64
         )
-        self._init_greens(_build_greens_kernel(
-            (dz[: grid_size_z + 1], dy[: grid_size_y + 1],
-             dxs[: grid_size_x + 1]),
-            lambda xp, r: 1.0 / (4.0 * np.pi * r),
-            1.0 / (4.0 * np.pi * self.dx),
-            np.float64,
-        ))
+        compute = lambda xp, r: 1.0 / (4.0 * np.pi * r)
+        origin = 1.0 / (4.0 * np.pi * self.dx)
+        if self.mesh is None:
+            self._init_greens(_build_greens_kernel(
+                (dz[: grid_size_z + 1], dy[: grid_size_y + 1],
+                 dxs[: grid_size_x + 1]), compute, origin, np.float64,
+            ))
+        else:
+            # the full doubled kernel, built on the host in float64, feeds
+            # the distributed transform (in float64, then cast: the
+            # single-device spectrum is contracted in float64 too)
+            kernel = torch.as_tensor(
+                _build_greens_kernel((dz, dy, dxs), compute, origin,
+                                     np.float64),
+                device=self.device)
+            ghat = _dist.distributed_rfftn(
+                shard_scalar_field(kernel, self.mesh), self.mesh)
+            self.fourier_greens_times_dx_pow_dim = (
+                ghat.real * self.dx**3).to(self.real_t).contiguous()
 
     @property
     def grid_size(self) -> tuple[int, int, int]:
         return (self.grid_size_z, self.grid_size_y, self.grid_size_x)
 
+    def uses_kernel_route(self, rhs_field) -> bool:
+        """Whether a solve of ``rhs_field`` takes the single-device kernel
+        route (never on a mesh: the distributed convolve chooses its passes
+        itself)."""
+        return self.mesh is None and super().uses_kernel_route(rhs_field)
+
+    def solve(self, rhs_field, greens=None):
+        """Solve ``-del^2(solution) = rhs``; on a mesh for a sharded field
+        (pz, py, [c,] nz/pz, ny/py, nx) through
+        :func:`~sopht_mpi_tpu_torch.parallel.fft.distributed_free_space_convolve`
+        (``greens`` then in the sharded Fourier layout)."""
+        if self.mesh is None:
+            return super().solve(rhs_field, greens)
+        if greens is None:
+            greens = self.fourier_greens_times_dx_pow_dim
+        return _dist.distributed_free_space_convolve(
+            rhs_field, greens, self.mesh, fast=self.fast_spectral,
+            overlap_chunks=self.overlap_chunks)
+
     def vector_field_solve(self, rhs_vector_field, greens=None):
         """Component-wise solve for a (3, nz, ny, nx) vector field: the
         components batched through one pipeline, or, on the kernel route
         at ``nz*ny*nx >= 2**27`` (512^3 class, where the batched spectra
-        outgrow device memory), one component after another."""
+        outgrow device memory), one component after another. On a mesh the
+        components fold into every transpose of the distributed convolve."""
         if (
             self.uses_kernel_route(rhs_vector_field)
             and self.grid_size_z * self.grid_size_y * self.grid_size_x
@@ -468,12 +532,13 @@ class UnboundedPoissonSolver3D(_UnboundedPoissonSolver):
         """Whether :meth:`velocity_from_vorticity_fused` applies to a field
         of ``dtype`` on ``device``: the kernel route with the components
         batched (below the 512^3-class threshold, where the component loop
-        cannot mix them). The JAX gate's VMEM tile checks
+        cannot mix them), and no mesh. The JAX gate's VMEM tile checks
         (``conv_curl_pass_tile_ok``, ``merge_velocity_epilogue_ok``) have
         no counterpart: the kernels take every length of the route."""
         nz, ny, nx = self.grid_size_z, self.grid_size_y, self.grid_size_x
         return (
-            _kernel_convolve_supported(self.doubled, dtype, device)
+            self.mesh is None
+            and _kernel_convolve_supported(self.doubled, dtype, device)
             and nz * ny * nx < _COMPONENT_MAP_THRESHOLD
         )
 

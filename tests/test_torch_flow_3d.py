@@ -20,6 +20,7 @@ from sopht_mpi_tpu_torch.models.flow.simulator_3d import (
     UnboundedFlowSimulator3D,
     compute_stable_timestep_3d,
 )
+from sopht_mpi_tpu_torch.parallel.mesh import create_mesh
 from sopht_mpi_tpu_torch.utils import get_real_t
 
 GRID = (12, 16, 20)
@@ -152,11 +153,27 @@ def test_constructor_option_checks():
         UnboundedFlowSimulator3D(**common, overlap_chunk=1)
     with pytest.raises(ValueError):
         UnboundedFlowSimulator3D(**common, flow_type="passive_scalar")
-    for option, value in (("overlap_chunks", 4), ("comm_bf16", True),
-                          ("mesh", object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            UnboundedFlowSimulator3D(**common, **{option: value})
-    # the single-device values are accepted, the fast tier among them
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        UnboundedFlowSimulator3D(**common, comm_bf16=True)
+    # a mesh is accepted where it divides the grid and lies on the device
+    mesh = create_mesh(3, (2, 2), device="cpu")
+    sim = UnboundedFlowSimulator3D(**common, mesh=mesh, overlap_chunks=4)
+    assert sim.mesh is mesh
+    assert sim.unbounded_poisson_solver.mesh is mesh
+    assert sim.unbounded_poisson_solver.overlap_chunks == 4
+    assert sim.primary_field.shape == (2, 2, 3, 4, 4, 8)
+    with pytest.raises(RuntimeError, match="not divisible by 3 devices"):
+        UnboundedFlowSimulator3D(
+            **common, mesh=create_mesh(3, (3, 1), device="cpu"))
+    with pytest.raises(ValueError, match="overlap_chunks"):
+        UnboundedFlowSimulator3D(**common, mesh=mesh, overlap_chunks=0)
+    for not_a_3d_mesh in (object(), create_mesh(2, (2, 1), device="cpu")):
+        with pytest.raises(ValueError, match="create_mesh"):
+            UnboundedFlowSimulator3D(**common, mesh=not_a_3d_mesh)
+    with pytest.raises(ValueError, match="lies on"):
+        UnboundedFlowSimulator3D(
+            **common, mesh=create_mesh(3, (2, 2), device="meta"))
+    # the fast tier is accepted either way
     for fast in (False, True):
         sim = UnboundedFlowSimulator3D(**common, fast_spectral=fast)
         assert sim.unbounded_poisson_solver.fast_spectral is fast

@@ -27,6 +27,12 @@ def test_port_imports_without_jax():
         "from sopht_mpi_tpu_torch.cases import lamb_oseen_vortex_case\n"
         "import sopht_mpi_tpu_torch.tools.probe_edge_passes\n"
         "from sopht_mpi_tpu_torch.ops import cuda_stencils_3d\n"
+        "from sopht_mpi_tpu_torch.ops import cuda_stencils_3d_sharded\n"
+        "from sopht_mpi_tpu_torch.parallel import mesh, collectives\n"
+        "from sopht_mpi_tpu_torch.parallel import distributed, fft\n"
+        "from sopht_mpi_tpu_torch.cases import sharded_flow_case\n"
+        "import sopht_mpi_tpu_torch.tools.probe_sharded\n"
+        "import bench_torch\n"
         "from sopht_mpi_tpu_torch.parallel import cuda_fft\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'sopht_mpi_tpu' not in sys.modules, 'JAX package imported'\n"
@@ -43,6 +49,7 @@ def test_port_imports_without_jax():
 
 def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "bench_torch.py")
     for dirpath, _, files in os.walk(os.path.join(REPO, "sopht_mpi_tpu_torch")):
         for name in files:
             if name.endswith(".py"):
@@ -50,8 +57,8 @@ def _port_sources():
 
 
 def test_port_sources_name_no_jax():
-    """No module of the port, nor ``chip_smoke.py``, imports JAX or the JAX
-    package, lazily or not."""
+    """No module of the port, nor ``chip_smoke.py`` or ``bench_torch.py``,
+    imports JAX or the JAX package, lazily or not."""
     offenders = []
     for path in _port_sources():
         with open(path) as f:
