@@ -105,7 +105,10 @@ Phase 3 also checks the fused-curl pair against its plain versions at the
 256^3 sphere's, the (128, 128, 256) multi-body case's and a (48, 32, 64)
 grid's shapes, the unsplit x passes and the fused edge passes at the 256^3
 solve's, a (48, 32, 64) grid's and the (256, 512) cylinder grid's shapes,
-and the 2D route's three passes at the cylinder grid's shapes. The line
+and the 2D route's three passes at the cylinder grid's shapes, and the
+forward r2c pair (``rfft_pass_padded_split``, ``rfft_pass_padded``) on
+ragged row counts, inputs 4 bytes off 16-byte alignment, the 2D route's
+m = 1024 and the four-step kernel's lengths (m = 96, 544). The line
 before the last is the kernel table as JSON (each
 kernel's launches on a main path, error, kernel / plain / one-PyTorch-call
 times and its bound at the main path's shape); the last line is
@@ -186,6 +189,12 @@ SHARDED_MESH = (2, 2)
 # launch, the z pass is launched once a shard with that shard's Green's block
 SHARDED_FFT_LAUNCHES = {"fft_pass_padded": 1, "fft_greens_ifft_pass": 4,
                         "ifft_pass_truncated": 1}
+# the forward r2c pair's extra checks (rows, n_in, m, storage offset in
+# floats): ragged last tiles, inputs 4 bytes off 16-byte alignment (no bulk
+# copies), the 2D route's m = 1024 and lengths of the four-step kernel
+R2C_CASES = ((203, 256, 512, 0), (61, 255, 512, 1), (256, 512, 1024, 0),
+             (5, 511, 1024, 1), (9, 3, 64, 0), (37, 48, 96, 0),
+             (40, 272, 544, 3))
 FUSED_EDGE_PASSES = ("rfft_fft_pass_fused", "ifft_irfft_pass_fused")
 UNFUSED_EDGE_PASSES = ("rfft_pass_padded_split", "fft_pass_padded",
                        "ifft_pass_truncated", "irfft_pass_merge")
@@ -764,6 +773,17 @@ def main():
                     edge.append(line(f"{name} at {grid}", e))
             del calls, args
             torch.cuda.empty_cache()
+        r2c = []
+        for rows, n_in, m, offset in R2C_CASES:
+            flat = torch.randn(rows * n_in + offset, device=dev, generator=gen)
+            x = flat[offset:].view(rows, n_in)
+            where = f"({rows}, {n_in}) m = {m} offset {offset}"
+            _, errs = run_pass_checks(where, {
+                name: (x, m)
+                for name in ("rfft_pass_padded_split", "rfft_pass_padded")})
+            r2c.append(f"{where}: err "
+                       + " / ".join(f"{e:.3g}" for e in errs.values()))
+        edge.append("forward r2c pair (split / unsplit) at " + ", ".join(r2c))
         args = route_2d_args(CYLINDER_GRID, gen)
         calls, errs = run_pass_checks(CYLINDER_GRID, args)
         for name, (fn, ref_fn) in calls.items():

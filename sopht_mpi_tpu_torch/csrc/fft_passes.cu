@@ -12,7 +12,8 @@
 // floats of one or more rows. The x-edge passes transform along the
 // contiguous axis: a block loads a tile of `t` rows with coalesced reads,
 // transposes them through shared memory, runs the same column machinery
-// (threadIdx.x = row of the tile) and transposes the result back.
+// (threadIdx.x = row of the tile) and transposes the result back; the
+// forward r2c at power-of-two lengths has its own design (rfft_edge_kernel).
 //
 // Arithmetic (every kernel). Four-step factorisation of the length m into
 // m = m1 * m2 (m1 the largest divisor <= sqrt(m), m2 even; the JAX package's
@@ -64,11 +65,13 @@
 //   Replaces _rfft_pass_padded_split_impl (kernel _r2c_split_kernel): r2c of
 //   each row of (R, n_in), zero-padded to m, bulk k < m/2 and the Nyquist
 //   column k = m/2 returned apart. The TPU contracted a dense (n_in, m/2)
-//   DFT matrix on the MXU (~52 GFLOP at 256^3, > 0.8 ms of FP32 here); here
-//   the factored transform of the real row (direct first-factor sums use its
-//   Hermitian symmetry), keeping k <= m/2. Rows are read and written
-//   contiguously and transposed through shared memory. Bound: HBM (12 B per
-//   input element).
+//   DFT matrix on the MXU (~52 GFLOP at 256^3, > 0.8 ms of FP32 here). At
+//   power-of-two m: rfft_edge_kernel (see the note above it), a half-length
+//   complex FFT a row and the split step, persistent blocks fed by bulk
+//   copies. At other m: rfft_pass_padded_split_kernel, the factored
+//   transform of the real row (direct first-factor sums use its Hermitian
+//   symmetry), keeping k <= m/2, rows transposed through shared memory.
+//   Bound: HBM (12 B per input element).
 //
 // irfft_pass_merge
 //   Replaces _irfft_pass_merge_impl (kernel _c2r_merge_kernel): c2r of the
@@ -82,9 +85,11 @@
 //   Replace _rfft_pass_padded_impl (kernel _r2c_kernel) and
 //   _irfft_pass_truncated_impl (kernel _c2r_kernel): the two x-edge passes
 //   above with the Nyquist column kept in the row, (R, m/2 + 1) pairs. The
-//   same kernels with `unsplit` set: the row pitch is m/2 + 1 floats (rows
-//   lose their 16-byte alignment; every access of the kernels is scalar) and
-//   no side column is read or written. Bound: HBM, as their split twins.
+//   same kernels with `unsplit` set: the row pitch is m/2 + 1 floats and no
+//   side column is read or written. Rows lose their 16-byte alignment, so
+//   the c2r and the four-step r2c access them with scalars; the r2c's ring
+//   kernel moves tiles of a multiple of 4 rows, which are aligned spans.
+//   Bound: HBM, as their split twins.
 //
 // rfft_fft_pass_fused, ifft_irfft_pass_fused
 //   Replace _rfft_fft_pass_fused_impl (kernel _r2c_fwd_kernel) and
@@ -140,6 +145,8 @@ struct Plan {
   int m, m1, m2, m1c, h2c;
   // float2 entries of the twiddle table: W1 (m1 x m1c), W2 (m2 x h2c), T (m)
   int table_len() const { return m1 * m1c + m2 * h2c + m; }
+  // ... followed by the line W_m^j, j < m (the power-of-two x-edge r2c)
+  int full_len() const { return table_len() + m; }
 };
 
 bool make_plan(int m, Plan* p) {
@@ -682,6 +689,329 @@ __global__ void __launch_bounds__(kThreads, kEdgeBlocks)
       si[row] = v.y;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// rfft_pass_padded_split / rfft_pass_padded at power-of-two lengths
+// (m = 64 ... 1024): the forward x-edge r2c, designed for Hopper.
+//
+// Replaces, with the kernel above for the other lengths,
+// sopht_mpi_tpu/parallel/pallas_fft.py _rfft_pass_padded_split_impl and
+// _rfft_pass_padded_impl. Bound: HBM, 4 B read and 8 B written per output
+// column (at 256^3, 196,608 rows of 256 floats to m = 512: 201 MB in,
+// 404 MB out, 0.18 ms at 3.35 TB/s); the r2c needs ~2.5 m log2 m flop a
+// row, 0.034 ms of the FP32 rate. The kernel above holds ~24 rows an SM
+// in flight, loads the 10 KB twiddle table once per 8 rows, transforms
+// the real row as complex and keeps half of a full spectrum, and moves
+// every float with its own 4-byte access. This design:
+//
+// 1. Half-length complex transform. A row x of n_in <= m/2 reals, zero
+//    padded to m, is z[n] = x[2n] + i x[2n+1] (zero past the row), one
+//    complex FFT of length h = m/2, then the split step
+//      X[k] = E - i W_m^k O,  X[h-k] = conj(E) - i conj(W_m^k O),
+//      E = (Z[k] + conj Z[h-k]) / 2,  O = (Z[k] - conj Z[h-k]) / 2,
+//    Z[h] = Z[0], one thread producing k and h - k from the same two
+//    values (k = 0 gives X[0] and X[h] with exactly zero imaginary parts).
+// 2. A lane group per row. G = h / P lanes own a row (G = 32 at m = 1024,
+//    16 at m = 512, so one or two rows a warp; 4 at m <= 128), each lane
+//    P = 16 values (8 at m = 64). The h-point FFT is Stockham passes of
+//    radix P (the last one smaller where h is not a power of P): each lane
+//    loads its P / R butterflies of R inputs from the group's padded
+//    buffer in shared memory, applies the pass twiddles, runs the radix-R
+//    DFT in registers (Radix2 above) and writes its outputs in Stockham
+//    order; only __syncwarp separates passes. The first pass reads the
+//    packed input from the staged row and skips its zero half. The buffer
+//    index is padded (i + i >> SH) so that no pass's loads or stores
+//    conflict in the banks by more than a few percent. Twiddles are the
+//    host's float64 table rounded to float32 (the W_m line appended to the
+//    table), copied once per block into shared memory, the pass twiddles
+//    laid out [r][j mod Ns] so that a warp's reads are consecutive.
+// 3. Persistent blocks and a ring of bulk copies. The host plan
+//    (edge_tile_plan in parallel/cuda_fft.py, checked here) gives T rows a
+//    tile (a multiple of 4, one lane group a row), the block count (at
+//    most the tiles, about two blocks an SM) and the ring depth S. Each
+//    block walks its tiles; a full tile's input, T n_in contiguous floats,
+//    is one cp.async.bulk into a ring stage whose mbarrier counts its
+//    bytes, issued S - 1 tiles ahead of the tile being computed. The
+//    outputs of a tile (T h floats each of re/im and T of each side
+//    column, or T (h + 1) of re/im unsplit) are staged in one of two
+//    buffers and leave as bulk stores; a store group is waited on (for its
+//    reads) before its buffer is written again. With T a multiple of 4
+//    every span starts 16-byte aligned and is a multiple of 16 bytes,
+//    unsplit rows of h + 1 floats included.
+// 4. The last tile when it is ragged, and every tile of an input whose
+//    pointer is not 16-byte aligned (a view with a storage offset), move
+//    through the same stages with ordinary coalesced loads (and the ragged
+//    tile with ordinary stores).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  unsigned done = 0;
+  // a copy that never lands traps (an error on the stream) after ~1e8
+  // polls, rather than holding the card
+  for (unsigned polls = 0; !done; ++polls) {
+    if (polls == (1u << 27)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  }
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+}
+
+// The sizes of the design at h = m / 2 (host and device).
+template <int H>
+struct EdgeShape {
+  static constexpr int P = H >= 64 ? 16 : 8;  // values a lane holds
+  static constexpr int G = H / P;             // lanes a row
+  static constexpr int SH = (H == 32 || H == 512) ? 4 : 5;
+  static constexpr int HP = H + (H >> SH);    // padded row buffer (float2)
+  static __host__ __device__ constexpr int pad(int i) { return i + (i >> SH); }
+  // float2 entries of the pass twiddle tables (every pass after the first)
+  static __host__ __device__ constexpr int pass_len() {
+    int n = 0;
+    for (int ns = P; ns < H; ns *= (H / ns < P ? H / ns : P))
+      n += ns * (H / ns < P ? H / ns : P);
+    return n;
+  }
+  // float2 twiddles in shared memory: W_m^j for j < h, then the pass tables
+  static constexpr int TW = H + pass_len();
+};
+
+// Stockham pass of radix R = min(P, H / NS) over the group's buffer, then
+// the next pass.
+template <int H, int NS>
+struct EdgePass {
+  static __device__ __forceinline__ void run(float2* buf, int q,
+                                             const float2* line,
+                                             const float2* tp) {
+    if constexpr (NS < H) {
+      using S = EdgeShape<H>;
+      constexpr int R = H / NS < S::P ? H / NS : S::P;
+      constexpr int NB = S::P / R;  // butterflies a lane
+      float re[NB][R], im[NB][R];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const int j = q + S::G * b;
+        const int jm = j & (NS - 1);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float2 v = buf[S::pad(j + r * (H / R))];
+          if (r == 0) {
+            re[b][r] = v.x;
+            im[b][r] = v.y;
+          } else {  // times W_(NS R)^(jm r)
+            const float2 w = tp[r * NS + jm];
+            re[b][r] = v.x * w.x - v.y * w.y;
+            im[b][r] = v.x * w.y + v.y * w.x;
+          }
+        }
+      }
+      __syncwarp();
+      float2 wr[R / 2];
+#pragma unroll
+      for (int e = 0; e < R / 2; ++e) wr[e] = line[e * (H / R) * 2];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const int j = q + S::G * b;
+        const int base = (j / NS) * NS * R + (j & (NS - 1));
+        reg_fft<R, false>(re[b], im[b], wr);
+        each_output<R>([&](int k, int rr) {
+          buf[S::pad(base + k * NS)] = make_float2(re[b][rr], im[b][rr]);
+        });
+      }
+      __syncwarp();
+      EdgePass<H, NS * R>::run(buf, q, line, tp + NS * R);
+    }
+  }
+};
+
+template <int H>
+__global__ void __launch_bounds__(kThreads, 2)
+    rfft_edge_kernel(const float* __restrict__ x, float* __restrict__ br,
+                     float* __restrict__ bi, float* __restrict__ sr,
+                     float* __restrict__ si,
+                     const float2* __restrict__ line_g, long long R,
+                     int n_in, int T, int stages, int bulk, int unsplit) {
+  using S = EdgeShape<H>;
+  constexpr int P = S::P, G = S::G, m = 2 * H;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float2* line = reinterpret_cast<float2*>(smem_raw);  // W_m^j, j < h
+  float2* tp = line + H;                               // pass tables
+  float* ring = reinterpret_cast<float*>(line + S::TW);
+  const int in_floats = T * n_in;
+  const int ld = unsplit ? H + 1 : H;
+  const int out_floats = 2 * T * ld + (unsplit ? 0 : 2 * T);
+  float* outb = ring + (long long)stages * in_floats;
+  float2* work = reinterpret_cast<float2*>(outb + 2 * out_floats);
+  unsigned long long* bars =
+      reinterpret_cast<unsigned long long*>(work + T * S::HP);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int grp = tid / G, q = tid % G;
+  float2* buf = work + grp * S::HP;
+
+  for (int i = tid; i < H; i += nt) line[i] = line_g[i];
+  {  // tp[r Ns + i] = W_(Ns R)^(i r) = W_m^(i r m / (Ns R)), pass by pass
+    int off = 0;
+    for (int ns = P; ns < H;) {
+      const int r_ = H / ns < P ? H / ns : P;
+      for (int i = tid; i < ns * r_; i += nt) {
+        const int r = i / ns, j = i % ns;
+        tp[off + i] = line_g[j * r * (m / (ns * r_))];
+      }
+      off += ns * r_;
+      ns *= r_;
+    }
+  }
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   ::"r"(smem_u32(&bars[s])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const long long ntiles = (R + T - 1) / T;
+  // the input of this block's it-th tile into stage it % stages
+  auto produce = [&](long long it) {
+    const long long tile = blockIdx.x + it * gridDim.x;
+    if (tile >= ntiles) return;
+    float* dst = ring + (it % stages) * in_floats;
+    const long long row0 = tile * T;
+    const int rows = (int)(R - row0 < T ? R - row0 : T);
+    const float* src = x + row0 * n_in;
+    if (bulk && rows == T) {
+      if (tid == 0)
+        bulk_load(dst, src, 4u * in_floats, &bars[it % stages]);
+    } else {
+      for (int i = tid; i < rows * n_in; i += nt) dst[i] = src[i];
+    }
+  };
+  for (int s = 0; s < stages - 1; ++s) produce(s);
+  __syncthreads();  // the ordinary loads of the prologue
+
+  const int nz = (n_in + 1) >> 1;  // complex inputs of a row
+  for (long long it = 0; blockIdx.x + it * gridDim.x < ntiles; ++it) {
+    const long long tile = blockIdx.x + it * gridDim.x;
+    produce(it + stages - 1);  // into the stage the last tile freed
+    const long long row0 = tile * T;
+    const int rows = (int)(R - row0 < T ? R - row0 : T);
+    if (bulk && rows == T)
+      mbar_wait(&bars[it % stages], (unsigned)((it / stages) & 1));
+    const float* xin = ring + (it % stages) * in_floats + grp * n_in;
+
+    // first pass: radix P, butterfly j = q, inputs z[q + G r]
+    {
+      float re[P], im[P];
+      const bool pairs = (n_in & 1) == 0;
+#pragma unroll
+      for (int r = 0; r < P; ++r) {
+        const int n = q + G * r;
+        re[r] = im[r] = 0.f;
+        if (r < P / 2 && n < nz) {
+          if (pairs) {
+            const float2 v = reinterpret_cast<const float2*>(xin)[n];
+            re[r] = v.x;
+            im[r] = v.y;
+          } else {
+            re[r] = xin[2 * n];
+            if (2 * n + 1 < n_in) im[r] = xin[2 * n + 1];
+          }
+        }
+      }
+      float2 wr[P / 2];
+#pragma unroll
+      for (int e = 0; e < P / 2; ++e) wr[e] = line[e * (H / P) * 2];
+      reg_fft<P, false>(re, im, wr);
+      each_output<P>([&](int k, int rr) {
+        buf[S::pad(q * P + k)] = make_float2(re[rr], im[rr]);
+      });
+      __syncwarp();
+    }
+    EdgePass<H, P>::run(buf, q, line, tp);
+
+    // split step into the staging buffer of this tile
+    float* ob = outb + (it & 1) * out_floats;
+    float* orr = ob + grp * ld;
+    float* oi = ob + T * ld + grp * ld;
+    auto split = [&](int k, bool both) {
+      const float2 a = buf[S::pad(k)];
+      const float2 c = buf[S::pad((H - k) & (H - 1))];
+      const float er = 0.5f * (a.x + c.x), ei = 0.5f * (a.y - c.y);
+      const float odr = 0.5f * (a.x - c.x), odi = 0.5f * (a.y + c.y);
+      const float2 w = line[k];
+      const float pr = w.x * odr - w.y * odi, pi = w.x * odi + w.y * odr;
+      orr[k] = er + pi;
+      oi[k] = ei - pr;
+      if (!both) return;
+      if (k > 0) {
+        orr[H - k] = er - pi;
+        oi[H - k] = -ei - pr;
+      } else if (unsplit) {
+        orr[H] = er - pi;
+        oi[H] = -ei - pr;
+      } else {
+        ob[2 * T * ld + grp] = er - pi;
+        ob[2 * T * ld + T + grp] = -ei - pr;
+      }
+    };
+#pragma unroll
+    for (int s = 0; s < P / 2; ++s) split(q + G * s, true);
+    if (q == 0) split(H / 2, false);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (rows == T) {
+      if (tid == 0) {
+        const unsigned bytes = 4u * T * ld;
+        bulk_store(br + row0 * ld, ob, bytes);
+        bulk_store(bi + row0 * ld, ob + T * ld, bytes);
+        if (!unsplit) {
+          bulk_store(sr + row0, ob + 2 * T * ld, 4u * T);
+          bulk_store(si + row0, ob + 2 * T * ld + T, 4u * T);
+        }
+        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+        // the group before this one has read its buffer, which the next
+        // tile writes
+        asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      }
+    } else {
+      for (int i = tid; i < rows * ld; i += nt) {
+        br[row0 * ld + i] = ob[i];
+        bi[row0 * ld + i] = ob[T * ld + i];
+      }
+      if (!unsplit)
+        for (int i = tid; i < rows; i += nt) {
+          sr[row0 + i] = ob[2 * T * ld + i];
+          si[row0 + i] = ob[2 * T * ld + T + i];
+        }
+    }
+    __syncthreads();  // the stage and the other staging buffer are free
+  }
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 template <int M1, int H2>
@@ -1336,25 +1666,19 @@ struct FftGreensIfftPass {
   }
 };
 
+// The arguments of both x-edge r2c entry points, with the host's plan.
+struct EdgeArgs {
+  const float* x;
+  float *br, *bi, *sr, *si;
+  const float* table;
+  long long R;
+  int n_in, unsplit;
+  int T, blocks, stages, smem, bulk, threads;
+};
+
 struct RfftPassPaddedSplit {
   template <int M1, int H2>
-  static int go(const Plan& p, const float* x, float* br, float* bi,
-                float* sr, float* si, const float* table, long long R,
-                int n_in, int unsplit, cudaStream_t st) {
-    const long long h = p.m / 2;
-    auto bytes = [&](int t) {
-      const long long stage = 8LL * (h + 1) * (t + 1);
-      const long long in = 4LL * n_in * (t + 1);
-      return 8LL * p.m * t + (stage > in ? stage : in);
-    };
-    const int t = pick_tile(bytes);
-    if (t == 0) return (int)cudaErrorInvalidValue;
-    const size_t smem = table_bytes(p) + (size_t)bytes(t);
-    const dim3 grid((unsigned)((R + t - 1) / t));
-    return launch(rfft_pass_padded_split_kernel<M1, H2>, grid, t, smem, st, x,
-                  br, bi, sr, si, (const float2*)table, R, n_in, p.m, p.m1,
-                  p.m2, unsplit);
-  }
+  static int go(const Plan& p, const EdgeArgs& a, cudaStream_t st);
 };
 
 struct IrfftPassMerge {
@@ -1473,12 +1797,110 @@ int dispatch(const Plan& p, Args... args) {
   return (int)cudaErrorInvalidValue;
 }
 
+
+// The kernel of the other passes' plan (lengths with a factor that is not a
+// power of two); the plan is that of pick_tile, one tile a block.
+template <int M1, int H2>
+int RfftPassPaddedSplit::go(const Plan& p, const EdgeArgs& a,
+                            cudaStream_t st) {
+  const long long h = p.m / 2;
+  auto bytes = [&](int t) {
+    const long long stage = 8LL * (h + 1) * (t + 1);
+    const long long in = 4LL * a.n_in * (t + 1);
+    return 8LL * p.m * t + (stage > in ? stage : in);
+  };
+  const int t = pick_tile(bytes);
+  const long long smem = (long long)table_bytes(p) + bytes(t);
+  if (t == 0 || a.T != t || a.blocks != (a.R + t - 1) / t || a.stages != 0 ||
+      a.bulk != 0 || a.threads != kThreads || a.smem != smem)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)a.blocks);
+  return launch(rfft_pass_padded_split_kernel<M1, H2>, grid, t, (size_t)smem,
+                st, a.x, a.br, a.bi, a.sr, a.si, (const float2*)a.table, a.R,
+                a.n_in, p.m, p.m1, p.m2, a.unsplit);
+}
+
+// The plan of rfft_edge_kernel<H> as edge_tile_plan computes it, checked
+// against what the kernel assumes; 0 when it holds.
+template <int H>
+long long edge_smem_bytes(int T, int n_in, int stages, int unsplit) {
+  using S = EdgeShape<H>;
+  const long long ld = unsplit ? H + 1 : H;
+  const long long out = 2LL * T * ld + (unsplit ? 0 : 2LL * T);
+  return 8LL * S::TW + 4LL * stages * T * n_in + 8 * out + 8LL * T * S::HP +
+         8LL * stages;
+}
+
+template <int H>
+int launch_edge(const Plan& p, const EdgeArgs& a, cudaStream_t st) {
+  using S = EdgeShape<H>;
+  const long long tiles = (a.R + a.T - 1) / a.T;
+  const bool aligned =
+      ((unsigned long long)a.br | (unsigned long long)a.bi |
+       (a.unsplit ? 0ULL : (unsigned long long)a.sr | (unsigned long long)a.si)) %
+          16 == 0;
+  if (a.T < 4 || a.T % 4 != 0 || a.threads != a.T * S::G ||
+      a.threads > kThreads || a.threads % 32 != 0 || a.blocks < 1 ||
+      a.blocks > tiles || a.stages < 2 || a.stages > 4 || !aligned ||
+      (a.bulk && (unsigned long long)a.x % 16 != 0) ||
+      a.smem != edge_smem_bytes<H>(a.T, a.n_in, a.stages, a.unsplit) ||
+      a.smem > 232448)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = rfft_edge_kernel<H>;
+  // the attributes and the residency of a block shape, kept per device
+  // (one set-up a shape, not one a call)
+  static int set_dev = -1, set_smem = -1, set_threads = -1, sms = 0,
+             per_sm = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev != set_dev || a.smem != set_smem || a.threads != set_threads) {
+    set_dev = -1;
+    if ((err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem)) !=
+            cudaSuccess ||
+        (err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+             (int)cudaSharedmemCarveoutMaxShared)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, a.threads, a.smem)) != cudaSuccess)
+      return (int)err;
+    set_dev = dev;
+    set_smem = a.smem;
+    set_threads = a.threads;
+  }
+  // persistent blocks: every planned block must be resident at once
+  if ((long long)a.blocks > (long long)per_sm * sms)
+    return (int)cudaErrorInvalidValue;
+  const float2* line = (const float2*)a.table + p.table_len();
+  kernel<<<a.blocks, a.threads, a.smem, st>>>(a.x, a.br, a.bi, a.sr, a.si,
+                                              line, a.R, a.n_in, a.T,
+                                              a.stages, a.bulk, a.unsplit);
+  return (int)cudaGetLastError();
+}
+
+// Both x-edge r2c entry points: the design above at power-of-two lengths,
+// the kernel of the other passes' four-step plan otherwise; either way the
+// plan must be the one edge_tile_plan gives.
+int rfft_edge(const Plan& p, const EdgeArgs& a, cudaStream_t st) {
+  switch (p.m) {
+    case 64: return launch_edge<32>(p, a, st);
+    case 128: return launch_edge<64>(p, a, st);
+    case 256: return launch_edge<128>(p, a, st);
+    case 512: return launch_edge<256>(p, a, st);
+    case 1024: return launch_edge<512>(p, a, st);
+  }
+  return dispatch<RfftPassPaddedSplit>(p, a, st);
+}
+
 }  // namespace
 
 // Number of floats of the twiddle table for length m (0: unsupported).
 extern "C" int sopht_fft_table_floats(int m) {
   Plan p;
-  return make_plan(m, &p) ? 2 * p.table_len() : 0;
+  return make_plan(m, &p) ? 2 * p.full_len() : 0;
 }
 
 // Fill the host buffer `out` (sopht_fft_table_floats(m) floats) with the
@@ -1506,6 +1928,8 @@ extern "C" int sopht_fft_fill_table(int m, float* out) {
   for (int n1 = 0; n1 < p.m1; ++n1)
     for (int k2 = 0; k2 < p.m2; ++k2)
       twiddle((long long)n1 * k2, p.m, tw + 2 * (n1 * p.m2 + k2));
+  float* line = out + 2 * p.table_len();
+  for (int j = 0; j < p.m; ++j) twiddle(j, p.m, line + 2 * j);
   return 0;
 }
 
@@ -1542,28 +1966,33 @@ extern "C" int sopht_fft_greens_ifft_pass_f32(const float* xr, const float* xi,
                                      (cudaStream_t)stream);
 }
 
-extern "C" int sopht_rfft_pass_padded_split_f32(const float* x, float* br,
-                                                float* bi, float* sr,
-                                                float* si, const float* table,
-                                                long long R, int n_in, int m,
-                                                void* stream) {
+// The plan (rows a tile T, blocks, ring stages, shared bytes, bulk input
+// copies, threads a block) is edge_tile_plan's; one that breaks the
+// kernel's assumptions is refused with cudaErrorInvalidValue.
+extern "C" int sopht_rfft_pass_padded_split_f32(
+    const float* x, float* br, float* bi, float* sr, float* si,
+    const float* table, long long R, int n_in, int m, int T, int blocks,
+    int stages, int smem, int bulk, int threads, void* stream) {
   Plan p;
   if (!make_plan(m, &p) || R <= 0 || n_in <= 0 || n_in > m / 2)
     return (int)cudaErrorInvalidValue;
-  return dispatch<RfftPassPaddedSplit>(p, x, br, bi, sr, si, table, R, n_in,
-                                       0, (cudaStream_t)stream);
+  const EdgeArgs a{x, br, bi, sr, si, table, R, n_in, 0,
+                   T, blocks, stages, smem, bulk, threads};
+  return rfft_edge(p, a, (cudaStream_t)stream);
 }
 
 // the unsplit r2c: xr, xi (R, m/2 + 1), the Nyquist column kept in the row
 extern "C" int sopht_rfft_pass_padded_f32(const float* x, float* xr, float* xi,
                                           const float* table, long long R,
-                                          int n_in, int m, void* stream) {
+                                          int n_in, int m, int T, int blocks,
+                                          int stages, int smem, int bulk,
+                                          int threads, void* stream) {
   Plan p;
   if (!make_plan(m, &p) || R <= 0 || n_in <= 0 || n_in > m / 2)
     return (int)cudaErrorInvalidValue;
-  return dispatch<RfftPassPaddedSplit>(p, x, xr, xi, (float*)nullptr,
-                                       (float*)nullptr, table, R, n_in, 1,
-                                       (cudaStream_t)stream);
+  const EdgeArgs a{x, xr, xi, nullptr, nullptr, table, R, n_in, 1,
+                   T, blocks, stages, smem, bulk, threads};
+  return rfft_edge(p, a, (cudaStream_t)stream);
 }
 
 extern "C" int sopht_irfft_pass_merge_f32(const float* br, const float* bi,

@@ -33,6 +33,10 @@ Replaced TPU kernels (``sopht_mpi_tpu/parallel/pallas_fft.py``):
 :func:`rfft_fft_pass_fused` <- ``_rfft_fft_pass_fused_impl``,
 :func:`ifft_irfft_pass_fused` <- ``_ifft_irfft_pass_fused_impl``.
 
+The forward x-edge r2c pair (split and unsplit) launches with the plan
+:func:`edge_tile_plan` gives (rows a tile, persistent blocks, ring stages,
+shared bytes, bulk copies); the C launcher refuses any other.
+
 The unsplit x passes keep the kx Nyquist column in the row ((R, m/2 + 1)
 pairs); no solver route calls them, they are the public pass API. The fused
 edge passes fold the x r2c into the y forward pass and the y inverse into
@@ -46,6 +50,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -58,13 +63,13 @@ _SIGNATURES = {
                                       _P),
     "sopht_fft_greens_ifft_pass_f32": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _P),
     "sopht_rfft_pass_padded_split_f32": (_P, _P, _P, _P, _P, _P, _L, _I, _I,
-                                         _P),
+                                         *(_I,) * 6, _P),
     "sopht_irfft_pass_merge_f32": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
     "sopht_fft_greens_curl_ifft_pass_f32": (_P, _P, _P, _P, _P, _P, _P, _P,
                                             _L, _I, _P),
     "sopht_irfft_pass_merge_velocity_f32": (_P, _P, _P, _P, _P, _P, _P, _P,
                                             _L, _I, _I, _I, _I, _P),
-    "sopht_rfft_pass_padded_f32": (_P, _P, _P, _P, _L, _I, _I, _P),
+    "sopht_rfft_pass_padded_f32": (_P, _P, _P, _P, _L, _I, _I, *(_I,) * 6, _P),
     "sopht_irfft_pass_truncated_f32": (_P, _P, _P, _P, _L, _I, _I, _P),
     "sopht_rfft_fft_pass_fused_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _I, _P),
@@ -112,6 +117,130 @@ def kernel_fft_supported(m: int) -> bool:
         return False
     m1, m2 = best_factors(m)
     return m1 >= 4 and m2 % 2 == 0
+
+
+# Shared memory of one H100 SM and the most one block may take (228 KB and
+# 227 KB), the 1 KB the runtime reserves for each resident block, and the
+# card's SM count (the plan's default where no CUDA device is asked).
+SM_SHARED_BYTES = 233472
+BLOCK_SHARED_MAX = 232448
+BLOCK_SHARED_RESERVE = 1024
+H100_SMS = 132
+
+
+class EdgeTilePlan(NamedTuple):
+    """How the forward x-edge r2c kernel covers (R, n_in) rows: ``rows`` a
+    tile (T, a multiple of 4), ``blocks`` (persistent, at most the tiles),
+    ``stages`` of the input ring (0: the four-step kernel, one tile a
+    block), ``smem`` bytes a block, ``bulk`` input copies, ``threads`` a
+    block and the ``blocks_per_sm`` the plan counts on being resident."""
+
+    rows: int
+    blocks: int
+    stages: int
+    smem: int
+    bulk: bool
+    threads: int
+    blocks_per_sm: int
+
+    def args(self):
+        """The plan as the C entry points take it."""
+        return (self.rows, self.blocks, self.stages, self.smem,
+                int(self.bulk), self.threads)
+
+
+def _edge_shape(h: int):
+    """(values a lane holds, lanes a row, pad shift) at h = m/2: the
+    ``EdgeShape`` of ``csrc/fft_passes.cu``."""
+    p = 16 if h >= 64 else 8
+    return p, h // p, 4 if h in (32, 512) else 5
+
+
+def _edge_smem(h: int, t: int, n_in: int, stages: int, unsplit: bool) -> int:
+    """Shared bytes of the ring kernel: twiddles (W_m line, pass tables),
+    the input ring, two output staging buffers, the rows' work buffers
+    and the stages' barriers."""
+    p, _, sh = _edge_shape(h)
+    tw, ns = h, p
+    while ns < h:
+        r = min(p, h // ns)
+        tw, ns = tw + ns * r, ns * r
+    ld = h + 1 if unsplit else h
+    out = 2 * t * ld + (0 if unsplit else 2 * t)
+    return (8 * tw + 4 * stages * t * n_in + 8 * out + 8 * t * (h + (h >> sh))
+            + 8 * stages)
+
+
+def _four_step_edge_plan(rows: int, n_in: int, m: int) -> EdgeTilePlan:
+    """The plan of the four-step kernel, which lengths with a factor that
+    is not a power of two take: its ``pick_tile`` (the largest of 32, 16,
+    8, 4 rows whose data fits 96 KB), one tile a block, no ring."""
+    m1, m2 = best_factors(m)
+    m1c = 8 if m1 <= 8 else 16 if m1 <= 16 else 32
+    h2c = 8 if m2 // 2 <= 8 else 16 if m2 // 2 <= 16 else 24
+    h = m // 2
+
+    def data(t):
+        return 8 * m * t + max(8 * (h + 1) * (t + 1), 4 * n_in * (t + 1))
+
+    t = next(t for t in (32, 16, 8, 4) if data(t) <= 96 * 1024)
+    smem = 8 * (m1 * m1c + m2 * h2c + m) + data(t)
+    per_sm = min(3, SM_SHARED_BYTES // (smem + BLOCK_SHARED_RESERVE))
+    return EdgeTilePlan(t, -(-rows // t), 0, smem, False, 256, per_sm)
+
+
+def edge_tile_plan(rows: int, n_in: int, m: int, unsplit: bool,
+                   data_ptr: int, sms: int = H100_SMS) -> EdgeTilePlan:
+    """The launch plan of :func:`rfft_pass_padded_split` (``unsplit``
+    False) or :func:`rfft_pass_padded` (True) on (``rows``, ``n_in``) rows
+    at ``data_ptr``, zero-padded to ``m``, on a card of ``sms`` SMs. The C
+    entry points refuse any other plan.
+
+    Power-of-two ``m``: the ring kernel. A row takes ``G = h / P`` lanes
+    of ``P`` values (h = m/2, P = 16, 8 at m = 64: G = 4 at m <= 128, 8, 16,
+    32 at m = 256, 512, 1024), a tile one row per lane group of four warps,
+    halved while the tiles would not give two blocks an SM and T stays a
+    multiple of 4 (the 2D route's 256 rows at m = 1024: 64 tiles of 4).
+    As many blocks an SM as fit with a 3-stage ring (128 registers a thread,
+    the kernel's bound), then as many stages (up to 4) as still fit; the
+    input moves by bulk copies when its pointer is 16-byte aligned. Other
+    lengths: the four-step kernel's plan."""
+    _check_length(m)
+    if not 0 < n_in <= m // 2 or rows <= 0:
+        raise ValueError(f"no plan for {rows} rows of {n_in} at m = {m}")
+    return _edge_tile_plan(rows, n_in, m, unsplit, data_ptr % 16 == 0, sms)
+
+
+@functools.lru_cache(maxsize=64)
+def _edge_tile_plan(rows, n_in, m, unsplit, aligned, sms):
+    if m & (m - 1):
+        return _four_step_edge_plan(rows, n_in, m)
+    h = m // 2
+    _, g, _ = _edge_shape(h)
+    per_warp = 32 // g
+    warps = 4
+    while (warps > 1 and -(-rows // (warps * per_warp)) < 2 * sms
+           and (warps // 2 * per_warp) % 4 == 0):
+        warps //= 2
+    t, threads = warps * per_warp, warps * 32
+
+    def fits(per_sm, stages):
+        smem = _edge_smem(h, t, n_in, stages, unsplit)
+        return smem <= BLOCK_SHARED_MAX and \
+            per_sm * (smem + BLOCK_SHARED_RESERVE) <= SM_SHARED_BYTES
+
+    per_sm = next((b for b in range(512 // threads, 0, -1) if fits(b, 3)), 1)
+    stages = max(s for s in (2, 3, 4) if fits(per_sm, s))
+    return EdgeTilePlan(t, min(-(-rows // t), per_sm * sms), stages,
+                        _edge_smem(h, t, n_in, stages, unsplit),
+                        aligned, threads, per_sm)
+
+
+@functools.cache
+def _sm_count(device) -> int:
+    if device.type != "cuda":
+        return H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # The 3D convolve's fused edge passes (the JAX package's flag and default):
@@ -355,9 +484,11 @@ def _k_rfft_pass_padded_split(x, m):
     rows, n_in = x.shape
     br, bi = _empty(x, rows, m // 2), _empty(x, rows, m // 2)
     sr, si = _empty(x, rows, 1), _empty(x, rows, 1)
+    plan = edge_tile_plan(rows, n_in, m, False, x.data_ptr(),
+                          _sm_count(x.device))
     _launch("sopht_rfft_pass_padded_split_f32", x.device, x.data_ptr(),
             br.data_ptr(), bi.data_ptr(), sr.data_ptr(), si.data_ptr(),
-            _table(m, x.device).data_ptr(), rows, n_in, m)
+            _table(m, x.device).data_ptr(), rows, n_in, m, *plan.args())
     return br, bi, sr, si
 
 
@@ -577,9 +708,11 @@ def rfft_pass_padded(x, m: int):
 def _k_rfft_pass_padded(x, m):
     rows, n_in = x.shape
     xr, xi = _empty(x, rows, m // 2 + 1), _empty(x, rows, m // 2 + 1)
+    plan = edge_tile_plan(rows, n_in, m, True, x.data_ptr(),
+                          _sm_count(x.device))
     _launch("sopht_rfft_pass_padded_f32", x.device, x.data_ptr(),
             xr.data_ptr(), xi.data_ptr(), _table(m, x.device).data_ptr(),
-            rows, n_in, m)
+            rows, n_in, m, *plan.args())
     return xr, xi
 
 

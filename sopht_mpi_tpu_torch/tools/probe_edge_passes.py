@@ -2,16 +2,37 @@
 and fused) against their plain versions on one CUDA device, with times:
 
     python3 -m sopht_mpi_tpu_torch.tools.probe_edge_passes [nz ny nx ...]
+    python3 sopht_mpi_tpu_torch/tools/probe_edge_passes.py --json [tag]
+    python3 -m sopht_mpi_tpu_torch.tools.probe_edge_passes --sweep
 
-A short first run for a changed kernel: it prints the card, the build time,
-ptxas' register and spill lines of the fused kernels, then for each grid
-(default: an odd-factor grid, the (256, 512) cylinder grid as one slab a
-component, a 17 x 32 factor grid and 256^3) each pass's relative error
-against ``*_ref`` and the median of 10 timed calls of both (CUDA events).
+The first form is a short first run for a changed kernel: it prints the
+card, the build time, ptxas' register and spill lines of the x-edge r2c and
+the fused kernels, the forward r2c pair on ragged, storage-offset and
+non-power-of-two inputs, then for each grid (default: an odd-factor grid,
+the (256, 512) cylinder grid as one slab a component, a 17 x 32 factor grid
+and 256^3) each pass's relative error against ``*_ref`` and the median of 10
+timed calls of both (CUDA events), and ends with the JSON line below.
+
+``--json`` prints the card (name and power limit) and one JSON line only:
+the median of 20 calls (CUDA events, after 3 warm-up calls) of each of the
+eleven FFT-pass kernels at the 256^3 vector solve's shapes, of the two
+forward r2c passes at the 2D route's (256, 512) shape (m = 1024), and of
+``torch.fft.rfft`` on the same inputs, with the r2c passes' relative errors.
+It imports the package from ``sys.path`` and uses only the wrappers' public
+names, so it compares two trees on one card within one job: unpack the other
+tree into a directory and run this file with ``PYTHONPATH`` set to each, in
+turns (a, b, b, a). Each r2c pass and ``torch.fft.rfft`` also get their
+device time from ``torch.profiler`` (``device_ms``) and the host's time to
+enqueue one call (``host_us``): a call's event time starts from an idle card
+and includes that enqueue, which at the 2D shape is most of it.
+
+``--sweep`` prints the split r2c kernel's device time under every plan its
+launcher takes at both shapes, the one ``edge_tile_plan`` picks marked.
 """
 
 from __future__ import annotations
 
+import json
 import re
 import subprocess
 import sys
@@ -19,9 +40,11 @@ import time
 
 import torch
 
+from sopht_mpi_tpu_torch.ops import poisson
 from sopht_mpi_tpu_torch.parallel import cuda_fft
 
 DEFAULT_GRIDS = ((48, 32, 64), (1, 256, 512), (16, 272, 80), (256, 256, 256))
+R2C = ("rfft_pass_padded_split", "rfft_pass_padded")
 
 
 def median_ms(fn, n=10, warmup=2):
@@ -40,6 +63,40 @@ def median_ms(fn, n=10, warmup=2):
     return sorted(times)[n // 2]
 
 
+def device_ms(fn, n=20):
+    """Device time of one call, from ``torch.profiler`` over ``n`` calls:
+    the kernels' own time, without the host's launch gaps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / n / 1e3
+
+
+def host_us(fn, n=200):
+    """Host time to enqueue one call (microseconds), over ``n`` calls that
+    are not waited for."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def rel_err(out, ref):
+    out = out if isinstance(out, tuple) else (out,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    err = max(float((o - q).abs().max()) for o, q in zip(out, ref))
+    return err / max(float(q.abs().max()) for q in ref)
+
+
 def pass_args(grid, rand, components=3):
     nz, ny, nx = grid
     rows, a, my, mx = components * nz * ny, components * nz, 2 * ny, 2 * nx
@@ -55,52 +112,186 @@ def pass_args(grid, rand, components=3):
     }
 
 
+def solve_pass_args(n, rand, dev):
+    """Each of the other nine FFT-pass kernels' inputs at the shapes of the
+    n^3 vector solve (3 components, doubled axes) and its fast tier."""
+    c, m = 3, 2 * n
+    rows = c * n * n
+    sym_z, _, sym_yx = poisson._curl_symbols((m, m, m), 1.0 / n, dev)
+    return {
+        "fft_pass_padded": lambda: (rand(c * n, n, n), rand(c * n, n, n), m),
+        "fft_greens_ifft_pass": lambda: (rand(c, n, m * n), rand(c, n, m * n),
+                                         rand(1, m, m * n)),
+        "ifft_pass_truncated": lambda: (rand(c * n, m, n), rand(c * n, m, n)),
+        "irfft_pass_merge": lambda: (rand(rows, n), rand(rows, n),
+                                     rand(rows, 1), rand(rows, 1), m, n),
+        "fft_greens_curl_ifft_pass": lambda: (
+            rand(3, n, m * n), rand(3, n, m * n), rand(1, m, m * n), sym_z,
+            sym_yx),
+        "irfft_pass_merge_velocity": lambda: (
+            rand(3, n * n, n), rand(3, n * n, n), rand(3, n * n, 1),
+            rand(3, n * n, 1), torch.tensor([1.0, -0.5, 0.25], device=dev), m,
+            n, n, n),
+        "irfft_pass_truncated": lambda: (rand(rows, n + 1), rand(rows, n + 1),
+                                         m, n),
+        "rfft_fft_pass_fused": lambda: (rand(c * n, n, n), m, m),
+        "ifft_irfft_pass_fused": lambda: (rand(c * n, m, n), rand(c * n, m, n),
+                                          rand(c * n, n, 1), rand(c * n, n, 1),
+                                          m, n),
+    }
+
+
+def card():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+
+
+def timing(tag, rand, dev):
+    """The JSON line: medians of 20 calls of the r2c pair and torch.fft.rfft
+    at 256^3 and at the 2D shape, and of the other nine at 256^3."""
+    out = {"tag": tag, "module": cuda_fft.__file__, "card": card(),
+           "ms": {"256^3": {}, "2d": {}}, "torch_fft_rfft_ms": {},
+           "device_ms": {"256^3": {}, "2d": {}},
+           "host_us": {"256^3": {}, "2d": {}},
+           "r2c_rel_err": {"256^3": {}, "2d": {}}}
+    for shape, rows, n_in in (("256^3", 3 * 256 * 256, 256), ("2d", 256, 512)):
+        x = rand(rows, n_in)
+        for name in R2C:
+            fn = getattr(cuda_fft, name)
+            out["r2c_rel_err"][shape][name] = rel_err(
+                fn(x, 2 * n_in), getattr(cuda_fft, name + "_ref")(x, 2 * n_in))
+            out["ms"][shape][name] = median_ms(lambda: fn(x, 2 * n_in), 20, 3)
+            out["device_ms"][shape][name] = device_ms(lambda: fn(x, 2 * n_in))
+            out["host_us"][shape][name] = host_us(lambda: fn(x, 2 * n_in))
+        out["torch_fft_rfft_ms"][shape] = median_ms(
+            lambda: torch.fft.rfft(x, n=2 * n_in, dim=1), 20, 3)
+        out["device_ms"][shape]["torch.fft.rfft"] = device_ms(
+            lambda: torch.fft.rfft(x, n=2 * n_in, dim=1))
+        del x
+    for name, make in solve_pass_args(256, rand, dev).items():
+        args, fn = make(), getattr(cuda_fft, name)
+        out["ms"]["256^3"][name] = median_ms(lambda: fn(*args), 20, 3)
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
+def sweep(rand, dev):
+    """Device time of the split r2c kernel under every plan its launcher
+    takes at 256^3 rows and the 2D shape (rows a tile, ring stages, blocks
+    an SM), the plan ``edge_tile_plan`` picks marked: one line a plan."""
+    lib, sms = cuda_fft.library(), cuda_fft._sm_count(dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape, rows, n_in in (("256^3", 3 * 256 * 256, 256), ("2d", 256, 512)):
+        m, h = 2 * n_in, n_in
+        x = rand(rows, n_in)
+        outs = [rand(rows, h), rand(rows, h), rand(rows, 1), rand(rows, 1)]
+        table = cuda_fft._table(m, dev)
+        chosen = cuda_fft.edge_tile_plan(rows, n_in, m, False, x.data_ptr(),
+                                         sms)
+        g = cuda_fft._edge_shape(h)[1]
+        for t in (4, 8, 16, 32, 64):
+            threads = t * g
+            if threads % 32 or threads > 256:
+                continue
+            for stages in (2, 3, 4):
+                smem = cuda_fft._edge_smem(h, t, n_in, stages, False)
+                for per_sm in range(1, 2048 // threads + 1):
+                    if per_sm * (smem + cuda_fft.BLOCK_SHARED_RESERVE) > \
+                            cuda_fft.SM_SHARED_BYTES:
+                        break
+                    plan = cuda_fft.EdgeTilePlan(
+                        t, min(-(-rows // t), per_sm * sms), stages, smem,
+                        True, threads, per_sm)
+
+                    def fn(plan=plan):
+                        return lib.sopht_rfft_pass_padded_split_f32(
+                            x.data_ptr(), *(o.data_ptr() for o in outs),
+                            table.data_ptr(), rows, n_in, m, *plan.args(),
+                            stream)
+
+                    if fn():  # refused: the blocks would not all be resident
+                        break
+                    mark = " <- edge_tile_plan" if plan == chosen else ""
+                    print(f"sweep {shape}: T {t} threads {threads} stages "
+                          f"{stages} blocks/SM {per_sm} blocks {plan.blocks}: "
+                          f"{device_ms(fn):.4f} ms{mark}", flush=True)
+        del x, outs
+        torch.cuda.empty_cache()
+
+
+def r2c_cases(rand):
+    """The forward r2c pair on ragged row counts, a storage-offset input
+    and lengths off the power-of-two design: (case, relative error)."""
+    results = []
+    for rows, n_in, m, offset in ((203, 256, 512, 0), (61, 255, 512, 1),
+                                  (9, 3, 64, 0), (256, 512, 1024, 0),
+                                  (37, 48, 96, 0), (40, 272, 544, 3),
+                                  (5, 511, 1024, 1)):
+        x = rand(rows * n_in + offset)[offset:].view(rows, n_in)
+        for name in R2C:
+            err = rel_err(getattr(cuda_fft, name)(x, m),
+                          getattr(cuda_fft, name + "_ref")(x, m))
+            results.append((f"{name} ({rows}, {n_in}) m={m} offset {offset}",
+                            err))
+    torch.cuda.synchronize()
+    return results
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("probe_edge_passes: no CUDA device", file=sys.stderr)
         return 2
-    grids = DEFAULT_GRIDS
-    if argv:
-        if len(argv) % 3:
-            print("usage: probe_edge_passes [nz ny nx ...]", file=sys.stderr)
-            return 2
-        vals = [int(v) for v in argv]
-        grids = tuple(tuple(vals[i:i + 3]) for i in range(0, len(vals), 3))
-    print(torch.__version__, torch.version.cuda)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip())
-    t0 = time.perf_counter()
-    lib = cuda_fft.library()
-    print(f"build {time.perf_counter() - t0:.1f} s")
-    lines = lib.build_log.splitlines()
-    for i, ln in enumerate(lines[:-2]):
-        name = re.search(r"(\w+_fused_kernel)ILi(\d+)ELi(\d+)", ln)
-        if "Function properties" in ln and name:
-            print(name.group(1)[-28:], name.group(2), name.group(3), "|",
-                  lines[i + 1].strip(), "|", lines[i + 2].strip()[:60])
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rand(*shape):
         return torch.randn(shape, device=dev, generator=gen)
 
+    if argv and argv[0] == "--sweep":
+        print(card())
+        sweep(rand, dev)
+        return 0
+    if argv and argv[0] == "--json":
+        tag = argv[1] if len(argv) > 1 else cuda_fft.__file__
+        print(card())
+        print(json.dumps(timing(tag, rand, dev)))
+        return 0
+    grids = DEFAULT_GRIDS
+    if argv:
+        if len(argv) % 3:
+            print("usage: probe_edge_passes [nz ny nx ...] | --json [tag]",
+                  file=sys.stderr)
+            return 2
+        vals = [int(v) for v in argv]
+        grids = tuple(tuple(vals[i:i + 3]) for i in range(0, len(vals), 3))
+    print(torch.__version__, torch.version.cuda)
+    print(card())
+    t0 = time.perf_counter()
+    lib = cuda_fft.library()
+    print(f"build {time.perf_counter() - t0:.1f} s")
+    lines = lib.build_log.splitlines()
+    for i, ln in enumerate(lines[:-2]):
+        name = re.search(r"(rfft_edge_kernel|\w+_fused_kernel)ILi(\d+)E", ln)
+        if "Function properties" in ln and name:
+            print(name.group(1)[-28:], name.group(2), "|",
+                  lines[i + 1].strip(), "|", lines[i + 2].strip()[:60])
+    for case, err in r2c_cases(rand):
+        print(f"{case}: relative err {err:.3g}", flush=True)
     for grid in grids:
         if not all(cuda_fft.kernel_fft_supported(2 * n) for n in grid[1:]):
             print(f"{grid}: unsupported lengths")
             continue
         for name, args in pass_args(grid, rand).items():
             fn, ref_fn = getattr(cuda_fft, name), getattr(cuda_fft, name + "_ref")
-            out, ref = fn(*args), ref_fn(*args)
+            err = rel_err(fn(*args), ref_fn(*args))
             torch.cuda.synchronize()
-            out = out if isinstance(out, tuple) else (out,)
-            ref = ref if isinstance(ref, tuple) else (ref,)
-            err = max(float((o - q).abs().max()) for o, q in zip(out, ref))
-            scale = max(float(q.abs().max()) for q in ref)
-            print(f"{grid} {name}: relative err {err / scale:.3g}, "
+            print(f"{grid} {name}: relative err {err:.3g}, "
                   f"{median_ms(lambda: fn(*args)):.4f} ms, plain "
                   f"{median_ms(lambda: ref_fn(*args), 3):.4f} ms", flush=True)
         torch.cuda.empty_cache()
+    print(json.dumps(timing(cuda_fft.__file__, rand, dev)))
     return 0
 
 
