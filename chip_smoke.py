@@ -108,7 +108,11 @@ solve's, a (48, 32, 64) grid's and the (256, 512) cylinder grid's shapes,
 and the 2D route's three passes at the cylinder grid's shapes, and the
 forward r2c pair (``rfft_pass_padded_split``, ``rfft_pass_padded``) on
 ragged row counts, inputs 4 bytes off 16-byte alignment, the 2D route's
-m = 1024 and the four-step kernel's lengths (m = 96, 544). The line
+m = 1024 and the four-step kernel's lengths (m = 96, 544), and the z conv
+(``fft_greens_ifft_pass``) on ``ZCONV_CASES``: ragged column counts,
+storage-offset inputs, A = 1, the 2D route's shape and every length class
+(m = 64 ... 512 on the ring kernel, 96, 544, 1024 on the four-step one). The
+line
 before the last is the kernel table as JSON (each
 kernel's launches on a main path, error, kernel / plain / one-PyTorch-call
 times and its bound at the main path's shape); the last line is
@@ -195,6 +199,14 @@ SHARDED_FFT_LAUNCHES = {"fft_pass_padded": 1, "fft_greens_ifft_pass": 4,
 R2C_CASES = ((203, 256, 512, 0), (61, 255, 512, 1), (256, 512, 1024, 0),
              (5, 511, 1024, 1), (9, 3, 64, 0), (37, 48, 96, 0),
              (40, 272, 544, 3))
+# the z conv's extra checks (A, m/2, B, storage offset in floats): ragged
+# last tiles, inputs 4 bytes off 16-byte alignment (4-byte copies), the 2D
+# route's (1, 256, 512), A = 1, the ring kernel's other lengths (m = 64,
+# 128, 256) and the four-step kernel's (m = 96, 544, 1024)
+ZCONV_CASES = ((3, 256, 1001, 0), (3, 256, 4100, 1), (1, 256, 512, 0),
+               (1, 256, 4096, 0), (3, 128, 999, 2), (3, 64, 4096, 0),
+               (3, 32, 333, 1), (3, 48, 333, 0), (3, 272, 200, 1),
+               (3, 512, 777, 0))
 FUSED_EDGE_PASSES = ("rfft_fft_pass_fused", "ifft_irfft_pass_fused")
 UNFUSED_EDGE_PASSES = ("rfft_pass_padded_split", "fft_pass_padded",
                        "ifft_pass_truncated", "irfft_pass_merge")
@@ -784,6 +796,18 @@ def main():
             r2c.append(f"{where}: err "
                        + " / ".join(f"{e:.3g}" for e in errs.values()))
         edge.append("forward r2c pair (split / unsplit) at " + ", ".join(r2c))
+        zconv = []
+        for a, h, b, offset in ZCONV_CASES:
+            xr, xi = (torch.randn(a * h * b + offset, device=dev,
+                                  generator=gen)[offset:].view(a, h, b)
+                      for _ in range(2))
+            g = torch.randn(1, 2 * h, b, device=dev, generator=gen)
+            where = f"({a}, {h}, {b}) m = {2 * h} offset {offset}"
+            _, errs = run_pass_checks(where, {"fft_greens_ifft_pass":
+                                              (xr, xi, g)})
+            zconv.append(f"{where}: err {errs['fft_greens_ifft_pass']:.3g}")
+            del xr, xi, g
+        edge.append("z conv at " + ", ".join(zconv))
         args = route_2d_args(CYLINDER_GRID, gen)
         calls, errs = run_pass_checks(CYLINDER_GRID, args)
         for name, (fn, ref_fn) in calls.items():
@@ -916,6 +940,9 @@ def main():
         for name, count in launches.items():
             check(count >= 20, f"{name} launched {count} times on the main path")
             table[name]["launches"] = count
+        # the z conv runs once a step, on the ring kernel at m = 512
+        check(launches["fft_greens_ifft_pass"] == 20, "fft_greens_ifft_pass "
+              f"launched {launches['fft_greens_ifft_pass']} times in 20 steps")
         check_not_launched(FUSED_REPLACES, "the exact-tier sphere path")
         fs = carry.flow_state
         for what, t in (("vorticity", fs.primary_field),

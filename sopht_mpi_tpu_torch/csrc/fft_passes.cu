@@ -59,7 +59,9 @@
 //   The block loads its Green's tile once and applies it to every one of the
 //   A components (the TPU kernel's grid order served the same purpose). Bound:
 //   HBM (16 B per input element plus the Green's read once) with radix-2
-//   factors; FP32 issue with direct sums (two transforms per column).
+//   factors; FP32 issue with direct sums (two transforms per column). At
+//   m = 64 ... 512: zconv_kernel (see the note above it), persistent blocks
+//   fed by a ring of cp.async copies, the middle factor in registers.
 //
 // rfft_pass_padded_split
 //   Replaces _rfft_pass_padded_split_impl (kernel _r2c_split_kernel): r2c of
@@ -1014,6 +1016,327 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
+// ---------------------------------------------------------------------------
+// fft_greens_ifft_pass at m = 64, 128, 256, 512: the z conv, designed for
+// Hopper.
+//
+// Replaces, with fft_greens_ifft_pass_kernel above for m = 1024 and the
+// lengths with a factor that is not a power of two,
+// sopht_mpi_tpu/parallel/pallas_fft.py:384 _fft_greens_ifft_pass_impl.
+// Bound: HBM, 16 B per input element (8 B read, 8 B written) plus the
+// Green's spectrum read once: at 256^3, (3, 256, 131072) pairs at m = 512,
+// 1.88 GB, 0.56 ms at 3.35 TB/s. FP32 issue is close behind: a column's
+// two length-m transforms and the product take ~29k adds and multiplies
+// here (radix-2 butterflies, one issue slot each), ~0.4 ms of the card's
+// issue rate at 256^3, and every shared-memory access takes a slot too.
+// The kernel above keeps two 16-warp blocks on an SM that load, compute
+// and store in turn (no load in flight while a block computes) and takes
+// every element through shared memory six times. This design:
+//
+// 1. The same four-step factorisation, m = m1 m2 (16 x 32 at m = 512), in
+//    a block of T columns x m1 threads. Thread (c, j) runs the length-m2
+//    first factor of n1 = j (the zero-padded half of its input folded away
+//    at compile time), then the middle factor of k2 = j + m1 s for each
+//    s < m2 / m1 -- forward DFT, Green's product and inverse DFT, all in
+//    registers -- then the inverse length-m2 factor of n1 = j, keeping
+//    n2 < m2 / 2. Shared memory holds a column's m values after the first
+//    factor and after the middle one: four shared-memory passes an element
+//    instead of six. (A lane group a column through rfft_edge_kernel's
+//    Stockham passes, radix 16, 16, 2 at m = 512, would write each element
+//    to shared memory six times and read it five; the four-step split does
+//    each transform in two register radices, 32 and 16.) The slot of
+//    (k2, n1) in column c is k2 (m1 T + P) + n1 T + c, P = T below T = 16
+//    (else 0), so that each phase's accesses fall on distinct banks.
+// 2. The radix-2 twiddles of the register FFTs (powers of W_32) are
+//    compile-time constants: no shared-memory read for them. The W_m^(n1
+//    k2) twiddles between the factors are the host's table, copied into
+//    shared memory in rows of m2 + 1 (conflict-free).
+// 3. Persistent blocks fed by a ring of cp.async copies. The host plan
+//    (zconv_tile_plan in parallel/cuda_fft.py, checked here) gives the tile
+//    (TL = T U columns, computed in U sub-tiles of T), the block count
+//    (every block resident) and the ring depth S. A block walks (tile,
+//    component) iterations; the input of iteration i + S - 1 (h x TL floats
+//    each of re and im) is copied into its stage while iteration i is
+//    transformed, so loads stay in flight through the arithmetic. A tile
+//    reads h row segments of 4 TL bytes with a stride of 4 B bytes: the
+//    longer the segment, the fewer DRAM pages a byte costs (on the H100 at
+//    256^3: 1.25 ms at 32-byte segments, 1.02 ms at 128; the same kernel
+//    without its butterflies 1.14 and 0.79 ms), hence the sub-tiles, which
+//    give 128-byte segments without a larger block. The copies are 16 bytes
+//    a thread where both input pointers are 16-byte aligned and B is a
+//    multiple of 4 (a segment is too small to give each its own bulk copy;
+//    cp.async spreads them over every thread and needs no mbarrier), 4
+//    bytes otherwise (a view with a storage offset); columns past B are
+//    zero-filled by the copy itself. Each thread waits for its own copy
+//    groups, then a __syncthreads publishes the stage.
+// 4. The Green's tile (m x TL floats) is read once a tile into registers
+//    (the m2 / m1 x m1 values of a thread's middle-factor work in each
+//    sub-tile) and shared by the A components; the next tile's loads are
+//    issued after the last component's middle factor and land during its
+//    inverse factor.
+// 5. The outputs leave from registers by plain stores (fire and forget),
+//    32 / T rows of T consecutive floats a warp.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               ::"r"(smem_u32(dst)), "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               ::"r"(smem_u32(dst)), "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most n (1, 2 or 3) of this thread's copy groups are pending
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+  }
+}
+
+// cos(2 pi e / 32) for e <= 8, float64 rounded to float32 (as the host's
+// table rounds its twiddles)
+__host__ __device__ constexpr float cos32(int e) {
+  return e == 0   ? 1.0f
+         : e == 1 ? 0x1.f6297cp-1f
+         : e == 2 ? 0x1.d906bcp-1f
+         : e == 3 ? 0x1.a9b662p-1f
+         : e == 4 ? 0x1.6a09e6p-1f
+         : e == 5 ? 0x1.1c73b4p-1f
+         : e == 6 ? 0x1.87de2ap-2f
+         : e == 7 ? 0x1.8f8b84p-3f
+                  : 0.0f;
+}
+
+// W_32^f = exp(-2 pi i f / 32), f < 16
+__host__ __device__ constexpr float w32_re(int f) {
+  return f <= 8 ? cos32(f) : -cos32(16 - f);
+}
+__host__ __device__ constexpr float w32_im(int f) {
+  return f <= 8 ? -cos32(8 - f) : -cos32(f - 8);
+}
+
+// Radix2 with compile-time twiddles, for N a power of two <= 32. TOP0: the
+// input's top half is zero, so the first stage's sums are its inputs.
+template <int N, int HALF, bool INV, bool TOP0 = false>
+struct Radix2c {
+  static __device__ __forceinline__ void stages(float (&re)[N],
+                                                float (&im)[N]) {
+#pragma unroll
+    for (int q = 0; q < N / 2; ++q) {
+      const int j = q % HALF;
+      const int a = (q / HALF) * (2 * HALF) + j, b = a + HALF;
+      const int f = j * (32 / (2 * HALF));  // W_(2 HALF)^j = W_32^f
+      const float tr = TOP0 ? re[a] : re[a] - re[b];
+      const float ti = TOP0 ? im[a] : im[a] - im[b];
+      if (!TOP0) {
+        re[a] += re[b];
+        im[a] += im[b];
+      }
+      if (f == 0) {
+        re[b] = tr;
+        im[b] = ti;
+      } else if (f == 8) {  // W = -i, or +i for the inverse
+        re[b] = INV ? -ti : ti;
+        im[b] = INV ? tr : -tr;
+      } else {
+        const float wx = w32_re(f), wy = INV ? -w32_im(f) : w32_im(f);
+        re[b] = tr * wx - ti * wy;
+        im[b] = tr * wy + ti * wx;
+      }
+    }
+    Radix2c<N, HALF / 2, INV>::stages(re, im);
+  }
+};
+
+template <int N, bool INV, bool TOP0>
+struct Radix2c<N, 0, INV, TOP0> {
+  static __device__ __forceinline__ void stages(float (&)[N], float (&)[N]) {}
+};
+
+// The sizes of the design at m = M1 M2: tiles of TL = T U columns, loaded
+// whole and computed T columns at a time (host and device).
+template <int M1, int M2, int T, int U>
+struct ZconvShape {
+  static constexpr int m = M1 * M2, h = m / 2, H2 = M2 / 2;
+  static constexpr int NT = T * M1;   // threads a block
+  static constexpr int TL = T * U;    // columns a tile
+  static constexpr int KS = M2 / M1;  // middle factors a thread
+  static constexpr int RS = M1 * T + (T < 16 ? T : 0);  // slots of a k2
+  static constexpr int TWP = M2 + 1;                     // twiddle row
+  static constexpr int SLOTS = M2 * RS;                  // float2
+  static constexpr int STAGE = m * TL;  // floats: h rows of re, then of im
+  // threads an SM the plans fill: 256 at m = 512 (<= 255 registers a
+  // thread), up to 512 at the shorter lengths (<= 128)
+  static constexpr int SM_THREADS = m == 512 ? 256 : 512;
+  static constexpr long long smem(int stages) {
+    return 4LL * stages * STAGE + 8LL * SLOTS + 8LL * M1 * TWP;
+  }
+};
+
+template <int M1, int M2, int T, int U>
+__global__ void __launch_bounds__(
+    T * M1, ZconvShape<M1, M2, T, U>::SM_THREADS / (T * M1))
+    zconv_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                 const float* __restrict__ g, float* __restrict__ out_r,
+                 float* __restrict__ out_i, const float2* __restrict__ tw_g,
+                 int A, long long B, int stages, int bulk) {
+  using S = ZconvShape<M1, M2, T, U>;
+  constexpr int h = S::h, H2 = S::H2, NT = S::NT, TL = S::TL, KS = S::KS;
+  constexpr int RS = S::RS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  float2* slots = reinterpret_cast<float2*>(ring + stages * S::STAGE);
+  float2* tw = slots + S::SLOTS;
+  const int tid = threadIdx.x, c = tid % T, j = tid / T;
+
+  // W_m^(n1 k2), rows of m2 + 1
+  for (int i = tid; i < M1 * M2; i += NT)
+    tw[(i / M2) * S::TWP + i % M2] = tw_g[i];
+
+  const long long ntiles = (B + TL - 1) / TL;
+  const long long iters =
+      (ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x * A;
+
+  // the input of this block's it-th (tile, component) into stage it % S,
+  // then one commit (an empty group past the last iteration)
+  auto produce = [&](long long it) {
+    if (it < iters) {
+      const long long tile = blockIdx.x + (it / A) * gridDim.x;
+      const long long a = it % A, b0 = tile * TL;
+      float* st = ring + (it % stages) * S::STAGE;
+      if (bulk) {  // 16 bytes a copy: TL / 4 of a row's segment
+        constexpr int Q = TL / 4;
+        for (int o = tid; o < 2 * h * Q; o += NT) {
+          const int p = o / (h * Q), r = (o / Q) % h, q = o % Q;
+          const long long col = b0 + 4 * q;
+          const bool live = col < B;
+          const float* src = (p ? xi : xr) + (a * h + r) * B + col;
+          cp_async16(st + 4 * o, live ? src : xr, live);
+        }
+      } else {
+        for (int o = tid; o < 2 * h * TL; o += NT) {
+          const int p = o / (h * TL), r = (o / TL) % h, q = o % TL;
+          const long long col = b0 + q;
+          const bool live = col < B;
+          const float* src = (p ? xi : xr) + (a * h + r) * B + col;
+          cp_async4(st + o, live ? src : xr, live);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the Green's values of this thread's middle factors in sub-tile u of a
+  // tile: gv[u][s][k1] = g[k2 + m2 k1] at k2 = j + m1 s
+  float gv[U][KS][M1];
+  auto load_green = [&](int u, long long tile) {
+    const long long b = tile * TL + u * T + c;
+    const bool live = b < B;
+    const float* gp = g + (long long)j * B + (live ? b : 0);
+#pragma unroll
+    for (int s = 0; s < KS; ++s)
+#pragma unroll
+      for (int k1 = 0; k1 < M1; ++k1)
+        gv[u][s][k1] =
+            live ? __ldg(gp + (long long)(M1 * s + M2 * k1) * B) : 0.f;
+  };
+
+#pragma unroll
+  for (int u = 0; u < U; ++u) load_green(u, blockIdx.x);
+  for (int s = 0; s < stages - 1; ++s) produce(s);
+  const float inv_m = 1.0f / (float)S::m;
+  // slot (k2, n1) of column c: the first and last factors' n1 = j, the
+  // middle factor's k2 = j + m1 s
+  float2* slot13 = slots + j * T + c;
+  float2* slot2 = slots + j * RS + c;
+  const float2* tw1 = tw + j * S::TWP;
+  const float2* tw2 = tw + j;
+
+  for (long long it = 0; it < iters; ++it) {
+    produce(it + stages - 1);  // into the stage iteration it - 1 read
+    cp_async_wait(stages - 1);
+    __syncthreads();  // the stage is in; the slots are free
+    const long long tile = blockIdx.x + (it / A) * gridDim.x;
+    const long long a = it % A;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {  // columns u T ... u T + T - 1 of the tile
+      if (u > 0) __syncthreads();  // the last sub-tile is done with the slots
+      const long long b = tile * TL + u * T + c;
+      {  // first factor of n1 = j
+        const float* st =
+            ring + (it % stages) * S::STAGE + j * TL + u * T + c;
+        float re[M2], im[M2];
+#pragma unroll
+        for (int n2 = 0; n2 < M2; ++n2) {
+          re[n2] = n2 < H2 ? st[n2 * M1 * TL] : 0.f;
+          im[n2] = n2 < H2 ? st[h * TL + n2 * M1 * TL] : 0.f;
+        }
+        Radix2c<M2, M2 / 2, false, true>::stages(re, im);
+        each_output<M2>([&](int k2, int r) {
+          float2 v = make_float2(re[r], im[r]);
+          if (k2 > 0) v = cmul(tw1[k2], v);
+          slot13[k2 * RS] = v;
+        });
+      }
+      __syncthreads();
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {  // middle factor of k2 = j + m1 s
+        float yr[M1], yi[M1], zr[M1], zi[M1];
+#pragma unroll
+        for (int n1 = 0; n1 < M1; ++n1) {
+          const float2 v = slot2[s * M1 * RS + n1 * T];
+          yr[n1] = v.x;
+          yi[n1] = v.y;
+        }
+        Radix2c<M1, M1 / 2, false>::stages(yr, yi);
+        each_output<M1>([&](int k1, int r) {  // X[k2 + m2 k1] G[k2 + m2 k1]
+          zr[k1] = yr[r] * gv[u][s][k1];
+          zi[k1] = yi[r] * gv[u][s][k1];
+        });
+        Radix2c<M1, M1 / 2, true>::stages(zr, zi);
+        each_output<M1>([&](int n1, int r) {
+          float2 v = make_float2(zr[r], zi[r]);
+          if (n1 > 0) v = cmul_conj(tw2[n1 * S::TWP + M1 * s], v);
+          slot2[s * M1 * RS + n1 * T] = v;
+        });
+      }
+      if (a == A - 1 && tile + gridDim.x < ntiles)
+        load_green(u, tile + gridDim.x);
+      __syncthreads();
+      {  // inverse first factor of n1 = j, n2 < m2 / 2 kept
+        float re[M2], im[M2];
+#pragma unroll
+        for (int k2 = 0; k2 < M2; ++k2) {
+          const float2 v = slot13[k2 * RS];
+          re[k2] = v.x;
+          im[k2] = v.y;
+        }
+        Radix2c<M2, M2 / 2, true>::stages(re, im);
+        if (b < B) {
+          float* orr = out_r + (a * h + j) * B + b;
+          float* oi = out_i + (a * h + j) * B + b;
+          each_output<M2, H2>([&](int n2, int r) {
+            orr[(long long)n2 * M1 * B] = re[r] * inv_m;
+            oi[(long long)n2 * M1 * B] = im[r] * inv_m;
+          });
+        }
+      }
+    }
+  }
+}
+
 template <int M1, int H2>
 __global__ void __launch_bounds__(kThreads, kEdgeBlocks)
     irfft_pass_merge_kernel(const float* __restrict__ br,
@@ -1651,18 +1974,31 @@ struct IfftPassTruncated {
   }
 };
 
+// The arguments of the z conv entry point, with the host's plan.
+struct ZconvArgs {
+  const float *xr, *xi, *g;
+  float *out_r, *out_i;
+  const float* table;
+  int A;
+  long long B;
+  int T, blocks, stages, smem, bulk, threads;
+};
+
+// The four-step kernel (m = 1024 and the lengths with a factor that is not
+// a power of two): the plan must be that of pick_tile, one tile a block.
 struct FftGreensIfftPass {
   template <int M1, int H2>
-  static int go(const Plan& p, const float* xr, const float* xi,
-                const float* g, float* out_r, float* out_i,
-                const float* table, int A, long long B, cudaStream_t st) {
+  static int go(const Plan& p, const ZconvArgs& a, cudaStream_t st) {
     const int t = pick_tile([&](int t) { return 12LL * p.m * t; });
-    if (t == 0) return (int)cudaErrorInvalidValue;
-    const size_t smem = table_bytes(p) + 12ull * p.m * t;
-    const dim3 grid((unsigned)((B + t - 1) / t));
-    return launch(fft_greens_ifft_pass_kernel<M1, H2>, grid, t, smem, st, xr,
-                  xi, g, out_r, out_i, (const float2*)table, A, B, p.m, p.m1,
-                  p.m2);
+    const long long smem = (long long)table_bytes(p) + 12LL * p.m * t;
+    if (t == 0 || a.T != t || a.blocks != (a.B + t - 1) / t ||
+        a.stages != 0 || a.bulk != 0 || a.threads != kThreads ||
+        a.smem != smem)
+      return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)a.blocks);
+    return launch(fft_greens_ifft_pass_kernel<M1, H2>, grid, t, (size_t)smem,
+                  st, a.xr, a.xi, a.g, a.out_r, a.out_i,
+                  (const float2*)a.table, a.A, a.B, p.m, p.m1, p.m2);
   }
 };
 
@@ -1881,6 +2217,77 @@ int launch_edge(const Plan& p, const EdgeArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// The plan of zconv_kernel<M1, M2, T, U> as zconv_tile_plan computes it,
+// checked against what the kernel assumes, then the launch.
+template <int M1, int M2, int T, int U>
+int launch_zconv(const Plan& p, const ZconvArgs& a, cudaStream_t st) {
+  using S = ZconvShape<M1, M2, T, U>;
+  const long long tiles = (a.B + S::TL - 1) / S::TL;
+  const bool aligned =
+      ((unsigned long long)a.xr | (unsigned long long)a.xi) % 16 == 0 &&
+      a.B % 4 == 0;
+  if (p.m1 != M1 || p.m2 != M2 || a.blocks < 1 || a.blocks > tiles ||
+      a.stages < 2 || a.stages > 4 || (a.bulk && !aligned) ||
+      a.smem != S::smem(a.stages) || a.smem > 232448)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = zconv_kernel<M1, M2, T, U>;
+  // the attributes and the residency of a shared-memory size, kept per
+  // device (one set-up a plan, not one a call)
+  static int set_dev = -1, set_smem = -1, sms = 0, per_sm = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev != set_dev || a.smem != set_smem) {
+    set_dev = -1;
+    if ((err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem)) !=
+            cudaSuccess ||
+        (err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+             (int)cudaSharedmemCarveoutMaxShared)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, S::NT, a.smem)) != cudaSuccess)
+      return (int)err;
+    set_dev = dev;
+    set_smem = a.smem;
+  }
+  // persistent blocks: every planned block must be resident at once
+  if ((long long)a.blocks > (long long)per_sm * sms)
+    return (int)cudaErrorInvalidValue;
+  const float2* tw = (const float2*)a.table + (p.m1 * p.m1c + p.m2 * p.h2c);
+  kernel<<<a.blocks, S::NT, a.smem, st>>>(a.xr, a.xi, a.g, a.out_r, a.out_i,
+                                          tw, a.A, a.B, a.stages, a.bulk);
+  return (int)cudaGetLastError();
+}
+
+// The instance of the plan's shape (zconv_tile_plan's ZCONV_SHAPES):
+// T = threads / m1 columns computed at once, U = columns a tile / T
+// sub-tiles.
+template <int M1, int M2>
+int zconv_by_shape(const Plan& p, const ZconvArgs& a, cudaStream_t st) {
+  switch (a.threads * 100 + a.T) {
+    case 8 * M1 * 100 + 8: return launch_zconv<M1, M2, 8, 1>(p, a, st);
+    case 16 * M1 * 100 + 16: return launch_zconv<M1, M2, 16, 1>(p, a, st);
+    case 16 * M1 * 100 + 32: return launch_zconv<M1, M2, 16, 2>(p, a, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The z conv entry point: the design above at m = 64 ... 512, the
+// four-step kernel otherwise; either way the plan must be the one
+// zconv_tile_plan gives.
+int fft_greens_ifft(const Plan& p, const ZconvArgs& a, cudaStream_t st) {
+  switch (p.m) {
+    case 64: return zconv_by_shape<8, 8>(p, a, st);
+    case 128: return zconv_by_shape<8, 16>(p, a, st);
+    case 256: return zconv_by_shape<16, 16>(p, a, st);
+    case 512: return zconv_by_shape<16, 32>(p, a, st);
+  }
+  return dispatch<FftGreensIfftPass>(p, a, st);
+}
+
 // Both x-edge r2c entry points: the design above at power-of-two lengths,
 // the kernel of the other passes' four-step plan otherwise; either way the
 // plan must be the one edge_tile_plan gives.
@@ -1955,15 +2362,18 @@ extern "C" int sopht_ifft_pass_truncated_f32(const float* xr, const float* xi,
                                      table, A, B, (cudaStream_t)stream);
 }
 
-extern "C" int sopht_fft_greens_ifft_pass_f32(const float* xr, const float* xi,
-                                              const float* g, float* out_r,
-                                              float* out_i, const float* table,
-                                              int A, long long B, int m,
-                                              void* stream) {
+// The plan (columns a tile T, blocks, ring stages, shared bytes, 16-byte
+// input copies, threads a block) is zconv_tile_plan's; one that breaks the
+// kernel's assumptions is refused with cudaErrorInvalidValue.
+extern "C" int sopht_fft_greens_ifft_pass_f32(
+    const float* xr, const float* xi, const float* g, float* out_r,
+    float* out_i, const float* table, int A, long long B, int m, int T,
+    int blocks, int stages, int smem, int bulk, int threads, void* stream) {
   Plan p;
   if (!make_plan(m, &p) || A <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
-  return dispatch<FftGreensIfftPass>(p, xr, xi, g, out_r, out_i, table, A, B,
-                                     (cudaStream_t)stream);
+  const ZconvArgs a{xr, xi, g, out_r, out_i, table, A,
+                    B, T, blocks, stages, smem, bulk, threads};
+  return fft_greens_ifft(p, a, (cudaStream_t)stream);
 }
 
 // The plan (rows a tile T, blocks, ring stages, shared bytes, bulk input

@@ -1,13 +1,15 @@
 """Build ``csrc/fft_passes.cu`` and hold the x-edge passes (split, unsplit
-and fused) against their plain versions on one CUDA device, with times:
+and fused) and the z conv against their plain versions on one CUDA device,
+with times:
 
     python3 -m sopht_mpi_tpu_torch.tools.probe_edge_passes [nz ny nx ...]
     python3 sopht_mpi_tpu_torch/tools/probe_edge_passes.py --json [tag]
     python3 -m sopht_mpi_tpu_torch.tools.probe_edge_passes --sweep
 
 The first form is a short first run for a changed kernel: it prints the
-card, the build time, ptxas' register and spill lines of the x-edge r2c and
-the fused kernels, the forward r2c pair on ragged, storage-offset and
+card, the build time, ptxas' register and spill lines of the x-edge r2c,
+the z conv ring kernel and the fused kernels, the forward r2c pair and the
+z conv (``fft_greens_ifft_pass``) on ragged, storage-offset and
 non-power-of-two inputs, then for each grid (default: an odd-factor grid,
 the (256, 512) cylinder grid as one slab a component, a 17 x 32 factor grid
 and 256^3) each pass's relative error against ``*_ref`` and the median of 10
@@ -16,18 +18,24 @@ timed calls of both (CUDA events), and ends with the JSON line below.
 ``--json`` prints the card (name and power limit) and one JSON line only:
 the median of 20 calls (CUDA events, after 3 warm-up calls) of each of the
 eleven FFT-pass kernels at the 256^3 vector solve's shapes, of the two
-forward r2c passes at the 2D route's (256, 512) shape (m = 1024), and of
-``torch.fft.rfft`` on the same inputs, with the r2c passes' relative errors.
+forward r2c passes at the 2D route's (256, 512) shape (m = 1024), of the z
+conv at the 2D route's (1, 256, 512) shape (m = 512), and of
+``torch.fft.rfft`` on the same inputs, with the r2c passes' and the z conv's
+relative errors.
 It imports the package from ``sys.path`` and uses only the wrappers' public
 names, so it compares two trees on one card within one job: unpack the other
 tree into a directory and run this file with ``PYTHONPATH`` set to each, in
-turns (a, b, b, a). Each r2c pass and ``torch.fft.rfft`` also get their
-device time from ``torch.profiler`` (``device_ms``) and the host's time to
-enqueue one call (``host_us``): a call's event time starts from an idle card
-and includes that enqueue, which at the 2D shape is most of it.
+turns (a, b, b, a). Each r2c pass, the z conv and ``torch.fft.rfft`` also
+get their device time from ``torch.profiler`` (``device_ms``) and the
+host's time to enqueue one call (``host_us``): a call's event time starts
+from an idle card and includes that enqueue, which at the 2D shape is most
+of it.
 
 ``--sweep`` prints the split r2c kernel's device time under every plan its
-launcher takes at both shapes, the one ``edge_tile_plan`` picks marked.
+launcher takes at both shapes, the one ``edge_tile_plan`` picks marked, and
+the z conv's under each of its four instances with 2-4 ring stages (at
+most twelve plans a shape) at 256^3, the 2D shape and the multi-body
+case's m = 256, the one ``zconv_tile_plan`` picks marked.
 """
 
 from __future__ import annotations
@@ -45,6 +53,15 @@ from sopht_mpi_tpu_torch.parallel import cuda_fft
 
 DEFAULT_GRIDS = ((48, 32, 64), (1, 256, 512), (16, 272, 80), (256, 256, 256))
 R2C = ("rfft_pass_padded_split", "rfft_pass_padded")
+# the z conv's (A, m/2, B) shapes: the 256^3 vector solve's and the 2D
+# route's y pass
+ZCONV_INPUTS = (("256^3", (3, 256, 512 * 256)), ("2d", (1, 256, 512)))
+# its extra checks (A, m/2, B, storage offset in floats): ragged last tiles,
+# inputs 4 bytes off 16-byte alignment, A = 1, and the four-step kernel's
+# lengths (m = 96, 544, 1024)
+ZCONV_CASES = ((3, 256, 1001, 0), (3, 256, 4100, 1), (1, 256, 512, 0),
+               (1, 128, 300, 0), (3, 64, 999, 2), (3, 32, 4096, 0),
+               (3, 48, 333, 0), (3, 272, 200, 1), (3, 512, 777, 0))
 
 
 def median_ms(fn, n=10, warmup=2):
@@ -174,6 +191,18 @@ def timing(tag, rand, dev):
         out["ms"]["256^3"][name] = median_ms(lambda: fn(*args), 20, 3)
         del args
         torch.cuda.empty_cache()
+    name, fn = "fft_greens_ifft_pass", cuda_fft.fft_greens_ifft_pass
+    out["zconv_rel_err"] = {}
+    for shape, (a, h, b) in ZCONV_INPUTS:
+        args = (rand(a, h, b), rand(a, h, b), rand(1, 2 * h, b))
+        out["zconv_rel_err"][shape] = rel_err(
+            fn(*args), cuda_fft.fft_greens_ifft_pass_ref(*args))
+        if shape != "256^3":
+            out["ms"][shape][name] = median_ms(lambda: fn(*args), 20, 3)
+        out["device_ms"][shape][name] = device_ms(lambda: fn(*args))
+        out["host_us"][shape][name] = host_us(lambda: fn(*args))
+        del args
+        torch.cuda.empty_cache()
     return out
 
 
@@ -221,6 +250,66 @@ def sweep(rand, dev):
         torch.cuda.empty_cache()
 
 
+def sweep_zconv(rand, dev):
+    """Device time of the z conv kernel under the plans of each instance
+    (columns computed at once, sub-tiles a tile) with 2, 3 and 4 ring stages
+    where they fit, at the 256^3 solve's shape, the 2D shape and the
+    multi-body case's (m = 256), the plan ``zconv_tile_plan`` picks marked:
+    one line a plan."""
+    lib, sms = cuda_fft.library(), cuda_fft._sm_count(dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape, (a, h, b) in ZCONV_INPUTS + (("multibody",
+                                             (3, 128, 256 * 256)),):
+        m = 2 * h
+        xr, xi, g = rand(a, h, b), rand(a, h, b), rand(1, m, b)
+        outs = [rand(a, h, b), rand(a, h, b)]
+        table = cuda_fft._table(m, dev)
+        ptr = xr.data_ptr() | xi.data_ptr()
+        chosen = cuda_fft.zconv_tile_plan(a, b, m, ptr, sms)
+        for t, u in cuda_fft.ZCONV_SHAPES:
+            base = cuda_fft.zconv_tile_plan(a, b, m, ptr, sms, (t, u))
+            for stages in (2, 3, 4):
+                smem = cuda_fft._zconv_smem(m, base.cols, t, stages)
+                if base.blocks_per_sm * (smem + cuda_fft.BLOCK_SHARED_RESERVE) \
+                        > cuda_fft.SM_SHARED_BYTES:
+                    continue
+                plan = base._replace(stages=stages, smem=smem)
+
+                def fn(plan=plan):
+                    return lib.sopht_fft_greens_ifft_pass_f32(
+                        xr.data_ptr(), xi.data_ptr(), g.data_ptr(),
+                        *(o.data_ptr() for o in outs), table.data_ptr(),
+                        a, b, m, *plan.args(), stream)
+
+                if fn():  # refused: the blocks would not all be resident
+                    print(f"sweep zconv {shape}: {plan} refused", flush=True)
+                    continue
+                mark = " <- zconv_tile_plan" if plan == chosen else ""
+                print(f"sweep zconv {shape}: T {t} x {u} threads "
+                      f"{plan.threads} stages {stages} blocks/SM "
+                      f"{plan.blocks_per_sm} blocks {plan.blocks}: "
+                      f"{device_ms(fn):.4f} ms{mark}", flush=True)
+        del xr, xi, g, outs
+        torch.cuda.empty_cache()
+
+
+def zconv_cases(rand):
+    """The z conv on ragged column counts, storage-offset inputs, A = 1 and
+    the four-step kernel's lengths: (case, relative error)."""
+    results = []
+    for a, h, b, offset in ZCONV_CASES:
+        n = a * h * b
+        xr = rand(n + offset)[offset:].view(a, h, b)
+        xi = rand(n + offset)[offset:].view(a, h, b)
+        g = rand(1, 2 * h, b)
+        err = rel_err(cuda_fft.fft_greens_ifft_pass(xr, xi, g),
+                      cuda_fft.fft_greens_ifft_pass_ref(xr, xi, g))
+        results.append((f"fft_greens_ifft_pass ({a}, {h}, {b}) m={2 * h} "
+                        f"offset {offset}", err))
+    torch.cuda.synchronize()
+    return results
+
+
 def r2c_cases(rand):
     """The forward r2c pair on ragged row counts, a storage-offset input
     and lengths off the power-of-two design: (case, relative error)."""
@@ -251,6 +340,7 @@ def main(argv):
 
     if argv and argv[0] == "--sweep":
         print(card())
+        sweep_zconv(rand, dev)
         sweep(rand, dev)
         return 0
     if argv and argv[0] == "--json":
@@ -273,11 +363,14 @@ def main(argv):
     print(f"build {time.perf_counter() - t0:.1f} s")
     lines = lib.build_log.splitlines()
     for i, ln in enumerate(lines[:-2]):
-        name = re.search(r"(rfft_edge_kernel|\w+_fused_kernel)ILi(\d+)E", ln)
+        name = re.search(
+            r"(rfft_edge_kernel|zconv_kernel|\w+_fused_kernel)((?:ILi|Li)\d+E)+",
+            ln)
         if "Function properties" in ln and name:
-            print(name.group(1)[-28:], name.group(2), "|",
-                  lines[i + 1].strip(), "|", lines[i + 2].strip()[:60])
-    for case, err in r2c_cases(rand):
+            print(name.group(1)[-28:], re.findall(r"\d+", name.group(0)[
+                len(name.group(1)):]), "|", lines[i + 1].strip(), "|",
+                lines[i + 2].strip()[:60])
+    for case, err in r2c_cases(rand) + zconv_cases(rand):
         print(f"{case}: relative err {err:.3g}", flush=True)
     for grid in grids:
         if not all(cuda_fft.kernel_fft_supported(2 * n) for n in grid[1:]):
