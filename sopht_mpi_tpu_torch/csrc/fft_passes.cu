@@ -1051,29 +1051,30 @@ __global__ void __launch_bounds__(kThreads, 2)
 //    compile-time constants: no shared-memory read for them. The W_m^(n1
 //    k2) twiddles between the factors are the host's table, copied into
 //    shared memory in rows of m2 + 1 (conflict-free).
-// 3. Persistent blocks fed by a ring of cp.async copies. The host plan
-//    (zconv_tile_plan in parallel/cuda_fft.py, checked here) gives the tile
-//    (TL = T U columns, computed in U sub-tiles of T), the block count
-//    (every block resident) and the ring depth S. A block walks (tile,
-//    component) iterations; the input of iteration i + S - 1 (h x TL floats
-//    each of re and im) is copied into its stage while iteration i is
-//    transformed, so loads stay in flight through the arithmetic. A tile
-//    reads h row segments of 4 TL bytes with a stride of 4 B bytes: the
-//    longer the segment, the fewer DRAM pages a byte costs (on the H100 at
-//    256^3: 1.25 ms at 32-byte segments, 1.02 ms at 128; the same kernel
-//    without its butterflies 1.14 and 0.79 ms), hence the sub-tiles, which
-//    give 128-byte segments without a larger block. The copies are 16 bytes
+// 3. Persistent blocks fed by a two-stage ring of cp.async copies. The
+//    host plan (zconv_tile_plan in parallel/cuda_fft.py, checked here)
+//    gives the tile (T columns) and the block count (every block
+//    resident). A block walks (tile, component) iterations; the input of
+//    iteration i + 1 (h x T floats each of re and im) is copied into the
+//    other stage while iteration i is transformed, so loads stay in flight
+//    through the arithmetic. A tile reads h row segments of 4 T bytes with
+//    a stride of 4 B bytes: the longer the segment, the fewer DRAM pages a
+//    byte costs (on the H100 at 256^3, device time: 1.23-1.27 ms at
+//    32-byte segments, 0.97 at 64; 128-byte ones, loaded as 32 columns and
+//    computed as two sub-tiles of 16, took 1.01, their extra sync and
+//    registers costing more than the longer segments saved), hence T = 16,
+//    and T = 8 only where 16-column tiles would leave SMs without a block.
+//    Three or four stages were within 2% of two. The copies are 16 bytes
 //    a thread where both input pointers are 16-byte aligned and B is a
 //    multiple of 4 (a segment is too small to give each its own bulk copy;
 //    cp.async spreads them over every thread and needs no mbarrier), 4
 //    bytes otherwise (a view with a storage offset); columns past B are
 //    zero-filled by the copy itself. Each thread waits for its own copy
 //    groups, then a __syncthreads publishes the stage.
-// 4. The Green's tile (m x TL floats) is read once a tile into registers
-//    (the m2 / m1 x m1 values of a thread's middle-factor work in each
-//    sub-tile) and shared by the A components; the next tile's loads are
-//    issued after the last component's middle factor and land during its
-//    inverse factor.
+// 4. The Green's tile (m x T floats) is read once a tile into registers
+//    (the m2 / m1 x m1 values of a thread's middle-factor work) and shared
+//    by the A components; the next tile's Green's values are read after
+//    the last component's middle factor.
 // 5. The outputs leave from registers by plain stores (fire and forget),
 //    32 / T rows of T consecutive floats a warp.
 // ---------------------------------------------------------------------------
@@ -1096,13 +1097,9 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-// wait until at most n (1, 2 or 3) of this thread's copy groups are pending
-__device__ __forceinline__ void cp_async_wait(int n) {
-  switch (n) {
-    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
-  }
+// wait until at most one of this thread's copy groups is pending
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
 }
 
 // cos(2 pi e / 32) for e <= 8, float64 rounded to float32 (as the host's
@@ -1165,39 +1162,36 @@ struct Radix2c<N, 0, INV, TOP0> {
   static __device__ __forceinline__ void stages(float (&)[N], float (&)[N]) {}
 };
 
-// The sizes of the design at m = M1 M2: tiles of TL = T U columns, loaded
-// whole and computed T columns at a time (host and device).
-template <int M1, int M2, int T, int U>
+// The sizes of the design at m = M1 M2 with tiles of T columns (host and
+// device).
+template <int M1, int M2, int T>
 struct ZconvShape {
   static constexpr int m = M1 * M2, h = m / 2, H2 = M2 / 2;
   static constexpr int NT = T * M1;   // threads a block
-  static constexpr int TL = T * U;    // columns a tile
   static constexpr int KS = M2 / M1;  // middle factors a thread
   static constexpr int RS = M1 * T + (T < 16 ? T : 0);  // slots of a k2
   static constexpr int TWP = M2 + 1;                     // twiddle row
   static constexpr int SLOTS = M2 * RS;                  // float2
-  static constexpr int STAGE = m * TL;  // floats: h rows of re, then of im
+  static constexpr int STAGE = m * T;  // floats: h rows of re, then of im
+  static constexpr int STAGES = 2;
   // threads an SM the plans fill: 256 at m = 512 (<= 255 registers a
   // thread), up to 512 at the shorter lengths (<= 128)
   static constexpr int SM_THREADS = m == 512 ? 256 : 512;
-  static constexpr long long smem(int stages) {
-    return 4LL * stages * STAGE + 8LL * SLOTS + 8LL * M1 * TWP;
-  }
+  static constexpr int SMEM = 4 * STAGES * STAGE + 8 * SLOTS + 8 * M1 * TWP;
 };
 
-template <int M1, int M2, int T, int U>
+template <int M1, int M2, int T>
 __global__ void __launch_bounds__(
-    T * M1, ZconvShape<M1, M2, T, U>::SM_THREADS / (T * M1))
+    T * M1, ZconvShape<M1, M2, T>::SM_THREADS / (T * M1))
     zconv_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                  const float* __restrict__ g, float* __restrict__ out_r,
                  float* __restrict__ out_i, const float2* __restrict__ tw_g,
-                 int A, long long B, int stages, int bulk) {
-  using S = ZconvShape<M1, M2, T, U>;
-  constexpr int h = S::h, H2 = S::H2, NT = S::NT, TL = S::TL, KS = S::KS;
-  constexpr int RS = S::RS;
+                 int A, long long B, int bulk) {
+  using S = ZconvShape<M1, M2, T>;
+  constexpr int h = S::h, H2 = S::H2, NT = S::NT, KS = S::KS, RS = S::RS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* ring = reinterpret_cast<float*>(smem_raw);
-  float2* slots = reinterpret_cast<float2*>(ring + stages * S::STAGE);
+  float2* slots = reinterpret_cast<float2*>(ring + S::STAGES * S::STAGE);
   float2* tw = slots + S::SLOTS;
   const int tid = threadIdx.x, c = tid % T, j = tid / T;
 
@@ -1205,19 +1199,19 @@ __global__ void __launch_bounds__(
   for (int i = tid; i < M1 * M2; i += NT)
     tw[(i / M2) * S::TWP + i % M2] = tw_g[i];
 
-  const long long ntiles = (B + TL - 1) / TL;
+  const long long ntiles = (B + T - 1) / T;
   const long long iters =
       (ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x * A;
 
-  // the input of this block's it-th (tile, component) into stage it % S,
+  // the input of this block's it-th (tile, component) into stage it % 2,
   // then one commit (an empty group past the last iteration)
   auto produce = [&](long long it) {
     if (it < iters) {
       const long long tile = blockIdx.x + (it / A) * gridDim.x;
-      const long long a = it % A, b0 = tile * TL;
-      float* st = ring + (it % stages) * S::STAGE;
-      if (bulk) {  // 16 bytes a copy: TL / 4 of a row's segment
-        constexpr int Q = TL / 4;
+      const long long a = it % A, b0 = tile * T;
+      float* st = ring + (it % S::STAGES) * S::STAGE;
+      if (bulk) {  // 16 bytes a copy: T / 4 of a row's segment
+        constexpr int Q = T / 4;
         for (int o = tid; o < 2 * h * Q; o += NT) {
           const int p = o / (h * Q), r = (o / Q) % h, q = o % Q;
           const long long col = b0 + 4 * q;
@@ -1226,8 +1220,8 @@ __global__ void __launch_bounds__(
           cp_async16(st + 4 * o, live ? src : xr, live);
         }
       } else {
-        for (int o = tid; o < 2 * h * TL; o += NT) {
-          const int p = o / (h * TL), r = (o / TL) % h, q = o % TL;
+        for (int o = tid; o < 2 * h * T; o += NT) {
+          const int p = o / (h * T), r = (o / T) % h, q = o % T;
           const long long col = b0 + q;
           const bool live = col < B;
           const float* src = (p ? xi : xr) + (a * h + r) * B + col;
@@ -1238,24 +1232,23 @@ __global__ void __launch_bounds__(
     cp_async_commit();
   };
 
-  // the Green's values of this thread's middle factors in sub-tile u of a
-  // tile: gv[u][s][k1] = g[k2 + m2 k1] at k2 = j + m1 s
-  float gv[U][KS][M1];
-  auto load_green = [&](int u, long long tile) {
-    const long long b = tile * TL + u * T + c;
+  // the Green's values of this thread's middle factors in a tile:
+  // gv[s][k1] = g[k2 + m2 k1] at k2 = j + m1 s
+  float gv[KS][M1];
+  auto load_green = [&](long long tile) {
+    const long long b = tile * T + c;
     const bool live = b < B;
     const float* gp = g + (long long)j * B + (live ? b : 0);
 #pragma unroll
     for (int s = 0; s < KS; ++s)
 #pragma unroll
       for (int k1 = 0; k1 < M1; ++k1)
-        gv[u][s][k1] =
+        gv[s][k1] =
             live ? __ldg(gp + (long long)(M1 * s + M2 * k1) * B) : 0.f;
   };
 
-#pragma unroll
-  for (int u = 0; u < U; ++u) load_green(u, blockIdx.x);
-  for (int s = 0; s < stages - 1; ++s) produce(s);
+  load_green(blockIdx.x);
+  produce(0);
   const float inv_m = 1.0f / (float)S::m;
   // slot (k2, n1) of column c: the first and last factors' n1 = j, the
   // middle factor's k2 = j + m1 s
@@ -1265,73 +1258,66 @@ __global__ void __launch_bounds__(
   const float2* tw2 = tw + j;
 
   for (long long it = 0; it < iters; ++it) {
-    produce(it + stages - 1);  // into the stage iteration it - 1 read
-    cp_async_wait(stages - 1);
+    produce(it + 1);  // into the stage iteration it - 1 read
+    cp_async_wait1();
     __syncthreads();  // the stage is in; the slots are free
     const long long tile = blockIdx.x + (it / A) * gridDim.x;
-    const long long a = it % A;
+    const long long a = it % A, b = tile * T + c;
+    {  // first factor of n1 = j
+      const float* st = ring + (it % S::STAGES) * S::STAGE + j * T + c;
+      float re[M2], im[M2];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {  // columns u T ... u T + T - 1 of the tile
-      if (u > 0) __syncthreads();  // the last sub-tile is done with the slots
-      const long long b = tile * TL + u * T + c;
-      {  // first factor of n1 = j
-        const float* st =
-            ring + (it % stages) * S::STAGE + j * TL + u * T + c;
-        float re[M2], im[M2];
-#pragma unroll
-        for (int n2 = 0; n2 < M2; ++n2) {
-          re[n2] = n2 < H2 ? st[n2 * M1 * TL] : 0.f;
-          im[n2] = n2 < H2 ? st[h * TL + n2 * M1 * TL] : 0.f;
-        }
-        Radix2c<M2, M2 / 2, false, true>::stages(re, im);
-        each_output<M2>([&](int k2, int r) {
-          float2 v = make_float2(re[r], im[r]);
-          if (k2 > 0) v = cmul(tw1[k2], v);
-          slot13[k2 * RS] = v;
-        });
+      for (int n2 = 0; n2 < M2; ++n2) {
+        re[n2] = n2 < H2 ? st[n2 * M1 * T] : 0.f;
+        im[n2] = n2 < H2 ? st[h * T + n2 * M1 * T] : 0.f;
       }
-      __syncthreads();
+      Radix2c<M2, M2 / 2, false, true>::stages(re, im);
+      each_output<M2>([&](int k2, int r) {
+        float2 v = make_float2(re[r], im[r]);
+        if (k2 > 0) v = cmul(tw1[k2], v);
+        slot13[k2 * RS] = v;
+      });
+    }
+    __syncthreads();
 #pragma unroll
-      for (int s = 0; s < KS; ++s) {  // middle factor of k2 = j + m1 s
-        float yr[M1], yi[M1], zr[M1], zi[M1];
+    for (int s = 0; s < KS; ++s) {  // middle factor of k2 = j + m1 s
+      float yr[M1], yi[M1], zr[M1], zi[M1];
 #pragma unroll
-        for (int n1 = 0; n1 < M1; ++n1) {
-          const float2 v = slot2[s * M1 * RS + n1 * T];
-          yr[n1] = v.x;
-          yi[n1] = v.y;
-        }
-        Radix2c<M1, M1 / 2, false>::stages(yr, yi);
-        each_output<M1>([&](int k1, int r) {  // X[k2 + m2 k1] G[k2 + m2 k1]
-          zr[k1] = yr[r] * gv[u][s][k1];
-          zi[k1] = yi[r] * gv[u][s][k1];
-        });
-        Radix2c<M1, M1 / 2, true>::stages(zr, zi);
-        each_output<M1>([&](int n1, int r) {
-          float2 v = make_float2(zr[r], zi[r]);
-          if (n1 > 0) v = cmul_conj(tw2[n1 * S::TWP + M1 * s], v);
-          slot2[s * M1 * RS + n1 * T] = v;
-        });
+      for (int n1 = 0; n1 < M1; ++n1) {
+        const float2 v = slot2[s * M1 * RS + n1 * T];
+        yr[n1] = v.x;
+        yi[n1] = v.y;
       }
-      if (a == A - 1 && tile + gridDim.x < ntiles)
-        load_green(u, tile + gridDim.x);
-      __syncthreads();
-      {  // inverse first factor of n1 = j, n2 < m2 / 2 kept
-        float re[M2], im[M2];
+      Radix2c<M1, M1 / 2, false>::stages(yr, yi);
+      each_output<M1>([&](int k1, int r) {  // X[k2 + m2 k1] G[k2 + m2 k1]
+        zr[k1] = yr[r] * gv[s][k1];
+        zi[k1] = yi[r] * gv[s][k1];
+      });
+      Radix2c<M1, M1 / 2, true>::stages(zr, zi);
+      each_output<M1>([&](int n1, int r) {
+        float2 v = make_float2(zr[r], zi[r]);
+        if (n1 > 0) v = cmul_conj(tw2[n1 * S::TWP + M1 * s], v);
+        slot2[s * M1 * RS + n1 * T] = v;
+      });
+    }
+    if (a == A - 1 && tile + gridDim.x < ntiles) load_green(tile + gridDim.x);
+    __syncthreads();
+    {  // inverse first factor of n1 = j, n2 < m2 / 2 kept
+      float re[M2], im[M2];
 #pragma unroll
-        for (int k2 = 0; k2 < M2; ++k2) {
-          const float2 v = slot13[k2 * RS];
-          re[k2] = v.x;
-          im[k2] = v.y;
-        }
-        Radix2c<M2, M2 / 2, true>::stages(re, im);
-        if (b < B) {
-          float* orr = out_r + (a * h + j) * B + b;
-          float* oi = out_i + (a * h + j) * B + b;
-          each_output<M2, H2>([&](int n2, int r) {
-            orr[(long long)n2 * M1 * B] = re[r] * inv_m;
-            oi[(long long)n2 * M1 * B] = im[r] * inv_m;
-          });
-        }
+      for (int k2 = 0; k2 < M2; ++k2) {
+        const float2 v = slot13[k2 * RS];
+        re[k2] = v.x;
+        im[k2] = v.y;
+      }
+      Radix2c<M2, M2 / 2, true>::stages(re, im);
+      if (b < B) {
+        float* orr = out_r + (a * h + j) * B + b;
+        float* oi = out_i + (a * h + j) * B + b;
+        each_output<M2, H2>([&](int n2, int r) {
+          orr[(long long)n2 * M1 * B] = re[r] * inv_m;
+          oi[(long long)n2 * M1 * B] = im[r] * inv_m;
+        });
       }
     }
   }
@@ -1985,20 +1971,20 @@ struct ZconvArgs {
 };
 
 // The four-step kernel (m = 1024 and the lengths with a factor that is not
-// a power of two): the plan must be that of pick_tile, one tile a block.
+// a power of two): pick_tile's tile, one a block. The host passes no plan
+// for it (every field 0).
 struct FftGreensIfftPass {
   template <int M1, int H2>
   static int go(const Plan& p, const ZconvArgs& a, cudaStream_t st) {
-    const int t = pick_tile([&](int t) { return 12LL * p.m * t; });
-    const long long smem = (long long)table_bytes(p) + 12LL * p.m * t;
-    if (t == 0 || a.T != t || a.blocks != (a.B + t - 1) / t ||
-        a.stages != 0 || a.bulk != 0 || a.threads != kThreads ||
-        a.smem != smem)
+    if (a.T || a.blocks || a.stages || a.smem || a.bulk || a.threads)
       return (int)cudaErrorInvalidValue;
-    const dim3 grid((unsigned)a.blocks);
-    return launch(fft_greens_ifft_pass_kernel<M1, H2>, grid, t, (size_t)smem,
-                  st, a.xr, a.xi, a.g, a.out_r, a.out_i,
-                  (const float2*)a.table, a.A, a.B, p.m, p.m1, p.m2);
+    const int t = pick_tile([&](int t) { return 12LL * p.m * t; });
+    if (t == 0) return (int)cudaErrorInvalidValue;
+    const size_t smem = table_bytes(p) + 12ull * p.m * t;
+    const dim3 grid((unsigned)((a.B + t - 1) / t));
+    return launch(fft_greens_ifft_pass_kernel<M1, H2>, grid, t, smem, st,
+                  a.xr, a.xi, a.g, a.out_r, a.out_i, (const float2*)a.table,
+                  a.A, a.B, p.m, p.m1, p.m2);
   }
 };
 
@@ -2217,30 +2203,29 @@ int launch_edge(const Plan& p, const EdgeArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// The plan of zconv_kernel<M1, M2, T, U> as zconv_tile_plan computes it,
+// The plan of zconv_kernel<M1, M2, T> as zconv_tile_plan computes it,
 // checked against what the kernel assumes, then the launch.
-template <int M1, int M2, int T, int U>
+template <int M1, int M2, int T>
 int launch_zconv(const Plan& p, const ZconvArgs& a, cudaStream_t st) {
-  using S = ZconvShape<M1, M2, T, U>;
-  const long long tiles = (a.B + S::TL - 1) / S::TL;
+  using S = ZconvShape<M1, M2, T>;
+  const long long tiles = (a.B + T - 1) / T;
   const bool aligned =
       ((unsigned long long)a.xr | (unsigned long long)a.xi) % 16 == 0 &&
       a.B % 4 == 0;
-  if (p.m1 != M1 || p.m2 != M2 || a.blocks < 1 || a.blocks > tiles ||
-      a.stages < 2 || a.stages > 4 || (a.bulk && !aligned) ||
-      a.smem != S::smem(a.stages) || a.smem > 232448)
+  if (p.m1 != M1 || p.m2 != M2 || a.threads != S::NT || a.blocks < 1 ||
+      a.blocks > tiles || a.stages != S::STAGES || (a.bulk && !aligned) ||
+      a.smem != S::SMEM)
     return (int)cudaErrorInvalidValue;
-  auto kernel = zconv_kernel<M1, M2, T, U>;
-  // the attributes and the residency of a shared-memory size, kept per
-  // device (one set-up a plan, not one a call)
-  static int set_dev = -1, set_smem = -1, sms = 0, per_sm = 0;
+  auto kernel = zconv_kernel<M1, M2, T>;
+  // the attributes and the residency, kept per device (one set-up an
+  // instance, not one a call)
+  static int set_dev = -1, sms = 0, per_sm = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (dev != set_dev || a.smem != set_smem) {
-    set_dev = -1;
+  if (dev != set_dev) {
     if ((err = cudaFuncSetAttribute(
-             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem)) !=
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM)) !=
             cudaSuccess ||
         (err = cudaFuncSetAttribute(
              kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -2248,42 +2233,37 @@ int launch_zconv(const Plan& p, const ZconvArgs& a, cudaStream_t st) {
         (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                       dev)) != cudaSuccess ||
         (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, S::NT, a.smem)) != cudaSuccess)
+             &per_sm, kernel, S::NT, S::SMEM)) != cudaSuccess)
       return (int)err;
     set_dev = dev;
-    set_smem = a.smem;
   }
   // persistent blocks: every planned block must be resident at once
   if ((long long)a.blocks > (long long)per_sm * sms)
     return (int)cudaErrorInvalidValue;
   const float2* tw = (const float2*)a.table + (p.m1 * p.m1c + p.m2 * p.h2c);
-  kernel<<<a.blocks, S::NT, a.smem, st>>>(a.xr, a.xi, a.g, a.out_r, a.out_i,
-                                          tw, a.A, a.B, a.stages, a.bulk);
+  kernel<<<a.blocks, S::NT, S::SMEM, st>>>(a.xr, a.xi, a.g, a.out_r,
+                                           a.out_i, tw, a.A, a.B, a.bulk);
   return (int)cudaGetLastError();
 }
 
-// The instance of the plan's shape (zconv_tile_plan's ZCONV_SHAPES):
-// T = threads / m1 columns computed at once, U = columns a tile / T
-// sub-tiles.
+// The instance of the plan's tile (zconv_tile_plan's ZCONV_COLUMNS).
 template <int M1, int M2>
-int zconv_by_shape(const Plan& p, const ZconvArgs& a, cudaStream_t st) {
-  switch (a.threads * 100 + a.T) {
-    case 8 * M1 * 100 + 8: return launch_zconv<M1, M2, 8, 1>(p, a, st);
-    case 16 * M1 * 100 + 16: return launch_zconv<M1, M2, 16, 1>(p, a, st);
-    case 16 * M1 * 100 + 32: return launch_zconv<M1, M2, 16, 2>(p, a, st);
+int zconv_by_columns(const Plan& p, const ZconvArgs& a, cudaStream_t st) {
+  switch (a.T) {
+    case 8: return launch_zconv<M1, M2, 8>(p, a, st);
+    case 16: return launch_zconv<M1, M2, 16>(p, a, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// The z conv entry point: the design above at m = 64 ... 512, the
-// four-step kernel otherwise; either way the plan must be the one
-// zconv_tile_plan gives.
+// The z conv entry point: the design above at m = 64 ... 512, with the
+// plan zconv_tile_plan gives; the four-step kernel otherwise, with none.
 int fft_greens_ifft(const Plan& p, const ZconvArgs& a, cudaStream_t st) {
   switch (p.m) {
-    case 64: return zconv_by_shape<8, 8>(p, a, st);
-    case 128: return zconv_by_shape<8, 16>(p, a, st);
-    case 256: return zconv_by_shape<16, 16>(p, a, st);
-    case 512: return zconv_by_shape<16, 32>(p, a, st);
+    case 64: return zconv_by_columns<8, 8>(p, a, st);
+    case 128: return zconv_by_columns<8, 16>(p, a, st);
+    case 256: return zconv_by_columns<16, 16>(p, a, st);
+    case 512: return zconv_by_columns<16, 32>(p, a, st);
   }
   return dispatch<FftGreensIfftPass>(p, a, st);
 }
@@ -2363,8 +2343,9 @@ extern "C" int sopht_ifft_pass_truncated_f32(const float* xr, const float* xi,
 }
 
 // The plan (columns a tile T, blocks, ring stages, shared bytes, 16-byte
-// input copies, threads a block) is zconv_tile_plan's; one that breaks the
-// kernel's assumptions is refused with cudaErrorInvalidValue.
+// input copies, threads a block) is zconv_tile_plan's: all 0 for the
+// four-step kernel's lengths. One that breaks the kernel's assumptions is
+// refused with cudaErrorInvalidValue.
 extern "C" int sopht_fft_greens_ifft_pass_f32(
     const float* xr, const float* xi, const float* g, float* out_r,
     float* out_i, const float* table, int A, long long B, int m, int T,

@@ -37,7 +37,8 @@ The forward x-edge r2c pair (split and unsplit) launches with the plan
 :func:`edge_tile_plan` gives (rows a tile, persistent blocks, ring stages,
 shared bytes, bulk copies), the z conv :func:`fft_greens_ifft_pass` with
 the plan of :func:`zconv_tile_plan` (columns a tile, persistent blocks,
-ring stages, shared bytes, 16-byte copies); the C launchers refuse any
+ring stages, shared bytes, 16-byte copies; none at the lengths of the
+four-step kernel, which plans its own launch); the C launchers refuse any
 other.
 
 The unsplit x passes keep the kx Nyquist column in the row ((R, m/2 + 1)
@@ -241,13 +242,12 @@ def _edge_tile_plan(rows, n_in, m, unsplit, aligned, sms):
 
 
 class ZconvTilePlan(NamedTuple):
-    """How the z conv kernel covers (A, m/2, B) pairs: ``cols`` a tile
-    (loaded whole), ``blocks`` (persistent, at most the tiles), ``stages``
-    of the input ring (0: the four-step kernel, one tile a block), ``smem``
-    bytes a block, ``bulk`` (16-byte input copies), ``threads`` a block
-    (m1 a column computed at once: ``threads // m1`` columns, the tile in
-    ``cols * m1 // threads`` sub-tiles) and the ``blocks_per_sm`` the plan
-    counts on being resident."""
+    """How the z conv kernel covers (A, m/2, B) pairs: ``cols`` a tile,
+    ``blocks`` (persistent, at most the tiles), ``stages`` of the input ring,
+    ``smem`` bytes a block, ``bulk`` (16-byte input copies), ``threads`` a
+    block (``cols`` x m1) and the ``blocks_per_sm`` the plan counts on being
+    resident. :data:`FOUR_STEP_ZCONV_PLAN` (every field 0) for the lengths
+    the four-step kernel takes: it plans its own launch."""
 
     cols: int
     blocks: int
@@ -265,90 +265,67 @@ class ZconvTilePlan(NamedTuple):
 
 #: the lengths of the z conv's ring kernel; the others take the four-step one
 ZCONV_LENGTHS = (64, 128, 256, 512)
-#: the ring kernel's instances, (columns computed at once, sub-tiles a
-#: tile), fastest first where every SM has blocks (the H100 at 256^3 and at
-#: the multi-body case's m = 256, ``tools/probe_edge_passes.py --sweep``):
-#: the longer a tile's row segments (4 x columns x sub-tiles bytes), the
-#: fewer DRAM pages a byte costs
-ZCONV_SHAPES = ((16, 2), (16, 1), (8, 1))
+#: the ring kernel's instances, columns a tile: 16 (64-byte row segments)
+#: where its tiles give every SM its blocks, else 8 (``tools/
+#: probe_edge_passes.py --sweep``: the longer a tile's row segments, the
+#: fewer DRAM pages a byte costs)
+ZCONV_COLUMNS = (16, 8)
+#: the ring's depth (3 and 4 stages measured within 2% of 2)
+ZCONV_STAGES = 2
+FOUR_STEP_ZCONV_PLAN = ZconvTilePlan(0, 0, 0, 0, False, 0, 0)
 
 
-def _zconv_smem(m: int, cols: int, t: int, stages: int) -> int:
+def _zconv_smem(m: int, cols: int) -> int:
     """Shared bytes of the z conv ring kernel with tiles of ``cols``
-    columns computed ``t`` at a time: the input ring (re and im of m/2 x
-    cols floats a stage), the slots (m x t complex, each k2's m1 t padded by
-    t below t = 16) and the W_m^(n1 k2) twiddles in rows of m2 + 1."""
+    columns: the input ring (re and im of m/2 x cols floats a stage), the
+    slots (m x cols complex, each k2's m1 cols padded by cols below 16) and
+    the W_m^(n1 k2) twiddles in rows of m2 + 1."""
     m1, m2 = best_factors(m)
-    slots = m2 * (m1 * t + (t if t < 16 else 0))
-    return 4 * stages * m * cols + 8 * slots + 8 * m1 * (m2 + 1)
-
-
-def _four_step_zconv_plan(b: int, m: int) -> ZconvTilePlan:
-    """The four-step kernel's plan (m = 1024 and the lengths with a factor
-    that is not a power of two): its ``pick_tile`` (the largest of 32, 16, 8,
-    4 columns whose 12 m t bytes fit 96 KB), one tile a block, no ring."""
-    m1, m2 = best_factors(m)
-    m1c = 8 if m1 <= 8 else 16 if m1 <= 16 else 32
-    h2c = 8 if m2 // 2 <= 8 else 16 if m2 // 2 <= 16 else 24
-    t = next(t for t in (32, 16, 8, 4) if 12 * m * t <= 96 * 1024)
-    smem = 8 * (m1 * m1c + m2 * h2c + m) + 12 * m * t
-    per_sm = min(8, SM_SHARED_BYTES // (smem + BLOCK_SHARED_RESERVE))
-    return ZconvTilePlan(t, -(-b // t), 0, smem, False, 256, per_sm)
+    slots = m2 * (m1 * cols + (cols if cols < 16 else 0))
+    return 4 * ZCONV_STAGES * m * cols + 8 * slots + 8 * m1 * (m2 + 1)
 
 
 def zconv_tile_plan(a: int, b: int, m: int, data_ptr: int,
-                    sms: int = H100_SMS, shape=None) -> ZconvTilePlan:
+                    sms: int = H100_SMS) -> ZconvTilePlan:
     """The launch plan of :func:`fft_greens_ifft_pass` on (``a``, m/2,
     ``b``) pairs whose pointers, or-ed together, are ``data_ptr``, on a card
     of ``sms`` SMs. The C entry point refuses any other plan.
 
     m = 64 ... 512 (:data:`ZCONV_LENGTHS`): the ring kernel, a block of
-    T columns x m1 threads (m = m1 m2 as :func:`best_factors`) computing a
-    tile of T U columns in U sub-tiles, (T, U) one of :data:`ZCONV_SHAPES`:
-    ``shape``, or by default the first of them whose tiles fill every SM,
-    else the one with the most blocks (the 2D route's 512 columns: 64 tiles
-    of 8); as many blocks an SM as fit with a 2-stage ring, up to 256
-    threads an SM at m = 512 (its radix-32 factors take up to 255
-    registers) and 512 below, then as many stages (up to 4) as still fit.
-    The input moves by 16-byte copies when the pointers are 16-byte aligned
-    and ``b`` is a multiple of 4. Other lengths: the four-step kernel's
-    plan."""
+    T columns x m1 threads (m = m1 m2 as :func:`best_factors`), T the first
+    of :data:`ZCONV_COLUMNS` whose tiles fill every SM, else the one with
+    the most blocks (the 2D route's 512 columns: 64 tiles of 8); as many
+    blocks an SM as fit, up to 256 threads an SM at m = 512 (its radix-32
+    factors take up to 255 registers) and 512 below. The input moves by
+    16-byte copies when the pointers are 16-byte aligned and ``b`` is a
+    multiple of 4. Other lengths: :data:`FOUR_STEP_ZCONV_PLAN`."""
     _check_length(m)
     if a <= 0 or b <= 0:
         raise ValueError(f"no plan for ({a}, {m // 2}, {b})")
     if m not in ZCONV_LENGTHS:
-        return _four_step_zconv_plan(b, m)
-    if shape is not None and tuple(shape) not in ZCONV_SHAPES:
-        raise ValueError(f"no z conv kernel of shape {shape}")
-    return _zconv_tile_plan(b, m, data_ptr % 16 == 0, sms,
-                            None if shape is None else tuple(shape))
+        return FOUR_STEP_ZCONV_PLAN
+    return _zconv_tile_plan(b, m, data_ptr % 16 == 0, sms)
 
 
 @functools.lru_cache(maxsize=64)
-def _zconv_tile_plan(b, m, aligned, sms, shape):
-    if shape is not None:
-        return _zconv_shape_plan(b, m, aligned, sms, *shape)
-    plans = [_zconv_shape_plan(b, m, aligned, sms, *s) for s in ZCONV_SHAPES]
+def _zconv_tile_plan(b, m, aligned, sms):
+    plans = [zconv_columns_plan(b, m, aligned, sms, t) for t in ZCONV_COLUMNS]
     return next((p for p in plans if p.blocks == p.blocks_per_sm * sms),
                 max(plans, key=lambda p: p.blocks))
 
 
-def _zconv_shape_plan(b, m, aligned, sms, t, u):
+def zconv_columns_plan(b: int, m: int, aligned: bool, sms: int,
+                       cols: int) -> ZconvTilePlan:
+    """The ring kernel's plan with tiles of ``cols`` columns (one of
+    :data:`ZCONV_COLUMNS`) for ``b`` columns at m, the pointers
+    16-byte ``aligned`` or not, on ``sms`` SMs."""
     m1, _ = best_factors(m)
-    cols, threads = t * u, t * m1
-
-    def fits(per_sm, stages):
-        smem = _zconv_smem(m, cols, t, stages)
-        return smem <= BLOCK_SHARED_MAX and \
-            per_sm * (smem + BLOCK_SHARED_RESERVE) <= SM_SHARED_BYTES
-
+    threads, smem = cols * m1, _zconv_smem(m, cols)
     sm_threads = 256 if m == 512 else 512
-    per_sm = next((p for p in range(sm_threads // threads, 0, -1)
-                   if fits(p, 2)), 1)
-    stages = max(s for s in (2, 3, 4) if fits(per_sm, s))
-    return ZconvTilePlan(cols, min(-(-b // cols), per_sm * sms), stages,
-                         _zconv_smem(m, cols, t, stages),
-                         aligned and b % 4 == 0, threads, per_sm)
+    per_sm = max(1, min(sm_threads // threads,
+                        SM_SHARED_BYTES // (smem + BLOCK_SHARED_RESERVE)))
+    return ZconvTilePlan(cols, min(-(-b // cols), per_sm * sms), ZCONV_STAGES,
+                         smem, aligned and b % 4 == 0, threads, per_sm)
 
 
 @functools.cache

@@ -33,9 +33,10 @@ of it.
 
 ``--sweep`` prints the split r2c kernel's device time under every plan its
 launcher takes at both shapes, the one ``edge_tile_plan`` picks marked, and
-the z conv's under each of its four instances with 2-4 ring stages (at
-most twelve plans a shape) at 256^3, the 2D shape and the multi-body
-case's m = 256, the one ``zconv_tile_plan`` picks marked.
+the z conv's under each of its two instances (16 and 8 columns a tile)
+with one block an SM up to as many as the plan allows (at most six plans a
+shape) at 256^3, the 2D shape and the multi-body case's m = 256, the one
+``zconv_tile_plan`` picks marked.
 """
 
 from __future__ import annotations
@@ -252,10 +253,9 @@ def sweep(rand, dev):
 
 def sweep_zconv(rand, dev):
     """Device time of the z conv kernel under the plans of each instance
-    (columns computed at once, sub-tiles a tile) with 2, 3 and 4 ring stages
-    where they fit, at the 256^3 solve's shape, the 2D shape and the
-    multi-body case's (m = 256), the plan ``zconv_tile_plan`` picks marked:
-    one line a plan."""
+    (columns a tile) with 1 up to ``blocks_per_sm`` blocks an SM, at the
+    256^3 solve's shape, the 2D shape and the multi-body case's (m = 256),
+    the plan ``zconv_tile_plan`` picks marked: one line a plan."""
     lib, sms = cuda_fft.library(), cuda_fft._sm_count(dev)
     stream = torch.cuda.current_stream().cuda_stream
     for shape, (a, h, b) in ZCONV_INPUTS + (("multibody",
@@ -264,16 +264,14 @@ def sweep_zconv(rand, dev):
         xr, xi, g = rand(a, h, b), rand(a, h, b), rand(1, m, b)
         outs = [rand(a, h, b), rand(a, h, b)]
         table = cuda_fft._table(m, dev)
-        ptr = xr.data_ptr() | xi.data_ptr()
-        chosen = cuda_fft.zconv_tile_plan(a, b, m, ptr, sms)
-        for t, u in cuda_fft.ZCONV_SHAPES:
-            base = cuda_fft.zconv_tile_plan(a, b, m, ptr, sms, (t, u))
-            for stages in (2, 3, 4):
-                smem = cuda_fft._zconv_smem(m, base.cols, t, stages)
-                if base.blocks_per_sm * (smem + cuda_fft.BLOCK_SHARED_RESERVE) \
-                        > cuda_fft.SM_SHARED_BYTES:
-                    continue
-                plan = base._replace(stages=stages, smem=smem)
+        aligned = (xr.data_ptr() | xi.data_ptr()) % 16 == 0
+        chosen = cuda_fft.zconv_tile_plan(a, b, m, xr.data_ptr() |
+                                          xi.data_ptr(), sms)
+        for cols in cuda_fft.ZCONV_COLUMNS:
+            base = cuda_fft.zconv_columns_plan(b, m, aligned, sms, cols)
+            for per_sm in range(1, base.blocks_per_sm + 1):
+                plan = base._replace(blocks=min(-(-b // cols), per_sm * sms),
+                                     blocks_per_sm=per_sm)
 
                 def fn(plan=plan):
                     return lib.sopht_fft_greens_ifft_pass_f32(
@@ -285,9 +283,8 @@ def sweep_zconv(rand, dev):
                     print(f"sweep zconv {shape}: {plan} refused", flush=True)
                     continue
                 mark = " <- zconv_tile_plan" if plan == chosen else ""
-                print(f"sweep zconv {shape}: T {t} x {u} threads "
-                      f"{plan.threads} stages {stages} blocks/SM "
-                      f"{plan.blocks_per_sm} blocks {plan.blocks}: "
+                print(f"sweep zconv {shape}: T {cols} threads {plan.threads} "
+                      f"blocks/SM {per_sm} blocks {plan.blocks}: "
                       f"{device_ms(fn):.4f} ms{mark}", flush=True)
         del xr, xi, g, outs
         torch.cuda.empty_cache()

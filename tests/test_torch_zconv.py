@@ -13,11 +13,12 @@ its arithmetic, its launch plan and, on the card, the kernel.
   and :func:`cuda_fft.zconv_tile_plan`, the plan the C launcher checks: its
   invariants at every length class the gate takes, A = 1 and 3, column
   counts from 1 to the 256^3 solve's 131,072, aligned and storage-offset
-  pointers, and what it refuses.
+  pointers, and what it refuses; no plan for the four-step kernel's
+  lengths.
 - ``cuda`` marker (skipped without a card): the kernel against the plain
   ``torch.fft`` version at those lengths and column counts (the four-step
-  kernel at m = 96, 100, 544, 1024), a storage-offset input, and the launch
-  counter. On the card, without JAX installed:
+  kernel at m = 96, 100, 544, 1024), each instance, a storage-offset input,
+  the launcher's refusal of other plans, and the launch counter. On the card, without JAX installed:
   ``python -m pytest tests/test_torch_zconv.py -m cuda --noconftest``.
 
 Tolerance: ``FFT_TOL = 5e-6 max|ref|``, as for every FFT pass: float32
@@ -129,9 +130,8 @@ def _banks(addrs):
     return waves
 
 
-# the kernel's instances: T columns x m1 threads (the sub-tiles a tile do
-# not change the slots)
-INSTANCES = [(m, t) for m in RING_LENGTHS for t in (8, 16)]
+# the kernel's instances: T columns x m1 threads
+INSTANCES = [(m, t) for m in RING_LENGTHS for t in cuda_fft.ZCONV_COLUMNS]
 
 
 @pytest.mark.parametrize("m,t", INSTANCES)
@@ -158,57 +158,49 @@ def test_slot_layout_is_a_conflict_free_bijection(m, t):
 def test_zconv_tile_plan_invariants(m, a, b, offset):
     ptr = 1 << 20 | offset
     plan = cuda_fft.zconv_tile_plan(a, b, m, ptr, SMS)
+    if m not in cuda_fft.ZCONV_LENGTHS:  # the four-step kernel plans itself
+        assert plan == cuda_fft.FOUR_STEP_ZCONV_PLAN
+        assert plan.args() == (0,) * 6
+        return
     tiles = -(-b // plan.cols)
-    assert plan.cols % 4 == 0
+    m1, _ = cuda_fft.best_factors(m)
+    assert plan.cols in cuda_fft.ZCONV_COLUMNS
+    assert plan.threads == plan.cols * m1 and plan.threads % 32 == 0
     assert 1 <= plan.blocks <= tiles
+    assert plan.stages == cuda_fft.ZCONV_STAGES == 2
+    assert plan.smem == cuda_fft._zconv_smem(m, plan.cols)
     assert plan.smem <= cuda_fft.BLOCK_SHARED_MAX
     assert plan.blocks_per_sm * (plan.smem + cuda_fft.BLOCK_SHARED_RESERVE) \
         <= cuda_fft.SM_SHARED_BYTES
-    m1, m2 = cuda_fft.best_factors(m)
-    if m not in cuda_fft.ZCONV_LENGTHS:  # the four-step kernel, one tile a block
-        assert (plan.stages, plan.bulk, plan.threads) == (0, False, 256)
-        assert plan.blocks == tiles
-        m1c = 8 if m1 <= 8 else 16 if m1 <= 16 else 32
-        h2c = 8 if m2 // 2 <= 8 else 16 if m2 // 2 <= 16 else 24
-        assert plan.smem == 8 * (m1 * m1c + m2 * h2c + m) + 12 * m * plan.cols
-        assert 12 * m * plan.cols <= 96 * 1024
-        return
-    t = plan.threads // m1
-    assert plan.threads == t * m1 and plan.threads % 32 == 0
-    assert (t, plan.cols // t) in cuda_fft.ZCONV_SHAPES
-    assert plan.cols == t * (plan.cols // t)
     assert plan.threads * plan.blocks_per_sm <= (256 if m == 512 else 512)
-    assert 2 <= plan.stages <= 4
-    assert plan.smem == cuda_fft._zconv_smem(m, plan.cols, t, plan.stages)
     assert plan.blocks == min(tiles, plan.blocks_per_sm * SMS)
     assert plan.bulk == (offset == 0 and b % 4 == 0)
     if b == 131072:  # the 256^3 solve's columns fill every SM
         assert plan.blocks == plan.blocks_per_sm * SMS >= SMS
 
 
-@pytest.mark.parametrize("shape", cuda_fft.ZCONV_SHAPES)
+@pytest.mark.parametrize("cols", cuda_fft.ZCONV_COLUMNS)
 @pytest.mark.parametrize("m", RING_LENGTHS)
-def test_zconv_tile_plan_of_every_instance(m, shape):
-    # each instance a sweep may ask for fits the card with two stages or more
-    t, u = shape
+def test_zconv_tile_plan_of_every_instance(m, cols):
+    # each instance a sweep may ask for fills the card at 256^3's columns
     m1, _ = cuda_fft.best_factors(m)
-    plan = cuda_fft.zconv_tile_plan(3, 131072, m, 0, SMS, shape)
-    assert (plan.cols, plan.threads) == (t * u, t * m1)
+    plan = cuda_fft.zconv_columns_plan(131072, m, True, SMS, cols)
+    assert (plan.cols, plan.threads, plan.stages) == (cols, cols * m1, 2)
     assert plan.blocks == plan.blocks_per_sm * SMS
-    assert 2 <= plan.stages <= 4 and plan.smem <= cuda_fft.BLOCK_SHARED_MAX
+    assert plan.smem <= cuda_fft.BLOCK_SHARED_MAX
 
 
 def test_zconv_tile_plan_of_the_main_paths():
-    # the 256^3 sphere's: one block of eight warps on every SM, tiles of 32
-    # columns (128-byte row segments) in two sub-tiles, two stages
+    # the 256^3 sphere's: one block of eight warps on every SM, tiles of 16
+    # columns (64-byte row segments)
     plan = cuda_fft.zconv_tile_plan(3, 131072, 512, 0, SMS)
     assert (plan.cols, plan.blocks, plan.stages, plan.threads) == \
-        (32, SMS, 2, 256)
-    # the multi-body case's (128, 128, 256): the same shape, two blocks an SM
+        (16, SMS, 2, 256)
+    # the multi-body case's (128, 128, 256): the same tile, two blocks an SM
     plan = cuda_fft.zconv_tile_plan(3, 65536, 256, 0, SMS)
-    assert (plan.cols, plan.blocks, plan.threads) == (32, 2 * SMS, 256)
-    # the 2D route's y pass, (1, 256, 512) at m = 512: no shape fills the
-    # card, the most blocks are 64 tiles of 8
+    assert (plan.cols, plan.blocks, plan.threads) == (16, 2 * SMS, 256)
+    # the 2D route's y pass, (1, 256, 512) at m = 512: neither tile fills
+    # the card, the most blocks are 64 tiles of 8
     plan = cuda_fft.zconv_tile_plan(1, 512, 512, 0, SMS)
     assert (plan.cols, plan.blocks, plan.threads) == (8, 64, 128)
 
@@ -217,14 +209,30 @@ def test_zconv_tile_plan_of_the_main_paths():
 @pytest.mark.parametrize("m", RING_LENGTHS)
 def test_zconv_tile_plan_takes_the_first_shape_that_fills_the_card(m, b):
     plan = cuda_fft.zconv_tile_plan(3, b, m, 0, SMS)
-    plans = [cuda_fft.zconv_tile_plan(3, b, m, 0, SMS, s)
-             for s in cuda_fft.ZCONV_SHAPES]
+    plans = [cuda_fft.zconv_columns_plan(b, m, True, SMS, t)
+             for t in cuda_fft.ZCONV_COLUMNS]
     assert plan in plans
     full = [p for p in plans if p.blocks == p.blocks_per_sm * SMS]
     if full:
         assert plan == full[0]
     else:
         assert plan.blocks == max(p.blocks for p in plans)
+
+
+@pytest.mark.parametrize("a,b,m,sms", [(3, 131072, 512, SMS),
+                                       (3, 65536, 256, SMS),
+                                       (1, 512, 512, SMS), (3, 1001, 256, 4),
+                                       (2, 17, 64, 4)])
+def test_ring_walk_covers_every_tile_and_component_once(a, b, m, sms):
+    # the persistent blocks' walk as the kernel runs it: block k takes tiles
+    # k, k + blocks, ..., each with its A components in turn
+    plan = cuda_fft.zconv_tile_plan(a, b, m, 0, sms)
+    tiles = -(-b // plan.cols)
+    seen = []
+    for blk in range(plan.blocks):
+        iters = (tiles - blk + plan.blocks - 1) // plan.blocks * a
+        seen += [(blk + (it // a) * plan.blocks, it % a) for it in range(iters)]
+    assert sorted(seen) == [(t, c) for t in range(tiles) for c in range(a)]
 
 
 def test_zconv_tile_plan_refuses_what_no_kernel_takes():
@@ -236,8 +244,6 @@ def test_zconv_tile_plan_refuses_what_no_kernel_takes():
         cuda_fft.zconv_tile_plan(3, 8, 30, 0)  # unsupported length
     with pytest.raises(ValueError):
         cuda_fft.zconv_tile_plan(3, 8, 2048, 0)
-    with pytest.raises(ValueError):
-        cuda_fft.zconv_tile_plan(3, 8, 512, 0, SMS, (4, 1))  # no instance
 
 
 def _card():
@@ -250,24 +256,44 @@ CARD_CASES = [(m, a, b) for m in LENGTHS for a in (1, 3)
               for b in COLUMNS[:5]] + [(512, 3, 131072)]
 
 
+def _launch(args, out, a, b, m, plan):
+    return cuda_fft.library().sopht_fft_greens_ifft_pass_f32(
+        *(t.data_ptr() for t in args + out),
+        cuda_fft._table(m, args[0].device).data_ptr(), a, b, m, *plan.args(),
+        torch.cuda.current_stream().cuda_stream)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", cuda_fft.ZCONV_SHAPES)
+@pytest.mark.parametrize("cols", cuda_fft.ZCONV_COLUMNS)
 @pytest.mark.parametrize("m", RING_LENGTHS)
-def test_every_instance_matches_plain_on_card(m, shape):
+def test_every_instance_matches_plain_on_card(m, cols):
     dev = _card()
-    lib = cuda_fft.library()
     a, b = 3, 1001  # ragged, with more tiles than blocks below
     args = [torch.tensor(v, device=dev) for v in _inputs(a, m, b, m)]
-    plan = cuda_fft.zconv_tile_plan(a, b, m, 0, 4, shape)  # 4 SMs' blocks
+    plan = cuda_fft.zconv_columns_plan(b, m, False, 4, cols)  # 4 SMs' blocks
     out = [torch.empty_like(args[0]) for _ in range(2)]
-    err = lib.sopht_fft_greens_ifft_pass_f32(
-        *(t.data_ptr() for t in args + out),
-        cuda_fft._table(m, dev).data_ptr(), a, b, m, *plan.args(),
-        torch.cuda.current_stream().cuda_stream)
-    assert err == 0
+    assert _launch(args, out, a, b, m, plan) == 0
     torch.cuda.synchronize()
     _close(out, [r.cpu().numpy()
                  for r in cuda_fft.fft_greens_ifft_pass_ref(*args)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [96, 512, 1024])
+def test_launcher_refuses_another_plan_on_card(m):
+    dev = _card()
+    a, b = 3, 64
+    args = [torch.tensor(v, device=dev) for v in _inputs(a, m, b, m)]
+    out = [torch.empty_like(args[0]) for _ in range(2)]
+    plan = cuda_fft.zconv_tile_plan(a, b, m, 0)
+    if m in cuda_fft.ZCONV_LENGTHS:
+        wrongs = [plan._replace(stages=3), plan._replace(cols=32),
+                  plan._replace(smem=plan.smem + 8),
+                  cuda_fft.FOUR_STEP_ZCONV_PLAN]
+    else:  # the four-step kernel takes no plan
+        wrongs = [cuda_fft.zconv_columns_plan(b, 512, True, SMS, 16)]
+    for wrong in wrongs:
+        assert _launch(args, out, a, b, m, wrong) != 0, wrong
 
 
 @pytest.mark.cuda
