@@ -106,16 +106,16 @@ Phase 3 also checks the fused-curl pair against its plain versions at the
 grid's shapes, the unsplit x passes and the fused edge passes at the 256^3
 solve's, a (48, 32, 64) grid's and the (256, 512) cylinder grid's shapes,
 and the 2D route's three passes at the cylinder grid's shapes, and the
-forward r2c pair (``rfft_pass_padded_split``, ``rfft_pass_padded``) on
-ragged row counts, inputs 4 bytes off 16-byte alignment, the 2D route's
-m = 1024 and the four-step kernel's lengths (m = 96, 544), and the z conv
-(``fft_greens_ifft_pass``) on ``ZCONV_CASES``: ragged column counts,
+forward r2c pair (``rfft_pass_padded_split``, ``rfft_pass_padded``) and
+the c2r pair (``irfft_pass_merge``, ``irfft_pass_truncated``) on ragged row
+counts, inputs 4 bytes off 16-byte alignment, odd output counts, the 2D
+route's m = 1024 and the four-step kernel's lengths (m = 96, 544), and the
+z conv (``fft_greens_ifft_pass``) on ``ZCONV_CASES``: ragged column counts,
 storage-offset inputs, A = 1, the 2D route's shape and every length class
 (m = 64 ... 512 on the ring kernel, 96, 544, 1024 on the four-step one). The
-line
-before the last is the kernel table as JSON (each
-kernel's launches on a main path, error, kernel / plain / one-PyTorch-call
-times and its bound at the main path's shape); the last line is
+line before the last is the kernel table as JSON (each kernel's launches on
+a main path, error, kernel / plain / one-PyTorch-call times and its bound at
+the main path's shape); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -199,6 +199,9 @@ SHARDED_FFT_LAUNCHES = {"fft_pass_padded": 1, "fft_greens_ifft_pass": 4,
 R2C_CASES = ((203, 256, 512, 0), (61, 255, 512, 1), (256, 512, 1024, 0),
              (5, 511, 1024, 1), (9, 3, 64, 0), (37, 48, 96, 0),
              (40, 272, 544, 3))
+# the c2r pair's extra checks, the same (rows, n_out, m, storage offset)
+# with n_out the real rows' length: odd n_out among them
+C2R_CASES = R2C_CASES
 # the z conv's extra checks (A, m/2, B, storage offset in floats): ragged
 # last tiles, inputs 4 bytes off 16-byte alignment (4-byte copies), the 2D
 # route's (1, 256, 512), A = 1, the ring kernel's other lengths (m = 64,
@@ -796,6 +799,25 @@ def main():
             r2c.append(f"{where}: err "
                        + " / ".join(f"{e:.3g}" for e in errs.values()))
         edge.append("forward r2c pair (split / unsplit) at " + ", ".join(r2c))
+        c2r = []
+        for rows, n_out, m, offset in C2R_CASES:
+            h = m // 2
+
+            def spectrum(cols):
+                return torch.randn(rows * cols + offset, device=dev,
+                                   generator=gen)[offset:].view(rows, cols)
+
+            sr, si = (torch.randn(rows, 1, device=dev, generator=gen)
+                      for _ in range(2))
+            where = f"({rows}, {n_out}) m = {m} offset {offset}"
+            _, errs = run_pass_checks(where, {
+                "irfft_pass_merge": (spectrum(h), spectrum(h), sr, si, m,
+                                     n_out),
+                "irfft_pass_truncated": (spectrum(h + 1), spectrum(h + 1), m,
+                                         n_out)})
+            c2r.append(f"{where}: err "
+                       + " / ".join(f"{e:.3g}" for e in errs.values()))
+        edge.append("c2r pair (split / unsplit) at " + ", ".join(c2r))
         zconv = []
         for a, h, b, offset in ZCONV_CASES:
             xr, xi = (torch.randn(a * h * b + offset, device=dev,
@@ -940,9 +962,11 @@ def main():
         for name, count in launches.items():
             check(count >= 20, f"{name} launched {count} times on the main path")
             table[name]["launches"] = count
-        # the z conv runs once a step, on the ring kernel at m = 512
-        check(launches["fft_greens_ifft_pass"] == 20, "fft_greens_ifft_pass "
-              f"launched {launches['fft_greens_ifft_pass']} times in 20 steps")
+        # the z conv and the c2r run once a step, on their ring kernels at
+        # m = 512
+        for name in ("fft_greens_ifft_pass", "irfft_pass_merge"):
+            check(launches[name] == 20,
+                  f"{name} launched {launches[name]} times in 20 steps")
         check_not_launched(FUSED_REPLACES, "the exact-tier sphere path")
         fs = carry.flow_state
         for what, t in (("vorticity", fs.primary_field),

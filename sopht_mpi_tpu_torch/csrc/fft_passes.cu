@@ -77,11 +77,14 @@
 //
 // irfft_pass_merge
 //   Replaces _irfft_pass_merge_impl (kernel _c2r_merge_kernel): c2r of the
-//   bulk plus Nyquist column, keeping the first n_out <= m/2 reals. The half
-//   spectrum k <= m/2 sits in shared memory and k > m/2 is read as
-//   conj(X[m - k]) (imaginary parts of k = 0 and k = m/2 dropped: the JAX
-//   weights w = 1 there, 2 elsewhere); the factored inverse runs and keeps
-//   the real part. Bound: HBM.
+//   bulk plus Nyquist column, keeping the first n_out <= m/2 reals
+//   (imaginary parts of k = 0 and k = m/2 dropped: the JAX weights w = 1
+//   there, 2 elsewhere). At power-of-two m: irfft_edge_kernel (see the note
+//   above it), the merge step and a half-length complex inverse a row,
+//   persistent blocks fed by bulk copies. At other m:
+//   irfft_pass_merge_kernel, the half spectrum k <= m/2 in shared memory,
+//   k > m/2 read as conj(X[m - k]), the factored inverse keeping the real
+//   part. Bound: HBM (8 B read per input element, 4 B written per output).
 //
 // rfft_pass_padded, irfft_pass_truncated
 //   Replace _rfft_pass_padded_impl (kernel _r2c_kernel) and
@@ -89,8 +92,8 @@
 //   above with the Nyquist column kept in the row, (R, m/2 + 1) pairs. The
 //   same kernels with `unsplit` set: the row pitch is m/2 + 1 floats and no
 //   side column is read or written. Rows lose their 16-byte alignment, so
-//   the c2r and the four-step r2c access them with scalars; the r2c's ring
-//   kernel moves tiles of a multiple of 4 rows, which are aligned spans.
+//   the four-step kernels access them with scalars; the ring kernels move
+//   tiles of a multiple of 4 rows, which are aligned spans.
 //   Bound: HBM, as their split twins.
 //
 // rfft_fft_pass_fused, ifft_irfft_pass_fused
@@ -751,16 +754,29 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          unsigned bytes,
-                                          unsigned long long* bar) {
+// the barrier's arrival for a stage, expecting `bytes` from its copies
+__device__ __forceinline__ void bulk_expect(unsigned long long* bar,
+                                            unsigned bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
                ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// a bulk copy into shared memory whose bytes the barrier counts
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  bulk_expect(bar, bytes);
+  bulk_copy(dst, src, bytes, bar);
 }
 
 __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
@@ -804,13 +820,19 @@ struct EdgeShape {
   static constexpr int TW = H + pass_len();
 };
 
+// The default sink of the last Stockham pass: the group's buffer.
+struct ToBuffer {};
+
 // Stockham pass of radix R = min(P, H / NS) over the group's buffer, then
-// the next pass.
+// the next pass. The last pass hands output n (natural order) to
+// emit(n, re, im) in place of the buffer when a sink is given.
 template <int H, int NS>
 struct EdgePass {
+  template <class Emit = ToBuffer>
   static __device__ __forceinline__ void run(float2* buf, int q,
                                              const float2* line,
-                                             const float2* tp) {
+                                             const float2* tp,
+                                             Emit emit = {}) {
     if constexpr (NS < H) {
       using S = EdgeShape<H>;
       constexpr int R = H / NS < S::P ? H / NS : S::P;
@@ -843,14 +865,38 @@ struct EdgePass {
         const int base = (j / NS) * NS * R + (j & (NS - 1));
         reg_fft<R, false>(re[b], im[b], wr);
         each_output<R>([&](int k, int rr) {
-          buf[S::pad(base + k * NS)] = make_float2(re[b][rr], im[b][rr]);
+          if constexpr (NS * R == H && !std::is_same<Emit, ToBuffer>::value)
+            emit(base + k * NS, re[b][rr], im[b][rr]);
+          else
+            buf[S::pad(base + k * NS)] = make_float2(re[b][rr], im[b][rr]);
         });
       }
       __syncwarp();
-      EdgePass<H, NS * R>::run(buf, q, line, tp + NS * R);
+      EdgePass<H, NS * R>::run(buf, q, line, tp + NS * R, emit);
     }
   }
 };
+
+// The design's twiddles in shared memory: the line W_m^j, j < h, then the
+// pass tables tp[r Ns + i] = W_(Ns R)^(i r) = W_m^(i r m / (Ns R)), pass by
+// pass (every pass after the first).
+template <int H>
+__device__ __forceinline__ void load_edge_twiddles(float2* line, float2* tp,
+                                                   const float2* line_g) {
+  constexpr int P = EdgeShape<H>::P, m = 2 * H;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int i = tid; i < H; i += nt) line[i] = line_g[i];
+  int off = 0;
+  for (int ns = P; ns < H;) {
+    const int r_ = H / ns < P ? H / ns : P;
+    for (int i = tid; i < ns * r_; i += nt) {
+      const int r = i / ns, j = i % ns;
+      tp[off + i] = line_g[j * r * (m / (ns * r_))];
+    }
+    off += ns * r_;
+    ns *= r_;
+  }
+}
 
 template <int H>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -860,7 +906,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                      const float2* __restrict__ line_g, long long R,
                      int n_in, int T, int stages, int bulk, int unsplit) {
   using S = EdgeShape<H>;
-  constexpr int P = S::P, G = S::G, m = 2 * H;
+  constexpr int P = S::P, G = S::G;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float2* line = reinterpret_cast<float2*>(smem_raw);  // W_m^j, j < h
   float2* tp = line + H;                               // pass tables
@@ -876,19 +922,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int grp = tid / G, q = tid % G;
   float2* buf = work + grp * S::HP;
 
-  for (int i = tid; i < H; i += nt) line[i] = line_g[i];
-  {  // tp[r Ns + i] = W_(Ns R)^(i r) = W_m^(i r m / (Ns R)), pass by pass
-    int off = 0;
-    for (int ns = P; ns < H;) {
-      const int r_ = H / ns < P ? H / ns : P;
-      for (int i = tid; i < ns * r_; i += nt) {
-        const int r = i / ns, j = i % ns;
-        tp[off + i] = line_g[j * r * (m / (ns * r_))];
-      }
-      off += ns * r_;
-      ns *= r_;
-    }
-  }
+  load_edge_twiddles<H>(line, tp, line_g);
   if (tid == 0) {
     for (int s = 0; s < stages; ++s)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
@@ -1010,6 +1044,210 @@ __global__ void __launch_bounds__(kThreads, 2)
           sr[row0 + i] = ob[2 * T * ld + i];
           si[row0 + i] = ob[2 * T * ld + T + i];
         }
+    }
+    __syncthreads();  // the stage and the other staging buffer are free
+  }
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// irfft_pass_merge and irfft_pass_truncated at m = 64, 128, 256, 512, 1024:
+// the c2r x edge, designed for Hopper (rfft_edge_kernel run backwards).
+//
+// Replaces, with irfft_pass_merge_kernel above for the lengths with a
+// factor that is not a power of two, sopht_mpi_tpu/parallel/pallas_fft.py:757
+// _irfft_pass_merge_impl (split: the bulk (R, m/2) pair and the Nyquist
+// (R, 1) pair) and :683 _irfft_pass_truncated_impl (unsplit: the (R, m/2 + 1)
+// pair), both into (R, n_out <= m/2) reals:
+//   y[n] = (1/m) sum'_k w_k (Re X[k] cos - Im X[k] sin)(2 pi k n / m),
+// w = 1 at k = 0 and k = m/2, 2 elsewhere, so Im X[0] and Im X[m/2] do not
+// enter (the Nyquist si is not read). Bound: HBM, 8 B read per bulk input
+// element and 4 B written per output (at 256^3, 196,608 rows of 257 pairs
+// into 256 reals: 404 MB in, 201 MB out, 0.18 ms at 3.35 TB/s); the
+// arithmetic, ~5 h log2 h flop a row, is 0.04 ms of the FP32 rate. The
+// kernel above runs a full m-point complex inverse of the Hermitian spectrum
+// (twice the arithmetic and shared memory needed), takes 8 rows a block and
+// reloads the 10 KB twiddle table in each of 24,576 blocks, loads, computes
+// and stores in turn with every float moved by its own 4-byte access and
+// each row transposed through shared memory twice, and sets its attributes
+// on every call. This design:
+//
+// 1. The merge step and a half-length inverse. With h = m/2,
+//      Z[k] = Xe + i Xo,  Xe = X[k] + conj X[h-k],
+//      Xo = (X[k] - conj X[h-k]) conj(W_m^k),
+//    is twice the h-point spectrum of z[n] = y[2n] + i y[2n+1], so
+//    z[n] = (1/m) sum_k Z[k] W_h^(-kn): 1/m is the whole scaling, and z
+//    stored as float2 is the interleaved real row. X[h] is the side column
+//    (the row's last value unsplit); Im X[0] and Im X[h] are taken as 0.
+//    The inverse runs as conj(FFT(conj Z)) through the r2c's Stockham
+//    passes (EdgePass) and twiddles.
+// 2. A lane group per row, as in the r2c: G = h / P lanes own a row. The
+//    first pass (radix P, butterfly q, inputs Z[q + G r]) merges its inputs
+//    straight from the staged tile, each lane reading X[k] and X[h - k], so
+//    Z never passes through shared memory. Staged rows sit h floats apart,
+//    on the same banks, so lane q of the w-th group of a warp reads slot
+//    r ^ w at step r (the groups of a warp read disjoint banks) and a few
+//    selects put the slots back in order. The last pass hands its outputs
+//    n < ceil(n_out / 2) to the staging buffer and drops the rest.
+// 3. Persistent blocks and a ring of bulk copies. The host plan
+//    (c2r_tile_plan in parallel/cuda_fft.py, checked here) gives T rows a
+//    tile (a multiple of 4), the block count and the ring depth S. A full
+//    tile's input is one contiguous span each of re and im (T h floats, or
+//    T (h + 1) unsplit) and T floats of the side column, three bulk copies
+//    counted by the stage's mbarrier, issued S - 1 tiles ahead. The tile's
+//    T n_out outputs leave from one of two staging buffers as one bulk
+//    store; with T a multiple of 4 every span starts 16-byte aligned and is
+//    a multiple of 16 bytes. Twiddles are loaded once a block, the kernel's
+//    attributes set once a shape.
+// 4. The last tile when it is ragged, and every tile of an input whose
+//    pointers are not 16-byte aligned (a view with a storage offset), move
+//    through the same stages with ordinary loads (and the ragged tile with
+//    ordinary stores).
+// ---------------------------------------------------------------------------
+
+template <int H>
+__global__ void __launch_bounds__(kThreads, 2)
+    irfft_edge_kernel(const float* __restrict__ br,
+                      const float* __restrict__ bi,
+                      const float* __restrict__ sr, float* __restrict__ out,
+                      const float2* __restrict__ line_g, long long R,
+                      int n_out, int T, int stages, int bulk, int unsplit) {
+  using S = EdgeShape<H>;
+  constexpr int P = S::P, G = S::G, m = 2 * H;
+  static_assert(P < H, "the last pass is not the first");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float2* line = reinterpret_cast<float2*>(smem_raw);  // W_m^j, j < h
+  float2* tp = line + H;                               // pass tables
+  float* ring = reinterpret_cast<float*>(line + S::TW);
+  const int ld = unsplit ? H + 1 : H;
+  // a stage: re (T x ld), im (T x ld), the side column (T) when split
+  const int in_floats = 2 * T * ld + (unsplit ? 0 : T);
+  float* outb = ring + (long long)stages * in_floats;  // 2 x (T x n_out)
+  float2* work = reinterpret_cast<float2*>(outb + 2 * T * n_out);
+  unsigned long long* bars =
+      reinterpret_cast<unsigned long long*>(work + T * S::HP);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int grp = tid / G, q = tid % G;
+  const int gw = (tid & 31) / G;  // the group's rank in its warp
+  float2* buf = work + grp * S::HP;
+
+  load_edge_twiddles<H>(line, tp, line_g);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   ::"r"(smem_u32(&bars[s])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const long long ntiles = (R + T - 1) / T;
+  // the input of this block's it-th tile into stage it % stages
+  auto produce = [&](long long it) {
+    const long long tile = blockIdx.x + it * gridDim.x;
+    if (tile >= ntiles) return;
+    float* dst = ring + (it % stages) * in_floats;
+    const long long row0 = tile * T;
+    const int rows = (int)(R - row0 < T ? R - row0 : T);
+    if (bulk && rows == T) {
+      if (tid == 0) {
+        unsigned long long* bar = &bars[it % stages];
+        const unsigned bytes = 4u * T * ld;
+        bulk_expect(bar, 2 * bytes + (unsplit ? 0u : 4u * T));
+        bulk_copy(dst, br + row0 * ld, bytes, bar);
+        bulk_copy(dst + T * ld, bi + row0 * ld, bytes, bar);
+        if (!unsplit) bulk_copy(dst + 2 * T * ld, sr + row0, 4u * T, bar);
+      }
+    } else {
+      for (int i = tid; i < rows * ld; i += nt) {
+        dst[i] = br[row0 * ld + i];
+        dst[T * ld + i] = bi[row0 * ld + i];
+      }
+      if (!unsplit)
+        for (int i = tid; i < rows; i += nt) dst[2 * T * ld + i] = sr[row0 + i];
+    }
+  };
+  for (int s = 0; s < stages - 1; ++s) produce(s);
+  __syncthreads();  // the ordinary loads of the prologue
+
+  const int nh = (n_out + 1) >> 1;  // complex outputs of a row
+  const bool pairs = (n_out & 1) == 0;
+  const float inv_m = 1.0f / (float)m;
+  for (long long it = 0; blockIdx.x + it * gridDim.x < ntiles; ++it) {
+    const long long tile = blockIdx.x + it * gridDim.x;
+    produce(it + stages - 1);  // into the stage the last tile freed
+    const long long row0 = tile * T;
+    const int rows = (int)(R - row0 < T ? R - row0 : T);
+    if (bulk && rows == T)
+      mbar_wait(&bars[it % stages], (unsigned)((it / stages) & 1));
+    const float* stage = ring + (it % stages) * in_floats;
+    const float* xr = stage + grp * ld;
+    const float* xi = stage + T * ld + grp * ld;
+    const float xh = unsplit ? xr[H] : stage[2 * T * ld + grp];  // X[h]
+
+    // first pass: radix P, butterfly q, inputs conj Z[q + G r] merged from
+    // the staged row; step r reads slot r ^ gw
+    {
+      float re[P], im[P];
+#pragma unroll
+      for (int r = 0; r < P; ++r) {
+        const int k = q + G * (r ^ gw);
+        const float ar = xr[k], ai = k ? xi[k] : 0.f;
+        const float cr = k ? xr[H - k] : xh, ci = k ? xi[H - k] : 0.f;
+        const float2 w = line[k];
+        const float er = ar + cr, ei = ai - ci;  // Xe
+        const float dr = ar - cr, di = ai + ci;  // X[k] - conj X[h-k]
+        const float odr = dr * w.x + di * w.y, odi = di * w.x - dr * w.y;
+        re[r] = er - odi;  // conj(Xe + i Xo)
+        im[r] = -(ei + odr);
+      }
+#pragma unroll
+      for (int b = 1; b < 32 / G; b <<= 1) {  // slot r ^ gw back to r
+        const bool flip = gw & b;
+#pragma unroll
+        for (int r = 0; r < P; ++r) {
+          if (r & b) continue;
+          const float a0 = re[r], a1 = re[r | b], c0 = im[r], c1 = im[r | b];
+          re[r] = flip ? a1 : a0;
+          re[r | b] = flip ? a0 : a1;
+          im[r] = flip ? c1 : c0;
+          im[r | b] = flip ? c0 : c1;
+        }
+      }
+      float2 wr[P / 2];
+#pragma unroll
+      for (int e = 0; e < P / 2; ++e) wr[e] = line[e * (H / P) * 2];
+      reg_fft<P, false>(re, im, wr);
+      each_output<P>([&](int k, int rr) {
+        buf[S::pad(q * P + k)] = make_float2(re[rr], im[rr]);
+      });
+      __syncwarp();
+    }
+    // the other passes; the last one writes z[n] = conj(F[n]) / m, n < nh,
+    // into the staging buffer of this tile
+    float* ob = outb + (it & 1) * T * n_out;
+    float* orow = ob + grp * n_out;
+    EdgePass<H, P>::run(buf, q, line, tp, [&](int n, float fr, float fi) {
+      if (n >= nh) return;
+      const float y0 = fr * inv_m, y1 = -fi * inv_m;
+      if (pairs) {
+        reinterpret_cast<float2*>(orow)[n] = make_float2(y0, y1);
+      } else {
+        orow[2 * n] = y0;
+        if (2 * n + 1 < n_out) orow[2 * n + 1] = y1;
+      }
+    });
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (rows == T) {
+      if (tid == 0) {
+        bulk_store(out + row0 * n_out, ob, 4u * T * n_out);
+        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+        // the group before this one has read its buffer, which the next
+        // tile writes
+        asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      }
+    } else {
+      for (int i = tid; i < rows * n_out; i += nt) out[row0 * n_out + i] = ob[i];
     }
     __syncthreads();  // the stage and the other staging buffer are free
   }
@@ -2003,22 +2241,33 @@ struct RfftPassPaddedSplit {
   static int go(const Plan& p, const EdgeArgs& a, cudaStream_t st);
 };
 
+// The arguments of both x-edge c2r entry points, with the host's plan.
+struct C2rArgs {
+  const float *br, *bi, *sr;
+  float* out;
+  const float* table;
+  long long R;
+  int n_out, unsplit;
+  int T, blocks, stages, smem, bulk, threads;
+};
+
+// The kernel of the other passes' plan (lengths with a factor that is not a
+// power of two); the plan is that of pick_tile, one tile a block.
 struct IrfftPassMerge {
   template <int M1, int H2>
-  static int go(const Plan& p, const float* br, const float* bi,
-                const float* sr, const float* si, float* out,
-                const float* table, long long R, int n_out, int unsplit,
-                cudaStream_t st) {
+  static int go(const Plan& p, const C2rArgs& a, cudaStream_t st) {
     auto bytes = [&](int t) {
       return 8LL * p.m * t + 8LL * (p.m / 2 + 1) * (t + 1);
     };
     const int t = pick_tile(bytes);
-    if (t == 0) return (int)cudaErrorInvalidValue;
-    const size_t smem = table_bytes(p) + (size_t)bytes(t);
-    const dim3 grid((unsigned)((R + t - 1) / t));
-    return launch(irfft_pass_merge_kernel<M1, H2>, grid, t, smem, st, br, bi,
-                  sr, si, out, (const float2*)table, R, n_out, p.m, p.m1,
-                  p.m2, unsplit);
+    const long long smem = (long long)table_bytes(p) + bytes(t);
+    if (t == 0 || a.T != t || a.blocks != (a.R + t - 1) / t || a.stages != 0 ||
+        a.bulk != 0 || a.threads != kThreads || a.smem != smem)
+      return (int)cudaErrorInvalidValue;
+    return launch(irfft_pass_merge_kernel<M1, H2>, dim3((unsigned)a.blocks), t,
+                  (size_t)smem, st, a.br, a.bi, a.sr, (const float*)nullptr,
+                  a.out, (const float2*)a.table, a.R, a.n_out, p.m, p.m1,
+                  p.m2, a.unsplit);
   }
 };
 
@@ -2153,6 +2402,41 @@ long long edge_smem_bytes(int T, int n_in, int stages, int unsplit) {
          8LL * stages;
 }
 
+// The attributes and the residency of a persistent kernel's block shape,
+// kept per device: set up once a shape (shared bytes, threads), not once a
+// call.
+struct ShapeCache {
+  int dev = -1, smem = -1, threads = -1, sms = 0, per_sm = 0;
+};
+
+// 0 and the blocks the card holds at once in *resident, or a CUDA error.
+template <class Kernel>
+int resident_blocks(Kernel kernel, int smem, int threads, ShapeCache& c,
+                    long long* resident) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev != c.dev || smem != c.smem || threads != c.threads) {
+    c.dev = -1;
+    if ((err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+            cudaSuccess ||
+        (err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+             (int)cudaSharedmemCarveoutMaxShared)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &c.per_sm, kernel, threads, smem)) != cudaSuccess)
+      return (int)err;
+    c.dev = dev;
+    c.smem = smem;
+    c.threads = threads;
+  }
+  *resident = (long long)c.per_sm * c.sms;
+  return 0;
+}
+
 template <int H>
 int launch_edge(const Plan& p, const EdgeArgs& a, cudaStream_t st) {
   using S = EdgeShape<H>;
@@ -2169,37 +2453,58 @@ int launch_edge(const Plan& p, const EdgeArgs& a, cudaStream_t st) {
       a.smem > 232448)
     return (int)cudaErrorInvalidValue;
   auto kernel = rfft_edge_kernel<H>;
-  // the attributes and the residency of a block shape, kept per device
-  // (one set-up a shape, not one a call)
-  static int set_dev = -1, set_smem = -1, set_threads = -1, sms = 0,
-             per_sm = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev != set_dev || a.smem != set_smem || a.threads != set_threads) {
-    set_dev = -1;
-    if ((err = cudaFuncSetAttribute(
-             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem)) !=
-            cudaSuccess ||
-        (err = cudaFuncSetAttribute(
-             kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-             (int)cudaSharedmemCarveoutMaxShared)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, a.threads, a.smem)) != cudaSuccess)
-      return (int)err;
-    set_dev = dev;
-    set_smem = a.smem;
-    set_threads = a.threads;
-  }
+  static ShapeCache cache;
+  long long resident = 0;
+  if (const int err = resident_blocks(kernel, a.smem, a.threads, cache,
+                                      &resident))
+    return err;
   // persistent blocks: every planned block must be resident at once
-  if ((long long)a.blocks > (long long)per_sm * sms)
-    return (int)cudaErrorInvalidValue;
+  if (a.blocks > resident) return (int)cudaErrorInvalidValue;
   const float2* line = (const float2*)a.table + p.table_len();
   kernel<<<a.blocks, a.threads, a.smem, st>>>(a.x, a.br, a.bi, a.sr, a.si,
                                               line, a.R, a.n_in, a.T,
                                               a.stages, a.bulk, a.unsplit);
+  return (int)cudaGetLastError();
+}
+
+// The plan of irfft_edge_kernel<H> as c2r_tile_plan computes it, checked
+// against what the kernel assumes.
+template <int H>
+long long c2r_smem_bytes(int T, int n_out, int stages, int unsplit) {
+  using S = EdgeShape<H>;
+  const long long ld = unsplit ? H + 1 : H;
+  const long long in = 2LL * T * ld + (unsplit ? 0 : T);
+  return 8LL * S::TW + 4LL * stages * in + 8LL * T * n_out +
+         8LL * T * S::HP + 8LL * stages;
+}
+
+template <int H>
+int launch_c2r(const Plan& p, const C2rArgs& a, cudaStream_t st) {
+  using S = EdgeShape<H>;
+  if (a.T < 4 || a.T % 4 != 0) return (int)cudaErrorInvalidValue;
+  const long long tiles = (a.R + a.T - 1) / a.T;
+  const bool in_aligned =
+      ((unsigned long long)a.br | (unsigned long long)a.bi |
+       (a.unsplit ? 0ULL : (unsigned long long)a.sr)) % 16 == 0;
+  if (a.threads != a.T * S::G || a.threads > kThreads ||
+      a.threads % 32 != 0 || a.blocks < 1 || a.blocks > tiles ||
+      a.stages < 2 || a.stages > 4 || (unsigned long long)a.out % 16 != 0 ||
+      (a.bulk && !in_aligned) ||
+      a.smem != c2r_smem_bytes<H>(a.T, a.n_out, a.stages, a.unsplit) ||
+      a.smem > 232448)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = irfft_edge_kernel<H>;
+  static ShapeCache cache;
+  long long resident = 0;
+  if (const int err = resident_blocks(kernel, a.smem, a.threads, cache,
+                                      &resident))
+    return err;
+  // persistent blocks: every planned block must be resident at once
+  if (a.blocks > resident) return (int)cudaErrorInvalidValue;
+  const float2* line = (const float2*)a.table + p.table_len();
+  kernel<<<a.blocks, a.threads, a.smem, st>>>(a.br, a.bi, a.sr, a.out, line,
+                                              a.R, a.n_out, a.T, a.stages,
+                                              a.bulk, a.unsplit);
   return (int)cudaGetLastError();
 }
 
@@ -2280,6 +2585,20 @@ int rfft_edge(const Plan& p, const EdgeArgs& a, cudaStream_t st) {
     case 1024: return launch_edge<512>(p, a, st);
   }
   return dispatch<RfftPassPaddedSplit>(p, a, st);
+}
+
+// Both x-edge c2r entry points: the design above at power-of-two lengths,
+// the four-step kernel otherwise; either way the plan must be the one
+// c2r_tile_plan gives.
+int irfft_edge(const Plan& p, const C2rArgs& a, cudaStream_t st) {
+  switch (p.m) {
+    case 64: return launch_c2r<32>(p, a, st);
+    case 128: return launch_c2r<64>(p, a, st);
+    case 256: return launch_c2r<128>(p, a, st);
+    case 512: return launch_c2r<256>(p, a, st);
+    case 1024: return launch_c2r<512>(p, a, st);
+  }
+  return dispatch<IrfftPassMerge>(p, a, st);
 }
 
 }  // namespace
@@ -2386,29 +2705,33 @@ extern "C" int sopht_rfft_pass_padded_f32(const float* x, float* xr, float* xi,
   return rfft_edge(p, a, (cudaStream_t)stream);
 }
 
-extern "C" int sopht_irfft_pass_merge_f32(const float* br, const float* bi,
-                                          const float* sr, const float* si,
-                                          float* out, const float* table,
-                                          long long R, int m, int n_out,
-                                          void* stream) {
+// The plan (rows a tile T, blocks, ring stages, shared bytes, bulk input
+// copies, threads a block) is c2r_tile_plan's; one that breaks the kernel's
+// assumptions is refused with cudaErrorInvalidValue. The Nyquist column's
+// imaginary part does not enter, so only sr is passed.
+extern "C" int sopht_irfft_pass_merge_f32(
+    const float* br, const float* bi, const float* sr, float* out,
+    const float* table, long long R, int m, int n_out, int T, int blocks,
+    int stages, int smem, int bulk, int threads, void* stream) {
   Plan p;
   if (!make_plan(m, &p) || R <= 0 || n_out <= 0 || n_out > m / 2)
     return (int)cudaErrorInvalidValue;
-  return dispatch<IrfftPassMerge>(p, br, bi, sr, si, out, table, R, n_out, 0,
-                                  (cudaStream_t)stream);
+  const C2rArgs a{br, bi, sr, out, table, R, n_out, 0,
+                  T, blocks, stages, smem, bulk, threads};
+  return irfft_edge(p, a, (cudaStream_t)stream);
 }
 
 // the unsplit c2r: xr, xi (R, m/2 + 1) with the Nyquist column in the row
-extern "C" int sopht_irfft_pass_truncated_f32(const float* xr, const float* xi,
-                                              float* out, const float* table,
-                                              long long R, int m, int n_out,
-                                              void* stream) {
+extern "C" int sopht_irfft_pass_truncated_f32(
+    const float* xr, const float* xi, float* out, const float* table,
+    long long R, int m, int n_out, int T, int blocks, int stages, int smem,
+    int bulk, int threads, void* stream) {
   Plan p;
   if (!make_plan(m, &p) || R <= 0 || n_out <= 0 || n_out > m / 2)
     return (int)cudaErrorInvalidValue;
-  return dispatch<IrfftPassMerge>(p, xr, xi, (const float*)nullptr,
-                                  (const float*)nullptr, out, table, R, n_out,
-                                  1, (cudaStream_t)stream);
+  const C2rArgs a{xr, xi, nullptr, out, table, R, n_out, 1,
+                  T, blocks, stages, smem, bulk, threads};
+  return irfft_edge(p, a, (cudaStream_t)stream);
 }
 
 extern "C" int sopht_fft_greens_curl_ifft_pass_f32(

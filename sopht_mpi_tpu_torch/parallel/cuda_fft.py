@@ -35,7 +35,8 @@ Replaced TPU kernels (``sopht_mpi_tpu/parallel/pallas_fft.py``):
 
 The forward x-edge r2c pair (split and unsplit) launches with the plan
 :func:`edge_tile_plan` gives (rows a tile, persistent blocks, ring stages,
-shared bytes, bulk copies), the z conv :func:`fft_greens_ifft_pass` with
+shared bytes, bulk copies), the c2r pair with that of
+:func:`c2r_tile_plan`, the z conv :func:`fft_greens_ifft_pass` with
 the plan of :func:`zconv_tile_plan` (columns a tile, persistent blocks,
 ring stages, shared bytes, 16-byte copies; none at the lengths of the
 four-step kernel, which plans its own launch); the C launchers refuse any
@@ -69,13 +70,15 @@ _SIGNATURES = {
                                        *(_I,) * 6, _P),
     "sopht_rfft_pass_padded_split_f32": (_P, _P, _P, _P, _P, _P, _L, _I, _I,
                                          *(_I,) * 6, _P),
-    "sopht_irfft_pass_merge_f32": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _P),
+    "sopht_irfft_pass_merge_f32": (_P, _P, _P, _P, _P, _L, _I, _I,
+                                   *(_I,) * 6, _P),
     "sopht_fft_greens_curl_ifft_pass_f32": (_P, _P, _P, _P, _P, _P, _P, _P,
                                             _L, _I, _P),
     "sopht_irfft_pass_merge_velocity_f32": (_P, _P, _P, _P, _P, _P, _P, _P,
                                             _L, _I, _I, _I, _I, _P),
     "sopht_rfft_pass_padded_f32": (_P, _P, _P, _P, _L, _I, _I, *(_I,) * 6, _P),
-    "sopht_irfft_pass_truncated_f32": (_P, _P, _P, _P, _L, _I, _I, _P),
+    "sopht_irfft_pass_truncated_f32": (_P, _P, _P, _P, _L, _I, _I,
+                                       *(_I,) * 6, _P),
     "sopht_rfft_fft_pass_fused_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _I, _P),
     "sopht_ifft_irfft_pass_fused_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -134,11 +137,12 @@ H100_SMS = 132
 
 
 class EdgeTilePlan(NamedTuple):
-    """How the forward x-edge r2c kernel covers (R, n_in) rows: ``rows`` a
-    tile (T, a multiple of 4), ``blocks`` (persistent, at most the tiles),
-    ``stages`` of the input ring (0: the four-step kernel, one tile a
-    block), ``smem`` bytes a block, ``bulk`` input copies, ``threads`` a
-    block and the ``blocks_per_sm`` the plan counts on being resident."""
+    """How an x-edge kernel (the r2c or the c2r) covers its (R, .) rows:
+    ``rows`` a tile (T, a multiple of 4), ``blocks`` (persistent, at most
+    the tiles), ``stages`` of the input ring (0: the four-step kernel, one
+    tile a block), ``smem`` bytes a block, ``bulk`` input copies,
+    ``threads`` a block and the ``blocks_per_sm`` the plan counts on being
+    resident."""
 
     rows: int
     blocks: int
@@ -161,33 +165,45 @@ def _edge_shape(h: int):
     return p, h // p, 4 if h in (32, 512) else 5
 
 
-def _edge_smem(h: int, t: int, n_in: int, stages: int, unsplit: bool) -> int:
-    """Shared bytes of the ring kernel: twiddles (W_m line, pass tables),
-    the input ring, two output staging buffers, the rows' work buffers
-    and the stages' barriers."""
+def _edge_twiddles_and_work(h: int, t: int) -> int:
+    """Shared bytes both ring kernels hold whatever their data: the
+    twiddles (the W_m line, the pass tables) and the work buffers of ``t``
+    rows."""
     p, _, sh = _edge_shape(h)
     tw, ns = h, p
     while ns < h:
         r = min(p, h // ns)
         tw, ns = tw + ns * r, ns * r
+    return 8 * tw + 8 * t * (h + (h >> sh))
+
+
+def _edge_smem(h: int, t: int, n_in: int, stages: int, unsplit: bool) -> int:
+    """Shared bytes of the r2c ring kernel: twiddles and work buffers, the
+    input ring, two output staging buffers and the stages' barriers."""
     ld = h + 1 if unsplit else h
     out = 2 * t * ld + (0 if unsplit else 2 * t)
-    return (8 * tw + 4 * stages * t * n_in + 8 * out + 8 * t * (h + (h >> sh))
+    return (_edge_twiddles_and_work(h, t) + 4 * stages * t * n_in + 8 * out
             + 8 * stages)
 
 
-def _four_step_edge_plan(rows: int, n_in: int, m: int) -> EdgeTilePlan:
-    """The plan of the four-step kernel, which lengths with a factor that
-    is not a power of two take: its ``pick_tile`` (the largest of 32, 16,
-    8, 4 rows whose data fits 96 KB), one tile a block, no ring."""
+def _c2r_smem(h: int, t: int, n_out: int, stages: int, unsplit: bool) -> int:
+    """Shared bytes of the c2r ring kernel: twiddles and work buffers, the
+    input ring (re and im rows, the side column when split), two output
+    staging buffers and the stages' barriers."""
+    ld = h + 1 if unsplit else h
+    stage = 2 * t * ld + (0 if unsplit else t)
+    return (_edge_twiddles_and_work(h, t) + 4 * stages * stage + 8 * t * n_out
+            + 8 * stages)
+
+
+def _four_step_edge_plan(rows: int, m: int, data) -> EdgeTilePlan:
+    """The plan of a four-step x-edge kernel, which lengths with a factor
+    that is not a power of two take: its ``pick_tile`` (the largest of 32,
+    16, 8, 4 rows whose ``data(t)`` bytes fit 96 KB), one tile a block, no
+    ring."""
     m1, m2 = best_factors(m)
     m1c = 8 if m1 <= 8 else 16 if m1 <= 16 else 32
     h2c = 8 if m2 // 2 <= 8 else 16 if m2 // 2 <= 16 else 24
-    h = m // 2
-
-    def data(t):
-        return 8 * m * t + max(8 * (h + 1) * (t + 1), 4 * n_in * (t + 1))
-
     t = next(t for t in (32, 16, 8, 4) if data(t) <= 96 * 1024)
     smem = 8 * (m1 * m1c + m2 * h2c + m) + data(t)
     per_sm = min(3, SM_SHARED_BYTES // (smem + BLOCK_SHARED_RESERVE))
@@ -218,9 +234,54 @@ def edge_tile_plan(rows: int, n_in: int, m: int, unsplit: bool,
 
 @functools.lru_cache(maxsize=64)
 def _edge_tile_plan(rows, n_in, m, unsplit, aligned, sms):
-    if m & (m - 1):
-        return _four_step_edge_plan(rows, n_in, m)
     h = m // 2
+    if m & (m - 1):
+        return _four_step_edge_plan(rows, m, lambda t: 8 * m * t + max(
+            8 * (h + 1) * (t + 1), 4 * n_in * (t + 1)))
+    return _ring_plan(rows, h, aligned, sms,
+                      lambda t, s: _edge_smem(h, t, n_in, s, unsplit), 3)
+
+
+def c2r_tile_plan(rows: int, n_out: int, m: int, unsplit: bool,
+                  data_ptr: int, sms: int = H100_SMS) -> EdgeTilePlan:
+    """The launch plan of :func:`irfft_pass_merge` (``unsplit`` False) or
+    :func:`irfft_pass_truncated` (True) on ``rows`` rows of the half
+    spectrum at length ``m`` into ``n_out`` reals, the input pointers (bulk
+    and side column), or-ed together, ``data_ptr``, on a card of ``sms``
+    SMs. The C entry points refuse any other plan.
+
+    Power-of-two ``m``: the c2r ring kernel, tiles as
+    :func:`edge_tile_plan` chooses them (one row a lane group of G = h / P
+    lanes), as many blocks an SM as fit with a 2-stage ring, then as many
+    stages as still fit, the input moving by bulk copies when ``data_ptr``
+    is 16-byte aligned. A c2r stage holds twice the r2c's input, so the
+    r2c's 3-stage rule would cost it a block an SM: at 256^3 three blocks
+    of two stages take 0.213 ms of device time on an H100, two of four
+    0.233 (``tools/probe_edge_passes.py --sweep``). Other lengths: the
+    four-step kernel's plan."""
+    _check_length(m)
+    if not 0 < n_out <= m // 2 or rows <= 0:
+        raise ValueError(f"no plan for {rows} rows into {n_out} at m = {m}")
+    return _c2r_tile_plan(rows, n_out, m, unsplit, data_ptr % 16 == 0, sms)
+
+
+@functools.lru_cache(maxsize=64)
+def _c2r_tile_plan(rows, n_out, m, unsplit, aligned, sms):
+    h = m // 2
+    if m & (m - 1):
+        return _four_step_edge_plan(
+            rows, m, lambda t: 8 * m * t + 8 * (h + 1) * (t + 1))
+    return _ring_plan(rows, h, aligned, sms,
+                      lambda t, s: _c2r_smem(h, t, n_out, s, unsplit), 2)
+
+
+def _ring_plan(rows, h, aligned, sms, smem, ring) -> EdgeTilePlan:
+    """The ring kernels' plan at h = m/2 for ``rows`` rows, ``smem(t,
+    stages)`` the kernel's shared bytes: a row a lane group, a tile one row
+    per lane group of four warps, halved while the tiles would not give two
+    blocks an SM and T stays a multiple of 4; as many blocks an SM as fit
+    with a ``ring``-stage ring (at most 512 threads: 128 registers a thread,
+    the kernels' bound), then as many stages (up to 4) as still fit."""
     _, g, _ = _edge_shape(h)
     per_warp = 32 // g
     warps = 4
@@ -230,15 +291,15 @@ def _edge_tile_plan(rows, n_in, m, unsplit, aligned, sms):
     t, threads = warps * per_warp, warps * 32
 
     def fits(per_sm, stages):
-        smem = _edge_smem(h, t, n_in, stages, unsplit)
-        return smem <= BLOCK_SHARED_MAX and \
-            per_sm * (smem + BLOCK_SHARED_RESERVE) <= SM_SHARED_BYTES
+        return smem(t, stages) <= BLOCK_SHARED_MAX and \
+            per_sm * (smem(t, stages) + BLOCK_SHARED_RESERVE) \
+            <= SM_SHARED_BYTES
 
-    per_sm = next((b for b in range(512 // threads, 0, -1) if fits(b, 3)), 1)
+    per_sm = next((b for b in range(512 // threads, 0, -1)
+                   if fits(b, ring)), 1)
     stages = max(s for s in (2, 3, 4) if fits(per_sm, s))
     return EdgeTilePlan(t, min(-(-rows // t), per_sm * sms), stages,
-                        _edge_smem(h, t, n_in, stages, unsplit),
-                        aligned, threads, per_sm)
+                        smem(t, stages), aligned, threads, per_sm)
 
 
 class ZconvTilePlan(NamedTuple):
@@ -696,11 +757,15 @@ def irfft_pass_merge(br, bi, sr, si, m: int, n_out: int):
 
 
 def _k_irfft_pass_merge(br, bi, sr, si, m, n_out):
+    # the Nyquist column's imaginary part does not enter the c2r
     rows = br.shape[0]
     out = _empty(br, rows, n_out)
+    plan = c2r_tile_plan(rows, n_out, m, False,
+                         br.data_ptr() | bi.data_ptr() | sr.data_ptr(),
+                         _sm_count(br.device))
     _launch("sopht_irfft_pass_merge_f32", br.device, br.data_ptr(),
-            bi.data_ptr(), sr.data_ptr(), si.data_ptr(), out.data_ptr(),
-            _table(m, br.device).data_ptr(), rows, m, n_out)
+            bi.data_ptr(), sr.data_ptr(), out.data_ptr(),
+            _table(m, br.device).data_ptr(), rows, m, n_out, *plan.args())
     return out
 
 
@@ -832,9 +897,11 @@ def irfft_pass_truncated(xr, xi, m: int, n_out: int):
 def _k_irfft_pass_truncated(xr, xi, m, n_out):
     rows = xr.shape[0]
     out = _empty(xr, rows, n_out)
+    plan = c2r_tile_plan(rows, n_out, m, True, xr.data_ptr() | xi.data_ptr(),
+                         _sm_count(xr.device))
     _launch("sopht_irfft_pass_truncated_f32", xr.device, xr.data_ptr(),
             xi.data_ptr(), out.data_ptr(), _table(m, xr.device).data_ptr(),
-            rows, m, n_out)
+            rows, m, n_out, *plan.args())
     return out
 
 

@@ -7,33 +7,37 @@ with times:
     python3 -m sopht_mpi_tpu_torch.tools.probe_edge_passes --sweep
 
 The first form is a short first run for a changed kernel: it prints the
-card, the build time, ptxas' register and spill lines of the x-edge r2c,
-the z conv ring kernel and the fused kernels, the forward r2c pair and the
-z conv (``fft_greens_ifft_pass``) on ragged, storage-offset and
-non-power-of-two inputs, then for each grid (default: an odd-factor grid,
+card, the build time, ptxas' register and spill lines of the x-edge r2c and
+c2r, the z conv ring kernel and the fused kernels, the forward r2c pair, the
+c2r pair and the z conv (``fft_greens_ifft_pass``) on ragged,
+storage-offset, odd-output and non-power-of-two inputs, then for each grid
+(default: an odd-factor grid,
 the (256, 512) cylinder grid as one slab a component, a 17 x 32 factor grid
 and 256^3) each pass's relative error against ``*_ref`` and the median of 10
 timed calls of both (CUDA events), and ends with the JSON line below.
 
 ``--json`` prints the card (name and power limit) and one JSON line only:
 the median of 20 calls (CUDA events, after 3 warm-up calls) of each of the
-eleven FFT-pass kernels at the 256^3 vector solve's shapes, of the two
-forward r2c passes at the 2D route's (256, 512) shape (m = 1024), of the z
-conv at the 2D route's (1, 256, 512) shape (m = 512), and of
-``torch.fft.rfft`` on the same inputs, with the r2c passes' and the z conv's
-relative errors.
+eleven FFT-pass kernels at the 256^3 vector solve's shapes, of the forward
+r2c and the c2r pairs at the 2D route's (256, 512) shape (m = 1024), of the
+z conv at the 2D route's (1, 256, 512) shape (m = 512), and of
+``torch.fft.rfft`` and ``torch.fft.irfft`` on the x edges' inputs, with the
+edge passes' and the z conv's relative errors.
 It imports the package from ``sys.path`` and uses only the wrappers' public
 names, so it compares two trees on one card within one job: unpack the other
 tree into a directory and run this file with ``PYTHONPATH`` set to each, in
-turns (a, b, b, a). Each r2c pass, the z conv and ``torch.fft.rfft`` also
-get their device time from ``torch.profiler`` (``device_ms``) and the
+turns (a, b, b, a). Each x-edge pass, the z conv, ``torch.fft.rfft`` and
+``torch.fft.irfft`` also get their device time from ``torch.profiler``
+(``device_ms``) and the
 host's time to enqueue one call (``host_us``): a call's event time starts
 from an idle card and includes that enqueue, which at the 2D shape is most
 of it.
 
 ``--sweep`` prints the split r2c kernel's device time under every plan its
-launcher takes at both shapes, the one ``edge_tile_plan`` picks marked, and
-the z conv's under each of its two instances (16 and 8 columns a tile)
+launcher takes at both shapes, the one ``edge_tile_plan`` picks marked, the
+split c2r kernel's under each tile and ring depth with the most blocks an SM
+that fit (at most nine plans a shape), the one ``c2r_tile_plan`` picks
+marked, and the z conv's under each of its two instances (16 and 8 columns a tile)
 with one block an SM up to as many as the plan allows (at most six plans a
 shape) at 256^3, the 2D shape and the multi-body case's m = 256, the one
 ``zconv_tile_plan`` picks marked.
@@ -54,6 +58,16 @@ from sopht_mpi_tpu_torch.parallel import cuda_fft
 
 DEFAULT_GRIDS = ((48, 32, 64), (1, 256, 512), (16, 272, 80), (256, 256, 256))
 R2C = ("rfft_pass_padded_split", "rfft_pass_padded")
+C2R = ("irfft_pass_merge", "irfft_pass_truncated")
+# the x edges' shapes: the 256^3 vector solve's rows and the 2D route's
+# (rows, real row length n, m = 2 n)
+EDGE_SHAPES = (("256^3", 3 * 256 * 256, 256), ("2d", 256, 512))
+# the x edges' extra checks (rows, real row length, m, storage offset in
+# floats): ragged last tiles, inputs 4 bytes off 16-byte alignment, odd
+# lengths, the 2D route's m = 1024 and the four-step kernel's m = 96, 544
+EDGE_CASES = ((203, 256, 512, 0), (61, 255, 512, 1), (9, 3, 64, 0),
+              (256, 512, 1024, 0), (37, 48, 96, 0), (40, 272, 544, 3),
+              (5, 511, 1024, 1))
 # the z conv's (A, m/2, B) shapes: the 256^3 vector solve's and the 2D
 # route's y pass
 ZCONV_INPUTS = (("256^3", (3, 256, 512 * 256)), ("2d", (1, 256, 512)))
@@ -130,8 +144,28 @@ def pass_args(grid, rand, components=3):
     }
 
 
+def c2r_args(name, rows, n, rand):
+    """A c2r pass's inputs: (rows, n) spectra (n + 1 unsplit) into n reals
+    at m = 2 n."""
+    if name == "irfft_pass_merge":
+        return (rand(rows, n), rand(rows, n), rand(rows, 1), rand(rows, 1),
+                2 * n, n)
+    return rand(rows, n + 1), rand(rows, n + 1), 2 * n, n
+
+
+def irfft_call(args):
+    """``torch.fft.irfft`` on a c2r pass's inputs (joined outside the
+    timing)."""
+    if len(args) == 6:
+        br, bi, sr, si, m, _ = args
+        z = torch.complex(torch.cat([br, sr], 1), torch.cat([bi, si], 1))
+    else:
+        z, m = torch.complex(args[0], args[1]), args[2]
+    return lambda: torch.fft.irfft(z, n=m, dim=1)
+
+
 def solve_pass_args(n, rand, dev):
-    """Each of the other nine FFT-pass kernels' inputs at the shapes of the
+    """Each of the other seven FFT-pass kernels' inputs at the shapes of the
     n^3 vector solve (3 components, doubled axes) and its fast tier."""
     c, m = 3, 2 * n
     rows = c * n * n
@@ -141,8 +175,6 @@ def solve_pass_args(n, rand, dev):
         "fft_greens_ifft_pass": lambda: (rand(c, n, m * n), rand(c, n, m * n),
                                          rand(1, m, m * n)),
         "ifft_pass_truncated": lambda: (rand(c * n, m, n), rand(c * n, m, n)),
-        "irfft_pass_merge": lambda: (rand(rows, n), rand(rows, n),
-                                     rand(rows, 1), rand(rows, 1), m, n),
         "fft_greens_curl_ifft_pass": lambda: (
             rand(3, n, m * n), rand(3, n, m * n), rand(1, m, m * n), sym_z,
             sym_yx),
@@ -150,8 +182,6 @@ def solve_pass_args(n, rand, dev):
             rand(3, n * n, n), rand(3, n * n, n), rand(3, n * n, 1),
             rand(3, n * n, 1), torch.tensor([1.0, -0.5, 0.25], device=dev), m,
             n, n, n),
-        "irfft_pass_truncated": lambda: (rand(rows, n + 1), rand(rows, n + 1),
-                                         m, n),
         "rfft_fft_pass_fused": lambda: (rand(c * n, n, n), m, m),
         "ifft_irfft_pass_fused": lambda: (rand(c * n, m, n), rand(c * n, m, n),
                                           rand(c * n, n, 1), rand(c * n, n, 1),
@@ -166,27 +196,44 @@ def card():
 
 
 def timing(tag, rand, dev):
-    """The JSON line: medians of 20 calls of the r2c pair and torch.fft.rfft
-    at 256^3 and at the 2D shape, and of the other nine at 256^3."""
+    """The JSON line: medians of 20 calls of the r2c and c2r pairs,
+    torch.fft.rfft and torch.fft.irfft at 256^3 and at the 2D shape, and of
+    the other seven at 256^3."""
     out = {"tag": tag, "module": cuda_fft.__file__, "card": card(),
            "ms": {"256^3": {}, "2d": {}}, "torch_fft_rfft_ms": {},
+           "torch_fft_irfft_ms": {},
            "device_ms": {"256^3": {}, "2d": {}},
            "host_us": {"256^3": {}, "2d": {}},
-           "r2c_rel_err": {"256^3": {}, "2d": {}}}
-    for shape, rows, n_in in (("256^3", 3 * 256 * 256, 256), ("2d", 256, 512)):
-        x = rand(rows, n_in)
+           "r2c_rel_err": {"256^3": {}, "2d": {}},
+           "c2r_rel_err": {"256^3": {}, "2d": {}}}
+
+    def record(shape, name, fn, args, ref_fn, errs):
+        errs[shape][name] = rel_err(fn(*args), ref_fn(*args))
+        out["ms"][shape][name] = median_ms(lambda: fn(*args), 20, 3)
+        out["device_ms"][shape][name] = device_ms(lambda: fn(*args))
+        out["host_us"][shape][name] = host_us(lambda: fn(*args))
+
+    for shape, rows, n in EDGE_SHAPES:
+        x = rand(rows, n)
         for name in R2C:
-            fn = getattr(cuda_fft, name)
-            out["r2c_rel_err"][shape][name] = rel_err(
-                fn(x, 2 * n_in), getattr(cuda_fft, name + "_ref")(x, 2 * n_in))
-            out["ms"][shape][name] = median_ms(lambda: fn(x, 2 * n_in), 20, 3)
-            out["device_ms"][shape][name] = device_ms(lambda: fn(x, 2 * n_in))
-            out["host_us"][shape][name] = host_us(lambda: fn(x, 2 * n_in))
+            record(shape, name, getattr(cuda_fft, name), (x, 2 * n),
+                   getattr(cuda_fft, name + "_ref"), out["r2c_rel_err"])
         out["torch_fft_rfft_ms"][shape] = median_ms(
-            lambda: torch.fft.rfft(x, n=2 * n_in, dim=1), 20, 3)
+            lambda: torch.fft.rfft(x, n=2 * n, dim=1), 20, 3)
         out["device_ms"][shape]["torch.fft.rfft"] = device_ms(
-            lambda: torch.fft.rfft(x, n=2 * n_in, dim=1))
+            lambda: torch.fft.rfft(x, n=2 * n, dim=1))
         del x
+        for name in C2R:
+            args = c2r_args(name, rows, n, rand)
+            record(shape, name, getattr(cuda_fft, name), args,
+                   getattr(cuda_fft, name + "_ref"), out["c2r_rel_err"])
+            if name == "irfft_pass_merge":
+                irfft = irfft_call(args)
+                out["torch_fft_irfft_ms"][shape] = median_ms(irfft, 20, 3)
+                out["device_ms"][shape]["torch.fft.irfft"] = device_ms(irfft)
+                del irfft
+            del args
+        torch.cuda.empty_cache()
     for name, make in solve_pass_args(256, rand, dev).items():
         args, fn = make(), getattr(cuda_fft, name)
         out["ms"]["256^3"][name] = median_ms(lambda: fn(*args), 20, 3)
@@ -213,7 +260,7 @@ def sweep(rand, dev):
     an SM), the plan ``edge_tile_plan`` picks marked: one line a plan."""
     lib, sms = cuda_fft.library(), cuda_fft._sm_count(dev)
     stream = torch.cuda.current_stream().cuda_stream
-    for shape, rows, n_in in (("256^3", 3 * 256 * 256, 256), ("2d", 256, 512)):
+    for shape, rows, n_in in EDGE_SHAPES:
         m, h = 2 * n_in, n_in
         x = rand(rows, n_in)
         outs = [rand(rows, h), rand(rows, h), rand(rows, 1), rand(rows, 1)]
@@ -248,6 +295,53 @@ def sweep(rand, dev):
                           f"{stages} blocks/SM {per_sm} blocks {plan.blocks}: "
                           f"{device_ms(fn):.4f} ms{mark}", flush=True)
         del x, outs
+        torch.cuda.empty_cache()
+
+
+def sweep_c2r(rand, dev):
+    """Device time of the split c2r kernel at 256^3 rows and the 2D shape
+    under each tile (rows) and ring depth, with the most blocks an SM that
+    fit (at most nine plans a shape), the plan ``c2r_tile_plan`` picks
+    marked: one line a plan."""
+    lib, sms = cuda_fft.library(), cuda_fft._sm_count(dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape, rows, n in EDGE_SHAPES:
+        m = 2 * n
+        br, bi, sr, _, _, _ = c2r_args("irfft_pass_merge", rows, n, rand)
+        out = rand(rows, n)
+        table = cuda_fft._table(m, dev)
+        chosen = cuda_fft.c2r_tile_plan(
+            rows, n, m, False, br.data_ptr() | bi.data_ptr() | sr.data_ptr(),
+            sms)
+        g = cuda_fft._edge_shape(n)[1]
+        for t in (4, 8, 16, 32, 64):
+            threads = t * g
+            if threads % 32 or threads > 256:
+                continue
+            for stages in (2, 3, 4):
+                smem = cuda_fft._c2r_smem(n, t, n, stages, False)
+                per_sm = min(512 // threads, cuda_fft.SM_SHARED_BYTES // (
+                    smem + cuda_fft.BLOCK_SHARED_RESERVE))
+                if per_sm < 1 or smem > cuda_fft.BLOCK_SHARED_MAX:
+                    continue
+                plan = cuda_fft.EdgeTilePlan(
+                    t, min(-(-rows // t), per_sm * sms), stages, smem, True,
+                    threads, per_sm)
+
+                def fn(plan=plan):
+                    return lib.sopht_irfft_pass_merge_f32(
+                        br.data_ptr(), bi.data_ptr(), sr.data_ptr(),
+                        out.data_ptr(), table.data_ptr(), rows, m, n,
+                        *plan.args(), stream)
+
+                if fn():
+                    print(f"sweep c2r {shape}: {plan} refused", flush=True)
+                    continue
+                mark = " <- c2r_tile_plan" if plan == chosen else ""
+                print(f"sweep c2r {shape}: T {t} threads {threads} stages "
+                      f"{stages} blocks/SM {per_sm} blocks {plan.blocks}: "
+                      f"{device_ms(fn):.4f} ms{mark}", flush=True)
+        del br, bi, sr, out
         torch.cuda.empty_cache()
 
 
@@ -311,16 +405,36 @@ def r2c_cases(rand):
     """The forward r2c pair on ragged row counts, a storage-offset input
     and lengths off the power-of-two design: (case, relative error)."""
     results = []
-    for rows, n_in, m, offset in ((203, 256, 512, 0), (61, 255, 512, 1),
-                                  (9, 3, 64, 0), (256, 512, 1024, 0),
-                                  (37, 48, 96, 0), (40, 272, 544, 3),
-                                  (5, 511, 1024, 1)):
+    for rows, n_in, m, offset in EDGE_CASES:
         x = rand(rows * n_in + offset)[offset:].view(rows, n_in)
         for name in R2C:
             err = rel_err(getattr(cuda_fft, name)(x, m),
                           getattr(cuda_fft, name + "_ref")(x, m))
             results.append((f"{name} ({rows}, {n_in}) m={m} offset {offset}",
                             err))
+    torch.cuda.synchronize()
+    return results
+
+
+def c2r_cases(rand):
+    """The c2r pair on ragged row counts, storage-offset inputs, odd output
+    counts and lengths off the power-of-two design: (case, relative
+    error)."""
+    results = []
+    for rows, n_out, m, offset in EDGE_CASES:
+        h = m // 2
+
+        def spectrum(cols):
+            return rand(rows * cols + offset)[offset:].view(rows, cols)
+
+        for name, args in (
+                ("irfft_pass_merge", (spectrum(h), spectrum(h),
+                                      rand(rows, 1), rand(rows, 1))),
+                ("irfft_pass_truncated", (spectrum(h + 1), spectrum(h + 1)))):
+            err = rel_err(getattr(cuda_fft, name)(*args, m, n_out),
+                          getattr(cuda_fft, name + "_ref")(*args, m, n_out))
+            results.append((f"{name} ({rows}, {n_out}) m={m} offset "
+                            f"{offset}", err))
     torch.cuda.synchronize()
     return results
 
@@ -339,6 +453,7 @@ def main(argv):
         print(card())
         sweep_zconv(rand, dev)
         sweep(rand, dev)
+        sweep_c2r(rand, dev)
         return 0
     if argv and argv[0] == "--json":
         tag = argv[1] if len(argv) > 1 else cuda_fft.__file__
@@ -361,13 +476,14 @@ def main(argv):
     lines = lib.build_log.splitlines()
     for i, ln in enumerate(lines[:-2]):
         name = re.search(
-            r"(rfft_edge_kernel|zconv_kernel|\w+_fused_kernel)((?:ILi|Li)\d+E)+",
+            r"(irfft_edge_kernel|rfft_edge_kernel|zconv_kernel|"
+            r"\w+_fused_kernel)((?:ILi|Li)\d+E)+",
             ln)
         if "Function properties" in ln and name:
             print(name.group(1)[-28:], re.findall(r"\d+", name.group(0)[
                 len(name.group(1)):]), "|", lines[i + 1].strip(), "|",
                 lines[i + 2].strip()[:60])
-    for case, err in r2c_cases(rand) + zconv_cases(rand):
+    for case, err in r2c_cases(rand) + c2r_cases(rand) + zconv_cases(rand):
         print(f"{case}: relative err {err:.3g}", flush=True)
     for grid in grids:
         if not all(cuda_fft.kernel_fft_supported(2 * n) for n in grid[1:]):
