@@ -102,8 +102,10 @@ raises and exits non-zero, and nothing falls back to the CPU:
     mesh from one numpy-seeded state.
 
 Phase 3 also checks the fused-curl pair against its plain versions at the
-256^3 sphere's, the (128, 128, 256) multi-body case's and a (48, 32, 64)
-grid's shapes, the unsplit x passes and the fused edge passes at the 256^3
+256^3 sphere's, the (128, 128, 256) multi-body case's, the 64^3 drag run's
+and a (48, 32, 64) grid's shapes (the fast tier's z pass at m = 512, 256,
+128 on its ring kernel and m = 96 on its four-step one), the unsplit x
+passes and the fused edge passes at the 256^3
 solve's, a (48, 32, 64) grid's and the (256, 512) cylinder grid's shapes,
 and the 2D route's three passes at the cylinder grid's shapes, and the
 forward r2c pair (``rfft_pass_padded_split``, ``rfft_pass_padded``) and
@@ -746,11 +748,13 @@ def main():
                 library_fn=library_call(name, args[name]))
         del calls, args
         torch.cuda.empty_cache()
-        # the fused-curl pair: an odd-factor grid (m = 96, 64, 128), the
-        # sphere's 256^3 and the multi-body case's (128, 128, 256), whose
-        # errors and times go into the table
+        # the fused-curl pair: an odd-factor grid (m = 96, 64, 128: the z
+        # pass's four-step kernel), the 64^3 drag run's (m = 128), the
+        # sphere's 256^3 (m = 512) and the multi-body case's (128, 128,
+        # 256) (m = 256), whose errors and times go into the table
         fused = []
-        for grid in ((48, 32, 64), (256, 256, 256), MULTIBODY_GRID):
+        for grid in ((48, 32, 64), (64, 64, 64), (256, 256, 256),
+                     MULTIBODY_GRID):
             args = fused_pair_args(grid, gen)
             calls, errs = run_fused_checks(grid, args)
             for name, (fn, ref_fn) in calls.items():

@@ -39,8 +39,8 @@
 // Tile choice. Shared data <= 96 KB a block, so two blocks (plus their
 // twiddle tables, <= 20 KB) fit one SM's 227 KB: t = 32, 16, 8 or 4. At
 // m = 512 the middle passes take t = 16 and the x edges t = 8, three
-// blocks an SM. The fused-curl z pass keeps three components' slots and
-// takes half the middle passes' tile (see below).
+// blocks an SM. The fused-curl z pass's four-step kernel keeps three
+// components' slots, 24 B a slot against 8.
 //
 // fft_pass_padded
 //   Replaces sopht_mpi_tpu/parallel/pallas_fft.py _fft_pass_padded_impl
@@ -112,14 +112,15 @@
 //   fft_greens_ifft_pass over the three vorticity components of (3, m/2, B)
 //   with the spectral central-difference curl mixed in at the full-spectral
 //   point: u_hat = i s x (G w_hat), s = (sx[b], sy[b], sz[k]). The slots of
-//   all three components of a column tile are live at once (3 m t float2),
-//   so the mixing stays in shared memory; the Green's spectrum is read from
-//   device memory where it is applied, once per element. Tile: t = 8 at
-//   m = 512 (96 KB of slots + 10 KB of twiddles, two blocks an SM, a warp's
-//   loads one full 32-byte sector a row), t = 16 at m = 256, t = 4 at
-//   m = 1024 (one block an SM). Bound: HBM, 16 B per input element of the
-//   three components plus the Green's read once (the arithmetic, ~5 log2 m
-//   flop a complex output a transform, is below the FP32 rate).
+//   all three components of a column tile are live at once. At m = 64 ...
+//   512: zconv_curl_kernel (see the note above it), the z conv's design
+//   with the three components' slot regions as the input ring and the curl
+//   mixed in registers. At other m: fft_greens_curl_ifft_pass_kernel, one
+//   tile a block (t = 4 at m = 1024), the mixing in shared memory, the
+//   Green's spectrum read from device memory where it is applied. Bound:
+//   HBM, 16 B per input element of the three components plus the Green's
+//   read once (the arithmetic, ~5 log2 m flop a complex output a
+//   transform, is below the FP32 rate).
 //
 // irfft_pass_merge_velocity
 //   Replaces _irfft_pass_merge_velocity_impl (kernel
@@ -1335,9 +1336,10 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-// wait until at most one of this thread's copy groups is pending
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
+// wait until at most N of this thread's copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // cos(2 pi e / 32) for e <= 8, float64 rounded to float32 (as the host's
@@ -1497,7 +1499,7 @@ __global__ void __launch_bounds__(
 
   for (long long it = 0; it < iters; ++it) {
     produce(it + 1);  // into the stage iteration it - 1 read
-    cp_async_wait1();
+    cp_async_wait<1>();
     __syncthreads();  // the stage is in; the slots are free
     const long long tile = blockIdx.x + (it / A) * gridDim.x;
     const long long a = it % A, b = tile * T + c;
@@ -1552,6 +1554,249 @@ __global__ void __launch_bounds__(
       if (b < B) {
         float* orr = out_r + (a * h + j) * B + b;
         float* oi = out_i + (a * h + j) * B + b;
+        each_output<M2, H2>([&](int n2, int r) {
+          orr[(long long)n2 * M1 * B] = re[r] * inv_m;
+          oi[(long long)n2 * M1 * B] = im[r] * inv_m;
+        });
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fft_greens_curl_ifft_pass at m = 64, 128, 256, 512: the fast tier's z
+// pass, designed for Hopper on zconv_kernel's plan.
+//
+// Replaces, with fft_greens_curl_ifft_pass_kernel below for m = 1024 and
+// the lengths with a factor that is not a power of two,
+// sopht_mpi_tpu/parallel/pallas_fft.py:478 _fft_greens_curl_ifft_pass_impl.
+// Bound: HBM, the z conv's bytes plus the symbols: 1.88 GB at 256^3, 0.56
+// ms at 3.35 TB/s. The arithmetic is zconv_kernel's, thread (c, j) of a
+// block of T columns x m1 threads running the first factor of n1 = j, the
+// middle factors of k2 = j + m1 s and the inverse last factor of n1 = j,
+// with the same slot layout. What differs: the curl u = i s x (G psi)
+// needs the three components' spectra at the same k at once.
+// 1. A tile's three components are live together in shared memory, one
+//    region of zconv_kernel's slots each, and the regions are the input
+//    ring: component a's input of the next tile is copied (cp.async, 16
+//    bytes where both pointers are aligned and B % 4 == 0) into region a
+//    as soon as this tile's last factor has read region a into registers.
+//    The copies run behind the last factors of this tile and the first
+//    factors of the next. A ring of its own would not fit: at m = 512 and
+//    T = 16 the regions take 192 KB and one stage of one component 32 KB.
+// 2. The first factor of component a reads its input from region a into
+//    registers; after a sync it writes its slots over that input.
+// 3. The middle factor of k2 runs the forward length-m1 DFT of each
+//    component in registers, the Green's product, the curl at the
+//    thread's own k = k2 + m2 k1 and the three inverse DFTs: no pass over
+//    shared memory of its own. At m = 512 it holds 96 floats of spectra.
+// 4. The Green's values of a thread's middle factors (m2 / m1 x m1) and
+//    its column's sym_yx are read into registers once a tile, after the
+//    middle factors; sym_z at the thread's own k once a block. The
+//    twiddles go to shared memory once a block.
+// 5. The loops over the components in the first and last factors and over
+//    a thread's middle factors stay rolled, so the loop body holds one copy
+//    of each transform (the middle factor's three components unrolled).
+//    Fully unrolled, the m = 512 instance was 10,216 SASS instructions
+//    against 5,472 and took 1.71 ms of device time at 256^3 on an H100
+//    against 0.98 (tools/probe_edge_passes.py: the first form and the
+//    sweep): the loop body most likely outgrew the instruction cache.
+// Blocks an SM: one of 256 threads at m = 256 and 512 (up to 255
+// registers a thread), up to 512 threads at the shorter lengths.
+// ---------------------------------------------------------------------------
+
+// The sizes of the design at m = M1 M2 with tiles of T columns (host and
+// device).
+template <int M1, int M2, int T>
+struct ZcurlShape {
+  using Z = ZconvShape<M1, M2, T>;
+  static constexpr int m = Z::m, NT = Z::NT, RS = Z::RS, TWP = Z::TWP;
+  static constexpr int REGION = M2 * RS;  // float2 a component
+  static constexpr int STAGES = 3;        // the regions, as the input ring
+  static constexpr int SM_THREADS = m >= 256 ? 256 : 512;
+  static constexpr int SMEM = 8 * STAGES * REGION + 8 * M1 * TWP;
+};
+
+template <int M1, int M2, int T>
+__global__ void __launch_bounds__(
+    T * M1, ZcurlShape<M1, M2, T>::SM_THREADS / (T * M1))
+    zconv_curl_kernel(const float* __restrict__ xr,
+                      const float* __restrict__ xi,
+                      const float* __restrict__ g,
+                      const float* __restrict__ sym_z,
+                      const float* __restrict__ sym_yx,
+                      float* __restrict__ out_r, float* __restrict__ out_i,
+                      const float2* __restrict__ tw_g, long long B,
+                      int bulk) {
+  using S = ZcurlShape<M1, M2, T>;
+  constexpr int h = S::m / 2, H2 = M2 / 2, NT = S::NT, KS = M2 / M1;
+  constexpr int RS = S::RS;
+  static_assert(KS == 1 || KS == 2, "a thread's middle factors: 1 or 2");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float2* regions = reinterpret_cast<float2*>(smem_raw);
+  float2* tw = regions + 3 * S::REGION;
+  const int tid = threadIdx.x, c = tid % T, j = tid / T;
+
+  // W_m^(n1 k2), rows of m2 + 1
+  for (int i = tid; i < M1 * M2; i += NT)
+    tw[(i / M2) * S::TWP + i % M2] = tw_g[i];
+
+  const long long ntiles = (B + T - 1) / T;
+  const long long iters = (ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+
+  // component a of this block's it-th tile into region a (h rows of T
+  // floats of re, then of im), then one commit (an empty group past the
+  // last tile)
+  auto produce = [&](long long it, int a) {
+    if (it < iters) {
+      const long long b0 = (blockIdx.x + it * gridDim.x) * T;
+      float* st = reinterpret_cast<float*>(regions + a * S::REGION);
+      if (bulk) {  // 16 bytes a copy: T / 4 of a row's segment
+        constexpr int Q = T / 4;
+        for (int o = tid; o < 2 * h * Q; o += NT) {
+          const int p = o / (h * Q), r = (o / Q) % h, q = o % Q;
+          const long long col = b0 + 4 * q;
+          const bool live = col < B;
+          const float* src = (p ? xi : xr) + ((long long)a * h + r) * B + col;
+          cp_async16(st + 4 * o, live ? src : xr, live);
+        }
+      } else {
+        for (int o = tid; o < 2 * h * T; o += NT) {
+          const int p = o / (h * T), r = (o / T) % h, q = o % T;
+          const long long col = b0 + q;
+          const bool live = col < B;
+          const float* src = (p ? xi : xr) + ((long long)a * h + r) * B + col;
+          cp_async4(st + o, live ? src : xr, live);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // this thread's Green's values in a tile, gv[s][k1] = g[k2 + m2 k1] at
+  // k2 = j + m1 s, and its column's symbols
+  float gv[KS][M1], sy, sx;
+  auto load_green = [&](long long tile) {
+    const long long b = tile * T + c;
+    const bool live = b < B;
+    const long long bl = live ? b : 0;
+    const float* gp = g + (long long)j * B + bl;
+#pragma unroll
+    for (int s = 0; s < KS; ++s)
+#pragma unroll
+      for (int k1 = 0; k1 < M1; ++k1)
+        gv[s][k1] =
+            live ? __ldg(gp + (long long)(M1 * s + M2 * k1) * B) : 0.f;
+    sy = live ? __ldg(sym_yx + bl) : 0.f;
+    sx = live ? __ldg(sym_yx + B + bl) : 0.f;
+  };
+  float sz[KS][M1];
+#pragma unroll
+  for (int s = 0; s < KS; ++s)
+#pragma unroll
+    for (int k1 = 0; k1 < M1; ++k1) sz[s][k1] = __ldg(sym_z + j + M1 * s + M2 * k1);
+
+  load_green(blockIdx.x);
+  produce(0, 0);
+  produce(0, 1);
+  produce(0, 2);
+  const float inv_m = 1.0f / (float)S::m;
+  const float2* tw1 = tw + j * S::TWP;
+  const float2* tw2 = tw + j;
+
+  for (long long it = 0; it < iters; ++it) {
+    const long long tile = blockIdx.x + it * gridDim.x, b = tile * T + c;
+#pragma unroll 1
+    for (int a = 0; a < 3; ++a) {  // first factor of n1 = j
+      if (a == 0) cp_async_wait<2>();
+      else if (a == 1) cp_async_wait<1>();
+      else cp_async_wait<0>();
+      __syncthreads();  // region a holds its input
+      float2* region = regions + a * S::REGION;
+      const float* st = reinterpret_cast<const float*>(region) + j * T + c;
+      float re[M2], im[M2];
+#pragma unroll
+      for (int n2 = 0; n2 < M2; ++n2) {
+        re[n2] = n2 < H2 ? st[n2 * M1 * T] : 0.f;
+        im[n2] = n2 < H2 ? st[h * T + n2 * M1 * T] : 0.f;
+      }
+      Radix2c<M2, M2 / 2, false, true>::stages(re, im);
+      __syncthreads();  // every thread has read the input
+      float2* slot13 = region + j * T + c;
+      each_output<M2>([&](int k2, int r) {
+        float2 v = make_float2(re[r], im[r]);
+        if (k2 > 0) v = cmul(tw1[k2], v);
+        slot13[k2 * RS] = v;
+      });
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int s = 0; s < KS; ++s) {  // middle factor of k2 = j + m1 s
+      float gs[M1], zs[M1];  // this k2's Green's values and sym_z
+#pragma unroll
+      for (int k1 = 0; k1 < M1; ++k1) {
+        gs[k1] = s ? gv[KS - 1][k1] : gv[0][k1];
+        zs[k1] = s ? sz[KS - 1][k1] : sz[0][k1];
+      }
+      float pr[3][M1], pi[3][M1];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float2* slot2 = regions + a * S::REGION + (j + M1 * s) * RS + c;
+        float yr[M1], yi[M1];
+#pragma unroll
+        for (int n1 = 0; n1 < M1; ++n1) {
+          const float2 v = slot2[n1 * T];
+          yr[n1] = v.x;
+          yi[n1] = v.y;
+        }
+        Radix2c<M1, M1 / 2, false>::stages(yr, yi);
+        each_output<M1>([&](int k1, int r) {  // psi = G X at k2 + m2 k1
+          pr[a][k1] = yr[r] * gs[k1];
+          pi[a][k1] = yi[r] * gs[k1];
+        });
+      }
+      // u = i s x psi, s = (sx, sy, sz[k]): re u = -(s x im psi),
+      // im u = s x re psi
+      float ur[3][M1], ui[3][M1];
+#pragma unroll
+      for (int k1 = 0; k1 < M1; ++k1) {
+        const float z = zs[k1];
+        ur[0][k1] = z * pi[1][k1] - sy * pi[2][k1];
+        ui[0][k1] = sy * pr[2][k1] - z * pr[1][k1];
+        ur[1][k1] = sx * pi[2][k1] - z * pi[0][k1];
+        ui[1][k1] = z * pr[0][k1] - sx * pr[2][k1];
+        ur[2][k1] = sy * pi[0][k1] - sx * pi[1][k1];
+        ui[2][k1] = sx * pr[1][k1] - sy * pr[0][k1];
+      }
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        Radix2c<M1, M1 / 2, true>::stages(ur[a], ui[a]);
+        float2* slot2 = regions + a * S::REGION + (j + M1 * s) * RS + c;
+        each_output<M1>([&](int n1, int r) {
+          float2 v = make_float2(ur[a][r], ui[a][r]);
+          if (n1 > 0) v = cmul_conj(tw2[n1 * S::TWP + M1 * s], v);
+          slot2[n1 * T] = v;
+        });
+      }
+    }
+    if (it + 1 < iters) load_green(tile + gridDim.x);
+    __syncthreads();
+#pragma unroll 1
+    for (int a = 0; a < 3; ++a) {  // inverse last factor of n1 = j
+      const float2* slot13 = regions + a * S::REGION + j * T + c;
+      float re[M2], im[M2];
+#pragma unroll
+      for (int k2 = 0; k2 < M2; ++k2) {
+        const float2 v = slot13[k2 * RS];
+        re[k2] = v.x;
+        im[k2] = v.y;
+      }
+      __syncthreads();  // region a is read: the next tile's input goes in
+      produce(it + 1, a);
+      Radix2c<M2, M2 / 2, true>::stages(re, im);
+      if (b < B) {
+        float* orr = out_r + ((long long)a * h + j) * B + b;
+        float* oi = out_i + ((long long)a * h + j) * B + b;
         each_output<M2, H2>([&](int n2, int r) {
           orr[(long long)n2 * M1 * B] = re[r] * inv_m;
           oi[(long long)n2 * M1 * B] = im[r] * inv_m;
@@ -1658,7 +1903,9 @@ __global__ void __launch_bounds__(kThreads, kEdgeBlocks)
 }
 
 // fft_greens_ifft_pass_kernel over the three components at once, the curl
-// mixed in between the Green's multiply and the inverse transform.
+// mixed in between the Green's multiply and the inverse transform: the
+// fast tier's z pass at m = 1024 and the lengths with a factor that is not
+// a power of two (zconv_curl_kernel above takes m = 64 ... 512).
 template <int M1, int H2>
 __global__ void __launch_bounds__(kThreads, 2)
     fft_greens_curl_ifft_pass_kernel(const float* __restrict__ xr,
@@ -2271,20 +2518,32 @@ struct IrfftPassMerge {
   }
 };
 
+// The arguments of the fast tier's z pass entry point, with the host's
+// plan.
+struct ZcurlArgs {
+  const float *xr, *xi, *g, *sym_z, *sym_yx;
+  float *out_r, *out_i;
+  const float* table;
+  long long B;
+  int T, blocks, stages, smem, bulk, threads;
+};
+
+// The four-step kernel (m = 1024 and the lengths with a factor that is not
+// a power of two): pick_tile's tile, one a block. The host passes no plan
+// for it (every field 0).
 struct FftGreensCurlIfftPass {
   template <int M1, int H2>
-  static int go(const Plan& p, const float* xr, const float* xi,
-                const float* g, const float* sym_z, const float* sym_yx,
-                float* out_r, float* out_i, const float* table, long long B,
-                cudaStream_t st) {
+  static int go(const Plan& p, const ZcurlArgs& a, cudaStream_t st) {
+    if (a.T || a.blocks || a.stages || a.smem || a.bulk || a.threads)
+      return (int)cudaErrorInvalidValue;
     // three components' slots: 24 B per slot
     const int t = pick_tile([&](int t) { return 24LL * p.m * t; });
     if (t == 0) return (int)cudaErrorInvalidValue;
     const size_t smem = table_bytes(p) + 24ull * p.m * t;
-    const dim3 grid((unsigned)((B + t - 1) / t));
+    const dim3 grid((unsigned)((a.B + t - 1) / t));
     return launch(fft_greens_curl_ifft_pass_kernel<M1, H2>, grid, t, smem,
-                  st, xr, xi, g, sym_z, sym_yx, out_r, out_i,
-                  (const float2*)table, B, p.m, p.m1, p.m2);
+                  st, a.xr, a.xi, a.g, a.sym_z, a.sym_yx, a.out_r, a.out_i,
+                  (const float2*)a.table, a.B, p.m, p.m1, p.m2);
   }
 };
 
@@ -2551,6 +2810,35 @@ int launch_zconv(const Plan& p, const ZconvArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// The plan of zconv_curl_kernel<M1, M2, T> as zconv_curl_tile_plan
+// computes it, checked against what the kernel assumes, then the launch.
+template <int M1, int M2, int T>
+int launch_zconv_curl(const Plan& p, const ZcurlArgs& a, cudaStream_t st) {
+  using S = ZcurlShape<M1, M2, T>;
+  const long long tiles = (a.B + T - 1) / T;
+  const bool aligned =
+      ((unsigned long long)a.xr | (unsigned long long)a.xi) % 16 == 0 &&
+      a.B % 4 == 0;
+  if (p.m1 != M1 || p.m2 != M2 || a.threads != S::NT || a.blocks < 1 ||
+      a.blocks > tiles || a.stages != S::STAGES || (a.bulk && !aligned) ||
+      a.smem != S::SMEM)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = zconv_curl_kernel<M1, M2, T>;
+  // the attributes and the residency, kept per device
+  static ShapeCache cache;
+  long long resident = 0;
+  if (const int err = resident_blocks(kernel, S::SMEM, S::NT, cache,
+                                      &resident))
+    return err;
+  // persistent blocks: every planned block must be resident at once
+  if (a.blocks > resident) return (int)cudaErrorInvalidValue;
+  const float2* tw = (const float2*)a.table + (p.m1 * p.m1c + p.m2 * p.h2c);
+  kernel<<<a.blocks, S::NT, S::SMEM, st>>>(a.xr, a.xi, a.g, a.sym_z,
+                                           a.sym_yx, a.out_r, a.out_i, tw,
+                                           a.B, a.bulk);
+  return (int)cudaGetLastError();
+}
+
 // The instance of the plan's tile (zconv_tile_plan's ZCONV_COLUMNS).
 template <int M1, int M2>
 int zconv_by_columns(const Plan& p, const ZconvArgs& a, cudaStream_t st) {
@@ -2571,6 +2859,30 @@ int fft_greens_ifft(const Plan& p, const ZconvArgs& a, cudaStream_t st) {
     case 512: return zconv_by_columns<16, 32>(p, a, st);
   }
   return dispatch<FftGreensIfftPass>(p, a, st);
+}
+
+template <int M1, int M2>
+int zconv_curl_by_columns(const Plan& p, const ZcurlArgs& a,
+                          cudaStream_t st) {
+  switch (a.T) {
+    case 8: return launch_zconv_curl<M1, M2, 8>(p, a, st);
+    case 16: return launch_zconv_curl<M1, M2, 16>(p, a, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The fast tier's z pass entry point: the ring design above at
+// m = 64 ... 512, with the plan zconv_curl_tile_plan gives; the four-step
+// kernel otherwise, with none.
+int fft_greens_curl_ifft(const Plan& p, const ZcurlArgs& a,
+                         cudaStream_t st) {
+  switch (p.m) {
+    case 64: return zconv_curl_by_columns<8, 8>(p, a, st);
+    case 128: return zconv_curl_by_columns<8, 16>(p, a, st);
+    case 256: return zconv_curl_by_columns<16, 16>(p, a, st);
+    case 512: return zconv_curl_by_columns<16, 32>(p, a, st);
+  }
+  return dispatch<FftGreensCurlIfftPass>(p, a, st);
 }
 
 // Both x-edge r2c entry points: the design above at power-of-two lengths,
@@ -2734,15 +3046,20 @@ extern "C" int sopht_irfft_pass_truncated_f32(
   return irfft_edge(p, a, (cudaStream_t)stream);
 }
 
+// The plan (columns a tile T, blocks, ring stages, shared bytes, 16-byte
+// input copies, threads a block) is zconv_curl_tile_plan's: all 0 for the
+// four-step kernel's lengths. One that breaks the kernel's assumptions is
+// refused with cudaErrorInvalidValue.
 extern "C" int sopht_fft_greens_curl_ifft_pass_f32(
     const float* xr, const float* xi, const float* g, const float* sym_z,
     const float* sym_yx, float* out_r, float* out_i, const float* table,
-    long long B, int m, void* stream) {
+    long long B, int m, int T, int blocks, int stages, int smem, int bulk,
+    int threads, void* stream) {
   Plan p;
   if (!make_plan(m, &p) || B <= 0) return (int)cudaErrorInvalidValue;
-  return dispatch<FftGreensCurlIfftPass>(p, xr, xi, g, sym_z, sym_yx, out_r,
-                                         out_i, table, B,
-                                         (cudaStream_t)stream);
+  const ZcurlArgs a{xr, xi, g, sym_z, sym_yx, out_r, out_i, table, B,
+                    T, blocks, stages, smem, bulk, threads};
+  return fft_greens_curl_ifft(p, a, (cudaStream_t)stream);
 }
 
 // l1_max: a zeroed device float, raised to max over cells of sum_c |u_c|

@@ -39,8 +39,9 @@ shared bytes, bulk copies), the c2r pair with that of
 :func:`c2r_tile_plan`, the z conv :func:`fft_greens_ifft_pass` with
 the plan of :func:`zconv_tile_plan` (columns a tile, persistent blocks,
 ring stages, shared bytes, 16-byte copies; none at the lengths of the
-four-step kernel, which plans its own launch); the C launchers refuse any
-other.
+four-step kernel, which plans its own launch), the fast tier's z pass
+:func:`fft_greens_curl_ifft_pass` with that of
+:func:`zconv_curl_tile_plan`; the C launchers refuse any other.
 
 The unsplit x passes keep the kx Nyquist column in the row ((R, m/2 + 1)
 pairs); no solver route calls them, they are the public pass API. The fused
@@ -73,7 +74,7 @@ _SIGNATURES = {
     "sopht_irfft_pass_merge_f32": (_P, _P, _P, _P, _P, _L, _I, _I,
                                    *(_I,) * 6, _P),
     "sopht_fft_greens_curl_ifft_pass_f32": (_P, _P, _P, _P, _P, _P, _P, _P,
-                                            _L, _I, _P),
+                                            _L, _I, *(_I,) * 6, _P),
     "sopht_irfft_pass_merge_velocity_f32": (_P, _P, _P, _P, _P, _P, _P, _P,
                                             _L, _I, _I, _I, _I, _P),
     "sopht_rfft_pass_padded_f32": (_P, _P, _P, _P, _L, _I, _I, *(_I,) * 6, _P),
@@ -380,13 +381,76 @@ def zconv_columns_plan(b: int, m: int, aligned: bool, sms: int,
     """The ring kernel's plan with tiles of ``cols`` columns (one of
     :data:`ZCONV_COLUMNS`) for ``b`` columns at m, the pointers
     16-byte ``aligned`` or not, on ``sms`` SMs."""
+    return _columns_plan(b, m, aligned, sms, cols, _zconv_smem(m, cols),
+                         ZCONV_STAGES, 256 if m == 512 else 512)
+
+
+def _columns_plan(b, m, aligned, sms, cols, smem, stages, sm_threads):
+    """A z ring kernel's plan: tiles of ``cols`` columns, blocks of
+    ``cols`` x m1 threads, as many an SM as ``sm_threads`` (the kernel's
+    launch bound) and the shared memory allow."""
     m1, _ = best_factors(m)
-    threads, smem = cols * m1, _zconv_smem(m, cols)
-    sm_threads = 256 if m == 512 else 512
+    threads = cols * m1
     per_sm = max(1, min(sm_threads // threads,
                         SM_SHARED_BYTES // (smem + BLOCK_SHARED_RESERVE)))
-    return ZconvTilePlan(cols, min(-(-b // cols), per_sm * sms), ZCONV_STAGES,
+    return ZconvTilePlan(cols, min(-(-b // cols), per_sm * sms), stages,
                          smem, aligned and b % 4 == 0, threads, per_sm)
+
+
+#: the fast tier's z ring kernel: its input ring is the three components'
+#: slot regions
+ZCONV_CURL_STAGES = 3
+
+
+def _zconv_curl_smem(m: int, cols: int) -> int:
+    """Shared bytes of the fast tier's z ring kernel with tiles of ``cols``
+    columns: three components' slot regions (the z conv's slots, each
+    also the ring stage of its component's input) and the W_m^(n1 k2)
+    twiddles in rows of m2 + 1."""
+    m1, m2 = best_factors(m)
+    region = m2 * (m1 * cols + (cols if cols < 16 else 0))
+    return 8 * ZCONV_CURL_STAGES * region + 8 * m1 * (m2 + 1)
+
+
+def zconv_curl_tile_plan(b: int, m: int, data_ptr: int,
+                         sms: int = H100_SMS) -> ZconvTilePlan:
+    """The launch plan of :func:`fft_greens_curl_ifft_pass` on (3, m/2,
+    ``b``) pairs whose pointers, or-ed together, are ``data_ptr``, on a card
+    of ``sms`` SMs. The C entry point refuses any other plan.
+
+    m = 64 ... 512 (:data:`ZCONV_LENGTHS`): the ring kernel, a block of
+    T columns x m1 threads, T the first of :data:`ZCONV_COLUMNS` whose tiles
+    give every SM a block, else the one with the most blocks; as many
+    blocks an SM as fit, up to 256 threads an SM at m = 256 and 512 (the
+    middle factor holds three components' spectra, up to 255 registers)
+    and 512 below. On an H100 the 64^3 run's 512 tiles of 16 columns (four
+    blocks an SM) take 0.0133 ms of device time, its 1,024 of 8 (seven an
+    SM) 0.0184-0.0191 (``tools/probe_edge_passes.py --sweep``). The input
+    moves by 16-byte copies when the pointers are 16-byte aligned and ``b``
+    is a multiple of 4. Other lengths: :data:`FOUR_STEP_ZCONV_PLAN`."""
+    _check_length(m)
+    if b <= 0:
+        raise ValueError(f"no plan for (3, {m // 2}, {b})")
+    if m not in ZCONV_LENGTHS:
+        return FOUR_STEP_ZCONV_PLAN
+    return _zconv_curl_tile_plan(b, m, data_ptr % 16 == 0, sms)
+
+
+@functools.lru_cache(maxsize=64)
+def _zconv_curl_tile_plan(b, m, aligned, sms):
+    plans = [zconv_curl_columns_plan(b, m, aligned, sms, t)
+             for t in ZCONV_COLUMNS]
+    return next((p for p in plans if -(-b // p.cols) >= sms),
+                max(plans, key=lambda p: p.blocks))
+
+
+def zconv_curl_columns_plan(b: int, m: int, aligned: bool, sms: int,
+                            cols: int) -> ZconvTilePlan:
+    """The fast tier's z ring kernel's plan with tiles of ``cols`` columns
+    (one of :data:`ZCONV_COLUMNS`) for ``b`` columns at m, the pointers
+    16-byte ``aligned`` or not, on ``sms`` SMs."""
+    return _columns_plan(b, m, aligned, sms, cols, _zconv_curl_smem(m, cols),
+                         ZCONV_CURL_STAGES, 256 if m >= 256 else 512)
 
 
 @functools.cache
@@ -800,10 +864,13 @@ def fft_greens_curl_ifft_pass(xr, xi, greens, sym_z, sym_yx):
 def _k_fft_greens_curl_ifft_pass(xr, xi, greens, sym_z, sym_yx):
     _, half, b = xr.shape
     yr, yi = _empty(xr, 3, half, b), _empty(xr, 3, half, b)
+    plan = zconv_curl_tile_plan(b, 2 * half, xr.data_ptr() | xi.data_ptr(),
+                                _sm_count(xr.device))
     _launch("sopht_fft_greens_curl_ifft_pass_f32", xr.device, xr.data_ptr(),
             xi.data_ptr(), greens.data_ptr(), sym_z.data_ptr(),
             sym_yx.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            _table(2 * half, xr.device).data_ptr(), b, 2 * half)
+            _table(2 * half, xr.device).data_ptr(), b, 2 * half,
+            *plan.args())
     return yr, yi
 
 

@@ -8,9 +8,11 @@ with times:
 
 The first form is a short first run for a changed kernel: it prints the
 card, the build time, ptxas' register and spill lines of the x-edge r2c and
-c2r, the z conv ring kernel and the fused kernels, the forward r2c pair, the
-c2r pair and the z conv (``fft_greens_ifft_pass``) on ragged,
-storage-offset, odd-output and non-power-of-two inputs, then for each grid
+c2r, the two z ring kernels and the fused kernels, the z ring kernels' SASS
+instruction counts (``cuobjdump``), the forward r2c pair, the
+c2r pair, the z conv (``fft_greens_ifft_pass``) and the fast tier's z pass
+(``fft_greens_curl_ifft_pass``) on ragged, storage-offset, odd-output and
+non-power-of-two inputs, then for each grid
 (default: an odd-factor grid,
 the (256, 512) cylinder grid as one slab a component, a 17 x 32 factor grid
 and 256^3) each pass's relative error against ``*_ref`` and the median of 10
@@ -22,7 +24,9 @@ eleven FFT-pass kernels at the 256^3 vector solve's shapes, of the forward
 r2c and the c2r pairs at the 2D route's (256, 512) shape (m = 1024), of the
 z conv at the 2D route's (1, 256, 512) shape (m = 512), and of
 ``torch.fft.rfft`` and ``torch.fft.irfft`` on the x edges' inputs, with the
-edge passes' and the z conv's relative errors.
+edge passes' and the z conv's relative errors; and the fast tier's z pass's
+``device_ms``, ``host_us`` and relative error at 256^3 and at the
+multi-body case's (128, 128, 256) (m = 256, key ``multibody``).
 It imports the package from ``sys.path`` and uses only the wrappers' public
 names, so it compares two trees on one card within one job: unpack the other
 tree into a directory and run this file with ``PYTHONPATH`` set to each, in
@@ -40,13 +44,16 @@ that fit (at most nine plans a shape), the one ``c2r_tile_plan`` picks
 marked, and the z conv's under each of its two instances (16 and 8 columns a tile)
 with one block an SM up to as many as the plan allows (at most six plans a
 shape) at 256^3, the 2D shape and the multi-body case's m = 256, the one
-``zconv_tile_plan`` picks marked.
+``zconv_tile_plan`` picks marked, and the fast tier's z pass the same way
+at 256^3, the multi-body case's and the 64^3 case's shapes, the one
+``zconv_curl_tile_plan`` picks marked.
 """
 
 from __future__ import annotations
 
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -77,6 +84,10 @@ ZCONV_INPUTS = (("256^3", (3, 256, 512 * 256)), ("2d", (1, 256, 512)))
 ZCONV_CASES = ((3, 256, 1001, 0), (3, 256, 4100, 1), (1, 256, 512, 0),
                (1, 128, 300, 0), (3, 64, 999, 2), (3, 32, 4096, 0),
                (3, 48, 333, 0), (3, 272, 200, 1), (3, 512, 777, 0))
+# the fast tier's z pass's (nz, ny, nx) grids: the 256^3 sphere's, the
+# multi-body case's and the 64^3 drag run's
+CURL_GRIDS = (("256^3", (256, 256, 256)), ("multibody", (128, 128, 256)),
+              ("64^3", (64, 64, 64)))
 
 
 def median_ms(fn, n=10, warmup=2):
@@ -189,6 +200,44 @@ def solve_pass_args(n, rand, dev):
     }
 
 
+def curl_args(grid, rand, dev, offset=0):
+    """The fast tier's z pass's inputs for an (nz, ny, nx) grid: the
+    vorticity spectra (3, nz, 2 ny nx) (``offset`` floats into their
+    storage), the Green's spectrum and the grid's curl symbols."""
+    nz, ny, nx = grid
+    b = 2 * ny * nx
+    sym_z, _, sym_yx = poisson._curl_symbols((2 * nz, 2 * ny, 2 * nx),
+                                             1.0 / nx, dev)
+    n = 3 * nz * b
+
+    def spectrum():
+        return rand(n + offset)[offset:].view(3, nz, b)
+
+    return spectrum(), spectrum(), rand(1, 2 * nz, b), sym_z, sym_yx
+
+
+def sass_sizes(path, pattern):
+    """Instructions of each kernel whose mangled name matches ``pattern`` in
+    the library at ``path``, from ``cuobjdump --dump-sass`` (empty where the
+    toolkit has none)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        out = subprocess.run([tool, "--dump-sass", str(path)],
+                             capture_output=True, text=True).stdout
+    except OSError:
+        return {}
+    sizes, name = {}, None
+    for ln in out.splitlines():
+        fn = re.search(r"Function : (\S+)", ln)
+        if fn:
+            name = fn.group(1) if re.search(pattern, fn.group(1)) else None
+            if name:
+                sizes[name] = 0
+        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", ln):
+            sizes[name] += 1
+    return sizes
+
+
 def card():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -237,6 +286,20 @@ def timing(tag, rand, dev):
     for name, make in solve_pass_args(256, rand, dev).items():
         args, fn = make(), getattr(cuda_fft, name)
         out["ms"]["256^3"][name] = median_ms(lambda: fn(*args), 20, 3)
+        del args
+        torch.cuda.empty_cache()
+    name, fn = "fft_greens_curl_ifft_pass", cuda_fft.fft_greens_curl_ifft_pass
+    out["curl_rel_err"] = {}
+    for shape, grid in CURL_GRIDS[:2]:
+        args = curl_args(grid, rand, dev)
+        out["curl_rel_err"][shape] = rel_err(
+            fn(*args), cuda_fft.fft_greens_curl_ifft_pass_ref(*args))
+        for key in ("ms", "device_ms", "host_us"):
+            out[key].setdefault(shape, {})
+        if shape != "256^3":
+            out["ms"][shape][name] = median_ms(lambda: fn(*args), 20, 3)
+        out["device_ms"][shape][name] = device_ms(lambda: fn(*args))
+        out["host_us"][shape][name] = host_us(lambda: fn(*args))
         del args
         torch.cuda.empty_cache()
     name, fn = "fft_greens_ifft_pass", cuda_fft.fft_greens_ifft_pass
@@ -384,6 +447,62 @@ def sweep_zconv(rand, dev):
         torch.cuda.empty_cache()
 
 
+def sweep_zconv_curl(rand, dev):
+    """Device time of the fast tier's z ring kernel under the plans of each
+    instance (columns a tile) with 1 up to ``blocks_per_sm`` blocks an SM,
+    at the 256^3, multi-body and 64^3 grids' shapes, the plan
+    ``zconv_curl_tile_plan`` picks marked: one line a plan."""
+    lib, sms = cuda_fft.library(), cuda_fft._sm_count(dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape, grid in CURL_GRIDS:
+        args = curl_args(grid, rand, dev)
+        _, h, b = args[0].shape
+        m = 2 * h
+        outs = [torch.empty_like(args[0]) for _ in range(2)]
+        table = cuda_fft._table(m, dev)
+        ptr = args[0].data_ptr() | args[1].data_ptr()
+        chosen = cuda_fft.zconv_curl_tile_plan(b, m, ptr, sms)
+        for cols in cuda_fft.ZCONV_COLUMNS:
+            base = cuda_fft.zconv_curl_columns_plan(b, m, ptr % 16 == 0, sms,
+                                                    cols)
+            for per_sm in range(1, base.blocks_per_sm + 1):
+                plan = base._replace(blocks=min(-(-b // cols), per_sm * sms),
+                                     blocks_per_sm=per_sm)
+
+                def fn(plan=plan):
+                    return lib.sopht_fft_greens_curl_ifft_pass_f32(
+                        *(t.data_ptr() for t in args),
+                        *(o.data_ptr() for o in outs), table.data_ptr(), b,
+                        m, *plan.args(), stream)
+
+                if fn():  # refused: the blocks would not all be resident
+                    print(f"sweep curl {shape}: {plan} refused", flush=True)
+                    continue
+                mark = " <- zconv_curl_tile_plan" if plan == chosen else ""
+                print(f"sweep curl {shape}: T {cols} threads {plan.threads} "
+                      f"blocks/SM {per_sm} blocks {plan.blocks}: "
+                      f"{device_ms(fn):.4f} ms{mark}", flush=True)
+        del args, outs
+        torch.cuda.empty_cache()
+
+
+def curl_cases(rand, dev):
+    """The fast tier's z pass on ragged column counts, storage-offset
+    inputs and the four-step kernel's lengths (m = 96, 1024): (case,
+    relative error)."""
+    results = []
+    for grid, offset in (((256, 5, 101), 0), ((128, 3, 50), 1),
+                         ((64, 7, 9), 2), ((32, 4, 8), 0), ((48, 5, 7), 0),
+                         ((512, 2, 3), 1)):
+        args = curl_args(grid, rand, dev, offset)
+        err = rel_err(cuda_fft.fft_greens_curl_ifft_pass(*args),
+                      cuda_fft.fft_greens_curl_ifft_pass_ref(*args))
+        results.append((f"fft_greens_curl_ifft_pass {tuple(args[0].shape)} "
+                        f"m={2 * grid[0]} offset {offset}", err))
+    torch.cuda.synchronize()
+    return results
+
+
 def zconv_cases(rand):
     """The z conv on ragged column counts, storage-offset inputs, A = 1 and
     the four-step kernel's lengths: (case, relative error)."""
@@ -451,6 +570,7 @@ def main(argv):
 
     if argv and argv[0] == "--sweep":
         print(card())
+        sweep_zconv_curl(rand, dev)
         sweep_zconv(rand, dev)
         sweep(rand, dev)
         sweep_c2r(rand, dev)
@@ -477,13 +597,19 @@ def main(argv):
     for i, ln in enumerate(lines[:-2]):
         name = re.search(
             r"(irfft_edge_kernel|rfft_edge_kernel|zconv_kernel|"
+            r"zconv_curl_kernel|"
             r"\w+_fused_kernel)((?:ILi|Li)\d+E)+",
             ln)
         if "Function properties" in ln and name:
             print(name.group(1)[-28:], re.findall(r"\d+", name.group(0)[
                 len(name.group(1)):]), "|", lines[i + 1].strip(), "|",
                 lines[i + 2].strip()[:60])
-    for case, err in r2c_cases(rand) + c2r_cases(rand) + zconv_cases(rand):
+    for name, n in sass_sizes(lib._name, "zconv").items():
+        kernel = re.search(r"(zconv\w*kernel)I((?:Li\d+E)+)", name)
+        dims = re.findall(r"\d+", kernel.group(2))
+        print(f"sass {kernel.group(1)} {dims}: {n} instructions")
+    for case, err in (r2c_cases(rand) + c2r_cases(rand) + zconv_cases(rand)
+                      + curl_cases(rand, dev)):
         print(f"{case}: relative err {err:.3g}", flush=True)
     for grid in grids:
         if not all(cuda_fft.kernel_fft_supported(2 * n) for n in grid[1:]):
