@@ -103,8 +103,10 @@ raises and exits non-zero, and nothing falls back to the CPU:
 
 Phase 3 also checks the fused-curl pair against its plain versions at the
 256^3 sphere's, the (128, 128, 256) multi-body case's, the 64^3 drag run's
-and a (48, 32, 64) grid's shapes (the fast tier's z pass at m = 512, 256,
-128 on its ring kernel and m = 96 on its four-step one), the unsplit x
+and the (48, 32, 64) and (32, 32, 48) grids' shapes (the fast tier's z pass
+at m = 512, 256, 128, 64 on its ring kernel and m = 96 on its four-step
+one; its c2r ``irfft_pass_merge_velocity`` at m = 512, 128 on its ring
+kernel and m = 96 on its four-step one), the unsplit x
 passes and the fused edge passes at the 256^3
 solve's, a (48, 32, 64) grid's and the (256, 512) cylinder grid's shapes,
 and the 2D route's three passes at the cylinder grid's shapes, and the
@@ -349,9 +351,10 @@ def fft_work(name, args):
         a, m, b = xr.shape
         return 8 * a * b * (m + m // 2), fft_ops(m) * a * b
     if name == "irfft_pass_merge":
+        # the Nyquist column's imaginary part is not read
         br, _, _, _, m, n_out = args
         r = br.shape[0]
-        return 8 * r * (m // 2 + 1) + 4 * r * n_out, 0.5 * fft_ops(m) * r
+        return 8 * r * (m // 2) + 4 * r + 4 * r * n_out, 0.5 * fft_ops(m) * r
     if name == "fft_greens_curl_ifft_pass":
         xr, _, g, sym_z, sym_yx = args
         _, h, b = xr.shape
@@ -378,12 +381,13 @@ def fft_work(name, args):
     if name == "ifft_irfft_pass_fused":
         br, _, _, _, mx, nx = args
         a, my, bx = br.shape
-        nbytes = 8 * a * my * bx + 8 * a * (my // 2) + 4 * a * (my // 2) * nx
+        # the Nyquist column's imaginary part is not read
+        nbytes = 8 * a * my * bx + 4 * a * (my // 2) + 4 * a * (my // 2) * nx
         return nbytes, a * ((my // 2) * 0.5 * fft_ops(mx) + bx * fft_ops(my))
     assert name == "irfft_pass_merge_velocity"
     br, _, _, _, _, m, n_out, _, _ = args
     r = br.shape[1]
-    nbytes = 24 * r * (m // 2 + 1) + 12 * r * n_out + 16
+    nbytes = 24 * r * (m // 2) + 12 * r + 12 * r * n_out + 16
     return nbytes, 3 * r * 0.5 * fft_ops(m) + 9 * r * n_out
 
 
@@ -677,6 +681,17 @@ def main():
         if name == "irfft_pass_truncated":
             z, m = torch.complex(args[0], args[1]), args[2]
             return lambda: torch.fft.irfft(z, n=m, dim=1)
+        if name == "rfft_fft_pass_fused":
+            x, mx, my = args
+            return lambda: torch.fft.rfft2(x, s=(my, mx))
+        if name == "ifft_irfft_pass_fused":
+            # the whole (A, my, mx/2 + 1) spectrum: the bulk and the Nyquist
+            # column's y spectrum
+            br, bi, sr, si, mx, nx = args
+            my = br.shape[1]
+            z = torch.cat([torch.complex(br, bi), torch.fft.fft(
+                torch.complex(sr, si), n=my, dim=1)], dim=2)
+            return lambda: torch.fft.irfft2(z, s=(my, mx))[:, : my // 2, :nx]
         return None
 
     def entry(name, source, replaces, err, fn, ref_fn, work, shape,
@@ -748,13 +763,14 @@ def main():
                 library_fn=library_call(name, args[name]))
         del calls, args
         torch.cuda.empty_cache()
-        # the fused-curl pair: an odd-factor grid (m = 96, 64, 128: the z
-        # pass's four-step kernel), the 64^3 drag run's (m = 128), the
-        # sphere's 256^3 (m = 512) and the multi-body case's (128, 128,
-        # 256) (m = 256), whose errors and times go into the table
+        # the fused-curl pair: odd-factor grids (z at m = 96: the z pass's
+        # four-step kernel; x at m = 96: the c2r's), the 64^3 drag run's
+        # (m = 128), the sphere's 256^3 (m = 512) and the multi-body case's
+        # (128, 128, 256) (z at m = 256, x at 512), whose errors and times
+        # go into the table
         fused = []
-        for grid in ((48, 32, 64), (64, 64, 64), (256, 256, 256),
-                     MULTIBODY_GRID):
+        for grid in ((48, 32, 64), (32, 32, 48), (64, 64, 64),
+                     (256, 256, 256), MULTIBODY_GRID):
             args = fused_pair_args(grid, gen)
             calls, errs = run_fused_checks(grid, args)
             for name, (fn, ref_fn) in calls.items():

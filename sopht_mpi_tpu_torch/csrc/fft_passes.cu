@@ -125,13 +125,17 @@
 // irfft_pass_merge_velocity
 //   Replaces _irfft_pass_merge_velocity_impl (kernel
 //   _c2r_merge_velocity_kernel): irfft_pass_merge of the three velocity
-//   components of (3, R, m/2) + (3, R, 1), R = nz ny, a block taking the
-//   same row tile of each component in turn, then the epilogue: the
-//   width-1 wall ring zeroed (row z ny + y with z or y on a wall, or x on
-//   one), the free stream added on every cell, and max over cells of
-//   sum_c |u_c| (a shared-memory sum per cell, a block max, atomicMax on the
-//   float bits of a zeroed device scalar: the values are non-negative, so
-//   the bit order is the value order and the result exact). Bound: HBM.
+//   components of (3, R, m/2) + (3, R, 1), R = nz ny, then the epilogue:
+//   the width-1 wall ring zeroed (row z ny + y with z or y on a wall, or x
+//   on one), the free stream added on every cell, and max over cells of
+//   sum_c |u_c| (a block max, atomicMax on the float bits of a zeroed
+//   device scalar: the values are non-negative, so the bit order is the
+//   value order and the result exact). At power-of-two m:
+//   irfft_edge_kernel<H, true> (see the note above it), the c2r ring
+//   kernel walking (row tile, component) units with the epilogue in its
+//   emit sink. At other m: irfft_pass_merge_velocity_kernel, a block taking
+//   the same row tile of each component in turn, a shared-memory sum per
+//   cell. Bound: HBM, as irfft_pass_merge on 3 R rows.
 
 #include <cuda_runtime.h>
 
@@ -1063,8 +1067,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 //   y[n] = (1/m) sum'_k w_k (Re X[k] cos - Im X[k] sin)(2 pi k n / m),
 // w = 1 at k = 0 and k = m/2, 2 elsewhere, so Im X[0] and Im X[m/2] do not
 // enter (the Nyquist si is not read). Bound: HBM, 8 B read per bulk input
-// element and 4 B written per output (at 256^3, 196,608 rows of 257 pairs
-// into 256 reals: 404 MB in, 201 MB out, 0.18 ms at 3.35 TB/s); the
+// element, 4 B per side column element and 4 B written per output (at
+// 256^3, 196,608 rows of 256 pairs and a side value into 256 reals: 403 MB
+// in, 201 MB out, 0.18 ms at 3.35 TB/s); the
 // arithmetic, ~5 h log2 h flop a row, is 0.04 ms of the FP32 rate. The
 // kernel above runs a full m-point complex inverse of the Hermitian spectrum
 // (twice the arithmetic and shared memory needed), takes 8 rows a block and
@@ -1104,17 +1109,73 @@ __global__ void __launch_bounds__(kThreads, 2)
 //    pointers are not 16-byte aligned (a view with a storage offset), move
 //    through the same stages with ordinary loads (and the ragged tile with
 //    ordinary stores).
+//
+// irfft_pass_merge_velocity (VEL; replaces pallas_fft.py:824
+// _irfft_pass_merge_velocity_impl at these lengths) is the same kernel over
+// the three components of (3, R, m/2) + (3, R, 1), R = nz ny, with the
+// velocity epilogue; the kernel for the other lengths runs a full m-point
+// inverse a component, with loads, compute and stores in turn and a block
+// reduction and atomicMax every 8 rows. Here:
+// 5. A block's units are (row tile, component), the component inner: its
+//    it-th unit is component it % 3 of tile blockIdx.x + (it / 3) gridDim.x,
+//    so the ring runs on across components and tiles alike. A unit's input
+//    is the tile's spans of component c (re and im at c R h + row0 h, the
+//    side column at c R + row0), its output the span at c R n_out + row0
+//    n_out. Blocks are counted in tiles, each taking its tiles' three units.
+// 6. The epilogue sits in the emit sink: the pair (y[2n], y[2n+1]) is
+//    masked by the row's wall test (one divide a unit) and by x against 0
+//    and n_out - 1, given the free stream, and written to the staging
+//    buffer. The lane -> cell map does not depend on c, and the staging
+//    buffers alternate by unit, so at c = 2 the buffer of this unit still
+//    holds the lane's own cells of c = 0 (its bulk store only reads it) and
+//    the other buffer those of c = 1: the lane sums |u_c| there, with no
+//    extra shared memory or registers, into a running maximum kept across
+//    its tiles. One block reduction and one atomicMax a block, after the
+//    walk. Rows past R in a ragged tile do not enter the maximum.
+// 7. Bulk copies and stores only when every component's spans are 16-byte
+//    aligned (the plan's bulk: the pointers aligned and R a multiple of 4);
+//    otherwise ordinary loads and stores.
 // ---------------------------------------------------------------------------
 
-template <int H>
+// The velocity epilogue's arguments (VEL; unused otherwise).
+struct VelocityEpilogue {
+  const float* fsv;  // the free stream, (3,)
+  float* l1_max;     // a zeroed device float, raised to max sum_c |u_c|
+  int ny, nz;        // row = z ny + y
+};
+
+// The block's maximum of v (v >= 0 on every thread, blockDim a multiple of
+// 32) raised into *out by atomicMax on the float bits. `per_warp` is free
+// shared memory for a float a warp; the caller makes no other use of the
+// block after.
+__device__ __forceinline__ void block_max_atomic(float v, float* per_warp,
+                                                 float* out) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nt = blockDim.x * blockDim.y;
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, off));
+  if ((tid & 31) == 0) per_warp[tid >> 5] = v;
+  __syncthreads();
+  if (tid < 32) {
+    v = tid < nt / 32 ? per_warp[tid] : 0.f;
+    for (int off = 16; off > 0; off >>= 1)
+      v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, off));
+    if (tid == 0)
+      atomicMax(reinterpret_cast<unsigned int*>(out), __float_as_uint(v));
+  }
+}
+
+template <int H, bool VEL>
 __global__ void __launch_bounds__(kThreads, 2)
     irfft_edge_kernel(const float* __restrict__ br,
                       const float* __restrict__ bi,
                       const float* __restrict__ sr, float* __restrict__ out,
                       const float2* __restrict__ line_g, long long R,
-                      int n_out, int T, int stages, int bulk, int unsplit) {
+                      int n_out, int T, int stages, int bulk, int unsplit,
+                      VelocityEpilogue ve) {
   using S = EdgeShape<H>;
   constexpr int P = S::P, G = S::G, m = 2 * H;
+  constexpr int C = VEL ? 3 : 1;  // components: units a tile
   static_assert(P < H, "the last pass is not the first");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float2* line = reinterpret_cast<float2*>(smem_raw);  // W_m^j, j < h
@@ -1142,29 +1203,34 @@ __global__ void __launch_bounds__(kThreads, 2)
   __syncthreads();
 
   const long long ntiles = (R + T - 1) / T;
-  // the input of this block's it-th tile into stage it % stages
+  // the input of this block's it-th unit (component it % C of its
+  // (it / C)-th tile) into stage it % stages
   auto produce = [&](long long it) {
-    const long long tile = blockIdx.x + it * gridDim.x;
+    const long long tile = blockIdx.x + (it / C) * gridDim.x;
     if (tile >= ntiles) return;
+    const long long c = it % C;
     float* dst = ring + (it % stages) * in_floats;
     const long long row0 = tile * T;
     const int rows = (int)(R - row0 < T ? R - row0 : T);
+    const float* cbr = br + (c * R + row0) * ld;
+    const float* cbi = bi + (c * R + row0) * ld;
+    const float* csr = sr + c * R + row0;
     if (bulk && rows == T) {
       if (tid == 0) {
         unsigned long long* bar = &bars[it % stages];
         const unsigned bytes = 4u * T * ld;
         bulk_expect(bar, 2 * bytes + (unsplit ? 0u : 4u * T));
-        bulk_copy(dst, br + row0 * ld, bytes, bar);
-        bulk_copy(dst + T * ld, bi + row0 * ld, bytes, bar);
-        if (!unsplit) bulk_copy(dst + 2 * T * ld, sr + row0, 4u * T, bar);
+        bulk_copy(dst, cbr, bytes, bar);
+        bulk_copy(dst + T * ld, cbi, bytes, bar);
+        if (!unsplit) bulk_copy(dst + 2 * T * ld, csr, 4u * T, bar);
       }
     } else {
       for (int i = tid; i < rows * ld; i += nt) {
-        dst[i] = br[row0 * ld + i];
-        dst[T * ld + i] = bi[row0 * ld + i];
+        dst[i] = cbr[i];
+        dst[T * ld + i] = cbi[i];
       }
       if (!unsplit)
-        for (int i = tid; i < rows; i += nt) dst[2 * T * ld + i] = sr[row0 + i];
+        for (int i = tid; i < rows; i += nt) dst[2 * T * ld + i] = csr[i];
     }
   };
   for (int s = 0; s < stages - 1; ++s) produce(s);
@@ -1173,9 +1239,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int nh = (n_out + 1) >> 1;  // complex outputs of a row
   const bool pairs = (n_out & 1) == 0;
   const float inv_m = 1.0f / (float)m;
-  for (long long it = 0; blockIdx.x + it * gridDim.x < ntiles; ++it) {
-    const long long tile = blockIdx.x + it * gridDim.x;
-    produce(it + stages - 1);  // into the stage the last tile freed
+  // the stores leave as bulk copies where the spans are aligned: always
+  // for one component, by the plan for three
+  const bool bulk_out = !VEL || bulk;
+  float best = 0.f;  // VEL: the lane's max of sum_c |u_c| so far
+  for (long long it = 0; blockIdx.x + (it / C) * gridDim.x < ntiles; ++it) {
+    const long long tile = blockIdx.x + (it / C) * gridDim.x;
+    const int c = (int)(it % C);
+    produce(it + stages - 1);  // into the stage the last unit freed
     const long long row0 = tile * T;
     const int rows = (int)(R - row0 < T ? R - row0 : T);
     if (bulk && rows == T)
@@ -1223,36 +1294,69 @@ __global__ void __launch_bounds__(kThreads, 2)
       });
       __syncwarp();
     }
+    // VEL: the unit's wall test (row z ny + y on a z or y wall), its free
+    // stream, and whether the lane's row is one of the tile's
+    bool wall = false, live = false;
+    float add = 0.f;
+    if constexpr (VEL) {
+      const int row = (int)row0 + grp, z = row / ve.ny, y = row - z * ve.ny;
+      wall = z == 0 || z == ve.nz - 1 || y == 0 || y == ve.ny - 1;
+      live = grp < rows;
+      add = __ldg(ve.fsv + c);
+    }
     // the other passes; the last one writes z[n] = conj(F[n]) / m, n < nh,
-    // into the staging buffer of this tile
+    // into the staging buffer of this unit (VEL: after the epilogue)
     float* ob = outb + (it & 1) * T * n_out;
     float* orow = ob + grp * n_out;
     EdgePass<H, P>::run(buf, q, line, tp, [&](int n, float fr, float fi) {
       if (n >= nh) return;
-      const float y0 = fr * inv_m, y1 = -fi * inv_m;
+      float y0 = fr * inv_m, y1 = -fi * inv_m;
+      const bool two = pairs || 2 * n + 1 < n_out;  // y[2n + 1] is a cell
+      if constexpr (VEL) {
+        y0 = (wall || n == 0 || 2 * n == n_out - 1) ? add : y0 + add;
+        y1 = (wall || 2 * n + 1 == n_out - 1) ? add : y1 + add;
+        if (c == 2 && live) {
+          // this buffer still holds the lane's cells of c = 0, the other
+          // one those of c = 1
+          const float* u0 = orow;
+          const float* u1 = outb + ((it + 1) & 1) * T * n_out + grp * n_out;
+          best = fmaxf(best, fabsf(u0[2 * n]) + fabsf(u1[2 * n]) + fabsf(y0));
+          if (two)
+            best = fmaxf(best, fabsf(u0[2 * n + 1]) + fabsf(u1[2 * n + 1]) +
+                                   fabsf(y1));
+        }
+      }
       if (pairs) {
         reinterpret_cast<float2*>(orow)[n] = make_float2(y0, y1);
       } else {
         orow[2 * n] = y0;
-        if (2 * n + 1 < n_out) orow[2 * n + 1] = y1;
+        if (two) orow[2 * n + 1] = y1;
       }
     });
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     __syncthreads();
-    if (rows == T) {
+    float* dst = out + ((long long)c * R + row0) * n_out;
+    if (bulk_out && rows == T) {
       if (tid == 0) {
-        bulk_store(out + row0 * n_out, ob, 4u * T * n_out);
+        bulk_store(dst, ob, 4u * T * n_out);
         asm volatile("cp.async.bulk.commit_group;" ::: "memory");
         // the group before this one has read its buffer, which the next
-        // tile writes
+        // unit writes
         asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
       }
     } else {
-      for (int i = tid; i < rows * n_out; i += nt) out[row0 * n_out + i] = ob[i];
+      for (int i = tid; i < rows * n_out; i += nt) dst[i] = ob[i];
+      // no group was committed: the earlier ones must have read the other
+      // buffer before the next unit writes it (VEL: a ragged tile's three
+      // units follow bulk ones)
+      if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
     }
     __syncthreads();  // the stage and the other staging buffer are free
   }
   if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  // the work buffers are free: a float a warp for the block's maximum
+  if constexpr (VEL)
+    block_max_atomic(best, reinterpret_cast<float*>(work), ve.l1_max);
 }
 
 // ---------------------------------------------------------------------------
@@ -1994,13 +2098,13 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // irfft_pass_merge_kernel over the three components of a row tile, with
-// the ring / free-stream / max |u|_1 epilogue.
+// the ring / free-stream / max |u|_1 epilogue: the lengths with a factor
+// that is not a power of two (irfft_edge_kernel<H, true> takes the others).
 template <int M1, int H2>
 __global__ void __launch_bounds__(kThreads, kEdgeBlocks)
     irfft_pass_merge_velocity_kernel(const float* __restrict__ br,
                                      const float* __restrict__ bi,
                                      const float* __restrict__ sr,
-                                     const float* __restrict__ si,
                                      const float* __restrict__ fsv,
                                      float* __restrict__ out,
                                      float* __restrict__ l1_max,
@@ -2104,19 +2208,8 @@ __global__ void __launch_bounds__(kThreads, kEdgeBlocks)
   float best = 0.f;
   for (int r = 0; r < t && row0 + r < R; ++r)
     for (int n = tid; n < n_out; n += nt) best = fmaxf(best, l1[n * tp + r]);
-  for (int off = 16; off > 0; off >>= 1)
-    best = fmaxf(best, __shfl_down_sync(0xffffffffu, best, off));
-  __shared__ float warp_max[kThreads / 32];
-  const int lane = tid & 31, warp = tid >> 5;
-  if (lane == 0) warp_max[warp] = best;
-  __syncthreads();
-  if (warp == 0) {
-    best = lane < nt / 32 ? warp_max[lane] : 0.f;
-    for (int off = 16; off > 0; off >>= 1)
-      best = fmaxf(best, __shfl_down_sync(0xffffffffu, best, off));
-    if (lane == 0)
-      atomicMax(reinterpret_cast<unsigned int*>(l1_max), __float_as_uint(best));
-  }
+  // the slots are free
+  block_max_atomic(best, reinterpret_cast<float*>(slots), l1_max);
 }
 
 // The fused edge passes: the x r2c folded into the y forward pass, and the
@@ -2488,7 +2581,8 @@ struct RfftPassPaddedSplit {
   static int go(const Plan& p, const EdgeArgs& a, cudaStream_t st);
 };
 
-// The arguments of both x-edge c2r entry points, with the host's plan.
+// The arguments of the x-edge c2r entry points (both c2r passes and the
+// velocity one), with the host's plan.
 struct C2rArgs {
   const float *br, *bi, *sr;
   float* out;
@@ -2496,6 +2590,7 @@ struct C2rArgs {
   long long R;
   int n_out, unsplit;
   int T, blocks, stages, smem, bulk, threads;
+  VelocityEpilogue ve;
 };
 
 // The kernel of the other passes' plan (lengths with a factor that is not a
@@ -2547,23 +2642,26 @@ struct FftGreensCurlIfftPass {
   }
 };
 
+// The four-step velocity kernel (the lengths with a factor that is not a
+// power of two): pick_tile's tile, one a block. The host passes no plan
+// for it (every field 0).
 struct IrfftPassMergeVelocity {
   template <int M1, int H2>
-  static int go(const Plan& p, const float* br, const float* bi,
-                const float* sr, const float* si, const float* fsv,
-                float* out, float* l1_max, const float* table, long long R,
-                int n_out, int ny, int nz, cudaStream_t st) {
+  static int go(const Plan& p, const C2rArgs& a, cudaStream_t st) {
+    if (a.T || a.blocks || a.stages || a.smem || a.bulk || a.threads)
+      return (int)cudaErrorInvalidValue;
     auto bytes = [&](int t) {
       return 8LL * p.m * t + 8LL * (p.m / 2 + 1) * (t + 1) +
-             4LL * n_out * (t + 1);
+             4LL * a.n_out * (t + 1);
     };
     const int t = pick_tile(bytes);
     if (t == 0) return (int)cudaErrorInvalidValue;
     const size_t smem = table_bytes(p) + (size_t)bytes(t);
-    const dim3 grid((unsigned)((R + t - 1) / t));
+    const dim3 grid((unsigned)((a.R + t - 1) / t));
     return launch(irfft_pass_merge_velocity_kernel<M1, H2>, grid, t, smem, st,
-                  br, bi, sr, si, fsv, out, l1_max, (const float2*)table, R,
-                  n_out, ny, nz, p.m, p.m1, p.m2);
+                  a.br, a.bi, a.sr, a.ve.fsv, a.out, a.ve.l1_max,
+                  (const float2*)a.table, a.R, a.n_out, a.ve.ny, a.ve.nz, p.m,
+                  p.m1, p.m2);
   }
 };
 
@@ -2737,22 +2835,25 @@ long long c2r_smem_bytes(int T, int n_out, int stages, int unsplit) {
          8LL * T * S::HP + 8LL * stages;
 }
 
-template <int H>
+// VEL: the three components' units, every span aligned for bulk copies
+// only where R is a multiple of 4.
+template <int H, bool VEL>
 int launch_c2r(const Plan& p, const C2rArgs& a, cudaStream_t st) {
   using S = EdgeShape<H>;
   if (a.T < 4 || a.T % 4 != 0) return (int)cudaErrorInvalidValue;
   const long long tiles = (a.R + a.T - 1) / a.T;
   const bool in_aligned =
       ((unsigned long long)a.br | (unsigned long long)a.bi |
-       (a.unsplit ? 0ULL : (unsigned long long)a.sr)) % 16 == 0;
-  if (a.threads != a.T * S::G || a.threads > kThreads ||
+       (a.unsplit ? 0ULL : (unsigned long long)a.sr)) % 16 == 0 &&
+      (!VEL || a.R % 4 == 0);
+  if ((VEL && a.unsplit) || a.threads != a.T * S::G || a.threads > kThreads ||
       a.threads % 32 != 0 || a.blocks < 1 || a.blocks > tiles ||
       a.stages < 2 || a.stages > 4 || (unsigned long long)a.out % 16 != 0 ||
       (a.bulk && !in_aligned) ||
       a.smem != c2r_smem_bytes<H>(a.T, a.n_out, a.stages, a.unsplit) ||
       a.smem > 232448)
     return (int)cudaErrorInvalidValue;
-  auto kernel = irfft_edge_kernel<H>;
+  auto kernel = irfft_edge_kernel<H, VEL>;
   static ShapeCache cache;
   long long resident = 0;
   if (const int err = resident_blocks(kernel, a.smem, a.threads, cache,
@@ -2763,7 +2864,7 @@ int launch_c2r(const Plan& p, const C2rArgs& a, cudaStream_t st) {
   const float2* line = (const float2*)a.table + p.table_len();
   kernel<<<a.blocks, a.threads, a.smem, st>>>(a.br, a.bi, a.sr, a.out, line,
                                               a.R, a.n_out, a.T, a.stages,
-                                              a.bulk, a.unsplit);
+                                              a.bulk, a.unsplit, a.ve);
   return (int)cudaGetLastError();
 }
 
@@ -2899,17 +3000,19 @@ int rfft_edge(const Plan& p, const EdgeArgs& a, cudaStream_t st) {
   return dispatch<RfftPassPaddedSplit>(p, a, st);
 }
 
-// Both x-edge c2r entry points: the design above at power-of-two lengths,
-// the four-step kernel otherwise; either way the plan must be the one
-// c2r_tile_plan gives.
+// The x-edge c2r entry points: the design above at power-of-two lengths,
+// the four-step kernels otherwise; either way the plan must be the one
+// c2r_tile_plan (VEL: c2r_velocity_tile_plan) gives.
+template <bool VEL>
 int irfft_edge(const Plan& p, const C2rArgs& a, cudaStream_t st) {
   switch (p.m) {
-    case 64: return launch_c2r<32>(p, a, st);
-    case 128: return launch_c2r<64>(p, a, st);
-    case 256: return launch_c2r<128>(p, a, st);
-    case 512: return launch_c2r<256>(p, a, st);
-    case 1024: return launch_c2r<512>(p, a, st);
+    case 64: return launch_c2r<32, VEL>(p, a, st);
+    case 128: return launch_c2r<64, VEL>(p, a, st);
+    case 256: return launch_c2r<128, VEL>(p, a, st);
+    case 512: return launch_c2r<256, VEL>(p, a, st);
+    case 1024: return launch_c2r<512, VEL>(p, a, st);
   }
+  if (VEL) return dispatch<IrfftPassMergeVelocity>(p, a, st);
   return dispatch<IrfftPassMerge>(p, a, st);
 }
 
@@ -3029,8 +3132,8 @@ extern "C" int sopht_irfft_pass_merge_f32(
   if (!make_plan(m, &p) || R <= 0 || n_out <= 0 || n_out > m / 2)
     return (int)cudaErrorInvalidValue;
   const C2rArgs a{br, bi, sr, out, table, R, n_out, 0,
-                  T, blocks, stages, smem, bulk, threads};
-  return irfft_edge(p, a, (cudaStream_t)stream);
+                  T, blocks, stages, smem, bulk, threads, {}};
+  return irfft_edge<false>(p, a, (cudaStream_t)stream);
 }
 
 // the unsplit c2r: xr, xi (R, m/2 + 1) with the Nyquist column in the row
@@ -3042,8 +3145,8 @@ extern "C" int sopht_irfft_pass_truncated_f32(
   if (!make_plan(m, &p) || R <= 0 || n_out <= 0 || n_out > m / 2)
     return (int)cudaErrorInvalidValue;
   const C2rArgs a{xr, xi, nullptr, out, table, R, n_out, 1,
-                  T, blocks, stages, smem, bulk, threads};
-  return irfft_edge(p, a, (cudaStream_t)stream);
+                  T, blocks, stages, smem, bulk, threads, {}};
+  return irfft_edge<false>(p, a, (cudaStream_t)stream);
 }
 
 // The plan (columns a tile T, blocks, ring stages, shared bytes, 16-byte
@@ -3062,18 +3165,26 @@ extern "C" int sopht_fft_greens_curl_ifft_pass_f32(
   return fft_greens_curl_ifft(p, a, (cudaStream_t)stream);
 }
 
-// l1_max: a zeroed device float, raised to max over cells of sum_c |u_c|
+// br, bi (3, R, m/2), sr (3, R, 1) (the Nyquist column's imaginary part
+// does not enter), fsv (3,), out (3, R, n_out), R = nz ny; l1_max: a zeroed
+// device float, raised to max over cells of sum_c |u_c|. The plan (rows a
+// tile T, blocks, ring stages, shared bytes, bulk copies, threads a block)
+// is c2r_velocity_tile_plan's: all 0 for the four-step kernel's lengths.
+// One that breaks the kernel's assumptions is refused with
+// cudaErrorInvalidValue.
 extern "C" int sopht_irfft_pass_merge_velocity_f32(
-    const float* br, const float* bi, const float* sr, const float* si,
-    const float* fsv, float* out, float* l1_max, const float* table,
-    long long R, int m, int n_out, int ny, int nz, void* stream) {
+    const float* br, const float* bi, const float* sr, const float* fsv,
+    float* out, float* l1_max, const float* table, long long R, int m,
+    int n_out, int ny, int nz, int T, int blocks, int stages, int smem,
+    int bulk, int threads, void* stream) {
   Plan p;
   if (!make_plan(m, &p) || R <= 0 || n_out <= 0 || n_out > m / 2 ||
       ny <= 0 || nz <= 0 || (long long)ny * nz != R)
     return (int)cudaErrorInvalidValue;
-  return dispatch<IrfftPassMergeVelocity>(p, br, bi, sr, si, fsv, out, l1_max,
-                                          table, R, n_out, ny, nz,
-                                          (cudaStream_t)stream);
+  const C2rArgs a{br, bi, sr, out, table, R, n_out, 0,
+                  T, blocks, stages, smem, bulk, threads,
+                  {fsv, l1_max, ny, nz}};
+  return irfft_edge<true>(p, a, (cudaStream_t)stream);
 }
 
 // x: (A, ny, nx) real, my = 2 ny = m, mx = 2 nx; xw: (mx, 2) floats,

@@ -36,7 +36,9 @@ Replaced TPU kernels (``sopht_mpi_tpu/parallel/pallas_fft.py``):
 The forward x-edge r2c pair (split and unsplit) launches with the plan
 :func:`edge_tile_plan` gives (rows a tile, persistent blocks, ring stages,
 shared bytes, bulk copies), the c2r pair with that of
-:func:`c2r_tile_plan`, the z conv :func:`fft_greens_ifft_pass` with
+:func:`c2r_tile_plan`, the fast tier's c2r :func:`irfft_pass_merge_velocity`
+with that of :func:`c2r_velocity_tile_plan`, the z conv
+:func:`fft_greens_ifft_pass` with
 the plan of :func:`zconv_tile_plan` (columns a tile, persistent blocks,
 ring stages, shared bytes, 16-byte copies; none at the lengths of the
 four-step kernel, which plans its own launch), the fast tier's z pass
@@ -75,8 +77,8 @@ _SIGNATURES = {
                                    *(_I,) * 6, _P),
     "sopht_fft_greens_curl_ifft_pass_f32": (_P, _P, _P, _P, _P, _P, _P, _P,
                                             _L, _I, *(_I,) * 6, _P),
-    "sopht_irfft_pass_merge_velocity_f32": (_P, _P, _P, _P, _P, _P, _P, _P,
-                                            _L, _I, _I, _I, _I, _P),
+    "sopht_irfft_pass_merge_velocity_f32": (_P, _P, _P, _P, _P, _P, _P, _L,
+                                            _I, _I, _I, _I, *(_I,) * 6, _P),
     "sopht_rfft_pass_padded_f32": (_P, _P, _P, _P, _L, _I, _I, *(_I,) * 6, _P),
     "sopht_irfft_pass_truncated_f32": (_P, _P, _P, _P, _L, _I, _I,
                                        *(_I,) * 6, _P),
@@ -274,6 +276,36 @@ def _c2r_tile_plan(rows, n_out, m, unsplit, aligned, sms):
             rows, m, lambda t: 8 * m * t + 8 * (h + 1) * (t + 1))
     return _ring_plan(rows, h, aligned, sms,
                       lambda t, s: _c2r_smem(h, t, n_out, s, unsplit), 2)
+
+
+#: the plan of the four-step velocity kernel (every field 0): it plans its
+#: own launch
+FOUR_STEP_VELOCITY_PLAN = EdgeTilePlan(0, 0, 0, 0, False, 0, 0)
+
+
+def c2r_velocity_tile_plan(rows: int, n_out: int, m: int, data_ptr: int,
+                           sms: int = H100_SMS) -> EdgeTilePlan:
+    """The launch plan of :func:`irfft_pass_merge_velocity` on three
+    components of ``rows`` (nz ny) rows of the half spectrum at length
+    ``m`` into ``n_out`` reals, the input pointers (bulk and side column),
+    or-ed together, ``data_ptr``, on a card of ``sms`` SMs. The C entry
+    point refuses any other plan.
+
+    Power-of-two ``m``: the c2r ring kernel's plan for ``rows`` split rows
+    (:func:`c2r_tile_plan`; the kernel's shared memory is the c2r's). A
+    block takes its tiles' three (tile, component) units in turn, so the
+    blocks are counted in tiles. Copies and stores are bulk where every
+    component's spans are 16-byte aligned: ``data_ptr`` aligned and
+    ``rows`` a multiple of 4 (else component 1's side column and output
+    start off 16 bytes); otherwise ordinary loads and stores. Other
+    lengths: :data:`FOUR_STEP_VELOCITY_PLAN`."""
+    _check_length(m)
+    if not 0 < n_out <= m // 2 or rows <= 0:
+        raise ValueError(f"no plan for {rows} rows into {n_out} at m = {m}")
+    if m & (m - 1):
+        return FOUR_STEP_VELOCITY_PLAN
+    return _c2r_tile_plan(rows, n_out, m, False,
+                          data_ptr % 16 == 0 and rows % 4 == 0, sms)
 
 
 def _ring_plan(rows, h, aligned, sms, smem, ring) -> EdgeTilePlan:
@@ -900,19 +932,23 @@ def irfft_pass_merge_velocity(br, bi, sr, si, fsv, m: int, n_out: int,
     if br.device.type == "cpu":
         return irfft_pass_merge_velocity_ref(br, bi, sr, si, fsv, m, n_out,
                                              ny, nz)
-    out = _k_irfft_pass_merge_velocity(br, bi, sr, si, fsv, m, n_out, ny, nz)
+    out = _k_irfft_pass_merge_velocity(br, bi, sr, fsv, m, n_out, ny, nz)
     irfft_pass_merge_velocity.launches += 1
     return out
 
 
-def _k_irfft_pass_merge_velocity(br, bi, sr, si, fsv, m, n_out, ny, nz):
+def _k_irfft_pass_merge_velocity(br, bi, sr, fsv, m, n_out, ny, nz):
+    # the Nyquist column's imaginary part does not enter the c2r
     rows = br.shape[1]
     out = _empty(br, 3, rows, n_out)
     l1_max = torch.zeros((), dtype=br.dtype, device=br.device)
+    plan = c2r_velocity_tile_plan(
+        rows, n_out, m, br.data_ptr() | bi.data_ptr() | sr.data_ptr(),
+        _sm_count(br.device))
     _launch("sopht_irfft_pass_merge_velocity_f32", br.device, br.data_ptr(),
-            bi.data_ptr(), sr.data_ptr(), si.data_ptr(), fsv.data_ptr(),
-            out.data_ptr(), l1_max.data_ptr(), _table(m, br.device).data_ptr(),
-            rows, m, n_out, ny, nz)
+            bi.data_ptr(), sr.data_ptr(), fsv.data_ptr(), out.data_ptr(),
+            l1_max.data_ptr(), _table(m, br.device).data_ptr(), rows, m,
+            n_out, ny, nz, *plan.args())
     return out, l1_max
 
 

@@ -8,11 +8,12 @@ with times:
 
 The first form is a short first run for a changed kernel: it prints the
 card, the build time, ptxas' register and spill lines of the x-edge r2c and
-c2r, the two z ring kernels and the fused kernels, the z ring kernels' SASS
-instruction counts (``cuobjdump``), the forward r2c pair, the
-c2r pair, the z conv (``fft_greens_ifft_pass``) and the fast tier's z pass
-(``fft_greens_curl_ifft_pass``) on ragged, storage-offset, odd-output and
-non-power-of-two inputs, then for each grid
+c2r (the fast tier's c2r ``irfft_pass_merge_velocity`` is the c2r's
+instance ``[H, 1]``), the two z ring kernels and the fused kernels, the
+z ring and c2r ring kernels' SASS instruction counts (``cuobjdump``), the
+forward r2c pair, the c2r pair, the z conv (``fft_greens_ifft_pass``) and
+the fast tier's z pass (``fft_greens_curl_ifft_pass``) on ragged,
+storage-offset, odd-output and non-power-of-two inputs, then for each grid
 (default: an odd-factor grid,
 the (256, 512) cylinder grid as one slab a component, a 17 x 32 factor grid
 and 256^3) each pass's relative error against ``*_ref`` and the median of 10
@@ -25,8 +26,11 @@ r2c and the c2r pairs at the 2D route's (256, 512) shape (m = 1024), of the
 z conv at the 2D route's (1, 256, 512) shape (m = 512), and of
 ``torch.fft.rfft`` and ``torch.fft.irfft`` on the x edges' inputs, with the
 edge passes' and the z conv's relative errors; and the fast tier's z pass's
-``device_ms``, ``host_us`` and relative error at 256^3 and at the
-multi-body case's (128, 128, 256) (m = 256, key ``multibody``).
+and c2r's ``device_ms``, ``host_us`` and relative errors (``curl_rel_err``,
+``vel_rel_err``: ``u`` and ``l1_max``) at 256^3 and at the multi-body
+case's (128, 128, 256) (z at m = 256, x at 512, key ``multibody``), with
+the host time of the c2r wrapper's plan step alone (``host_us`` key
+``c2r_velocity_tile_plan``, in trees that have it).
 It imports the package from ``sys.path`` and uses only the wrappers' public
 names, so it compares two trees on one card within one job: unpack the other
 tree into a directory and run this file with ``PYTHONPATH`` set to each, in
@@ -46,7 +50,9 @@ with one block an SM up to as many as the plan allows (at most six plans a
 shape) at 256^3, the 2D shape and the multi-body case's m = 256, the one
 ``zconv_tile_plan`` picks marked, and the fast tier's z pass the same way
 at 256^3, the multi-body case's and the 64^3 case's shapes, the one
-``zconv_curl_tile_plan`` picks marked.
+``zconv_curl_tile_plan`` picks marked, and its c2r under each tile and ring
+depth with the most blocks an SM that fit at those three shapes, the one
+``c2r_velocity_tile_plan`` picks marked.
 """
 
 from __future__ import annotations
@@ -216,6 +222,26 @@ def curl_args(grid, rand, dev, offset=0):
     return spectrum(), spectrum(), rand(1, 2 * nz, b), sym_z, sym_yx
 
 
+def vel_args(grid, rand, dev):
+    """The fast tier's c2r inputs for an (nz, ny, nx) grid: the three
+    components' (nz ny, nx) bulk spectra and Nyquist pairs, the free stream,
+    m = 2 nx, n_out = nx."""
+    nz, ny, nx = grid
+    rows = nz * ny
+    return (rand(3, rows, nx), rand(3, rows, nx), rand(3, rows, 1),
+            rand(3, rows, 1), torch.tensor([1.0, -0.5, 0.25], device=dev),
+            2 * nx, nx, ny, nz)
+
+
+def vel_rel_err(args):
+    """Relative errors of the fast tier's c2r against its plain version:
+    ``{"u": ..., "l1_max": ...}``."""
+    u, l1 = cuda_fft.irfft_pass_merge_velocity(*args)
+    ref_u, ref_l1 = cuda_fft.irfft_pass_merge_velocity_ref(*args)
+    return {"u": rel_err(u, ref_u),
+            "l1_max": abs(float(l1) - float(ref_l1)) / float(ref_l1)}
+
+
 def sass_sizes(path, pattern):
     """Instructions of each kernel whose mangled name matches ``pattern`` in
     the library at ``path``, from ``cuobjdump --dump-sass`` (empty where the
@@ -300,6 +326,23 @@ def timing(tag, rand, dev):
             out["ms"][shape][name] = median_ms(lambda: fn(*args), 20, 3)
         out["device_ms"][shape][name] = device_ms(lambda: fn(*args))
         out["host_us"][shape][name] = host_us(lambda: fn(*args))
+        del args
+        torch.cuda.empty_cache()
+    name, fn = "irfft_pass_merge_velocity", cuda_fft.irfft_pass_merge_velocity
+    out["vel_rel_err"] = {}
+    for shape, grid in CURL_GRIDS[:2]:
+        args = vel_args(grid, rand, dev)
+        out["vel_rel_err"][shape] = vel_rel_err(args)
+        if shape != "256^3":
+            out["ms"][shape][name] = median_ms(lambda: fn(*args), 20, 3)
+        out["device_ms"][shape][name] = device_ms(lambda: fn(*args))
+        out["host_us"][shape][name] = host_us(lambda: fn(*args))
+        plan = getattr(cuda_fft, "c2r_velocity_tile_plan", None)
+        if plan is not None:
+            br, bi, sr, _, _, m, n, ny, nz = args
+            out["host_us"][shape][plan.__name__] = host_us(lambda: plan(
+                nz * ny, n, m, br.data_ptr() | bi.data_ptr() | sr.data_ptr(),
+                cuda_fft._sm_count(br.device)))
         del args
         torch.cuda.empty_cache()
     name, fn = "fft_greens_ifft_pass", cuda_fft.fft_greens_ifft_pass
@@ -486,6 +529,54 @@ def sweep_zconv_curl(rand, dev):
         torch.cuda.empty_cache()
 
 
+def sweep_velocity(rand, dev):
+    """Device time of the fast tier's c2r ring kernel at the 256^3,
+    multi-body and 64^3 grids' shapes under each tile (rows) and ring depth,
+    with the most blocks an SM that fit, the plan
+    ``c2r_velocity_tile_plan`` picks marked: one line a plan."""
+    lib, sms = cuda_fft.library(), cuda_fft._sm_count(dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape, grid in CURL_GRIDS:
+        br, bi, sr, _, fsv, m, n, ny, nz = vel_args(grid, rand, dev)
+        rows, h = nz * ny, m // 2
+        out = torch.empty(3, rows, n, device=dev)
+        l1 = torch.zeros((), device=dev)
+        table = cuda_fft._table(m, dev)
+        chosen = cuda_fft.c2r_velocity_tile_plan(
+            rows, n, m, br.data_ptr() | bi.data_ptr() | sr.data_ptr(), sms)
+        g = cuda_fft._edge_shape(h)[1]
+        for t in (4, 8, 16, 32, 64):
+            threads = t * g
+            if threads % 32 or threads > 256:
+                continue
+            for stages in (2, 3, 4):
+                smem = cuda_fft._c2r_smem(h, t, n, stages, False)
+                per_sm = min(512 // threads, cuda_fft.SM_SHARED_BYTES // (
+                    smem + cuda_fft.BLOCK_SHARED_RESERVE))
+                if per_sm < 1 or smem > cuda_fft.BLOCK_SHARED_MAX:
+                    continue
+                plan = cuda_fft.EdgeTilePlan(
+                    t, min(-(-rows // t), per_sm * sms), stages, smem,
+                    chosen.bulk, threads, per_sm)
+
+                def fn(plan=plan):
+                    return lib.sopht_irfft_pass_merge_velocity_f32(
+                        br.data_ptr(), bi.data_ptr(), sr.data_ptr(),
+                        fsv.data_ptr(), out.data_ptr(), l1.data_ptr(),
+                        table.data_ptr(), rows, m, n, ny, nz, *plan.args(),
+                        stream)
+
+                if fn():
+                    print(f"sweep vel {shape}: {plan} refused", flush=True)
+                    continue
+                mark = " <- c2r_velocity_tile_plan" if plan == chosen else ""
+                print(f"sweep vel {shape}: T {t} threads {threads} stages "
+                      f"{stages} blocks/SM {per_sm} blocks {plan.blocks}: "
+                      f"{device_ms(fn):.4f} ms{mark}", flush=True)
+        del br, bi, sr, out
+        torch.cuda.empty_cache()
+
+
 def curl_cases(rand, dev):
     """The fast tier's z pass on ragged column counts, storage-offset
     inputs and the four-step kernel's lengths (m = 96, 1024): (case,
@@ -570,6 +661,7 @@ def main(argv):
 
     if argv and argv[0] == "--sweep":
         print(card())
+        sweep_velocity(rand, dev)
         sweep_zconv_curl(rand, dev)
         sweep_zconv(rand, dev)
         sweep(rand, dev)
@@ -598,14 +690,15 @@ def main(argv):
         name = re.search(
             r"(irfft_edge_kernel|rfft_edge_kernel|zconv_kernel|"
             r"zconv_curl_kernel|"
-            r"\w+_fused_kernel)((?:ILi|Li)\d+E)+",
+            r"\w+_fused_kernel)((?:ILi|Li|Lb)\d+E)+",
             ln)
         if "Function properties" in ln and name:
             print(name.group(1)[-28:], re.findall(r"\d+", name.group(0)[
                 len(name.group(1)):]), "|", lines[i + 1].strip(), "|",
                 lines[i + 2].strip()[:60])
-    for name, n in sass_sizes(lib._name, "zconv").items():
-        kernel = re.search(r"(zconv\w*kernel)I((?:Li\d+E)+)", name)
+    for name, n in sass_sizes(lib._name, "zconv|irfft_edge").items():
+        kernel = re.search(r"(zconv\w*kernel|irfft_edge_kernel)I"
+                           r"((?:L[ib]\d+E)+)", name)
         dims = re.findall(r"\d+", kernel.group(2))
         print(f"sass {kernel.group(1)} {dims}: {n} instructions")
     for case, err in (r2c_cases(rand) + c2r_cases(rand) + zconv_cases(rand)
