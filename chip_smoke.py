@@ -59,14 +59,20 @@ raises and exits non-zero, and nothing falls back to the CPU:
 14. multibody card vs CPU: 3 steps of the (32, 32, 64) case from one
     numpy-seeded state, the fast tier on the card against the plain passes
     on the CPU;
-15. fused edges: the unsplit x passes (``rfft_pass_padded``,
+15. fused edges: the fused forward pass ``rfft_fft_pass_fused`` against its
+    plain version at the 256^3 solve's slabs and the rod grid's, each with
+    the plan ``fused_r2c_cluster_plan`` gives (the thread-block-cluster
+    kernel at both), and at (3, 48, 32), (3, 32, 48) and (2, 512, 512)
+    slabs, where the plan is the dense-x kernel's; the unsplit x passes (``rfft_pass_padded``,
     ``irfft_pass_truncated``) in 20 round trips of the 256^3 solve's rows;
     the 256^3 vector solve with ``cuda_fft.USE_FUSED_EDGE_PASSES`` on
     (``rfft_fft_pass_fused``, ``ifft_irfft_pass_fused`` in place of the four
     unfused edge passes) against the flag off, values and times; and the
     256^3 sphere step with the flag on timed in turns with the flag off,
-    with launch counts and no host sync; the flag is restored whatever
-    happens, and a slower fused arm is a result, not a failure;
+    with launch counts and no host sync, each run followed by 3 profiled
+    steps for its device time (``build/sphere_fused_edges_profile.txt``,
+    ``build/sphere_unfused_edges_profile.txt``); the flag is restored
+    whatever happens, and a slower fused arm is a result, not a failure;
 16. 2D main path: the (256, 512) Re = 200 flow-past-cylinder step
     (``cases._build_cylinder_fsi_case``, 60 markers, dense IBM path,
     Poisson solve on the 2D kernel route), 5 warm-up + 20 timed steps that
@@ -1475,6 +1481,42 @@ def main():
     def fused_edges_phase():
         n, n_steps = 256, 20
         gen = torch.Generator(device=dev).manual_seed(2)
+        # the fused forward pass: the cluster kernel at the 256^3 solve's
+        # (768, 256, 256) slabs and the rod grid's (768, 64, 256); the
+        # dense-x kernel where a length is not a power of two and at
+        # 512 x 512 slabs, which no cluster holds
+        forward = []
+        for (a, ny, nx), clustered in (((3 * n, n, n), True),
+                                       ((3 * ROD_SHAPE[1], *ROD_SHAPE[2:]),
+                                        True),
+                                       ((3, 48, 32), False),
+                                       ((3, 32, 48), False),
+                                       ((2, 512, 512), False)):
+            x = torch.randn((a, ny, nx), device=dev, generator=gen)
+            plan = cuda_fft.fused_r2c_cluster_plan(a, ny, nx, 2 * ny, 2 * nx,
+                                                   dev, x.data_ptr())
+            if clustered:
+                check(plan.cluster > 0, f"no cluster plan for {x.shape}")
+            else:
+                check(plan == cuda_fft.FUSED_R2C_DENSE_PLAN,
+                      f"a cluster plan for {x.shape}: {plan}")
+            out = cuda_fft.rfft_fft_pass_fused(x, 2 * nx, 2 * ny)
+            ref = cuda_fft.rfft_fft_pass_fused_ref(x, 2 * nx, 2 * ny)
+            fwd_err = max(float((o - r).abs().max())
+                          for o, r in zip(out, ref)) \
+                / max(float(r.abs().max()) for r in ref)
+            check(fwd_err <= FFT_TOL, f"rfft_fft_pass_fused at {x.shape}: "
+                  f"relative {fwd_err} > {FFT_TOL}")
+            fwd_ms = median_ms(torch, lambda: cuda_fft.rfft_fft_pass_fused(
+                x, 2 * nx, 2 * ny))
+            kind = (f"cluster {plan.cluster}, {plan.threads} threads, "
+                    f"{plan.clusters} clusters, {plan.smem} B"
+                    if clustered else "dense-x kernel")
+            forward.append(
+                f"rfft_fft_pass_fused at ({a}, {ny}, {nx}) slabs: {kind}, "
+                f"relative max|diff| {fwd_err:.3g}, {fwd_ms:.4f} ms")
+            del x, out, ref
+        torch.cuda.empty_cache()
         # the unsplit x passes: round trips of the 256^3 solve's rows
         x = torch.randn((3 * n * n, n), device=dev, generator=gen)
         reset_counts()
@@ -1509,6 +1551,7 @@ def main():
         ref = solver.vector_field_solve(rhs)
         off_ms = median_ms(torch, lambda: solver.vector_field_solve(rhs))
         times = {False: [], True: []}
+        busy = {False: [], True: []}
         try:
             cuda_fft.USE_FUSED_EDGE_PASSES = True
             reset_counts()
@@ -1536,17 +1579,30 @@ def main():
                                 ("velocity", fs.velocity_field),
                                 ("forces", forces)):
                     check(bool(torch.isfinite(t).all()), f"non-finite {what}")
+                # the step's device time, over 3 steps under the profiler
+                tag = "fused" if fused else "unfused"
+                carry, _, busy_ms, per_step, _ = profile_steps(
+                    step, carry, 3, os.path.join(
+                        REPO, "build", f"sphere_{tag}_edges_profile.txt"),
+                    f"256^3 sphere step, {tag} edge passes")
+                busy[fused].append((busy_ms / 3, per_step))
         finally:
             cuda_fft.USE_FUSED_EDGE_PASSES = False
         off, on = times[False], times[True]
+        device = "; ".join(
+            f"{tag} " + " / ".join(f"{ms:.4f}" for ms, _ in busy[fused])
+            + f" ms ({busy[fused][0][1]:.1f} kernels)"
+            for tag, fused in (("unfused", False), ("fused", True)))
         return None, (
+            f"{'; '.join(forward)}; "
             f"x round trip of (196608, 256) rows, m = 512: relative "
             f"max|diff| {trip:.3g}, {n_steps} launches each; 256^3 vector "
             f"solve: fused edges {on_ms:.4f} ms, unfused {off_ms:.4f} ms, "
             f"relative max|diff| {err:.3g}; 256^3 sphere step, {n_steps} "
             f"timed steps a run, in turns: unfused {off[0]:.6f} / "
             f"{off[1]:.6f} s/step, fused {on[0]:.6f} / {on[1]:.6f} s/step, "
-            f"no host sync; fused launches "
+            f"no host sync; device time a step (3 profiled steps a run): "
+            f"{device}; fused launches "
             f"{ {k: table[k]['launches'] for k in FUSED_EDGE_PASSES} }, "
             f"{', '.join(UNFUSED_EDGE_PASSES)} 0 [{card}]")
 

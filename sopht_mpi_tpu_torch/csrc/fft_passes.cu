@@ -102,7 +102,11 @@
 //   slab in VMEM; see the note above the two kernels for what they do
 //   instead. Bound by HBM bytes as functions (4 B in, 16 B out a bulk
 //   element); as written, FP32 issue and shared-memory bandwidth (dense x
-//   sums).
+//   sums). The forward pass at power-of-two lengths whose slab's slots fit
+//   a cluster of at most 16 blocks: rfft_fft_cluster_kernel (see the note
+//   above it), the slab's spectrum spread over a thread-block cluster's
+//   shared memory, a factored r2c a row and the y transform by the
+//   columns' owners.
 //
 // The fast tier's fused-curl pair (the velocity recovery without the
 // streamfunction):
@@ -903,6 +907,63 @@ __device__ __forceinline__ void load_edge_twiddles(float2* line, float2* tp,
   }
 }
 
+// The r2c of one staged row of n_in <= h reals (zero padded to m = 2h) as
+// the packed h-point complex FFT: the first pass (radix P, butterfly j = q,
+// inputs z[q + G r], the zero half skipped) reads the row, the Stockham
+// passes leave Z in natural order in the group's buffer.
+template <int H>
+__device__ __forceinline__ void r2c_row_fft(const float* xin, int n_in,
+                                            float2* buf, int q,
+                                            const float2* line,
+                                            const float2* tp) {
+  using S = EdgeShape<H>;
+  constexpr int P = S::P, G = S::G;
+  const int nz = (n_in + 1) >> 1;  // complex inputs of a row
+  float re[P], im[P];
+  const bool pairs = (n_in & 1) == 0;
+#pragma unroll
+  for (int r = 0; r < P; ++r) {
+    const int n = q + G * r;
+    re[r] = im[r] = 0.f;
+    if (r < P / 2 && n < nz) {
+      if (pairs) {
+        const float2 v = reinterpret_cast<const float2*>(xin)[n];
+        re[r] = v.x;
+        im[r] = v.y;
+      } else {
+        re[r] = xin[2 * n];
+        if (2 * n + 1 < n_in) im[r] = xin[2 * n + 1];
+      }
+    }
+  }
+  float2 wr[P / 2];
+#pragma unroll
+  for (int e = 0; e < P / 2; ++e) wr[e] = line[e * (H / P) * 2];
+  reg_fft<P, false>(re, im, wr);
+  each_output<P>([&](int k, int rr) {
+    buf[S::pad(q * P + k)] = make_float2(re[rr], im[rr]);
+  });
+  __syncwarp();
+  EdgePass<H, P>::run(buf, q, line, tp);
+}
+
+// The split step at k from the packed spectrum Z in buf: lo = X[k] and
+// hi = X[h - k] (X[h], the Nyquist value, at k = 0).
+template <int H>
+__device__ __forceinline__ void r2c_split(const float2* buf,
+                                          const float2* line, int k,
+                                          float2& lo, float2& hi) {
+  using S = EdgeShape<H>;
+  const float2 a = buf[S::pad(k)];
+  const float2 c = buf[S::pad((H - k) & (H - 1))];
+  const float er = 0.5f * (a.x + c.x), ei = 0.5f * (a.y - c.y);
+  const float odr = 0.5f * (a.x - c.x), odi = 0.5f * (a.y + c.y);
+  const float2 w = line[k];
+  const float pr = w.x * odr - w.y * odi, pi = w.x * odi + w.y * odr;
+  lo = make_float2(er + pi, ei - pr);
+  hi = make_float2(er - pi, -ei - pr);
+}
+
 template <int H>
 __global__ void __launch_bounds__(kThreads, 2)
     rfft_edge_kernel(const float* __restrict__ x, float* __restrict__ br,
@@ -955,7 +1016,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int s = 0; s < stages - 1; ++s) produce(s);
   __syncthreads();  // the ordinary loads of the prologue
 
-  const int nz = (n_in + 1) >> 1;  // complex inputs of a row
   for (long long it = 0; blockIdx.x + it * gridDim.x < ntiles; ++it) {
     const long long tile = blockIdx.x + it * gridDim.x;
     produce(it + stages - 1);  // into the stage the last tile freed
@@ -965,59 +1025,27 @@ __global__ void __launch_bounds__(kThreads, 2)
       mbar_wait(&bars[it % stages], (unsigned)((it / stages) & 1));
     const float* xin = ring + (it % stages) * in_floats + grp * n_in;
 
-    // first pass: radix P, butterfly j = q, inputs z[q + G r]
-    {
-      float re[P], im[P];
-      const bool pairs = (n_in & 1) == 0;
-#pragma unroll
-      for (int r = 0; r < P; ++r) {
-        const int n = q + G * r;
-        re[r] = im[r] = 0.f;
-        if (r < P / 2 && n < nz) {
-          if (pairs) {
-            const float2 v = reinterpret_cast<const float2*>(xin)[n];
-            re[r] = v.x;
-            im[r] = v.y;
-          } else {
-            re[r] = xin[2 * n];
-            if (2 * n + 1 < n_in) im[r] = xin[2 * n + 1];
-          }
-        }
-      }
-      float2 wr[P / 2];
-#pragma unroll
-      for (int e = 0; e < P / 2; ++e) wr[e] = line[e * (H / P) * 2];
-      reg_fft<P, false>(re, im, wr);
-      each_output<P>([&](int k, int rr) {
-        buf[S::pad(q * P + k)] = make_float2(re[rr], im[rr]);
-      });
-      __syncwarp();
-    }
-    EdgePass<H, P>::run(buf, q, line, tp);
+    r2c_row_fft<H>(xin, n_in, buf, q, line, tp);
 
     // split step into the staging buffer of this tile
     float* ob = outb + (it & 1) * out_floats;
     float* orr = ob + grp * ld;
     float* oi = ob + T * ld + grp * ld;
     auto split = [&](int k, bool both) {
-      const float2 a = buf[S::pad(k)];
-      const float2 c = buf[S::pad((H - k) & (H - 1))];
-      const float er = 0.5f * (a.x + c.x), ei = 0.5f * (a.y - c.y);
-      const float odr = 0.5f * (a.x - c.x), odi = 0.5f * (a.y + c.y);
-      const float2 w = line[k];
-      const float pr = w.x * odr - w.y * odi, pi = w.x * odi + w.y * odr;
-      orr[k] = er + pi;
-      oi[k] = ei - pr;
+      float2 lo, hi;
+      r2c_split<H>(buf, line, k, lo, hi);
+      orr[k] = lo.x;
+      oi[k] = lo.y;
       if (!both) return;
       if (k > 0) {
-        orr[H - k] = er - pi;
-        oi[H - k] = -ei - pr;
+        orr[H - k] = hi.x;
+        oi[H - k] = hi.y;
       } else if (unsplit) {
-        orr[H] = er - pi;
-        oi[H] = -ei - pr;
+        orr[H] = hi.x;
+        oi[H] = hi.y;
       } else {
-        ob[2 * T * ld + grp] = er - pi;
-        ob[2 * T * ld + T + grp] = -ei - pr;
+        ob[2 * T * ld + grp] = hi.x;
+        ob[2 * T * ld + T + grp] = hi.y;
       }
     };
 #pragma unroll
@@ -2241,7 +2269,9 @@ __device__ __forceinline__ void load_x_table(const float2* __restrict__ xw,
   for (int j = tid; j < mx; j += nt) xws[skew(j)] = xw[j];
 }
 
-// rfft_fft_pass_fused: a block owns t bulk kx columns of one slab. The
+// rfft_fft_pass_fused (the shapes no cluster holds: a length that is not a
+// power of two, or slots above 16 blocks' shared memory, as 512 x 512
+// slabs): a block owns t bulk kx columns of one slab. The
 // slab's rows pass through shared memory kXChunk cells at a time (coalesced
 // loads; every column tile re-reads the slab, which stays in L2), and the
 // thread (column b, n1) sums the x r2c of its own rows n1 + m1 n2 at kx = b
@@ -2355,6 +2385,230 @@ __global__ void __launch_bounds__(kThreads, 2)
       side_r[a * h + y] = side[i];
       side_i[a * h + y] = 0.f;
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// rfft_fft_pass_fused where mx and my are powers of two and a cluster of at
+// most 16 blocks holds a slab's slots: the fused forward edge, designed for
+// Hopper as a thread-block-cluster kernel (rfft_fft_cluster_kernel).
+//
+// Replaces, with rfft_fft_pass_fused_kernel above for the other shapes,
+// sopht_mpi_tpu/parallel/pallas_fft.py:1272 _rfft_fft_pass_fused_impl
+// (kernel _r2c_fwd_kernel, which holds a whole slab in VMEM). Bound: HBM,
+// 4 B read a real input and 8 B written a bulk output (at 256^3, 768 slabs
+// of 256 x 256 reals into 512 x 256 pairs: 201 MB in, 805 MB out, 0.301 ms
+// at 3.35 TB/s); the arithmetic, an r2c a row and an my-point FFT a bulk
+// column (~8.8 MFLOP a 256^3 slab), is a third of that at the FP32 rate.
+// One SM cannot hold a slab's spectrum (512 KB at 256^3), which is why the
+// kernel above sums a dense x DFT for each column tile. A cluster can:
+//
+// 1. A cluster of C blocks (C = 1, 2, 4, 8 or 16, the last Hopper's
+//    non-portable size) owns one slab at a time; the blocks' shared memory
+//    together holds its spectrum. Persistent clusters walk the slabs
+//    a = cluster + k clusters; every block of a cluster walks the same
+//    slabs and meets the same barriers.
+// 2. x phase. Block r takes the slab's rows [r ny/C, (r+1) ny/C), one
+//    contiguous span moved by one cp.async.bulk (issued during the last
+//    slab's y phase), and runs rfft_edge_kernel's r2c on each: a lane
+//    group of G = nx / P lanes a row, the packed nx-point complex FFT in
+//    Stockham passes, the split step. The split step writes the Nyquist
+//    value to sr / si and pushes each bulk X[y, kx] into the block that
+//    owns column kx, rank kx / t with t = nx / C columns a block, as a
+//    remote st.shared::cluster (a push does not wait for a round trip).
+//    The owner keeps its spectrum as rows [y][kx local]: a group's lanes
+//    store consecutive columns of one row.
+// 3. A cluster barrier (release / acquire) puts the slab's spectrum in
+//    place for its owners.
+// 4. y phase. Block r transforms its t columns as fft_pass_padded does
+//    (four steps, my = m1 m2, threads (column, n1) then (column, k2)), in
+//    place: the first factor's thread reads rows n1 + m1 n2 (n2 < m2/2)
+//    and writes slots k2 m1 + n1 (k2 < m2), rows of its own residue class,
+//    so the slot array is the spectrum buffer extended to my rows. The
+//    second factor's lanes run over columns, so each output row's t
+//    columns leave as coalesced stores (64 B at 256^3, where t = 16).
+// 5. A second cluster barrier, split: a block arrives once its y phase has
+//    read its slots and waits only before the next slab's first push, so
+//    the next slab's x transforms overlap the peers' y phases. The x
+//    phase's work buffers lie in the upper rows of the block's slot
+//    buffer, which no peer writes.
+// 6. One slot buffer a block: it is twice the spectrum, so a second one
+//    does not fit at 256^3; where a second cluster fits an SM, it overlaps
+//    the phases instead (two buffers a block ran slower on an H100).
+// 7. The host plan (fused_r2c_cluster_plan in parallel/cuda_fft.py,
+//    checked here) gives C, threads a block (256 or 512), the clusters
+//    launched (at most those the card holds at once) and the shared bytes.
+//    Its all-zero plan takes the kernel above, which the launcher accepts
+//    only where no cluster holds the slots.
+// What sets the pace on an H100 (PERF.md): the y phase as a whole (its
+// shared-memory traffic, block barriers, stores and arithmetic; about four
+// times its FP32 work, cause not isolated) and the waits at the per-slab
+// cluster barriers, not HBM; at 256^3 the plan takes clusters of 16 so
+// that two 256-thread blocks share an SM.
+// ---------------------------------------------------------------------------
+
+// The shared address of *p in block `rank` of this block's cluster.
+__device__ __forceinline__ unsigned cluster_map(const void* p,
+                                                unsigned rank) {
+  unsigned a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ void cluster_store(unsigned addr, float2 v) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};"
+               ::"r"(addr), "f"(v.x), "f"(v.y) : "memory");
+}
+
+// Every thread of the cluster arrives (its earlier writes released) ...
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+// ... and waits for all the others (their writes acquired).
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+constexpr int kClusterThreads = 512;
+
+// The shared bytes of rfft_fft_cluster_kernel<HX, M1, H2> at my = p.m: the
+// x twiddles, the y tables, the slot buffer (ny t pairs of spectrum, then
+// the my - ny = ny rows of slots above it, or the x phase's work buffers
+// where those are larger), the staged input rows and the input's barrier.
+template <int HX, int M1, int H2>
+long long cluster_smem_bytes(const Plan& p, int C, int threads) {
+  using S = EdgeShape<HX>;
+  const long long ny = p.m / 2, lower = ny * (HX / C);
+  const long long work = (long long)(threads / S::G) * S::HP;
+  const long long slots = lower + (lower > work ? lower : work);
+  return 8LL * (S::TW + p.m1 * M1 + p.m2 * H2 + p.m + slots) +
+         4LL * (ny / C) * HX + 8;
+}
+
+template <int HX, int M1, int H2>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    rfft_fft_cluster_kernel(const float* __restrict__ x,
+                            float* __restrict__ out_r,
+                            float* __restrict__ out_i,
+                            float* __restrict__ side_r,
+                            float* __restrict__ side_i,
+                            const float2* __restrict__ ytable,
+                            const float2* __restrict__ xline, int A, int m,
+                            int m1, int m2, int C, int bulk) {
+  using S = EdgeShape<HX>;
+  constexpr int P = S::P, G = S::G;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float2* line = reinterpret_cast<float2*>(smem_raw);  // W_mx^j, j < nx
+  float2* tp = line + HX;                              // pass tables
+  const Twiddles s = load_twiddles<M1, H2>(ytable, line + S::TW, m1, m2, m);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int ny = m / 2, h2 = m2 / 2, t = HX / C, rows = ny / C;
+  const int groups = nt / G;
+  float2* slots = line + S::TW + (m1 * M1 + m2 * H2 + m);
+  float2* work = slots + ny * t;  // the x phase's, in the upper rows
+  const int lower = ny * t, wk = groups * S::HP;
+  float* stage =
+      reinterpret_cast<float*>(slots + lower + (lower > wk ? lower : wk));
+  unsigned long long* bar =
+      reinterpret_cast<unsigned long long*>(stage + rows * HX);
+  const int rank = blockIdx.x % C;
+  const int cid = blockIdx.x / C, ncl = gridDim.x / C;
+  const int grp = tid / G, q = tid % G;
+  float2* buf = work + grp * S::HP;
+
+  load_edge_twiddles<HX>(line, tp, xline);
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                 ::"r"(smem_u32(bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // this block's rows of the cluster's it-th slab into the stage
+  auto produce = [&](int it) {
+    const long long a = cid + (long long)it * ncl;
+    if (a >= A) return;
+    const float* src = x + (a * ny + (long long)rank * rows) * HX;
+    if (bulk) {
+      if (tid == 0) {
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        bulk_load(stage, src, 4u * rows * HX, bar);
+      }
+    } else {
+      for (int i = tid; i < rows * HX; i += nt) stage[i] = src[i];
+    }
+  };
+  produce(0);
+  __syncthreads();  // the ordinary loads of the first slab
+  // the peers have started (their shared memory may be written) once this
+  // phase completes, at the first push
+  cluster_arrive();
+
+  const int c = tid & (t - 1), ty = tid / t, trows = nt / t;
+  float2* col = slots + c;
+  for (int it = 0; cid + (long long)it * ncl < A; ++it) {
+    const long long a = cid + (long long)it * ncl;
+    if (bulk) mbar_wait(bar, (unsigned)(it & 1));
+    for (int r0 = 0; r0 < rows; r0 += groups) {
+      const int row = r0 + grp;
+      const bool live = row < rows;  // a dead group transforms row 0 unseen
+      r2c_row_fft<HX>(stage + (live ? row : 0) * HX, HX, buf, q, line, tp);
+      if (r0 == 0) cluster_wait();  // the peers' slots are free
+      const int y = rank * rows + row;
+      auto push = [&](int kx, float2 v) {
+        cluster_store(cluster_map(slots + y * t + (kx & (t - 1)), kx / t), v);
+      };
+#pragma unroll
+      for (int j = 0; j < P / 2; ++j) {
+        const int k = q + G * j;
+        float2 lo, hi;
+        r2c_split<HX>(buf, line, k, lo, hi);
+        if (!live) continue;
+        push(k, lo);
+        if (k > 0) {
+          push(HX - k, hi);
+        } else {
+          side_r[a * ny + y] = hi.x;
+          side_i[a * ny + y] = hi.y;
+        }
+      }
+      if (q == 0) {
+        float2 lo, hi;
+        r2c_split<HX>(buf, line, HX / 2, lo, hi);
+        if (live) push(HX / 2, lo);
+      }
+      __syncwarp();  // the next round's first pass rewrites buf
+    }
+    cluster_arrive();
+    cluster_wait();  // the slab's spectrum is in place
+    produce(it + 1);
+    // first factor in place: slots k2 m1 + n1 <- rows n1 + m1 n2
+    for (int n1 = ty; n1 < m1; n1 += trows) {
+      float vr[H2], vi[H2];
+#pragma unroll
+      for (int n2 = 0; n2 < H2; ++n2) {
+        const float2 v =
+            n2 < h2 ? col[(n1 + m1 * n2) * t] : make_float2(0.f, 0.f);
+        vr[n2] = v.x;
+        vi[n2] = v.y;
+      }
+      forward_first(vr, vi, s, n1, m1, m2, col, t);
+    }
+    __syncthreads();
+    const long long out0 = a * m * HX + rank * t + c;
+    for (int k2 = ty; k2 < m2; k2 += trows) {
+      float yr[M1], yi[M1];
+      load_slots(yr, yi, col, k2 * m1, m1, t);
+      dft_m1<M1, false>(yr, yi, s, m1, [&](int k1, float2 v) {
+        const long long i = out0 + (long long)(k2 + m2 * k1) * HX;
+        out_r[i] = v.x;
+        out_i[i] = v.y;
+      });
+    }
+    __syncthreads();  // the slots and the work buffers above them are free
+    if (cid + (long long)(it + 1) * ncl < A) cluster_arrive();
   }
 }
 
@@ -3016,6 +3270,165 @@ int irfft_edge(const Plan& p, const C2rArgs& a, cudaStream_t st) {
   return dispatch<IrfftPassMerge>(p, a, st);
 }
 
+// The arguments of the fused forward pass's cluster kernel, with the host's
+// plan (fused_r2c_cluster_plan): cluster size C, threads a block, clusters
+// launched, shared bytes, bulk input copies.
+struct ClusterArgs {
+  const float* x;
+  float *out_r, *out_i, *side_r, *side_i;
+  const float *table, *xline;
+  int A, C, threads, clusters, smem, bulk;
+};
+
+// Whether (C, threads, smem) is a plan of rfft_fft_cluster_kernel<HX, M1,
+// H2> at my = p.m: t = nx / C columns a block dividing the threads.
+template <int HX, int M1, int H2>
+bool cluster_plan_ok(const Plan& p, int C, int threads, long long smem) {
+  return (C == 1 || C == 2 || C == 4 || C == 8 || C == 16) &&
+         (threads == 256 || threads == kClusterThreads) &&
+         threads % (HX / C) == 0 &&
+         smem == cluster_smem_bytes<HX, M1, H2>(p, C, threads) &&
+         smem <= 232448;
+}
+
+// The clusters of one plan the card holds at once, kept per device: set up
+// once a plan, not once a call.
+struct ClusterCache {
+  int dev = -1, C = -1, threads = -1, smem = -1, most = 0;
+};
+
+template <class Kernel>
+int cluster_capacity(Kernel kernel, int C, int threads, int smem,
+                     ClusterCache& c, int* most) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev != c.dev || C != c.C || threads != c.threads || smem != c.smem) {
+    c.dev = -1;
+    if ((err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+            cudaSuccess ||
+        (err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+             (int)cudaSharedmemCarveoutMaxShared)) != cudaSuccess ||
+        (err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+            cudaSuccess)
+      return (int)err;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = C;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(C);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    if ((err = cudaOccupancyMaxActiveClusters(&c.most, kernel, &cfg)) !=
+        cudaSuccess)
+      return (int)err;
+    c.dev = dev;
+    c.C = C;
+    c.threads = threads;
+    c.smem = smem;
+  }
+  *most = c.most;
+  return 0;
+}
+
+// 1 where some plan of the cluster kernel fits the shape, else 0.
+struct ClusterHolds {
+  template <int HX, int M1, int H2>
+  static int go(const Plan& p) {
+    for (int C = 1; C <= 16; C *= 2)
+      for (int threads = 256; threads <= kClusterThreads; threads *= 2)
+        if (cluster_plan_ok<HX, M1, H2>(
+                p, C, threads, cluster_smem_bytes<HX, M1, H2>(p, C, threads)))
+          return 1;
+    return 0;
+  }
+};
+
+// 0 and the clusters the card holds at once in *most, or a CUDA error.
+struct ClusterCapacity {
+  template <int HX, int M1, int H2>
+  static int go(const Plan& p, int C, int threads, int smem, int* most) {
+    if (!cluster_plan_ok<HX, M1, H2>(p, C, threads, smem))
+      return (int)cudaErrorInvalidValue;
+    static ClusterCache cache;
+    return cluster_capacity(rfft_fft_cluster_kernel<HX, M1, H2>, C, threads,
+                            smem, cache, most);
+  }
+};
+
+// The plan checked against what the kernel assumes, then the launch of
+// `clusters` clusters of C blocks, every one resident at once.
+struct ClusterLaunch {
+  template <int HX, int M1, int H2>
+  static int go(const Plan& p, const ClusterArgs& a, cudaStream_t st) {
+    if (!cluster_plan_ok<HX, M1, H2>(p, a.C, a.threads, a.smem) ||
+        a.clusters < 1 || a.clusters > a.A ||
+        (a.bulk && (unsigned long long)a.x % 16 != 0))
+      return (int)cudaErrorInvalidValue;
+    auto kernel = rfft_fft_cluster_kernel<HX, M1, H2>;
+    static ClusterCache cache;
+    int most = 0;
+    if (const int err =
+            cluster_capacity(kernel, a.C, a.threads, a.smem, cache, &most))
+      return err;
+    if (a.clusters > most) return (int)cudaErrorInvalidValue;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = a.C;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(a.clusters * a.C);
+    cfg.blockDim = dim3(a.threads);
+    cfg.dynamicSmemBytes = a.smem;
+    cfg.stream = st;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(
+        &cfg, kernel, a.x, a.out_r, a.out_i, a.side_r, a.side_i,
+        (const float2*)a.table, (const float2*)a.xline, a.A, p.m, p.m1, p.m2,
+        a.C, a.bulk);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
+};
+
+// Run::go<nx, M1, H2> at my = p.m's register classes, instantiated where a
+// cluster of 16 can hold the slots (my nx <= 256 Ki: the slots are 8 my nx
+// bytes); -1 where no instance exists.
+template <class Run, int HX, class... Args>
+int cluster_dispatch_y(const Plan& p, Args... args) {
+  switch (p.m1c * 100 + p.h2c) {
+    case 808: return Run::template go<HX, 8, 8>(p, args...);  // my = 64, 128
+    case 1608: return Run::template go<HX, 16, 8>(p, args...);  // 256
+    case 1616: return Run::template go<HX, 16, 16>(p, args...);  // 512
+    case 3216:  // 1024
+      if constexpr (HX <= 256) return Run::template go<HX, 32, 16>(p, args...);
+      break;
+  }
+  return -1;
+}
+
+template <class Run, class... Args>
+int cluster_dispatch(const Plan& p, int nx, Args... args) {
+  if (!is_pow2(p.m)) return -1;
+  switch (nx) {
+    case 32: return cluster_dispatch_y<Run, 32>(p, args...);
+    case 64: return cluster_dispatch_y<Run, 64>(p, args...);
+    case 128: return cluster_dispatch_y<Run, 128>(p, args...);
+    case 256: return cluster_dispatch_y<Run, 256>(p, args...);
+    case 512: return cluster_dispatch_y<Run, 512>(p, args...);
+  }
+  return -1;
+}
+
 }  // namespace
 
 // Number of floats of the twiddle table for length m (0: unsupported).
@@ -3187,18 +3600,49 @@ extern "C" int sopht_irfft_pass_merge_velocity_f32(
   return irfft_edge<true>(p, a, (cudaStream_t)stream);
 }
 
-// x: (A, ny, nx) real, my = 2 ny = m, mx = 2 nx; xw: (mx, 2) floats,
-// xw[j] = exp(-2 pi i j / mx). out: (A, my, mx/2) pair, side: (A, ny) pair.
-extern "C" int sopht_rfft_fft_pass_fused_f32(const float* x, float* out_r,
-                                             float* out_i, float* side_r,
-                                             float* side_i, const float* table,
-                                             const float* xw, int A, int nx,
-                                             int mx, int m, void* stream) {
-  Plan p;
-  if (!make_plan(m, &p) || A <= 0 || nx <= 0 || mx != 2 * nx || nx % 4 != 0)
+// x: (A, ny, nx) real, my = 2 ny = m, mx = 2 nx. out: (A, my, mx/2) pair,
+// side: (A, ny) pair. The plan (cluster size C, threads a block, clusters,
+// shared bytes, bulk input copies) is fused_r2c_cluster_plan's:
+// the cluster kernel reads the twiddle tables of m (table) and mx (xtable);
+// the all-zero plan takes the dense-x kernel and its table xw (mx, 2)
+// floats, xw[j] = exp(-2 pi i j / mx), and only where no cluster plan
+// fits. One that breaks the kernels' assumptions is refused with
+// cudaErrorInvalidValue.
+extern "C" int sopht_rfft_fft_pass_fused_f32(
+    const float* x, float* out_r, float* out_i, float* side_r, float* side_i,
+    const float* table, const float* xtable, const float* xw, int A, int nx,
+    int mx, int m, int C, int threads, int clusters, int smem, int bulk,
+    void* stream) {
+  Plan p, px;
+  if (!make_plan(m, &p) || !make_plan(mx, &px) || A <= 0 || nx <= 0 ||
+      mx != 2 * nx || nx % 4 != 0)
     return (int)cudaErrorInvalidValue;
-  return dispatch<RfftFftPassFused>(p, x, out_r, out_i, side_r, side_i, table,
-                                    xw, A, nx, mx, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool holds = cluster_dispatch<ClusterHolds>(p, nx) == 1;
+  if (!(C | threads | clusters | smem | bulk)) {
+    if (holds || xw == nullptr) return (int)cudaErrorInvalidValue;
+    return dispatch<RfftFftPassFused>(p, x, out_r, out_i, side_r, side_i,
+                                      table, xw, A, nx, mx, st);
+  }
+  if (!holds || xtable == nullptr) return (int)cudaErrorInvalidValue;
+  const ClusterArgs a{x, out_r, out_i, side_r, side_i, table,
+                      (const float*)((const float2*)xtable + px.table_len()),
+                      A, C, threads, clusters, smem, bulk};
+  return cluster_dispatch<ClusterLaunch>(p, nx, a, st);
+}
+
+// The clusters of the fused forward pass's cluster kernel at (nx, m) under
+// the plan (C, threads, smem) that the card holds at once, or minus a CUDA
+// error.
+extern "C" int sopht_rfft_fft_cluster_capacity(int nx, int m, int C,
+                                               int threads, int smem) {
+  Plan p;
+  if (!make_plan(m, &p)) return -(int)cudaErrorInvalidValue;
+  int most = 0;
+  const int err =
+      cluster_dispatch<ClusterCapacity>(p, nx, C, threads, smem, &most);
+  if (err) return err < 0 ? -(int)cudaErrorInvalidValue : -err;
+  return most;
 }
 
 // br, bi: (A, my, mx/2), sr: (A, ny) (the Nyquist column's imaginary part

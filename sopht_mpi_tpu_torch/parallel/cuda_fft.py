@@ -43,7 +43,10 @@ the plan of :func:`zconv_tile_plan` (columns a tile, persistent blocks,
 ring stages, shared bytes, 16-byte copies; none at the lengths of the
 four-step kernel, which plans its own launch), the fast tier's z pass
 :func:`fft_greens_curl_ifft_pass` with that of
-:func:`zconv_curl_tile_plan`; the C launchers refuse any other.
+:func:`zconv_curl_tile_plan`, the fused forward edge
+:func:`rfft_fft_pass_fused` with that of :func:`fused_r2c_cluster_plan`
+(cluster size, threads, clusters, shared bytes, bulk copies);
+the C launchers refuse any other.
 
 The unsplit x passes keep the kx Nyquist column in the row ((R, m/2 + 1)
 pairs); no solver route calls them, they are the public pass API. The fused
@@ -82,8 +85,8 @@ _SIGNATURES = {
     "sopht_rfft_pass_padded_f32": (_P, _P, _P, _P, _L, _I, _I, *(_I,) * 6, _P),
     "sopht_irfft_pass_truncated_f32": (_P, _P, _P, _P, _L, _I, _I,
                                        *(_I,) * 6, _P),
-    "sopht_rfft_fft_pass_fused_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                      _I, _P),
+    "sopht_rfft_fft_pass_fused_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                      _I, _I, *(_I,) * 5, _P),
     "sopht_ifft_irfft_pass_fused_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                         _P),
 }
@@ -106,6 +109,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sopht_fft_table_floats.restype = ctypes.c_int
     lib.sopht_fft_fill_table.argtypes = (_I, _P)
     lib.sopht_fft_fill_table.restype = ctypes.c_int
+    lib.sopht_rfft_fft_cluster_capacity.argtypes = (_I,) * 5
+    lib.sopht_rfft_fft_cluster_capacity.restype = ctypes.c_int
     lib.sopht_fft_error_string.argtypes = (_I,)
     lib.sopht_fft_error_string.restype = ctypes.c_char_p
     return lib
@@ -168,16 +173,23 @@ def _edge_shape(h: int):
     return p, h // p, 4 if h in (32, 512) else 5
 
 
-def _edge_twiddles_and_work(h: int, t: int) -> int:
-    """Shared bytes both ring kernels hold whatever their data: the
-    twiddles (the W_m line, the pass tables) and the work buffers of ``t``
-    rows."""
-    p, _, sh = _edge_shape(h)
+def _edge_twiddles(h: int) -> int:
+    """float2 twiddles of the r2c / c2r design at h = m/2: the W_m line
+    (h entries) and the Stockham pass tables (``EdgeShape::TW``)."""
+    p, _, _ = _edge_shape(h)
     tw, ns = h, p
     while ns < h:
         r = min(p, h // ns)
         tw, ns = tw + ns * r, ns * r
-    return 8 * tw + 8 * t * (h + (h >> sh))
+    return tw
+
+
+def _edge_twiddles_and_work(h: int, t: int) -> int:
+    """Shared bytes both ring kernels hold whatever their data: the
+    twiddles (the W_m line, the pass tables) and the work buffers of ``t``
+    rows."""
+    _, _, sh = _edge_shape(h)
+    return 8 * _edge_twiddles(h) + 8 * t * (h + (h >> sh))
 
 
 def _edge_smem(h: int, t: int, n_in: int, stages: int, unsplit: bool) -> int:
@@ -199,14 +211,20 @@ def _c2r_smem(h: int, t: int, n_out: int, stages: int, unsplit: bool) -> int:
             + 8 * stages)
 
 
+def _register_classes(m: int):
+    """(m1, m2, M1, H2): the four-step factors of ``m`` and the register
+    classes the kernels are instantiated for (``Plan::m1c``, ``h2c``)."""
+    m1, m2 = best_factors(m)
+    return (m1, m2, 8 if m1 <= 8 else 16 if m1 <= 16 else 32,
+            8 if m2 // 2 <= 8 else 16 if m2 // 2 <= 16 else 24)
+
+
 def _four_step_edge_plan(rows: int, m: int, data) -> EdgeTilePlan:
     """The plan of a four-step x-edge kernel, which lengths with a factor
     that is not a power of two take: its ``pick_tile`` (the largest of 32,
     16, 8, 4 rows whose ``data(t)`` bytes fit 96 KB), one tile a block, no
     ring."""
-    m1, m2 = best_factors(m)
-    m1c = 8 if m1 <= 8 else 16 if m1 <= 16 else 32
-    h2c = 8 if m2 // 2 <= 8 else 16 if m2 // 2 <= 16 else 24
+    m1, m2, m1c, h2c = _register_classes(m)
     t = next(t for t in (32, 16, 8, 4) if data(t) <= 96 * 1024)
     smem = 8 * (m1 * m1c + m2 * h2c + m) + data(t)
     per_sm = min(3, SM_SHARED_BYTES // (smem + BLOCK_SHARED_RESERVE))
@@ -485,6 +503,129 @@ def zconv_curl_columns_plan(b: int, m: int, aligned: bool, sms: int,
                          ZCONV_CURL_STAGES, 256 if m >= 256 else 512)
 
 
+class FusedR2cPlan(NamedTuple):
+    """How the fused forward edge pass (:func:`rfft_fft_pass_fused`) covers
+    its (A, ny, nx) slabs: a ``cluster`` of C blocks a slab (1, 2, 4, 8, 16;
+    block r takes rows r ny / C on and owns columns r nx / C on),
+    ``threads`` a block, ``clusters`` launched (persistent, all resident at once, each walking slabs),
+    ``smem`` bytes a block, ``bulk`` input copies and the
+    ``blocks_per_sm`` the plan counts on being resident.
+    :data:`FUSED_R2C_DENSE_PLAN` (every field 0) takes the dense-x
+    kernel."""
+
+    cluster: int
+    threads: int
+    clusters: int
+    smem: int
+    bulk: bool
+    blocks_per_sm: int
+
+    def args(self):
+        """The plan as the C entry point takes it."""
+        return (self.cluster, self.threads, self.clusters, self.smem,
+                int(self.bulk))
+
+
+#: the plan of the dense-x kernel (every field 0): the shapes where no
+#: cluster holds a slab's slots
+FUSED_R2C_DENSE_PLAN = FusedR2cPlan(0, 0, 0, 0, False, 0)
+#: the cluster sizes (16: Hopper's non-portable size) and block sizes of
+#: the cluster kernel
+FUSED_R2C_CLUSTERS = (1, 2, 4, 8, 16)
+FUSED_R2C_THREADS = (256, 512)
+# threads an SM under the kernel's launch bound (512, 1): up to 128
+# registers a thread
+_CLUSTER_SM_THREADS = 512
+
+
+def _cluster_smem(ny: int, nx: int, my: int, cluster: int,
+                  threads: int) -> int:
+    """Shared bytes of the cluster kernel (``cluster_smem_bytes``): the x
+    twiddles, the y tables, the slot buffer (the spectrum's ny rows of
+    nx / C columns, then ny rows of slots or the x phase's work buffers,
+    whichever is larger), the staged input rows and their barrier."""
+    _, g, sh = _edge_shape(nx)
+    m1, m2, m1c, h2c = _register_classes(my)
+    lower = ny * (nx // cluster)
+    work = threads // g * (nx + (nx >> sh))
+    return (8 * (_edge_twiddles(nx) + m1 * m1c + m2 * h2c + my + lower
+                 + max(lower, work)) + 4 * (ny // cluster) * nx + 8)
+
+
+@functools.lru_cache(maxsize=64)
+def fused_r2c_cluster_shapes(ny: int, nx: int, my: int, mx: int):
+    """Every (C, threads, smem, blocks_per_sm) the cluster kernel takes for
+    (ny, nx) slabs doubled to (my, mx), best first: the most threads an SM,
+    then the most blocks an SM, then the smallest cluster (the fewest
+    remote stores); on an H100 it picks the fastest plan at the 256^3, rod
+    and 64^3 slabs (``tools/probe_edge_passes.py --sweep fused_r2c``).
+    Empty where a length is not a power of two or no cluster of at most 16
+    blocks holds the slots (twice the spectrum)."""
+    if my & (my - 1) or mx & (mx - 1):
+        return ()
+    shapes = []
+    for c in FUSED_R2C_CLUSTERS:
+        for threads in FUSED_R2C_THREADS:
+            smem = _cluster_smem(ny, nx, my, c, threads)
+            if threads % (nx // c) or smem > BLOCK_SHARED_MAX:
+                continue
+            per_sm = min(_CLUSTER_SM_THREADS // threads, SM_SHARED_BYTES // (
+                smem + BLOCK_SHARED_RESERVE))
+            shapes.append((c, threads, smem, per_sm))
+    return tuple(sorted(shapes, key=lambda v: (-v[1] * v[3], -v[3], v[0])))
+
+
+def fused_r2c_cluster_plan(a: int, ny: int, nx: int, my: int, mx: int,
+                           device="cpu", data_ptr: int = 0) -> FusedR2cPlan:
+    """The launch plan of :func:`rfft_fft_pass_fused` on ``a`` real
+    (ny, nx) slabs at ``data_ptr`` doubled to (my, mx), on ``device``. The
+    C entry point refuses any other plan.
+
+    Power-of-two lengths whose slots fit a cluster: the cluster kernel
+    under the first of :func:`fused_r2c_cluster_shapes`, one spectrum
+    buffer a block, ``min(a, clusters the card holds at once)`` clusters
+    (on a CUDA device, ``cudaOccupancyMaxActiveClusters``; elsewhere an
+    H100's 132 SMs' worth), bulk input copies when ``data_ptr`` is 16-byte
+    aligned. Other shapes (a length that is not a power of two, slots above
+    16 blocks' shared memory as at 512 x 512 slabs):
+    :data:`FUSED_R2C_DENSE_PLAN`."""
+    _check_fused_sizes(ny, nx, my, mx)
+    if a <= 0:
+        raise ValueError(f"no plan for {a} slabs")
+    shapes = fused_r2c_cluster_shapes(ny, nx, my, mx)
+    if not shapes:
+        return FUSED_R2C_DENSE_PLAN
+    return fused_r2c_plan_of(a, nx, my, *shapes[0], device, data_ptr)
+
+
+def fused_r2c_plan_of(a: int, nx: int, my: int, cluster: int, threads: int,
+                      smem: int, blocks_per_sm: int, device="cpu",
+                      data_ptr: int = 0) -> FusedR2cPlan:
+    """The cluster kernel's plan for ``a`` slabs under one of
+    :func:`fused_r2c_cluster_shapes`, as many clusters as ``device``
+    holds at once."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        most = _cluster_capacity(device, nx, my, cluster, threads, smem)
+    else:
+        most = H100_SMS * blocks_per_sm // cluster
+    return FusedR2cPlan(cluster, threads, min(a, most), smem,
+                        data_ptr % 16 == 0, blocks_per_sm)
+
+
+@functools.cache
+def _cluster_capacity(device, nx, my, cluster, threads, smem) -> int:
+    with torch.cuda.device(device):
+        most = library().sopht_rfft_fft_cluster_capacity(nx, my, cluster,
+                                                         threads, smem)
+    if most < 0:
+        _check_err("sopht_rfft_fft_cluster_capacity", -most)
+    if most == 0:
+        raise RuntimeError(f"the card holds no cluster of {cluster} blocks of "
+                           f"{threads} threads and {smem} shared bytes")
+    return most
+
+
 @functools.cache
 def _sm_count(device) -> int:
     if device.type != "cuda":
@@ -502,7 +643,9 @@ def fused_edge_pass_ok(ny: int, nx: int, my: int, mx: int) -> bool:
     :func:`ifft_irfft_pass_fused` for a (.., ny, nx) field doubled to
     (my, mx): the flag on and the sizes the kernels take (the JAX gate's
     conditions; its VMEM budget ``_fused_edge_vmem_ok`` has no counterpart
-    here, the kernels hold no slab in shared memory)."""
+    here: the forward pass holds a slab in a cluster's shared memory where
+    one fits and takes its dense-x kernel elsewhere, the inverse holds no
+    slab)."""
     return (
         USE_FUSED_EDGE_PASSES
         and kernel_fft_supported(my)
@@ -1013,8 +1156,8 @@ _X_TABLES: dict = {}
 
 def _x_table(mx: int, device) -> torch.Tensor:
     """``exp(-2 pi i j / mx)`` for j < mx as (mx, 2) float32 on ``device``,
-    computed once in float64: the dense x transform of the fused edge
-    passes."""
+    computed once in float64: the dense x transform of the fused inverse
+    edge pass and of the forward one under :data:`FUSED_R2C_DENSE_PLAN`."""
     key = (mx, str(device))
     if key not in _X_TABLES:
         ang = -2.0 * math.pi * torch.arange(mx, dtype=torch.float64) / mx
@@ -1036,7 +1179,10 @@ def rfft_fft_pass_fused(x, mx: int, my: int):
     """Fused :func:`rfft_pass_padded_split` (minor axis, zero-padded to
     ``mx = 2 nx``) and :func:`fft_pass_padded` (middle axis, zero-padded to
     ``my = 2 ny``) of a real float32 (A, ny, nx) array: the bulk
-    (A, my, mx/2) pair and the r2c Nyquist column's (A, ny, 1) pair."""
+    (A, my, mx/2) pair and the r2c Nyquist column's (A, ny, 1) pair. On a
+    CUDA tensor, the kernel of :func:`fused_r2c_cluster_plan`'s plan: the
+    thread-block-cluster kernel, or the dense-x one where no cluster holds
+    a slab."""
     _check("x", x, 3)
     a, ny, nx = x.shape
     _check_fused_sizes(ny, nx, my, mx)
@@ -1051,10 +1197,13 @@ def _k_rfft_fft_pass_fused(x, mx, my):
     a, ny, nx = x.shape
     br, bi = _empty(x, a, my, mx // 2), _empty(x, a, my, mx // 2)
     sr, si = _empty(x, a, ny, 1), _empty(x, a, ny, 1)
+    plan = fused_r2c_cluster_plan(a, ny, nx, my, mx, x.device, x.data_ptr())
+    # the dense x table only for the dense-x kernel
+    xw = _x_table(mx, x.device).data_ptr() if not plan.cluster else None
     _launch("sopht_rfft_fft_pass_fused_f32", x.device, x.data_ptr(),
             br.data_ptr(), bi.data_ptr(), sr.data_ptr(), si.data_ptr(),
-            _table(my, x.device).data_ptr(), _x_table(mx, x.device).data_ptr(),
-            a, nx, mx, my)
+            _table(my, x.device).data_ptr(), _table(mx, x.device).data_ptr(),
+            xw, a, nx, mx, my, *plan.args())
     return br, bi, sr, si
 
 

@@ -4,13 +4,15 @@ with times:
 
     python3 -m sopht_mpi_tpu_torch.tools.probe_edge_passes [nz ny nx ...]
     python3 sopht_mpi_tpu_torch/tools/probe_edge_passes.py --json [tag]
-    python3 -m sopht_mpi_tpu_torch.tools.probe_edge_passes --sweep
+    python3 -m sopht_mpi_tpu_torch.tools.probe_edge_passes --sweep [name ...]
 
 The first form is a short first run for a changed kernel: it prints the
 card, the build time, ptxas' register and spill lines of the x-edge r2c and
 c2r (the fast tier's c2r ``irfft_pass_merge_velocity`` is the c2r's
-instance ``[H, 1]``), the two z ring kernels and the fused kernels, the
-z ring and c2r ring kernels' SASS instruction counts (``cuobjdump``), the
+instance ``[H, 1]``), the two z ring kernels, the fused kernels and the
+fused forward pass's cluster kernel ``rfft_fft_cluster_kernel`` ``[nx, M1,
+H2]``, the z ring, c2r ring and cluster kernels' SASS instruction counts
+(``cuobjdump``), the
 forward r2c pair, the c2r pair, the z conv (``fft_greens_ifft_pass``) and
 the fast tier's z pass (``fft_greens_curl_ifft_pass``) on ragged,
 storage-offset, odd-output and non-power-of-two inputs, then for each grid
@@ -30,7 +32,13 @@ and c2r's ``device_ms``, ``host_us`` and relative errors (``curl_rel_err``,
 ``vel_rel_err``: ``u`` and ``l1_max``) at 256^3 and at the multi-body
 case's (128, 128, 256) (z at m = 256, x at 512, key ``multibody``), with
 the host time of the c2r wrapper's plan step alone (``host_us`` key
-``c2r_velocity_tile_plan``, in trees that have it).
+``c2r_velocity_tile_plan``, in trees that have it); and the fused forward
+pass ``rfft_fft_pass_fused`` (key ``fused_r2c``) at the 256^3 solve's
+(768, 256, 256) slabs and the rod grid's (768, 64, 256): its ``ms``,
+``device_ms`` and ``host_us``, its relative error, the plan
+``fused_r2c_cluster_plan`` gives (in trees that have it), and the ``ms`` and
+``device_ms`` of ``torch.fft.rfft2`` and of the unfused pair
+(``rfft_pass_padded_split`` then ``fft_pass_padded``) on the same field.
 It imports the package from ``sys.path`` and uses only the wrappers' public
 names, so it compares two trees on one card within one job: unpack the other
 tree into a directory and run this file with ``PYTHONPATH`` set to each, in
@@ -41,7 +49,9 @@ host's time to enqueue one call (``host_us``): a call's event time starts
 from an idle card and includes that enqueue, which at the 2D shape is most
 of it.
 
-``--sweep`` prints the split r2c kernel's device time under every plan its
+``--sweep`` (or ``--sweep`` followed by some of ``fused_r2c``, ``velocity``,
+``curl``, ``zconv``, ``r2c``, ``c2r``: those sweeps only) prints the split
+r2c kernel's device time under every plan its
 launcher takes at both shapes, the one ``edge_tile_plan`` picks marked, the
 split c2r kernel's under each tile and ring depth with the most blocks an SM
 that fit (at most nine plans a shape), the one ``c2r_tile_plan`` picks
@@ -52,7 +62,10 @@ shape) at 256^3, the 2D shape and the multi-body case's m = 256, the one
 at 256^3, the multi-body case's and the 64^3 case's shapes, the one
 ``zconv_curl_tile_plan`` picks marked, and its c2r under each tile and ring
 depth with the most blocks an SM that fit at those three shapes, the one
-``c2r_velocity_tile_plan`` picks marked.
+``c2r_velocity_tile_plan`` picks marked, and the fused forward pass's
+cluster kernel under each of ``fused_r2c_cluster_shapes`` (cluster size,
+threads, one buffer, as many clusters as the card holds) at the 256^3, rod
+and 64^3 slabs, the one ``fused_r2c_cluster_plan`` picks marked.
 """
 
 from __future__ import annotations
@@ -94,6 +107,10 @@ ZCONV_CASES = ((3, 256, 1001, 0), (3, 256, 4100, 1), (1, 256, 512, 0),
 # multi-body case's and the 64^3 drag run's
 CURL_GRIDS = (("256^3", (256, 256, 256)), ("multibody", (128, 128, 256)),
               ("64^3", (64, 64, 64)))
+# the fused forward pass's (A, ny, nx) slabs: the 256^3 vector solve's, the
+# rod grid's (256, 64, 256) and the 64^3 run's
+FUSED_R2C_SLABS = (("256^3", (768, 256, 256)), ("rod", (768, 64, 256)),
+                   ("64^3", (192, 64, 64)))
 
 
 def median_ms(fn, n=10, warmup=2):
@@ -357,7 +374,71 @@ def timing(tag, rand, dev):
         out["host_us"][shape][name] = host_us(lambda: fn(*args))
         del args
         torch.cuda.empty_cache()
+    out["fused_r2c"] = {}
+    for shape, (a, ny, nx) in FUSED_R2C_SLABS[:2]:
+        x = rand(a, ny, nx)
+        my, mx = 2 * ny, 2 * nx
+        rec = out["fused_r2c"][shape] = {}
+        plan = getattr(cuda_fft, "fused_r2c_cluster_plan", None)
+        if plan is not None:
+            rec["plan"] = plan(a, ny, nx, my, mx, dev, x.data_ptr())._asdict()
+        fn = lambda: cuda_fft.rfft_fft_pass_fused(x, mx, my)
+        rec["rel_err"] = rel_err(fn(), cuda_fft.rfft_fft_pass_fused_ref(
+            x, mx, my))
+        rec["ms"], rec["device_ms"] = median_ms(fn, 20, 3), device_ms(fn)
+        rec["host_us"] = host_us(fn)
+        rfft2 = lambda: torch.fft.rfft2(x, s=(my, mx))
+        rec["torch_fft_rfft2_ms"] = median_ms(rfft2, 20, 3)
+        rec["torch_fft_rfft2_device_ms"] = device_ms(rfft2)
+
+        def pair():
+            br, bi, _, _ = cuda_fft.rfft_pass_padded_split(
+                x.view(a * ny, nx), mx)
+            return cuda_fft.fft_pass_padded(br.view(a, ny, nx),
+                                            bi.view(a, ny, nx), my)
+
+        rec["unfused_ms"], rec["unfused_device_ms"] = median_ms(pair, 20, 3), \
+            device_ms(pair)
+        del x
+        torch.cuda.empty_cache()
     return out
+
+
+def sweep_fused_r2c(rand, dev):
+    """Device time of the fused forward pass's cluster kernel under each
+    of ``fused_r2c_cluster_shapes`` at the 256^3, rod and 64^3 slabs, the
+    plan ``fused_r2c_cluster_plan`` picks marked: one line a plan."""
+    lib = cuda_fft.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape, (a, ny, nx) in FUSED_R2C_SLABS:
+        my, mx = 2 * ny, 2 * nx
+        x = rand(a, ny, nx)
+        outs = [torch.empty(a, my, nx, device=dev) for _ in range(2)] + [
+            torch.empty(a, ny, 1, device=dev) for _ in range(2)]
+        tables = (cuda_fft._table(my, dev), cuda_fft._table(mx, dev))
+        chosen = cuda_fft.fused_r2c_cluster_plan(a, ny, nx, my, mx, dev,
+                                                 x.data_ptr())
+        for c, threads, smem, per_sm in cuda_fft.fused_r2c_cluster_shapes(
+                ny, nx, my, mx):
+            plan = cuda_fft.fused_r2c_plan_of(a, nx, my, c, threads, smem,
+                                              per_sm, dev, x.data_ptr())
+
+            def fn(plan=plan):
+                return lib.sopht_rfft_fft_pass_fused_f32(
+                    x.data_ptr(), *(o.data_ptr() for o in outs),
+                    *(t.data_ptr() for t in tables), None, a, nx, mx, my,
+                    *plan.args(), stream)
+
+            if fn():
+                print(f"sweep fused_r2c {shape}: {plan} refused", flush=True)
+                continue
+            mark = " <- fused_r2c_cluster_plan" if plan == chosen else ""
+            print(f"sweep fused_r2c {shape}: C {c} threads {threads} "
+                  f"clusters {plan.clusters} smem {smem} "
+                  f"blocks/SM {per_sm}: {device_ms(fn):.4f} ms{mark}",
+                  flush=True)
+        del x, outs
+        torch.cuda.empty_cache()
 
 
 def sweep(rand, dev):
@@ -661,11 +742,11 @@ def main(argv):
 
     if argv and argv[0] == "--sweep":
         print(card())
-        sweep_velocity(rand, dev)
-        sweep_zconv_curl(rand, dev)
-        sweep_zconv(rand, dev)
-        sweep(rand, dev)
-        sweep_c2r(rand, dev)
+        sweeps = {"fused_r2c": sweep_fused_r2c, "velocity": sweep_velocity,
+                  "curl": sweep_zconv_curl, "zconv": sweep_zconv,
+                  "r2c": sweep, "c2r": sweep_c2r}
+        for name in argv[1:] or sweeps:
+            sweeps[name](rand, dev)
         return 0
     if argv and argv[0] == "--json":
         tag = argv[1] if len(argv) > 1 else cuda_fft.__file__
@@ -689,16 +770,17 @@ def main(argv):
     for i, ln in enumerate(lines[:-2]):
         name = re.search(
             r"(irfft_edge_kernel|rfft_edge_kernel|zconv_kernel|"
-            r"zconv_curl_kernel|"
+            r"zconv_curl_kernel|rfft_fft_cluster_kernel|"
             r"\w+_fused_kernel)((?:ILi|Li|Lb)\d+E)+",
             ln)
         if "Function properties" in ln and name:
             print(name.group(1)[-28:], re.findall(r"\d+", name.group(0)[
                 len(name.group(1)):]), "|", lines[i + 1].strip(), "|",
                 lines[i + 2].strip()[:60])
-    for name, n in sass_sizes(lib._name, "zconv|irfft_edge").items():
-        kernel = re.search(r"(zconv\w*kernel|irfft_edge_kernel)I"
-                           r"((?:L[ib]\d+E)+)", name)
+    for name, n in sass_sizes(lib._name,
+                              "zconv|irfft_edge|rfft_fft_cluster").items():
+        kernel = re.search(r"(zconv\w*kernel|irfft_edge_kernel|"
+                           r"rfft_fft_cluster_kernel)I((?:L[ib]\d+E)+)", name)
         dims = re.findall(r"\d+", kernel.group(2))
         print(f"sass {kernel.group(1)} {dims}: {n} instructions")
     for case, err in (r2c_cases(rand) + c2r_cases(rand) + zconv_cases(rand)
