@@ -63,7 +63,11 @@ raises and exits non-zero, and nothing falls back to the CPU:
     plain version at the 256^3 solve's slabs and the rod grid's, each with
     the plan ``fused_r2c_cluster_plan`` gives (the thread-block-cluster
     kernel at both), and at (3, 48, 32), (3, 32, 48) and (2, 512, 512)
-    slabs, where the plan is the dense-x kernel's; the unsplit x passes (``rfft_pass_padded``,
+    slabs, where the plan is the dense-x kernel's; the fused inverse pass
+    ``ifft_irfft_pass_fused`` the same way on those slabs' (A, 2 ny, nx)
+    pairs, with the plan ``fused_c2r_cluster_plan`` gives (its cluster
+    kernel at the first two, its dense-x kernel at the other three); the
+    unsplit x passes (``rfft_pass_padded``,
     ``irfft_pass_truncated``) in 20 round trips of the 256^3 solve's rows;
     the 256^3 vector solve with ``cuda_fft.USE_FUSED_EDGE_PASSES`` on
     (``rfft_fft_pass_fused``, ``ifft_irfft_pass_fused`` in place of the four
@@ -1484,8 +1488,8 @@ def main():
         # the fused forward pass: the cluster kernel at the 256^3 solve's
         # (768, 256, 256) slabs and the rod grid's (768, 64, 256); the
         # dense-x kernel where a length is not a power of two and at
-        # 512 x 512 slabs, which no cluster holds
-        forward = []
+        # 512 x 512 slabs, which no cluster holds; then the inverse
+        passes = []
         for (a, ny, nx), clustered in (((3 * n, n, n), True),
                                        ((3 * ROD_SHAPE[1], *ROD_SHAPE[2:]),
                                         True),
@@ -1512,10 +1516,40 @@ def main():
             kind = (f"cluster {plan.cluster}, {plan.threads} threads, "
                     f"{plan.clusters} clusters, {plan.smem} B"
                     if clustered else "dense-x kernel")
-            forward.append(
+            passes.append(
                 f"rfft_fft_pass_fused at ({a}, {ny}, {nx}) slabs: {kind}, "
                 f"relative max|diff| {fwd_err:.3g}, {fwd_ms:.4f} ms")
             del x, out, ref
+            # the fused inverse pass on the same slabs' (a, 2 ny, nx)
+            # pairs: its cluster kernel where the forward's runs, the
+            # dense-x kernel at the same three dense shapes
+            spec = [torch.randn(shape, device=dev, generator=gen)
+                    for shape in ((a, 2 * ny, nx), (a, 2 * ny, nx),
+                                  (a, ny, 1), (a, ny, 1))]
+            plan = cuda_fft.fused_c2r_cluster_plan(
+                a, ny, nx, 2 * ny, 2 * nx, dev,
+                spec[0].data_ptr() | spec[1].data_ptr())
+            if clustered:
+                check(plan.cluster > 0,
+                      f"no inverse cluster plan for ({a}, {ny}, {nx})")
+            else:
+                check(plan == cuda_fft.FUSED_R2C_DENSE_PLAN,
+                      f"an inverse cluster plan for ({a}, {ny}, {nx}): "
+                      f"{plan}")
+            out = cuda_fft.ifft_irfft_pass_fused(*spec, 2 * nx, nx)
+            ref = cuda_fft.ifft_irfft_pass_fused_ref(*spec, 2 * nx, nx)
+            inv_err = float((out - ref).abs().max()) / float(ref.abs().max())
+            check(inv_err <= FFT_TOL, f"ifft_irfft_pass_fused into "
+                  f"({a}, {ny}, {nx}): relative {inv_err} > {FFT_TOL}")
+            inv_ms = median_ms(torch, lambda: cuda_fft.ifft_irfft_pass_fused(
+                *spec, 2 * nx, nx))
+            kind = (f"cluster {plan.cluster}, {plan.threads} threads, "
+                    f"{plan.clusters} clusters, {plan.smem} B"
+                    if clustered else "dense-x kernel")
+            passes.append(
+                f"ifft_irfft_pass_fused from ({a}, {2 * ny}, {nx}) pairs: "
+                f"{kind}, relative max|diff| {inv_err:.3g}, {inv_ms:.4f} ms")
+            del spec, out, ref
         torch.cuda.empty_cache()
         # the unsplit x passes: round trips of the 256^3 solve's rows
         x = torch.randn((3 * n * n, n), device=dev, generator=gen)
@@ -1594,7 +1628,7 @@ def main():
             + f" ms ({busy[fused][0][1]:.1f} kernels)"
             for tag, fused in (("unfused", False), ("fused", True)))
         return None, (
-            f"{'; '.join(forward)}; "
+            f"{'; '.join(passes)}; "
             f"x round trip of (196608, 256) rows, m = 512: relative "
             f"max|diff| {trip:.3g}, {n_steps} launches each; 256^3 vector "
             f"solve: fused edges {on_ms:.4f} ms, unfused {off_ms:.4f} ms, "

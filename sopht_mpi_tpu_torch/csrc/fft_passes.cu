@@ -106,7 +106,10 @@
 //   a cluster of at most 16 blocks: rfft_fft_cluster_kernel (see the note
 //   above it), the slab's spectrum spread over a thread-block cluster's
 //   shared memory, a factored r2c a row and the y transform by the
-//   columns' owners.
+//   columns' owners. The inverse where a cluster holds a slab's column
+//   tiles and rows: ifft_irfft_cluster_kernel (see the note above it), the
+//   y inverse by the columns' owners, pushed to the rows' owners for a
+//   factored c2r a row.
 //
 // The fast tier's fused-curl pair (the velocity recovery without the
 // streamfunction):
@@ -416,20 +419,19 @@ __device__ __forceinline__ void inverse_first(float (&vr)[M1], float (&vi)[M1],
   });
 }
 
-// Inverse second factor for one n1: acc[n2] = sum_k2 conj(W_m2^(k2 n2))
-// slot(k2 m1 + n1), n2 < m2/2 (unscaled).
-template <int H2>
-__device__ __forceinline__ void inverse_second(float (&ar)[H2],
-                                               float (&ai)[H2],
-                                               const Twiddles& s,
-                                               const float2* col, int n1,
-                                               int m1, int m2, int ld) {
+// Inverse second factor from the slots slot(k2), k2 < m2, of one n1:
+// acc[n2] = sum_k2 conj(W_m2^(k2 n2)) slot(k2), n2 < m2/2 (unscaled).
+template <int H2, class Slot>
+__device__ __forceinline__ void inverse_second_of(float (&ar)[H2],
+                                                  float (&ai)[H2],
+                                                  const Twiddles& s, int m2,
+                                                  Slot slot) {
   if constexpr (is_pow2(H2)) {
     if (radix2_m2<H2>(m2)) {
       float re[2 * H2], im[2 * H2];
 #pragma unroll
       for (int k2 = 0; k2 < 2 * H2; ++k2) {
-        const float2 z = col[(k2 * m1 + n1) * ld];
+        const float2 z = slot(k2);
         re[k2] = z.x;
         im[k2] = z.y;
       }
@@ -444,11 +446,22 @@ __device__ __forceinline__ void inverse_second(float (&ar)[H2],
 #pragma unroll
   for (int n2 = 0; n2 < H2; ++n2) ar[n2] = ai[n2] = 0.f;
   for (int k2 = 0; k2 < m2; ++k2) {
-    const float2 z = col[(k2 * m1 + n1) * ld];
+    const float2 z = slot(k2);
     const float2* w = s.w2 + k2 * H2;
 #pragma unroll
     for (int n2 = 0; n2 < H2; ++n2) cmac_conj(ar[n2], ai[n2], w[n2], z.x, z.y);
   }
+}
+
+// Inverse second factor for one n1 from the column's slots k2 m1 + n1.
+template <int H2>
+__device__ __forceinline__ void inverse_second(float (&ar)[H2],
+                                               float (&ai)[H2],
+                                               const Twiddles& s,
+                                               const float2* col, int n1,
+                                               int m1, int m2, int ld) {
+  inverse_second_of(ar, ai, s, m2,
+                    [&](int k2) { return col[(k2 * m1 + n1) * ld]; });
 }
 
 template <int M1, int H2>
@@ -2612,7 +2625,9 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   }
 }
 
-// ifft_irfft_pass_fused: a block owns kBlockRowsC2r output rows x
+// ifft_irfft_pass_fused (the shapes no cluster holds: a length that is not
+// a power of two, or a column tile above 16 blocks' shared memory, as
+// 512 x 512 slabs): a block owns kBlockRowsC2r output rows x
 // kBlockColsC2r cells of one slab, every thread a register tile of
 // kRowsC2r rows x kColsC2r cells (lanes over cells, so a warp's stores
 // cover whole 128-byte lines), and walks the slab's bulk kx columns a tile
@@ -2739,6 +2754,285 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int r = 0; r < kRowsC2r; ++r)
       if (row0 + r < h && n < nx) outa[(long long)(row0 + r) * nx + n] = acc[r][q];
   }
+}
+
+// ---------------------------------------------------------------------------
+// ifft_irfft_pass_fused where mx and my are powers of two and a cluster of
+// at most 16 blocks holds a slab's column tiles and rows: the fused inverse
+// edge, designed for Hopper as a thread-block-cluster kernel
+// (ifft_irfft_cluster_kernel), rfft_fft_cluster_kernel run backwards.
+//
+// Replaces, with ifft_irfft_pass_fused_kernel above for the other shapes,
+// sopht_mpi_tpu/parallel/pallas_fft.py:1341 _ifft_irfft_pass_fused_impl
+// (kernel _inv_c2r_kernel, which holds a whole slab in VMEM). Bound: HBM,
+// 8 B read a bulk input, 4 B a side value and 4 B written an output (at
+// 256^3, 768 slabs of 512 x 256 pairs into 256 x 256 reals: 805 MB in,
+// 201 MB out, 0.30 ms at 3.35 TB/s); the arithmetic, an my-point inverse a
+// bulk column and a half-length c2r a row (~9 MFLOP a 256^3 slab), is a
+// third of that at the FP32 rate. The kernel above sums a dense x DFT for
+// every output cell (~51 GFLOP at 256^3) and repeats each slab's y inverse
+// in each of its row blocks. Here:
+//
+// 1. A cluster of C blocks (C = 1, 2, 4, 8 or 16) owns one slab at a time;
+//    persistent clusters walk the slabs a = cluster + k clusters, every
+//    block of a cluster meeting the same barriers.
+// 2. y phase. Block r owns the bulk columns [r t, (r+1) t), t = nx / C, and
+//    brings in their (my, t) tiles of br and bi as two float planes, by
+//    16-byte cp.async from every thread (4-byte where the pointers are not
+//    16-byte aligned). It runs the y inverse as ifft_pass_truncated does
+//    (four steps, my = m1 m2, threads (two neighbouring columns, k2), with
+//    8-byte accesses, then (column, n1)) in place: the first factor's
+//    thread reads rows k2 + m2 k1 and writes slots k2 + m2 n1, the same
+//    rows, so the tile is its own slot array.
+//    Each run of m2 rows is followed by a row of padding, so the 32 / t
+//    rows a warp covers in either factor fall on distinct banks and every
+//    address is a base plus a multiple of one stride.
+// 3. Push. The second factor's thread (column c, n1) holds z[y][kx] for
+//    y = n1 + m1 n2 < ny, kx = r t + c, and stores each, times 1 / (my mx),
+//    straight from registers into the block that owns row y (rank
+//    y / (ny / C)) as a remote st.shared::cluster: lanes over consecutive
+//    columns, so a warp writes row segments. The owner keeps its rows
+//    [y][kx] at the c2r's padded row pitch.
+// 4. A cluster barrier (release / acquire) puts the rows in place.
+// 5. c2r phase. Each block runs irfft_edge_kernel's c2r on its ny / C rows,
+//    a lane group of G = nx / P lanes a row, in place in the row's receive
+//    buffer: the merge step in the first pass (the Nyquist value sr / mx
+//    read from device memory; si does not enter), the nx-point inverse in
+//    Stockham passes, the interleaved reals written to the front of the
+//    buffer. A row's nx reals are one contiguous span of out and leave as
+//    one cp.async.bulk store, issued by the group's first lane. A warp
+//    holds whole rows or none (the plan: ny / C a multiple of the groups a
+//    warp holds), so the __syncwarp of the passes never waits for a lane
+//    without a row.
+// 6. A second cluster barrier, split: a block arrives once its stores have
+//    read its receive buffers and waits only before the next slab's first
+//    push, so the next slab's first factor overlaps the peers' c2r phases.
+// 7. The next slab's tile is copied while this slab's second factor, pushes
+//    and c2r phase run: where a column's t <= 32 lanes lie in one warp, the
+//    warp issues the copies of run n1 (input rows m2 n1 .. m2 n1 + m2 - 1)
+//    as soon as its lanes have read that run's slots; otherwise the block
+//    issues them all once the second factor has read the tile.
+// 8. The host plan (fused_c2r_cluster_plan in parallel/cuda_fft.py,
+//    checked here) gives C, threads a block (256 or 512), the clusters
+//    launched (at most those the card holds at once), the shared bytes and
+//    the copy width (bulk: 16 bytes). Its all-zero plan takes the kernel
+//    above, which the launcher accepts only where no cluster plan fits.
+// What sets the pace on an H100 (PERF.md): the c2r phase (about as long
+// as the whole unfused c2r kernel), the per-slab cluster barriers and the
+// y phase, one after another: the two blocks an SM holds run in step and
+// hide little of each other. At 256^3 the plan takes clusters of 16, two
+// 256-thread blocks an SM.
+// ---------------------------------------------------------------------------
+
+template <int HX, int M1, int H2>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    ifft_irfft_cluster_kernel(const float* __restrict__ br,
+                              const float* __restrict__ bi,
+                              const float* __restrict__ sr,
+                              float* __restrict__ out,
+                              const float2* __restrict__ ytable,
+                              const float2* __restrict__ xline, int A, int m,
+                              int m1, int m2, int C, int bulk) {
+  using S = EdgeShape<HX>;
+  constexpr int P = S::P, G = S::G;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float2* line = reinterpret_cast<float2*>(smem_raw);  // W_mx^j, j < nx
+  float2* tp = line + HX;                              // pass tables
+  const Twiddles s = load_twiddles<M1, H2>(ytable, line + S::TW, m1, m2, m);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int ny = m / 2, h2 = m2 / 2, t = HX / C, rows = ny / C;
+  const int groups = nt / G;
+  // the column tile's planes ((my + m1) x t floats each: a row of padding
+  // after each run of m2 rows), then the receive buffers (rows x HP pairs)
+  const int plane = (m + m1) * t, run = (m2 + 1) * t;
+  float* tr =
+      reinterpret_cast<float*>(line + S::TW + (m1 * M1 + m2 * H2 + m));
+  float* ti = tr + plane;
+  float2* recv = reinterpret_cast<float2*>(ti + plane);
+  const int rank = blockIdx.x % C;
+  const int cid = blockIdx.x / C, ncl = gridDim.x / C;
+  const int grp = tid / G, q = tid % G;
+  const int c = tid & (t - 1), ty = tid / t, trows = nt / t;
+  const int lg_rows = __ffs(rows) - 1;
+  const bool by_warp = t <= 32;  // a column's lanes in one warp
+
+  load_edge_twiddles<HX>(line, tp, xline);
+
+  // run n1 (input rows m2 n1 .. m2 n1 + m2 - 1) of this block's column tile
+  // of the cluster's it-th slab into the planes, by the t lanes of row ty:
+  // lane c copies rows c / (t / width) + width k of the run at column
+  // width (c % (t / width))
+  auto produce = [&](int it, int n1) {
+    const long long a = cid + (long long)it * ncl;
+    if (a >= A) return;
+    const int width = bulk ? 4 : 1, per_row = t / width;
+    const int r = c / per_row, col = width * (c & (per_row - 1));
+    const long long g =
+        a * m * HX + (long long)rank * t + (long long)(m2 * n1 + r) * HX + col;
+    const float* sre = br + g;
+    const float* sim = bi + g;
+    const int d = n1 * run + r * t + col;
+    float* dre = tr + d;
+    float* dim = ti + d;
+    for (int k = r; k < m2; k += width) {
+      if (bulk) {
+        cp_async16(dre, sre, true);
+        cp_async16(dim, sim, true);
+      } else {
+        cp_async4(dre, sre, true);
+        cp_async4(dim, sim, true);
+      }
+      dre += width * t;
+      dim += width * t;
+      sre += (long long)width * HX;
+      sim += (long long)width * HX;
+    }
+  };
+  for (int n1 = ty; n1 < m1; n1 += trows) produce(0, n1);
+  cp_async_commit();
+  // the peers have started (their shared memory may be written) once this
+  // phase completes, at the first push
+  cluster_arrive();
+
+  const float inv_mx = 1.0f / (float)(2 * HX);
+  const float scale = inv_mx / (float)m;  // 1 / (my mx)
+  const int kx = rank * t + c;
+  for (int it = 0; cid + (long long)it * ncl < A; ++it) {
+    const long long a = cid + (long long)it * ncl;
+    cp_async_wait<0>();
+    __syncthreads();  // the tile (and at it = 0 the twiddles) in place
+    // the Nyquist value X[h] of the group's first c2r row, read while the y
+    // phase runs
+    const long long y0 = a * ny + (long long)rank * rows;
+    const float xh0 = grp < rows ? sr[y0 + grp] * inv_mx : 0.f;
+    // first factor in place: slots k2 + m2 n1 <- rows k2 + m2 k1, at
+    // k2 t + c + k1 (m2 + 1) t; a thread takes two neighbouring columns
+    // (8-byte accesses) where their registers fit, m1 = M1 (radix 2)
+    if constexpr (M1 <= 16) {
+      const int half = t / 2, c2 = 2 * (tid & (half - 1));
+      for (int k2 = tid / half; k2 < m2; k2 += nt / half) {
+        const int b1 = k2 * t + c2;
+        float vr[2][M1], vi[2][M1];
+#pragma unroll
+        for (int k1 = 0; k1 < M1; ++k1) {
+          const float2 r = *reinterpret_cast<const float2*>(tr + b1 + k1 * run);
+          const float2 i = *reinterpret_cast<const float2*>(ti + b1 + k1 * run);
+          vr[0][k1] = r.x;
+          vr[1][k1] = r.y;
+          vi[0][k1] = i.x;
+          vi[1][k1] = i.y;
+        }
+        reg_fft<M1, true>(vr[0], vi[0], s.w1 + M1);
+        reg_fft<M1, true>(vr[1], vi[1], s.w1 + M1);
+        each_output<M1>([&](int n1, int rr) {
+          const float2 w = s.tw[n1 * m2 + k2];
+          const float2 v0 = cmul_conj(w, make_float2(vr[0][rr], vi[0][rr]));
+          const float2 v1 = cmul_conj(w, make_float2(vr[1][rr], vi[1][rr]));
+          *reinterpret_cast<float2*>(tr + b1 + n1 * run) = make_float2(v0.x, v1.x);
+          *reinterpret_cast<float2*>(ti + b1 + n1 * run) = make_float2(v0.y, v1.y);
+        });
+      }
+    } else {
+      for (int k2 = ty; k2 < m2; k2 += trows) {
+        const int b1 = k2 * t + c;
+        float vr[M1], vi[M1];
+#pragma unroll
+        for (int k1 = 0; k1 < M1; ++k1) {
+          vr[k1] = tr[b1 + k1 * run];
+          vi[k1] = ti[b1 + k1 * run];
+        }
+        dft_m1<M1, true>(vr, vi, s, m1, [&](int n1, float2 z) {
+          const float2 v = cmul_conj(s.tw[n1 * m2 + k2], z);
+          tr[b1 + n1 * run] = v.x;
+          ti[b1 + n1 * run] = v.y;
+        });
+      }
+    }
+    __syncthreads();
+    // second factor: slots m2 n1 + k2 (run n1) of column kx into rows
+    // y = n1 + m1 n2, pushed to their owners once the peers' receive
+    // buffers are free (each warp waits once: its lanes' trip counts agree)
+    bool peers_free = false;
+    for (int n1 = ty; n1 < m1; n1 += trows) {
+      const int b2 = n1 * run + c;
+      float ar[H2], ai[H2];
+      inverse_second_of(ar, ai, s, m2, [&](int k2) {
+        return make_float2(tr[b2 + k2 * t], ti[b2 + k2 * t]);
+      });
+      if (by_warp) {  // the warp has read run n1: the next slab's into it
+        __syncwarp();
+        produce(it + 1, n1);
+      }
+      if (!peers_free) cluster_wait();
+      peers_free = true;
+#pragma unroll
+      for (int n2 = 0; n2 < H2; ++n2) {
+        if (n2 >= h2) break;
+        const int y = n1 + m1 * n2, owner = y >> lg_rows;
+        cluster_store(cluster_map(recv + (y - owner * rows) * S::HP +
+                                      S::pad(kx), owner),
+                      make_float2(ar[n2] * scale, ai[n2] * scale));
+      }
+    }
+    if (!peers_free) cluster_wait();
+    if (!by_warp) {
+      __syncthreads();  // the tile has been read
+      for (int n1 = ty; n1 < m1; n1 += trows) produce(it + 1, n1);
+    }
+    cp_async_commit();
+    cluster_arrive();
+    cluster_wait();  // the slab's rows are in place
+    // c2r phase: a lane group a row, in place in its receive buffer
+    for (int r0 = 0; r0 < rows; r0 += groups) {
+      const int row = r0 + grp;
+      if (row >= rows) break;  // whole warps (the plan)
+      float2* buf = recv + row * S::HP;
+      const long long y = y0 + row;
+      const float xh = r0 ? sr[y] * inv_mx : xh0;  // X[h]
+      // first pass: radix P, butterfly q, inputs conj Z[q + G r] merged
+      // from the row
+      float re[P], im[P];
+#pragma unroll
+      for (int r = 0; r < P; ++r) {
+        const int k = q + G * r;
+        const float2 xa = buf[S::pad(k)];
+        const float2 xc =
+            k ? buf[S::pad((HX - k) & (HX - 1))] : make_float2(xh, 0.f);
+        const float ai = k ? xa.y : 0.f;
+        const float2 w = line[k];
+        const float er = xa.x + xc.x, ei = ai - xc.y;  // Xe
+        const float dr = xa.x - xc.x, di = ai + xc.y;  // X[k] - conj X[h-k]
+        const float odr = dr * w.x + di * w.y, odi = di * w.x - dr * w.y;
+        re[r] = er - odi;  // conj(Xe + i Xo)
+        im[r] = -(ei + odr);
+      }
+      float2 wr[P / 2];
+#pragma unroll
+      for (int e = 0; e < P / 2; ++e) wr[e] = line[e * (HX / P) * 2];
+      reg_fft<P, false>(re, im, wr);
+      __syncwarp();  // the group has read its row
+      each_output<P>([&](int k, int rr) {
+        buf[S::pad(q * P + k)] = make_float2(re[rr], im[rr]);
+      });
+      __syncwarp();
+      // the other passes; the last writes the reals z[n] = conj(F[n]),
+      // n < nx / 2, to the front of the buffer
+      EdgePass<HX, P>::run(buf, q, line, tp, [&](int n, float fr, float fi) {
+        if (n < HX / 2) reinterpret_cast<float2*>(buf)[n] = make_float2(fr, -fi);
+      });
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncwarp();
+      if (q == 0) {
+        bulk_store(out + y * HX, buf, 4u * HX);
+        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      }
+    }
+    // the stores have read the receive buffers, which the peers' next
+    // pushes write
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    if (cid + (long long)(it + 1) * ncl < A) cluster_arrive();
+  }
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 // Largest tile t in {32, 16, 8, 4} whose shared data fits the budget.
@@ -3280,14 +3574,54 @@ struct ClusterArgs {
   int A, C, threads, clusters, smem, bulk;
 };
 
-// Whether (C, threads, smem) is a plan of rfft_fft_cluster_kernel<HX, M1,
-// H2> at my = p.m: t = nx / C columns a block dividing the threads.
+// The arguments of the fused inverse pass's cluster kernel, with the host's
+// plan (fused_c2r_cluster_plan): cluster size C, threads a block, clusters
+// launched, shared bytes, 16-byte tile copies.
+struct C2rClusterArgs {
+  const float *br, *bi, *sr;
+  float* out;
+  const float *table, *xline;
+  int A, C, threads, clusters, smem, bulk;
+};
+
+// The shared bytes of ifft_irfft_cluster_kernel<HX, M1, H2> at my = p.m:
+// the x twiddles, the y tables, the column tile's two planes ((my + m1) x t
+// floats each) and the receive buffers (ny / C rows of HP pairs).
 template <int HX, int M1, int H2>
+long long c2r_cluster_smem_bytes(const Plan& p, int C) {
+  using S = EdgeShape<HX>;
+  return 8LL * (S::TW + p.m1 * M1 + p.m2 * H2 + p.m) +
+         8LL * (p.m + p.m1) * (HX / C) + 8LL * (p.m / 2 / C) * S::HP;
+}
+
+// The forward (INV false) or inverse cluster kernel at (nx, my) = (HX,
+// p.m), its shared bytes under (C, threads), and whether (C, threads, smem)
+// is one of its plans: t = nx / C columns a block dividing the threads;
+// the inverse also takes t >= 4 (16-byte copies of a tile row) and whole
+// warps of c2r rows (ny / C a multiple of the lane groups a warp holds).
+template <bool INV, int HX, int M1, int H2>
+auto cluster_kernel() {
+  if constexpr (INV)
+    return ifft_irfft_cluster_kernel<HX, M1, H2>;
+  else
+    return rfft_fft_cluster_kernel<HX, M1, H2>;
+}
+
+template <bool INV, int HX, int M1, int H2>
+long long cluster_smem(const Plan& p, int C, int threads) {
+  if constexpr (INV) return c2r_cluster_smem_bytes<HX, M1, H2>(p, C);
+  return cluster_smem_bytes<HX, M1, H2>(p, C, threads);
+}
+
+template <bool INV, int HX, int M1, int H2>
 bool cluster_plan_ok(const Plan& p, int C, int threads, long long smem) {
+  constexpr int G = EdgeShape<HX>::G;
+  const int t = HX / C, rows = p.m / 2 / C;
   return (C == 1 || C == 2 || C == 4 || C == 8 || C == 16) &&
          (threads == 256 || threads == kClusterThreads) &&
-         threads % (HX / C) == 0 &&
-         smem == cluster_smem_bytes<HX, M1, H2>(p, C, threads) &&
+         threads % t == 0 &&
+         (!INV || (t >= 4 && (G >= 32 || rows % (32 / G) == 0))) &&
+         smem == cluster_smem<INV, HX, M1, H2>(p, C, threads) &&
          smem <= 232448;
 }
 
@@ -3339,64 +3673,93 @@ int cluster_capacity(Kernel kernel, int C, int threads, int smem,
 }
 
 // 1 where some plan of the cluster kernel fits the shape, else 0.
+template <bool INV>
 struct ClusterHolds {
   template <int HX, int M1, int H2>
   static int go(const Plan& p) {
     for (int C = 1; C <= 16; C *= 2)
       for (int threads = 256; threads <= kClusterThreads; threads *= 2)
-        if (cluster_plan_ok<HX, M1, H2>(
-                p, C, threads, cluster_smem_bytes<HX, M1, H2>(p, C, threads)))
+        if (cluster_plan_ok<INV, HX, M1, H2>(
+                p, C, threads, cluster_smem<INV, HX, M1, H2>(p, C, threads)))
           return 1;
     return 0;
   }
 };
 
 // 0 and the clusters the card holds at once in *most, or a CUDA error.
+template <bool INV>
 struct ClusterCapacity {
   template <int HX, int M1, int H2>
   static int go(const Plan& p, int C, int threads, int smem, int* most) {
-    if (!cluster_plan_ok<HX, M1, H2>(p, C, threads, smem))
+    if (!cluster_plan_ok<INV, HX, M1, H2>(p, C, threads, smem))
       return (int)cudaErrorInvalidValue;
     static ClusterCache cache;
-    return cluster_capacity(rfft_fft_cluster_kernel<HX, M1, H2>, C, threads,
+    return cluster_capacity(cluster_kernel<INV, HX, M1, H2>(), C, threads,
                             smem, cache, most);
   }
 };
 
-// The plan checked against what the kernel assumes, then the launch of
-// `clusters` clusters of C blocks, every one resident at once.
+// The launch of `clusters` clusters of C blocks of a cluster kernel whose
+// plan has been checked, every one resident at once.
+template <class Kernel, class... Args>
+int launch_clusters(Kernel kernel, int C, int threads, int clusters,
+                    int smem, ClusterCache& cache, cudaStream_t st,
+                    Args... args) {
+  int most = 0;
+  if (const int err = cluster_capacity(kernel, C, threads, smem, cache, &most))
+    return err;
+  if (clusters > most) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * C);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The forward pass's plan checked against what the kernel assumes, then the
+// launch.
 struct ClusterLaunch {
   template <int HX, int M1, int H2>
   static int go(const Plan& p, const ClusterArgs& a, cudaStream_t st) {
-    if (!cluster_plan_ok<HX, M1, H2>(p, a.C, a.threads, a.smem) ||
+    if (!cluster_plan_ok<false, HX, M1, H2>(p, a.C, a.threads, a.smem) ||
         a.clusters < 1 || a.clusters > a.A ||
         (a.bulk && (unsigned long long)a.x % 16 != 0))
       return (int)cudaErrorInvalidValue;
-    auto kernel = rfft_fft_cluster_kernel<HX, M1, H2>;
     static ClusterCache cache;
-    int most = 0;
-    if (const int err =
-            cluster_capacity(kernel, a.C, a.threads, a.smem, cache, &most))
-      return err;
-    if (a.clusters > most) return (int)cudaErrorInvalidValue;
-    cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = a.C;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(a.clusters * a.C);
-    cfg.blockDim = dim3(a.threads);
-    cfg.dynamicSmemBytes = a.smem;
-    cfg.stream = st;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-    const cudaError_t err = cudaLaunchKernelEx(
-        &cfg, kernel, a.x, a.out_r, a.out_i, a.side_r, a.side_i,
+    return launch_clusters(
+        rfft_fft_cluster_kernel<HX, M1, H2>, a.C, a.threads, a.clusters,
+        a.smem, cache, st, a.x, a.out_r, a.out_i, a.side_r, a.side_i,
         (const float2*)a.table, (const float2*)a.xline, a.A, p.m, p.m1, p.m2,
         a.C, a.bulk);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+  }
+};
+
+// The inverse pass's plan checked against what the kernel assumes (the
+// rows' bulk stores need out 16-byte aligned), then the launch.
+struct C2rClusterLaunch {
+  template <int HX, int M1, int H2>
+  static int go(const Plan& p, const C2rClusterArgs& a, cudaStream_t st) {
+    if (!cluster_plan_ok<true, HX, M1, H2>(p, a.C, a.threads, a.smem) ||
+        a.clusters < 1 || a.clusters > a.A ||
+        (unsigned long long)a.out % 16 != 0 ||
+        (a.bulk &&
+         ((unsigned long long)a.br | (unsigned long long)a.bi) % 16 != 0))
+      return (int)cudaErrorInvalidValue;
+    static ClusterCache cache;
+    return launch_clusters(
+        ifft_irfft_cluster_kernel<HX, M1, H2>, a.C, a.threads, a.clusters,
+        a.smem, cache, st, a.br, a.bi, a.sr, a.out, (const float2*)a.table,
+        (const float2*)a.xline, a.A, p.m, p.m1, p.m2, a.C, a.bulk);
   }
 };
 
@@ -3618,7 +3981,7 @@ extern "C" int sopht_rfft_fft_pass_fused_f32(
       mx != 2 * nx || nx % 4 != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const bool holds = cluster_dispatch<ClusterHolds>(p, nx) == 1;
+  const bool holds = cluster_dispatch<ClusterHolds<false>>(p, nx) == 1;
   if (!(C | threads | clusters | smem | bulk)) {
     if (holds || xw == nullptr) return (int)cudaErrorInvalidValue;
     return dispatch<RfftFftPassFused>(p, x, out_r, out_i, side_r, side_i,
@@ -3631,33 +3994,52 @@ extern "C" int sopht_rfft_fft_pass_fused_f32(
   return cluster_dispatch<ClusterLaunch>(p, nx, a, st);
 }
 
-// The clusters of the fused forward pass's cluster kernel at (nx, m) under
-// the plan (C, threads, smem) that the card holds at once, or minus a CUDA
-// error.
-extern "C" int sopht_rfft_fft_cluster_capacity(int nx, int m, int C,
-                                               int threads, int smem) {
+// The clusters of the fused forward (inverse 0) or inverse (1) pass's
+// cluster kernel at (nx, m) under the plan (C, threads, smem) that the card
+// holds at once, or minus a CUDA error.
+extern "C" int sopht_fused_cluster_capacity(int inverse, int nx, int m, int C,
+                                            int threads, int smem) {
   Plan p;
   if (!make_plan(m, &p)) return -(int)cudaErrorInvalidValue;
   int most = 0;
   const int err =
-      cluster_dispatch<ClusterCapacity>(p, nx, C, threads, smem, &most);
+      inverse ? cluster_dispatch<ClusterCapacity<true>>(p, nx, C, threads,
+                                                         smem, &most)
+              : cluster_dispatch<ClusterCapacity<false>>(p, nx, C, threads,
+                                                          smem, &most);
   if (err) return err < 0 ? -(int)cudaErrorInvalidValue : -err;
   return most;
 }
 
 // br, bi: (A, my, mx/2), sr: (A, ny) (the Nyquist column's imaginary part
-// does not enter); out: (A, ny, nx) real, every cell written.
-extern "C" int sopht_ifft_irfft_pass_fused_f32(const float* br,
-                                               const float* bi,
-                                               const float* sr, float* out,
-                                               const float* table,
-                                               const float* xw, int A, int nx,
-                                               int mx, int m, void* stream) {
-  Plan p;
-  if (!make_plan(m, &p) || A <= 0 || nx <= 0 || mx != 2 * nx)
+// does not enter); out: (A, ny, nx) real, every cell written. The plan
+// (cluster size C, threads a block, clusters, shared bytes, 16-byte tile
+// copies) is fused_c2r_cluster_plan's: the cluster kernel reads the twiddle
+// tables of m (table) and mx (xtable); the all-zero plan takes the dense-x
+// kernel and its table xw (mx, 2) floats, xw[j] = exp(-2 pi i j / mx), and
+// only where no cluster plan fits. One that breaks the kernels'
+// assumptions is refused with cudaErrorInvalidValue.
+extern "C" int sopht_ifft_irfft_pass_fused_f32(
+    const float* br, const float* bi, const float* sr, float* out,
+    const float* table, const float* xtable, const float* xw, int A, int nx,
+    int mx, int m, int C, int threads, int clusters, int smem, int bulk,
+    void* stream) {
+  Plan p, px;
+  if (!make_plan(m, &p) || !make_plan(mx, &px) || A <= 0 || nx <= 0 ||
+      mx != 2 * nx)
     return (int)cudaErrorInvalidValue;
-  return dispatch<IfftIrfftPassFused>(p, br, bi, sr, out, table, xw, A, nx,
-                                      mx, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool holds = cluster_dispatch<ClusterHolds<true>>(p, nx) == 1;
+  if (!(C | threads | clusters | smem | bulk)) {
+    if (holds || xw == nullptr) return (int)cudaErrorInvalidValue;
+    return dispatch<IfftIrfftPassFused>(p, br, bi, sr, out, table, xw, A, nx,
+                                        mx, st);
+  }
+  if (!holds || xtable == nullptr) return (int)cudaErrorInvalidValue;
+  const C2rClusterArgs a{br, bi, sr, out, table,
+                         (const float*)((const float2*)xtable + px.table_len()),
+                         A, C, threads, clusters, smem, bulk};
+  return cluster_dispatch<C2rClusterLaunch>(p, nx, a, st);
 }
 
 extern "C" const char* sopht_fft_error_string(int code) {

@@ -45,8 +45,9 @@ four-step kernel, which plans its own launch), the fast tier's z pass
 :func:`fft_greens_curl_ifft_pass` with that of
 :func:`zconv_curl_tile_plan`, the fused forward edge
 :func:`rfft_fft_pass_fused` with that of :func:`fused_r2c_cluster_plan`
-(cluster size, threads, clusters, shared bytes, bulk copies);
-the C launchers refuse any other.
+(cluster size, threads, clusters, shared bytes, bulk copies) and the fused
+inverse :func:`ifft_irfft_pass_fused` with that of
+:func:`fused_c2r_cluster_plan`; the C launchers refuse any other.
 
 The unsplit x passes keep the kx Nyquist column in the row ((R, m/2 + 1)
 pairs); no solver route calls them, they are the public pass API. The fused
@@ -87,8 +88,8 @@ _SIGNATURES = {
                                        *(_I,) * 6, _P),
     "sopht_rfft_fft_pass_fused_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                       _I, _I, *(_I,) * 5, _P),
-    "sopht_ifft_irfft_pass_fused_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                        _P),
+    "sopht_ifft_irfft_pass_fused_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                        _I, _I, *(_I,) * 5, _P),
 }
 
 
@@ -109,8 +110,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sopht_fft_table_floats.restype = ctypes.c_int
     lib.sopht_fft_fill_table.argtypes = (_I, _P)
     lib.sopht_fft_fill_table.restype = ctypes.c_int
-    lib.sopht_rfft_fft_cluster_capacity.argtypes = (_I,) * 5
-    lib.sopht_rfft_fft_cluster_capacity.restype = ctypes.c_int
+    lib.sopht_fused_cluster_capacity.argtypes = (_I,) * 6
+    lib.sopht_fused_cluster_capacity.restype = ctypes.c_int
     lib.sopht_fft_error_string.argtypes = (_I,)
     lib.sopht_fft_error_string.restype = ctypes.c_char_p
     return lib
@@ -504,14 +505,15 @@ def zconv_curl_columns_plan(b: int, m: int, aligned: bool, sms: int,
 
 
 class FusedR2cPlan(NamedTuple):
-    """How the fused forward edge pass (:func:`rfft_fft_pass_fused`) covers
-    its (A, ny, nx) slabs: a ``cluster`` of C blocks a slab (1, 2, 4, 8, 16;
-    block r takes rows r ny / C on and owns columns r nx / C on),
+    """How a fused edge pass (:func:`rfft_fft_pass_fused`, and
+    :func:`ifft_irfft_pass_fused` under :func:`fused_c2r_cluster_plan`)
+    covers its (A, ny, nx) slabs: a ``cluster`` of C blocks a slab (1, 2,
+    4, 8, 16; block r takes rows r ny / C on and owns columns r nx / C on),
     ``threads`` a block, ``clusters`` launched (persistent, all resident at once, each walking slabs),
-    ``smem`` bytes a block, ``bulk`` input copies and the
-    ``blocks_per_sm`` the plan counts on being resident.
-    :data:`FUSED_R2C_DENSE_PLAN` (every field 0) takes the dense-x
-    kernel."""
+    ``smem`` bytes a block, ``bulk`` input copies (the inverse: 16-byte
+    tile copies) and the ``blocks_per_sm`` the plan counts on being
+    resident. :data:`FUSED_R2C_DENSE_PLAN` (every field 0) takes the
+    dense-x kernel of either pass."""
 
     cluster: int
     threads: int
@@ -526,8 +528,8 @@ class FusedR2cPlan(NamedTuple):
                 int(self.bulk))
 
 
-#: the plan of the dense-x kernel (every field 0): the shapes where no
-#: cluster holds a slab's slots
+#: the plan of either pass's dense-x kernel (every field 0): the shapes
+#: where no cluster holds a slab's slots (the inverse: its column tiles)
 FUSED_R2C_DENSE_PLAN = FusedR2cPlan(0, 0, 0, 0, False, 0)
 #: the cluster sizes (16: Hopper's non-portable size) and block sizes of
 #: the cluster kernel
@@ -604,26 +606,114 @@ def fused_r2c_plan_of(a: int, nx: int, my: int, cluster: int, threads: int,
     """The cluster kernel's plan for ``a`` slabs under one of
     :func:`fused_r2c_cluster_shapes`, as many clusters as ``device``
     holds at once."""
+    clusters = _clusters(False, a, nx, my, cluster, threads, smem,
+                         blocks_per_sm, device)
+    return FusedR2cPlan(cluster, threads, clusters, smem, data_ptr % 16 == 0,
+                        blocks_per_sm)
+
+
+def _clusters(inverse, a, nx, my, cluster, threads, smem, blocks_per_sm,
+              device) -> int:
+    """The clusters a cluster kernel's plan launches for ``a`` slabs: at
+    most as many as ``device`` holds at once."""
     device = torch.device(device)
     if device.type == "cuda":
-        most = _cluster_capacity(device, nx, my, cluster, threads, smem)
+        most = _cluster_capacity(device, inverse, nx, my, cluster, threads,
+                                 smem)
     else:
         most = H100_SMS * blocks_per_sm // cluster
-    return FusedR2cPlan(cluster, threads, min(a, most), smem,
-                        data_ptr % 16 == 0, blocks_per_sm)
+    return min(a, most)
 
 
 @functools.cache
-def _cluster_capacity(device, nx, my, cluster, threads, smem) -> int:
+def _cluster_capacity(device, inverse, nx, my, cluster, threads,
+                      smem) -> int:
     with torch.cuda.device(device):
-        most = library().sopht_rfft_fft_cluster_capacity(nx, my, cluster,
-                                                         threads, smem)
+        most = library().sopht_fused_cluster_capacity(
+            int(inverse), nx, my, cluster, threads, smem)
     if most < 0:
-        _check_err("sopht_rfft_fft_cluster_capacity", -most)
+        _check_err("sopht_fused_cluster_capacity", -most)
     if most == 0:
         raise RuntimeError(f"the card holds no cluster of {cluster} blocks of "
                            f"{threads} threads and {smem} shared bytes")
     return most
+
+
+def _c2r_cluster_smem(ny: int, nx: int, my: int, cluster: int) -> int:
+    """Shared bytes of the inverse cluster kernel
+    (``c2r_cluster_smem_bytes``): the x twiddles, the y tables, the column
+    tile's two float planes (my rows of nx / C and a row of padding after
+    each run of m2) and the receive buffers (ny / C rows at the c2r's
+    padded pitch)."""
+    _, _, sh = _edge_shape(nx)
+    m1, m2, m1c, h2c = _register_classes(my)
+    return 8 * (_edge_twiddles(nx) + m1 * m1c + m2 * h2c + my
+                + (my + m1) * (nx // cluster)
+                + (ny // cluster) * (nx + (nx >> sh)))
+
+
+@functools.lru_cache(maxsize=64)
+def fused_c2r_cluster_shapes(ny: int, nx: int, my: int, mx: int):
+    """Every (C, threads, smem, blocks_per_sm) the inverse cluster kernel
+    takes for (my, nx) pairs into (ny, nx) slabs, best first, in
+    :func:`fused_r2c_cluster_shapes`' order. A plan needs nx / C >= 4
+    columns a block (16-byte tile copies) dividing the threads and ny / C
+    a multiple of the c2r's lane groups a warp (whole warps of rows).
+    Empty where a length is not a power of two or no cluster of at most 16
+    blocks holds a column tile and its rows."""
+    if my & (my - 1) or mx & (mx - 1):
+        return ()
+    _, g, _ = _edge_shape(nx)
+    shapes = []
+    for c in FUSED_R2C_CLUSTERS:
+        t, rows = nx // c, ny // c
+        smem = _c2r_cluster_smem(ny, nx, my, c)
+        if t < 4 or (g < 32 and rows % (32 // g)) or smem > BLOCK_SHARED_MAX:
+            continue
+        for threads in FUSED_R2C_THREADS:
+            if threads % t:
+                continue
+            per_sm = min(_CLUSTER_SM_THREADS // threads, SM_SHARED_BYTES // (
+                smem + BLOCK_SHARED_RESERVE))
+            shapes.append((c, threads, smem, per_sm))
+    return tuple(sorted(shapes, key=lambda v: (-v[1] * v[3], -v[3], v[0])))
+
+
+def fused_c2r_cluster_plan(a: int, ny: int, nx: int, my: int, mx: int,
+                           device="cpu", data_ptr: int = 0) -> FusedR2cPlan:
+    """The launch plan of :func:`ifft_irfft_pass_fused` on ``a`` bulk
+    (my, mx/2) pairs at ``data_ptr`` (both planes' pointers or'ed) into
+    (ny, nx) reals, on ``device``, in the forward's :class:`FusedR2cPlan`
+    (``bulk``: 16-byte tile copies). The C entry point refuses any other
+    plan.
+
+    Power-of-two lengths where a cluster holds a column tile and its rows:
+    the cluster kernel under the first of :func:`fused_c2r_cluster_shapes`,
+    ``min(a, clusters the card holds at once)`` clusters (on a CUDA device,
+    ``cudaOccupancyMaxActiveClusters``; elsewhere an H100's 132 SMs'
+    worth), 16-byte copies when ``data_ptr`` is 16-byte aligned. Other
+    shapes (a length that is not a power of two, a tile above 16 blocks'
+    shared memory as at 512 x 512 slabs): :data:`FUSED_R2C_DENSE_PLAN`,
+    the dense-x kernel."""
+    _check_fused_sizes(ny, nx, my, mx)
+    if a <= 0:
+        raise ValueError(f"no plan for {a} slabs")
+    shapes = fused_c2r_cluster_shapes(ny, nx, my, mx)
+    if not shapes:
+        return FUSED_R2C_DENSE_PLAN
+    return fused_c2r_plan_of(a, nx, my, *shapes[0], device, data_ptr)
+
+
+def fused_c2r_plan_of(a: int, nx: int, my: int, cluster: int, threads: int,
+                      smem: int, blocks_per_sm: int, device="cpu",
+                      data_ptr: int = 0) -> FusedR2cPlan:
+    """The inverse cluster kernel's plan for ``a`` slabs under one of
+    :func:`fused_c2r_cluster_shapes`, as many clusters as ``device`` holds
+    at once."""
+    clusters = _clusters(True, a, nx, my, cluster, threads, smem,
+                         blocks_per_sm, device)
+    return FusedR2cPlan(cluster, threads, clusters, smem, data_ptr % 16 == 0,
+                        blocks_per_sm)
 
 
 @functools.cache
@@ -643,9 +733,8 @@ def fused_edge_pass_ok(ny: int, nx: int, my: int, mx: int) -> bool:
     :func:`ifft_irfft_pass_fused` for a (.., ny, nx) field doubled to
     (my, mx): the flag on and the sizes the kernels take (the JAX gate's
     conditions; its VMEM budget ``_fused_edge_vmem_ok`` has no counterpart
-    here: the forward pass holds a slab in a cluster's shared memory where
-    one fits and takes its dense-x kernel elsewhere, the inverse holds no
-    slab)."""
+    here: each pass holds a slab in a cluster's shared memory where one
+    fits and takes its dense-x kernel elsewhere)."""
     return (
         USE_FUSED_EDGE_PASSES
         and kernel_fft_supported(my)
@@ -1156,8 +1245,8 @@ _X_TABLES: dict = {}
 
 def _x_table(mx: int, device) -> torch.Tensor:
     """``exp(-2 pi i j / mx)`` for j < mx as (mx, 2) float32 on ``device``,
-    computed once in float64: the dense x transform of the fused inverse
-    edge pass and of the forward one under :data:`FUSED_R2C_DENSE_PLAN`."""
+    computed once in float64: the dense x transform of both fused edge
+    passes under their all-zero plans."""
     key = (mx, str(device))
     if key not in _X_TABLES:
         ang = -2.0 * math.pi * torch.arange(mx, dtype=torch.float64) / mx
@@ -1211,7 +1300,9 @@ def ifft_irfft_pass_fused(br, bi, sr, si, mx: int, nx: int):
     """Fused :func:`ifft_pass_truncated` (middle axis) and
     :func:`irfft_pass_merge` (minor axis): the bulk (A, my, mx/2) float32
     pair and the Nyquist column's (A, ny, 1) pair to the real (A, ny, nx)
-    array."""
+    array. On a CUDA tensor, the kernel of :func:`fused_c2r_cluster_plan`'s
+    plan: the thread-block-cluster kernel, or the dense-x one where no
+    cluster holds a slab's column tiles."""
     _check("br", br, 3)
     for name, t in (("bi", bi), ("sr", sr), ("si", si)):
         _check(name, t, 3, like=br)
@@ -1232,10 +1323,14 @@ def _k_ifft_irfft_pass_fused(br, bi, sr, mx, nx):
     # the Nyquist column's imaginary part does not enter the c2r
     a, my, _ = br.shape
     out = _empty(br, a, my // 2, nx)
+    plan = fused_c2r_cluster_plan(a, my // 2, nx, my, mx, br.device,
+                                  br.data_ptr() | bi.data_ptr())
+    # the dense x table only for the dense-x kernel
+    xw = _x_table(mx, br.device).data_ptr() if not plan.cluster else None
     _launch("sopht_ifft_irfft_pass_fused_f32", br.device, br.data_ptr(),
             bi.data_ptr(), sr.data_ptr(), out.data_ptr(),
-            _table(my, br.device).data_ptr(),
-            _x_table(mx, br.device).data_ptr(), a, nx, mx, my)
+            _table(my, br.device).data_ptr(), _table(mx, br.device).data_ptr(),
+            xw, a, nx, mx, my, *plan.args())
     return out
 
 

@@ -10,9 +10,9 @@ The first form is a short first run for a changed kernel: it prints the
 card, the build time, ptxas' register and spill lines of the x-edge r2c and
 c2r (the fast tier's c2r ``irfft_pass_merge_velocity`` is the c2r's
 instance ``[H, 1]``), the two z ring kernels, the fused kernels and the
-fused forward pass's cluster kernel ``rfft_fft_cluster_kernel`` ``[nx, M1,
-H2]``, the z ring, c2r ring and cluster kernels' SASS instruction counts
-(``cuobjdump``), the
+fused passes' cluster kernels ``rfft_fft_cluster_kernel`` and
+``ifft_irfft_cluster_kernel`` ``[nx, M1, H2]``, the z ring, c2r ring and
+cluster kernels' SASS instruction counts (``cuobjdump``), the
 forward r2c pair, the c2r pair, the z conv (``fft_greens_ifft_pass``) and
 the fast tier's z pass (``fft_greens_curl_ifft_pass``) on ragged,
 storage-offset, odd-output and non-power-of-two inputs, then for each grid
@@ -38,7 +38,14 @@ pass ``rfft_fft_pass_fused`` (key ``fused_r2c``) at the 256^3 solve's
 ``device_ms`` and ``host_us``, its relative error, the plan
 ``fused_r2c_cluster_plan`` gives (in trees that have it), and the ``ms`` and
 ``device_ms`` of ``torch.fft.rfft2`` and of the unfused pair
-(``rfft_pass_padded_split`` then ``fft_pass_padded``) on the same field.
+(``rfft_pass_padded_split`` then ``fft_pass_padded``) on the same field;
+and the fused inverse pass ``ifft_irfft_pass_fused`` (key ``fused_c2r``)
+at the same slabs' (A, my, nx) pairs: the same numbers, the plan
+``fused_c2r_cluster_plan`` gives (in trees that have it), and the ``ms``
+and ``device_ms`` of ``torch.fft.irfft2`` with the ``[:ny, :nx]`` view (on
+the whole spectrum, the Nyquist column's y spectrum joined outside the
+timing) and of the unfused pair (``ifft_pass_truncated`` then
+``irfft_pass_merge``) on the same spectrum.
 It imports the package from ``sys.path`` and uses only the wrappers' public
 names, so it compares two trees on one card within one job: unpack the other
 tree into a directory and run this file with ``PYTHONPATH`` set to each, in
@@ -49,8 +56,9 @@ host's time to enqueue one call (``host_us``): a call's event time starts
 from an idle card and includes that enqueue, which at the 2D shape is most
 of it.
 
-``--sweep`` (or ``--sweep`` followed by some of ``fused_r2c``, ``velocity``,
-``curl``, ``zconv``, ``r2c``, ``c2r``: those sweeps only) prints the split
+``--sweep`` (or ``--sweep`` followed by some of ``fused_c2r``,
+``fused_r2c``, ``velocity``, ``curl``, ``zconv``, ``r2c``, ``c2r``: those
+sweeps only) prints the split
 r2c kernel's device time under every plan its
 launcher takes at both shapes, the one ``edge_tile_plan`` picks marked, the
 split c2r kernel's under each tile and ring depth with the most blocks an SM
@@ -65,7 +73,10 @@ depth with the most blocks an SM that fit at those three shapes, the one
 ``c2r_velocity_tile_plan`` picks marked, and the fused forward pass's
 cluster kernel under each of ``fused_r2c_cluster_shapes`` (cluster size,
 threads, one buffer, as many clusters as the card holds) at the 256^3, rod
-and 64^3 slabs, the one ``fused_r2c_cluster_plan`` picks marked.
+and 64^3 slabs, the one ``fused_r2c_cluster_plan`` picks marked, and the
+fused inverse pass's cluster kernel the same way under each of
+``fused_c2r_cluster_shapes``, 16-byte and 4-byte tile copies, the one
+``fused_c2r_cluster_plan`` picks marked.
 """
 
 from __future__ import annotations
@@ -401,7 +412,77 @@ def timing(tag, rand, dev):
             device_ms(pair)
         del x
         torch.cuda.empty_cache()
+    out["fused_c2r"] = {}
+    for shape, (a, ny, nx) in FUSED_R2C_SLABS[:2]:
+        my, mx = 2 * ny, 2 * nx
+        br, bi, sr, si = rand(a, my, nx), rand(a, my, nx), rand(a, ny, 1), \
+            rand(a, ny, 1)
+        rec = out["fused_c2r"][shape] = {}
+        plan = getattr(cuda_fft, "fused_c2r_cluster_plan", None)
+        if plan is not None:
+            rec["plan"] = plan(a, ny, nx, my, mx, dev, br.data_ptr()
+                               | bi.data_ptr())._asdict()
+        fn = lambda: cuda_fft.ifft_irfft_pass_fused(br, bi, sr, si, mx, nx)
+        rec["rel_err"] = rel_err(fn(), cuda_fft.ifft_irfft_pass_fused_ref(
+            br, bi, sr, si, mx, nx))
+        rec["ms"], rec["device_ms"] = median_ms(fn, 20, 3), device_ms(fn)
+        rec["host_us"] = host_us(fn)
+        z = torch.cat([torch.complex(br, bi), torch.fft.fft(
+            torch.complex(sr, si), n=my, dim=1)], dim=2)
+        irfft2 = lambda: torch.fft.irfft2(z, s=(my, mx))[:, :ny, :nx]
+        rec["torch_fft_irfft2_ms"] = median_ms(irfft2, 20, 3)
+        rec["torch_fft_irfft2_device_ms"] = device_ms(irfft2)
+        del z
+
+        def pair():
+            yr, yi = cuda_fft.ifft_pass_truncated(br, bi)
+            return cuda_fft.irfft_pass_merge(
+                yr.view(a * ny, nx), yi.view(a * ny, nx), sr.view(a * ny, 1),
+                si.view(a * ny, 1), mx, nx)
+
+        rec["unfused_ms"], rec["unfused_device_ms"] = median_ms(pair, 20, 3), \
+            device_ms(pair)
+        del br, bi, sr, si
+        torch.cuda.empty_cache()
     return out
+
+
+def sweep_fused_c2r(rand, dev):
+    """Device time of the fused inverse pass's cluster kernel under each of
+    ``fused_c2r_cluster_shapes`` at the 256^3, rod and 64^3 slabs, with
+    16-byte and 4-byte tile copies, the plan ``fused_c2r_cluster_plan``
+    picks marked: one line a plan."""
+    lib = cuda_fft.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape, (a, ny, nx) in FUSED_R2C_SLABS:
+        my, mx = 2 * ny, 2 * nx
+        br, bi, sr = rand(a, my, nx), rand(a, my, nx), rand(a, ny, 1)
+        out = torch.empty(a, ny, nx, device=dev)
+        tables = (cuda_fft._table(my, dev), cuda_fft._table(mx, dev))
+        chosen = cuda_fft.fused_c2r_cluster_plan(
+            a, ny, nx, my, mx, dev, br.data_ptr() | bi.data_ptr())
+        for c, threads, smem, per_sm in cuda_fft.fused_c2r_cluster_shapes(
+                ny, nx, my, mx):
+            plan = cuda_fft.fused_c2r_plan_of(a, nx, my, c, threads, smem,
+                                              per_sm, dev, br.data_ptr())
+            for p in (plan, plan._replace(bulk=False)):
+
+                def fn(p=p):
+                    return lib.sopht_ifft_irfft_pass_fused_f32(
+                        br.data_ptr(), bi.data_ptr(), sr.data_ptr(),
+                        out.data_ptr(), *(t.data_ptr() for t in tables),
+                        None, a, nx, mx, my, *p.args(), stream)
+
+                if fn():
+                    print(f"sweep fused_c2r {shape}: {p} refused", flush=True)
+                    continue
+                mark = " <- fused_c2r_cluster_plan" if p == chosen else ""
+                print(f"sweep fused_c2r {shape}: C {c} threads {threads} "
+                      f"clusters {p.clusters} smem {smem} blocks/SM {per_sm} "
+                      f"copies {16 if p.bulk else 4} B: "
+                      f"{device_ms(fn):.4f} ms{mark}", flush=True)
+        del br, bi, sr, out
+        torch.cuda.empty_cache()
 
 
 def sweep_fused_r2c(rand, dev):
@@ -742,7 +823,8 @@ def main(argv):
 
     if argv and argv[0] == "--sweep":
         print(card())
-        sweeps = {"fused_r2c": sweep_fused_r2c, "velocity": sweep_velocity,
+        sweeps = {"fused_c2r": sweep_fused_c2r, "fused_r2c": sweep_fused_r2c,
+                  "velocity": sweep_velocity,
                   "curl": sweep_zconv_curl, "zconv": sweep_zconv,
                   "r2c": sweep, "c2r": sweep_c2r}
         for name in argv[1:] or sweeps:
@@ -771,16 +853,19 @@ def main(argv):
         name = re.search(
             r"(irfft_edge_kernel|rfft_edge_kernel|zconv_kernel|"
             r"zconv_curl_kernel|rfft_fft_cluster_kernel|"
+            r"ifft_irfft_cluster_kernel|"
             r"\w+_fused_kernel)((?:ILi|Li|Lb)\d+E)+",
             ln)
         if "Function properties" in ln and name:
             print(name.group(1)[-28:], re.findall(r"\d+", name.group(0)[
                 len(name.group(1)):]), "|", lines[i + 1].strip(), "|",
                 lines[i + 2].strip()[:60])
-    for name, n in sass_sizes(lib._name,
-                              "zconv|irfft_edge|rfft_fft_cluster").items():
+    for name, n in sass_sizes(
+            lib._name, "zconv|irfft_edge|rfft_fft_cluster|ifft_irfft_cluster"
+    ).items():
         kernel = re.search(r"(zconv\w*kernel|irfft_edge_kernel|"
-                           r"rfft_fft_cluster_kernel)I((?:L[ib]\d+E)+)", name)
+                           r"rfft_fft_cluster_kernel|ifft_irfft_cluster_kernel)"
+                           r"I((?:L[ib]\d+E)+)", name)
         dims = re.findall(r"\d+", kernel.group(2))
         print(f"sass {kernel.group(1)} {dims}: {n} instructions")
     for case, err in (r2c_cases(rand) + c2r_cases(rand) + zconv_cases(rand)
