@@ -93,8 +93,11 @@ raises and exits non-zero, and nothing falls back to the CPU:
     of an in-process (pz, py) mesh, after the halo exchange) against their
     plain versions and against their single-device twins on the assembled
     field: float32 and float64 at (3, 34, 66, 65) on (2, 2), (2, 3) and
-    (17, 1), float64 at 64^3, float32 at 256^3 on (8, 1), (4, 2) and
-    (2, 2), with wrapper, plain and twin times at the last;
+    (17, 1), float64 at 64^3, float32 at 64^3 on (64, 1) (one-plane
+    shards), float32 at 256^3 on (8, 1), (4, 2) and (2, 2), with wrapper,
+    plain and twin times at the last; there also the z-marching curl's and
+    transport's plans and times in a batch (wrapper, kernel alone) and the
+    exchange of one field's two z planes and two y rows;
 20. sharded solve: the 256^3 vector Poisson solve on a (2, 2) mesh (the
     distributed convolve: ``torch.fft`` along x, the y and z pass kernels
     per shard, four ``all_to_all`` transposes) against the single-device
@@ -428,6 +431,9 @@ def main():
         unshard_vector_field,
     )
     from sopht_mpi_tpu_torch.tools.probe_sharded import (
+        batched_ms as sharded_batched_ms,
+        exchange as sharded_exchange,
+        kernel_alone as sharded_kernel_alone,
         stencil_calls as sharded_stencil_calls,
     )
 
@@ -1784,7 +1790,8 @@ def main():
         """Every sharded stencil at ``shape`` over ``mesh_shape`` against
         its plain version and against its single-device twin on the
         assembled field: (calls, errors against the plain versions, the
-        largest difference from a twin, the sharded field)."""
+        largest difference from a twin, the two sharded fields and the
+        mesh)."""
         mesh = create_mesh(3, mesh_shape, device=dev)
         w = torch.randn(shape, dtype=dtype, device=dev, generator=gen)
         u = torch.randn(shape, dtype=dtype, device=dev, generator=gen)
@@ -1816,7 +1823,8 @@ def main():
                   f"{tol} against the single-device kernel")
             errs[name], twin_err = err, max(twin_err, err_twin)
         torch.cuda.synchronize()
-        return calls, errs, twin_err, (shard_vector_field(w, mesh), mesh)
+        return calls, errs, twin_err, (shard_vector_field(w, mesh),
+                                       shard_vector_field(u, mesh), mesh)
 
     @phase("sharded kernels")
     def sharded_kernel_phase():
@@ -1828,10 +1836,11 @@ def main():
                 (odd, (2, 2), torch.float32), (odd, (2, 3), torch.float64),
                 (odd, (17, 1), torch.float32),
                 ((3, 64, 64, 64), (2, 2), torch.float64),
+                ((3, 64, 64, 64), (64, 1), torch.float32),
                 ((3, *SHARDED_GRID), (8, 1), torch.float32),
                 ((3, *SHARDED_GRID), (4, 2), torch.float32),
                 ((3, *SHARDED_GRID), SHARDED_MESH, torch.float32)):
-            calls, errs, e, (ws, mesh) = check_sharded_calls(
+            calls, errs, e, (ws, us, mesh) = check_sharded_calls(
                 shape, mesh_shape, dtype, gen)
             twin_err = max(twin_err, e)
             n_checked += len(calls)
@@ -1847,17 +1856,30 @@ def main():
                 shape)
             twins.append(f"{name}: single-device twin on the assembled field "
                          f"{median_ms(torch, twin_fn):.4f} ms")
-        # what of a wrapper's time is the exchange: one field's ghosted copy
-        # and its two y rows
-        halo_ms = median_ms(torch, lambda: (sharded._ghost_z(ws, mesh),
-                                            sharded._halo_y_rows(ws, mesh)))
+        # the z-marching kernels: plan, and the time a call of the wrapper
+        # and of the kernel alone on halos made beforehand takes in a batch
+        # of 20 back-to-back calls (CUDA events; the kernel alone's is its
+        # device time, the wrapper's may be its host enqueue)
+        zmarch = []
+        for name, fn in sharded_kernel_alone(ws, us, mesh).items():
+            zmarch.append(
+                f"{name}: plan {tuple(fn.plan)}; in a batch the wrapper "
+                f"{sharded_batched_ms(calls[name][0]):.4f} ms a call, the "
+                f"kernel alone {sharded_batched_ms(fn):.4f} ms")
+        # what of a wrapper's time is the exchange: one field's two z planes
+        # and two y rows, and the ghosted copy the diffusion wrappers make
+        halo_ms = median_ms(torch, sharded_exchange(ws, mesh))
+        ghost_ms = median_ms(torch, lambda: (
+            sharded._ghost_z(ws, mesh), sharded._halo_y_rows(ws, mesh)))
         detail = "; ".join(line(k, table[k]) for k in SHARDED_REPLACES)
         return None, (
             f"{n_checked} checks at {odd} on (2, 2), (2, 3), (17, 1), 64^3 "
-            f"f64 on (2, 2), 256^3 on (8, 1), (4, 2), (2, 2): largest "
-            f"max|diff| from a single-device twin {twin_err:.3g}; one launch "
-            f"for all four shards: {detail}; {'; '.join(twins)}; the halo "
-            f"exchange of one field alone {halo_ms:.4f} ms [{card}]")
+            f"f64 on (2, 2), 64^3 on (64, 1) (one-plane shards), 256^3 on "
+            f"(8, 1), (4, 2), (2, 2): largest max|diff| from a single-device "
+            f"twin {twin_err:.3g}; one launch for all shards: {detail}; "
+            f"{'; '.join(twins)}; {'; '.join(zmarch)}; the halo exchange of "
+            f"one field (two z planes, two y rows) {halo_ms:.4f} ms, a "
+            f"ghosted copy and the y rows {ghost_ms:.4f} ms [{card}]")
 
     sharded_kernel_phase()
 

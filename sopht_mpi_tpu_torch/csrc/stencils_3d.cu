@@ -13,29 +13,64 @@
 // z-plane, so a warp reads 32 neighbouring x cells (coalesced) and no thread
 // divides an index by a cell count.
 //
-// Sharded launches. The first four kernels below (rotational transport,
-// diffusion + sponge, curl, diffusion) are each one template with two
-// instances: the single-device one, and the sharded one, which replaces
-// sopht_mpi_tpu/ops/pallas_stencils_sharded.py (_rotational_sharded_kernel,
-// _diffpen_sharded_kernel, _curl_sharded_kernel, _diffusion_sharded_kernel).
-// A sharded field is (S, 3, nz, ny, nx), S = pz * py shards of a (pz, py)
-// mesh over (z, y), each shard a contiguous block of its own. One launch
-// covers all shards: blockIdx.z runs over (shard, local plane). A thread
-// reads only its own shard's block and the halo buffers the exchange made
-// for it: the input comes z-ghosted, (S, 3, nz + 2, ny, nx) with the
-// neighbour shards' planes at indices 0 and nz + 1, and the neighbour
-// shards' y rows come as two (S, 3, nz, 1, nx) arrays, read in place of the
-// in-shard y neighbour on the shard's first and last row. Three-point
+// Sharded launches. A sharded field is (S, 3, nz, ny, nx), S = pz * py
+// shards of a (pz, py) mesh over (z, y), each shard a contiguous block of
+// its own; one launch covers all shards. A thread reads only its own
+// shard's block and the halo buffers the exchange made for it. Three-point
 // stencils need no corner halos. Wall masks, clamps and ramps take the
 // cell's GLOBAL (z, y) from the shard's offsets (coords[2 s], coords[2 s +
 // 1]) and the grid's (NZ, NY), so a shard seam is interior; the wraparound
 // halo of a shard on a physical wall is only ever next to ring cells, which
 // read no neighbour. The TPU kernels' y tiles, 8-row seam strips and plane
-// selects are VMEM bookkeeping with no counterpart here. The sponge's clamp
-// source lies at most width - 1 cells from the cell, in the same shard when
-// nz >= 2 width and ny >= 2 width (the wrapper's gate). Bounds: as the
-// single-device instance plus the halo planes and rows read once. The
-// single-device instance compiles every halo branch away (if constexpr).
+// selects are VMEM bookkeeping with no counterpart here. Bounds: as the
+// single-device kernel plus the halo planes and rows read once.
+//
+// The diffusion and diffusion + sponge kernels below are each one template
+// with two instances: the single-device one, and the sharded one, which
+// replaces sopht_mpi_tpu/ops/pallas_stencils_sharded.py
+// (_diffusion_sharded_kernel, _diffpen_sharded_kernel). blockIdx.z runs
+// over (shard, local plane); the input comes z-ghosted, (S, 3, nz + 2, ny,
+// nx) with the neighbour shards' planes at indices 0 and nz + 1, and the
+// neighbour shards' y rows come as two (S, 3, nz, 1, nx) arrays, read in
+// place of the in-shard y neighbour on the shard's first and last row. The
+// sponge's clamp source lies at most width - 1 cells from the cell, in the
+// same shard when nz >= 2 width and ny >= 2 width (the wrapper's gate). The
+// single-device instance compiles every halo branch away (if constexpr);
+// the sharded branches of rotational_curl_add_kernel and curl_kernel are
+// no longer instantiated.
+//
+// curl_zmarch_kernel, rotational_zmarch_kernel (after the single-device
+// kernels)
+//   Replace _curl_sharded_kernel (launched in _curl_sharded_impl) and
+//   _rotational_sharded_kernel (_rotational_sharded_impl): the curl and the
+//   rotational transport below on a sharded field, reading the shard's
+//   own block and the four halo buffers the exchange made for it, never a
+//   ghosted copy: zlo / zhi (S, 3, 1, ny, nx), the planes below each
+//   shard's first and above its last, and ylo / yhi (S, 3, nz, 1, nx), the
+//   rows below its first and above its last.
+//   A block owns a TX x TY tile of (x, y) cells of one shard and marches
+//   along z through a chunk of zchunk of its planes (grid: tiles, chunks,
+//   shards); a thread owns one cell of each plane. The chunk's planes and
+//   the two beyond it arrive, with a one-cell x and y halo, in a ring of
+//   `stages` shared-memory tiles by cp.async (16-byte copies of the rows
+//   where nx and the pointers allow, an element a copy at the halo columns
+//   and otherwise), plane k + stages - 2 issued as plane k arrives, so the
+//   centre plane k - 1 stays in the ring. A thread works out where each of
+//   its copies lands and starts once; for a plane it only steps the
+//   source. Only the loader knows where a row comes from (the block, a z
+//   plane buffer, a y row buffer); the arithmetic reads the tile. The z
+//   neighbours at a thread's cell stay in registers as the march rolls on;
+//   the centre plane's in-plane neighbours come from its tile. The
+//   launch bound caps a thread at 64 registers. The rotational
+//   transport forms q = u x w once per cell of a plane's tile, halo cells
+//   included, into one of two q tiles (the single-device kernel forms each
+//   cell's seven times). The curl's l1 max is folded a block into its
+//   shard's slot. A launch plan (tile, chunk, stages, shared bytes, blocks,
+//   16-byte copies; sharded_stencil_plan) is checked by the launcher.
+//   Bound: HBM bytes, each input field and its halo buffers read once and
+//   the output written once (24 B a cell for the curl, 36 for the
+//   transport, at f32). The tile's halo over-read, (TX + 2)(TY + 2) /
+//   (TX TY), and the two extra planes a chunk mostly hit L2.
 //
 // rotational_curl_add_3d
 //   Replaces sopht_mpi_tpu/ops/pallas_stencils_3d.py
@@ -599,6 +634,552 @@ inline bool sharded_grid_ok(int nshards, int nz) {
   return nshards > 0 && nz > 0 && (long long)nshards * nz <= 65535;
 }
 
+// ---------------------------------------------------------------------------
+// The z-marching sharded kernels: curl_zmarch_kernel, rotational_zmarch_kernel
+// (see the file's head). Shared pieces first.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// one element (4 or 8 bytes)
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_u32(dst)),
+               "l"(src), "n"((int)sizeof(T))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// The walk's ring of `stages` plane tiles refills the stage two planes back
+// (the centre plane stays readable), so stages - 3 groups stay pending behind
+// the one it waits for.
+__device__ __forceinline__ void cp_async_wait_ring(int stages) {
+  if (stages == 3)
+    cp_async_wait<0>();
+  else if (stages == 4)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<2>();
+}
+
+// One sharded field as the exchange hands it over, each pointer at component
+// 0 of shard 0: the shards' blocks f (S, 3, nz, ny, nx); zlo and zhi (S, 3,
+// 1, ny, nx), the planes below each shard's first and above its last; ylo
+// and yhi (S, 3, nz, 1, nx), the rows below its first and above its last.
+template <typename T>
+struct HaloSrc {
+  const T* f;
+  const T* zlo;
+  const T* zhi;
+  const T* ylo;
+  const T* yhi;
+};
+
+// Threads an SM holds at the kernels' launch bound, which caps a thread at
+// 64 registers (sharded_stencil_plan counts on it).
+constexpr int kZmarchSmThreads = 1024;
+
+// A block's plane tile in shared memory: a component is R = TY + 2 rows of
+// W = TX + 2 V values, row r holding grid row y0 - 1 + r and column col
+// holding x = x0 - V + col, so the tile's cells start 16 bytes into a row
+// and every row starts on 16 bytes; the halo columns are V - 1 and V + TX.
+template <typename T, int TX, int TY>
+struct ZTile {
+  static constexpr int NT = TX * TY;               // threads: a cell each
+  static constexpr int V = 16 / (int)sizeof(T);    // values a 16-byte copy
+  static constexpr int W = TX + 2 * V;
+  static constexpr int R = TY + 2;
+  static constexpr int CT = R * W;                 // one component
+  static constexpr int NB = 2 * TX + 2 * TY;       // halo cells, no corners
+};
+
+// The copies of a plane tile: 3 NF components (field a's, then b's),
+// component j at stage + j CT. A copy item is a run of the tile's rows, y
+// halo rows included (HALO false: TX / V 16-byte runs a row with VEC, TX
+// single values without), or one value of the x halo columns of rows 1 ...
+// TY (HALO true; corners are never read). A thread owns items tid, tid +
+// NT, ...: the same for every plane, so it works out each item's place once
+// (set) and, for every plane, only where the plane's row starts (issue). A
+// row is the block's own, or one of its y row buffers (both: body + z
+// stride), or, on the planes z = -1 and nz, the z plane buffers' (zoff; a
+// y halo row has none there). Cells outside the grid are not written; only
+// masked cells read them.
+template <typename T, int TX, int TY, int NF, bool HALO, bool VEC>
+struct TileCopies {
+  using Z = ZTile<T, TX, TY>;
+  static constexpr int NC = 3 * NF;
+  static constexpr int RUN = HALO || !VEC ? 1 : Z::V;   // values an item
+  static constexpr int PER_ROW = HALO ? 2 : TX / RUN;
+  static constexpr int ROWS = HALO ? TY : Z::R;
+  static constexpr int ITEMS = NC * ROWS * PER_ROW;
+  static constexpr int N = (ITEMS + Z::NT - 1) / Z::NT;  // items a thread
+
+  const T* body[N];   // the row's value at z = 0 (null: no row on body planes)
+  long long zoff[N];  // its offset in a z plane buffer (-1: none)
+  int stride[N];
+  int dst[N];         // stage offset (-1: no copy)
+  bool second[N];     // field b's
+
+  __device__ __forceinline__ void set(const HaloSrc<T>& a, const HaloSrc<T>& b,
+                                      int s, int y0, int x0, const Geom& g) {
+    const long long plane = (long long)g.ny * g.nx;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int item = i * Z::NT + (int)threadIdx.x;
+      body[i] = nullptr;
+      zoff[i] = -1;
+      stride[i] = 0;
+      dst[i] = -1;
+      second[i] = false;
+      if (ITEMS % Z::NT != 0 && item >= ITEMS) continue;
+      const int q = item % PER_ROW, rest = item / PER_ROW;
+      const int r = HALO ? 1 + rest % ROWS : rest % ROWS, j = rest / ROWS;
+      const int x = HALO ? (q ? x0 + TX : x0 - 1) : x0 + q * RUN;
+      const int ly = y0 - 1 + r;
+      if (x < 0 || x >= g.nx || ly > g.ny) continue;
+      const HaloSrc<T>& h = j < 3 ? a : b;
+      const long long comp = 3LL * s + j % 3;
+      dst[i] = j * Z::CT + r * Z::W + Z::V + (x - x0);
+      second[i] = j >= 3;
+      if (ly < 0) {
+        body[i] = h.ylo + comp * g.nz * g.nx + x;
+        stride[i] = g.nx;
+      } else if (ly == g.ny) {
+        body[i] = h.yhi + comp * g.nz * g.nx + x;
+        stride[i] = g.nx;
+      } else {
+        body[i] = h.f + comp * g.nz * plane + (long long)ly * g.nx + x;
+        stride[i] = (int)plane;
+        zoff[i] = comp * plane + (long long)ly * g.nx + x;
+      }
+    }
+  }
+
+  // Issue plane z (-1 ... nz) into `stage`.
+  __device__ __forceinline__ void issue(T* stage, const HaloSrc<T>& a,
+                                        const HaloSrc<T>& b, int z,
+                                        const Geom& g) const {
+    const bool own = z >= 0 && z < g.nz;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (dst[i] < 0) continue;
+      const T* src;
+      if (own) {
+        src = body[i] + (long long)z * stride[i];
+      } else {
+        if (zoff[i] < 0) continue;
+        const HaloSrc<T>& h = second[i] ? b : a;
+        src = (z < 0 ? h.zlo : h.zhi) + zoff[i];
+      }
+      if (RUN == 1)
+        cp_async_elem(stage + dst[i], src);
+      else
+        cp_async16(stage + dst[i], src);
+    }
+  }
+};
+
+// Every copy of a plane tile: the rows, then the x halo columns.
+template <typename T, int TX, int TY, int NF, bool VEC>
+struct PlaneCopies {
+  TileCopies<T, TX, TY, NF, false, VEC> rows;
+  TileCopies<T, TX, TY, NF, true, VEC> cols;
+
+  __device__ __forceinline__ PlaneCopies(const HaloSrc<T>& a,
+                                         const HaloSrc<T>& b, int s, int y0,
+                                         int x0, const Geom& g) {
+    rows.set(a, b, s, y0, x0, g);
+    cols.set(a, b, s, y0, x0, g);
+  }
+  __device__ __forceinline__ void issue(T* stage, const HaloSrc<T>& a,
+                                        const HaloSrc<T>& b, int z,
+                                        const Geom& g) const {
+    rows.issue(stage, a, b, z, g);
+    cols.issue(stage, a, b, z, g);
+  }
+};
+
+// The block's max of v over its threads into slot *dst (non-negative
+// values): warp shuffles, then one value a warp through shared memory.
+template <typename T, int NT>
+__device__ __forceinline__ void block_max_into(T v, T* dst) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = max_t(v, __shfl_down_sync(0xffffffffu, v, off));
+  __shared__ T warp_max[NT / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_max[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < NT / 32 ? warp_max[lane] : T(0);
+    for (int off = 16; off > 0; off >>= 1)
+      v = max_t(v, __shfl_down_sync(0xffffffffu, v, off));
+    if (lane == 0) atomic_max_nonneg(dst, v);
+  }
+}
+
+// Where a block of a z-marching launch works: its shard s, the tile's
+// corner (x0, y0), its thread's cell (x, y), the chunk's planes [za, zb).
+struct ZWalk {
+  int s, x0, y0, x, y, za, zb;
+  bool valid;  // (x, y) lies in the shard
+};
+
+template <int TX, int TY>
+__device__ __forceinline__ ZWalk zwalk(const Geom& g, int zchunk) {
+  ZWalk w;
+  const int tiles_x = (g.nx + TX - 1) / TX;
+  w.s = blockIdx.z;
+  w.x0 = (blockIdx.x % tiles_x) * TX;
+  w.y0 = (blockIdx.x / tiles_x) * TY;
+  w.x = w.x0 + threadIdx.x % TX;
+  w.y = w.y0 + threadIdx.x / TX;
+  w.za = blockIdx.y * zchunk;
+  w.zb = min(w.za + zchunk, g.nz);
+  w.valid = w.x < g.nx && w.y < g.ny;
+  return w;
+}
+
+// The walk both kernels share. Plane k of the chunk (z = za - 1 + k, k = 0
+// ... L - 1) sits in ring stage k % stages. Iteration k waits for it,
+// issues plane k + stages - 2 into the stage plane k - 2 left (last read in
+// iteration k - 1, before this iteration's barrier), and calls
+// step(k, stage of plane k, stage of plane k - 1): plane k - 1, still in
+// the ring, is the centre of the cells whose output the step writes.
+template <typename T, int TX, int TY, int NF, bool VEC, class Step>
+__device__ __forceinline__ void zmarch(T* ring, int stage_size,
+                                       const HaloSrc<T>& a,
+                                       const HaloSrc<T>& b, const ZWalk& w,
+                                       const Geom& g, int stages, Step step) {
+  const PlaneCopies<T, TX, TY, NF, VEC> copies(a, b, w.s, w.y0, w.x0, g);
+  const int L = w.zb - w.za + 2;
+  for (int k = 0; k < stages - 2; ++k) {
+    if (k < L) copies.issue(ring + k * stage_size, a, b, w.za - 1 + k, g);
+    cp_async_commit();
+  }
+  int slot = 0, prev = stages - 1;  // k % stages, (k - 1) % stages
+  for (int k = 0; k < L; ++k) {
+    cp_async_wait_ring(stages);
+    __syncthreads();
+    const int kn = k + stages - 2;
+    if (kn < L) {
+      const int back = prev == 0 ? stages - 1 : prev - 1;  // (k - 2) % stages
+      copies.issue(ring + back * stage_size, a, b, w.za - 1 + kn, g);
+    }
+    cp_async_commit();
+    step(k, ring + slot * stage_size, ring + prev * stage_size);
+    prev = slot;
+    slot = slot + 1 == stages ? 0 : slot + 1;
+  }
+}
+
+// curl_zmarch_kernel: out = pref * curl(f) (0 on the global ring) + add[c],
+// optionally l1_max[s] = max over the shard's cells of |u_x|+|u_y|+|u_z|.
+// Step k takes plane k's f_x, f_y at the thread's cell (the z + 1 values of
+// plane k - 1's cell) and writes plane k - 1's output from them, the
+// registers of plane k - 2 and the centre tile's in-plane neighbours.
+template <typename T, int TX, int TY, bool VEC>
+__global__ void __launch_bounds__(TX * TY, kZmarchSmThreads / (TX * TY))
+    curl_zmarch_kernel(HaloSrc<T> src, const int* __restrict__ coords,
+                       const T* __restrict__ pref, const T* __restrict__ add,
+                       T* __restrict__ out, T* __restrict__ l1_max, Geom g,
+                       int zchunk, int stages) {
+  using Z = ZTile<T, TX, TY>;
+  extern __shared__ __align__(16) unsigned char zmarch_smem[];
+  T* ring = reinterpret_cast<T*>(zmarch_smem);
+  const ZWalk w = zwalk<TX, TY>(g, zchunk);
+  const int o = (threadIdx.x / TX + 1) * Z::W + Z::V + threadIdx.x % TX;
+  const long long plane = (long long)g.ny * g.nx;
+  const long long n = plane * g.nz;
+  T* dst = out + 3 * n * w.s + (long long)w.y * g.nx + w.x;
+  const int gz0 = coords[2 * w.s], gy = coords[2 * w.s + 1] + w.y;
+  const T p = *pref;
+  // f_x, f_y at the thread's cell on planes k - 2 (m) and k - 1 (c)
+  T f0m = T(0), f1m = T(0), f0c = T(0), f1c = T(0);
+  T l1 = T(0);
+  zmarch<T, TX, TY, 1, VEC>(
+      ring, 3 * Z::CT, src, src, w, g, stages,
+      [&](int k, const T* t, const T* c) {
+        const T f0 = t[o], f1 = t[Z::CT + o];
+        if (k >= 2) {
+          const int z = w.za + k - 2;
+          T c0 = T(0), c1 = T(0), c2 = T(0);
+          if (!on_ring(gz0 + z, gy, w.x, g.NZ, g.NY, g.nx)) {
+            const T* c0t = c;
+            const T* c1t = c + Z::CT;
+            const T* c2t = c + 2 * Z::CT;
+            // the plain version's order (curl_kernel)
+            c0 = p * ((c2t[o + Z::W] - c2t[o - Z::W]) - (f1 - f1m));
+            c1 = p * ((f0 - f0m) - (c2t[o + 1] - c2t[o - 1]));
+            c2 = p * ((c1t[o + 1] - c1t[o - 1]) -
+                      (c0t[o + Z::W] - c0t[o - Z::W]));
+          }
+          if (add != nullptr) {
+            c0 = c0 + __ldg(add);
+            c1 = c1 + __ldg(add + 1);
+            c2 = c2 + __ldg(add + 2);
+          }
+          if (w.valid) {
+            T* d = dst + z * plane;
+            d[0] = c0;
+            d[n] = c1;
+            d[2 * n] = c2;
+            l1 = max_t(l1, (abs_t(c0) + abs_t(c1)) + abs_t(c2));
+          }
+        }
+        f0m = f0c;
+        f1m = f1c;
+        f0c = f0;
+        f1c = f1;
+      });
+  if (l1_max == nullptr) return;  // uniform across the launch
+  block_max_into<T, Z::NT>(l1, l1_max + w.s);
+}
+
+// q = u x w at cell i of a plane tile (w's components at t + c CT, u's at
+// t + (3 + c) CT), the plain version's order (cross_product_3d).
+template <typename T, int CT>
+__device__ __forceinline__ void cross_tile(const T* t, int i, T& q0, T& q1,
+                                           T& q2) {
+  const T w0 = t[i], w1 = t[CT + i], w2 = t[2 * CT + i];
+  const T u0 = t[3 * CT + i], u1 = t[4 * CT + i], u2 = t[5 * CT + i];
+  q0 = u1 * w2 - u2 * w1;
+  q1 = u2 * w0 - u0 * w2;
+  q2 = u0 * w1 - u1 * w0;
+}
+
+// rotational_zmarch_kernel: out = w + pref * curl(u x w), w on the global
+// ring. The curl's walk on a ring of w and u planes; step k forms q = u x w
+// of plane k once per cell (the thread's cell into registers and the tile,
+// the halo cells into the tile) in q tile k % 2, then writes plane k - 1's
+// output from q tile (k - 1) % 2 (formed in step k - 1, before this
+// iteration's barrier), w of plane k - 1 (still in the ring) and the
+// registers of planes k - 2 and k. q tile k % 2 held plane k - 2, last read
+// in step k - 1.
+template <typename T, int TX, int TY, bool VEC>
+__global__ void __launch_bounds__(TX * TY, kZmarchSmThreads / (TX * TY))
+    rotational_zmarch_kernel(HaloSrc<T> wsrc, HaloSrc<T> usrc,
+                             const int* __restrict__ coords,
+                             const T* __restrict__ pref, T* __restrict__ out,
+                             Geom g, int zchunk, int stages) {
+  using Z = ZTile<T, TX, TY>;
+  extern __shared__ __align__(16) unsigned char zmarch_smem[];
+  T* ring = reinterpret_cast<T*>(zmarch_smem);
+  T* qt = ring + stages * 6 * Z::CT;  // two q tiles of 3 CT
+  const ZWalk w = zwalk<TX, TY>(g, zchunk);
+  const int o = (threadIdx.x / TX + 1) * Z::W + Z::V + threadIdx.x % TX;
+  const long long plane = (long long)g.ny * g.nx;
+  const long long n = plane * g.nz;
+  T* dst = out + 3 * n * w.s + (long long)w.y * g.nx + w.x;
+  const int gz0 = coords[2 * w.s], gy = coords[2 * w.s + 1] + w.y;
+  const T p = *pref;
+  const int L = w.zb - w.za + 2;
+  // q_x, q_y at the thread's cell on planes k - 2 (m) and k - 1 (c)
+  T q0m = T(0), q1m = T(0), q0c = T(0), q1c = T(0);
+  zmarch<T, TX, TY, 2, VEC>(
+      ring, 6 * Z::CT, wsrc, usrc, w, g, stages,
+      [&](int k, const T* t, const T* c) {
+        T* qn = qt + (k & 1) * 3 * Z::CT;
+        T q0, q1, q2;
+        cross_tile<T, Z::CT>(t, o, q0, q1, q2);
+        qn[o] = q0;
+        qn[Z::CT + o] = q1;
+        qn[2 * Z::CT + o] = q2;
+        if (k >= 1 && k <= L - 2) {  // a plane that is some cell's centre
+          for (int h = threadIdx.x; h < Z::NB; h += Z::NT) {
+            // rows 0 and TY + 1 at the tile's columns, then columns V - 1
+            // and V + TX at rows 1 ... TY
+            const int i =
+                h < 2 * TX
+                    ? (h < TX ? 0 : (TY + 1) * Z::W) + Z::V + h % TX
+                    : (1 + (h - 2 * TX) % TY) * Z::W +
+                          (h - 2 * TX < TY ? Z::V - 1 : Z::V + TX);
+            T b0, b1, b2;
+            cross_tile<T, Z::CT>(t, i, b0, b1, b2);
+            qn[i] = b0;
+            qn[Z::CT + i] = b1;
+            qn[2 * Z::CT + i] = b2;
+          }
+        }
+        if (k >= 2) {
+          const int z = w.za + k - 2;
+          const T* qc = qt + ((k - 1) & 1) * 3 * Z::CT;
+          T o0 = c[o], o1 = c[Z::CT + o], o2 = c[2 * Z::CT + o];
+          if (!on_ring(gz0 + z, gy, w.x, g.NZ, g.NY, g.nx)) {
+            // the plain version's order (rotational_curl_add_kernel)
+            o0 = o0 + p * ((qc[2 * Z::CT + o + Z::W] -
+                            qc[2 * Z::CT + o - Z::W]) -
+                           (q1 - q1m));
+            o1 = o1 + p * ((q0 - q0m) -
+                           (qc[2 * Z::CT + o + 1] - qc[2 * Z::CT + o - 1]));
+            o2 = o2 + p * ((qc[Z::CT + o + 1] - qc[Z::CT + o - 1]) -
+                           (qc[o + Z::W] - qc[o - Z::W]));
+          }
+          if (w.valid) {
+            T* d = dst + z * plane;
+            d[0] = o0;
+            d[n] = o1;
+            d[2 * n] = o2;
+          }
+        }
+        q0m = q0c;
+        q1m = q1c;
+        q0c = q0;
+        q1c = q1;
+      });
+}
+
+// A z-marching launch's plan, as sharded_stencil_plan computes it: the
+// tile (tx, ty), planes a chunk, ring stages, dynamic shared bytes, blocks
+// (tiles x chunks x shards) and 16-byte copies.
+struct ZmarchPlan {
+  int tx, ty, zchunk, stages, smem, blocks, vec;
+};
+
+// Dynamic shared bytes of a plan: the ring of 3 nfields components a stage,
+// and the transport's two q tiles.
+template <typename T>
+long long zmarch_smem_bytes(int nfields, int tx, int ty, int stages) {
+  const long long ct = (long long)(ty + 2) * (tx + 2 * (16 / (int)sizeof(T)));
+  return (long long)sizeof(T) * ct *
+         (3LL * nfields * stages + (nfields == 2 ? 6 : 0));
+}
+
+// Whether the plan is the one the kernel assumes for these fields.
+template <typename T>
+bool zmarch_plan_ok(const ZmarchPlan& p, const HaloSrc<T>* srcs, int nfields,
+                    int nshards, const Geom& g) {
+  if (nshards < 1 || nshards > 65535 || g.nz < 1 || g.ny < 1 || g.nx < 1 ||
+      p.stages < 3 || p.stages > 5 || p.zchunk < 1 || p.zchunk > g.nz)
+    return false;
+  const long long tiles =
+      (long long)((g.nx + p.tx - 1) / p.tx) * ((g.ny + p.ty - 1) / p.ty);
+  const long long chunks = (g.nz + p.zchunk - 1) / p.zchunk;
+  if (tiles > 2147483647LL || chunks > 65535 ||
+      p.blocks != tiles * chunks * nshards ||
+      p.smem != zmarch_smem_bytes<T>(nfields, p.tx, p.ty, p.stages) ||
+      p.smem > 232448)
+    return false;
+  if (p.vec) {
+    if (g.nx % (16 / (int)sizeof(T)) != 0) return false;
+    for (int i = 0; i < nfields; ++i) {
+      const HaloSrc<T>& h = srcs[i];
+      if (((unsigned long long)h.f | (unsigned long long)h.zlo |
+           (unsigned long long)h.zhi | (unsigned long long)h.ylo |
+           (unsigned long long)h.yhi) %
+              16 !=
+          0)
+        return false;
+    }
+  }
+  return true;
+}
+
+// Let `kernel` take `smem` dynamic shared bytes on the current device; set
+// once a kernel, device and size.
+template <class Kernel>
+int allow_smem(Kernel kernel, int smem, int& dev_set, int& smem_set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev != dev_set || smem > smem_set) {
+    if ((err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+        cudaSuccess)
+      return (int)err;
+    dev_set = dev;
+    smem_set = smem;
+  }
+  return 0;
+}
+
+template <typename T>
+struct ZmarchArgs {
+  HaloSrc<T> f, u;  // u: the transport's velocity
+  const int* coords;
+  const T* pref;
+  const T* add;
+  T* out;
+  T* l1_max;
+  int nshards;
+  Geom g;
+  ZmarchPlan p;
+
+  dim3 grid() const {
+    return dim3((unsigned)(((g.nx + p.tx - 1) / p.tx) *
+                           ((g.ny + p.ty - 1) / p.ty)),
+                (unsigned)((g.nz + p.zchunk - 1) / p.zchunk),
+                (unsigned)nshards);
+  }
+};
+
+template <typename T>
+struct CurlZmarch {
+  template <int TX, int TY, bool VEC>
+  static int go(const ZmarchArgs<T>& a, cudaStream_t st) {
+    auto kernel = curl_zmarch_kernel<T, TX, TY, VEC>;
+    static int dev_set = -1, smem_set = 0;
+    if (const int err = allow_smem(kernel, a.p.smem, dev_set, smem_set))
+      return err;
+    kernel<<<a.grid(), TX * TY, a.p.smem, st>>>(a.f, a.coords, a.pref, a.add,
+                                                a.out, a.l1_max, a.g,
+                                                a.p.zchunk, a.p.stages);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <typename T>
+struct RotationalZmarch {
+  template <int TX, int TY, bool VEC>
+  static int go(const ZmarchArgs<T>& a, cudaStream_t st) {
+    auto kernel = rotational_zmarch_kernel<T, TX, TY, VEC>;
+    static int dev_set = -1, smem_set = 0;
+    if (const int err = allow_smem(kernel, a.p.smem, dev_set, smem_set))
+      return err;
+    kernel<<<a.grid(), TX * TY, a.p.smem, st>>>(a.f, a.u, a.coords, a.pref,
+                                                a.out, a.g, a.p.zchunk,
+                                                a.p.stages);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <class K, int TX, int TY, typename T>
+int launch_tile(const ZmarchArgs<T>& a, cudaStream_t st) {
+  return a.p.vec ? K::template go<TX, TY, true>(a, st)
+                 : K::template go<TX, TY, false>(a, st);
+}
+
+// The plan's tile and copies pick the instance: (32, 8), (32, 16), (64, 4)
+// or (64, 8) cells (x, y), 16-byte copies or not; any other tile is
+// refused.
+template <class K, typename T>
+int launch_zmarch(const ZmarchArgs<T>& a, int nfields, cudaStream_t st) {
+  const HaloSrc<T> srcs[2] = {a.f, a.u};
+  if (!zmarch_plan_ok<T>(a.p, srcs, nfields, a.nshards, a.g))
+    return (int)cudaErrorInvalidValue;
+  if (a.p.tx == 32 && a.p.ty == 8) return launch_tile<K, 32, 8>(a, st);
+  if (a.p.tx == 32 && a.p.ty == 16) return launch_tile<K, 32, 16>(a, st);
+  if (a.p.tx == 64 && a.p.ty == 4) return launch_tile<K, 64, 4>(a, st);
+  if (a.p.tx == 64 && a.p.ty == 8) return launch_tile<K, 64, 8>(a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 #define SOPHT_DEFINE_ENTRIES(T, SUFFIX)                                        \
@@ -610,18 +1191,6 @@ inline bool sharded_grid_ok(int nshards, int nz) {
            (cudaStream_t)stream>>>(w, nullptr, nullptr, u, nullptr, nullptr,   \
                                    nullptr, pref, out,                         \
                                    Geom{nz, ny, nx, nz, ny});                  \
-    return (int)cudaGetLastError();                                            \
-  }                                                                            \
-  extern "C" int sopht_rotational_curl_add_3d_sharded_##SUFFIX(                \
-      const T* wg, const T* w_ylo, const T* w_yhi, const T* ug,                \
-      const T* u_ylo, const T* u_yhi, const int* coords, const T* pref,        \
-      T* out, int nshards, int nz, int ny, int nx, int NZ, int NY,             \
-      void* stream) {                                                          \
-    if (!sharded_grid_ok(nshards, nz)) return (int)cudaErrorInvalidValue;      \
-    rotational_curl_add_kernel<T, true>                                        \
-        <<<grid_of(nshards * nz, ny, nx), dim3(kBlockX, kBlockY), 0,           \
-           (cudaStream_t)stream>>>(wg, w_ylo, w_yhi, ug, u_ylo, u_yhi, coords, \
-                                   pref, out, Geom{nz, ny, nx, NZ, NY});       \
     return (int)cudaGetLastError();                                            \
   }                                                                            \
   extern "C" int sopht_diffusion_penalise_vector_3d_##SUFFIX(                  \
@@ -652,17 +1221,6 @@ inline bool sharded_grid_ok(int nshards, int nz) {
         <<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,                     \
            (cudaStream_t)stream>>>(psi, nullptr, nullptr, nullptr, pref, add,  \
                                    out, l1_max, Geom{nz, ny, nx, nz, ny});     \
-    return (int)cudaGetLastError();                                            \
-  }                                                                            \
-  extern "C" int sopht_curl_3d_sharded_##SUFFIX(                               \
-      const T* psig, const T* ylo, const T* yhi, const int* coords,            \
-      const T* pref, const T* add, T* out, T* l1_max, int nshards, int nz,     \
-      int ny, int nx, int NZ, int NY, void* stream) {                          \
-    if (!sharded_grid_ok(nshards, nz)) return (int)cudaErrorInvalidValue;      \
-    curl_kernel<T, true>                                                       \
-        <<<grid_of(nshards * nz, ny, nx), dim3(kBlockX, kBlockY), 0,           \
-           (cudaStream_t)stream>>>(psig, ylo, yhi, coords, pref, add, out,     \
-                                   l1_max, Geom{nz, ny, nx, NZ, NY});          \
     return (int)cudaGetLastError();                                            \
   }                                                                            \
   extern "C" int sopht_diffusion_vector_3d_##SUFFIX(                           \
@@ -721,6 +1279,43 @@ inline bool sharded_grid_ok(int nshards, int nz) {
 
 SOPHT_DEFINE_ENTRIES(float, f32)
 SOPHT_DEFINE_ENTRIES(double, f64)
+
+// The z-marching sharded curl and rotational transport: the field(s) and
+// their four halo buffers, the shards' global offsets, ..., then (shards,
+// nz, ny, nx) of a shard, the grid's (NZ, NY) and the plan (tx, ty, zchunk,
+// stages, smem, blocks, vec), which the launcher checks.
+#define SOPHT_DEFINE_ZMARCH_ENTRIES(T, SUFFIX)                                 \
+  extern "C" int sopht_curl_3d_sharded_zmarch_##SUFFIX(                        \
+      const T* f, const T* zlo, const T* zhi, const T* ylo, const T* yhi,      \
+      const int* coords, const T* pref, const T* add, T* out, T* l1_max,       \
+      int nshards, int nz, int ny, int nx, int NZ, int NY, int tx, int ty,     \
+      int zchunk, int stages, int smem, int blocks, int vec, void* stream) {   \
+    const ZmarchArgs<T> a{HaloSrc<T>{f, zlo, zhi, ylo, yhi},                   \
+                          HaloSrc<T>{f, zlo, zhi, ylo, yhi},                   \
+                          coords, pref, add, out, l1_max, nshards,             \
+                          Geom{nz, ny, nx, NZ, NY},                            \
+                          ZmarchPlan{tx, ty, zchunk, stages, smem, blocks,     \
+                                     vec}};                                    \
+    return launch_zmarch<CurlZmarch<T>, T>(a, 1, (cudaStream_t)stream);        \
+  }                                                                            \
+  extern "C" int sopht_rotational_curl_add_3d_sharded_zmarch_##SUFFIX(         \
+      const T* w, const T* w_zlo, const T* w_zhi, const T* w_ylo,              \
+      const T* w_yhi, const T* u, const T* u_zlo, const T* u_zhi,              \
+      const T* u_ylo, const T* u_yhi, const int* coords, const T* pref,        \
+      T* out, int nshards, int nz, int ny, int nx, int NZ, int NY, int tx,     \
+      int ty, int zchunk, int stages, int smem, int blocks, int vec,           \
+      void* stream) {                                                          \
+    const ZmarchArgs<T> a{HaloSrc<T>{w, w_zlo, w_zhi, w_ylo, w_yhi},           \
+                          HaloSrc<T>{u, u_zlo, u_zhi, u_ylo, u_yhi},           \
+                          coords, pref, nullptr, out, nullptr, nshards,        \
+                          Geom{nz, ny, nx, NZ, NY},                            \
+                          ZmarchPlan{tx, ty, zchunk, stages, smem, blocks,     \
+                                     vec}};                                    \
+    return launch_zmarch<RotationalZmarch<T>, T>(a, 2, (cudaStream_t)stream);  \
+  }
+
+SOPHT_DEFINE_ZMARCH_ENTRIES(float, f32)
+SOPHT_DEFINE_ZMARCH_ENTRIES(double, f64)
 
 extern "C" const char* sopht_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

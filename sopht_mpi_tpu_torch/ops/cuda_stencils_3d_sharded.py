@@ -7,16 +7,20 @@ A field is sharded over a (pz, py) mesh as (pz, py, 3, nzl, nyl, nx)
 
 1. exchanges the width-1 halos with
    :func:`~sopht_mpi_tpu_torch.parallel.collectives.ppermute`: whole z
-   planes along "z" (:func:`_ghost_z`), single y rows along "y"
-   (:func:`_halo_y_rows`). These 3-point stencils need no corner halos;
-2. on a CUDA tensor launches the sharded instance of its kernel in
-   ``csrc/stencils_3d.cu`` once for all shards (the shard index rides in
-   ``blockIdx.z``), on the current stream, without synchronising, and adds
-   one to its ``launches`` count (or raises: there is no fallback). A thread
-   reads its own shard's block and the halo buffers only. Wall masks, clamps
-   and ramps use GLOBAL coordinates (:func:`_shard_coords`), so a shard seam
-   is interior and a physical wall behaves as in the single-device kernel;
-   the wraparound halo at a physical wall is garbage that no unmasked cell
+   planes along "z" (:func:`_halo_z_planes`), single y rows along "y"
+   (:func:`_halo_y_rows`), each into a buffer of its own. These 3-point
+   stencils need no corner halos;
+2. on a CUDA tensor launches its kernel in ``csrc/stencils_3d.cu`` once for
+   all shards, on the current stream, without synchronising, and adds one
+   to its ``launches`` count (or raises: there is no fallback). A thread
+   reads its own shard's block and the halo buffers only. The curl and the
+   rotational transport run z-marching kernels that read the field(s) and
+   the four halo buffers as they are, under a plan the launcher checks
+   (:func:`sharded_stencil_plan`); the diffusion and the fused sponge read
+   a z-ghosted copy of the field (:func:`_ghost_z`). Wall masks, clamps and
+   ramps use GLOBAL coordinates (:func:`_shard_coords`), so a shard seam is
+   interior and a physical wall behaves as in the single-device kernel; the
+   wraparound halo at a physical wall is garbage that no unmasked cell
    reads;
 3. on a CPU tensor runs the same per-shard computation in plain PyTorch on
    the exchanged halos (``_*_on_halos``).
@@ -42,12 +46,19 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from sopht_mpi_tpu_torch.ops import cuda_stencils_3d as _single
 from sopht_mpi_tpu_torch.ops import stencils_3d as _plain
 from sopht_mpi_tpu_torch.parallel import collectives
+from sopht_mpi_tpu_torch.parallel.cuda_fft import (
+    BLOCK_SHARED_MAX,
+    BLOCK_SHARED_RESERVE,
+    H100_SMS,
+    SM_SHARED_BYTES,
+)
 from sopht_mpi_tpu_torch.parallel.mesh import (
     Mesh,
     apply_assembled,
@@ -61,16 +72,28 @@ from sopht_mpi_tpu_torch.parallel.mesh import (
 # ---------------------------------------------------------------------------
 
 
-def _ghost_z(f, mesh: Mesh):
-    """(pz, py, 3, nzl + 2, nyl, nx): ``f`` with one exchanged ghost plane a
-    z side (wraparound garbage at the physical walls, wall-masked)."""
+def _halo_z_planes(f, mesh: Mesh):
+    """((pz, py, 3, 1, nyl, nx) zlo, zhi), contiguous: the plane below each
+    shard's first (the previous shard's last) and above its last (the next
+    shard's first); wraparound garbage at the physical walls, wall-masked."""
     last, first = f[:, :, :, -1:], f[:, :, :, :1]
     if mesh.shape["z"] > 1:
-        lo = collectives.ppermute(last, mesh, "z", +1)   # prev shard's last
-        hi = collectives.ppermute(first, mesh, "z", -1)  # next shard's first
+        zlo = collectives.ppermute(last, mesh, "z", +1)
+        zhi = collectives.ppermute(first, mesh, "z", -1)
     else:
-        lo, hi = last, first
-    return torch.cat([lo, f, hi], dim=3)
+        zlo, zhi = last, first
+    return zlo.contiguous(), zhi.contiguous()
+
+
+def _ghosted(f, zlo, zhi):
+    """(pz, py, 3, nzl + 2, nyl, nx): ``f`` between its two z halo planes."""
+    return torch.cat([zlo, f, zhi], dim=3)
+
+
+def _ghost_z(f, mesh: Mesh):
+    """``f`` with one exchanged ghost plane a z side (:func:`_ghosted` of
+    :func:`_halo_z_planes`): the diffusion kernels' input."""
+    return _ghosted(f, *_halo_z_planes(f, mesh))
 
 
 def _halo_y_rows(f, mesh: Mesh):
@@ -189,17 +212,22 @@ def _diffusion_on_halos(f, fg, ylo, yhi, nu_dt_by_dx2, mesh):
     return torch.where(wall, f, res)
 
 
+def _extended_from(f, zlo, zhi, ylo, yhi):
+    """:func:`_extended` of a field and its four halo buffers."""
+    return _extended(_ghosted(f, zlo, zhi), ylo, yhi)
+
+
 def _rotational_on_halos(w, u, w_halos, u_halos, prefactor, mesh):
     res = _per_shard(
         lambda we, ue: _single.rotational_curl_add_3d_ref(we, ue, prefactor),
-        _extended(*w_halos), _extended(*u_halos))
+        _extended_from(w, *w_halos), _extended_from(u, *u_halos))
     wall = _zy_wall(mesh, w.shape[3], w.shape[4], w.device)
     return torch.where(wall, w, res)
 
 
-def _curl_on_halos(f, fg, ylo, yhi, prefactor, add_vector, mesh):
+def _curl_on_halos(f, halos, prefactor, add_vector, mesh):
     res = _per_shard(lambda e: _plain.curl_3d(e, prefactor),
-                     _extended(fg, ylo, yhi))
+                     _extended_from(f, *halos))
     wall = _zy_wall(mesh, f.shape[3], f.shape[4], f.device)
     out = torch.where(wall, torch.zeros((), dtype=f.dtype, device=f.device),
                       res)
@@ -232,6 +260,120 @@ def _sponge_in_shards(d, width, mesh):
     d = torch.gather(
         d, 3, zl.view(pz, 1, 1, nzl, 1, 1).expand(pz, py, 3, nzl, nyl, nx))
     return d * rz.view(pz, 1, 1, nzl, 1, 1)
+
+
+# ---------------------------------------------------------------------------
+# the z-marching kernels' launch plan
+# ---------------------------------------------------------------------------
+
+#: the z-marching kernels' tiles, (x, y) cells a block: the instances the
+#: launcher takes
+ZMARCH_TILES = ((32, 8), (32, 16), (64, 4), (64, 8))
+#: the ring depths the launcher takes: the ring refills the stage two planes
+#: back, so ``stages - 2`` planes are in flight while one is used
+ZMARCH_STAGE_RANGE = (3, 5)
+#: the tile and each kernel's ring stages the plan takes (the fastest at
+#: 256^3 on (2, 2) and (8, 1) on one H100, ``tools/probe_sharded.py
+#: --sweep``)
+ZMARCH_TILE = (64, 8)
+ZMARCH_STAGES = {"curl": 4, "rotational": 3}
+#: the sharded fields each kernel reads
+ZMARCH_FIELDS = {"curl": 1, "rotational": 2}
+#: threads an SM holds at the kernels' launch bound (64 registers a thread)
+ZMARCH_SM_THREADS = 1024
+
+
+class ShardedStencilPlan(NamedTuple):
+    """How a z-marching kernel covers a sharded field: a block owns a
+    ``tx`` x ``ty`` tile of (x, y) cells of one shard (a thread a cell) and
+    marches through ``zchunk`` of its planes; ``stages`` plane tiles in its
+    shared-memory ring, ``smem`` dynamic shared bytes a block, ``blocks``
+    (tiles x chunks x shards), ``vec`` (16-byte copies) and the
+    ``blocks_per_sm`` an SM holds at least: what the kernel's launch bound
+    (registers) and the shared bytes allow."""
+
+    tx: int
+    ty: int
+    zchunk: int
+    stages: int
+    smem: int
+    blocks: int
+    vec: bool
+    blocks_per_sm: int
+
+    def args(self):
+        """The plan as the C entry point takes it."""
+        return (self.tx, self.ty, self.zchunk, self.stages, self.smem,
+                self.blocks, int(self.vec))
+
+
+def zmarch_smem(kind: str, tx: int, ty: int, stages: int,
+                itemsize: int) -> int:
+    """Dynamic shared bytes of a z-marching block: ``stages`` plane tiles
+    of the fields' 3 components (``ty + 2`` rows of ``tx`` cells, their two
+    halo columns and 16-byte pads), and the transport's two q tiles."""
+    nf = ZMARCH_FIELDS[kind]
+    tile = (ty + 2) * (tx + 2 * (16 // itemsize))
+    return itemsize * tile * (3 * nf * stages + (6 if nf == 2 else 0))
+
+
+def sharded_stencil_plan_of(kind: str, nshards: int, nzl: int, nyl: int,
+                            nx: int, itemsize: int, aligned: bool,
+                            tile, stages: int,
+                            zchunk: int) -> ShardedStencilPlan:
+    """The plan of ``kind`` ("curl" or "rotational") on ``nshards`` shards
+    of (3, ``nzl``, ``nyl``, ``nx``) values of ``itemsize`` bytes with the
+    given tile (one of :data:`ZMARCH_TILES`), ring ``stages`` (3 to 5) and
+    ``zchunk`` planes a block; 16-byte copies where the pointers are
+    ``aligned`` and ``nx`` is a multiple of 16 bytes' values."""
+    if kind not in ZMARCH_FIELDS:
+        raise ValueError(f"no z-marching kernel {kind!r}")
+    if itemsize not in (4, 8):
+        raise ValueError(f"itemsize {itemsize}: float32 or float64 only")
+    if min(nshards, nzl, nyl, nx) < 1:
+        raise ValueError(
+            f"no plan for {nshards} shards of ({nzl}, {nyl}, {nx})")
+    tile = tuple(tile)
+    if tile not in ZMARCH_TILES:
+        raise ValueError(f"tile {tile} is not one of {ZMARCH_TILES}")
+    lo, hi = ZMARCH_STAGE_RANGE
+    if not lo <= stages <= hi or not 1 <= zchunk <= nzl:
+        raise ValueError(f"stages {stages} ({lo}-{hi}) or zchunk {zchunk} "
+                         f"(1-{nzl}) out of range")
+    tx, ty = tile
+    smem = zmarch_smem(kind, tx, ty, stages, itemsize)
+    if smem > BLOCK_SHARED_MAX:
+        raise ValueError(f"{smem} shared bytes a block")
+    tiles = -(-nx // tx) * -(-nyl // ty)
+    per_sm = max(1, min(ZMARCH_SM_THREADS // (tx * ty),
+                        SM_SHARED_BYTES // (smem + BLOCK_SHARED_RESERVE)))
+    return ShardedStencilPlan(
+        tx, ty, zchunk, stages, smem, tiles * -(-nzl // zchunk) * nshards,
+        aligned and nx % (16 // itemsize) == 0, per_sm)
+
+
+@functools.lru_cache(maxsize=64)
+def sharded_stencil_plan(kind: str, nshards: int, nzl: int, nyl: int,
+                         nx: int, itemsize: int, aligned: bool = True,
+                         sms: int = H100_SMS) -> ShardedStencilPlan:
+    """The launch plan of the z-marching ``kind`` ("curl" or "rotational")
+    on ``nshards`` shards of (3, ``nzl``, ``nyl``, ``nx``) values of
+    ``itemsize`` bytes, on a card of ``sms`` SMs. The C entry point refuses
+    any other plan.
+
+    The tile :data:`ZMARCH_TILE` and the kind's :data:`ZMARCH_STAGES`; z
+    cut into as many chunks as one wave of resident blocks holds (the
+    tiles of all shards times the chunks at most ``blocks_per_sm * sms``),
+    at least one, at most ``nzl``, so every block marches as far as the
+    card allows and the chunks' two extra planes are read as rarely as
+    possible."""
+    stages = ZMARCH_STAGES.get(kind)
+    base = sharded_stencil_plan_of(kind, nshards, nzl, nyl, nx, itemsize,
+                                   aligned, ZMARCH_TILE, stages, nzl)
+    chunks = max(1, min(nzl, base.blocks_per_sm * sms // base.blocks))
+    return sharded_stencil_plan_of(kind, nshards, nzl, nyl, nx, itemsize,
+                                   aligned, ZMARCH_TILE, stages,
+                                   -(-nzl // chunks))
 
 
 # ---------------------------------------------------------------------------
@@ -297,6 +439,23 @@ def diffusion_timestep_vector_3d_sharded(vector_field, nu_dt_by_dx2,
     return out
 
 
+def _halos(f, mesh: Mesh):
+    """(zlo, zhi, ylo, yhi): the four halo buffers of ``f``."""
+    return (*_halo_z_planes(f, mesh), *_halo_y_rows(f, mesh))
+
+
+def _zmarch_plan(kind, fields):
+    """The plan of a z-marching launch on ``fields`` (each a (field, its
+    four halo buffers) tuple): 16-byte copies only where the fields'
+    pointers allow them (the halo buffers are fresh allocations; the
+    launcher checks every pointer)."""
+    f = fields[0][0]
+    pz, py, _, nzl, nyl, nx = f.shape
+    aligned = all(ts[0].data_ptr() % 16 == 0 for ts in fields)
+    return sharded_stencil_plan(kind, pz * py, nzl, nyl, nx,
+                                f.element_size(), aligned)
+
+
 def curl_3d_sharded(field, prefactor, mesh: Mesh, add_vector=None, *,
                     compute_l1_max=False):
     """``prefactor * 2 * curl(field)`` of a sharded field (zero on the
@@ -306,12 +465,11 @@ def curl_3d_sharded(field, prefactor, mesh: Mesh, add_vector=None, *,
     over the mesh, a 0-d tensor on the field's device. Forward only."""
     _check_sharded("field", field, mesh)
     f = field.contiguous()
-    fg = _ghost_z(f, mesh)
-    ylo, yhi = _halo_y_rows(f, mesh)
+    halos = _halos(f, mesh)
     if f.device.type == "cpu":
         if add_vector is not None and not torch.is_tensor(add_vector):
             add_vector = torch.tensor(add_vector, dtype=f.dtype)
-        out = _curl_on_halos(f, fg, ylo, yhi, prefactor, add_vector, mesh)
+        out = _curl_on_halos(f, halos, prefactor, add_vector, mesh)
         if compute_l1_max:
             shard_max = out.abs().sum(dim=2).amax(dim=(2, 3, 4))
             return out, collectives.pmax(shard_max, mesh)
@@ -326,12 +484,14 @@ def curl_3d_sharded(field, prefactor, mesh: Mesh, add_vector=None, *,
         torch.zeros(mesh.axis_sizes, dtype=f.dtype, device=f.device)
         if compute_l1_max else None
     )
+    plan = _zmarch_plan("curl", [(f, *halos)])
     _single._launch(
-        "sopht_curl_3d_sharded", f,
-        fg.data_ptr(), ylo.data_ptr(), yhi.data_ptr(),
+        "sopht_curl_3d_sharded_zmarch", f,
+        f.data_ptr(), *(t.data_ptr() for t in halos),
         _coords(f).data_ptr(), pref.data_ptr(),
         None if add is None else add.data_ptr(), out.data_ptr(),
         None if shard_max is None else shard_max.data_ptr(), *_geometry(f),
+        *plan.args(),
     )
     curl_3d_sharded.launches += 1
     if compute_l1_max:
@@ -346,16 +506,17 @@ def rotational_curl_add_3d_sharded(vorticity, velocity, prefactor, mesh: Mesh):
     _check_sharded("vorticity", vorticity, mesh)
     _check_sharded("velocity", velocity, mesh, like=vorticity)
     w, u = vorticity.contiguous(), velocity.contiguous()
-    w_halos = (_ghost_z(w, mesh), *_halo_y_rows(w, mesh))
-    u_halos = (_ghost_z(u, mesh), *_halo_y_rows(u, mesh))
+    w_halos, u_halos = _halos(w, mesh), _halos(u, mesh)
     if w.device.type == "cpu":
         return _rotational_on_halos(w, u, w_halos, u_halos, prefactor, mesh)
     pref = _single._device_tensor(w, prefactor, 1, "prefactor")
     out = torch.empty_like(w)
+    plan = _zmarch_plan("rotational", [(w, *w_halos), (u, *u_halos)])
     _single._launch(
-        "sopht_rotational_curl_add_3d_sharded", w,
-        *(t.data_ptr() for t in w_halos), *(t.data_ptr() for t in u_halos),
+        "sopht_rotational_curl_add_3d_sharded_zmarch", w,
+        *(t.data_ptr() for t in (w, *w_halos, u, *u_halos)),
         _coords(w).data_ptr(), pref.data_ptr(), out.data_ptr(), *_geometry(w),
+        *plan.args(),
     )
     rotational_curl_add_3d_sharded.launches += 1
     return out

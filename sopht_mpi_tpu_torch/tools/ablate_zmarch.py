@@ -1,0 +1,124 @@
+"""Time the z-marching sharded curl and transport kernels
+(``curl_zmarch_kernel``, ``rotational_zmarch_kernel`` in
+``csrc/stencils_3d.cu``) with one part of their walk cut out at a time, on
+one CUDA device:
+
+    python3 -m sopht_mpi_tpu_torch.tools.ablate_zmarch [name ...]
+
+Each variant is a copy of the package under ``build/ablate_zmarch/<name>``
+whose walk has one edit (the names below; default: all of them), built in
+parallel by ``nvcc``. Then each runs, in its own process, both kernels
+alone under their plans at 256^3 on a (2, 2) mesh on halo buffers made
+beforehand, and prints their device time (``torch.profiler``) and their
+time a launch in a batch of 20 (CUDA events); the unedited kernels run
+first and last. A cut variant's output is wrong: only its time is read.
+What a part costs is the kernel's time less the time without it, where
+the rest does not take its place.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+PACKAGE = Path(__file__).resolve().parents[1]
+ROOT = PACKAGE.parent / "build" / "ablate_zmarch"
+
+# name -> edits (old, new) inside the walk and the two kernels' text, each
+# found once
+VARIANTS = {
+    "kernel": [],
+    # no plane arrives: the arithmetic and stores run on whatever the ring
+    # holds
+    "no_copies": [
+        ("    if (k < L) copies.issue(ring + k * stage_size, a, b, w.za - 1 + k, g);",
+         ""),
+        ("      copies.issue(ring + back * stage_size, a, b, w.za - 1 + kn, g);",
+         "")],
+    # no barrier a plane (the walk races; the copies and the arithmetic
+    # stay)
+    "no_barrier": [("    cp_async_wait_ring(stages);\n    __syncthreads();",
+                    "    cp_async_wait_ring(stages);")],
+    # no output stores, and so no arithmetic that only they need
+    "no_stores": [
+        ("          if (w.valid) {\n            T* d = dst + z * plane;\n"
+         "            d[0] = c0;",
+         "          if (w.valid && z < 0) {\n            T* d = dst + z * plane;\n"
+         "            d[0] = c0;"),
+        ("          if (w.valid) {\n            T* d = dst + z * plane;\n"
+         "            d[0] = o0;",
+         "          if (w.valid && z < 0) {\n            T* d = dst + z * plane;\n"
+         "            d[0] = o0;")],
+    # the transport forms q at its own cells only, not at the tile's halo
+    "no_halo_q": [("        if (k >= 1 && k <= L - 2) {  // a plane that is",
+                   "        if (k < 0) {  // a plane that is")],
+}
+
+TIME = """
+import torch
+from sopht_mpi_tpu_torch.ops import cuda_stencils_3d_sharded as sharded
+from sopht_mpi_tpu_torch.parallel.mesh import create_mesh, shard_vector_field
+from sopht_mpi_tpu_torch.tools.probe_sharded import (
+    batched_ms, device_ms, kernel_alone)
+gen = torch.Generator(device="cuda").manual_seed(0)
+mesh = create_mesh(3, (2, 2), device="cuda")
+ws, us = (shard_vector_field(torch.randn((3, 256, 256, 256), device="cuda",
+                                         generator=gen), mesh)
+          for _ in range(2))
+out = []
+for name, fn in kernel_alone(ws, us, mesh).items():
+    out.append(f"{{name}} {{device_ms(fn):.4f}} / {{batched_ms(fn):.4f}} ms")
+print("; ".join(out))
+"""
+
+
+def variant_tree(name: str) -> Path:
+    """A copy of the package with the variant's edits in the walk."""
+    root = ROOT / name
+    if root.exists():
+        shutil.rmtree(root)
+    shutil.copytree(PACKAGE, root / PACKAGE.name,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    cu = root / PACKAGE.name / "csrc" / "stencils_3d.cu"
+    src = cu.read_text()
+    start = src.index("// The walk both kernels share.")
+    end = src.index("// A z-marching launch's plan")
+    body = src[start:end]
+    for old, new in VARIANTS[name]:
+        if body.count(old) != 1:
+            raise SystemExit(f"{name}: edit not found once: {old!r}")
+        body = body.replace(old, new)
+    cu.write_text(src[:start] + body + src[end:])
+    return root
+
+
+def run(root: Path, code: str, **kw):
+    # from the tree's root: ``python -c`` puts the working directory first
+    # on the import path
+    env = dict(os.environ, PYTHONPATH=str(root))
+    return subprocess.Popen([sys.executable, "-c", code], env=env, cwd=root,
+                            **kw)
+
+
+def main(argv):
+    names = argv or list(VARIANTS)
+    trees = {name: variant_tree(name) for name in names}
+    build = "from sopht_mpi_tpu_torch.ops import cuda_stencils_3d; " \
+            "cuda_stencils_3d.library()"
+    procs = [run(tree, build) for tree in trees.values()]
+    if any(p.wait() for p in procs):
+        raise SystemExit("a variant failed to build")
+    order = names + (["kernel"] if "kernel" in names else [])
+    for name in order:
+        proc = run(trees[name], TIME.format(), stdout=subprocess.PIPE,
+                   text=True)
+        line = proc.communicate()[0].strip()
+        print(f"ablate zmarch {name}: {line}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
