@@ -1789,8 +1789,9 @@ def main():
     def check_sharded_calls(shape, mesh_shape, dtype, gen):
         """Every sharded stencil at ``shape`` over ``mesh_shape`` against
         its plain version and against its single-device twin on the
-        assembled field: (calls, errors against the plain versions, the
-        largest difference from a twin, the two sharded fields and the
+        assembled field, and the sponge at every width its gate takes:
+        (calls, errors against the plain versions, the largest difference
+        from a twin, the number of checks, the two sharded fields and the
         mesh)."""
         mesh = create_mesh(3, mesh_shape, device=dev)
         w = torch.randn(shape, dtype=dtype, device=dev, generator=gen)
@@ -1822,9 +1823,36 @@ def main():
             check(err_twin <= tol, f"{name} {where}: max|diff| {err_twin} > "
                   f"{tol} against the single-device kernel")
             errs[name], twin_err = err, max(twin_err, err_twin)
+        # the sponge at every width 1 ... 4 its gate takes (each a launch of
+        # the fused kernel); where the gate is closed at all four (one-plane
+        # shards), the wrapper's route at width 2: the sharded diffusion and
+        # the sponge on the assembled field
+        ws = shard_vector_field(w, mesh)
+        p = torch.tensor(0.05, dtype=dtype, device=dev)
+        spo = by_name["diffusion_penalise_vector_3d_sharded"]
+        widths = [wd for wd in range(1, 5)
+                  if sharded.diffusion_penalise_sharded_supported(
+                      shape, mesh, wd)]
+        for width in widths or [2]:
+            before = spo.launches
+            out = sharded.diffusion_penalise_vector_3d_sharded(ws, p, width,
+                                                               mesh)
+            check(spo.launches == before + (1 if widths else 0),
+                  f"sponge width {width} {where}: launches")
+            ref = sharded.diffusion_penalise_vector_3d_sharded_ref(
+                ws, p, width, mesh)
+            twin = kernels.diffusion_penalise_vector_3d(w, p, width)
+            tol = (1e-12 if dtype == torch.float64
+                   else 1e-5 * max(1.0, float(ref.abs().max())))
+            err, _ = max_err(out, ref)
+            err_twin, _ = max_err(unshard_vector_field(out, mesh), twin)
+            check(max(err, err_twin) <= tol, f"sponge width {width} {where}: "
+                  f"max|diff| {err} / {err_twin} > {tol} against the plain "
+                  "version / the single-device kernel")
+            twin_err = max(twin_err, err_twin)
         torch.cuda.synchronize()
-        return calls, errs, twin_err, (shard_vector_field(w, mesh),
-                                       shard_vector_field(u, mesh), mesh)
+        return calls, errs, twin_err, len(calls) + len(widths or [2]), (
+            ws, shard_vector_field(u, mesh), mesh)
 
     @phase("sharded kernels")
     def sharded_kernel_phase():
@@ -1840,13 +1868,27 @@ def main():
                 ((3, *SHARDED_GRID), (8, 1), torch.float32),
                 ((3, *SHARDED_GRID), (4, 2), torch.float32),
                 ((3, *SHARDED_GRID), SHARDED_MESH, torch.float32)):
-            calls, errs, e, (ws, us, mesh) = check_sharded_calls(
+            calls, errs, e, n, (ws, us, mesh) = check_sharded_calls(
                 shape, mesh_shape, dtype, gen)
             twin_err = max(twin_err, e)
-            n_checked += len(calls)
+            n_checked += n
+            if mesh_shape == (64, 1):
+                # the sponge's kernel on one-plane shards at width 1, the
+                # one width its launcher takes there (the wrapper's gate
+                # sends every width to the assembled field)
+                out = torch.full_like(ws, float("nan"))
+                sharded_kernel_alone(ws, us, mesh, out=out, width=1)[
+                    "diffusion_penalise_vector_3d_sharded"]()
+                ref = sharded.diffusion_penalise_vector_3d_sharded_ref(
+                    ws, 0.05, 1, mesh)
+                err, scale = max_err(out, ref)
+                check(err <= 1e-5 * max(1.0, scale), "the sponge's kernel "
+                      f"on one-plane shards at width 1: max|diff| {err}")
+                n_checked += 1
         # the last is the main path's shape: its errors and times are kept
-        check(set(calls) == set(SHARDED_REPLACES), "the fused sponge's gate "
-              "is closed at the main path's shape")
+        check(sharded.diffusion_penalise_sharded_supported(
+            (3, *SHARDED_GRID), mesh, 2), "the fused sponge's gate is closed "
+            "at the main path's shape")
         shape = tuple(ws.shape)
         twins = []
         for name, (fn, ref_fn, twin_fn) in calls.items():
@@ -1867,19 +1909,17 @@ def main():
                 f"{sharded_batched_ms(calls[name][0]):.4f} ms a call, the "
                 f"kernel alone {sharded_batched_ms(fn):.4f} ms")
         # what of a wrapper's time is the exchange: one field's two z planes
-        # and two y rows, and the ghosted copy the diffusion wrappers make
+        # and two y rows
         halo_ms = median_ms(torch, sharded_exchange(ws, mesh))
-        ghost_ms = median_ms(torch, lambda: (
-            sharded._ghost_z(ws, mesh), sharded._halo_y_rows(ws, mesh)))
         detail = "; ".join(line(k, table[k]) for k in SHARDED_REPLACES)
         return None, (
             f"{n_checked} checks at {odd} on (2, 2), (2, 3), (17, 1), 64^3 "
             f"f64 on (2, 2), 64^3 on (64, 1) (one-plane shards), 256^3 on "
-            f"(8, 1), (4, 2), (2, 2): largest max|diff| from a single-device "
-            f"twin {twin_err:.3g}; one launch for all shards: {detail}; "
+            f"(8, 1), (4, 2), (2, 2), the sponge at every width 1-4 its gate "
+            f"takes: largest max|diff| from a single-device twin "
+            f"{twin_err:.3g}; one launch for all shards: {detail}; "
             f"{'; '.join(twins)}; {'; '.join(zmarch)}; the halo exchange of "
-            f"one field (two z planes, two y rows) {halo_ms:.4f} ms, a "
-            f"ghosted copy and the y rows {ghost_ms:.4f} ms [{card}]")
+            f"one field (two z planes, two y rows) {halo_ms:.4f} ms [{card}]")
 
     sharded_kernel_phase()
 

@@ -8,43 +8,30 @@
 // axis. Scalar prefactors are read from device memory (0-d tensors), so the
 // host never has to know dt.
 //
-// Launch shape (every kernel but conv_filter_line_3d): one thread per output
-// cell, blocks of 32 x 8 threads over (x, y), one grid row of blocks per
-// z-plane, so a warp reads 32 neighbouring x cells (coalesced) and no thread
-// divides an index by a cell count.
+// Launch shape of the single-device kernels (every one but
+// conv_filter_line_3d): one thread per output cell, blocks of 32 x 8
+// threads over (x, y), one grid row of blocks per z-plane, so a warp reads
+// 32 neighbouring x cells (coalesced) and no thread divides an index by a
+// cell count.
 //
-// Sharded launches. A sharded field is (S, 3, nz, ny, nx), S = pz * py
-// shards of a (pz, py) mesh over (z, y), each shard a contiguous block of
-// its own; one launch covers all shards. A thread reads only its own
-// shard's block and the halo buffers the exchange made for it. Three-point
-// stencils need no corner halos. Wall masks, clamps and ramps take the
-// cell's GLOBAL (z, y) from the shard's offsets (coords[2 s], coords[2 s +
-// 1]) and the grid's (NZ, NY), so a shard seam is interior; the wraparound
-// halo of a shard on a physical wall is only ever next to ring cells, which
-// read no neighbour. The TPU kernels' y tiles, 8-row seam strips and plane
-// selects are VMEM bookkeeping with no counterpart here. Bounds: as the
-// single-device kernel plus the halo planes and rows read once.
-//
-// The diffusion and diffusion + sponge kernels below are each one template
-// with two instances: the single-device one, and the sharded one, which
-// replaces sopht_mpi_tpu/ops/pallas_stencils_sharded.py
-// (_diffusion_sharded_kernel, _diffpen_sharded_kernel). blockIdx.z runs
-// over (shard, local plane); the input comes z-ghosted, (S, 3, nz + 2, ny,
-// nx) with the neighbour shards' planes at indices 0 and nz + 1, and the
-// neighbour shards' y rows come as two (S, 3, nz, 1, nx) arrays, read in
-// place of the in-shard y neighbour on the shard's first and last row. The
-// sponge's clamp source lies at most width - 1 cells from the cell, in the
-// same shard when nz >= 2 width and ny >= 2 width (the wrapper's gate). The
-// single-device instance compiles every halo branch away (if constexpr);
-// the sharded branches of rotational_curl_add_kernel and curl_kernel are
-// no longer instantiated.
-//
-// curl_zmarch_kernel, rotational_zmarch_kernel (after the single-device
-// kernels)
-//   Replace _curl_sharded_kernel (launched in _curl_sharded_impl) and
-//   _rotational_sharded_kernel (_rotational_sharded_impl): the curl and the
-//   rotational transport below on a sharded field, reading the shard's
-//   own block and the four halo buffers the exchange made for it, never a
+// The sharded kernels: curl_zmarch_kernel, rotational_zmarch_kernel and
+// diffusion_zmarch_kernel (after the single-device kernels). A sharded
+// field is (S, 3, nz, ny, nx), S = pz * py shards of a (pz, py) mesh over
+// (z, y), each shard a contiguous block of its own; one launch covers all
+// shards. Three-point stencils need no corner halos. Wall masks, clamps and
+// ramps take the cell's GLOBAL (z, y) from the shard's offsets (coords[2
+// s], coords[2 s + 1]) and the grid's (NZ, NY), so a shard seam is
+// interior; the wraparound halo of a shard on a physical wall is only ever
+// next to ring cells, which read no neighbour. The TPU kernels' y tiles,
+// 8-row seam strips and plane selects are VMEM bookkeeping with no
+// counterpart here.
+//   Replace _curl_sharded_kernel (launched in _curl_sharded_impl),
+//   _rotational_sharded_kernel (_rotational_sharded_impl),
+//   _diffusion_sharded_kernel (_diffusion_sharded_impl) and
+//   _diffpen_sharded_kernel (_diffpen_sharded_impl): the curl, the
+//   rotational transport, the diffusion step and the diffusion step with
+//   the wall sponge below on a sharded field, reading the shard's own
+//   block and the four halo buffers the exchange made for it, never a
 //   ghosted copy: zlo / zhi (S, 3, 1, ny, nx), the planes below each
 //   shard's first and above its last, and ylo / yhi (S, 3, nz, 1, nx), the
 //   rows below its first and above its last.
@@ -67,10 +54,15 @@
 //   cell's seven times). The curl's l1 max is folded a block into its
 //   shard's slot. A launch plan (tile, chunk, stages, shared bytes, blocks,
 //   16-byte copies; sharded_stencil_plan) is checked by the launcher.
+//   The diffusion pair's walk keeps the plane below the centre too, so the
+//   sponge forms each cell's diffusion at its in-plane clamp source's place
+//   in the tiles, and the z band's source plane writes the band's planes:
+//   no thread takes another path than its neighbours. Where a source lies
+//   in another tile, the scattering instance takes over.
 //   Bound: HBM bytes, each input field and its halo buffers read once and
-//   the output written once (24 B a cell for the curl, 36 for the
-//   transport, at f32). The tile's halo over-read, (TX + 2)(TY + 2) /
-//   (TX TY), and the two extra planes a chunk mostly hit L2.
+//   the output written once (24 B a cell for the curl and the diffusion
+//   pair, 36 for the transport, at f32). The tile's halo over-read, (TX +
+//   2)(TY + 2) / (TX TY), and the two extra planes a chunk mostly hit L2.
 //
 // rotational_curl_add_3d
 //   Replaces sopht_mpi_tpu/ops/pallas_stencils_3d.py
@@ -156,50 +148,27 @@ __device__ __forceinline__ double max_t(double a, double b) {
   return fmax(a, b);
 }
 
-// The extent of a launch: the (nz, ny, nx) block a plane row of blocks walks
-// (the grid, or one shard) and the grid's extent along the sharded axes
-// (NZ = nz, NY = ny on a single-device launch).
+// The extent of a sharded launch: a shard's (nz, ny, nx) and the grid's
+// extent along the sharded axes (NZ, NY).
 struct Geom {
   int nz, ny, nx;
   int NZ, NY;
 };
 
-// The cell this thread owns: (z, y, x) in its block, (gz, gy) in the grid,
-// the shard s (0 on a single-device launch) and the cell's index i in an
-// (nz, ny, nx) component.
+// The cell this thread owns on a single-device launch: (z, y, x) and its
+// index i in an (nz, ny, nx) component. False for the ragged edge of the
+// launch.
 struct Cell {
   int x, y, z;
-  int gz, gy;
-  int s;
   long long i;
 };
 
-// False for the ragged edge of the launch. On a sharded launch blockIdx.z
-// runs over (shard, local plane) and coords holds each shard's global
-// (z0, y0).
-template <bool kSharded>
-__device__ __forceinline__ bool this_cell(const Geom& g,
-                                          const int* __restrict__ coords,
-                                          Cell& c) {
+__device__ __forceinline__ bool this_cell(int nz, int ny, int nx, Cell& c) {
   c.x = blockIdx.x * kBlockX + threadIdx.x;
   c.y = blockIdx.y * kBlockY + threadIdx.y;
-  if constexpr (kSharded) {
-    c.s = blockIdx.z / g.nz;  // uniform over the block
-    c.z = blockIdx.z - c.s * g.nz;
-    c.gz = coords[2 * c.s] + c.z;
-    c.gy = coords[2 * c.s + 1] + c.y;
-  } else {
-    c.s = 0;
-    c.z = blockIdx.z;
-    c.gz = c.z;
-    c.gy = c.y;
-  }
-  c.i = ((long long)c.z * g.ny + c.y) * g.nx + c.x;
-  return c.x < g.nx && c.y < g.ny;
-}
-
-__device__ __forceinline__ bool this_cell(int nz, int ny, int nx, Cell& c) {
-  return this_cell<false>(Geom{nz, ny, nx, nz, ny}, nullptr, c);
+  c.z = blockIdx.z;
+  c.i = ((long long)c.z * ny + c.y) * nx + c.x;
+  return c.x < nx && c.y < ny;
 }
 
 __device__ __forceinline__ bool on_ring(int z, int y, int x, int nz, int ny,
@@ -207,60 +176,6 @@ __device__ __forceinline__ bool on_ring(int z, int y, int x, int nz, int ny,
   return z == 0 || y == 0 || x == 0 || z == nz - 1 || y == ny - 1 ||
          x == nx - 1;
 }
-
-// One input field as a thread reads it. f is component 0 of the thread's
-// block with the cell index i valid in it: on a sharded launch the shard's
-// z-ghosted block moved up one plane, so i - plane and i + plane reach the
-// ghost planes. lo and hi are component 0 of the shard's low and high
-// neighbour y rows (sharded launches only), indexed by (z, x). n and nr are
-// the component strides of f and of the row arrays.
-template <typename T, bool kSharded>
-struct Src {
-  const T* f;
-  const T* lo;
-  const T* hi;
-  long long n, nr;
-
-  __device__ __forceinline__ Src(const T* __restrict__ field,
-                                 const T* __restrict__ ylo,
-                                 const T* __restrict__ yhi, const Geom& g,
-                                 int s) {
-    const long long plane = (long long)g.ny * g.nx;
-    if constexpr (kSharded) {
-      n = plane * (g.nz + 2);
-      nr = (long long)g.nz * g.nx;
-      f = field + 3 * n * s + plane;
-      lo = ylo + 3 * nr * s;
-      hi = yhi + 3 * nr * s;
-    } else {
-      n = plane * g.nz;
-      nr = 0;
-      f = field;
-      lo = hi = nullptr;
-    }
-  }
-
-  // Whether the y - 1 (y + 1) neighbour of a cell on row y of the block
-  // lies in the low (high) row array.
-  __device__ __forceinline__ bool below(int y) const {
-    return kSharded && y == 0;
-  }
-  __device__ __forceinline__ bool above(int y, const Geom& g) const {
-    return kSharded && y == g.ny - 1;
-  }
-
-  // Component k at the y - 1 / y + 1 neighbour of cell (z, y, x), index i.
-  __device__ __forceinline__ T ym(int k, long long i, int z, int y, int x,
-                                  const Geom& g) const {
-    if (below(y)) return __ldg(lo + k * nr + (long long)z * g.nx + x);
-    return __ldg(f + k * n + i - g.nx);
-  }
-  __device__ __forceinline__ T yp(int k, long long i, int z, int y, int x,
-                                  const Geom& g) const {
-    if (above(y, g)) return __ldg(hi + k * nr + (long long)z * g.nx + x);
-    return __ldg(f + k * n + i + g.nx);
-  }
-};
 
 template <typename T>
 __device__ __forceinline__ void cross_at(const T* __restrict__ u,
@@ -273,53 +188,37 @@ __device__ __forceinline__ void cross_at(const T* __restrict__ u,
   q[2] = u0 * w1 - u1 * w0;
 }
 
-template <typename T, bool kSharded>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     rotational_curl_add_kernel(const T* __restrict__ w,
-                               const T* __restrict__ w_ylo,
-                               const T* __restrict__ w_yhi,
                                const T* __restrict__ u,
-                               const T* __restrict__ u_ylo,
-                               const T* __restrict__ u_yhi,
-                               const int* __restrict__ coords,
                                const T* __restrict__ pref,
-                               T* __restrict__ out, Geom g) {
+                               T* __restrict__ out, int nz, int ny, int nx) {
   Cell c;
-  if (!this_cell<kSharded>(g, coords, c)) return;
-  const long long sy = g.nx;
-  const long long sz = (long long)g.ny * g.nx;
-  const long long n = sz * g.nz;
+  if (!this_cell(nz, ny, nx, c)) return;
+  const long long sy = nx;
+  const long long sz = (long long)ny * nx;
+  const long long n = sz * nz;
   const long long i = c.i;
-  const Src<T, kSharded> ws(w, w_ylo, w_yhi, g, c.s);
-  const Src<T, kSharded> us(u, u_ylo, u_yhi, g, c.s);
-  T* o = out + 3 * n * c.s;
-  const T w0 = __ldg(ws.f + i), w1 = __ldg(ws.f + ws.n + i),
-          w2 = __ldg(ws.f + 2 * ws.n + i);
-  if (on_ring(c.gz, c.gy, c.x, g.NZ, g.NY, g.nx)) {
-    o[i] = w0;
-    o[n + i] = w1;
-    o[2 * n + i] = w2;
+  const T w0 = __ldg(w + i), w1 = __ldg(w + n + i), w2 = __ldg(w + 2 * n + i);
+  if (on_ring(c.z, c.y, c.x, nz, ny, nx)) {
+    out[i] = w0;
+    out[n + i] = w1;
+    out[2 * n + i] = w2;
     return;
   }
   T qxp[3], qxm[3], qyp[3], qym[3], qzp[3], qzm[3];
-  cross_at(us.f, ws.f, i + 1, ws.n, qxp);
-  cross_at(us.f, ws.f, i - 1, ws.n, qxm);
-  const long long row = (long long)c.z * g.nx + c.x;
-  if (ws.above(c.y, g))
-    cross_at(us.hi, ws.hi, row, ws.nr, qyp);
-  else
-    cross_at(us.f, ws.f, i + sy, ws.n, qyp);
-  if (ws.below(c.y))
-    cross_at(us.lo, ws.lo, row, ws.nr, qym);
-  else
-    cross_at(us.f, ws.f, i - sy, ws.n, qym);
-  cross_at(us.f, ws.f, i + sz, ws.n, qzp);
-  cross_at(us.f, ws.f, i - sz, ws.n, qzm);
+  cross_at(u, w, i + 1, n, qxp);
+  cross_at(u, w, i - 1, n, qxm);
+  cross_at(u, w, i + sy, n, qyp);
+  cross_at(u, w, i - sy, n, qym);
+  cross_at(u, w, i + sz, n, qzp);
+  cross_at(u, w, i - sz, n, qzm);
   const T p = *pref;
   // component order of _curl_planes: curl_x = d_y q_z - d_z q_y, ...
-  o[i] = w0 + p * ((qyp[2] - qym[2]) - (qzp[1] - qzm[1]));
-  o[n + i] = w1 + p * ((qzp[0] - qzm[0]) - (qxp[2] - qxm[2]));
-  o[2 * n + i] = w2 + p * ((qxp[1] - qxm[1]) - (qyp[0] - qym[0]));
+  out[i] = w0 + p * ((qyp[2] - qym[2]) - (qzp[1] - qzm[1]));
+  out[n + i] = w1 + p * ((qzp[0] - qzm[0]) - (qxp[2] - qxm[2]));
+  out[2 * n + i] = w2 + p * ((qxp[1] - qxm[1]) - (qyp[0] - qym[0]));
 }
 
 // Sponge ramp: sin(pi/2 k / w) at distance k < w from a wall, 1 inside.
@@ -336,49 +235,57 @@ __device__ __forceinline__ int clamp_src(int i, int n, int w) {
   return i < w - 1 ? w - 1 : (i > n - w ? n - w : i);
 }
 
-template <typename T, bool kSharded>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     diffusion_penalise_kernel(const T* __restrict__ f,
-                              const T* __restrict__ ylo,
-                              const T* __restrict__ yhi,
-                              const int* __restrict__ coords,
                               const T* __restrict__ pref,
-                              T* __restrict__ out, Geom g, int width) {
+                              T* __restrict__ out, int nz, int ny, int nx,
+                              int width) {
   Cell c;
-  if (!this_cell<kSharded>(g, coords, c)) return;
-  const long long sz = (long long)g.ny * g.nx;
-  const long long n = sz * g.nz;
-  const Src<T, kSharded> src(f, ylo, yhi, g, c.s);
-  T* o = out + 3 * n * c.s;
-  // the clamp source in the grid, then in this block: at most width - 1
-  // cells away, inside the shard where nz >= 2 width and ny >= 2 width
-  const int xs = clamp_src(c.x, g.nx, width);
-  const int gys = clamp_src(c.gy, g.NY, width);
-  const int gzs = clamp_src(c.gz, g.NZ, width);
-  const int ys = gys - (c.gy - c.y);
-  const int zs = gzs - (c.gz - c.z);
-  const long long s = ((long long)zs * g.ny + ys) * g.nx + xs;
-  const bool interior = !on_ring(gzs, gys, xs, g.NZ, g.NY, g.nx);
-  const T rx = ramp<T>(c.x, g.nx, width);
-  const T ry = ramp<T>(c.gy, g.NY, width);
-  const T rz = ramp<T>(c.gz, g.NZ, width);
+  if (!this_cell(nz, ny, nx, c)) return;
+  const long long sz = (long long)ny * nx;
+  const long long n = sz * nz;
+  // the clamp source: at most width - 1 cells away
+  const int xs = clamp_src(c.x, nx, width);
+  const int ys = clamp_src(c.y, ny, width);
+  const int zs = clamp_src(c.z, nz, width);
+  const long long s = ((long long)zs * ny + ys) * nx + xs;
+  const bool interior = !on_ring(zs, ys, xs, nz, ny, nx);
+  const T rx = ramp<T>(c.x, nx, width);
+  const T ry = ramp<T>(c.y, ny, width);
+  const T rz = ramp<T>(c.z, nz, width);
   const T p = *pref;
+  // every component's seven values first, then the sums: 21 loads in flight
+  // (read after each sum, the loads ran 5% slower on an H100)
+  T val[3][7];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const T* fc = src.f + k * src.n;
-    const T center = __ldg(fc + s);
+    const T* fc = f + k * n;
+    val[k][0] = __ldg(fc + s);
+    if (interior) {
+      val[k][1] = __ldg(fc + s + sz);
+      val[k][2] = __ldg(fc + s - sz);
+      val[k][3] = __ldg(fc + s + nx);
+      val[k][4] = __ldg(fc + s - nx);
+      val[k][5] = __ldg(fc + s + 1);
+      val[k][6] = __ldg(fc + s - 1);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const T center = val[k][0];
     T v = center;
     if (interior) {
       // summation order of the plain version: -6 f, then the z, y and x
       // neighbour pairs
       T lap = T(-6) * center;
-      lap = (lap + __ldg(fc + s + sz)) + __ldg(fc + s - sz);
-      lap = (lap + src.yp(k, s, zs, ys, xs, g)) + src.ym(k, s, zs, ys, xs, g);
-      lap = (lap + __ldg(fc + s + 1)) + __ldg(fc + s - 1);
+      lap = (lap + val[k][1]) + val[k][2];
+      lap = (lap + val[k][3]) + val[k][4];
+      lap = (lap + val[k][5]) + val[k][6];
       v = center + p * lap;
     }
     // the plain version ramps along x, then y, then z
-    o[k * n + c.i] = ((v * rx) * ry) * rz;
+    out[k * n + c.i] = ((v * rx) * ry) * rz;
   }
 }
 
@@ -391,44 +298,39 @@ __device__ __forceinline__ void atomic_max_nonneg(double* addr, double v) {
             static_cast<unsigned long long>(__double_as_longlong(v)));
 }
 
-template <typename T, bool kSharded>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    curl_kernel(const T* __restrict__ psi, const T* __restrict__ ylo,
-                const T* __restrict__ yhi, const int* __restrict__ coords,
-                const T* __restrict__ pref, const T* __restrict__ add,
-                T* __restrict__ out, T* __restrict__ l1_max, Geom g) {
+    curl_kernel(const T* __restrict__ psi, const T* __restrict__ pref,
+                const T* __restrict__ add, T* __restrict__ out,
+                T* __restrict__ l1_max, int nz, int ny, int nx) {
   Cell c;
-  const bool valid = this_cell<kSharded>(g, coords, c);
+  const bool valid = this_cell(nz, ny, nx, c);
   T l1 = T(0);
   if (valid) {
-    const long long sz = (long long)g.ny * g.nx;
-    const long long n = sz * g.nz;
+    const long long sz = (long long)ny * nx;
+    const long long n = sz * nz;
     const long long i = c.i;
-    const Src<T, kSharded> src(psi, ylo, yhi, g, c.s);
-    T* o = out + 3 * n * c.s;
     T c0 = T(0), c1 = T(0), c2 = T(0);
-    if (!on_ring(c.gz, c.gy, c.x, g.NZ, g.NY, g.nx)) {
-      const T* p0 = src.f;
-      const T* p1 = src.f + src.n;
-      const T* p2 = src.f + 2 * src.n;
+    if (!on_ring(c.z, c.y, c.x, nz, ny, nx)) {
+      const T* p0 = psi;
+      const T* p1 = psi + n;
+      const T* p2 = psi + 2 * n;
       const T p = *pref;
-      c0 = p * ((src.yp(2, i, c.z, c.y, c.x, g) -
-                 src.ym(2, i, c.z, c.y, c.x, g)) -
+      c0 = p * ((__ldg(p2 + i + nx) - __ldg(p2 + i - nx)) -
                 (__ldg(p1 + i + sz) - __ldg(p1 + i - sz)));
       c1 = p * ((__ldg(p0 + i + sz) - __ldg(p0 + i - sz)) -
                 (__ldg(p2 + i + 1) - __ldg(p2 + i - 1)));
       c2 = p * ((__ldg(p1 + i + 1) - __ldg(p1 + i - 1)) -
-                (src.yp(0, i, c.z, c.y, c.x, g) -
-                 src.ym(0, i, c.z, c.y, c.x, g)));
+                (__ldg(p0 + i + nx) - __ldg(p0 + i - nx)));
     }
     if (add != nullptr) {
       c0 = c0 + add[0];
       c1 = c1 + add[1];
       c2 = c2 + add[2];
     }
-    o[i] = c0;
-    o[n + i] = c1;
-    o[2 * n + i] = c2;
+    out[i] = c0;
+    out[n + i] = c1;
+    out[2 * n + i] = c2;
     l1 = (abs_t(c0) + abs_t(c1)) + abs_t(c2);
   }
   if (l1_max == nullptr) return;  // uniform across the launch
@@ -445,42 +347,35 @@ __global__ void __launch_bounds__(kThreads)
     l1 = lane < kThreads / 32 ? warp_max[lane] : T(0);
     for (int off = 16; off > 0; off >>= 1)
       l1 = max_t(l1, __shfl_down_sync(0xffffffffu, l1, off));
-    // one slot a shard: a block lies in one shard
-    if (lane == 0) atomic_max_nonneg(l1_max + c.s, l1);
+    if (lane == 0) atomic_max_nonneg(l1_max, l1);
   }
 }
 
-template <typename T, bool kSharded>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    diffusion_kernel(const T* __restrict__ f, const T* __restrict__ ylo,
-                     const T* __restrict__ yhi,
-                     const int* __restrict__ coords,
-                     const T* __restrict__ pref, T* __restrict__ out,
-                     Geom g) {
+    diffusion_kernel(const T* __restrict__ f, const T* __restrict__ pref,
+                     T* __restrict__ out, int nz, int ny, int nx) {
   Cell c;
-  if (!this_cell<kSharded>(g, coords, c)) return;
-  const long long sz = (long long)g.ny * g.nx;
-  const long long n = sz * g.nz;
+  if (!this_cell(nz, ny, nx, c)) return;
+  const long long sz = (long long)ny * nx;
+  const long long n = sz * nz;
   const long long i = c.i;
-  const Src<T, kSharded> src(f, ylo, yhi, g, c.s);
-  T* o = out + 3 * n * c.s;
-  const bool interior = !on_ring(c.gz, c.gy, c.x, g.NZ, g.NY, g.nx);
+  const bool interior = !on_ring(c.z, c.y, c.x, nz, ny, nx);
   const T p = *pref;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const T* fc = src.f + k * src.n;
+    const T* fc = f + k * n;
     const T center = __ldg(fc + i);
     T v = center;
     if (interior) {
       // summation order of the plain version (see diffusion_penalise_kernel)
       T lap = T(-6) * center;
       lap = (lap + __ldg(fc + i + sz)) + __ldg(fc + i - sz);
-      lap = (lap + src.yp(k, i, c.z, c.y, c.x, g)) +
-            src.ym(k, i, c.z, c.y, c.x, g);
+      lap = (lap + __ldg(fc + i + nx)) + __ldg(fc + i - nx);
       lap = (lap + __ldg(fc + i + 1)) + __ldg(fc + i - 1);
       v = center + p * lap;
     }
-    o[k * n + i] = v;
+    out[k * n + i] = v;
   }
 }
 
@@ -629,14 +524,10 @@ inline dim3 grid_of(int nz, int ny, int nx) {
   return dim3((nx + kBlockX - 1) / kBlockX, (ny + kBlockY - 1) / kBlockY, nz);
 }
 
-// A sharded launch's grid: blockIdx.z over (shard, local plane).
-inline bool sharded_grid_ok(int nshards, int nz) {
-  return nshards > 0 && nz > 0 && (long long)nshards * nz <= 65535;
-}
-
 // ---------------------------------------------------------------------------
-// The z-marching sharded kernels: curl_zmarch_kernel, rotational_zmarch_kernel
-// (see the file's head). Shared pieces first.
+// The z-marching sharded kernels: curl_zmarch_kernel,
+// rotational_zmarch_kernel, diffusion_zmarch_kernel (see the file's head).
+// Shared pieces first.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -667,13 +558,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// The walk's ring of `stages` plane tiles refills the stage two planes back
-// (the centre plane stays readable), so stages - 3 groups stay pending behind
-// the one it waits for.
-__device__ __forceinline__ void cp_async_wait_ring(int stages) {
-  if (stages == 3)
+// Wait until at most `pending` (0, 1 or 2) of this thread's copy groups are
+// pending: the walk's ring keeps that many planes in flight behind the one
+// it waits for.
+__device__ __forceinline__ void cp_async_wait_ring(int pending) {
+  if (pending == 0)
     cp_async_wait<0>();
-  else if (stages == 4)
+  else if (pending == 1)
     cp_async_wait<1>();
   else
     cp_async_wait<2>();
@@ -856,34 +747,46 @@ __device__ __forceinline__ ZWalk zwalk(const Geom& g, int zchunk) {
   return w;
 }
 
-// The walk both kernels share. Plane k of the chunk (z = za - 1 + k, k = 0
-// ... L - 1) sits in ring stage k % stages. Iteration k waits for it,
-// issues plane k + stages - 2 into the stage plane k - 2 left (last read in
-// iteration k - 1, before this iteration's barrier), and calls
-// step(k, stage of plane k, stage of plane k - 1): plane k - 1, still in
-// the ring, is the centre of the cells whose output the step writes.
-template <typename T, int TX, int TY, int NF, bool VEC, class Step>
+// The walk the z-marching kernels share. Plane k of the chunk (z = za - 1 +
+// k, k = 0 ... L - 1) sits in ring stage k % stages. The ring keeps the
+// centre plane k - 1 and, with KEEP = 2, plane k - 2 below it readable, so
+// stages - 1 - KEEP planes are in flight ahead. Iteration k waits for plane
+// k, issues plane k + stages - 1 - KEEP into the stage plane k - 1 - KEEP
+// left (last read in iteration k - 1, before this iteration's barrier), and
+// calls step(k, stage of plane k, stage of plane k - 1[, stage of plane
+// k - 2]): plane k - 1 is the centre of the cells whose output the step
+// writes.
+template <typename T, int TX, int TY, int NF, bool VEC, int KEEP, class Step>
 __device__ __forceinline__ void zmarch(T* ring, int stage_size,
                                        const HaloSrc<T>& a,
                                        const HaloSrc<T>& b, const ZWalk& w,
                                        const Geom& g, int stages, Step step) {
   const PlaneCopies<T, TX, TY, NF, VEC> copies(a, b, w.s, w.y0, w.x0, g);
   const int L = w.zb - w.za + 2;
-  for (int k = 0; k < stages - 2; ++k) {
+  const int ahead = stages - 1 - KEEP;
+  for (int k = 0; k < ahead; ++k) {
     if (k < L) copies.issue(ring + k * stage_size, a, b, w.za - 1 + k, g);
     cp_async_commit();
   }
   int slot = 0, prev = stages - 1;  // k % stages, (k - 1) % stages
   for (int k = 0; k < L; ++k) {
-    cp_async_wait_ring(stages);
+    cp_async_wait_ring(ahead - 1);
     __syncthreads();
-    const int kn = k + stages - 2;
+    const int kn = k + ahead;
     if (kn < L) {
-      const int back = prev == 0 ? stages - 1 : prev - 1;  // (k - 2) % stages
+      // (k - 1 - KEEP) % stages
+      const int back = slot + ahead < stages ? slot + ahead
+                                             : slot + ahead - stages;
       copies.issue(ring + back * stage_size, a, b, w.za - 1 + kn, g);
     }
     cp_async_commit();
-    step(k, ring + slot * stage_size, ring + prev * stage_size);
+    if constexpr (KEEP == 1) {
+      step(k, ring + slot * stage_size, ring + prev * stage_size);
+    } else {
+      const int below = prev == 0 ? stages - 1 : prev - 1;  // (k - 2) % stages
+      step(k, ring + slot * stage_size, ring + prev * stage_size,
+           ring + below * stage_size);
+    }
     prev = slot;
     slot = slot + 1 == stages ? 0 : slot + 1;
   }
@@ -913,7 +816,7 @@ __global__ void __launch_bounds__(TX * TY, kZmarchSmThreads / (TX * TY))
   // f_x, f_y at the thread's cell on planes k - 2 (m) and k - 1 (c)
   T f0m = T(0), f1m = T(0), f0c = T(0), f1c = T(0);
   T l1 = T(0);
-  zmarch<T, TX, TY, 1, VEC>(
+  zmarch<T, TX, TY, 1, VEC, 1>(
       ring, 3 * Z::CT, src, src, w, g, stages,
       [&](int k, const T* t, const T* c) {
         const T f0 = t[o], f1 = t[Z::CT + o];
@@ -992,7 +895,7 @@ __global__ void __launch_bounds__(TX * TY, kZmarchSmThreads / (TX * TY))
   const int L = w.zb - w.za + 2;
   // q_x, q_y at the thread's cell on planes k - 2 (m) and k - 1 (c)
   T q0m = T(0), q1m = T(0), q0c = T(0), q1c = T(0);
-  zmarch<T, TX, TY, 2, VEC>(
+  zmarch<T, TX, TY, 2, VEC, 1>(
       ring, 6 * Z::CT, wsrc, usrc, w, g, stages,
       [&](int k, const T* t, const T* c) {
         T* qn = qt + (k & 1) * 3 * Z::CT;
@@ -1045,6 +948,146 @@ __global__ void __launch_bounds__(TX * TY, kZmarchSmThreads / (TX * TY))
       });
 }
 
+// Whether cell i of an n-cell axis lies within w of a wall: a sponge cell.
+__device__ __forceinline__ bool in_band(int i, int n, int w) {
+  return i < w || i > n - 1 - w;
+}
+
+// The cells of an n-cell axis whose clamp source (clamp_src) is cell i:
+// [*lo, *lo + count), none where i clamps elsewhere (n > 2 w).
+__device__ __forceinline__ int clamped_to(int i, int n, int w, int* lo) {
+  if (i == w - 1) {
+    *lo = 0;
+    return w;
+  }
+  if (i == n - w) {
+    *lo = n - w;
+    return w;
+  }
+  *lo = i;
+  return i < w - 1 || i > n - w ? 0 : 1;
+}
+
+// diffusion_zmarch_kernel: out = f + pref * lap7(f), f on the global ring;
+// with SPONGE, the wall sponge of that (the fused kernel's clamp and ramp,
+// by global index; the ramp values sin(pi k / 2 width) read from device
+// memory, as penalise_kernel reads them). The curl's walk on a ring of f
+// planes that keeps plane k - 2 (KEEP = 2): step k writes plane k - 1's
+// output from the centre tile (a cell and its in-plane neighbours), the
+// newest tile (plane k, the z + 1 values) and the tile below (plane k - 2,
+// the z - 1 values).
+//   The sponge: a cell takes the diffused value of its clamp source, up to
+// width - 1 cells away on each axis, times its own ramps, ((v rx) ry) rz
+// (the wall cells' ramp 0 kept as a product, so a NaN in the source shows).
+// Every block marches behind a barrier a plane, so a warp whose cells take
+// another path than its neighbours' (a quarter of the warps of a 256-cell
+// row hold an x-wall cell) sets its block's pace. SPONGE = 1 takes no other
+// path: each thread forms the diffusion at its cell's in-plane clamp source,
+// read from the same tiles at a fixed offset (the cell itself off the x and
+// y walls), and multiplies by its fixed rx and ry; along z the source plane
+// writes the wall band's planes (the whole block at once) and the planes
+// that clamp to it write nothing. It needs every in-plane source in its
+// cells' tile (sponge_gathers); otherwise SPONGE = 2 forms each cell's own
+// diffusion and the thread whose cell is a clamp source writes every cell
+// that clamps to it (up to width^3 at a corner), and a thread whose cell
+// clamps elsewhere writes nothing. Either way every output cell is written
+// once.
+template <typename T, int TX, int TY, bool VEC, int SPONGE>
+__global__ void __launch_bounds__(TX * TY, kZmarchSmThreads / (TX * TY))
+    diffusion_zmarch_kernel(HaloSrc<T> src, const int* __restrict__ coords,
+                            const T* __restrict__ pref,
+                            const T* __restrict__ ramp, T* __restrict__ out,
+                            Geom g, int width, int zchunk, int stages) {
+  using Z = ZTile<T, TX, TY>;
+  extern __shared__ __align__(16) unsigned char zmarch_smem[];
+  T* ring = reinterpret_cast<T*>(zmarch_smem);
+  const ZWalk w = zwalk<TX, TY>(g, zchunk);
+  const int o = (threadIdx.x / TX + 1) * Z::W + Z::V + threadIdx.x % TX;
+  const long long plane = (long long)g.ny * g.nx;
+  const long long n = plane * g.nz;
+  T* shard = out + 3 * n * w.s;
+  const int gz0 = coords[2 * w.s], gy0 = coords[2 * w.s + 1];
+  const int gy = gy0 + w.y;
+  const T p = *pref;
+  // the cell whose diffusion the thread forms (its in-plane clamp source
+  // with SPONGE = 1, else its own), its place in the tile, whether it lies
+  // on the x or y ring, and the thread's fixed x and y ramps
+  int xs = w.x, ys = gy;
+  T rx = T(1), ry = T(1);
+  if (SPONGE == 1) {
+    xs = clamp_src(w.x, g.nx, width);
+    ys = clamp_src(gy, g.NY, width);
+    rx = ramp_at(ramp, w.x, g.nx, width);
+    ry = ramp_at(ramp, gy, g.NY, width);
+  }
+  const int os = o + (ys - gy) * Z::W + (xs - w.x);
+  const bool ring_xy = xs == 0 || xs == g.nx - 1 || ys == 0 || ys == g.NY - 1;
+  zmarch<T, TX, TY, 1, VEC, 2>(
+      ring, 3 * Z::CT, src, src, w, g, stages,
+      [&](int k, const T* t, const T* c, const T* m) {
+        if (k < 2) return;  // uniform over the block
+        const int z = w.za + k - 2, gz = gz0 + z;  // the plane step k writes
+        const bool interior = !ring_xy && gz != 0 && gz != g.NZ - 1;
+        T v[3];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const T* cj = c + j * Z::CT;
+          const T centre = cj[os];
+          v[j] = centre;
+          if (interior) {
+            // the plain version's order (diffusion_kernel)
+            T lap = T(-6) * centre;
+            lap = (lap + t[j * Z::CT + os]) + m[j * Z::CT + os];
+            lap = (lap + cj[os + Z::W]) + cj[os - Z::W];
+            lap = (lap + cj[os + 1]) + cj[os - 1];
+            v[j] = centre + p * lap;
+          }
+        }
+        if (!w.valid) return;
+        if (SPONGE == 1) {
+          // the plain version ramps along x, then y, then z
+          int zl;
+          const int zn = clamped_to(gz, g.NZ, width, &zl);  // block-uniform
+          for (int a = 0; a < zn; ++a) {
+            const T rz = ramp_at(ramp, zl + a, g.NZ, width);
+            T* d = shard + (long long)(zl + a - gz0) * plane +
+                   (long long)w.y * g.nx + w.x;
+            d[0] = ((v[0] * rx) * ry) * rz;
+            d[n] = ((v[1] * rx) * ry) * rz;
+            d[2 * n] = ((v[2] * rx) * ry) * rz;
+          }
+          return;
+        }
+        if (SPONGE == 2 && (in_band(gz, g.NZ, width) ||
+                            in_band(gy, g.NY, width) ||
+                            in_band(w.x, g.nx, width))) {
+          int zl, yl, xl;
+          const int zn = clamped_to(gz, g.NZ, width, &zl);
+          const int yn = clamped_to(gy, g.NY, width, &yl);
+          const int xn = clamped_to(w.x, g.nx, width, &xl);
+          for (int a = 0; a < zn; ++a) {
+            const T rz = ramp_at(ramp, zl + a, g.NZ, width);
+            for (int b = 0; b < yn; ++b) {
+              const T rb = ramp_at(ramp, yl + b, g.NY, width);
+              T* row = shard + ((long long)(zl + a - gz0) * g.ny +
+                                (yl + b - gy0)) * g.nx;
+              for (int e = 0; e < xn; ++e) {
+                const T ra = ramp_at(ramp, xl + e, g.nx, width);
+                row[xl + e] = ((v[0] * ra) * rb) * rz;
+                row[n + xl + e] = ((v[1] * ra) * rb) * rz;
+                row[2 * n + xl + e] = ((v[2] * ra) * rb) * rz;
+              }
+            }
+          }
+          return;
+        }
+        T* d = shard + z * plane + (long long)w.y * g.nx + w.x;
+        d[0] = v[0];
+        d[n] = v[1];
+        d[2 * n] = v[2];
+      });
+}
+
 // A z-marching launch's plan, as sharded_stencil_plan computes it: the
 // tile (tx, ty), planes a chunk, ring stages, dynamic shared bytes, blocks
 // (tiles x chunks x shards) and 16-byte copies.
@@ -1061,12 +1104,14 @@ long long zmarch_smem_bytes(int nfields, int tx, int ty, int stages) {
          (3LL * nfields * stages + (nfields == 2 ? 6 : 0));
 }
 
-// Whether the plan is the one the kernel assumes for these fields.
+// Whether the plan is the one the kernel assumes for these fields and a
+// walk that keeps `keep` planes below the centre.
 template <typename T>
 bool zmarch_plan_ok(const ZmarchPlan& p, const HaloSrc<T>* srcs, int nfields,
-                    int nshards, const Geom& g) {
+                    int keep, int nshards, const Geom& g) {
   if (nshards < 1 || nshards > 65535 || g.nz < 1 || g.ny < 1 || g.nx < 1 ||
-      p.stages < 3 || p.stages > 5 || p.zchunk < 1 || p.zchunk > g.nz)
+      p.stages < 2 + keep || p.stages > 5 || p.zchunk < 1 ||
+      p.zchunk > g.nz)
     return false;
   const long long tiles =
       (long long)((g.nx + p.tx - 1) / p.tx) * ((g.ny + p.ty - 1) / p.ty);
@@ -1114,12 +1159,14 @@ struct ZmarchArgs {
   HaloSrc<T> f, u;  // u: the transport's velocity
   const int* coords;
   const T* pref;
-  const T* add;
+  const T* add;   // the curl's add vector
+  const T* ramp;  // the sponge's ramp values
   T* out;
   T* l1_max;
   int nshards;
   Geom g;
   ZmarchPlan p;
+  int width;  // the diffusion's sponge width (0: none)
 
   dim3 grid() const {
     return dim3((unsigned)(((g.nx + p.tx - 1) / p.tx) *
@@ -1159,6 +1206,39 @@ struct RotationalZmarch {
   }
 };
 
+template <typename T, int SPONGE>
+struct DiffusionZmarch {
+  template <int TX, int TY, bool VEC>
+  static int go(const ZmarchArgs<T>& a, cudaStream_t st) {
+    auto kernel = diffusion_zmarch_kernel<T, TX, TY, VEC, SPONGE>;
+    static int dev_set = -1, smem_set = 0;
+    if (const int err = allow_smem(kernel, a.p.smem, dev_set, smem_set))
+      return err;
+    kernel<<<a.grid(), TX * TY, a.p.smem, st>>>(a.f, a.coords, a.pref,
+                                                a.ramp, a.out, a.g, a.width,
+                                                a.p.zchunk, a.p.stages);
+    return (int)cudaGetLastError();
+  }
+};
+
+// Whether the sponge stays in the shard: every clamp source and the cells
+// that clamp to it in one shard (width <= nz, ny) and the two wall bands of
+// each axis apart (n > 2 width).
+inline bool sponge_ok(const Geom& g, int width) {
+  return width >= 1 && width <= g.nz && width <= g.ny &&
+         2 * width < g.NZ && 2 * width < g.NY && 2 * width < g.nx;
+}
+
+// Whether every in-plane clamp source lies in its cells' tile under a
+// (tx, ty) tile, so the sponge gathers (SPONGE = 1): the low x and y wall
+// bands in the first tile's columns and rows, the high ones (with their
+// source) in the last tile's.
+inline bool sponge_gathers(const Geom& g, int tx, int ty, int width) {
+  return width <= tx && width <= ty &&
+         g.nx - width >= (g.nx - 1) / tx * tx &&
+         g.ny - width >= (g.ny - 1) / ty * ty;
+}
+
 template <class K, int TX, int TY, typename T>
 int launch_tile(const ZmarchArgs<T>& a, cudaStream_t st) {
   return a.p.vec ? K::template go<TX, TY, true>(a, st)
@@ -1169,9 +1249,10 @@ int launch_tile(const ZmarchArgs<T>& a, cudaStream_t st) {
 // or (64, 8) cells (x, y), 16-byte copies or not; any other tile is
 // refused.
 template <class K, typename T>
-int launch_zmarch(const ZmarchArgs<T>& a, int nfields, cudaStream_t st) {
+int launch_zmarch(const ZmarchArgs<T>& a, int nfields, int keep,
+                  cudaStream_t st) {
   const HaloSrc<T> srcs[2] = {a.f, a.u};
-  if (!zmarch_plan_ok<T>(a.p, srcs, nfields, a.nshards, a.g))
+  if (!zmarch_plan_ok<T>(a.p, srcs, nfields, keep, a.nshards, a.g))
     return (int)cudaErrorInvalidValue;
   if (a.p.tx == 32 && a.p.ty == 8) return launch_tile<K, 32, 8>(a, st);
   if (a.p.tx == 32 && a.p.ty == 16) return launch_tile<K, 32, 16>(a, st);
@@ -1186,61 +1267,33 @@ int launch_zmarch(const ZmarchArgs<T>& a, int nfields, cudaStream_t st) {
   extern "C" int sopht_rotational_curl_add_3d_##SUFFIX(                        \
       const T* w, const T* u, const T* pref, T* out, int nz, int ny, int nx,  \
       void* stream) {                                                          \
-    rotational_curl_add_kernel<T, false>                                       \
+    rotational_curl_add_kernel<T>                                              \
         <<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,                     \
-           (cudaStream_t)stream>>>(w, nullptr, nullptr, u, nullptr, nullptr,   \
-                                   nullptr, pref, out,                         \
-                                   Geom{nz, ny, nx, nz, ny});                  \
+           (cudaStream_t)stream>>>(w, u, pref, out, nz, ny, nx);               \
     return (int)cudaGetLastError();                                            \
   }                                                                            \
   extern "C" int sopht_diffusion_penalise_vector_3d_##SUFFIX(                  \
       const T* f, const T* pref, T* out, int nz, int ny, int nx, int width,    \
       void* stream) {                                                          \
-    diffusion_penalise_kernel<T, false>                                        \
+    diffusion_penalise_kernel<T>                                               \
         <<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,                     \
-           (cudaStream_t)stream>>>(f, nullptr, nullptr, nullptr, pref, out,    \
-                                   Geom{nz, ny, nx, nz, ny}, width);           \
-    return (int)cudaGetLastError();                                            \
-  }                                                                            \
-  extern "C" int sopht_diffusion_penalise_vector_3d_sharded_##SUFFIX(          \
-      const T* fg, const T* ylo, const T* yhi, const int* coords,              \
-      const T* pref, T* out, int nshards, int nz, int ny, int nx, int NZ,      \
-      int NY, int width, void* stream) {                                       \
-    if (!sharded_grid_ok(nshards, nz)) return (int)cudaErrorInvalidValue;      \
-    diffusion_penalise_kernel<T, true>                                         \
-        <<<grid_of(nshards * nz, ny, nx), dim3(kBlockX, kBlockY), 0,           \
-           (cudaStream_t)stream>>>(fg, ylo, yhi, coords, pref, out,            \
-                                   Geom{nz, ny, nx, NZ, NY}, width);           \
+           (cudaStream_t)stream>>>(f, pref, out, nz, ny, nx, width);           \
     return (int)cudaGetLastError();                                            \
   }                                                                            \
   extern "C" int sopht_curl_3d_##SUFFIX(const T* psi, const T* pref,           \
                                         const T* add, T* out, T* l1_max,       \
                                         int nz, int ny, int nx,                \
                                         void* stream) {                        \
-    curl_kernel<T, false>                                                      \
-        <<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,                     \
-           (cudaStream_t)stream>>>(psi, nullptr, nullptr, nullptr, pref, add,  \
-                                   out, l1_max, Geom{nz, ny, nx, nz, ny});     \
+    curl_kernel<T><<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,           \
+                     (cudaStream_t)stream>>>(psi, pref, add, out, l1_max, nz,  \
+                                             ny, nx);                          \
     return (int)cudaGetLastError();                                            \
   }                                                                            \
   extern "C" int sopht_diffusion_vector_3d_##SUFFIX(                           \
       const T* f, const T* pref, T* out, int nz, int ny, int nx,               \
       void* stream) {                                                          \
-    diffusion_kernel<T, false>                                                 \
-        <<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,                     \
-           (cudaStream_t)stream>>>(f, nullptr, nullptr, nullptr, pref, out,    \
-                                   Geom{nz, ny, nx, nz, ny});                  \
-    return (int)cudaGetLastError();                                            \
-  }                                                                            \
-  extern "C" int sopht_diffusion_vector_3d_sharded_##SUFFIX(                   \
-      const T* fg, const T* ylo, const T* yhi, const int* coords,              \
-      const T* pref, T* out, int nshards, int nz, int ny, int nx, int NZ,      \
-      int NY, void* stream) {                                                  \
-    if (!sharded_grid_ok(nshards, nz)) return (int)cudaErrorInvalidValue;      \
-    diffusion_kernel<T, true>                                                  \
-        <<<grid_of(nshards * nz, ny, nx), dim3(kBlockX, kBlockY), 0,           \
-           (cudaStream_t)stream>>>(fg, ylo, yhi, coords, pref, out,            \
-                                   Geom{nz, ny, nx, NZ, NY});                  \
+    diffusion_kernel<T><<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,      \
+                          (cudaStream_t)stream>>>(f, pref, out, nz, ny, nx);   \
     return (int)cudaGetLastError();                                            \
   }                                                                            \
   extern "C" int sopht_mult_filter_pass_3d_##SUFFIX(                           \
@@ -1280,10 +1333,13 @@ int launch_zmarch(const ZmarchArgs<T>& a, int nfields, cudaStream_t st) {
 SOPHT_DEFINE_ENTRIES(float, f32)
 SOPHT_DEFINE_ENTRIES(double, f64)
 
-// The z-marching sharded curl and rotational transport: the field(s) and
-// their four halo buffers, the shards' global offsets, ..., then (shards,
-// nz, ny, nx) of a shard, the grid's (NZ, NY) and the plan (tx, ty, zchunk,
-// stages, smem, blocks, vec), which the launcher checks.
+// The z-marching sharded kernels: the field(s) and their four halo
+// buffers, the shards' global offsets, ... (for the sponge, its ramp
+// values sin(pi k / 2 width), k < width, after the prefactor), then
+// (shards, nz, ny, nx) of a shard, the grid's (NZ, NY), the sponge's width
+// (diffusion + sponge only) and the plan (tx, ty, zchunk, stages, smem,
+// blocks, vec), which the launcher checks; the sponge's launcher picks the
+// gathering instance where the plan's tile allows it.
 #define SOPHT_DEFINE_ZMARCH_ENTRIES(T, SUFFIX)                                 \
   extern "C" int sopht_curl_3d_sharded_zmarch_##SUFFIX(                        \
       const T* f, const T* zlo, const T* zhi, const T* ylo, const T* yhi,      \
@@ -1292,11 +1348,12 @@ SOPHT_DEFINE_ENTRIES(double, f64)
       int zchunk, int stages, int smem, int blocks, int vec, void* stream) {   \
     const ZmarchArgs<T> a{HaloSrc<T>{f, zlo, zhi, ylo, yhi},                   \
                           HaloSrc<T>{f, zlo, zhi, ylo, yhi},                   \
-                          coords, pref, add, out, l1_max, nshards,             \
+                          coords, pref, add, nullptr, out, l1_max, nshards,    \
                           Geom{nz, ny, nx, NZ, NY},                            \
                           ZmarchPlan{tx, ty, zchunk, stages, smem, blocks,     \
-                                     vec}};                                    \
-    return launch_zmarch<CurlZmarch<T>, T>(a, 1, (cudaStream_t)stream);        \
+                                     vec},                                     \
+                          0};                                                  \
+    return launch_zmarch<CurlZmarch<T>, T>(a, 1, 1, (cudaStream_t)stream);     \
   }                                                                            \
   extern "C" int sopht_rotational_curl_add_3d_sharded_zmarch_##SUFFIX(         \
       const T* w, const T* w_zlo, const T* w_zhi, const T* w_ylo,              \
@@ -1307,11 +1364,50 @@ SOPHT_DEFINE_ENTRIES(double, f64)
       void* stream) {                                                          \
     const ZmarchArgs<T> a{HaloSrc<T>{w, w_zlo, w_zhi, w_ylo, w_yhi},           \
                           HaloSrc<T>{u, u_zlo, u_zhi, u_ylo, u_yhi},           \
-                          coords, pref, nullptr, out, nullptr, nshards,        \
+                          coords, pref, nullptr, nullptr, out, nullptr,        \
+                          nshards,                                             \
                           Geom{nz, ny, nx, NZ, NY},                            \
                           ZmarchPlan{tx, ty, zchunk, stages, smem, blocks,     \
-                                     vec}};                                    \
-    return launch_zmarch<RotationalZmarch<T>, T>(a, 2, (cudaStream_t)stream);  \
+                                     vec},                                     \
+                          0};                                                  \
+    return launch_zmarch<RotationalZmarch<T>, T>(a, 2, 1,                      \
+                                                 (cudaStream_t)stream);        \
+  }                                                                            \
+  extern "C" int sopht_diffusion_vector_3d_sharded_zmarch_##SUFFIX(            \
+      const T* f, const T* zlo, const T* zhi, const T* ylo, const T* yhi,      \
+      const int* coords, const T* pref, T* out, int nshards, int nz, int ny,   \
+      int nx, int NZ, int NY, int tx, int ty, int zchunk, int stages,          \
+      int smem, int blocks, int vec, void* stream) {                           \
+    const ZmarchArgs<T> a{HaloSrc<T>{f, zlo, zhi, ylo, yhi},                   \
+                          HaloSrc<T>{f, zlo, zhi, ylo, yhi},                   \
+                          coords, pref, nullptr, nullptr, out, nullptr,        \
+                          nshards,                                             \
+                          Geom{nz, ny, nx, NZ, NY},                            \
+                          ZmarchPlan{tx, ty, zchunk, stages, smem, blocks,     \
+                                     vec},                                     \
+                          0};                                                  \
+    return launch_zmarch<DiffusionZmarch<T, 0>, T>(a, 1, 2,                    \
+                                                   (cudaStream_t)stream);      \
+  }                                                                            \
+  extern "C" int sopht_diffusion_penalise_vector_3d_sharded_zmarch_##SUFFIX(   \
+      const T* f, const T* zlo, const T* zhi, const T* ylo, const T* yhi,      \
+      const int* coords, const T* pref, const T* ramp, T* out, int nshards,    \
+      int nz, int ny, int nx, int NZ, int NY, int width, int tx, int ty,       \
+      int zchunk, int stages, int smem, int blocks, int vec, void* stream) {   \
+    const ZmarchArgs<T> a{HaloSrc<T>{f, zlo, zhi, ylo, yhi},                   \
+                          HaloSrc<T>{f, zlo, zhi, ylo, yhi},                   \
+                          coords, pref, nullptr, ramp, out, nullptr, nshards,  \
+                          Geom{nz, ny, nx, NZ, NY},                            \
+                          ZmarchPlan{tx, ty, zchunk, stages, smem, blocks,     \
+                                     vec},                                     \
+                          width};                                              \
+    if (ramp == nullptr || !sponge_ok(a.g, width))                             \
+      return (int)cudaErrorInvalidValue;                                       \
+    if (sponge_gathers(a.g, tx, ty, width))                                    \
+      return launch_zmarch<DiffusionZmarch<T, 1>, T>(a, 1, 2,                  \
+                                                     (cudaStream_t)stream);    \
+    return launch_zmarch<DiffusionZmarch<T, 2>, T>(a, 1, 2,                    \
+                                                   (cudaStream_t)stream);      \
   }
 
 SOPHT_DEFINE_ZMARCH_ENTRIES(float, f32)

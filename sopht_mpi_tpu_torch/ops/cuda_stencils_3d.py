@@ -46,22 +46,20 @@ _SIGNATURES = {
     "sopht_conv_filter_line_3d": (_P, _P, _I, _I, _I, _I, _I, _P),
     "sopht_conv_filter_z_pass_3d": (_P, _P, _P, _I, _I, _I, _P),
     "sopht_penalise_vector_3d": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # the sharded instances (wrappers in cuda_stencils_3d_sharded.py): the
-    # z-ghosted field with its two y-row arrays, the shards' global
-    # offsets, ..., then (shards, nz, ny, nx) of a shard and the grid's
-    # (NZ, NY)
-    "sopht_diffusion_penalise_vector_3d_sharded": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "sopht_diffusion_vector_3d_sharded": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # the z-marching sharded kernels: each field and its four halo buffers
-    # (zlo, zhi, ylo, yhi), the shards' global offsets, ..., (shards, nz,
-    # ny, nx) of a shard, the grid's (NZ, NY), then the plan (tx, ty,
-    # zchunk, stages, smem, blocks, vec)
+    # the z-marching sharded kernels (wrappers in
+    # cuda_stencils_3d_sharded.py): each field and its four halo buffers
+    # (zlo, zhi, ylo, yhi), the shards' global offsets, ... (the sponge's
+    # ramp values after the prefactor), (shards, nz, ny, nx) of a shard, the
+    # grid's (NZ, NY), the sponge's width (diffusion + sponge only), then
+    # the plan (tx, ty, zchunk, stages, smem, blocks, vec)
     "sopht_curl_3d_sharded_zmarch": (
         (_P,) * 10 + (_I,) * 13 + (_P,)),
     "sopht_rotational_curl_add_3d_sharded_zmarch": (
         (_P,) * 13 + (_I,) * 13 + (_P,)),
+    "sopht_diffusion_vector_3d_sharded_zmarch": (
+        (_P,) * 8 + (_I,) * 13 + (_P,)),
+    "sopht_diffusion_penalise_vector_3d_sharded_zmarch": (
+        (_P,) * 9 + (_I,) * 14 + (_P,)),
 }
 
 

@@ -12,16 +12,17 @@ A field is sharded over a (pz, py) mesh as (pz, py, 3, nzl, nyl, nx)
    stencils need no corner halos;
 2. on a CUDA tensor launches its kernel in ``csrc/stencils_3d.cu`` once for
    all shards, on the current stream, without synchronising, and adds one
-   to its ``launches`` count (or raises: there is no fallback). A thread
-   reads its own shard's block and the halo buffers only. The curl and the
-   rotational transport run z-marching kernels that read the field(s) and
-   the four halo buffers as they are, under a plan the launcher checks
-   (:func:`sharded_stencil_plan`); the diffusion and the fused sponge read
-   a z-ghosted copy of the field (:func:`_ghost_z`). Wall masks, clamps and
-   ramps use GLOBAL coordinates (:func:`_shard_coords`), so a shard seam is
-   interior and a physical wall behaves as in the single-device kernel; the
+   to its ``launches`` count (or raises: there is no fallback). All four
+   run z-marching kernels that read the field(s) and their four halo
+   buffers as they are, never a ghosted copy, under a plan the launcher
+   checks (:func:`sharded_stencil_plan`). Wall masks, clamps and ramps use
+   GLOBAL coordinates (:func:`_shard_coords`), so a shard seam is interior
+   and a physical wall behaves as in the single-device kernel; the
    wraparound halo at a physical wall is garbage that no unmasked cell
-   reads;
+   reads. The fused sponge forms each cell's diffusion at its in-plane
+   clamp source and lets the z wall band's source plane write the band
+   (where an in-plane source lies in another tile, the launcher takes an
+   instance that scatters from the sources);
 3. on a CPU tensor runs the same per-shard computation in plain PyTorch on
    the exchanged halos (``_*_on_halos``).
 
@@ -83,17 +84,6 @@ def _halo_z_planes(f, mesh: Mesh):
     else:
         zlo, zhi = last, first
     return zlo.contiguous(), zhi.contiguous()
-
-
-def _ghosted(f, zlo, zhi):
-    """(pz, py, 3, nzl + 2, nyl, nx): ``f`` between its two z halo planes."""
-    return torch.cat([zlo, f, zhi], dim=3)
-
-
-def _ghost_z(f, mesh: Mesh):
-    """``f`` with one exchanged ghost plane a z side (:func:`_ghosted` of
-    :func:`_halo_z_planes`): the diffusion kernels' input."""
-    return _ghosted(f, *_halo_z_planes(f, mesh))
 
 
 def _halo_y_rows(f, mesh: Mesh):
@@ -165,16 +155,6 @@ def diffusion_penalise_vector_3d_sharded_ref(vector_field, nu_dt_by_dx2,
 # CPU tensor runs
 
 
-def _extended(fg, ylo, yhi):
-    """(pz, py, 3, nzl + 2, nyl + 2, nx): the z-ghosted block with its y
-    rows attached; the four z-y corner lines, which no 3-point stencil
-    reads, are zero."""
-    corner = fg.new_zeros((*fg.shape[:3], 1, 1, fg.shape[-1]))
-    lo = torch.cat([corner, ylo, corner], dim=3)
-    hi = torch.cat([corner, yhi, corner], dim=3)
-    return torch.cat([lo, fg, hi], dim=4)
-
-
 def _global_index(mesh, nzl, nyl, device):
     """((pz, 1, nzl, 1) gz, (1, py, 1, nyl) gy): every shard cell's global
     z plane and y row."""
@@ -204,17 +184,23 @@ def _per_shard(op, *extended):
         for i in range(pz)])
 
 
-def _diffusion_on_halos(f, fg, ylo, yhi, nu_dt_by_dx2, mesh):
+def _extended_from(f, zlo, zhi, ylo, yhi):
+    """(pz, py, 3, nzl + 2, nyl + 2, nx): a field's blocks between their
+    z halo planes, with their y rows attached; the four z-y corner lines,
+    which no 3-point stencil reads, are zero."""
+    fg = torch.cat([zlo, f, zhi], dim=3)
+    corner = fg.new_zeros((*fg.shape[:3], 1, 1, fg.shape[-1]))
+    lo = torch.cat([corner, ylo, corner], dim=3)
+    hi = torch.cat([corner, yhi, corner], dim=3)
+    return torch.cat([lo, fg, hi], dim=4)
+
+
+def _diffusion_on_halos(f, halos, nu_dt_by_dx2, mesh):
     res = _per_shard(
         lambda e: _plain.diffusion_timestep_vector_3d(e, nu_dt_by_dx2),
-        _extended(fg, ylo, yhi))
+        _extended_from(f, *halos))
     wall = _zy_wall(mesh, f.shape[3], f.shape[4], f.device)
     return torch.where(wall, f, res)
-
-
-def _extended_from(f, zlo, zhi, ylo, yhi):
-    """:func:`_extended` of a field and its four halo buffers."""
-    return _extended(_ghosted(f, zlo, zhi), ylo, yhi)
 
 
 def _rotational_on_halos(w, u, w_halos, u_halos, prefactor, mesh):
@@ -269,16 +255,22 @@ def _sponge_in_shards(d, width, mesh):
 #: the z-marching kernels' tiles, (x, y) cells a block: the instances the
 #: launcher takes
 ZMARCH_TILES = ((32, 8), (32, 16), (64, 4), (64, 8))
-#: the ring depths the launcher takes: the ring refills the stage two planes
-#: back, so ``stages - 2`` planes are in flight while one is used
+#: the ring depths the launcher takes, at least ``2 + ZMARCH_KEEP[kind]``:
+#: the ring keeps the centre plane and ``ZMARCH_KEEP[kind] - 1`` below it,
+#: so ``stages - 1 - keep`` planes are in flight while one is used
 ZMARCH_STAGE_RANGE = (3, 5)
+#: the planes each kind's walk keeps at and below the centre plane: the
+#: diffusion pair reads its z - 1 values from the ring (the sponge forms a
+#: cell's diffusion at its clamp source's place in the tiles)
+ZMARCH_KEEP = {"curl": 1, "rotational": 1, "diffusion": 2, "sponge": 2}
 #: the tile and each kernel's ring stages the plan takes (the fastest at
 #: 256^3 on (2, 2) and (8, 1) on one H100, ``tools/probe_sharded.py
-#: --sweep``)
+#: --sweep``): "diffusion" is the diffusion step, "sponge" the diffusion
+#: step with the wall sponge
 ZMARCH_TILE = (64, 8)
-ZMARCH_STAGES = {"curl": 4, "rotational": 3}
+ZMARCH_STAGES = {"curl": 4, "rotational": 3, "diffusion": 5, "sponge": 5}
 #: the sharded fields each kernel reads
-ZMARCH_FIELDS = {"curl": 1, "rotational": 2}
+ZMARCH_FIELDS = {"curl": 1, "rotational": 2, "diffusion": 1, "sponge": 1}
 #: threads an SM holds at the kernels' launch bound (64 registers a thread)
 ZMARCH_SM_THREADS = 1024
 
@@ -321,11 +313,13 @@ def sharded_stencil_plan_of(kind: str, nshards: int, nzl: int, nyl: int,
                             nx: int, itemsize: int, aligned: bool,
                             tile, stages: int,
                             zchunk: int) -> ShardedStencilPlan:
-    """The plan of ``kind`` ("curl" or "rotational") on ``nshards`` shards
-    of (3, ``nzl``, ``nyl``, ``nx``) values of ``itemsize`` bytes with the
-    given tile (one of :data:`ZMARCH_TILES`), ring ``stages`` (3 to 5) and
-    ``zchunk`` planes a block; 16-byte copies where the pointers are
-    ``aligned`` and ``nx`` is a multiple of 16 bytes' values."""
+    """The plan of ``kind`` (a key of :data:`ZMARCH_FIELDS`) on
+    ``nshards`` shards of (3, ``nzl``, ``nyl``, ``nx``) values of
+    ``itemsize`` bytes with the given tile (one of :data:`ZMARCH_TILES`),
+    ring ``stages`` (:data:`ZMARCH_STAGE_RANGE`, at least ``2 +
+    ZMARCH_KEEP[kind]``) and ``zchunk`` planes a block; 16-byte copies
+    where the pointers are ``aligned`` and ``nx`` is a multiple of 16
+    bytes' values."""
     if kind not in ZMARCH_FIELDS:
         raise ValueError(f"no z-marching kernel {kind!r}")
     if itemsize not in (4, 8):
@@ -336,7 +330,8 @@ def sharded_stencil_plan_of(kind: str, nshards: int, nzl: int, nyl: int,
     tile = tuple(tile)
     if tile not in ZMARCH_TILES:
         raise ValueError(f"tile {tile} is not one of {ZMARCH_TILES}")
-    lo, hi = ZMARCH_STAGE_RANGE
+    hi = ZMARCH_STAGE_RANGE[1]
+    lo = max(ZMARCH_STAGE_RANGE[0], 2 + ZMARCH_KEEP[kind])
     if not lo <= stages <= hi or not 1 <= zchunk <= nzl:
         raise ValueError(f"stages {stages} ({lo}-{hi}) or zchunk {zchunk} "
                          f"(1-{nzl}) out of range")
@@ -356,10 +351,10 @@ def sharded_stencil_plan_of(kind: str, nshards: int, nzl: int, nyl: int,
 def sharded_stencil_plan(kind: str, nshards: int, nzl: int, nyl: int,
                          nx: int, itemsize: int, aligned: bool = True,
                          sms: int = H100_SMS) -> ShardedStencilPlan:
-    """The launch plan of the z-marching ``kind`` ("curl" or "rotational")
-    on ``nshards`` shards of (3, ``nzl``, ``nyl``, ``nx``) values of
-    ``itemsize`` bytes, on a card of ``sms`` SMs. The C entry point refuses
-    any other plan.
+    """The launch plan of the z-marching ``kind`` (a key of
+    :data:`ZMARCH_FIELDS`) on ``nshards`` shards of (3, ``nzl``, ``nyl``,
+    ``nx``) values of ``itemsize`` bytes, on a card of ``sms`` SMs. The C
+    entry point refuses any other plan.
 
     The tile :data:`ZMARCH_TILE` and the kind's :data:`ZMARCH_STAGES`; z
     cut into as many chunks as one wave of resident blocks holds (the
@@ -418,27 +413,6 @@ def _coords(f):
     return _shard_coords((pz, py), nzl, nyl, f.device)
 
 
-def diffusion_timestep_vector_3d_sharded(vector_field, nu_dt_by_dx2,
-                                         mesh: Mesh):
-    """Diffusion Euler step ``f + nu_dt_by_dx2 * lap7(f)`` of a sharded
-    field, the global wall ring unchanged. Forward only."""
-    _check_sharded("vector_field", vector_field, mesh)
-    f = vector_field.contiguous()
-    fg = _ghost_z(f, mesh)
-    ylo, yhi = _halo_y_rows(f, mesh)
-    if f.device.type == "cpu":
-        return _diffusion_on_halos(f, fg, ylo, yhi, nu_dt_by_dx2, mesh)
-    pref = _single._device_tensor(f, nu_dt_by_dx2, 1, "nu_dt_by_dx2")
-    out = torch.empty_like(f)
-    _single._launch(
-        "sopht_diffusion_vector_3d_sharded", f,
-        fg.data_ptr(), ylo.data_ptr(), yhi.data_ptr(),
-        _coords(f).data_ptr(), pref.data_ptr(), out.data_ptr(), *_geometry(f),
-    )
-    diffusion_timestep_vector_3d_sharded.launches += 1
-    return out
-
-
 def _halos(f, mesh: Mesh):
     """(zlo, zhi, ylo, yhi): the four halo buffers of ``f``."""
     return (*_halo_z_planes(f, mesh), *_halo_y_rows(f, mesh))
@@ -454,6 +428,28 @@ def _zmarch_plan(kind, fields):
     aligned = all(ts[0].data_ptr() % 16 == 0 for ts in fields)
     return sharded_stencil_plan(kind, pz * py, nzl, nyl, nx,
                                 f.element_size(), aligned)
+
+
+def diffusion_timestep_vector_3d_sharded(vector_field, nu_dt_by_dx2,
+                                         mesh: Mesh):
+    """Diffusion Euler step ``f + nu_dt_by_dx2 * lap7(f)`` of a sharded
+    field, the global wall ring unchanged. Forward only."""
+    _check_sharded("vector_field", vector_field, mesh)
+    f = vector_field.contiguous()
+    halos = _halos(f, mesh)
+    if f.device.type == "cpu":
+        return _diffusion_on_halos(f, halos, nu_dt_by_dx2, mesh)
+    pref = _single._device_tensor(f, nu_dt_by_dx2, 1, "nu_dt_by_dx2")
+    out = torch.empty_like(f)
+    plan = _zmarch_plan("diffusion", [(f, *halos)])
+    _single._launch(
+        "sopht_diffusion_vector_3d_sharded_zmarch", f,
+        f.data_ptr(), *(t.data_ptr() for t in halos),
+        _coords(f).data_ptr(), pref.data_ptr(), out.data_ptr(), *_geometry(f),
+        *plan.args(),
+    )
+    diffusion_timestep_vector_3d_sharded.launches += 1
+    return out
 
 
 def curl_3d_sharded(field, prefactor, mesh: Mesh, add_vector=None, *,
@@ -568,19 +564,19 @@ def diffusion_penalise_vector_3d_sharded(vector_field, nu_dt_by_dx2,
             lambda f: _single.penalise_field_boundary_vector_3d(f, width),
             mesh, out)
     f = vector_field.contiguous()
-    fg = _ghost_z(f, mesh)
-    ylo, yhi = _halo_y_rows(f, mesh)
+    halos = _halos(f, mesh)
     if f.device.type == "cpu":
         return _sponge_in_shards(
-            _diffusion_on_halos(f, fg, ylo, yhi, nu_dt_by_dx2, mesh),
-            width, mesh)
+            _diffusion_on_halos(f, halos, nu_dt_by_dx2, mesh), width, mesh)
     pref = _single._device_tensor(f, nu_dt_by_dx2, 1, "nu_dt_by_dx2")
     out = torch.empty_like(f)
+    ramp = _single._sponge_ramp(width, f.dtype, f.device)
+    plan = _zmarch_plan("sponge", [(f, *halos)])
     _single._launch(
-        "sopht_diffusion_penalise_vector_3d_sharded", f,
-        fg.data_ptr(), ylo.data_ptr(), yhi.data_ptr(),
-        _coords(f).data_ptr(), pref.data_ptr(), out.data_ptr(),
-        *_geometry(f), width,
+        "sopht_diffusion_penalise_vector_3d_sharded_zmarch", f,
+        f.data_ptr(), *(t.data_ptr() for t in halos),
+        _coords(f).data_ptr(), pref.data_ptr(), ramp.data_ptr(),
+        out.data_ptr(), *_geometry(f), width, *plan.args(),
     )
     diffusion_penalise_vector_3d_sharded.launches += 1
     return out

@@ -170,8 +170,10 @@ def unshard_vector_field(field, mesh: Mesh | None):
 
 def on_assembled(fn, mesh: Mesh, *fields):
     """``fn`` of the assembled (global) vector fields, sharded again,
-    uncounted: for plain versions and tests."""
-    out = fn(*(unshard_vector_field(f, mesh) for f in fields))
+    uncounted: for plain versions and tests. ``fn`` gets contiguous fields
+    (on one-plane or one-row shards the assembled field is a strided view),
+    as the single-device kernels need."""
+    out = fn(*(unshard_vector_field(f, mesh).contiguous() for f in fields))
     return shard_vector_field(out, mesh)
 
 

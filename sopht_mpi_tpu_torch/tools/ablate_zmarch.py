@@ -1,13 +1,13 @@
-"""Time the z-marching sharded curl and transport kernels
-(``curl_zmarch_kernel``, ``rotational_zmarch_kernel`` in
-``csrc/stencils_3d.cu``) with one part of their walk cut out at a time, on
-one CUDA device:
+"""Time the z-marching sharded kernels (``curl_zmarch_kernel``,
+``rotational_zmarch_kernel``, ``diffusion_zmarch_kernel`` with and without
+the sponge, in ``csrc/stencils_3d.cu``) with one part of their walk cut
+out at a time, on one CUDA device:
 
     python3 -m sopht_mpi_tpu_torch.tools.ablate_zmarch [name ...]
 
 Each variant is a copy of the package under ``build/ablate_zmarch/<name>``
 whose walk has one edit (the names below; default: all of them), built in
-parallel by ``nvcc``. Then each runs, in its own process, both kernels
+parallel by ``nvcc``. Then each runs, in its own process, the four kernels
 alone under their plans at 256^3 on a (2, 2) mesh on halo buffers made
 beforehand, and prints their device time (``torch.profiler``) and their
 time a launch in a batch of 20 (CUDA events); the unedited kernels run
@@ -27,7 +27,7 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parents[1]
 ROOT = PACKAGE.parent / "build" / "ablate_zmarch"
 
-# name -> edits (old, new) inside the walk and the two kernels' text, each
+# name -> edits (old, new) inside the walk and the kernels' text, each
 # found once
 VARIANTS = {
     "kernel": [],
@@ -40,8 +40,8 @@ VARIANTS = {
          "")],
     # no barrier a plane (the walk races; the copies and the arithmetic
     # stay)
-    "no_barrier": [("    cp_async_wait_ring(stages);\n    __syncthreads();",
-                    "    cp_async_wait_ring(stages);")],
+    "no_barrier": [("    cp_async_wait_ring(ahead - 1);\n    __syncthreads();",
+                    "    cp_async_wait_ring(ahead - 1);")],
     # no output stores, and so no arithmetic that only they need
     "no_stores": [
         ("          if (w.valid) {\n            T* d = dst + z * plane;\n"
@@ -55,7 +55,16 @@ VARIANTS = {
     # the transport forms q at its own cells only, not at the tile's halo
     "no_halo_q": [("        if (k >= 1 && k <= L - 2) {  // a plane that is",
                    "        if (k < 0) {  // a plane that is")],
+    # the sponge stores the diffusion it forms at its cell's clamp source
+    # as the diffusion does: no ramps, no wall band planes from the source
+    # plane
+    "no_sponge_store": [("        if (SPONGE == 1) {\n",
+                         "        if (false) {\n")],
 }
+# no output stores of the diffusion pair either
+VARIANTS["no_stores"].append(
+    ("        if (!w.valid) return;\n        if (SPONGE == 1) {",
+     "        if (!w.valid || z >= 0) return;\n        if (SPONGE == 1) {"))
 
 TIME = """
 import torch
@@ -84,7 +93,7 @@ def variant_tree(name: str) -> Path:
                     ignore=shutil.ignore_patterns("__pycache__"))
     cu = root / PACKAGE.name / "csrc" / "stencils_3d.cu"
     src = cu.read_text()
-    start = src.index("// The walk both kernels share.")
+    start = src.index("// The walk the z-marching kernels share.")
     end = src.index("// A z-marching launch's plan")
     body = src[start:end]
     for old, new in VARIANTS[name]:

@@ -10,25 +10,30 @@ counterparts on one CUDA device, with times:
 256^3 on a (2, 2) mesh, float32, each sharded wrapper's device time
 (``torch.profiler``: the exchange's copies and the launch), its time in a
 batch of 20 back-to-back calls (CUDA events) and its CUDA-event median of
-single calls (host enqueue included), the curl's and the transport's
-kernel alone on halos made beforehand (profiler and batch), one field's exchange as the wrappers make it and as a ghosted
-copy, each single-device twin, the z-marching kernels' plans, and the
-sharded flow step's device time (5 profiled steps) and s/step (10 steps).
-It runs against the package it imports, so run this file with
-``PYTHONPATH`` at each of two trees in turns (parent, change, change,
-parent) to compare them on one card; a parent without the z-marching
-kernels is timed through its ghosted entry points.
+single calls (host enqueue included), each z-marching kernel alone on
+halos made beforehand (profiler and batch), one field's exchange as the
+wrappers make it, each single-device twin, the z-marching kernels' plans,
+and the sharded flow step's device time (5 profiled steps) and s/step (10
+steps), with the fused sponge and on the filtered arm (``FILTERED``). It
+runs against the package it imports, so run this file with ``PYTHONPATH``
+at each of two trees in turns (parent, change, change, parent) to compare
+them on one card; a parent whose diffusion pair still reads a ghosted copy
+is timed through its ghosted entry points (and the copy's time is
+reported).
 
-``--sweep`` times the curl's and the transport's kernel alone (device
-time) under every tile, ring depth and z chunk count the launcher takes,
-at 256^3 on (2, 2) and (8, 1), beside the plan's choice.
+``--sweep [kind ...]`` times the z-marching kernels alone (device time;
+default all four kinds, ``curl rotational diffusion sponge``) under every
+tile, ring depth and z chunk count the launcher takes, at 256^3 on (2, 2)
+and (8, 1), beside the plan's choice, each plan's output held against the
+plain version.
 
 The first form is a short first run for a changed kernel: it prints the
 card, the build time, ptxas' lines of the stencil kernels, then
 
 - each sharded stencil on a small odd grid, on one-plane shards and on an
-  ``n``^3 grid (default 256) over a few meshes: max |diff| against its plain version and against
-  the single-device kernel on the assembled field, and the median of 10
+  ``n``^3 grid (default 256) over a few meshes: max |diff| against its
+  plain version and against the single-device kernel on the assembled
+  field, and the median of 10
   timed calls (CUDA events) of the wrapper, the single-device twin and the
   plain version;
 - the ``n``^3 vector Poisson solve on a (2, 2) mesh against the
@@ -39,6 +44,7 @@ card, the build time, ptxas' lines of the stencil kernels, then
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -75,9 +81,10 @@ def median_ms(fn, n=10, warmup=2):
     return sorted(times)[n // 2]
 
 
-def stencil_calls(w, u, mesh, dtype):
+def stencil_calls(w, u, mesh, dtype, width=2):
     """name -> (sharded wrapper, its plain version, the single-device
-    kernel), each a thunk."""
+    kernel), each a thunk; the fused sponge (at ``width``) only where its
+    gate holds."""
     dev = w.device
     ws, us = shard_vector_field(w, mesh), shard_vector_field(u, mesh)
     p = torch.tensor(0.05, dtype=dtype, device=dev)
@@ -99,13 +106,13 @@ def stencil_calls(w, u, mesh, dtype):
                 ws, us, p, mesh),
             lambda: single.rotational_curl_add_3d(w, u, p)),
     }
-    if sharded.diffusion_penalise_sharded_supported(w.shape, mesh, 2):
+    if sharded.diffusion_penalise_sharded_supported(w.shape, mesh, width):
         calls["diffusion_penalise_vector_3d_sharded"] = (
             lambda: sharded.diffusion_penalise_vector_3d_sharded(
-                ws, p, 2, mesh),
+                ws, p, width, mesh),
             lambda: sharded.diffusion_penalise_vector_3d_sharded_ref(
-                ws, p, 2, mesh),
-            lambda: single.diffusion_penalise_vector_3d(w, p, 2))
+                ws, p, width, mesh),
+            lambda: single.diffusion_penalise_vector_3d(w, p, width))
     return calls
 
 
@@ -232,13 +239,21 @@ def _launch_raw(entry, field, *args):
         raise RuntimeError(f"{entry}: CUDA error {err}")
 
 
-def kernel_alone(ws, us, mesh, plans=None, out=None):
-    """name -> a thunk that launches the curl's and the transport's kernel
-    alone on halo buffers made beforehand, into ``out`` (a new tensor by
-    default), with prefactor 0.05 and the curl's add vector (1, -0.5,
-    0.25): the z-marching kernels (under ``plans``: name -> plan, default
-    the wrapper's; each thunk's ``plan``) where the package has them, else
-    its ghosted entry points."""
+#: the z-marching kinds and the wrappers they serve
+ZMARCH_KINDS = {"curl": "curl_3d_sharded",
+                "rotational": "rotational_curl_add_3d_sharded",
+                "diffusion": "diffusion_timestep_vector_3d_sharded",
+                "sponge": "diffusion_penalise_vector_3d_sharded"}
+
+
+def kernel_alone(ws, us, mesh, plans=None, out=None, width=2):
+    """name -> a thunk that launches each z-marching kernel alone on halo
+    buffers made beforehand, into ``out`` (a new tensor by default), with
+    prefactor 0.05, the curl's add vector (1, -0.5, 0.25) and the sponge's
+    ``width``, under ``plans`` (name -> plan, default the wrapper's; each
+    thunk's ``plan``). A package whose diffusion pair has no z-marching
+    kernel (the parent of its redesign) gets its ghosted entry points for
+    those two (``plan`` None)."""
     dev = ws.device
     p = torch.tensor(0.05, device=dev)
     add = torch.tensor([1.0, -0.5, 0.25], device=dev)
@@ -246,63 +261,69 @@ def kernel_alone(ws, us, mesh, plans=None, out=None):
     geo = sharded._geometry(ws)
     out = torch.empty_like(ws) if out is None else out
     l1 = torch.zeros(mesh.axis_sizes, device=dev)
-    if hasattr(sharded, "sharded_stencil_plan"):
-        wh, uh = sharded._halos(ws, mesh), sharded._halos(us, mesh)
-        plans = plans or {
-            "curl_3d_sharded": sharded._zmarch_plan("curl", [(ws, *wh)]),
-            "rotational_curl_add_3d_sharded": sharded._zmarch_plan(
-                "rotational", [(ws, *wh), (us, *uh)])}
-        ptrs = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
-        calls = {
-            "curl_3d_sharded": lambda: _launch_raw(
-                "sopht_curl_3d_sharded_zmarch", ws, *ptrs(ws, *wh, coords, p,
-                                                          add, out, l1),
-                *geo, *plans["curl_3d_sharded"].args()),
-            "rotational_curl_add_3d_sharded": lambda: _launch_raw(
-                "sopht_rotational_curl_add_3d_sharded_zmarch", ws,
-                *ptrs(ws, *wh, us, *uh, coords, p, out), *geo,
-                *plans["rotational_curl_add_3d_sharded"].args()),
-        }
-        for name, fn in calls.items():
-            fn.plan = plans.get(name)
-        return calls
-    wg, ug = sharded._ghost_z(ws, mesh), sharded._ghost_z(us, mesh)
-    wy, uy = sharded._halo_y_rows(ws, mesh), sharded._halo_y_rows(us, mesh)
-    return {
-        "curl_3d_sharded": lambda: _launch_raw(
-            "sopht_curl_3d_sharded", ws, wg.data_ptr(), wy[0].data_ptr(),
-            wy[1].data_ptr(), coords.data_ptr(), p.data_ptr(), add.data_ptr(),
-            out.data_ptr(), l1.data_ptr(), *geo),
-        "rotational_curl_add_3d_sharded": lambda: _launch_raw(
-            "sopht_rotational_curl_add_3d_sharded", ws, wg.data_ptr(),
-            wy[0].data_ptr(), wy[1].data_ptr(), ug.data_ptr(),
-            uy[0].data_ptr(), uy[1].data_ptr(), coords.data_ptr(),
-            p.data_ptr(), out.data_ptr(), *geo),
+    ramp = single._sponge_ramp(width, ws.dtype, dev)
+    wh, uh = sharded._halos(ws, mesh), sharded._halos(us, mesh)
+    kinds = [k for k in ZMARCH_KINDS if k in sharded.ZMARCH_FIELDS]
+    plans = plans or {
+        ZMARCH_KINDS[k]: sharded._zmarch_plan(
+            k, [(ws, *wh), (us, *uh)] if k == "rotational" else [(ws, *wh)])
+        for k in kinds}
+    ptrs = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
+    entries = {
+        "curl_3d_sharded": lambda pl: _launch_raw(
+            "sopht_curl_3d_sharded_zmarch", ws,
+            *ptrs(ws, *wh, coords, p, add, out, l1), *geo, *pl.args()),
+        "rotational_curl_add_3d_sharded": lambda pl: _launch_raw(
+            "sopht_rotational_curl_add_3d_sharded_zmarch", ws,
+            *ptrs(ws, *wh, us, *uh, coords, p, out), *geo, *pl.args()),
+        "diffusion_timestep_vector_3d_sharded": lambda pl: _launch_raw(
+            "sopht_diffusion_vector_3d_sharded_zmarch", ws,
+            *ptrs(ws, *wh, coords, p, out), *geo, *pl.args()),
+        "diffusion_penalise_vector_3d_sharded": lambda pl: _launch_raw(
+            "sopht_diffusion_penalise_vector_3d_sharded_zmarch", ws,
+            *ptrs(ws, *wh, coords, p, ramp, out), *geo, width, *pl.args()),
     }
+    calls = {}
+    for name, plan in plans.items():
+        calls[name] = functools.partial(entries[name], plan)
+        calls[name].plan = plan
+    if "diffusion" not in kinds:
+        # the parent's diffusion pair: a ghosted copy and its y rows
+        wg, wy = sharded._ghost_z(ws, mesh), sharded._halo_y_rows(ws, mesh)
+        ghosted = (wg.data_ptr(), wy[0].data_ptr(), wy[1].data_ptr(),
+                   coords.data_ptr(), p.data_ptr(), out.data_ptr())
+        calls["diffusion_timestep_vector_3d_sharded"] = lambda: _launch_raw(
+            "sopht_diffusion_vector_3d_sharded", ws, *ghosted, *geo)
+        calls["diffusion_penalise_vector_3d_sharded"] = lambda: _launch_raw(
+            "sopht_diffusion_penalise_vector_3d_sharded", ws, *ghosted, *geo,
+            width)
+        for name in ("diffusion_timestep_vector_3d_sharded",
+                     "diffusion_penalise_vector_3d_sharded"):
+            calls[name].plan = None
+    return calls
 
 
 def exchange(ws, mesh):
-    """One field's exchange as the curl's wrapper makes it: the four halo
-    buffers, or a ghosted copy and the y rows where the package has no
-    z-plane buffers."""
-    if hasattr(sharded, "_halo_z_planes"):
-        return lambda: (sharded._halo_z_planes(ws, mesh),
-                        sharded._halo_y_rows(ws, mesh))
-    return ghosted_exchange(ws, mesh)
-
-
-def ghosted_exchange(ws, mesh):
-    return lambda: (sharded._ghost_z(ws, mesh),
+    """One field's exchange as the wrappers make it: the four halo
+    buffers."""
+    return lambda: (sharded._halo_z_planes(ws, mesh),
                     sharded._halo_y_rows(ws, mesh))
 
 
-def step_times(n, mesh_shape, dev):
+#: the flow case's filtered arm: the order-1 multiplicative filter, which
+#: runs the sharded diffusion once a step in place of the fused sponge
+FILTERED = {"filter_vorticity": True,
+            "filter_setting_dict": {"order": 1, "type": "multiplicative"}}
+
+
+def step_times(n, mesh_shape, dev, sim_kwargs=None):
     """(device ms a step over 5 profiled steps, s/step over 10 steps) of
     the sharded flow case at n^3."""
     from torch.profiler import ProfilerActivity, profile
 
     step, (carry,) = cases.sharded_flow_case((n, n, n), mesh_shape,
-                                             device=dev)
+                                             device=dev,
+                                             sim_kwargs=sim_kwargs)
     carry, _ = scan_steps(step, carry, 5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -345,24 +366,27 @@ def timing(tag, dev):
     for name, fn in kernel_alone(ws, us, mesh).items():
         out["kernel_ms"][name] = device_ms(fn)
         out["kernel_batch_ms"][name] = batched_ms(fn)
-    if hasattr(sharded, "sharded_stencil_plan"):
-        wh, uh = sharded._halos(ws, mesh), sharded._halos(us, mesh)
-        out["plans"] = {
-            "curl_3d_sharded": sharded._zmarch_plan(
-                "curl", [(ws, *wh)])._asdict(),
-            "rotational_curl_add_3d_sharded": sharded._zmarch_plan(
-                "rotational", [(ws, *wh), (us, *uh)])._asdict()}
+        if fn.plan is not None:
+            out["plans"][name] = fn.plan._asdict()
     out["exchange_device_ms"] = device_ms(exchange(ws, mesh))
-    out["ghosted_exchange_device_ms"] = device_ms(ghosted_exchange(ws, mesh))
+    if hasattr(sharded, "_ghost_z"):
+        # the parent's ghosted copy (and y rows), which its diffusion pair
+        # made
+        out["ghosted_exchange_device_ms"] = device_ms(
+            lambda: (sharded._ghost_z(ws, mesh),
+                     sharded._halo_y_rows(ws, mesh)))
     del calls, w, u, ws, us
     torch.cuda.empty_cache()
     out["step_device_ms"], out["s_per_step"] = step_times(n, mesh_shape, dev)
+    out["filtered_step_device_ms"], out["filtered_s_per_step"] = step_times(
+        n, mesh_shape, dev, FILTERED)
     return out
 
 
-def sweep(dev):
-    """Device time of the kernels alone under every plan at 256^3, each
-    plan's output held against the plain version (relative max |diff|)."""
+def sweep(dev, kinds=tuple(ZMARCH_KINDS)):
+    """Device time of the z-marching ``kinds`` alone under every plan at
+    256^3, each plan's output held against the plain version (relative max
+    |diff|); the sponge at width 2."""
     n = 256
     gen = torch.Generator(device=dev).manual_seed(0)
     for mesh_shape in ((2, 2), (8, 1)):
@@ -375,16 +399,25 @@ def sweep(dev):
         out = torch.empty_like(ws)
         p = torch.tensor(0.05, device=dev)
         add = torch.tensor([1.0, -0.5, 0.25], device=dev)
-        for kind, name in (("curl", "curl_3d_sharded"),
-                           ("rotational", "rotational_curl_add_3d_sharded")):
+        refs = {
+            "curl": lambda: sharded.curl_3d_sharded_ref(ws, p, mesh, add),
+            "rotational": lambda: sharded.rotational_curl_add_3d_sharded_ref(
+                ws, us, p, mesh),
+            "diffusion": lambda: (
+                sharded.diffusion_timestep_vector_3d_sharded_ref(ws, p,
+                                                                 mesh)),
+            "sponge": lambda: (
+                sharded.diffusion_penalise_vector_3d_sharded_ref(ws, p, 2,
+                                                                 mesh))}
+        for kind in kinds:
+            name = ZMARCH_KINDS[kind]
             chosen = sharded.sharded_stencil_plan(kind, pz * py, nzl, nyl, nx,
                                                   4)
-            ref = (sharded.curl_3d_sharded_ref(ws, p, mesh, add)
-                   if kind == "curl" else
-                   sharded.rotational_curl_add_3d_sharded_ref(ws, us, p, mesh))
+            ref = refs[kind]()
             scale = float(ref.abs().max())
             rows = []
             lo, hi = sharded.ZMARCH_STAGE_RANGE
+            lo = max(lo, 2 + sharded.ZMARCH_KEEP[kind])
             for tile in sharded.ZMARCH_TILES:
                 for stages in range(lo, hi + 1):
                     for chunks in (1, 2, 4, 8, 16):
@@ -396,17 +429,19 @@ def sweep(dev):
                         out.fill_(float("nan"))
                         fn()
                         err = float((out - ref).abs().max()) / scale
-                        rows.append((device_ms(fn), plan, err))
+                        rows.append((device_ms(fn), batched_ms(fn), plan,
+                                     err))
             del ref
             rows.sort(key=lambda r: r[0])
             print(f"{name} 256^3 on {mesh_shape}: plan {tuple(chosen)}",
                   flush=True)
-            for ms, plan, err in rows:
+            for ms, batch, plan, err in rows:
                 mark = " <- plan" if plan == chosen else ""
-                print(f"  {ms:.4f} ms tile {plan.tx}x{plan.ty} stages "
-                      f"{plan.stages} zchunk {plan.zchunk} blocks "
-                      f"{plan.blocks} ({plan.blocks_per_sm} an SM), "
-                      f"relative max|diff| {err:.3g}{mark}", flush=True)
+                print(f"  {ms:.4f} ms (batch {batch:.4f}) tile "
+                      f"{plan.tx}x{plan.ty} stages {plan.stages} zchunk "
+                      f"{plan.zchunk} blocks {plan.blocks} "
+                      f"({plan.blocks_per_sm} an SM), relative max|diff| "
+                      f"{err:.3g}{mark}", flush=True)
 
 
 def main(argv):
@@ -421,7 +456,7 @@ def main(argv):
         return 0
     if argv and argv[0] == "--sweep":
         print(card(), flush=True)
-        sweep(dev)
+        sweep(dev, tuple(argv[1:]) or tuple(ZMARCH_KINDS))
         return 0
     n = int(argv[0]) if argv else 256
     print(card(), flush=True)
@@ -429,7 +464,8 @@ def main(argv):
     lib = single.library()
     print(f"built stencils_3d.cu in {time.perf_counter() - t0:.1f} s")
     for ln in lib.build_log.splitlines():
-        if "Compiling entry" in ln or "registers" in ln or "warning" in ln:
+        if ("Compiling entry" in ln or "registers" in ln or "spill" in ln
+                or "warning" in ln):
             print("  " + ln.strip())
     gen = torch.Generator(device=dev).manual_seed(0)
     for mesh_shape in ((2, 2), (2, 3), (17, 1)):

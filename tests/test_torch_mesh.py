@@ -257,3 +257,20 @@ def test_counts_reset_and_assembled_helper():
                       "apply_assembled": 1}
     collectives.reset_counts()
     assert not any(collectives.counts().values())
+
+
+@pytest.mark.parametrize("mesh_shape,grid", [
+    ((4, 1), (4, 8, 6)), ((1, 4), (4, 4, 6)), ((4, 2), (4, 8, 6))])
+def test_assembled_fields_are_contiguous(mesh_shape, grid):
+    """On one-plane ((4, 1) over 4 planes) and one-row ((1, 4) over 4 rows)
+    shards the assembled field is a strided view of the shards; the
+    function of :func:`apply_assembled` gets it contiguous, as the
+    single-device kernels need on the card."""
+    mesh = create_mesh(3, mesh_shape, device="cpu")
+    field = shard_vector_field(torch.tensor(_field((3, *grid), 3)), mesh)
+
+    def fn(f):
+        assert f.is_contiguous()
+        return f + 1.0
+
+    assert torch.equal(apply_assembled(fn, mesh, field), field + 1.0)

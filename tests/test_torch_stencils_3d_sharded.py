@@ -205,9 +205,11 @@ def test_halo_helpers_and_shard_coords():
     f = torch.arange(3 * 4 * 6 * 2, dtype=torch.float64).reshape(3, 4, 6, 2)
     fs = shard_vector_field(f, mesh)
     collectives.reset_counts()
-    fg = sharded._ghost_z(fs, mesh)
+    zlo, zhi = sharded._halo_z_planes(fs, mesh)
     ylo, yhi = sharded._halo_y_rows(fs, mesh)
     assert collectives.ppermute.calls == 4
+    # the shards between their z halo planes
+    fg = torch.cat([zlo, fs, zhi], dim=3)
     assert fg.shape == (2, 3, 3, 4, 2, 2)
     assert ylo.shape == yhi.shape == (2, 3, 3, 2, 1, 2)
     # shard (1, 1): planes 2..3, rows 2..3 of the grid
