@@ -13,8 +13,10 @@ raises and exits non-zero, and nothing falls back to the CPU:
    at once (one compiler process each) and prints ptxas' register lines;
 3. kernels: each stencil kernel against its plain PyTorch version on the
    card (float32 at 256^3 and (3, 17, 33, 65), float64 at 64^3; the
-   filtered-transport trio also at the rod's (3, 256, 64, 256), both filter
-   types, orders 1 and 2), and each FFT-pass kernel against its plain
+   filtered-transport trio also at (3, 3, 3, 3) and the rod's (3, 256, 64,
+   256), both filter types, orders 1 and 2; the trio's times a call in a
+   batch of 20 at the rod's shape beside them), and each FFT-pass kernel
+   against its plain
    ``torch.fft`` version (float32 at the 256^3 main-path shapes and at
    those of a (48, 32, 64) grid), with kernel and plain times at the main
    paths' shapes (CUDA events, median of 20 calls after warm-up);
@@ -112,7 +114,12 @@ raises and exits non-zero, and nothing falls back to the CPU:
     sharded diffusion kernel alone and gathers the field once for the
     filter and the sponge;
 22. sharded card vs CPU: 3 steps of the (16, 32, 128) case on a (4, 2)
-    mesh from one numpy-seeded state.
+    mesh from one numpy-seeded state;
+23. filter plans: the multiplicative filter's z-marching kernel
+    (``mult_filter_zmarch_kernel``) under every tile, ring depth and z
+    chunk count its launcher takes, with no orig, with orig the field
+    itself and with another orig, against the plain passes at (3, 17, 33,
+    65), the rod's shape and 256^3 (float32) and (3, 34, 66, 64) (float64).
 
 Phase 3 also checks the fused-curl pair against its plain versions at the
 256^3 sphere's, the (128, 128, 256) multi-body case's, the 64^3 drag run's
@@ -497,17 +504,19 @@ def main():
 
     def transport_calls(shape, dtype, gen):
         """The filtered-transport trio at ``shape``: diffusion, the filter
-        (both types, orders 1 and 2) and the sponge."""
+        (both types, orders 1 and 2) and the sponge (width 2, where the
+        shape has more than 4 cells an axis)."""
         w = torch.randn(shape, dtype=dtype, device=dev, generator=gen)
         p = torch.tensor(0.13, dtype=dtype, device=dev)
         calls = {
             "diffusion_timestep_vector_3d": (
                 lambda: kernels.diffusion_timestep_vector_3d(w, p),
                 lambda: kernels.diffusion_timestep_vector_3d_ref(w, p)),
-            "penalise_field_boundary_vector_3d": (
-                lambda: kernels.penalise_field_boundary_vector_3d(w, 2),
-                lambda: kernels.penalise_field_boundary_vector_3d_ref(w, 2)),
         }
+        if kernels.penalise_supported(shape, 2):
+            calls["penalise_field_boundary_vector_3d"] = (
+                lambda: kernels.penalise_field_boundary_vector_3d(w, 2),
+                lambda: kernels.penalise_field_boundary_vector_3d_ref(w, 2))
         # the main path's filter first: its entry carries the kernel's name
         for ftype, order in (("multiplicative", 1), ("multiplicative", 2),
                              ("convolution", 1), ("convolution", 2)):
@@ -752,8 +761,20 @@ def main():
         del calls
         for shape, dtype in (((3, 17, 33, 65), torch.float32),
                              ((3, 64, 64, 64), torch.float64),
+                             ((3, 3, 3, 3), torch.float32),
+                             ((3, 256, 256, 256), torch.float32),
                              (ROD_SHAPE, torch.float32)):
             calls, errs = transport_calls(shape, dtype, gen)
+            if shape[1] == 256 and shape[2] == 256:
+                fn = calls["laplacian_filter_vector_3d"][0]
+                work = stencil_work("laplacian_filter_vector_3d", shape, 1)
+                cube = (
+                    f"the filter (multiplicative 1) at {shape} f32: err "
+                    f"{errs['laplacian_filter_vector_3d']:.3g}, "
+                    f"{median_ms(torch, fn):.4f} ms, in a batch "
+                    f"{sharded_batched_ms(fn):.4f} ms a call, bound "
+                    f"{bound(*work)[0]:.4f} ms")
+                del calls, fn
         # the rod path's shape: errors and times kept, the other filter
         # variants' times printed
         variants = []
@@ -764,10 +785,17 @@ def main():
                     name, SOURCE, REPLACES[name], errs[name], None, None,
                     stencil_work(name, ROD_SHAPE, 1), ROD_SHAPE,
                     times=(ms, plain_ms))
+                # the time a call in a batch of back-to-back calls: the
+                # device's where the host keeps ahead of it
+                table[name]["batch_ms"] = sharded_batched_ms(fn)
             else:
                 variants.append(f"{name}: err {errs[name]:.3g}, {ms:.4f} ms "
                                 f"vs plain {plain_ms:.4f} ms")
         del calls
+        filt = table["laplacian_filter_vector_3d"]
+        filt["kernel"] = "mult_filter_zmarch_kernel"
+        filt["plan"] = list(kernels.filter_plan(
+            torch.empty(ROD_SHAPE, device=dev)).args())
         run_fft_checks((48, 32, 64), gen)  # m = 96, 64, 128
         args = fft_pass_args((256, 256, 256), gen)
         calls, errs = run_fft_checks((256, 256, 256), gen, args)
@@ -876,7 +904,11 @@ def main():
         del calls, args
 
         detail = "; ".join(line(k, v) for k, v in table.items())
+        detail += "; the trio at (3, 256, 64, 256) f32: " + "; ".join(
+            f"{k} in a batch {table[k]['batch_ms']:.4f} ms a call"
+            for k in TRANSPORT_KERNELS)
         detail += "; at (3, 256, 64, 256) f32: " + "; ".join(variants)
+        detail += "; " + cube
         detail += "; " + "; ".join(fused) + "; " + "; ".join(edge)
         return table, detail + f" [{card}]"
 
@@ -2143,6 +2175,62 @@ def main():
         return None, f"{grid} on {mesh_shape}, 3 steps, max|diff| {errs}"
 
     sharded_parity_phase()
+
+    @phase("filter plans")
+    def filter_plan_phase():
+        """mult_filter_zmarch_kernel under every plan its launcher takes."""
+        gen = torch.Generator(device=dev).manual_seed(7)
+        lo = 2 + sharded.ZMARCH_KEEP["filter"]
+        hi = sharded.ZMARCH_STAGE_RANGE[1]
+        n_checked, worst = 0, {}
+        for shape, dtype in (((3, 17, 33, 65), torch.float32),
+                             ((3, 34, 66, 64), torch.float64),
+                             (ROD_SHAPE, torch.float32),
+                             ((3, 256, 256, 256), torch.float32)):
+            _, nz, ny, nx = shape
+            buf, other = (torch.randn(shape, dtype=dtype, device=dev,
+                                      generator=gen) for _ in range(2))
+            # one application's res, and the three outputs
+            res = kernels.mult_filter_pass_ref(buf)
+            refs = ((None, res), (buf, buf - res), (other, other - res))
+            tol = (1e-12 if dtype == torch.float64
+                   else 1e-5 * max(1.0, float(buf.abs().max()),
+                                   float(other.abs().max())))
+            out = torch.empty_like(buf)
+            entry_fn = getattr(kernels.library(),
+                               "sopht_mult_filter_3d_zmarch_"
+                               + kernels._SUFFIX[dtype])
+            stream = torch.cuda.current_stream().cuda_stream
+            err_max = 0.0
+            for tile in sharded.ZMARCH_TILES:
+                for stages in range(lo, hi + 1):
+                    for chunks in (1, 2, 4, 8, 16):
+                        plan = sharded.sharded_stencil_plan_of(
+                            "filter", 1, nz, ny, nx, buf.element_size(),
+                            True, tile, stages, -(-nz // chunks))
+                        for orig, ref in refs:
+                            out.fill_(float("nan"))
+                            rc = entry_fn(
+                                buf.data_ptr(),
+                                None if orig is None else orig.data_ptr(),
+                                out.data_ptr(), nz, ny, nx, *plan.args(),
+                                stream)
+                            check(rc == 0, f"filter plan {tuple(plan)} at "
+                                  f"{shape}: CUDA error {rc}")
+                            err, _ = max_err(out, ref)
+                            check(err <= tol, f"filter plan {tuple(plan)} "
+                                  f"at {shape} {dtype}: max|diff| {err} > "
+                                  f"{tol}")
+                            err_max = max(err_max, err)
+                            n_checked += 1
+            worst[str(shape)] = err_max
+            del buf, other, res, refs, out
+            torch.cuda.empty_cache()
+        return None, (f"{n_checked} launches (every tile x ring depth x 1, "
+                      f"2, 4, 8, 16 z chunks; no orig, orig the field, "
+                      f"another orig): largest max|diff| by shape {worst}")
+
+    filter_plan_phase()
 
     for row in table.values():
         check(row["launches"], f"{row['name']} was launched on no path")

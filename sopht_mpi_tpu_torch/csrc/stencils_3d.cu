@@ -9,10 +9,10 @@
 // host never has to know dt.
 //
 // Launch shape of the single-device kernels (every one but
-// conv_filter_line_3d): one thread per output cell, blocks of 32 x 8
-// threads over (x, y), one grid row of blocks per z-plane, so a warp reads
-// 32 neighbouring x cells (coalesced) and no thread divides an index by a
-// cell count.
+// conv_filter_line_3d and mult_filter_zmarch_kernel): one thread per output
+// cell, blocks of 32 x 8 threads over (x, y), one grid row of blocks per
+// z-plane, so a warp reads 32 neighbouring x cells (coalesced) and no
+// thread divides an index by a cell count.
 //
 // The sharded kernels: curl_zmarch_kernel, rotational_zmarch_kernel and
 // diffusion_zmarch_kernel (after the single-device kernels). A sharded
@@ -103,16 +103,25 @@
 //   out = f + p * lap7(f) on the interior, f on the ring. Bound: 24 B/cell
 //   at f32; the same one-cell-per-thread design as the fused kernel.
 //
-// mult_filter_pass_3d
+// mult_filter_3d_zmarch (mult_filter_zmarch_kernel)
 //   Replaces laplacian_filter_vector_3d_pallas, multiplicative type (kernel
-//   _mult_filter_kernel), one launch per filter application.
+//   _mult_filter_kernel, launched in _mult_filter_pass), one launch per
+//   filter application.
 //   res = clear . H_z . clear . H_y . clear . H_x (buf), H = 0.25 (2f - f+ -
 //   f-) along one axis, "clear" zeroing the ring (the z-wall planes
 //   included); with orig given, out = orig - res (the last application).
-//   The output cell needs the 27-point neighbourhood: each thread forms
-//   H_x, then H_y, of the planes z-1, z, z+1 at its (y, x) and then H_z, so
-//   no intermediate touches device memory. Bound: 24 B/cell (32 with orig)
-//   at f32; the 27 reads per component hit L1/L2 as in the stencils above.
+//   The output cell needs the 27-point neighbourhood. A single-device
+//   launch of the sharded kernels' z-march (below): a block marches its
+//   tile's planes, each read from HBM once into the ring (no halo buffers:
+//   the rows and planes beyond the field are never loaded, and only ring
+//   cells sit next to them). As a plane arrives the block forms clear . H_x
+//   of its tile rows and the two halo rows once, into a shared tile (the
+//   halo rows need the tile's corners, so its x halo columns are copied on
+//   rows 0 ... TY + 1); after a barrier each thread forms clear . H_y at its
+//   cell and keeps it in a register, and from the last three writes the
+//   output of the plane below (the TPU kernel read each plane three times).
+//   With orig = buf (order 1) the centre value comes from the ring: 24
+//   B/cell at f32, 32 with another orig, the bound.
 //
 // conv_filter_line_3d, conv_filter_z_pass_3d
 //   Replace the same function's convolution type (kernels
@@ -385,55 +394,6 @@ __device__ __forceinline__ T highpass(T center, T plus, T minus) {
   return T(0.25) * ((T(2) * center - plus) - minus);
 }
 
-// clear . H_x of plane-row `row` (a pointer to x = 0) at interior column x:
-// zero on the in-plane ring rows.
-template <typename T>
-__device__ __forceinline__ T hx_cleared(const T* __restrict__ row, int y,
-                                        int x, int ny) {
-  if (y == 0 || y == ny - 1) return T(0);
-  return highpass(__ldg(row + x), __ldg(row + x + 1), __ldg(row + x - 1));
-}
-
-// clear . H_y . clear . H_x of the plane `plane` (pointer to its (0, 0)) at
-// interior (y, x).
-template <typename T>
-__device__ __forceinline__ T hyx_cleared(const T* __restrict__ plane, int y,
-                                         int x, int ny, int nx) {
-  const T q_c = hx_cleared(plane + (long long)y * nx, y, x, ny);
-  const T q_p = hx_cleared(plane + (long long)(y + 1) * nx, y + 1, x, ny);
-  const T q_m = hx_cleared(plane + (long long)(y - 1) * nx, y - 1, x, ny);
-  return highpass(q_c, q_p, q_m);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    mult_filter_pass_kernel(const T* __restrict__ buf,
-                            const T* __restrict__ orig, T* __restrict__ out,
-                            int nz, int ny, int nx) {
-  Cell c;
-  if (!this_cell(nz, ny, nx, c)) return;
-  const long long sz = (long long)ny * nx;
-  const long long n = sz * nz;
-  const bool interior = !on_ring(c.z, c.y, c.x, nz, ny, nx);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    T res = T(0);
-    if (interior) {
-      const T* fc = buf + k * n;
-      // the neighbour planes z +- 1 are zero on the z walls
-      const T t_c = hyx_cleared(fc + c.z * sz, c.y, c.x, ny, nx);
-      const T t_p = c.z + 1 == nz - 1
-                        ? T(0)
-                        : hyx_cleared(fc + (c.z + 1) * sz, c.y, c.x, ny, nx);
-      const T t_m = c.z - 1 == 0
-                        ? T(0)
-                        : hyx_cleared(fc + (c.z - 1) * sz, c.y, c.x, ny, nx);
-      res = highpass(t_c, t_p, t_m);
-    }
-    out[k * n + c.i] = orig != nullptr ? __ldg(orig + k * n + c.i) - res : res;
-  }
-}
-
 // A thread owns one line of the in-plane stage: an x-line (axis 0) indexed
 // by (component, z, y), or a y-line (axis 1) indexed by (component, z, x).
 template <typename T>
@@ -605,20 +565,24 @@ struct ZTile {
 // component j at stage + j CT. A copy item is a run of the tile's rows, y
 // halo rows included (HALO false: TX / V 16-byte runs a row with VEC, TX
 // single values without), or one value of the x halo columns of rows 1 ...
-// TY (HALO true; corners are never read). A thread owns items tid, tid +
-// NT, ...: the same for every plane, so it works out each item's place once
-// (set) and, for every plane, only where the plane's row starts (issue). A
-// row is the block's own, or one of its y row buffers (both: body + z
-// stride), or, on the planes z = -1 and nz, the z plane buffers' (zoff; a
-// y halo row has none there). Cells outside the grid are not written; only
-// masked cells read them.
-template <typename T, int TX, int TY, int NF, bool HALO, bool VEC>
+// TY (HALO true; the three-point stencils never read the corners), or of
+// rows 0 ... TY + 1 with CORNERS (the filter's H_x of the y halo rows). A
+// thread owns items tid, tid + NT, ...: the same for every plane, so it
+// works out each item's place once (set) and, for every plane, only where
+// the plane's row starts (issue). A row is the block's own, or one of its y
+// row buffers (both: body + z stride), or, on the planes z = -1 and nz, the
+// z plane buffers' (zoff; a y halo row has none there). A single-device
+// launch has no halo buffers (null): rows -1 and ny and planes -1 and nz
+// are not copied. Cells outside the grid are not written; only masked
+// cells read them.
+template <typename T, int TX, int TY, int NF, bool HALO, bool VEC,
+          bool CORNERS = false>
 struct TileCopies {
   using Z = ZTile<T, TX, TY>;
   static constexpr int NC = 3 * NF;
   static constexpr int RUN = HALO || !VEC ? 1 : Z::V;   // values an item
   static constexpr int PER_ROW = HALO ? 2 : TX / RUN;
-  static constexpr int ROWS = HALO ? TY : Z::R;
+  static constexpr int ROWS = HALO && !CORNERS ? TY : Z::R;
   static constexpr int ITEMS = NC * ROWS * PER_ROW;
   static constexpr int N = (ITEMS + Z::NT - 1) / Z::NT;  // items a thread
 
@@ -641,11 +605,13 @@ struct TileCopies {
       second[i] = false;
       if (ITEMS % Z::NT != 0 && item >= ITEMS) continue;
       const int q = item % PER_ROW, rest = item / PER_ROW;
-      const int r = HALO ? 1 + rest % ROWS : rest % ROWS, j = rest / ROWS;
+      const int r = HALO && !CORNERS ? 1 + rest % ROWS : rest % ROWS;
+      const int j = rest / ROWS;
       const int x = HALO ? (q ? x0 + TX : x0 - 1) : x0 + q * RUN;
       const int ly = y0 - 1 + r;
       if (x < 0 || x >= g.nx || ly > g.ny) continue;
       const HaloSrc<T>& h = j < 3 ? a : b;
+      if ((ly < 0 || ly == g.ny) && h.ylo == nullptr) continue;
       const long long comp = 3LL * s + j % 3;
       dst[i] = j * Z::CT + r * Z::W + Z::V + (x - x0);
       second[i] = j >= 3;
@@ -658,7 +624,8 @@ struct TileCopies {
       } else {
         body[i] = h.f + comp * g.nz * plane + (long long)ly * g.nx + x;
         stride[i] = (int)plane;
-        zoff[i] = comp * plane + (long long)ly * g.nx + x;
+        if (h.zlo != nullptr)
+          zoff[i] = comp * plane + (long long)ly * g.nx + x;
       }
     }
   }
@@ -687,11 +654,12 @@ struct TileCopies {
   }
 };
 
-// Every copy of a plane tile: the rows, then the x halo columns.
-template <typename T, int TX, int TY, int NF, bool VEC>
+// Every copy of a plane tile: the rows, then the x halo columns (with or
+// without the corners).
+template <typename T, int TX, int TY, int NF, bool VEC, bool CORNERS>
 struct PlaneCopies {
   TileCopies<T, TX, TY, NF, false, VEC> rows;
-  TileCopies<T, TX, TY, NF, true, VEC> cols;
+  TileCopies<T, TX, TY, NF, true, VEC, CORNERS> cols;
 
   __device__ __forceinline__ PlaneCopies(const HaloSrc<T>& a,
                                          const HaloSrc<T>& b, int s, int y0,
@@ -755,13 +723,15 @@ __device__ __forceinline__ ZWalk zwalk(const Geom& g, int zchunk) {
 // left (last read in iteration k - 1, before this iteration's barrier), and
 // calls step(k, stage of plane k, stage of plane k - 1[, stage of plane
 // k - 2]): plane k - 1 is the centre of the cells whose output the step
-// writes.
-template <typename T, int TX, int TY, int NF, bool VEC, int KEEP, class Step>
+// writes. CORNERS copies the tile's corners too.
+template <typename T, int TX, int TY, int NF, bool VEC, int KEEP,
+          bool CORNERS = false, class Step>
 __device__ __forceinline__ void zmarch(T* ring, int stage_size,
                                        const HaloSrc<T>& a,
                                        const HaloSrc<T>& b, const ZWalk& w,
                                        const Geom& g, int stages, Step step) {
-  const PlaneCopies<T, TX, TY, NF, VEC> copies(a, b, w.s, w.y0, w.x0, g);
+  const PlaneCopies<T, TX, TY, NF, VEC, CORNERS> copies(a, b, w.s, w.y0,
+                                                        w.x0, g);
   const int L = w.zb - w.za + 2;
   const int ahead = stages - 1 - KEEP;
   for (int k = 0; k < ahead; ++k) {
@@ -1088,6 +1058,103 @@ __global__ void __launch_bounds__(TX * TY, kZmarchSmThreads / (TX * TY))
       });
 }
 
+// mult_filter_zmarch_kernel: one multiplicative filter application on one
+// device (see the file's head), res = clear . H_z . clear . H_y . clear .
+// H_x (buf); out = res (mode 0), buf - res (mode 1: orig is buf, its centre
+// value read from the ring) or orig - res (mode 2: orig another field, read
+// once, a step ahead of its use, so the load's latency hides behind a
+// plane's work). The curl's walk with the tile's corners, on a ring of buf
+// planes.
+// Step k, when plane k lies inside the z walls (block-uniform): the block
+// forms clear . H_x of plane k's R tile rows at the TX columns into the
+// shared tile hx (3 R TX values; 0 on the ring and beyond the field, so
+// never NaN), a barrier, then each thread forms t_k = clear . H_y at its
+// cell (0 off the interior and on the z walls). It then writes plane k -
+// 1's output from t_{k-2}, t_{k-1}, t_k. hx is rewritten in step k + 1
+// after the walk's barrier, when every thread has read it. No cell reads a
+// row or plane beyond the field: only ring cells sit next to them, and
+// their result is a select of 0.
+template <typename T, int TX, int TY, bool VEC>
+__global__ void __launch_bounds__(TX * TY, kZmarchSmThreads / (TX * TY))
+    mult_filter_zmarch_kernel(HaloSrc<T> src, const T* __restrict__ orig,
+                              T* __restrict__ out, Geom g, int zchunk,
+                              int stages, int mode) {
+  using Z = ZTile<T, TX, TY>;
+  constexpr int HT = Z::R * TX;  // one component of the H_x tile
+  extern __shared__ __align__(16) unsigned char zmarch_smem[];
+  T* ring = reinterpret_cast<T*>(zmarch_smem);
+  T* hx = ring + stages * 3 * Z::CT;
+  const ZWalk w = zwalk<TX, TY>(g, zchunk);
+  const int o = (threadIdx.x / TX + 1) * Z::W + Z::V + threadIdx.x % TX;
+  const int oh = (threadIdx.x / TX + 1) * TX + threadIdx.x % TX;
+  const long long plane = (long long)g.ny * g.nx;
+  const long long n = plane * g.nz;
+  const long long cell = (long long)w.y * g.nx + w.x;
+  // the thread's cell lies in the in-plane interior
+  const bool inner = w.x >= 1 && w.x <= g.nx - 2 && w.y >= 1 &&
+                     w.y <= g.ny - 2;
+  const int L = w.zb - w.za + 2;
+  // t at the thread's cell on planes k - 2 (m) and k - 1 (c); orig at the
+  // cell of the plane the next step writes
+  T tm[3] = {T(0), T(0), T(0)}, tc[3] = {T(0), T(0), T(0)};
+  T og[3] = {T(0), T(0), T(0)};
+  zmarch<T, TX, TY, 1, VEC, 1, true>(
+      ring, 3 * Z::CT, src, src, w, g, stages,
+      [&](int k, const T* t, const T* c) {
+        const int z = w.za - 1 + k;  // plane k
+        T tn[3] = {T(0), T(0), T(0)};
+        if (z >= 1 && z <= g.nz - 2) {
+          for (int h = threadIdx.x; h < HT; h += Z::NT) {
+            const int r = h / TX, x = w.x0 + h % TX, ly = w.y0 - 1 + r;
+            const bool in = x >= 1 && x <= g.nx - 2 && ly >= 1 &&
+                            ly <= g.ny - 2;
+            const int i = r * Z::W + Z::V + h % TX;
+#pragma unroll
+            for (int j = 0; j < 3; ++j) {
+              const T* tj = t + j * Z::CT;
+              // the plain version's order (highpass)
+              hx[j * HT + h] = in ? highpass(tj[i], tj[i + 1], tj[i - 1])
+                                  : T(0);
+            }
+          }
+          __syncthreads();
+          if (inner) {
+#pragma unroll
+            for (int j = 0; j < 3; ++j) {
+              const T* hj = hx + j * HT;
+              tn[j] = highpass(hj[oh], hj[oh + TX], hj[oh - TX]);
+            }
+          }
+        }
+        if (k >= 2 && w.valid) {
+          const int zc = z - 1;  // the plane step k writes
+          const bool interior = inner && zc >= 1 && zc <= g.nz - 2;
+          T* d = out + zc * plane + cell;
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            const T res = interior ? highpass(tc[j], tn[j], tm[j]) : T(0);
+            if (mode == 0)
+              d[j * n] = res;
+            else if (mode == 1)
+              d[j * n] = c[j * Z::CT + o] - res;
+            else
+              d[j * n] = og[j] - res;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          tm[j] = tc[j];
+          tc[j] = tn[j];
+        }
+        // plane k is written in step k + 1
+        if (mode == 2 && w.valid && k >= 1 && k <= L - 2) {
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+            og[j] = __ldg(orig + j * n + z * plane + cell);
+        }
+      });
+}
+
 // A z-marching launch's plan, as sharded_stencil_plan computes it: the
 // tile (tx, ty), planes a chunk, ring stages, dynamic shared bytes, blocks
 // (tiles x chunks x shards) and 16-byte copies.
@@ -1104,11 +1171,19 @@ long long zmarch_smem_bytes(int nfields, int tx, int ty, int stages) {
          (3LL * nfields * stages + (nfields == 2 ? 6 : 0));
 }
 
-// Whether the plan is the one the kernel assumes for these fields and a
-// walk that keeps `keep` planes below the centre.
+// The filter's H_x tile: 3 components of TY + 2 rows of TX values.
+template <typename T>
+long long filter_scratch_bytes(int tx, int ty) {
+  return (long long)sizeof(T) * 3 * (ty + 2) * tx;
+}
+
+// Whether the plan is the one the kernel assumes for these fields, a walk
+// that keeps `keep` planes below the centre and `scratch` more shared
+// bytes.
 template <typename T>
 bool zmarch_plan_ok(const ZmarchPlan& p, const HaloSrc<T>* srcs, int nfields,
-                    int keep, int nshards, const Geom& g) {
+                    int keep, int nshards, const Geom& g,
+                    long long scratch) {
   if (nshards < 1 || nshards > 65535 || g.nz < 1 || g.ny < 1 || g.nx < 1 ||
       p.stages < 2 + keep || p.stages > 5 || p.zchunk < 1 ||
       p.zchunk > g.nz)
@@ -1118,7 +1193,8 @@ bool zmarch_plan_ok(const ZmarchPlan& p, const HaloSrc<T>* srcs, int nfields,
   const long long chunks = (g.nz + p.zchunk - 1) / p.zchunk;
   if (tiles > 2147483647LL || chunks > 65535 ||
       p.blocks != tiles * chunks * nshards ||
-      p.smem != zmarch_smem_bytes<T>(nfields, p.tx, p.ty, p.stages) ||
+      p.smem != zmarch_smem_bytes<T>(nfields, p.tx, p.ty, p.stages) +
+                    scratch ||
       p.smem > 232448)
     return false;
   if (p.vec) {
@@ -1167,6 +1243,7 @@ struct ZmarchArgs {
   Geom g;
   ZmarchPlan p;
   int width;  // the diffusion's sponge width (0: none)
+  const T* orig = nullptr;  // the filter's orig (null: none)
 
   dim3 grid() const {
     return dim3((unsigned)(((g.nx + p.tx - 1) / p.tx) *
@@ -1221,6 +1298,21 @@ struct DiffusionZmarch {
   }
 };
 
+template <typename T>
+struct FilterZmarch {
+  template <int TX, int TY, bool VEC>
+  static int go(const ZmarchArgs<T>& a, cudaStream_t st) {
+    auto kernel = mult_filter_zmarch_kernel<T, TX, TY, VEC>;
+    static int dev_set = -1, smem_set = 0;
+    if (const int err = allow_smem(kernel, a.p.smem, dev_set, smem_set))
+      return err;
+    const int mode = a.orig == nullptr ? 0 : a.orig == a.f.f ? 1 : 2;
+    kernel<<<a.grid(), TX * TY, a.p.smem, st>>>(a.f, a.orig, a.out, a.g,
+                                                a.p.zchunk, a.p.stages, mode);
+    return (int)cudaGetLastError();
+  }
+};
+
 // Whether the sponge stays in the shard: every clamp source and the cells
 // that clamp to it in one shard (width <= nz, ny) and the two wall bands of
 // each axis apart (n > 2 width).
@@ -1250,9 +1342,9 @@ int launch_tile(const ZmarchArgs<T>& a, cudaStream_t st) {
 // refused.
 template <class K, typename T>
 int launch_zmarch(const ZmarchArgs<T>& a, int nfields, int keep,
-                  cudaStream_t st) {
+                  cudaStream_t st, long long scratch = 0) {
   const HaloSrc<T> srcs[2] = {a.f, a.u};
-  if (!zmarch_plan_ok<T>(a.p, srcs, nfields, keep, a.nshards, a.g))
+  if (!zmarch_plan_ok<T>(a.p, srcs, nfields, keep, a.nshards, a.g, scratch))
     return (int)cudaErrorInvalidValue;
   if (a.p.tx == 32 && a.p.ty == 8) return launch_tile<K, 32, 8>(a, st);
   if (a.p.tx == 32 && a.p.ty == 16) return launch_tile<K, 32, 16>(a, st);
@@ -1296,14 +1388,6 @@ int launch_zmarch(const ZmarchArgs<T>& a, int nfields, int keep,
                           (cudaStream_t)stream>>>(f, pref, out, nz, ny, nx);   \
     return (int)cudaGetLastError();                                            \
   }                                                                            \
-  extern "C" int sopht_mult_filter_pass_3d_##SUFFIX(                           \
-      const T* buf, const T* orig, T* out, int nz, int ny, int nx,             \
-      void* stream) {                                                          \
-    mult_filter_pass_kernel<T>                                                 \
-        <<<grid_of(nz, ny, nx), dim3(kBlockX, kBlockY), 0,                     \
-           (cudaStream_t)stream>>>(buf, orig, out, nz, ny, nx);                \
-    return (int)cudaGetLastError();                                            \
-  }                                                                            \
   extern "C" int sopht_conv_filter_line_3d_##SUFFIX(                           \
       const T* f, T* out, int nz, int ny, int nx, int axis, int k,             \
       void* stream) {                                                          \
@@ -1339,8 +1423,23 @@ SOPHT_DEFINE_ENTRIES(double, f64)
 // (shards, nz, ny, nx) of a shard, the grid's (NZ, NY), the sponge's width
 // (diffusion + sponge only) and the plan (tx, ty, zchunk, stages, smem,
 // blocks, vec), which the launcher checks; the sponge's launcher picks the
-// gathering instance where the plan's tile allows it.
+// gathering instance where the plan's tile allows it. The single-device
+// filter: buf, orig (null: none; buf itself on order 1), out, (nz, ny, nx)
+// and the plan.
 #define SOPHT_DEFINE_ZMARCH_ENTRIES(T, SUFFIX)                                 \
+  extern "C" int sopht_mult_filter_3d_zmarch_##SUFFIX(                         \
+      const T* buf, const T* orig, T* out, int nz, int ny, int nx, int tx,     \
+      int ty, int zchunk, int stages, int smem, int blocks, int vec,           \
+      void* stream) {                                                          \
+    const HaloSrc<T> src{buf, nullptr, nullptr, nullptr, nullptr};             \
+    const ZmarchArgs<T> a{src, src, nullptr, nullptr, nullptr, nullptr, out,   \
+                          nullptr, 1, Geom{nz, ny, nx, nz, ny},                \
+                          ZmarchPlan{tx, ty, zchunk, stages, smem, blocks,     \
+                                     vec},                                     \
+                          0, orig};                                            \
+    return launch_zmarch<FilterZmarch<T>, T>(                                  \
+        a, 1, 1, (cudaStream_t)stream, filter_scratch_bytes<T>(tx, ty));      \
+  }                                                                            \
   extern "C" int sopht_curl_3d_sharded_zmarch_##SUFFIX(                        \
       const T* f, const T* zlo, const T* zhi, const T* ylo, const T* yhi,      \
       const int* coords, const T* pref, const T* add, T* out, T* l1_max,       \

@@ -42,7 +42,9 @@ _SIGNATURES = {
     "sopht_diffusion_penalise_vector_3d": (_P, _P, _P, _I, _I, _I, _I, _P),
     "sopht_curl_3d": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "sopht_diffusion_vector_3d": (_P, _P, _P, _I, _I, _I, _P),
-    "sopht_mult_filter_pass_3d": (_P, _P, _P, _I, _I, _I, _P),
+    # buf, orig (or null), out, (nz, ny, nx), then the plan (tx, ty,
+    # zchunk, stages, smem, blocks, vec)
+    "sopht_mult_filter_3d_zmarch": (_P,) * 3 + (_I,) * 10 + (_P,),
     "sopht_conv_filter_line_3d": (_P, _P, _I, _I, _I, _I, _I, _P),
     "sopht_conv_filter_z_pass_3d": (_P, _P, _P, _I, _I, _I, _P),
     "sopht_penalise_vector_3d": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -121,6 +123,16 @@ def laplacian_filter_vector_3d_ref(vector_field, filter_order: int,
     return _plain.laplacian_filter_vector_3d(
         vector_field, filter_order, filter_type
     )
+
+
+def mult_filter_pass_ref(buf, orig=None):
+    """One launch of the multiplicative filter's kernel in plain PyTorch:
+    ``res = clear . H_z . clear . H_y . clear . H_x (buf)``, the plain
+    version's passes, or ``orig - res``."""
+    hp = _plain._highpass_1d
+    res = torch.stack([
+        hp(hp(hp(c, _plain._XAX), _plain._YAX), _plain._ZAX) for c in buf])
+    return res if orig is None else orig - res
 
 
 def penalise_field_boundary_vector_3d_ref(vector_field, width: int):
@@ -285,13 +297,30 @@ def diffusion_timestep_vector_3d(vector_field, nu_dt_by_dx2):
     return out
 
 
+def filter_plan(vector_field):
+    """The launch plan of ``mult_filter_zmarch_kernel`` on a (3, nz, ny,
+    nx) field: the z-marching plan of kind ``"filter"`` on one shard
+    (``cuda_stencils_3d_sharded.sharded_stencil_plan``), 16-byte copies
+    where the field's pointer allows them."""
+    from sopht_mpi_tpu_torch.ops.cuda_stencils_3d_sharded import (
+        sharded_stencil_plan,
+    )
+
+    _, nz, ny, nx = vector_field.shape
+    return sharded_stencil_plan("filter", 1, nz, ny, nx,
+                                vector_field.element_size(),
+                                vector_field.data_ptr() % 16 == 0)
+
+
 def laplacian_filter_vector_3d(vector_field, filter_order: int,
                                filter_type: str):
     """Laplacian (vorticity-stabilisation) filter, per-application wall
     clearing included. ``multiplicative``: ``f - (H_z H_y H_x)^order f``,
-    one launch per application; ``convolution``: per axis x, y, z
-    ``f - H_axis^order f``, one launch for each in-plane axis and ``order``
-    launches for z. ``launches`` counts every launch. Forward only."""
+    one launch of the z-marching ``mult_filter_zmarch_kernel`` per
+    application under :func:`filter_plan` (the last one subtracts from
+    ``f``); ``convolution``: per axis x, y, z ``f - H_axis^order f``, one
+    launch for each in-plane axis and ``order`` launches for z.
+    ``launches`` counts every launch. Forward only."""
     _check_field("vector_field", vector_field)
     if not isinstance(filter_order, int) or filter_order < 0:
         raise ValueError("Invalid filter order")
@@ -305,22 +334,26 @@ def laplacian_filter_vector_3d(vector_field, filter_order: int,
         )
     _, nz, ny, nx = vector_field.shape
 
-    def three_plane_pass(fn_base, buf, orig):
+    def three_plane_pass(fn_base, buf, orig, *plan):
         out = torch.empty_like(vector_field)
         _launch(
             fn_base, vector_field, buf.data_ptr(),
             None if orig is None else orig.data_ptr(), out.data_ptr(),
-            nz, ny, nx,
+            nz, ny, nx, *plan,
         )
         laplacian_filter_vector_3d.launches += 1
         return out
 
     if filter_type == "multiplicative":
+        # a pass reads the field or a fresh (16-byte aligned) allocation:
+        # the field's plan holds for every pass
+        plan = filter_plan(vector_field).args()
         buf = vector_field
         for it in range(filter_order):
             last = it == filter_order - 1
             buf = three_plane_pass(
-                "sopht_mult_filter_pass_3d", buf, vector_field if last else None
+                "sopht_mult_filter_3d_zmarch", buf,
+                vector_field if last else None, *plan,
             )
         return buf
     field = vector_field

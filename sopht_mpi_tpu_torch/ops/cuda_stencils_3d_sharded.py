@@ -261,16 +261,23 @@ ZMARCH_TILES = ((32, 8), (32, 16), (64, 4), (64, 8))
 ZMARCH_STAGE_RANGE = (3, 5)
 #: the planes each kind's walk keeps at and below the centre plane: the
 #: diffusion pair reads its z - 1 values from the ring (the sponge forms a
-#: cell's diffusion at its clamp source's place in the tiles)
-ZMARCH_KEEP = {"curl": 1, "rotational": 1, "diffusion": 2, "sponge": 2}
+#: cell's diffusion at its clamp source's place in the tiles); "filter" is
+#: the single-device multiplicative filter pass (one shard, no halo
+#: buffers, ``mult_filter_zmarch_kernel``), which reads its centre plane's
+#: value from the ring
+ZMARCH_KEEP = {"curl": 1, "rotational": 1, "diffusion": 2, "sponge": 2,
+               "filter": 1}
 #: the tile and each kernel's ring stages the plan takes (the fastest at
 #: 256^3 on (2, 2) and (8, 1) on one H100, ``tools/probe_sharded.py
-#: --sweep``): "diffusion" is the diffusion step, "sponge" the diffusion
-#: step with the wall sponge
+#: --sweep``; the filter's at the rod's (3, 256, 64, 256) and 256^3,
+#: ``tools/probe_filter.py --sweep``): "diffusion" is the diffusion step,
+#: "sponge" the diffusion step with the wall sponge
 ZMARCH_TILE = (64, 8)
-ZMARCH_STAGES = {"curl": 4, "rotational": 3, "diffusion": 5, "sponge": 5}
-#: the sharded fields each kernel reads
-ZMARCH_FIELDS = {"curl": 1, "rotational": 2, "diffusion": 1, "sponge": 1}
+ZMARCH_STAGES = {"curl": 4, "rotational": 3, "diffusion": 5, "sponge": 5,
+                 "filter": 4}
+#: the fields each kernel reads
+ZMARCH_FIELDS = {"curl": 1, "rotational": 2, "diffusion": 1, "sponge": 1,
+                 "filter": 1}
 #: threads an SM holds at the kernels' launch bound (64 registers a thread)
 ZMARCH_SM_THREADS = 1024
 
@@ -303,10 +310,13 @@ def zmarch_smem(kind: str, tx: int, ty: int, stages: int,
                 itemsize: int) -> int:
     """Dynamic shared bytes of a z-marching block: ``stages`` plane tiles
     of the fields' 3 components (``ty + 2`` rows of ``tx`` cells, their two
-    halo columns and 16-byte pads), and the transport's two q tiles."""
+    halo columns and 16-byte pads), the transport's two q tiles and the
+    filter's H_x tile (3 components of ``ty + 2`` rows of ``tx``)."""
     nf = ZMARCH_FIELDS[kind]
     tile = (ty + 2) * (tx + 2 * (16 // itemsize))
-    return itemsize * tile * (3 * nf * stages + (6 if nf == 2 else 0))
+    scratch = 3 * (ty + 2) * tx if kind == "filter" else 0
+    return itemsize * (tile * (3 * nf * stages + (6 if nf == 2 else 0))
+                       + scratch)
 
 
 def sharded_stencil_plan_of(kind: str, nshards: int, nzl: int, nyl: int,

@@ -1,7 +1,8 @@
-"""Time the z-marching sharded kernels (``curl_zmarch_kernel``,
+"""Time the z-marching kernels (the sharded ``curl_zmarch_kernel``,
 ``rotational_zmarch_kernel``, ``diffusion_zmarch_kernel`` with and without
-the sponge, in ``csrc/stencils_3d.cu``) with one part of their walk cut
-out at a time, on one CUDA device:
+the sponge, and the single-device filter pass
+``mult_filter_zmarch_kernel``, in ``csrc/stencils_3d.cu``) with one part of
+their walk cut out at a time, on one CUDA device:
 
     python3 -m sopht_mpi_tpu_torch.tools.ablate_zmarch [name ...]
 
@@ -9,9 +10,10 @@ Each variant is a copy of the package under ``build/ablate_zmarch/<name>``
 whose walk has one edit (the names below; default: all of them), built in
 parallel by ``nvcc``. Then each runs, in its own process, the four kernels
 alone under their plans at 256^3 on a (2, 2) mesh on halo buffers made
-beforehand, and prints their device time (``torch.profiler``) and their
-time a launch in a batch of 20 (CUDA events); the unedited kernels run
-first and last. A cut variant's output is wrong: only its time is read.
+beforehand, and the filter (order 1) at the rod's (3, 256, 64, 256) and at
+256^3, and prints their device time (``torch.profiler``) and their time a
+launch in a batch of 20 (CUDA events); the unedited kernels run first and
+last. A cut variant's output is wrong: only its time is read.
 What a part costs is the kernel's time less the time without it, where
 the rest does not take its place.
 """
@@ -60,6 +62,16 @@ VARIANTS = {
     # plane
     "no_sponge_store": [("        if (SPONGE == 1) {\n",
                          "        if (false) {\n")],
+    # the filter: no barrier between its H_x tile and the H_y reads (the
+    # step races), no H_x tile (H_y reads whatever the tile holds), no
+    # output stores
+    "filter_no_hx_barrier": [
+        ("          __syncthreads();\n          if (inner) {",
+         "          if (inner) {")],
+    "filter_no_hx": [("          for (int h = threadIdx.x; h < HT; h += Z::NT) {",
+                      "          for (int h = HT; h < HT; h += Z::NT) {")],
+    "filter_no_stores": [("        if (k >= 2 && w.valid) {",
+                          "        if (k >= 2 && w.valid && z < 0) {")],
 }
 # no output stores of the diffusion pair either
 VARIANTS["no_stores"].append(
@@ -80,6 +92,13 @@ ws, us = (shard_vector_field(torch.randn((3, 256, 256, 256), device="cuda",
 out = []
 for name, fn in kernel_alone(ws, us, mesh).items():
     out.append(f"{{name}} {{device_ms(fn):.4f}} / {{batched_ms(fn):.4f}} ms")
+del ws, us
+from sopht_mpi_tpu_torch.ops import cuda_stencils_3d as single
+for shape in ((3, 256, 64, 256), (3, 256, 256, 256)):
+    w = torch.randn(shape, device="cuda", generator=gen)
+    fn = lambda: single.laplacian_filter_vector_3d(w, 1, "multiplicative")
+    out.append(f"filter {{shape}} {{device_ms(fn):.4f}} / "
+               f"{{batched_ms(fn):.4f}} ms")
 print("; ".join(out))
 """
 
