@@ -13,9 +13,14 @@ raises and exits non-zero, and nothing falls back to the CPU:
    at once (one compiler process each) and prints ptxas' register lines;
 3. kernels: each stencil kernel against its plain PyTorch version on the
    card (float32 at 256^3 and (3, 17, 33, 65), float64 at 64^3; the
-   filtered-transport trio also at (3, 3, 3, 3) and the rod's (3, 256, 64,
-   256), both filter types, orders 1 and 2; the trio's times a call in a
-   batch of 20 at the rod's shape beside them), and each FFT-pass kernel
+   filtered-transport trio also at (3, 3, 3, 3), the freely rotating rod's
+   (3, 64, 64, 128) and the rod's (3, 256, 64, 256), the multiplicative
+   filter at orders 1 and 2, the convolution filter at 1, 2 and 5
+   (``conv_filter_zmarch_kernel``, one launch a call) and at 6 (the line
+   route above its instances, ``conv_filter_line_kernel`` and
+   ``conv_filter_z_pass_kernel``, 2 + 6 launches a call); the trio's times a call in a batch of 20 at the rod's shape beside them, the
+   convolution filter's at 256^3, the rod's and the freely rotating rod's
+   shapes), and each FFT-pass kernel
    against its plain
    ``torch.fft`` version (float32 at the 256^3 main-path shapes and at
    those of a (48, 32, 64) grid), with kernel and plain times at the main
@@ -119,7 +124,17 @@ raises and exits non-zero, and nothing falls back to the CPU:
     (``mult_filter_zmarch_kernel``) under every tile, ring depth and z
     chunk count its launcher takes, with no orig, with orig the field
     itself and with another orig, against the plain passes at (3, 17, 33,
-    65), the rod's shape and 256^3 (float32) and (3, 34, 66, 64) (float64).
+    65), the rod's shape and 256^3 (float32) and (3, 34, 66, 64) (float64);
+    the convolution filter's (``conv_filter_zmarch_kernel``) the same way
+    at orders 1 ... 5 at (3, 17, 33, 65) and (3, 34, 66, 64), 1 and 5 at
+    the rod's shape;
+24. freely rotating rod: ``cases._build_freely_rotating_rod_case`` at the
+    example's default (64, 64, 128) (float32 flow, float64 rod, the order-5
+    convolution filter, dynamic substeps, dense IBM path) for 20 steps with
+    one filter launch a step, the first 3 against the port's CPU run from
+    the same state, the rod tip against the JAX package's CPU trajectory
+    (``sopht_mpi_tpu_torch/data/freely_rotating_rod_reference.json``), and
+    3 profiled steps (``build/free_rod_profile.txt``).
 
 Phase 3 also checks the fused-curl pair against its plain versions at the
 256^3 sphere's, the (128, 128, 256) multi-body case's, the 64^3 drag run's
@@ -172,6 +187,12 @@ TRANSPORT_KERNELS = ("diffusion_timestep_vector_3d",
                      "laplacian_filter_vector_3d",
                      "penalise_field_boundary_vector_3d")
 ROD_SHAPE = (3, 256, 64, 256)
+# the freely rotating rod's default grid, its field's shape and filter
+FREE_ROD_GRID = (64, 64, 128)
+FREE_ROD_SHAPE = (3, *FREE_ROD_GRID)
+FREE_ROD_ORDER = 5
+# the convolution filter's row of the kernel table: its TPU kernel
+CONV_REPLACES = "sopht_mpi_tpu/ops/pallas_stencils_3d.py:825"
 # the rod tip against the JAX package's trajectory: the bound to which
 # doc/validation_rod_sparse_vs_dense.json holds sparse against dense
 TIP_TOL = 2e-5
@@ -327,6 +348,15 @@ STENCIL_OPS = {
     "curl_3d": 25, "diffusion_timestep_vector_3d": 30,
     "laplacian_filter_vector_3d": 45, "penalise_field_boundary_vector_3d": 9,
 }
+
+
+def conv_filter_work(shape, order):
+    """(bytes, operations) of the convolution filter of ``order`` on a (3,
+    nz, ny, nx) float32 field: the field read once, the result written once;
+    a cell's three stages of ``order`` high-passes (4 operations each) and a
+    subtraction, a component each."""
+    cells = shape[1] * shape[2] * shape[3]
+    return 4 * 3 * cells * 2, 9 * (4 * order + 1) * cells
 
 
 def stencil_work(name, shape, nfields_in):
@@ -504,8 +534,11 @@ def main():
 
     def transport_calls(shape, dtype, gen):
         """The filtered-transport trio at ``shape``: diffusion, the filter
-        (both types, orders 1 and 2) and the sponge (width 2, where the
-        shape has more than 4 cells an axis)."""
+        (multiplicative orders 1 and 2; convolution orders 1, 2 and 5 on
+        conv_filter_zmarch_kernel, one launch a call, and 6 on the line
+        route above its instances, conv_filter_line_kernel and
+        conv_filter_z_pass_kernel, 2 + 6 launches) and the sponge (width 2,
+        where the shape has more than 4 cells an axis)."""
         w = torch.randn(shape, dtype=dtype, device=dev, generator=gen)
         p = torch.tensor(0.13, dtype=dtype, device=dev)
         calls = {
@@ -519,7 +552,8 @@ def main():
                 lambda: kernels.penalise_field_boundary_vector_3d_ref(w, 2))
         # the main path's filter first: its entry carries the kernel's name
         for ftype, order in (("multiplicative", 1), ("multiplicative", 2),
-                             ("convolution", 1), ("convolution", 2)):
+                             ("convolution", 1), ("convolution", 2),
+                             ("convolution", 5), ("convolution", 6)):
             name = "laplacian_filter_vector_3d"
             if (ftype, order) != ("multiplicative", 1):
                 name += f" {ftype} {order}"
@@ -528,6 +562,13 @@ def main():
                     w, o, f),
                 lambda f=ftype, o=order:
                     kernels.laplacian_filter_vector_3d_ref(w, o, f))
+        filt = kernels.laplacian_filter_vector_3d
+        for order, launches in ((1, 1), (2, 1), (5, 1), (6, 2 + 6)):
+            before = filt.launches
+            filt(w, order, "convolution")
+            check(filt.launches - before == launches,
+                  f"convolution filter order {order} at {shape}: "
+                  f"{filt.launches - before} launches, not {launches}")
         return check_calls(calls, shape, dtype)
 
     def check_calls(calls, shape, dtype):
@@ -759,10 +800,23 @@ def main():
                              2 if name == "rotational_curl_add_3d" else 1),
                 shape)
         del calls
+        conv_lines = []
+
+        def conv_line(shape, name, errs, fn, order):
+            route = ("" if order in kernels.CONV_FILTER_ORDERS
+                     else " (line route)")
+            conv_lines.append(
+                f"{name[len('laplacian_filter_vector_3d '):]}{route} at "
+                f"{shape} "
+                f"f32: err {errs[name]:.3g}, {median_ms(torch, fn):.4f} ms, "
+                f"in a batch {sharded_batched_ms(fn):.4f} ms a call, bound "
+                f"{bound(*conv_filter_work(shape, order))[0]:.4f} ms")
+
         for shape, dtype in (((3, 17, 33, 65), torch.float32),
                              ((3, 64, 64, 64), torch.float64),
                              ((3, 3, 3, 3), torch.float32),
                              ((3, 256, 256, 256), torch.float32),
+                             (FREE_ROD_SHAPE, torch.float32),
                              (ROD_SHAPE, torch.float32)):
             calls, errs = transport_calls(shape, dtype, gen)
             if shape[1] == 256 and shape[2] == 256:
@@ -774,7 +828,26 @@ def main():
                     f"{median_ms(torch, fn):.4f} ms, in a batch "
                     f"{sharded_batched_ms(fn):.4f} ms a call, bound "
                     f"{bound(*work)[0]:.4f} ms")
+                for order in (1, 2, 5):
+                    name = f"laplacian_filter_vector_3d convolution {order}"
+                    conv_line(shape, name, errs, calls[name][0], order)
                 del calls, fn
+            elif shape == FREE_ROD_SHAPE:
+                # the freely rotating rod's filter: the table's row
+                name = ("laplacian_filter_vector_3d convolution "
+                        f"{FREE_ROD_ORDER}")
+                fn, ref_fn = calls[name]
+                table["laplacian_filter_vector_3d convolution"] = entry(
+                    "laplacian_filter_vector_3d convolution", SOURCE,
+                    CONV_REPLACES, errs[name], fn, ref_fn,
+                    conv_filter_work(shape, FREE_ROD_ORDER), shape)
+                row = table["laplacian_filter_vector_3d convolution"]
+                row["kernel"] = "conv_filter_zmarch_kernel"
+                row["order"] = FREE_ROD_ORDER
+                row["plan"] = list(kernels.conv_filter_plan(
+                    torch.empty(shape, device=dev), FREE_ROD_ORDER).args())
+                row["batch_ms"] = sharded_batched_ms(fn)
+                del calls, fn, ref_fn
         # the rod path's shape: errors and times kept, the other filter
         # variants' times printed
         variants = []
@@ -791,6 +864,9 @@ def main():
             else:
                 variants.append(f"{name}: err {errs[name]:.3g}, {ms:.4f} ms "
                                 f"vs plain {plain_ms:.4f} ms")
+                if "convolution" in name:
+                    order = int(name.rsplit(" ", 1)[1])
+                    conv_line(ROD_SHAPE, name, errs, fn, order)
         del calls
         filt = table["laplacian_filter_vector_3d"]
         filt["kernel"] = "mult_filter_zmarch_kernel"
@@ -909,6 +985,10 @@ def main():
             for k in TRANSPORT_KERNELS)
         detail += "; at (3, 256, 64, 256) f32: " + "; ".join(variants)
         detail += "; " + cube
+        detail += ("; the convolution filter (conv_filter_zmarch_kernel at "
+                   "orders 1-5, conv_filter_line_kernel and "
+                   "conv_filter_z_pass_kernel above): "
+                   + "; ".join(conv_lines))
         detail += "; " + "; ".join(fused) + "; " + "; ".join(edge)
         return table, detail + f" [{card}]"
 
@@ -2178,7 +2258,8 @@ def main():
 
     @phase("filter plans")
     def filter_plan_phase():
-        """mult_filter_zmarch_kernel under every plan its launcher takes."""
+        """mult_filter_zmarch_kernel and conv_filter_zmarch_kernel under
+        every plan their launchers take."""
         gen = torch.Generator(device=dev).manual_seed(7)
         lo = 2 + sharded.ZMARCH_KEEP["filter"]
         hi = sharded.ZMARCH_STAGE_RANGE[1]
@@ -2226,11 +2307,145 @@ def main():
             worst[str(shape)] = err_max
             del buf, other, res, refs, out
             torch.cuda.empty_cache()
+        # the convolution filter's kernel under every plan, orders 1 ... 5
+        # (1 and 5 at the rod's shape)
+        n_conv, worst_conv = 0, {}
+        for shape, dtype, orders in (
+                ((3, 17, 33, 65), torch.float32, kernels.CONV_FILTER_ORDERS),
+                ((3, 34, 66, 64), torch.float64, kernels.CONV_FILTER_ORDERS),
+                (ROD_SHAPE, torch.float32, (1, 5))):
+            _, nz, ny, nx = shape
+            f = torch.randn(shape, dtype=dtype, device=dev, generator=gen)
+            out = torch.empty_like(f)
+            entry_fn = getattr(kernels.library(),
+                               "sopht_conv_filter_3d_zmarch_"
+                               + kernels._SUFFIX[dtype])
+            stream = torch.cuda.current_stream().cuda_stream
+            err_max = 0.0
+            for order in orders:
+                ref = kernels.laplacian_filter_vector_3d_ref(f, order,
+                                                             "convolution")
+                tol = (1e-12 if dtype == torch.float64
+                       else 1e-5 * max(1.0, float(ref.abs().max())))
+                for tile in sharded.ZMARCH_TILES:
+                    for stages in range(sharded.ZMARCH_STAGE_RANGE[0],
+                                        sharded.ZMARCH_STAGE_RANGE[1] + 1):
+                        for chunks in (1, 2, 4, 8, 16):
+                            try:
+                                plan = kernels.conv_filter_plan_of(
+                                    order, nz, ny, nx, f.element_size(),
+                                    True, tile, stages, -(-nz // chunks))
+                            except ValueError:  # too many shared bytes
+                                continue
+                            out.fill_(float("nan"))
+                            rc = entry_fn(f.data_ptr(), out.data_ptr(), nz,
+                                          ny, nx, order, *plan.args(),
+                                          stream)
+                            check(rc == 0, f"conv plan {tuple(plan)} order "
+                                  f"{order} at {shape}: CUDA error {rc}")
+                            err, _ = max_err(out, ref)
+                            check(err <= tol, f"conv plan {tuple(plan)} "
+                                  f"order {order} at {shape} {dtype}: "
+                                  f"max|diff| {err} > {tol}")
+                            err_max = max(err_max, err)
+                            n_conv += 1
+                del ref
+            worst_conv[str(shape)] = err_max
+            del f, out
+            torch.cuda.empty_cache()
         return None, (f"{n_checked} launches (every tile x ring depth x 1, "
                       f"2, 4, 8, 16 z chunks; no orig, orig the field, "
-                      f"another orig): largest max|diff| by shape {worst}")
+                      f"another orig): largest max|diff| by shape {worst}; "
+                      f"conv_filter_zmarch_kernel {n_conv} launches (every "
+                      f"tile x ring depth x z chunks, orders 1-5, 1 and 5 at "
+                      f"the rod's shape): largest max|diff| {worst_conv}")
 
     filter_plan_phase()
+
+    @phase("freely rotating rod")
+    def free_rod_phase():
+        """The freely rotating rod at the example's default size: 20 steps
+        on the card with one convolution filter launch a step; the first 3
+        against the port's CPU run from the same state; the tip against the
+        JAX package's CPU trajectory; 3 profiled steps."""
+        with open(os.path.join(REPO, "sopht_mpi_tpu_torch", "data",
+                               "freely_rotating_rod_reference.json")) as f:
+            ref = json.load(f)
+        check(tuple(ref["grid_size"]) == FREE_ROD_GRID, "reference grid")
+        n_steps, n_cpu = ref["n_steps"], 3
+        step, carry = cases._build_freely_rotating_rod_case(device=dev)
+        check(step.sparse_forcing_window is None, "not the dense IBM path")
+        check(isinstance(carry.greens, tuple), "the case's Poisson solve is "
+              "not on the kernel route")
+        times = [float(carry.time)]
+        tips = [carry.rod_state.position[:, -1].cpu().numpy()]
+        reset_counts()
+        t0 = time.perf_counter()
+        for k in range(n_steps):
+            carry, _ = step(carry)
+            times.append(float(carry.time))
+            tips.append(carry.rod_state.position[:, -1].cpu().numpy())
+            if k + 1 == n_cpu:
+                gpu3 = carry
+        torch.cuda.synchronize()
+        s_step = (time.perf_counter() - t0) / n_steps
+        launches = kernels.laplacian_filter_vector_3d.launches
+        check(launches == n_steps, f"{launches} filter launches in "
+              f"{n_steps} steps")
+        table["laplacian_filter_vector_3d convolution"]["launches"] = launches
+        others = {fn.__name__: fn.launches for fn in rod_kernels
+                  if fn.launches}
+        fs, rs = carry.flow_state, carry.rod_state
+        for what, t in (("vorticity", fs.primary_field),
+                        ("velocity", fs.velocity_field),
+                        ("rod", rs.position)):
+            check(bool(torch.isfinite(t).all()), f"non-finite {what}")
+        check(tuple(fs.velocity_field.shape) == FREE_ROD_SHAPE,
+              "velocity shape")
+        # the card against the port's CPU run after n_cpu steps
+        cstep, ccarry = cases._build_freely_rotating_rod_case(device="cpu")
+        ccarry, _ = scan_steps(cstep, ccarry, n_cpu)
+        errs = {}
+        for what, out, want, tol in (
+                ("vorticity", gpu3.flow_state.primary_field,
+                 ccarry.flow_state.primary_field, None),
+                ("velocity", gpu3.flow_state.velocity_field,
+                 ccarry.flow_state.velocity_field, None),
+                ("rod position", gpu3.rod_state.position,
+                 ccarry.rod_state.position, TIP_TOL * ref["rod_length"])):
+            err = float((out.cpu() - want).abs().max())
+            if tol is None:
+                tol = 1e-4 * max(1.0, float(want.abs().max()))
+            check(err <= tol, f"free rod {what}: card vs cpu {err} > {tol}")
+            errs[what] = err
+        # the tip against the JAX trajectory, at the card's times
+        times, tips = np.asarray(times), np.asarray(tips)
+        ref_t, ref_tip = np.asarray(ref["times"]), np.asarray(ref["tip"])
+        check(np.isfinite(tips).all(), "non-finite tip")
+        inside = times <= ref_t[-1]
+        ref_at = np.stack([np.interp(times[inside], ref_t, ref_tip[:, c])
+                           for c in range(3)], axis=1)
+        dev_max = float(np.abs(tips[inside] - ref_at).max())
+        rel = dev_max / ref["rod_length"]
+        check(rel <= TIP_TOL, f"free rod tip deviates {rel:.3g} L from the "
+              f"JAX trajectory (> {TIP_TOL})")
+        moved = float(np.abs(tips[-1] - tips[0]).max())
+        substeps = step.stats["substeps"]
+        carry, *prof = profile_steps(
+            step, carry, 3, os.path.join(REPO, "build",
+                                         "free_rod_profile.txt"),
+            f"{FREE_ROD_GRID} freely rotating rod step")
+        return None, (
+            f"{FREE_ROD_GRID} f32 flow, f64 rod, order-{FREE_ROD_ORDER} "
+            f"convolution filter: {n_steps} steps to t = {times[-1]:.5f}, "
+            f"{s_step:.6f} s/step, {substeps} substeps, "
+            f"{launches} filter launches, other stencil and pass launches "
+            f"{others}; card vs cpu after {n_cpu} steps max|diff| {errs}; "
+            f"tip moved {moved:.6g}, max deviation from the JAX trajectory "
+            f"{dev_max:.3g} = {rel:.3g} L (bound {TIP_TOL} L); "
+            + profile_detail(*prof, s_step) + f" [{card}]")
+
+    free_rod_phase()
 
     for row in table.values():
         check(row["launches"], f"{row['name']} was launched on no path")

@@ -47,15 +47,17 @@ def find_nvcc() -> str:
     return found
 
 
-def build_library(name: str, sources: tuple[str, ...]) -> tuple[Path, str]:
-    """Compile ``sources`` (file names under ``csrc/``) into
-    ``lib<name>-<hash>.so`` unless it exists; returns (path, compiler log,
-    empty when the library was already built)."""
+def build_library(name: str, sources: tuple[str, ...],
+                  includes: tuple[str, ...] = ()) -> tuple[Path, str]:
+    """Compile ``sources`` (file names under ``csrc/``, or absolute paths)
+    into ``lib<name>-<hash>.so`` unless it exists; the hash also covers the
+    ``includes`` the sources include. Returns (path, compiler log, empty
+    when the library was already built)."""
     paths = [CSRC_DIR / s for s in sources]
     digest = hashlib.sha256()
     for flag in NVCC_FLAGS:
         digest.update(flag.encode())
-    for p in paths:
+    for p in paths + [CSRC_DIR / s for s in includes]:
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
@@ -79,10 +81,11 @@ def build_library(name: str, sources: tuple[str, ...]) -> tuple[Path, str]:
     return out, proc.stdout + proc.stderr
 
 
-def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
+def load_library(name: str, sources: tuple[str, ...],
+                 includes: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build (if needed) and load a library; the compiler log is kept as
     ``lib.build_log``."""
-    path, log = build_library(name, sources)
+    path, log = build_library(name, sources, includes)
     lib = ctypes.CDLL(str(path))
     lib.build_log = log
     return lib

@@ -6,8 +6,11 @@ past a sphere (counterparts of
 ``examples/3d/flow_past_sphere.py:flow_past_sphere_fused_case``), flow
 past a flexible rod (``__graft_entry__._build_rod_fsi_case`` and
 ``_build_rod_bench_case``), a rod with a sphere in its wake
-(``_build_multibody_case`` and ``_build_multibody_bench_case``), and a
-flow-only 3D case on a mesh of shards (:func:`sharded_flow_case`).
+(``_build_multibody_case`` and ``_build_multibody_bench_case``), flow
+past a freely rotating rod (the fused branch of
+``examples/3d/flow_past_freely_rotating_rod.py``,
+:func:`_build_freely_rotating_rod_case`), and a flow-only 3D case on a mesh
+of shards (:func:`sharded_flow_case`).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from sopht_mpi_tpu_torch.models import (
     CosseratRodSurfaceForcingGrid,
     Cylinder,
     FixedRigidBody,
+    GeneralConstraint,
     GravityForces,
     OneEndFixedBC,
     RigidBodyFlowInteraction,
@@ -572,6 +576,109 @@ def _build_rod_bench_case(grid_size, *, device, sparse_forcing=None,
     )
     carry = init_rod_fsi_carry(flow_sim, interactor, rod, step)
     return step, (carry,)
+
+
+def _build_freely_rotating_rod_case(
+        grid_size=(64, 64, 128), *, device, n_elem=16,
+        surface_grid_density_for_largest_element=12, precision="single"):
+    """Flow past a rod clamped in translation at its first node but free to
+    turn about its own axis, the fused branch of
+    ``examples/3d/flow_past_freely_rotating_rod.py`` with its values: rod
+    length 1 along x (incline pi / 2) from (0.08, 0.502, 0.502) of the
+    domain, Cauchy 0.2, mass ratio 10, aspect ratio 10, Poisson ratio 0.5;
+    ``GeneralConstraint`` at node and element 0 (translation fixed, the
+    lab-frame rotation about x free), the linear damper (1e-3) at the rod's
+    dt 0.01 L / n_elem; Re 100 on the diameter, an x range of 5 L, unit free
+    stream in x, the order-5 convolution vorticity filter; coupling stiffness -2e5 and damping -1e2 on
+    the surface forcing grid; dynamic substeps, dt_prefac 0.25, the dense
+    IBM path. The defaults are the example's command line defaults (grid
+    (64, 64, 128), n_elem 16, surface density 12). The rod is float64, the
+    flow ``precision``. Returns (fused step, carry).
+
+    The example's checkpoint IO and restart (``FieldIO``,
+    ``save_rod_state``: ROADMAP A#10) and its host loop (A#11b) are not
+    here."""
+    grid_size_z, grid_size_y, grid_size_x = grid_size
+    real_t = get_real_t(precision)
+    rho_f, u_free_stream, base_length = 1.0, 1.0, 1.0
+    cauchy_number, mass_ratio, aspect_ratio = 0.2, 10.0, 10.0
+    poisson_ratio, reynolds = 0.5, 100.0
+    incline = np.pi / 2
+    x_range = 5.0 * base_length
+    y_range = grid_size_y / grid_size_x * x_range
+    z_range = grid_size_z / grid_size_x * x_range
+    start = np.array([0.08 * x_range, 0.502 * y_range, 0.502 * z_range])
+    direction = np.array([np.sin(incline), 0.0, -np.cos(incline)])
+    normal = np.array([0.0, 1.0, 0.0])
+    base_diameter = base_length / aspect_ratio
+    base_radius = base_diameter / 2.0
+    rho_s = mass_ratio * rho_f
+    moment_of_inertia = np.pi / 4 * base_radius**4
+    youngs_modulus = (
+        rho_f * u_free_stream**2 * base_length**3 * base_diameter
+    ) / (cauchy_number * moment_of_inertia)
+
+    device = torch.device(device)
+    collection = BaseSystemCollection()
+    rod = CosseratRod.straight_rod(
+        n_elem,
+        start,
+        direction,
+        normal,
+        base_length,
+        base_radius,
+        rho_s,
+        youngs_modulus=youngs_modulus,
+        shear_modulus=youngs_modulus / (poisson_ratio + 1.0),
+        device=device,
+    )
+    collection.append(rod)
+    collection.constrain(rod).using(
+        GeneralConstraint,
+        constrained_position_idx=(0,),
+        constrained_director_idx=(0,),
+        translational_constraint_selector=np.array([True, True, True]),
+        rotational_constraint_selector=np.array([False, True, True]),
+    )
+    rod_dt = 0.01 * base_length / n_elem
+    collection.dampen(rod).using(
+        AnalyticalLinearDamper, damping_constant=1e-3, time_step=rod_dt
+    )
+    collection.finalize()
+
+    flow_sim = UnboundedFlowSimulator3D(
+        grid_size=grid_size,
+        x_range=x_range,
+        kinematic_viscosity=u_free_stream * base_diameter / reynolds,
+        flow_type="navier_stokes_with_forcing",
+        with_free_stream_flow=True,
+        real_t=real_t,
+        device=device,
+        filter_vorticity=True,
+        filter_setting_dict={"order": 5, "type": "convolution"},
+    )
+    free_stream = torch.tensor([u_free_stream, 0.0, 0.0], dtype=real_t,
+                               device=device)
+    flow_sim.velocity_field = (flow_sim.velocity_field
+                               + free_stream.view(3, 1, 1, 1))
+    interactor = CosseratRodFlowInteraction(
+        flow_sim=flow_sim,
+        cosserat_rod=rod,
+        virtual_boundary_stiffness_coeff=-2e5,
+        virtual_boundary_damping_coeff=-1e2,
+        forcing_grid_cls=CosseratRodSurfaceForcingGrid,
+        surface_grid_density_for_largest_element=(
+            surface_grid_density_for_largest_element),
+    )
+    step = build_rod_fsi_step(
+        flow_sim,
+        interactor,
+        collection,
+        dt_prefac=0.25,
+        free_stream_fn=lambda t: free_stream,
+        rod_dt=rod_dt,
+    )
+    return step, init_rod_fsi_carry(flow_sim, interactor, rod, step)
 
 
 def _build_multibody_bench_case(grid_size, *, device, sparse_forcing=None,

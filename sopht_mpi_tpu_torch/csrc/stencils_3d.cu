@@ -8,8 +8,8 @@
 // axis. Scalar prefactors are read from device memory (0-d tensors), so the
 // host never has to know dt.
 //
-// Launch shape of the single-device kernels (every one but
-// conv_filter_line_3d and mult_filter_zmarch_kernel): one thread per output
+// Launch shape of the single-device kernels (every one but the filters'
+// z-marching kernels and conv_filter_line_kernel): one thread per output
 // cell, blocks of 32 x 8 threads over (x, y), one grid row of blocks per
 // z-plane, so a warp reads 32 neighbouring x cells (coalesced) and no
 // thread divides an index by a cell count.
@@ -123,15 +123,31 @@
 //   With orig = buf (order 1) the centre value comes from the ring: 24
 //   B/cell at f32, 32 with another orig, the bound.
 //
-// conv_filter_line_3d, conv_filter_z_pass_3d
-//   Replace the same function's convolution type (kernels
-//   _conv_inplane_kernel and _conv_z_single_kernel): per axis a,
-//   field - (clear . H_a)^k field. The in-plane stage is one launch: a thread
-//   owns one x-line (or y-line) and sweeps it k times in place in the output
-//   (one register holds the old left neighbour), then subtracts. y-lines
-//   are coalesced across a warp, x-lines are not: this type is off the main
-//   path. The z stage is k launches of a 3-plane pass, the last fused with
-//   the subtraction.
+// conv_filter_3d_zmarch (conv_filter_zmarch_kernel)
+//   Replaces the same function's convolution type (_conv_filter_stage,
+//   kernels _conv_inplane_kernel, _conv_z_kernel, _conv_z_single_kernel:
+//   one pallas_call a stage, or k for a z stage that does not fit VMEM) at
+//   orders k = 1 ... 5, one launch for the whole filter: per axis x, y, z
+//   in turn, g - (clear . H_a)^k g. Plane z's in-plane stages need a k-cell
+//   halo, its z stage planes z - k ... z + k, so a single-device launch of
+//   the z-march walks k planes beyond each end of its chunk with a k-cell
+//   tile halo, forms the x stage's k levels of each tile row in registers
+//   (runs of cells from 16-byte shared loads; the redundant halo levels
+//   buy the 2k - 2 barriers a plane of levels ping-ponged in shared memory,
+//   a design 1.8 times slower at k = 5: tools/conv_filter_pingpong.cu), the y
+//   stage's likewise down the columns, and rolls the z stage one level a
+//   plane through registers (k high-passes a cell, not k^2). Bound: 24
+//   B/cell at f32, one read and one write; the in-plane halo's (TY + 2k) /
+//   TY rows and the levels' high-passes (about 115 a thread a plane at k =
+//   5) are what hold it back.
+//
+// conv_filter_line_3d, conv_filter_z_pass_3d (conv_filter_line_kernel,
+// conv_filter_z_pass_kernel)
+//   The convolution type above order 5, where conv_filter_zmarch_kernel
+//   has no instance: the in-plane stages are one launch each, a thread
+//   sweeping one x-line (or y-line) k times in place in the output; the z
+//   stage is k launches of a 3-plane pass, the last fused with the
+//   subtraction.
 //
 // penalise_vector_3d
 //   Replaces penalise_field_boundary_vector_3d_pallas (kernel
@@ -518,7 +534,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// Wait until at most `pending` (0, 1 or 2) of this thread's copy groups are
+// Wait until at most `pending` (0 ... 3) of this thread's copy groups are
 // pending: the walk's ring keeps that many planes in flight behind the one
 // it waits for.
 __device__ __forceinline__ void cp_async_wait_ring(int pending) {
@@ -526,8 +542,10 @@ __device__ __forceinline__ void cp_async_wait_ring(int pending) {
     cp_async_wait<0>();
   else if (pending == 1)
     cp_async_wait<1>();
-  else
+  else if (pending == 2)
     cp_async_wait<2>();
+  else
+    cp_async_wait<3>();
 }
 
 // One sharded field as the exchange hands it over, each pointer at component
@@ -715,27 +733,23 @@ __device__ __forceinline__ ZWalk zwalk(const Geom& g, int zchunk) {
   return w;
 }
 
-// The walk the z-marching kernels share. Plane k of the chunk (z = za - 1 +
-// k, k = 0 ... L - 1) sits in ring stage k % stages. The ring keeps the
-// centre plane k - 1 and, with KEEP = 2, plane k - 2 below it readable, so
+// The walk the z-marching kernels share. A chunk's planes and REACH planes
+// beyond each end: plane k of the walk (z = za - REACH + k, k = 0 ... L -
+// 1) sits in ring stage k % stages. The ring keeps the plane k - 1 and,
+// with KEEP = 2, plane k - 2 below it readable (none with KEEP = 0), so
 // stages - 1 - KEEP planes are in flight ahead. Iteration k waits for plane
 // k, issues plane k + stages - 1 - KEEP into the stage plane k - 1 - KEEP
-// left (last read in iteration k - 1, before this iteration's barrier), and
-// calls step(k, stage of plane k, stage of plane k - 1[, stage of plane
-// k - 2]): plane k - 1 is the centre of the cells whose output the step
-// writes. CORNERS copies the tile's corners too.
-template <typename T, int TX, int TY, int NF, bool VEC, int KEEP,
-          bool CORNERS = false, class Step>
-__device__ __forceinline__ void zmarch(T* ring, int stage_size,
-                                       const HaloSrc<T>& a,
-                                       const HaloSrc<T>& b, const ZWalk& w,
-                                       const Geom& g, int stages, Step step) {
-  const PlaneCopies<T, TX, TY, NF, VEC, CORNERS> copies(a, b, w.s, w.y0,
-                                                        w.x0, g);
-  const int L = w.zb - w.za + 2;
+// left (last read in iteration k - 1, before this iteration's barrier)
+// through issue(stage, z), and calls step(k, stage of plane k[, stage of
+// plane k - 1[, stage of plane k - 2]]).
+template <int KEEP, int REACH, typename T, class Issue, class Step>
+__device__ __forceinline__ void zmarch_walk(T* ring, int stage_size,
+                                            const ZWalk& w, int stages,
+                                            Issue issue, Step step) {
+  const int L = w.zb - w.za + 2 * REACH;
   const int ahead = stages - 1 - KEEP;
   for (int k = 0; k < ahead; ++k) {
-    if (k < L) copies.issue(ring + k * stage_size, a, b, w.za - 1 + k, g);
+    if (k < L) issue(ring + k * stage_size, w.za - REACH + k);
     cp_async_commit();
   }
   int slot = 0, prev = stages - 1;  // k % stages, (k - 1) % stages
@@ -747,10 +761,12 @@ __device__ __forceinline__ void zmarch(T* ring, int stage_size,
       // (k - 1 - KEEP) % stages
       const int back = slot + ahead < stages ? slot + ahead
                                              : slot + ahead - stages;
-      copies.issue(ring + back * stage_size, a, b, w.za - 1 + kn, g);
+      issue(ring + back * stage_size, w.za - REACH + kn);
     }
     cp_async_commit();
-    if constexpr (KEEP == 1) {
+    if constexpr (KEEP == 0) {
+      step(k, ring + slot * stage_size);
+    } else if constexpr (KEEP == 1) {
       step(k, ring + slot * stage_size, ring + prev * stage_size);
     } else {
       const int below = prev == 0 ? stages - 1 : prev - 1;  // (k - 2) % stages
@@ -760,6 +776,23 @@ __device__ __forceinline__ void zmarch(T* ring, int stage_size,
     prev = slot;
     slot = slot + 1 == stages ? 0 : slot + 1;
   }
+}
+
+// The walk of the three-point kernels: one plane beyond each end of the
+// chunk, each copied as PlaneCopies cut it; plane k - 1 is the centre of
+// the cells whose output step k writes. CORNERS copies the tile's corners
+// too.
+template <typename T, int TX, int TY, int NF, bool VEC, int KEEP,
+          bool CORNERS = false, class Step>
+__device__ __forceinline__ void zmarch(T* ring, int stage_size,
+                                       const HaloSrc<T>& a,
+                                       const HaloSrc<T>& b, const ZWalk& w,
+                                       const Geom& g, int stages, Step step) {
+  const PlaneCopies<T, TX, TY, NF, VEC, CORNERS> copies(a, b, w.s, w.y0,
+                                                        w.x0, g);
+  zmarch_walk<KEEP, 1>(
+      ring, stage_size, w, stages,
+      [&](T* stage, int z) { copies.issue(stage, a, b, z, g); }, step);
 }
 
 // curl_zmarch_kernel: out = pref * curl(f) (0 on the global ring) + add[c],
@@ -1155,6 +1188,292 @@ __global__ void __launch_bounds__(TX * TY, kZmarchSmThreads / (TX * TY))
       });
 }
 
+// The convolution filter's tile (conv_filter_zmarch_kernel) at order K: a
+// component is R = TY + 2K rows of W = TX + 2P values, row r holding grid
+// row y0 - K + r and column col holding x = x0 - P + col, where the x pad P
+// is K rounded up to 16 bytes' values, so every row and the tile's cells
+// start on 16 bytes. The x stage's task is a run of MX cells of one tile row
+// of one component (the run length that needs the fewest high-passes of
+// the busiest thread); the y stage's a run of MY cells of one column (a
+// thread's own cell at K <= 2, where the run saves no work).
+constexpr int conv_run_x(int K, int TX, int R, int NT, int V) {
+  int best = 0, cost = 0;
+  for (int m = 2; m <= 8; m *= 2) {
+    if (m % V != 0 || TX % m != 0) continue;
+    const int rounds = (3 * R * (TX / m) + NT - 1) / NT;
+    const int c = rounds * (K * m + K * (K - 1));
+    if (best == 0 || c < cost) {
+      best = m;
+      cost = c;
+    }
+  }
+  return best;
+}
+
+template <typename T, int TX, int TY, int K>
+struct ConvTile {
+  static constexpr int NT = TX * TY;
+  static constexpr int V = 16 / (int)sizeof(T);
+  static constexpr int P = (K + V - 1) / V * V;
+  static constexpr int W = TX + 2 * P;
+  static constexpr int R = TY + 2 * K;
+  static constexpr int CT = R * W;
+  static constexpr int MX = conv_run_x(K, TX, R, NT, V);
+  static constexpr int MY = K <= 2 ? 1 : 4;
+  static constexpr int XS = 3 * R * TX;                  // x-staged rows
+  static constexpr int YS = MY > 1 ? 3 * TY * TX : 0;    // y-staged cells
+  // the per-component registers of the z stage's levels (below)
+  static constexpr int ZD = K > 2 ? K : 2;
+  static constexpr int ZL = K > 1 ? K - 1 : 1;
+};
+
+// Threads an SM holds at the convolution filter's launch bound: 1,024 (64
+// registers a thread) up to order 2, else 512 (128: the z levels' 3 (3K - 1)
+// values and the x stage's run); sharded_stencil_plan counts on it.
+constexpr int conv_sm_threads(int K) { return K <= 2 ? 1024 : 512; }
+
+// V values at p (16-byte aligned) into v[i ...], and back.
+template <typename T>
+__device__ __forceinline__ void lds16(T* v, const T* p) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+    const double2 q = *reinterpret_cast<const double2*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void sts16(T* p, const T* v) {
+  if constexpr (sizeof(T) == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+
+// One level of the clamped high-pass on v[lo ... hi) (static bounds, so the
+// arrays stay in registers): v[i] = clear . H v as wt(i) ((2 v[i] - v[i +
+// 1]) - v[i - 1]), wt(i) 0.25 where cell i lies inside the walls and 0
+// elsewhere, so a cleared cell costs no select; the plain version's order
+// (highpass), exactly, for finite values.
+template <typename T, int N, int LO, int HI, class Wt>
+__device__ __forceinline__ void highpass_level(T (&v)[N], Wt wt) {
+  T u[N];
+#pragma unroll
+  for (int i = LO; i < HI; ++i)
+    u[i] = wt(i) * ((T(2) * v[i] - v[i + 1]) - v[i - 1]);
+#pragma unroll
+  for (int i = LO; i < HI; ++i) v[i] = u[i];
+}
+
+// K levels of a line of N values whose outputs are v[C ... C + M): level l
+// on v[C - (K - l) ... C + M + (K - l)).
+template <typename T, int N, int K, int C, int M, class Wt>
+__device__ __forceinline__ void highpass_levels(T (&v)[N], Wt wt) {
+  if constexpr (K > 0) {
+    highpass_levels<T, N, K - 1, C - 1, M + 2>(v, wt);
+    highpass_level<T, N, C, C + M>(v, wt);
+  }
+}
+
+// conv_filter_zmarch_kernel: the whole convolution filter of order K on one
+// device (see the file's head): per axis x, y, z in turn, g - (clear . H)^K
+// g. A walk on a ring of plane tiles with a K-cell in-plane halo (no halo
+// buffers: rows and planes beyond the field are never loaded) and K planes
+// beyond each end of the chunk (REACH = K); the ring keeps only the newest
+// plane (KEEP = 0). Step k, when plane p = za - K + k lies inside the z
+// walls (block-uniform):
+// - the x stage: each task loads its run's MX + 2P values of a tile row
+//   from the ring (16-byte loads), forms the K levels in registers and
+//   writes g1 = f - X^K f of its MX cells into the shared tile xs (R rows
+//   of TX); a barrier;
+// - the y stage: each thread forms g2 = g1 - Y^K g1 at its cell from 2K +
+//   1 values of its xs column (MY = 1), or each task forms MY cells of a
+//   column from MY + 2K values into ys, then a barrier and each thread
+//   reads its cell.
+// On the z-wall planes g2 = f (both stages clear the plane). The z stage
+// runs from registers, one level a plane: step k forms L_i(p - i), level i
+// of the z high-pass, from L_{i-1} at p - i - 1, p - i, p - i + 1 for i =
+// 1 ... K (L_0 = g2), and writes plane p - K: L_0 - L_K. A thread keeps
+// L_0 at p - 1 ... p - max(K, 2) and L_i at p - i - 1 and p - i - 2.
+// A level of the x and y stages weighs a cell on the ring or beyond the
+// field by 0, a z level selects 0 there, and only such cells read rows,
+// columns or planes that were not loaded: the ring's cells beyond the field
+// are zeroed once at the start and are never copied, so what they weigh is
+// finite (for a finite field the result is the plain version's, bit for
+// bit up to the sign of a zero). xs and ys are rewritten in the next step
+// after the walk's barrier and the x stage's, when every thread has read
+// them.
+template <typename T, int TX, int TY, bool VEC, int K>
+__global__ void __launch_bounds__(TX * TY, conv_sm_threads(K) / (TX * TY))
+    conv_filter_zmarch_kernel(const T* __restrict__ f, T* __restrict__ out,
+                              Geom g, int zchunk, int stages) {
+  using C = ConvTile<T, TX, TY, K>;
+  extern __shared__ __align__(16) unsigned char zmarch_smem[];
+  T* ring = reinterpret_cast<T*>(zmarch_smem);
+  T* xs = ring + stages * 3 * C::CT;
+  T* ys = xs + C::XS;
+  const ZWalk w = zwalk<TX, TY>(g, zchunk);
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const long long plane = (long long)g.ny * g.nx;
+  const long long n = plane * g.nz;
+  const long long cell = (long long)w.y * g.nx + w.x;
+  // the thread's cell lies in the in-plane interior
+  const bool inner = w.x >= 1 && w.x <= g.nx - 2 && w.y >= 1 &&
+                     w.y <= g.ny - 2;
+  constexpr int RUN = VEC ? C::V : 1;
+  constexpr int PER_ROW = C::W / RUN;
+  constexpr int ITEMS = 3 * C::R * PER_ROW;
+  // the z stage's levels, per component
+  T zd[3][C::ZD], za[3][C::ZL], zb[3][C::ZL];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+#pragma unroll
+    for (int i = 0; i < C::ZD; ++i) zd[j][i] = T(0);
+#pragma unroll
+    for (int i = 0; i < C::ZL; ++i) za[j][i] = zb[j][i] = T(0);
+  }
+  // the ring's cells beyond the field are never copied: zero them once, so
+  // every value a level weighs by 0 is finite
+  for (int i = threadIdx.x; i < stages * 3 * C::CT; i += C::NT) ring[i] = T(0);
+  __syncthreads();
+  zmarch_walk<0, K>(
+      ring, 3 * C::CT, w, stages,
+      [&](T* stage, int z) {
+        // plane z's copy items: runs of RUN values of the tile's rows,
+        // halo columns included, those inside the field
+        if (z < 0 || z >= g.nz) return;
+        const T* fz = f + z * plane;
+        for (int item = threadIdx.x; item < ITEMS; item += C::NT) {
+          const int q = item % PER_ROW, rest = item / PER_ROW;
+          const int r = rest % C::R, j = rest / C::R;
+          const int x = w.x0 - C::P + q * RUN, ly = w.y0 - K + r;
+          if (x < 0 || x >= g.nx || ly < 0 || ly >= g.ny) continue;
+          const T* src = fz + j * n + (long long)ly * g.nx + x;
+          T* dst = stage + j * C::CT + r * C::W + q * RUN;
+          if constexpr (RUN == 1)
+            cp_async_elem(dst, src);
+          else
+            cp_async16(dst, src);
+        }
+      },
+      [&](int k, const T* t) {
+        const int p = w.za - K + k;  // plane k
+        T g2[3] = {T(0), T(0), T(0)};
+        if (p >= 1 && p <= g.nz - 2) {
+          // the x stage
+          constexpr int RUNS = TX / C::MX;
+          constexpr int NV = C::MX + 2 * C::P;
+          for (int task = threadIdx.x; task < 3 * C::R * RUNS;
+               task += C::NT) {
+            const int m = task % RUNS, rest = task / RUNS;
+            const int r = rest % C::R, j = rest / C::R;
+            const int ly = w.y0 - K + r;
+            const int xa = w.x0 + m * C::MX - C::P;  // x of v[0]
+            const bool row_in = ly >= 1 && ly <= g.ny - 2;
+            T v[NV];
+            const T* src = t + j * C::CT + r * C::W + m * C::MX;
+#pragma unroll
+            for (int i = 0; i < NV; i += C::V) lds16<T>(v + i, src + i);
+            T f0[C::MX];
+#pragma unroll
+            for (int i = 0; i < C::MX; ++i) f0[i] = v[C::P + i];
+            highpass_levels<T, NV, K, C::P, C::MX>(v, [&](int i) {
+              return row_in && xa + i >= 1 && xa + i <= g.nx - 2 ? T(0.25)
+                                                                 : T(0);
+            });
+#pragma unroll
+            for (int i = 0; i < C::MX; ++i) f0[i] = f0[i] - v[C::P + i];
+            T* dst = xs + (j * C::R + r) * TX + m * C::MX;
+#pragma unroll
+            for (int i = 0; i < C::MX; i += C::V) sts16<T>(dst + i, f0 + i);
+          }
+          __syncthreads();
+          // the y stage
+          const bool col_in = w.x >= 1 && w.x <= g.nx - 2;
+          if constexpr (C::MY == 1) {
+#pragma unroll
+            for (int j = 0; j < 3; ++j) {
+              T v[2 * K + 1];
+              const T* src = xs + (j * C::R + ty) * TX + tx;
+#pragma unroll
+              for (int i = 0; i < 2 * K + 1; ++i) v[i] = src[i * TX];
+              const T g1 = v[K];
+              highpass_levels<T, 2 * K + 1, K, K, 1>(v, [&](int i) {
+                const int y = w.y - K + i;
+                return col_in && y >= 1 && y <= g.ny - 2 ? T(0.25) : T(0);
+              });
+              g2[j] = g1 - v[K];
+            }
+          } else {
+            constexpr int RUNS_Y = TY / C::MY;
+            constexpr int NV = C::MY + 2 * K;
+            for (int task = threadIdx.x; task < 3 * TX * RUNS_Y;
+                 task += C::NT) {
+              const int c = task % TX, rest = task / TX;
+              const int m = rest % RUNS_Y, j = rest / RUNS_Y;
+              const int x = w.x0 + c;
+              const int ya = w.y0 + m * C::MY - K;  // y of v[0]
+              const bool in_x = x >= 1 && x <= g.nx - 2;
+              T v[NV];
+              const T* src = xs + (j * C::R + m * C::MY) * TX + c;
+#pragma unroll
+              for (int i = 0; i < NV; ++i) v[i] = src[i * TX];
+              T g1[C::MY];
+#pragma unroll
+              for (int i = 0; i < C::MY; ++i) g1[i] = v[K + i];
+              highpass_levels<T, NV, K, K, C::MY>(v, [&](int i) {
+                return in_x && ya + i >= 1 && ya + i <= g.ny - 2 ? T(0.25)
+                                                                 : T(0);
+              });
+              T* dst = ys + (j * TY + m * C::MY) * TX + c;
+#pragma unroll
+              for (int i = 0; i < C::MY; ++i) dst[i * TX] = g1[i] - v[K + i];
+            }
+            __syncthreads();
+#pragma unroll
+            for (int j = 0; j < 3; ++j) g2[j] = ys[(j * TY + ty) * TX + tx];
+          }
+        } else if (p == 0 || p == g.nz - 1) {
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+            g2[j] = t[j * C::CT + (K + ty) * C::W + C::P + tx];
+        }
+        // the z stage: L_i(p - i), i = 1 ... K
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          T lv = g2[j];  // L_0(p), then L_i(p - i)
+          T lm = zd[j][0], lmm = zd[j][1];  // L_{i-1}(p - i), (p - i - 1)
+#pragma unroll
+          for (int i = 1; i <= K; ++i) {
+            const int pi = p - i;
+            const T li = inner && pi >= 1 && pi <= g.nz - 2
+                             ? highpass(lm, lv, lmm)
+                             : T(0);
+            if (i < K) {
+              lm = za[j][i - 1];
+              lmm = zb[j][i - 1];
+              zb[j][i - 1] = za[j][i - 1];
+              za[j][i - 1] = li;
+            }
+            lv = li;
+          }
+          // plane p - K, written from step 2K on
+          if (k >= 2 * K && w.valid)
+            out[j * n + (long long)(p - K) * plane + cell] =
+                zd[j][K - 1] - lv;
+#pragma unroll
+          for (int i = C::ZD - 1; i > 0; --i) zd[j][i] = zd[j][i - 1];
+          zd[j][0] = g2[j];
+        }
+      });
+}
+
 // A z-marching launch's plan, as sharded_stencil_plan computes it: the
 // tile (tx, ty), planes a chunk, ring stages, dynamic shared bytes, blocks
 // (tiles x chunks x shards) and 16-byte copies.
@@ -1177,13 +1496,23 @@ long long filter_scratch_bytes(int tx, int ty) {
   return (long long)sizeof(T) * 3 * (ty + 2) * tx;
 }
 
+// The convolution filter's shared bytes at order K (ConvTile): the ring of
+// R-row tiles, the x-staged rows and, above order 2, the y-staged cells.
+template <typename T>
+long long conv_smem_bytes(int K, int tx, int ty, int stages) {
+  const int v = 16 / (int)sizeof(T);
+  const int pad = (K + v - 1) / v * v, r = ty + 2 * K;
+  return (long long)sizeof(T) *
+         (3LL * stages * r * (tx + 2 * pad) + 3LL * r * tx +
+          (K <= 2 ? 0 : 3LL * ty * tx));
+}
+
 // Whether the plan is the one the kernel assumes for these fields, a walk
-// that keeps `keep` planes below the centre and `scratch` more shared
-// bytes.
+// that keeps `keep` planes below the centre and `smem` shared bytes (-1:
+// the three-point kernels' ring alone).
 template <typename T>
 bool zmarch_plan_ok(const ZmarchPlan& p, const HaloSrc<T>* srcs, int nfields,
-                    int keep, int nshards, const Geom& g,
-                    long long scratch) {
+                    int keep, int nshards, const Geom& g, long long smem) {
   if (nshards < 1 || nshards > 65535 || g.nz < 1 || g.ny < 1 || g.nx < 1 ||
       p.stages < 2 + keep || p.stages > 5 || p.zchunk < 1 ||
       p.zchunk > g.nz)
@@ -1193,8 +1522,9 @@ bool zmarch_plan_ok(const ZmarchPlan& p, const HaloSrc<T>* srcs, int nfields,
   const long long chunks = (g.nz + p.zchunk - 1) / p.zchunk;
   if (tiles > 2147483647LL || chunks > 65535 ||
       p.blocks != tiles * chunks * nshards ||
-      p.smem != zmarch_smem_bytes<T>(nfields, p.tx, p.ty, p.stages) +
-                    scratch ||
+      p.smem != (smem >= 0 ? smem
+                           : zmarch_smem_bytes<T>(nfields, p.tx, p.ty,
+                                                  p.stages)) ||
       p.smem > 232448)
     return false;
   if (p.vec) {
@@ -1313,6 +1643,20 @@ struct FilterZmarch {
   }
 };
 
+template <typename T, int K>
+struct ConvZmarch {
+  template <int TX, int TY, bool VEC>
+  static int go(const ZmarchArgs<T>& a, cudaStream_t st) {
+    auto kernel = conv_filter_zmarch_kernel<T, TX, TY, VEC, K>;
+    static int dev_set = -1, smem_set = 0;
+    if (const int err = allow_smem(kernel, a.p.smem, dev_set, smem_set))
+      return err;
+    kernel<<<a.grid(), TX * TY, a.p.smem, st>>>(a.f.f, a.out, a.g,
+                                                a.p.zchunk, a.p.stages);
+    return (int)cudaGetLastError();
+  }
+};
+
 // Whether the sponge stays in the shard: every clamp source and the cells
 // that clamp to it in one shard (width <= nz, ny) and the two wall bands of
 // each axis apart (n > 2 width).
@@ -1342,15 +1686,23 @@ int launch_tile(const ZmarchArgs<T>& a, cudaStream_t st) {
 // refused.
 template <class K, typename T>
 int launch_zmarch(const ZmarchArgs<T>& a, int nfields, int keep,
-                  cudaStream_t st, long long scratch = 0) {
+                  cudaStream_t st, long long smem = -1) {
   const HaloSrc<T> srcs[2] = {a.f, a.u};
-  if (!zmarch_plan_ok<T>(a.p, srcs, nfields, keep, a.nshards, a.g, scratch))
+  if (!zmarch_plan_ok<T>(a.p, srcs, nfields, keep, a.nshards, a.g, smem))
     return (int)cudaErrorInvalidValue;
   if (a.p.tx == 32 && a.p.ty == 8) return launch_tile<K, 32, 8>(a, st);
   if (a.p.tx == 32 && a.p.ty == 16) return launch_tile<K, 32, 16>(a, st);
   if (a.p.tx == 64 && a.p.ty == 4) return launch_tile<K, 64, 4>(a, st);
   if (a.p.tx == 64 && a.p.ty == 8) return launch_tile<K, 64, 8>(a, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The convolution filter of order K (1 ... 5: the entry point's instances)
+// on one device under the plan.
+template <typename T, int K>
+int launch_conv(const ZmarchArgs<T>& a, cudaStream_t st) {
+  return launch_zmarch<ConvZmarch<T, K>, T>(
+      a, 1, 0, st, conv_smem_bytes<T>(K, a.p.tx, a.p.ty, a.p.stages));
 }
 
 }  // namespace
@@ -1438,7 +1790,28 @@ SOPHT_DEFINE_ENTRIES(double, f64)
                                      vec},                                     \
                           0, orig};                                            \
     return launch_zmarch<FilterZmarch<T>, T>(                                  \
-        a, 1, 1, (cudaStream_t)stream, filter_scratch_bytes<T>(tx, ty));      \
+        a, 1, 1, (cudaStream_t)stream,                                         \
+        zmarch_smem_bytes<T>(1, tx, ty, stages) +                              \
+            filter_scratch_bytes<T>(tx, ty));                                  \
+  }                                                                            \
+  extern "C" int sopht_conv_filter_3d_zmarch_##SUFFIX(                         \
+      const T* f, T* out, int nz, int ny, int nx, int order, int tx, int ty,  \
+      int zchunk, int stages, int smem, int blocks, int vec, void* stream) {   \
+    const HaloSrc<T> src{f, nullptr, nullptr, nullptr, nullptr};               \
+    const ZmarchArgs<T> a{src, src, nullptr, nullptr, nullptr, nullptr, out,   \
+                          nullptr, 1, Geom{nz, ny, nx, nz, ny},                \
+                          ZmarchPlan{tx, ty, zchunk, stages, smem, blocks,     \
+                                     vec},                                     \
+                          0};                                                  \
+    const cudaStream_t st = (cudaStream_t)stream;                              \
+    switch (order) {                                                           \
+      case 1: return launch_conv<T, 1>(a, st);                                 \
+      case 2: return launch_conv<T, 2>(a, st);                                 \
+      case 3: return launch_conv<T, 3>(a, st);                                 \
+      case 4: return launch_conv<T, 4>(a, st);                                 \
+      case 5: return launch_conv<T, 5>(a, st);                                 \
+      default: return (int)cudaErrorInvalidValue;                              \
+    }                                                                          \
   }                                                                            \
   extern "C" int sopht_curl_3d_sharded_zmarch_##SUFFIX(                        \
       const T* f, const T* zlo, const T* zhi, const T* ylo, const T* yhi,      \

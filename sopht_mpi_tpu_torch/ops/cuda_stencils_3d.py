@@ -45,6 +45,8 @@ _SIGNATURES = {
     # buf, orig (or null), out, (nz, ny, nx), then the plan (tx, ty,
     # zchunk, stages, smem, blocks, vec)
     "sopht_mult_filter_3d_zmarch": (_P,) * 3 + (_I,) * 10 + (_P,),
+    # f, out, (nz, ny, nx), the order, then the plan
+    "sopht_conv_filter_3d_zmarch": (_P,) * 2 + (_I,) * 11 + (_P,),
     "sopht_conv_filter_line_3d": (_P, _P, _I, _I, _I, _I, _I, _P),
     "sopht_conv_filter_z_pass_3d": (_P, _P, _P, _I, _I, _I, _P),
     "sopht_penalise_vector_3d": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -312,6 +314,95 @@ def filter_plan(vector_field):
                                 vector_field.data_ptr() % 16 == 0)
 
 
+#: the convolution filter's orders that ``conv_filter_zmarch_kernel`` has
+#: instances for
+CONV_FILTER_ORDERS = range(1, 6)
+#: the convolution filter's tile by order: 64 x 8 at two blocks an SM up to
+#: order 2, 32 x 16 (fewer halo rows a cell) at one block above (the
+#: fastest at orders 1 and 5 at the rod's (3, 256, 64, 256), 256^3 and the
+#: freely rotating rod's (3, 64, 64, 128) on one H100,
+#: ``tools/probe_filter.py --sweep conv``), and its ring stages
+CONV_FILTER_TILES = {1: (64, 8), 2: (64, 8), 3: (32, 16), 4: (32, 16),
+                     5: (32, 16)}
+CONV_FILTER_STAGES = 4
+
+
+def conv_filter_smem(order: int, tx: int, ty: int, stages: int,
+                     itemsize: int) -> int:
+    """Dynamic shared bytes of a ``conv_filter_zmarch_kernel`` block:
+    ``stages`` plane tiles of 3 components with an ``order``-cell halo
+    (``ty + 2 order`` rows of ``tx`` cells and ``order`` rounded up to 16
+    bytes' values on each side), the x-staged rows (3 components of ``ty +
+    2 order`` rows of ``tx``) and above order 2 the y-staged cells (3 of
+    ``ty`` rows of ``tx``)."""
+    v = 16 // itemsize
+    pad, rows = -(-order // v) * v, ty + 2 * order
+    return itemsize * (3 * stages * rows * (tx + 2 * pad) + 3 * rows * tx
+                       + (3 * ty * tx if order > 2 else 0))
+
+
+def conv_filter_sm_threads(order: int) -> int:
+    """Threads an SM holds at the launch bound of the order's kernel: 1,024
+    (64 registers a thread) up to order 2, else 512 (128 registers: the z
+    stage keeps 3 (3 order - 1) values a thread; ``conv_sm_threads`` in the
+    source)."""
+    return 1024 if order <= 2 else 512
+
+
+def conv_filter_plan_of(order: int, nz: int, ny: int, nx: int,
+                        itemsize: int, aligned: bool, tile, stages: int,
+                        zchunk: int):
+    """The plan of ``conv_filter_zmarch_kernel`` at ``order`` (one of
+    :data:`CONV_FILTER_ORDERS`) on a (3, ``nz``, ``ny``, ``nx``) field of
+    ``itemsize``-byte values with the given tile, ring ``stages`` and
+    ``zchunk`` planes a block: a z-marching plan on one shard whose walk
+    keeps the newest plane alone
+    (``cuda_stencils_3d_sharded.zmarch_plan_of``)."""
+    from sopht_mpi_tpu_torch.ops.cuda_stencils_3d_sharded import (
+        zmarch_plan_of,
+    )
+
+    if order not in CONV_FILTER_ORDERS:
+        raise ValueError(f"no convolution filter instance of order {order}")
+    tx, ty = tile
+    return zmarch_plan_of(
+        1, nz, ny, nx, itemsize, aligned, tile, stages, zchunk, keep=0,
+        smem=conv_filter_smem(order, tx, ty, stages, itemsize),
+        sm_threads=conv_filter_sm_threads(order))
+
+
+@functools.lru_cache(maxsize=64)
+def conv_filter_launch_plan(order: int, nz: int, ny: int, nx: int,
+                            itemsize: int, aligned: bool = True,
+                            sms: int | None = None):
+    """The launch plan of ``conv_filter_zmarch_kernel`` at ``order`` on a
+    (3, ``nz``, ``ny``, ``nx``) field on a card of ``sms`` SMs (an H100's
+    by default): the order's :data:`CONV_FILTER_TILES`,
+    :data:`CONV_FILTER_STAGES` and one wave of z chunks. The C entry point
+    refuses any other plan."""
+    from sopht_mpi_tpu_torch.ops.cuda_stencils_3d_sharded import (
+        H100_SMS,
+        one_wave_plan,
+    )
+
+    return one_wave_plan(
+        lambda zchunk: conv_filter_plan_of(
+            order, nz, ny, nx, itemsize, aligned,
+            CONV_FILTER_TILES.get(order), CONV_FILTER_STAGES,
+            zchunk),
+        nz, H100_SMS if sms is None else sms)
+
+
+def conv_filter_plan(vector_field, order: int):
+    """The launch plan of ``conv_filter_zmarch_kernel`` at ``order`` on a
+    (3, nz, ny, nx) field (:func:`conv_filter_launch_plan`), 16-byte copies
+    where the field's pointer allows them."""
+    _, nz, ny, nx = vector_field.shape
+    return conv_filter_launch_plan(order, nz, ny, nx,
+                                   vector_field.element_size(),
+                                   vector_field.data_ptr() % 16 == 0)
+
+
 def laplacian_filter_vector_3d(vector_field, filter_order: int,
                                filter_type: str):
     """Laplacian (vorticity-stabilisation) filter, per-application wall
@@ -319,7 +410,11 @@ def laplacian_filter_vector_3d(vector_field, filter_order: int,
     one launch of the z-marching ``mult_filter_zmarch_kernel`` per
     application under :func:`filter_plan` (the last one subtracts from
     ``f``); ``convolution``: per axis x, y, z ``f - H_axis^order f``, one
-    launch for each in-plane axis and ``order`` launches for z.
+    launch of the z-marching ``conv_filter_zmarch_kernel`` for all three
+    axes under :func:`conv_filter_plan` up to order 5 (its instances; the
+    plain version's values for a finite field); above
+    that the line route, one launch of ``conv_filter_line_kernel`` for each
+    in-plane axis and ``order`` of ``conv_filter_z_pass_kernel`` for z.
     ``launches`` counts every launch. Forward only."""
     _check_field("vector_field", vector_field)
     if not isinstance(filter_order, int) or filter_order < 0:
@@ -356,6 +451,15 @@ def laplacian_filter_vector_3d(vector_field, filter_order: int,
                 vector_field if last else None, *plan,
             )
         return buf
+    if filter_order in CONV_FILTER_ORDERS:
+        out = torch.empty_like(vector_field)
+        _launch(
+            "sopht_conv_filter_3d_zmarch", vector_field,
+            vector_field.data_ptr(), out.data_ptr(), nz, ny, nx, filter_order,
+            *conv_filter_plan(vector_field, filter_order).args(),
+        )
+        laplacian_filter_vector_3d.launches += 1
+        return out
     field = vector_field
     for axis in (0, 1):  # the x stage, then the y stage
         out = torch.empty_like(vector_field)

@@ -319,19 +319,18 @@ def zmarch_smem(kind: str, tx: int, ty: int, stages: int,
                        + scratch)
 
 
-def sharded_stencil_plan_of(kind: str, nshards: int, nzl: int, nyl: int,
-                            nx: int, itemsize: int, aligned: bool,
-                            tile, stages: int,
-                            zchunk: int) -> ShardedStencilPlan:
-    """The plan of ``kind`` (a key of :data:`ZMARCH_FIELDS`) on
+def zmarch_plan_of(nshards: int, nzl: int, nyl: int, nx: int,
+                   itemsize: int, aligned: bool, tile, stages: int,
+                   zchunk: int, *, keep: int, smem: int,
+                   sm_threads: int) -> ShardedStencilPlan:
+    """The plan of a z-marching kernel whose walk keeps ``keep`` planes
+    below the newest, whose block takes ``smem`` dynamic shared bytes and
+    whose launch bound lets an SM hold ``sm_threads`` threads, on
     ``nshards`` shards of (3, ``nzl``, ``nyl``, ``nx``) values of
     ``itemsize`` bytes with the given tile (one of :data:`ZMARCH_TILES`),
-    ring ``stages`` (:data:`ZMARCH_STAGE_RANGE`, at least ``2 +
-    ZMARCH_KEEP[kind]``) and ``zchunk`` planes a block; 16-byte copies
-    where the pointers are ``aligned`` and ``nx`` is a multiple of 16
-    bytes' values."""
-    if kind not in ZMARCH_FIELDS:
-        raise ValueError(f"no z-marching kernel {kind!r}")
+    ring ``stages`` (:data:`ZMARCH_STAGE_RANGE`, at least ``2 + keep``) and
+    ``zchunk`` planes a block; 16-byte copies where the pointers are
+    ``aligned`` and ``nx`` is a multiple of 16 bytes' values."""
     if itemsize not in (4, 8):
         raise ValueError(f"itemsize {itemsize}: float32 or float64 only")
     if min(nshards, nzl, nyl, nx) < 1:
@@ -341,20 +340,49 @@ def sharded_stencil_plan_of(kind: str, nshards: int, nzl: int, nyl: int,
     if tile not in ZMARCH_TILES:
         raise ValueError(f"tile {tile} is not one of {ZMARCH_TILES}")
     hi = ZMARCH_STAGE_RANGE[1]
-    lo = max(ZMARCH_STAGE_RANGE[0], 2 + ZMARCH_KEEP[kind])
+    lo = max(ZMARCH_STAGE_RANGE[0], 2 + keep)
     if not lo <= stages <= hi or not 1 <= zchunk <= nzl:
         raise ValueError(f"stages {stages} ({lo}-{hi}) or zchunk {zchunk} "
                          f"(1-{nzl}) out of range")
-    tx, ty = tile
-    smem = zmarch_smem(kind, tx, ty, stages, itemsize)
     if smem > BLOCK_SHARED_MAX:
         raise ValueError(f"{smem} shared bytes a block")
+    tx, ty = tile
     tiles = -(-nx // tx) * -(-nyl // ty)
-    per_sm = max(1, min(ZMARCH_SM_THREADS // (tx * ty),
+    per_sm = max(1, min(sm_threads // (tx * ty),
                         SM_SHARED_BYTES // (smem + BLOCK_SHARED_RESERVE)))
     return ShardedStencilPlan(
         tx, ty, zchunk, stages, smem, tiles * -(-nzl // zchunk) * nshards,
         aligned and nx % (16 // itemsize) == 0, per_sm)
+
+
+def one_wave_plan(plan_of, nzl: int, sms: int) -> ShardedStencilPlan:
+    """``plan_of(zchunk)`` with z cut into as many chunks as one wave of
+    resident blocks holds (the tiles of all shards times the chunks at
+    most ``blocks_per_sm * sms``), at least one, at most ``nzl``, so every
+    block marches as far as the card allows and the chunks' extra planes
+    are read as rarely as possible."""
+    base = plan_of(nzl)
+    chunks = max(1, min(nzl, base.blocks_per_sm * sms // base.blocks))
+    return plan_of(-(-nzl // chunks))
+
+
+def sharded_stencil_plan_of(kind: str, nshards: int, nzl: int, nyl: int,
+                            nx: int, itemsize: int, aligned: bool,
+                            tile, stages: int,
+                            zchunk: int) -> ShardedStencilPlan:
+    """The plan of ``kind`` (a key of :data:`ZMARCH_FIELDS`) on
+    ``nshards`` shards of (3, ``nzl``, ``nyl``, ``nx``) values of
+    ``itemsize`` bytes with the given tile, ring ``stages`` (at least ``2 +
+    ZMARCH_KEEP[kind]``) and ``zchunk`` planes a block
+    (:func:`zmarch_plan_of`)."""
+    if kind not in ZMARCH_FIELDS:
+        raise ValueError(f"no z-marching kernel {kind!r}")
+    tx, ty = tile
+    return zmarch_plan_of(
+        nshards, nzl, nyl, nx, itemsize, aligned, tile, stages, zchunk,
+        keep=ZMARCH_KEEP[kind], smem=zmarch_smem(kind, tx, ty, stages,
+                                                 itemsize),
+        sm_threads=ZMARCH_SM_THREADS)
 
 
 @functools.lru_cache(maxsize=64)
@@ -363,22 +391,16 @@ def sharded_stencil_plan(kind: str, nshards: int, nzl: int, nyl: int,
                          sms: int = H100_SMS) -> ShardedStencilPlan:
     """The launch plan of the z-marching ``kind`` (a key of
     :data:`ZMARCH_FIELDS`) on ``nshards`` shards of (3, ``nzl``, ``nyl``,
-    ``nx``) values of ``itemsize`` bytes, on a card of ``sms`` SMs. The C
-    entry point refuses any other plan.
-
-    The tile :data:`ZMARCH_TILE` and the kind's :data:`ZMARCH_STAGES`; z
-    cut into as many chunks as one wave of resident blocks holds (the
-    tiles of all shards times the chunks at most ``blocks_per_sm * sms``),
-    at least one, at most ``nzl``, so every block marches as far as the
-    card allows and the chunks' two extra planes are read as rarely as
-    possible."""
+    ``nx``) values of ``itemsize`` bytes, on a card of ``sms`` SMs: the
+    tile :data:`ZMARCH_TILE`, the kind's :data:`ZMARCH_STAGES` and one
+    wave of z chunks (:func:`one_wave_plan`). The C entry point refuses any
+    other plan."""
     stages = ZMARCH_STAGES.get(kind)
-    base = sharded_stencil_plan_of(kind, nshards, nzl, nyl, nx, itemsize,
-                                   aligned, ZMARCH_TILE, stages, nzl)
-    chunks = max(1, min(nzl, base.blocks_per_sm * sms // base.blocks))
-    return sharded_stencil_plan_of(kind, nshards, nzl, nyl, nx, itemsize,
-                                   aligned, ZMARCH_TILE, stages,
-                                   -(-nzl // chunks))
+    return one_wave_plan(
+        lambda zchunk: sharded_stencil_plan_of(
+            kind, nshards, nzl, nyl, nx, itemsize, aligned, ZMARCH_TILE,
+            stages, zchunk),
+        nzl, sms)
 
 
 # ---------------------------------------------------------------------------
