@@ -134,7 +134,33 @@ raises and exits non-zero, and nothing falls back to the CPU:
     one filter launch a step, the first 3 against the port's CPU run from
     the same state, the rod tip against the JAX package's CPU trajectory
     (``sopht_mpi_tpu_torch/data/freely_rotating_rod_reference.json``), and
-    3 profiled steps (``build/free_rod_profile.txt``).
+    3 profiled steps (``build/free_rod_profile.txt``);
+25. passive 3D: the point source of
+    ``cases.point_source_advection_diffusion_case`` (``passive_vector``,
+    plain torch, no hand-written kernel) at 64^3 run to t = 5.4 in windows
+    of 100 steps, its L2 error against the analytic field within 5% of the
+    JAX package's CPU run of the example
+    (``sopht_mpi_tpu_torch/data/point_source_reference.json``); 3 steps of a
+    seeded 32^3 ``passive_vector`` and ``passive_scalar`` state against the
+    port's CPU run; the example's default 128^3 for 5 warm-up + 20 timed
+    steps that must not synchronise with the host, and 3 profiled steps
+    (``build/point_source_profile.txt``);
+26. 2D rod: ``cases.flow_past_rod_2d_case`` (float32 flow, float64 rod,
+    element-centric forcing grid, dynamic substeps, dense IBM path, the 2D
+    route's three pass kernels) at (256, 512) for 5 warm-up + 20 timed
+    steps with launch counts, host syncs counted on 3 more steps and 3
+    profiled steps (``build/rod_2d_profile.txt``); at (64, 128) the tip
+    against the JAX package's CPU trajectory
+    (``sopht_mpi_tpu_torch/data/rod_2d_reference.json``) and the first 3
+    steps against the port's CPU run;
+27. sedimenting sphere: ``cases.sedimenting_sphere_case`` at the example's
+    64^3 float64 (one dynamic rigid body, sparse window, the Poisson solve
+    on the dense ``torch.fft`` route, which float64 takes) for 20 steps with
+    every window covering its support, launch counts and 3 profiled steps
+    (``build/sedimenting_sphere_profile.txt``); the sphere's z position and
+    velocity against the JAX package's CPU trajectory
+    (``sopht_mpi_tpu_torch/data/sedimenting_sphere_reference.json``); 3
+    steps at 32^3 against the port's CPU run.
 
 Phase 3 also checks the fused-curl pair against its plain versions at the
 256^3 sphere's, the (128, 128, 256) multi-body case's, the 64^3 drag run's
@@ -191,6 +217,21 @@ ROD_SHAPE = (3, 256, 64, 256)
 FREE_ROD_GRID = (64, 64, 128)
 FREE_ROD_SHAPE = (3, *FREE_ROD_GRID)
 FREE_ROD_ORDER = 5
+# the point source: the example's default grid (timed), the grid of the
+# JAX run it is held to, the card-vs-cpu grid, and the gate on its L2 error
+PASSIVE_GRID = (128, 128, 128)
+PASSIVE_CONV_GRID = (64, 64, 64)
+PASSIVE_PARITY_GRID = (32, 32, 32)
+PASSIVE_L2_TOL = 0.05
+# the 2D rod at the example's default (timed)
+ROD_2D_GRID = (256, 512)
+# the sedimenting sphere at the example's default, its card-vs-cpu grid,
+# and the gates on its trajectory against the JAX package's float64 run:
+# z velocity relative to its largest value, z position in box lengths
+SEDIMENT_GRID = (64, 64, 64)
+SEDIMENT_PARITY_GRID = (32, 32, 32)
+SEDIMENT_VZ_TOL = 1e-8
+SEDIMENT_Z_TOL = 1e-10
 # the convolution filter's row of the kernel table: its TPU kernel
 CONV_REPLACES = "sopht_mpi_tpu/ops/pallas_stencils_3d.py:825"
 # the rod tip against the JAX package's trajectory: the bound to which
@@ -457,7 +498,12 @@ def main():
 
     from sopht_mpi_tpu_torch import cases
     from sopht_mpi_tpu_torch.convert import flow_state_from_numpy
-    from sopht_mpi_tpu_torch.models import scan_steps
+    from sopht_mpi_tpu_torch.models import (
+        UnboundedFlowSimulator3D,
+        build_flow_only_step,
+        init_flow_only_carry,
+        scan_steps,
+    )
     from sopht_mpi_tpu_torch.ops import cuda_stencils_3d as kernels
     from sopht_mpi_tpu_torch.ops import cuda_stencils_3d_sharded as sharded
     from sopht_mpi_tpu_torch.ops import poisson
@@ -2446,6 +2492,292 @@ def main():
             + profile_detail(*prof, s_step) + f" [{card}]")
 
     free_rod_phase()
+
+    @phase("passive 3d")
+    def passive_phase():
+        """The point source's L2 error at 64^3 against the JAX run's; 3
+        seeded steps of both passive types, card against cpu; the 128^3
+        step timed and profiled. The ENO3 advection is plain torch: no
+        hand-written kernel but the vector diffusion's may launch."""
+        with open(os.path.join(REPO, "sopht_mpi_tpu_torch", "data",
+                               "point_source_reference.json")) as f:
+            ref = json.load(f)
+        check(tuple(ref["grid_size"]) == PASSIVE_CONV_GRID, "reference grid")
+        reset_counts()
+        step, carry = cases.point_source_advection_diffusion_case(
+            PASSIVE_CONV_GRID, device=dev)
+        check(step.flow_sim.flow_type == "passive_vector", "flow type")
+        check(step.flow_sim.unbounded_poisson_solver is None,
+              "a passive simulator built a Poisson solver")
+        t0 = time.perf_counter()
+        carry, l2, linf = cases.run_point_source_case(
+            step, carry, window=ref["window"])
+        s_conv = time.perf_counter() - t0
+        check(np.isfinite([l2, linf]).all(), "non-finite error")
+        rel = abs(l2 - ref["l2"]) / ref["l2"]
+        check(rel <= PASSIVE_L2_TOL, f"point source L2 {l2} is {rel:.3%} from "
+              f"the JAX run's {ref['l2']} (> {PASSIVE_L2_TOL:.0%})")
+        t_final = float(carry.time)
+        # card against cpu: 3 steps of a seeded state of each passive type
+        errs = {}
+        for flow_type in ("passive_vector", "passive_scalar"):
+            rng = np.random.default_rng(3)
+            shape = (PASSIVE_PARITY_GRID if flow_type == "passive_scalar"
+                     else (3, *PASSIVE_PARITY_GRID))
+            field = np.exp(rng.standard_normal(shape))
+            velocity = 0.5 + 0.5 * rng.standard_normal(
+                (3, *PASSIVE_PARITY_GRID))
+            finals = []
+            for device in (dev, torch.device("cpu")):
+                sim = UnboundedFlowSimulator3D(
+                    PASSIVE_PARITY_GRID, 1.0, 2e-3, flow_type=flow_type,
+                    device=device)
+                sim._set_state(flow_state_from_numpy(
+                    (field, velocity, None), device=device,
+                    dtype=torch.float32))
+                out, _ = scan_steps(build_flow_only_step(sim, dt_prefac=0.5),
+                                    init_flow_only_carry(sim), 3)
+                finals.append(out.flow_state.primary_field)
+            gpu, cpu = finals
+            err = float((gpu.cpu() - cpu).abs().max())
+            tol = 1e-5 * max(1.0, float(cpu.abs().max()))
+            check(err <= tol, f"{flow_type}: card vs cpu {err} > {tol}")
+            errs[flow_type] = err
+        # the example's default grid, timed
+        step, carry = cases.point_source_advection_diffusion_case(
+            PASSIVE_GRID, device=dev)
+        carry, _ = scan_steps(step, carry, 5)
+        carry, dts, s_step = timed_steps(step, carry, 20)
+        field = carry.flow_state.primary_field
+        check(bool(torch.isfinite(field).all()), "non-finite field")
+        check(tuple(field.shape) == (3, *PASSIVE_GRID), "field shape")
+        # the ENO3 advection has no kernel (none in JAX either); only the
+        # passive_vector diffusion has one the path may take
+        check_not_launched(
+            [n for n in by_name if n != "diffusion_timestep_vector_3d"],
+            "the passive ENO3 transport path")
+        carry, *prof = profile_steps(
+            step, carry, 3, os.path.join(REPO, "build",
+                                         "point_source_profile.txt"),
+            f"{PASSIVE_GRID} point source step")
+        return None, (
+            f"{PASSIVE_CONV_GRID} f32 point source to t = {t_final:.5f} in "
+            f"{s_conv:.2f} s: L2 {l2:.6g}, Linf {linf:.6g} (JAX CPU L2 "
+            f"{ref['l2']:.6g}, Linf {ref['linf']:.6g}; relative {rel:.3g}, "
+            f"bound {PASSIVE_L2_TOL}); card vs cpu after 3 steps at "
+            f"{PASSIVE_PARITY_GRID} max|diff| {errs}; {PASSIVE_GRID}: "
+            f"{s_step:.6f} s/step, {np.prod(PASSIVE_GRID) / s_step / 1e6:.3f} "
+            f"Mcells/s, no host sync in the timed steps, hand-written "
+            f"kernels launched: "
+            f"{ {n: f.launches for n, f in by_name.items() if f.launches} }; " + profile_detail(*prof, s_step) + f" [{card}]")
+
+    passive_phase()
+
+    @phase("2d rod")
+    def rod_2d_phase():
+        """The 2D rod at (256, 512) timed with launch counts and host syncs;
+        at (64, 128) the tip against the JAX trajectory and the first 3
+        steps against the port's CPU run."""
+        step, carry, _ = cases.flow_past_rod_2d_case(ROD_2D_GRID, device=dev)
+        check(step.sparse_forcing_window is None, "not the dense IBM path")
+        check(isinstance(carry.greens, tuple), "the 2D rod's Poisson solve "
+              "is not on the kernel route")
+        carry, _ = scan_steps(step, carry, 5)
+        torch.cuda.synchronize()
+        reset_counts()
+        n_steps = 20
+        stats0 = dict(step.stats)
+        carry, forces, s_step = timed_steps(step, carry, n_steps,
+                                            no_sync=False)
+        check_2d_route(n_steps, "the 2D rod path")
+        launches = {fn.__name__: fn.launches for fn in route_2d}
+        substeps = (step.stats["substeps"] - stats0["substeps"]) / n_steps
+        stats0 = dict(step.stats)
+        (carry, _), syncs = count_syncs(lambda: scan_steps(step, carry, 3))
+        host_reads = step.stats["host_syncs"] - stats0["host_syncs"]
+        check(syncs == host_reads == 3,
+              f"{syncs} synchronising calls, {host_reads} substep-count "
+              f"reads in 3 steps")
+        fs, rs = carry.flow_state, carry.rod_state
+        for what, t in (("vorticity", fs.primary_scalar_field),
+                        ("velocity", fs.velocity_field), ("forces", forces),
+                        ("rod", rs.position)):
+            check(bool(torch.isfinite(t).all()), f"non-finite {what}")
+        check(tuple(fs.velocity_field.shape) == (2, *ROD_2D_GRID),
+              "velocity shape")
+        carry, *prof = profile_steps(
+            step, carry, 3, os.path.join(REPO, "build", "rod_2d_profile.txt"),
+            f"{ROD_2D_GRID} 2D rod step")
+        main = (f"{ROD_2D_GRID} f32 flow, f64 rod of {rs.position.shape[1] - 1}"
+                f" elements: {s_step:.6f} s/step, "
+                f"{np.prod(ROD_2D_GRID) / s_step / 1e6:.3f} Mcells/s, "
+                f"{substeps:.2f} substeps/step, {syncs / 3:.2f} host "
+                f"syncs/step, launches {launches}; "
+                + profile_detail(*prof, s_step))
+
+        # the tip against the JAX trajectory, the first 3 steps card vs cpu
+        with open(os.path.join(REPO, "sopht_mpi_tpu_torch", "data",
+                               "rod_2d_reference.json")) as f:
+            ref = json.load(f)
+        grid, n_steps, n_cpu = tuple(ref["grid_size"]), ref["n_steps"], 3
+        step, carry, tip_start = cases.flow_past_rod_2d_case(grid, device=dev)
+        check(np.array_equal(tip_start, ref["tip_start"]), "tip start")
+        times = [float(carry.time)]
+        tips = [carry.rod_state.position[:, -1].cpu().numpy()]
+        for k in range(n_steps):
+            carry, _ = step(carry)
+            times.append(float(carry.time))
+            tips.append(carry.rod_state.position[:, -1].cpu().numpy())
+            if k + 1 == n_cpu:
+                gpu3 = carry
+        cstep, ccarry, _ = cases.flow_past_rod_2d_case(grid, device="cpu")
+        ccarry, _ = scan_steps(cstep, ccarry, n_cpu)
+        errs = {}
+        for what, out, want in (
+                ("vorticity", gpu3.flow_state.primary_scalar_field,
+                 ccarry.flow_state.primary_scalar_field),
+                ("velocity", gpu3.flow_state.velocity_field,
+                 ccarry.flow_state.velocity_field),
+                ("rod position", gpu3.rod_state.position,
+                 ccarry.rod_state.position),
+                ("position mismatch", gpu3.vb_state.position_mismatch,
+                 ccarry.vb_state.position_mismatch)):
+            err = float((out.cpu() - want).abs().max())
+            tol = 1e-4 * max(1.0, float(want.abs().max()))
+            check(err <= tol, f"2D rod {what}: card vs cpu {err} > {tol}")
+            errs[what] = err
+        times, tips = np.asarray(times), np.asarray(tips)
+        ref_t, ref_tip = np.asarray(ref["times"]), np.asarray(ref["tip"])
+        check(np.isfinite(tips).all(), "non-finite tip")
+        inside = times <= ref_t[-1]
+        ref_at = np.stack([np.interp(times[inside], ref_t, ref_tip[:, c])
+                           for c in range(3)], axis=1)
+        dev_max = float(np.abs(tips[inside] - ref_at).max())
+        rel = dev_max / ref["rod_length"]
+        check(rel <= TIP_TOL, f"2D rod tip deviates {rel:.3g} L from the "
+              f"JAX trajectory (> {TIP_TOL})")
+        moved = (tips[-1, :2] - tips[0, :2]) / ref["rod_length"]
+        return None, (
+            main + f"; {grid}: {n_steps} steps to t = {times[-1]:.5f} "
+            f"(JAX CPU {ref_t[-1]:.5f}), tip moved ({moved[0]:+.6g}, "
+            f"{moved[1]:+.6g}) L, max deviation from the JAX trajectory "
+            f"{dev_max:.3g} = {rel:.3g} L (bound {TIP_TOL} L); card vs cpu "
+            f"after {n_cpu} steps max|diff| {errs} [{card}]")
+
+    rod_2d_phase()
+
+    @phase("sedimenting sphere")
+    def sedimenting_sphere_phase():
+        """The sedimenting sphere at 64^3 float64 for 20 steps, against the
+        JAX package's trajectory; 3 steps at 32^3 card against cpu."""
+        with open(os.path.join(REPO, "sopht_mpi_tpu_torch", "data",
+                               "sedimenting_sphere_reference.json")) as f:
+            ref = json.load(f)
+        check(tuple(ref["grid_size"]) == SEDIMENT_GRID, "reference grid")
+        n_steps = ref["n_steps"]
+        step, carry, v_t, tau = cases.sedimenting_sphere_case(
+            SEDIMENT_GRID, device=dev)
+        check(step.uses_sparse_forcing == ref["sparse_forcing"],
+              "the sparse window is not the JAX run's")
+        solver = step.flow_sim.unbounded_poisson_solver
+        doubled = tuple(2 * n for n in SEDIMENT_GRID)
+        kernel_route = poisson._kernel_convolve_supported(
+            doubled, torch.float64, dev)
+        check(not kernel_route and not isinstance(carry.greens, tuple),
+              "float64 took the kernel route")
+        route = (f"dense torch.fft route (kernel_fft_supported "
+                 f"{[cuda_fft.kernel_fft_supported(m) for m in doubled]}, "
+                 f"float64 outside the kernel route's float32 gate; fast "
+                 f"tier {solver.fast_spectral})")
+        reset_counts()
+        stats0 = dict(step.stats)
+        times, z, vz, oks = [float(carry.time)], [], [], []
+        sphere = carry.body_states[0]
+        z.append(float(sphere.position[2]))
+        vz.append(float(sphere.velocity[2]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            carry, (forces, ok) = step(carry)
+            oks.append(ok)
+            times.append(float(carry.time))
+            sphere = carry.body_states[0]
+            z.append(float(sphere.position[2]))
+            vz.append(float(sphere.velocity[2]))
+        s_host_reads = (time.perf_counter() - t0) / n_steps
+        check(bool(torch.stack(oks).all()),
+              "the sphere's support left its window")
+        launches = {fn.__name__: fn.launches for fn in by_name.values()
+                    if fn.launches}
+        for name in SPHERE_KERNELS:
+            check(launches.get(name, 0) == n_steps,
+                  f"{name} launched {launches.get(name, 0)} times in "
+                  f"{n_steps} steps")
+        check_not_launched(FFT_REPLACES, "the float64 sphere path")
+        host_reads = step.stats["host_syncs"] - stats0["host_syncs"]
+        fs = carry.flow_state
+        for what, t in (("vorticity", fs.primary_field),
+                        ("velocity", fs.velocity_field)):
+            check(bool(torch.isfinite(t).all()), f"non-finite {what}")
+        check(tuple(fs.velocity_field.shape) == (3, *SEDIMENT_GRID),
+              "velocity shape")
+        # the trajectory against the JAX run's
+        check(np.allclose(times, ref["times"], rtol=1e-12, atol=0.0),
+              "step times differ from the JAX run's")
+        vz_err = float(np.abs(np.subtract(vz, ref["v_z"])).max())
+        vz_scale = float(np.abs(ref["v_z"]).max())
+        z_err = float(np.abs(np.subtract(z, ref["z"])).max())
+        check(vz_err <= SEDIMENT_VZ_TOL * vz_scale,
+              f"z velocity deviates {vz_err} from the JAX run (> "
+              f"{SEDIMENT_VZ_TOL} x {vz_scale})")
+        check(z_err <= SEDIMENT_Z_TOL, f"z position deviates {z_err} from "
+              f"the JAX run (> {SEDIMENT_Z_TOL})")
+        # the step alone, timed without the host reads of the trajectory;
+        # one static substep a step: a synchronising call raises
+        carry, _, s_step = timed_steps(step, carry, n_steps)
+        carry, *prof = profile_steps(
+            step, carry, 3, os.path.join(REPO, "build",
+                                         "sedimenting_sphere_profile.txt"),
+            f"{SEDIMENT_GRID} sedimenting sphere step, float64")
+        # card against cpu after 3 steps
+        finals = []
+        for device in (dev, torch.device("cpu")):
+            pstep, pcarry, _, _ = cases.sedimenting_sphere_case(
+                SEDIMENT_PARITY_GRID, device=device)
+            pcarry, _ = scan_steps(pstep, pcarry, 3)
+            finals.append(pcarry)
+        gpu, cpu = finals
+        errs = {}
+        for what, out, want in (
+                ("vorticity", gpu.flow_state.primary_field,
+                 cpu.flow_state.primary_field),
+                ("velocity", gpu.flow_state.velocity_field,
+                 cpu.flow_state.velocity_field),
+                ("sphere position", gpu.body_states[0].position,
+                 cpu.body_states[0].position),
+                ("sphere velocity", gpu.body_states[0].velocity,
+                 cpu.body_states[0].velocity),
+                ("position mismatch", gpu.vb_states[0].position_mismatch,
+                 cpu.vb_states[0].position_mismatch)):
+            err = float((out.cpu() - want).abs().max())
+            tol = 1e-9 * max(1.0, float(want.abs().max()))
+            check(err <= tol, f"sedimenting sphere {what}: card vs cpu {err} "
+                  f"> {tol}")
+            errs[what] = err
+        return None, (
+            f"{SEDIMENT_GRID} f64, window {step.body_windows}, {route}: "
+            f"{n_steps} steps to t = {times[-1]:.6g} = {times[-1] / tau:.4g} "
+            f"tau, v_z {vz[-1]:.6g} = {vz[-1] / -v_t:.4g} v_t, windows ok; "
+            f"max deviation from the JAX trajectory v_z {vz_err:.3g} (bound "
+            f"{SEDIMENT_VZ_TOL} x {vz_scale:.4g}), z {z_err:.3g} (bound "
+            f"{SEDIMENT_Z_TOL}); {s_step:.6f} s/step ({s_host_reads:.6f} with "
+            f"the trajectory's host reads), {host_reads / n_steps:.2f} "
+            f"substep-count reads/step, no host sync in the timed steps, "
+            f"launches {launches}; " + profile_detail(*prof, s_step)
+            + f"; card vs cpu after 3 steps at {SEDIMENT_PARITY_GRID} "
+            f"max|diff| {errs} [{card}]")
+
+    sedimenting_sphere_phase()
 
     for row in table.values():
         check(row["launches"], f"{row['name']} was launched on no path")

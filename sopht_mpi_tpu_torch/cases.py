@@ -9,8 +9,11 @@ past a flexible rod (``__graft_entry__._build_rod_fsi_case`` and
 (``_build_multibody_case`` and ``_build_multibody_bench_case``), flow
 past a freely rotating rod (the fused branch of
 ``examples/3d/flow_past_freely_rotating_rod.py``,
-:func:`_build_freely_rotating_rod_case`), and a flow-only 3D case on a mesh
-of shards (:func:`sharded_flow_case`).
+:func:`_build_freely_rotating_rod_case`), a flow-only 3D case on a mesh
+of shards (:func:`sharded_flow_case`), a point source advected and diffused
+as a passive vector (``examples/3d/point_source_advect_diffuse.py``), a
+flexible rod in a 2D flow (``examples/2d/flow_past_rod.py``) and a rigid
+sphere sedimenting under its weight (``examples/3d/sedimenting_sphere.py``).
 """
 
 from __future__ import annotations
@@ -23,9 +26,11 @@ from sopht_mpi_tpu_torch.models import (
     BaseSystemCollection,
     CircularCylinderForcingGrid,
     CosseratRod,
+    CosseratRodElementCentricForcingGrid,
     CosseratRodFlowInteraction,
     CosseratRodSurfaceForcingGrid,
     Cylinder,
+    DynamicRigidBody,
     FixedRigidBody,
     GeneralConstraint,
     GravityForces,
@@ -50,7 +55,11 @@ from sopht_mpi_tpu_torch.models import (
 from sopht_mpi_tpu_torch.models.flow.simulator_3d import (
     compute_flow_velocity_3d,
 )
-from sopht_mpi_tpu_torch.parallel.mesh import create_mesh, shard_vector_field
+from sopht_mpi_tpu_torch.parallel.mesh import (
+    create_mesh,
+    shard_vector_field,
+    unshard_vector_field,
+)
 from sopht_mpi_tpu_torch.utils import get_real_t
 
 
@@ -891,3 +900,263 @@ def _build_multibody_case(grid_size, *, device, fast_spectral=None):
         free_stream_fn=lambda t: free_stream,
     )
     return step, init_multi_body_fsi_carry(flow_sim, bodies)
+
+
+# the point source of examples/3d/point_source_advect_diffuse.py: viscosity,
+# start and end times, the source's start and its unit velocity in x, y, z
+POINT_SOURCE_NU = 1e-3
+POINT_SOURCE_T_START, POINT_SOURCE_T_END = 5.0, 5.4
+POINT_SOURCE_START = np.array([0.3, 0.3, 0.3])
+POINT_SOURCE_VELOCITY = 1.0
+# the source's strength: a peak of about 1 at the start time
+POINT_SOURCE_MAG = 4.0 * np.pi * POINT_SOURCE_NU * POINT_SOURCE_T_START**1.5
+
+
+def compute_diffused_point_source_field(x_grid, y_grid, z_grid, cm, nu,
+                                        point_mag, t):
+    """Green's function of the diffusion equation,
+    ``M / (4 pi nu t)^1.5 exp(-r^2 / 4 nu t)`` about ``cm`` (numpy)."""
+    r2 = ((x_grid - cm[0]) ** 2 + (y_grid - cm[1]) ** 2
+          + (z_grid - cm[2]) ** 2)
+    return (point_mag / (4 * np.pi * nu * t) ** 1.5
+            * np.exp(-r2 / (4 * nu * t)))
+
+
+def _grid_positions(flow_sim):
+    """(x, y, z) cell centres of the assembled grid, numpy in the
+    simulator's dtype."""
+    pos = unshard_vector_field(flow_sim.position_field, flow_sim.mesh)
+    return tuple(pos.cpu().numpy())
+
+
+def point_source_advection_diffusion_case(grid_size, *, device,
+                                          precision="single", mesh=None):
+    """A point source advected and diffused as a ``passive_vector`` field,
+    the case of ``examples/3d/point_source_advect_diffuse.py``: a unit x
+    range, nu = 1e-3, each component the diffused point source of strength
+    ``4 pi nu t^1.5`` about (0.3, 0.3, 0.3) at t = 5.0, a unit velocity in
+    x, y and z. ``mesh`` is a mesh from ``create_mesh(3, (pz, py),
+    device=...)``, or None for one device. Returns (flow-only step,
+    carry); ``step.flow_sim`` is the simulator. Run it with
+    :func:`run_point_source_case`. The example's IO and host loop are not
+    here."""
+    real_t = get_real_t(precision)
+    grid_size = tuple(grid_size)
+    flow_sim = UnboundedFlowSimulator3D(
+        grid_size=grid_size,
+        x_range=1.0,
+        kinematic_viscosity=POINT_SOURCE_NU,
+        flow_type="passive_vector",
+        real_t=real_t,
+        mesh=mesh,
+        time=POINT_SOURCE_T_START,
+        device=device,
+    )
+    x, y, z = _grid_positions(flow_sim)
+    init = compute_diffused_point_source_field(
+        x, y, z, POINT_SOURCE_START, POINT_SOURCE_NU, POINT_SOURCE_MAG,
+        POINT_SOURCE_T_START)
+    flow_sim.primary_vector_field = shard_vector_field(torch.as_tensor(
+        np.broadcast_to(init, (3, *grid_size)).copy(), dtype=real_t,
+        device=flow_sim.device), flow_sim.mesh)
+    flow_sim.velocity_field = POINT_SOURCE_VELOCITY * torch.ones_like(
+        flow_sim.velocity_field)
+    step = build_flow_only_step(flow_sim)
+    step.flow_sim = flow_sim
+    return step, init_flow_only_carry(flow_sim)
+
+
+def run_point_source_case(step, carry, *, window=100):
+    """Run the point source of :func:`point_source_advection_diffusion_case`
+    to t = 5.4 as the example's fused branch does: ``window`` steps
+    between host reads of the time, so the run ends up to ``window - 1``
+    steps past t = 5.4. Returns (final carry, L2, Linf): the primary
+    field's errors against the analytic field at the final time, L2 =
+    ``||err||_2 dx^1.5``."""
+    while float(carry.time) < POINT_SOURCE_T_END - 1e-10:
+        carry, _ = scan_steps(step, carry, window)
+    flow_sim = step.flow_sim
+    t_final = float(carry.time)
+    cm_final = (POINT_SOURCE_START
+                + POINT_SOURCE_VELOCITY * (t_final - POINT_SOURCE_T_START))
+    x, y, z = _grid_positions(flow_sim)
+    ref = compute_diffused_point_source_field(
+        x, y, z, cm_final, POINT_SOURCE_NU, POINT_SOURCE_MAG, t_final)
+    field = unshard_vector_field(carry.flow_state.primary_field,
+                                 flow_sim.mesh).cpu().numpy()
+    error = np.abs(field - ref)
+    return (carry, float(np.linalg.norm(error) * flow_sim.dx**1.5),
+            float(error.max()))
+
+
+def flow_past_rod_2d_case(grid_size=(256, 512), *, device,
+                          precision="single"):
+    """A flexible rod clamped at one end in a 2D flow, the fused branch of
+    ``examples/2d/flow_past_rod.py`` with its values: Re 200, bending
+    stiffness 1.5e-3, mass ratio 1.5, Froude 0.5, an x range of 6 rod
+    lengths, the rod from (1, 0.501 y_range) along x with n_elem = nx / 8,
+    ``OneEndFixedBC``, gravity along x, the linear damper (5e-4) at the
+    rod's dt 0.01 L / n_elem; the element-centric forcing grid, coupling
+    stiffness -8e4 and damping -30; a free stream ramping up to 1 in x with
+    a decaying 0.5 perturbation in y; dynamic substeps, dt_prefac 0.5, the
+    dense IBM path. The rod is float64, the flow ``precision``. Returns
+    (fused step, carry, the tip's start (x, y) as numpy); the tip
+    trajectory of the example is ``(carry.rod_state.position[:2, -1] -
+    tip start) / L``. The example's IO and host loop are not here."""
+    grid_size_y, grid_size_x = grid_size
+    real_t = get_real_t(precision)
+    velocity_free_stream, rho_f, base_length = 1.0, 1.0, 1.0
+    reynolds, nondim_bending_stiffness = 200.0, 1.5e-3
+    nondim_mass_ratio, froude = 1.5, 0.5
+    x_range = 6.0 * base_length
+    y_range = grid_size_y / grid_size_x * x_range
+    n_elem = grid_size_x // 8
+    base_radius = 0.01
+    base_area = np.pi * base_radius**2
+    z_axis_width = 1.0
+    density = (nondim_mass_ratio * rho_f * base_length * z_axis_width
+               / base_area)
+    moment_of_inertia = np.pi / 4 * base_radius**4
+    youngs_modulus = (
+        nondim_bending_stiffness
+        * (rho_f * velocity_free_stream**2 * base_length**3 * z_axis_width)
+        / moment_of_inertia
+    )
+    poisson_ratio = 0.5
+
+    device = torch.device(device)
+    collection = BaseSystemCollection()
+    rod = CosseratRod.straight_rod(
+        n_elem,
+        np.array([base_length, 0.501 * y_range, 0.0]),
+        np.array([1.0, 0.0, 0.0]),
+        np.array([0.0, 0.0, 1.0]),
+        base_length,
+        base_radius,
+        density,
+        youngs_modulus=youngs_modulus,
+        shear_modulus=youngs_modulus / (poisson_ratio + 1.0),
+        device=device,
+    )
+    tip_start = rod.state.position[:2, -1].cpu().numpy()
+    collection.append(rod)
+    collection.constrain(rod).using(
+        OneEndFixedBC,
+        constrained_position_idx=(0,),
+        constrained_director_idx=(0,),
+    )
+    collection.add_forcing_to(rod).using(
+        GravityForces,
+        acc_gravity=np.array(
+            [froude * velocity_free_stream**2 / base_length, 0.0, 0.0]),
+    )
+    rod_dt = 0.01 * base_length / n_elem
+    collection.dampen(rod).using(
+        AnalyticalLinearDamper, damping_constant=0.5e-3, time_step=rod_dt
+    )
+    collection.finalize()
+
+    flow_sim = UnboundedFlowSimulator2D(
+        grid_size=grid_size,
+        x_range=x_range,
+        kinematic_viscosity=base_length * velocity_free_stream / reynolds,
+        flow_type="navier_stokes_with_forcing",
+        with_free_stream_flow=True,
+        real_t=real_t,
+        device=device,
+    )
+    interactor = CosseratRodFlowInteraction(
+        flow_sim=flow_sim,
+        cosserat_rod=rod,
+        virtual_boundary_stiffness_coeff=-8e4,
+        virtual_boundary_damping_coeff=-30.0,
+        forcing_grid_cls=CosseratRodElementCentricForcingGrid,
+    )
+    timescale = base_length / velocity_free_stream
+
+    def free_stream(t):
+        # the ramp and the decaying y perturbation, on the device
+        ramp = torch.exp(-t / timescale)
+        return torch.stack([velocity_free_stream * (1.0 - ramp),
+                            0.5 * velocity_free_stream * ramp])
+
+    step = build_rod_fsi_step(
+        flow_sim,
+        interactor,
+        collection,
+        dt_prefac=0.5,
+        free_stream_fn=free_stream,
+        rod_dt=rod_dt,
+    )
+    return step, init_rod_fsi_carry(flow_sim, interactor, rod), tip_start
+
+
+def sedimenting_sphere_case(grid_size=(64, 64, 64), *, device,
+                            precision="double", sphere_radius=0.06,
+                            density_ratio=2.0, kinematic_viscosity=1.0,
+                            terminal_velocity_target=0.05,
+                            coupling_stiffness=-5e5, coupling_damping=-2e2,
+                            substeps=1):
+    """A rigid sphere sedimenting under its net weight, the step of
+    ``examples/3d/sedimenting_sphere.py`` with its defaults: a unit box,
+    the sphere of radius 0.06 and density 2 (fluid 1) at (0.5, 0.5, 0.65),
+    nu = 1, gravity chosen so that the Stokes terminal velocity ``v_t =
+    2 (rho_s - rho_f) g R^2 / (9 mu)`` is 0.05; ``SphereForcingGrid`` with
+    ``max(8, int(1.875 2R / L nx))`` points on the equator, coupling
+    stiffness -5e5 and damping -2e2; one ``DynamicRigidBody`` whose loads
+    are the net weight (gravity less buoyancy); ``dt_prefac`` 0.5,
+    ``substeps`` rigid substeps a flow step, the sparse window where it
+    fits (the step's default). Returns (fused step, carry, v_t, tau) with
+    the relaxation time ``tau = 2 rho_s R^2 / (9 mu)``; ``step.flow_sim``
+    is the simulator. The example's host loop is not here."""
+    real_t = get_real_t(precision)
+    grid_size = tuple(grid_size)
+    x_range, rho_f = 1.0, 1.0
+    rho_s = density_ratio * rho_f
+    mu = rho_f * kinematic_viscosity
+    radius = sphere_radius
+    g = (terminal_velocity_target * 9.0 * mu
+         / (2.0 * (rho_s - rho_f) * radius**2))
+    v_t = 2.0 * (rho_s - rho_f) * g * radius**2 / (9.0 * mu)
+    tau = 2.0 * rho_s * radius**2 / (9.0 * mu)
+
+    device = torch.device(device)
+    flow_sim = UnboundedFlowSimulator3D(
+        grid_size=grid_size,
+        x_range=x_range,
+        kinematic_viscosity=kinematic_viscosity,
+        flow_type="navier_stokes_with_forcing",
+        with_free_stream_flow=False,
+        real_t=real_t,
+        device=device,
+    )
+    sphere = Sphere(
+        center=np.array([0.5, 0.5, 0.65]) * x_range,
+        radius=radius,
+        device=device,
+        dtype=real_t,
+        density=rho_s,
+    )
+    forcing_grid = SphereForcingGrid(
+        rigid_body=sphere,
+        num_forcing_points_along_equator=max(
+            8, int(1.875 * 2.0 * radius / x_range * grid_size[-1])),
+    )
+    interactor = RigidBodyFlowInteraction(
+        flow_sim=flow_sim,
+        rigid_body=sphere,
+        forcing_grid=forcing_grid,
+        virtual_boundary_stiffness_coeff=coupling_stiffness,
+        virtual_boundary_damping_coeff=coupling_damping,
+    )
+    # net weight: gravity less buoyancy (the flow carries no body force)
+    net_weight = -(rho_s - rho_f) * (4.0 / 3.0) * np.pi * radius**3 * g
+    loads = (torch.tensor([0.0, 0.0, net_weight], dtype=real_t,
+                          device=device),
+             torch.zeros(3, dtype=real_t, device=device))
+    bodies = (DynamicRigidBody(interactor, sphere, lambda state, t: loads),)
+    step = build_multi_body_fsi_step(flow_sim, bodies, dt_prefac=0.5,
+                                     substeps=substeps)
+    step.flow_sim = flow_sim
+    carry = init_multi_body_fsi_carry(flow_sim, bodies, step)
+    return step, carry, v_t, tau

@@ -26,7 +26,11 @@ from sopht_mpi_tpu_torch.models.fsi import (
 from sopht_mpi_tpu_torch.models.rigid_body import RigidBodyState
 from sopht_mpi_tpu_torch.ops.virtual_boundary import VirtualBoundaryState
 from sopht_mpi_tpu_torch.parallel.fft import FOURIER_SHARDED_DIMS
-from sopht_mpi_tpu_torch.parallel.mesh import shard_dims, shard_vector_field
+from sopht_mpi_tpu_torch.parallel.mesh import (
+    shard_dims,
+    shard_scalar_field,
+    shard_vector_field,
+)
 
 
 def _fields(node, names):
@@ -57,8 +61,10 @@ def flow_state_from_numpy(tree, *, device, dtype, mesh=None):
     """(primary field, velocity_field, eul_grid_forcing_field) numpy arrays
     -> :class:`FlowState3D`, or :class:`FlowState2D` when the primary field
     is a 2D scalar (a dict names it ``primary_scalar_field``), on ``device``
-    in ``dtype``. With a 3D ``mesh`` of more than one shard the global
-    arrays are sharded over it, as a simulator on that mesh holds them."""
+    in ``dtype``. A 3D primary field is the vorticity or passive vector
+    (3, nz, ny, nx), or a passive scalar (nz, ny, nx); the forcing field may
+    be None. With a 3D ``mesh`` of more than one shard the global arrays
+    are sharded over it, as a simulator on that mesh holds them."""
     if isinstance(tree, dict):
         two_d = "primary_scalar_field" in tree
     else:
@@ -70,7 +76,9 @@ def flow_state_from_numpy(tree, *, device, dtype, mesh=None):
             raise NotImplementedError(
                 "a sharded 2D flow state is not ported yet (ROADMAP.md "
                 "queue A #11d)")
-        leaves = [None if v is None else shard_vector_field(v, mesh)
+        leaves = [None if v is None
+                  else (shard_vector_field if v.ndim == 4
+                        else shard_scalar_field)(v, mesh)
                   for v in leaves]
     return cls(*leaves)
 

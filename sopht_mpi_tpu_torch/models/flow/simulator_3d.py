@@ -1,11 +1,20 @@
-"""3D unbounded flow simulator, rotational-form vorticity Navier-Stokes
-(counterpart of ``sopht_mpi_tpu/models/flow/simulator_3d.py``: flow types
-``navier_stokes`` and ``navier_stokes_with_forcing``, on one device or on
-an in-process (pz, py) mesh of shards).
+"""3D unbounded flow simulator (counterpart of
+``sopht_mpi_tpu/models/flow/simulator_3d.py``): the flow types
+``passive_scalar``, ``passive_vector``, ``navier_stokes`` and
+``navier_stokes_with_forcing``, on one device or on an in-process (pz, py)
+mesh of shards.
 
-The transport is the rotational form: ``omega += dt/(2dx) curl(u x omega)``,
-then vector diffusion, then optional filtering, then velocity recovery
-(wall penalisation -> vector Poisson solve -> curl -> free stream).
+The passive types advect the primary field (a scalar, or three components
+with one velocity) by conservative ENO3 and diffuse it; their velocity
+never changes in the step, they build no Poisson solver, and their
+transport is plain torch on every device, as it is jnp in the JAX package
+(on a mesh it runs on the assembled fields through
+:func:`~sopht_mpi_tpu_torch.parallel.mesh.apply_assembled`).
+
+The Navier-Stokes transport is the rotational form:
+``omega += dt/(2dx) curl(u x omega)``, then vector diffusion, then optional
+filtering, then velocity recovery (wall penalisation -> vector Poisson
+solve -> curl -> free stream).
 
 With ``use_kernels`` (the default on a CUDA device) the stencil passes
 run the Hopper kernels of :mod:`sopht_mpi_tpu_torch.ops.cuda_stencils_3d`
@@ -50,8 +59,12 @@ from sopht_mpi_tpu_torch.ops import cuda_stencils_3d_sharded as sharded
 from sopht_mpi_tpu_torch.ops.elementwise import add_fixed_val, cross_product_3d
 from sopht_mpi_tpu_torch.ops.poisson import UnboundedPoissonSolver3D
 from sopht_mpi_tpu_torch.ops.stencils_3d import (
+    advection_timestep_eno3_3d,
+    advection_timestep_eno3_vector_3d,
     curl_3d,
+    diffusion_timestep_3d,
     diffusion_timestep_vector_3d,
+    divergence_3d,
     laplacian_filter_vector_3d,
     penalise_field_boundary_vector_3d,
     update_vorticity_from_velocity_forcing_3d,
@@ -61,14 +74,18 @@ from sopht_mpi_tpu_torch.parallel.mesh import (
     MESH_AXES_3D,
     apply_assembled,
     check_grid_divisibility,
+    shard_scalar_field,
     shard_vector_field,
+    unshard_vector_field,
 )
 from sopht_mpi_tpu_torch.utils.types import get_test_tol
 
 
 class FlowState3D(NamedTuple):
-    """``primary_field`` is the (3, nz, ny, nx) vorticity; on a mesh every
-    field is sharded, (pz, py, 3, nz/pz, ny/py, nx)."""
+    """``primary_field`` is the advected (nz, ny, nx) scalar for
+    passive_scalar flows, and the (3, nz, ny, nx) vorticity or passive
+    vector otherwise; on a mesh every field is sharded, (pz, py, 3, nz/pz,
+    ny/py, nx) or (pz, py, nz/pz, ny/py, nx)."""
 
     primary_field: torch.Tensor
     velocity_field: torch.Tensor
@@ -84,9 +101,11 @@ _RESTRICTED = {
 
 
 class UnboundedFlowSimulator3D:
-    """3D unbounded flow simulator on one device.
+    """3D unbounded flow simulator.
 
     :param grid_size: (nz, ny, nx).
+    :param flow_type: one of ``SUPPORTED_FLOW_TYPES``; the default
+        ``"passive_scalar"`` is the JAX package's.
     :param device: the torch device every field lives on; required, no
         default is taken from the environment.
     :param mesh: a mesh from ``parallel.create_mesh(3, (pz, py),
@@ -111,7 +130,13 @@ class UnboundedFlowSimulator3D:
 
     grid_dim = 3
 
-    SUPPORTED_FLOW_TYPES = ["navier_stokes", "navier_stokes_with_forcing"]
+    SUPPORTED_FLOW_TYPES = [
+        "passive_scalar",
+        "passive_vector",
+        "navier_stokes",
+        "navier_stokes_with_forcing",
+    ]
+    PASSIVE_FLOW_TYPES = ("passive_scalar", "passive_vector")
 
     def __init__(
         self,
@@ -122,7 +147,7 @@ class UnboundedFlowSimulator3D:
         device,
         time=0.0,
         CFL=0.1,
-        flow_type="navier_stokes",
+        flow_type="passive_scalar",
         with_free_stream_flow=False,
         real_t=torch.float32,
         mesh=None,
@@ -144,6 +169,10 @@ class UnboundedFlowSimulator3D:
         self.filter_vorticity = filter_vorticity
         if flow_type not in self.SUPPORTED_FLOW_TYPES:
             raise ValueError("Invalid flow type given")
+        if flow_type in self.PASSIVE_FLOW_TYPES and with_free_stream_flow:
+            raise ValueError(
+                "Free stream flow not defined for passive advection diffusion!"
+            )
         if mesh is not None:
             if getattr(mesh, "axis_names", None) != MESH_AXES_3D:
                 raise ValueError(
@@ -208,12 +237,22 @@ class UnboundedFlowSimulator3D:
         ), self.mesh)
 
     def _init_fields(self):
-        self.primary_field = self._zeros()
+        if self.flow_type == "passive_scalar":
+            self.primary_field = shard_scalar_field(torch.zeros(
+                self.grid_size, dtype=self.real_t, device=self.device
+            ), self.mesh)
+        else:
+            self.primary_field = self._zeros()
         self.velocity_field = self._zeros()
         self.eul_grid_forcing_field = (
             self._zeros() if self.flow_type == "navier_stokes_with_forcing"
             else None
         )
+        if self.flow_type in self.PASSIVE_FLOW_TYPES:
+            # the passive types never solve for a velocity: no solver, and
+            # no doubled-grid Green's spectrum
+            self.unbounded_poisson_solver = None
+            return
         self.unbounded_poisson_solver = UnboundedPoissonSolver3D(
             grid_size_z=self.grid_size_z,
             grid_size_y=self.grid_size_y,
@@ -232,6 +271,15 @@ class UnboundedFlowSimulator3D:
 
     @vorticity_field.setter
     def vorticity_field(self, value):
+        self.primary_field = value
+
+    # the name of the primary field of passive_vector flows
+    @property
+    def primary_vector_field(self):
+        return self.primary_field
+
+    @primary_vector_field.setter
+    def primary_vector_field(self, value):
         self.primary_field = value
 
     def step_config(self, flow_type=None) -> dict:
@@ -257,8 +305,12 @@ class UnboundedFlowSimulator3D:
     @property
     def _poisson_greens(self):
         """The solver's stored spectrum: dense (on a mesh in the sharded
-        Fourier layout), or the kernel route's (bulk, side) pair."""
-        return self.unbounded_poisson_solver.fourier_greens_times_dx_pow_dim
+        Fourier layout), or the kernel route's (bulk, side) pair; a 0-d
+        placeholder for the passive types, which build no solver."""
+        solver = self.unbounded_poisson_solver
+        if solver is None:
+            return torch.zeros((), dtype=self.real_t, device=self.device)
+        return solver.fourier_greens_times_dx_pow_dim
 
     def _get_state(self) -> FlowState3D:
         return FlowState3D(
@@ -304,6 +356,40 @@ class UnboundedFlowSimulator3D:
             dt_prefac * 0.9 * self.dx**2
             / (2 * self.grid_dim * self.kinematic_viscosity)
         )
+
+    def get_max_vorticity(self) -> float:
+        """The largest value of the primary field (a host read)."""
+        return float(self.vorticity_field.max())
+
+    def compute_flow_velocity(self):
+        """Recompute the velocity from the current vorticity: the wall
+        sponge, the vector Poisson solve and the curl, no free stream.
+        Needs a Navier-Stokes flow type (the passive types have no
+        solver)."""
+        solver = self.unbounded_poisson_solver
+        if solver is None:
+            raise ValueError(
+                f"compute_flow_velocity: a {self.flow_type} simulator has no "
+                "Poisson solver")
+        self.vorticity_field, self.velocity_field = compute_flow_velocity_3d(
+            self.vorticity_field,
+            torch.zeros(3, dtype=self.real_t, device=self.device),
+            dx=self.dx,
+            penalty_zone_width=self.penalty_zone_width,
+            poisson_solver=solver,
+            with_free_stream=False,
+            poisson_greens=self._poisson_greens,
+            use_kernels=self.use_kernels,
+            mesh=self.mesh,
+        )
+
+    def get_vorticity_divergence_l2_norm(self) -> float:
+        """``||div(omega)||_2 dx^1.5`` over the assembled field (a host
+        read)."""
+        div = divergence_3d(
+            unshard_vector_field(self.vorticity_field, self.mesh),
+            1.0 / self.dx)
+        return float(torch.linalg.vector_norm(div) * self.dx**1.5)
 
 
 # ---------------------------------------------------------------------------
@@ -461,6 +547,16 @@ def _transport_3d_sharded(field, velocity, mesh, *, pref, nu_dt_by_dx2,
     return apply_assembled(filter_and_sponge, mesh, field), True
 
 
+def _passive_scalar_transport(field, velocity, dt_by_dx, nu_dt_by_dx2):
+    field = advection_timestep_eno3_3d(field, velocity, dt_by_dx)
+    return diffusion_timestep_3d(field, nu_dt_by_dx2)
+
+
+def _passive_vector_transport(field, velocity, dt_by_dx, nu_dt_by_dx2):
+    field = advection_timestep_eno3_vector_3d(field, velocity, dt_by_dx)
+    return diffusion_timestep_vector_3d(field, nu_dt_by_dx2)
+
+
 def flow_step_3d(
     state: FlowState3D,
     dt,
@@ -481,17 +577,28 @@ def flow_step_3d(
 ):
     """One full 3D flow timestep (pure). ``dt`` is a 0-d tensor on the
     fields' device. ``return_velocity_l1_max=True`` returns
-    ``(state, l1_max)`` with the new velocity's ``max |u|_1``. With a
-    ``mesh`` the state's fields are sharded and the step takes the mesh
+    ``(state, l1_max)`` with the new velocity's ``max |u|_1``, or None for
+    the passive flow types, whose velocity never changes in the step. With
+    a ``mesh`` the state's fields are sharded and the step takes the mesh
     branch."""
     field = state.primary_field
     velocity = state.velocity_field
     forcing = state.eul_grid_forcing_field
     if flow_type not in UnboundedFlowSimulator3D.SUPPORTED_FLOW_TYPES:
-        raise NotImplementedError(
-            f"flow_type {flow_type!r} is not ported yet (ROADMAP.md queue A #7)"
-        )
+        raise ValueError(f"Invalid flow type {flow_type!r}")
     nu_dt_by_dx2 = nu * dt / dx / dx
+    if flow_type in UnboundedFlowSimulator3D.PASSIVE_FLOW_TYPES:
+        transport = (_passive_scalar_transport
+                     if flow_type == "passive_scalar"
+                     else _passive_vector_transport)
+        args = (dt / dx, nu_dt_by_dx2)
+        if mesh is None:
+            field = transport(field, velocity, *args)
+        else:
+            field = apply_assembled(
+                lambda f, u: transport(f, u, *args), mesh, field, velocity)
+        new_state = FlowState3D(field, velocity, forcing)
+        return (new_state, None) if return_velocity_l1_max else new_state
     pref = dt / (2.0 * dx)
     if flow_type == "navier_stokes_with_forcing" and mesh is None:
         field = update_vorticity_from_velocity_forcing_3d(field, forcing, pref)

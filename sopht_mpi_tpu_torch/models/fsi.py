@@ -888,6 +888,15 @@ def build_multi_body_fsi_step(
         )
         for i in range(len(bodies))
     )
+    # each dynamic body's principal inertia, on the device once: a copy
+    # from host memory at each substep would wait for the device
+    inertias = tuple(
+        torch.as_tensor(spec.rigid_body.inertia_body,
+                        dtype=spec.rigid_body.state.position.dtype,
+                        device=flow_sim.device)
+        if isinstance(spec, DynamicRigidBody) else None
+        for spec in bodies
+    )
     if sparse:
         flow_step_l1 = _flow_step_l1(flow_sim, "navier_stokes")
         body_tools = tuple(
@@ -957,8 +966,7 @@ def build_multi_body_fsi_step(
             state = rigid_body_position_verlet_step(
                 state, dt_sub.to(pdtype), force.to(pdtype),
                 torque.to(pdtype), spec.rigid_body.mass,
-                torch.as_tensor(spec.rigid_body.inertia_body, dtype=pdtype,
-                                device=state.position.device),
+                inertias[i].to(pdtype),
             )
         vb = virtual_boundary_time_step(vb, mismatch, dt_sub)
         return state, vb, ok
@@ -1184,7 +1192,8 @@ def build_flow_only_step(
     flow step) for the cases without a body, on one device or on the
     simulator's mesh: nothing in it waits for the device. Compose with
     :func:`scan_steps` using :func:`init_flow_only_carry`; the per-step
-    diagnostic is dt."""
+    diagnostic is dt. The passive flow types leave the velocity as it was,
+    so their step keeps the carried ``max |u|_1``."""
     flow_step_l1 = _flow_step_l1(flow_sim)
     flow_dt = _flow_dt_fn(flow_sim, dt_prefac)
     free_stream = _free_stream(free_stream_fn, flow_sim)
@@ -1194,6 +1203,8 @@ def build_flow_only_step(
         dt = flow_dt(u_l1)
         flow_state, new_l1 = flow_step_l1(
             flow_state, dt, free_stream(time), greens)
+        if new_l1 is None:
+            new_l1 = u_l1
         return FlowOnlyCarry(flow_state, time + dt, greens, new_l1), dt
 
     return step

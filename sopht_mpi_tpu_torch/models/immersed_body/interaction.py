@@ -148,6 +148,18 @@ class ImmersedBodyFlowInteraction:
             )
         )
 
+    @property
+    def position_mismatch(self):
+        """The penalty position-mismatch field, the IBM state a restart
+        must restore for the run to go on exactly."""
+        return self.state.position_mismatch
+
+    @position_mismatch.setter
+    def position_mismatch(self, value):
+        old = self.state.position_mismatch
+        self.state = self.state._replace(position_mismatch=torch.as_tensor(
+            value, dtype=old.dtype, device=old.device))
+
     def get_grid_deviation_error_l2_norm(self) -> float:
         """L2 norm of the flow-body grid deviation."""
         num = max(self.forcing_grid.num_lag_nodes, 1)

@@ -1,14 +1,28 @@
 """Numerics on tensors: stencil ops and their Hopper kernels, the
 free-space Poisson solver, immersed-boundary transfers and forcing."""
 
-from sopht_mpi_tpu_torch.ops.elementwise import add_fixed_val, cross_product_3d
+from sopht_mpi_tpu_torch.ops.elementwise import (
+    add_fixed_val,
+    cross_product_3d,
+    saxpby,
+    set_fixed_val,
+)
 from sopht_mpi_tpu_torch.ops.stencils_3d import (
+    advection_flux_conservative_eno3_3d,
+    advection_timestep_eno3_3d,
+    advection_timestep_eno3_vector_3d,
+    brinkmann_penalise_3d,
+    char_func_from_level_set_via_sine_heaviside_3d,
     curl_3d,
+    diffusion_flux_3d,
+    diffusion_timestep_3d,
     diffusion_timestep_vector_3d,
+    divergence_3d,
     laplacian_filter_3d,
     laplacian_filter_vector_3d,
     penalise_field_boundary_3d,
     penalise_field_boundary_vector_3d,
+    update_vorticity_from_penalised_velocity_3d,
     update_vorticity_from_velocity_forcing_3d,
 )
 from sopht_mpi_tpu_torch.ops.stencils_2d import (

@@ -18,12 +18,24 @@ import torch.nn.functional as F
 from sopht_mpi_tpu_torch.ops._stencil_utils import (
     axslice,
     central_diff_interior,
+    eno3_divergence_interior,
     laplacian_interior,
     pad_all,
 )
 
 _X, _Y, _Z = 0, 1, 2  # vector component indices
 _ZAX, _YAX, _XAX = 0, 1, 2  # grid axes of a scalar field
+
+
+def diffusion_flux_3d(field, prefactor):
+    """``prefactor * discrete_laplacian(field)`` of a scalar field, zero in
+    a width-1 band at the walls."""
+    return pad_all(prefactor * laplacian_interior(field), 1)
+
+
+def diffusion_timestep_3d(field, nu_dt_by_dx2):
+    """Euler-forward diffusion of a scalar field: ``field += flux``."""
+    return field + diffusion_flux_3d(field, nu_dt_by_dx2)
 
 
 def diffusion_timestep_vector_3d(vector_field, nu_dt_by_dx2):
@@ -34,6 +46,29 @@ def diffusion_timestep_vector_3d(vector_field, nu_dt_by_dx2):
         1,
         start_axis=1,
     )
+
+
+def advection_flux_conservative_eno3_3d(field, velocity, inv_dx):
+    """Conservative ENO3 advective flux of a scalar field, summed over the
+    three axes: ``inv_dx * div(u q)`` (undivided differences); the
+    advection timestep passes ``inv_dx = -dt/dx`` and adds the result."""
+    div = eno3_divergence_interior(field, velocity[_Z], axis=_ZAX)
+    div = div + eno3_divergence_interior(field, velocity[_Y], axis=_YAX)
+    div = div + eno3_divergence_interior(field, velocity[_X], axis=_XAX)
+    return inv_dx * div
+
+
+def advection_timestep_eno3_3d(field, velocity, dt_by_dx):
+    """Euler-forward conservative ENO3 advection of a scalar field."""
+    return field + advection_flux_conservative_eno3_3d(
+        field, velocity, -dt_by_dx)
+
+
+def advection_timestep_eno3_vector_3d(vector_field, velocity, dt_by_dx):
+    """:func:`advection_timestep_eno3_3d` on each component, all advected
+    by the one ``velocity``."""
+    return torch.stack([advection_timestep_eno3_3d(f, velocity, dt_by_dx)
+                        for f in vector_field])
 
 
 def curl_3d(field, prefactor):
@@ -55,6 +90,44 @@ def update_vorticity_from_velocity_forcing_3d(
     """``vorticity += prefactor * 2 * curl(velocity_forcing)`` on the
     interior with ``prefactor = dt/(2 dx)``; the wall ring is unchanged."""
     return vorticity + curl_3d(velocity_forcing, prefactor)
+
+
+def divergence_3d(field, inv_dx):
+    """Central-difference divergence of a (3, nz, ny, nx) vector field,
+    ``0.5 inv_dx (d_x u_x + d_y u_y + d_z u_z)``; zero in a width-1 band at
+    the walls."""
+    div = (
+        central_diff_interior(field[_X], axis=_XAX)
+        + central_diff_interior(field[_Y], axis=_YAX)
+        + central_diff_interior(field[_Z], axis=_ZAX)
+    )
+    return pad_all(0.5 * inv_dx * div, 1)
+
+
+def update_vorticity_from_penalised_velocity_3d(
+    vorticity, penalised_velocity, velocity, prefactor
+):
+    """``vorticity += prefactor * 2 * curl(penalised_velocity - velocity)``
+    on the interior; the wall ring is unchanged."""
+    return vorticity + curl_3d(penalised_velocity - velocity, prefactor)
+
+
+def brinkmann_penalise_3d(velocity, penalty_factor, char_field,
+                          penalty_velocity):
+    """Implicit Brinkmann penalisation toward ``penalty_velocity`` inside
+    the body (``char_field`` in [0, 1]):
+    ``u = (u + k chi u_body) / (1 + k chi)``."""
+    denom = 1.0 + penalty_factor * char_field
+    return (velocity + penalty_factor * char_field * penalty_velocity) / denom
+
+
+def char_func_from_level_set_via_sine_heaviside_3d(level_set, blend_width):
+    """Smooth characteristic function from a signed-distance level set
+    (positive inside the body), blended over ``blend_width``:
+    ``H = 0.5 (1 + phi/w + sin(pi phi/w)/pi)`` clipped to [0, 1]."""
+    phi = level_set / blend_width
+    h = 0.5 * (1.0 + phi + torch.sin(math.pi * phi) / math.pi)
+    return torch.clamp(h, 0.0, 1.0)
 
 
 def _penalise_axes(field, width: int, axes):

@@ -168,22 +168,35 @@ def unshard_vector_field(field, mesh: Mesh | None):
     return unshard_dims(field, mesh, _grid_dims(mesh, 1))
 
 
+def _is_vector(field, mesh: Mesh, sharded: bool) -> bool:
+    """A vector field carries one axis more than the mesh's grid; a
+    sharded field leads with one axis for each of the mesh's axes."""
+    return field.ndim == (mesh.grid_dim + 1
+                          + (len(mesh.axis_names) if sharded else 0))
+
+
 def on_assembled(fn, mesh: Mesh, *fields):
-    """``fn`` of the assembled (global) vector fields, sharded again,
-    uncounted: for plain versions and tests. ``fn`` gets contiguous fields
-    (on one-plane or one-row shards the assembled field is a strided view),
-    as the single-device kernels need."""
-    out = fn(*(unshard_vector_field(f, mesh).contiguous() for f in fields))
-    return shard_vector_field(out, mesh)
+    """``fn`` of the assembled (global) fields, scalar or vector, sharded
+    again, uncounted: for plain versions and tests. ``fn`` gets contiguous
+    fields (on one-plane or one-row shards the assembled field is a strided
+    view), as the single-device kernels need."""
+    out = fn(*(
+        (unshard_vector_field if _is_vector(f, mesh, True)
+         else unshard_scalar_field)(f, mesh).contiguous()
+        for f in fields))
+    if _is_vector(out, mesh, False):
+        return shard_vector_field(out, mesh)
+    return shard_scalar_field(out, mesh)
 
 
 def apply_assembled(fn, mesh: Mesh, *fields):
-    """:func:`on_assembled` on a path of the port: for
-    the ops the JAX package leaves to its SPMD partitioner under a mesh
-    (the Laplacian filter, the wall sponge outside the fused kernel, the
-    forcing update), which have no sharded kernel. It gathers every shard,
-    so it counts its calls like a collective (``apply_assembled.calls``);
-    the four ops that have a sharded kernel never come here."""
+    """:func:`on_assembled` on a path of the port: for the ops the JAX
+    package leaves to its SPMD partitioner under a mesh (the Laplacian
+    filter, the wall sponge outside the fused kernel, the forcing update,
+    the passive transport), which have no sharded kernel. It gathers every
+    shard, so it counts its calls like a collective
+    (``apply_assembled.calls``); the four ops that have a sharded kernel
+    never come here."""
     apply_assembled.calls += 1
     return on_assembled(fn, mesh, *fields)
 

@@ -262,7 +262,8 @@ def test_fast_tier_falls_back_to_solve_and_curl(why, monkeypatch):
     def run(fast):
         sim = UnboundedFlowSimulator3D(
             grid_size=grid, x_range=1.0, kinematic_viscosity=1e-3,
-            with_free_stream_flow=True, real_t=dtype, device="cpu",
+            flow_type="navier_stokes", with_free_stream_flow=True,
+            real_t=dtype, device="cpu",
             use_kernels=why != "kernels-off", fast_spectral=fast)
         sim.primary_field = torch.tensor(_sim_state(grid), dtype=dtype)
         sim.time_step(1e-3, free_stream_velocity=(1.0, 0.5, 0.0))
@@ -283,7 +284,8 @@ def test_enable_fast_spectral_is_construction_time(monkeypatch):
     after = build()
     assert after.fast_spectral is True and before.fast_spectral is False
     assert build(fast_spectral=False).fast_spectral is False  # explicit wins
-    sim = UnboundedFlowSimulator3D((8, 8, 8), 1.0, 1e-3, device="cpu")
+    sim = UnboundedFlowSimulator3D((8, 8, 8), 1.0, 1e-3, device="cpu",
+                                   flow_type="navier_stokes")
     assert sim.unbounded_poisson_solver.fast_spectral is True
     sopht_mpi_tpu_torch.enable_fast_spectral(False)
     assert build().fast_spectral is False and after.fast_spectral is True

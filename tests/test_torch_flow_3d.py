@@ -148,11 +148,17 @@ def test_stable_timestep_matches_jax(precision):
 
 def test_constructor_option_checks():
     common = dict(grid_size=(8, 8, 8), x_range=1.0, kinematic_viscosity=1e-3,
-                  device="cpu")
+                  device="cpu", flow_type="navier_stokes")
     with pytest.raises(TypeError, match="overlap_chunk"):
         UnboundedFlowSimulator3D(**common, overlap_chunk=1)
+    # the passive flow types build: a scalar (nz, ny, nx) primary field for
+    # passive_scalar, and no Poisson solver
+    passive = UnboundedFlowSimulator3D(**{**common,
+                                          "flow_type": "passive_scalar"})
+    assert passive.primary_field.shape == (8, 8, 8)
+    assert getattr(passive, "unbounded_poisson_solver", None) is None
     with pytest.raises(ValueError):
-        UnboundedFlowSimulator3D(**common, flow_type="passive_scalar")
+        UnboundedFlowSimulator3D(**{**common, "flow_type": "stokes"})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         UnboundedFlowSimulator3D(**common, comm_bf16=True)
     # a mesh is accepted where it divides the grid and lies on the device

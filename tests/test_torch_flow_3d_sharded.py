@@ -188,7 +188,7 @@ def test_stable_timestep_on_a_sharded_velocity():
     assert out.ndim == 0 and float(out) == float(ref)
     sim = UnboundedFlowSimulator3D(
         grid_size=(8, 16, 12), x_range=1.0, kinematic_viscosity=2e-3,
-        device="cpu", mesh=mesh)
+        flow_type="navier_stokes", device="cpu", mesh=mesh)
     assert sim.mesh is mesh
     assert sim.velocity_field.shape == (2, 4, 3, 4, 4, 12)
     assert sim.position_field.shape == (2, 4, 3, 4, 4, 12)
@@ -199,7 +199,8 @@ def test_stable_timestep_on_a_sharded_velocity():
     # a mesh of one shard is the single-device simulator
     one = UnboundedFlowSimulator3D(
         grid_size=(8, 16, 12), x_range=1.0, kinematic_viscosity=2e-3,
-        device="cpu", mesh=create_mesh(3, (1, 1), device="cpu"))
+        flow_type="navier_stokes", device="cpu",
+        mesh=create_mesh(3, (1, 1), device="cpu"))
     assert one.mesh is None and one.velocity_field.shape == (3, 8, 16, 12)
 
 
@@ -236,7 +237,7 @@ def test_mesh_refusals():
     mesh = create_mesh(3, (2, 2), device="cpu")
     sim = UnboundedFlowSimulator3D(
         grid_size=(8, 8, 8), x_range=1.0, kinematic_viscosity=1e-3,
-        device="cpu", mesh=mesh)
+        flow_type="navier_stokes", device="cpu", mesh=mesh)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ImmersedBodyFlowInteraction(sim, None, 1.0, 1.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

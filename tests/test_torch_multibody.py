@@ -327,7 +327,7 @@ def test_argument_errors():
         build((tm.DynamicRigidBody(specs[1].interactor, fixed_sphere),))
     plain = tm.UnboundedFlowSimulator3D(
         grid_size=GRID, x_range=1.0, kinematic_viscosity=1e-3,
-        real_t=torch.float64, device="cpu")
+        flow_type="navier_stokes", real_t=torch.float64, device="cpu")
     with pytest.raises(ValueError, match="sparse_forcing=True"):
         tm.build_multi_body_fsi_step(plain, specs, sparse_forcing=True)
     step = build(substeps=1, substep_load_refresh="flow_step")
