@@ -160,7 +160,30 @@ raises and exits non-zero, and nothing falls back to the CPU:
     (``build/sedimenting_sphere_profile.txt``); the sphere's z position and
     velocity against the JAX package's CPU trajectory
     (``sopht_mpi_tpu_torch/data/sedimenting_sphere_reference.json``); 3
-    steps at 32^3 against the port's CPU run.
+    steps at 32^3 against the port's CPU run;
+28. io: the native async dumper (``AsyncFieldDumper``, built by ``g++``
+    from ``sopht_mpi_tpu_torch/csrc/async_dump.cpp`` into
+    ``build/sopht_mpi_tpu_torch/``) writes a 256^3 float32 vector field from
+    the card that loads back equal; a ``CarryCheckpointer`` save and restore
+    of the 256^3 sphere carry (its Green's pair included), 5 steps from the
+    restored carry against 5 from the original, gated at the gap between two
+    unbroken 5-step runs (bit-equal where that gap is 0, else within 10
+    times it), the save and restore times; ``measure_op_time`` on
+    ``curl_3d`` at 256^3 beside phase 3's event median;
+29. sphere driver: ``examples_torch/3d/flow_past_sphere.py``'s fused loop
+    at the example's 128^3 (windows of 100 steps) with a snapshot at every
+    window end, in turns with the same run without snapshots: each
+    snapshot equals the carry at its window's end, ``times.csv`` holds the
+    windows' times, each step launches ``fft_greens_ifft_pass`` and
+    ``irfft_pass_merge`` once, and the snapshots' cost a window (the
+    writer's own time and the window's wall time against the run without);
+30. freely rotating rod restart: ``examples_torch/3d/
+    flow_past_freely_rotating_rod.py``'s fused loop at the example's
+    default (64, 64, 128) with the ``carry`` checkpoint backend, run to t =
+    0.02 and restarted in fresh objects to 0.04, against an unbroken run to
+    0.04, gated at the gap between two unbroken runs as in phase 28; the
+    restarted run launches ``conv_filter_zmarch_kernel`` once a step (order
+    5). The phases run in ``build/`` and remove what they write.
 
 Phase 3 also checks the fused-curl pair against its plain versions at the
 256^3 sphere's, the (128, 128, 256) multi-body case's, the 64^3 drag run's
@@ -185,8 +208,10 @@ the main path's shape); the last line is
 repository beside it, the script exits non-zero and prints no result.
 """
 
+import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -232,6 +257,15 @@ SEDIMENT_GRID = (64, 64, 64)
 SEDIMENT_PARITY_GRID = (32, 32, 32)
 SEDIMENT_VZ_TOL = 1e-8
 SEDIMENT_Z_TOL = 1e-10
+# phase 28: the dumped field and the sphere carry; the gate on a restarted
+# run against the gap between two unbroken runs (0: bit-equal)
+IO_GRID = (256, 256, 256)
+RESTART_FLOOR_FACTOR = 10.0
+# phase 29: the sphere driver at the example's grid, run to this t*
+SPHERE_DRIVER_GRID = (128, 128, 128)
+SPHERE_DRIVER_T = 0.5
+# phase 30: the freely rotating rod driver restarted at t = 0.02, run to 0.04
+FREE_ROD_RESTART_T = (0.02, 0.04)
 # the convolution filter's row of the kernel table: its TPU kernel
 CONV_REPLACES = "sopht_mpi_tpu/ops/pallas_stencils_3d.py:825"
 # the rod tip against the JAX package's trajectory: the bound to which
@@ -2778,6 +2812,294 @@ def main():
             f"max|diff| {errs} [{card}]")
 
     sedimenting_sphere_phase()
+
+    from sopht_mpi_tpu_torch import _build
+    from sopht_mpi_tpu_torch.utils import (
+        AsyncFieldDumper,
+        CarryCheckpointer,
+        measure_op_time,
+        native_io,
+    )
+    from sopht_mpi_tpu_torch.utils.checkpoint import _flatten
+
+    def carry_gap(a, b):
+        """Largest |difference| between the tensors of two trees of the
+        same structure."""
+        fa, fb = _flatten(a), _flatten(b)
+        check(fa.keys() == fb.keys(), "the two carries differ in structure")
+        return max((float((fa[k].double() - fb[k].double()).abs().max())
+                    for k in fa if fa[k].numel()), default=0.0)
+
+    def restart_bound(floor):
+        return 0.0 if floor == 0.0 else RESTART_FLOOR_FACTOR * floor
+
+    def fresh_dir(name):
+        path = os.path.join(REPO, "build", name)
+        shutil.rmtree(path, ignore_errors=True)
+        os.makedirs(path)
+        return path
+
+    def load_example(name):
+        """``examples_torch/3d/<name>.py`` as a module."""
+        spec = importlib.util.spec_from_file_location(
+            f"examples_torch_{name}",
+            os.path.join(REPO, "examples_torch", "3d", f"{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+
+    @phase("io")
+    def io_phase():
+        """The native dumper on a 256^3 field from the card; the 256^3
+        sphere carry saved, restored and stepped; measure_op_time."""
+        io_dir = fresh_dir("io_phase")
+        try:
+            dumper = AsyncFieldDumper()
+            lib_path = os.path.realpath(native_io.library().path)
+            check(dumper.is_native, "the dumper is not the native writer")
+            check(os.path.dirname(lib_path)
+                  == os.path.realpath(_build.BUILD_DIR),
+                  f"the dumper's library {lib_path} is not in build/")
+            gen = torch.Generator(device=dev).manual_seed(28)
+            field = torch.randn((3, *IO_GRID), device=dev, generator=gen)
+            path = os.path.join(io_dir, "field.npy")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dumper.dump(path, field)
+            dump_s = time.perf_counter() - t0
+            dumper.flush()
+            write_s = time.perf_counter() - t0
+            check(dumper.failed() == 0, f"{dumper.failed()} failed writes")
+            # the queueing's two parts: the device-to-host copy and the
+            # writer's copy of those bytes into its queue
+            t0 = time.perf_counter()
+            host = field.cpu().numpy()
+            d2h_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            np.array(host, copy=True)
+            memcpy_s = time.perf_counter() - t0
+            check(np.array_equal(np.load(path), host),
+                  "the dumped field does not load back equal")
+            dumper.close()
+            dump = (f"dumper {os.path.basename(lib_path)}: a {field.nbytes / 2**20:.0f} "
+                    f"MiB field queued in {dump_s * 1e3:.3f} ms (a second "
+                    f"device-to-host copy alone {d2h_s * 1e3:.3f} ms, a host "
+                    f"copy into fresh memory {memcpy_s * 1e3:.3f} ms), on disk "
+                    f"after {write_s * 1e3:.3f} ms, loads back equal")
+            del host
+            del field
+
+            step, (carry,) = cases._build_fsi_case(IO_GRID, device=dev)
+            check(isinstance(carry.greens, tuple), f"the {IO_GRID} carry "
+                  "holds no split Green's pair")
+            carry, _ = scan_steps(step, carry, 5)
+            ref_a, _ = scan_steps(step, carry, 5)
+            ref_b, _ = scan_steps(step, carry, 5)
+            floor = carry_gap(ref_a, ref_b)
+            nbytes = sum(t.nbytes for t in _flatten(carry).values())
+            ckpt = CarryCheckpointer(os.path.join(io_dir, "carry"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt.save(5, carry)
+            copy_s = time.perf_counter() - t0
+            ckpt.wait_until_finished()
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            restored = ckpt.restore(template=carry)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            ckpt.close()
+            check(carry_gap(restored, carry) == 0.0,
+                  "the restored carry differs from the saved one")
+            check(restored.greens[0].device == dev, "restored off the card")
+            out, _ = scan_steps(step, restored, 5)
+            gap = carry_gap(out, ref_a)
+            check(gap <= restart_bound(floor),
+                  f"5 steps from the restored carry differ by {gap} from 5 "
+                  f"from the original (two unbroken runs: {floor})")
+            del carry, ref_a, ref_b, restored, out
+
+            w = torch.randn((3, *IO_GRID), device=dev, generator=gen)
+            p = torch.tensor(0.25, device=dev)
+            op_s = measure_op_time(lambda x: kernels.curl_3d(x, p), w,
+                                   iters=20, repeats=3)
+        finally:
+            shutil.rmtree(io_dir, ignore_errors=True)
+        return None, (
+            f"{dump}; {IO_GRID} sphere carry ({nbytes / 2**20:.1f} MiB, Green's "
+            f"pair included): save {copy_s * 1e3:.3f} ms to the host copy, "
+            f"{save_s * 1e3:.3f} ms to the file, restore {restore_s * 1e3:.3f}"
+            f" ms; 5 steps from the restored carry vs the original max|diff| "
+            f"{gap:.3g}, two unbroken runs {floor:.3g} (bound "
+            f"{restart_bound(floor):.3g}); measure_op_time curl_3d {IO_GRID} "
+            f"{op_s * 1e3:.4f} ms a call (chain of 20, best of 3), phase 3's "
+            f"event median {table['curl_3d']['ms']:.4f} ms [{card}]")
+
+    io_phase()
+
+    @phase("sphere driver")
+    def sphere_driver_phase():
+        """The fused sphere driver with and without a snapshot at every
+        window end, in turns."""
+        mod = load_example("flow_past_sphere")
+        rec = {}
+        scan = mod.scan_steps
+
+        def recording_scan(step, carry, n):
+            carry, diag = scan(step, carry, n)
+            torch.cuda.synchronize()
+            rec["carries"].append(carry)
+            rec["steps"] += n
+            rec["ends"].append(time.perf_counter())
+            return carry, diag
+
+        class TimedWriter(mod.SnapshotWriter):
+            def maybe_save(self, t, **fields):
+                t0 = time.perf_counter()
+                saved = super().maybe_save(t, **fields)
+                rec["save_s"].append(time.perf_counter() - t0)
+                return saved
+
+        mod.scan_steps = recording_scan
+        mod.SnapshotWriter = TimedWriter
+        cwd = os.getcwd()
+        run_dir = fresh_dir("sphere_driver")
+        windows = {False: [], True: []}
+        try:
+            for k, snaps in enumerate((False, True, True, False)):
+                shutil.rmtree(run_dir)
+                os.makedirs(run_dir)
+                os.chdir(run_dir)
+                rec.update(carries=[], steps=0, ends=[], save_s=[])
+                first_snap_run = snaps and not windows[True]
+                if first_snap_run:
+                    reset_counts()
+                times, cds = mod.flow_past_sphere_fused_case(
+                    nondim_time=SPHERE_DRIVER_T, grid_size=SPHERE_DRIVER_GRID,
+                    save_interval=1e-9 if snaps else None, device=dev)
+                os.chdir(cwd)
+                n_win = len(rec["carries"])
+                check(n_win >= 2 and len(cds) == n_win,
+                      f"{n_win} windows, {len(cds)} drags")
+                check(np.isfinite(cds).all(), f"non-finite Cd {cds}")
+                windows[snaps].append(np.diff(rec["ends"]))
+                if not first_snap_run:
+                    continue
+                steps = rec["steps"]
+                launches = {n: by_name[n].launches for n in
+                            ("fft_greens_ifft_pass", "irfft_pass_merge")}
+                for name, count in launches.items():
+                    check(count == steps, f"{name} launched {count} times in "
+                          f"{steps} steps of the sphere driver")
+                snap_dir = os.path.join(run_dir, "snapshots")
+                manifest = np.loadtxt(os.path.join(snap_dir, "times.csv"),
+                                      delimiter=",", skiprows=1, ndmin=2)
+                check(manifest.shape == (n_win, 2) and np.array_equal(
+                    manifest[:, 0], np.arange(n_win)), "times.csv rows")
+                for i, c in enumerate(rec["carries"]):
+                    check(manifest[i, 1] == float(c.time),
+                          f"times.csv row {i}: {manifest[i, 1]} is not the "
+                          f"window's time {float(c.time)}")
+                    for name, f in (("vorticity", c.flow_state.primary_field),
+                                    ("velocity", c.flow_state.velocity_field)):
+                        snap = np.load(os.path.join(snap_dir,
+                                                    f"{name}_{i:04d}.npy"))
+                        check(np.array_equal(snap, f.cpu().numpy()),
+                              f"snapshot {name}_{i:04d} is not the carry's")
+                drag = np.loadtxt(os.path.join(run_dir, "drag_vs_time.csv"),
+                                  delimiter=",", ndmin=2)
+                check(drag.shape == (n_win, 2), "drag_vs_time.csv rows")
+                first = (f"{n_win} windows of {steps // n_win} steps to t* = "
+                         f"{times[-1]:.4f}, Cd {cds[-1]:.4f}, {2 * n_win} "
+                         f"snapshots equal to the carry, times.csv right, "
+                         f"launches {launches} in {steps} steps; writer "
+                         f"{np.mean(rec['save_s']) * 1e3:.3f} ms a snapshot "
+                         f"({np.array2string(np.asarray(rec['save_s']) * 1e3, precision=3)} ms)")
+        finally:
+            os.chdir(cwd)
+            shutil.rmtree(run_dir, ignore_errors=True)
+        walls = {k: [float(np.mean(w)) * 1e3 for w in v]
+                 for k, v in windows.items()}
+        return None, (
+            f"{SPHERE_DRIVER_GRID} f32: {first}; a window's wall (after the "
+            f"first) in turns without / with / with / without snapshots: "
+            f"{walls[False][0]:.3f} / {walls[True][0]:.3f} / "
+            f"{walls[True][1]:.3f} / {walls[False][1]:.3f} ms, snapshot "
+            f"overhead {np.mean(walls[True]) - np.mean(walls[False]):.3f} ms "
+            f"a window [{card}]")
+
+    sphere_driver_phase()
+
+    @phase("freely rotating rod restart")
+    def free_rod_restart_phase():
+        """The fused freely rotating rod driver with the carry backend:
+        restarted against unbroken."""
+        mod = load_example("flow_past_freely_rotating_rod")
+        rec = {"steps": 0}
+        scan = mod.scan_steps
+
+        def counting_scan(step, carry, n):
+            rec["steps"] += n
+            return scan(step, carry, n)
+
+        mod.scan_steps = counting_scan
+        base = fresh_dir("free_rod_restart")
+        t1, t2 = FREE_ROD_RESTART_T
+
+        def run(name, final_time, restart=False):
+            t0 = time.perf_counter()
+            rod, sim = mod.flow_past_freely_rotating_rod_case(
+                final_time=final_time, fused=True,
+                checkpoint_backend="carry",
+                restart_dir=os.path.join(base, name),
+                restart_simulation=restart, device=dev)
+            torch.cuda.synchronize()
+            fields = {"vorticity": sim.vorticity_field,
+                      "velocity": sim.velocity_field,
+                      **{f"rod {k}": v for k, v in rod.state._asdict().items()}}
+            return fields, sim.time, time.perf_counter() - t0
+
+        try:
+            rec["steps"] = 0
+            ref_a, time_a, wall_a = run("unbroken_a", t2)
+            steps = rec["steps"]
+            ref_b, time_b, _ = run("unbroken_b", t2)
+            floor = carry_gap(ref_a, ref_b)
+            rec["steps"] = 0
+            _, time_1, _ = run("restart", t1)
+            first_steps = rec["steps"]
+            check(t2 > time_1 >= t1, f"first leg ended at t = {time_1}")
+            rec["steps"] = 0
+            reset_counts()
+            out, time_2, wall_2 = run("restart", t2, restart=True)
+            restart_steps = rec["steps"]
+            launches = kernels.laplacian_filter_vector_3d.launches
+            check(launches == restart_steps,
+                  f"conv_filter_zmarch_kernel launched {launches} times in "
+                  f"{restart_steps} steps")
+            check(first_steps + restart_steps == steps,
+                  f"{first_steps} + {restart_steps} steps restarted, {steps} "
+                  f"unbroken")
+            for what, t in out.items():
+                check(bool(torch.isfinite(t).all()), f"non-finite {what}")
+            gap = carry_gap(out, ref_a)
+            check(gap <= restart_bound(floor),
+                  f"restarted run differs by {gap} from the unbroken one (two "
+                  f"unbroken runs: {floor})")
+            files = sorted(os.listdir(os.path.join(base, "restart", "carry")))
+        finally:
+            shutil.rmtree(base, ignore_errors=True)
+        return None, (
+            f"{FREE_ROD_GRID} f32 flow, f64 rod, carry backend: unbroken "
+            f"{steps} steps to t = {time_a!r} (again: {time_b!r}) in "
+            f"{wall_a:.2f} s; restarted at t = {time_1:.6f} after "
+            f"{first_steps} steps, {restart_steps} more steps to {time_2!r} "
+            f"in {wall_2:.2f} s, {launches} filter launches; "
+            f"checkpoints {files}; restarted vs unbroken max|diff| {gap:.3g}, "
+            f"two unbroken runs {floor:.3g} (bound "
+            f"{restart_bound(floor):.3g}) [{card}]")
+
+    free_rod_restart_phase()
 
     for row in table.values():
         check(row["launches"], f"{row['name']} was launched on no path")

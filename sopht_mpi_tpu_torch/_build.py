@@ -1,10 +1,11 @@
-"""Build the package's CUDA sources into shared libraries at first use.
+"""Build the package's native sources into shared libraries at first use.
 
-Each library is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+Each CUDA library is compiled by ``nvcc`` for Hopper (``sm_90a``), the
+host-side async dump writer by ``g++``, into
 ``<checkout>/build/sopht_mpi_tpu_torch/`` under a name keyed on a hash of
-its sources and flags, so an edited ``.cu`` file rebuilds and an unchanged
-one is loaded as it is. The libraries export a plain C interface and are
-loaded with :mod:`ctypes`; nothing here imports PyTorch's C++ headers.
+its sources and flags, so an edited source rebuilds and an unchanged one is
+loaded as it is. The libraries export a plain C interface and are loaded
+with :mod:`ctypes`; nothing here imports PyTorch's C++ headers.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-pthread", "-std=c++17")
 
 
 def find_nvcc() -> str:
@@ -48,14 +50,18 @@ def find_nvcc() -> str:
 
 
 def build_library(name: str, sources: tuple[str, ...],
-                  includes: tuple[str, ...] = ()) -> tuple[Path, str]:
+                  includes: tuple[str, ...] = (), *,
+                  host: bool = False) -> tuple[Path, str]:
     """Compile ``sources`` (file names under ``csrc/``, or absolute paths)
-    into ``lib<name>-<hash>.so`` unless it exists; the hash also covers the
-    ``includes`` the sources include. Returns (path, compiler log, empty
-    when the library was already built)."""
+    into ``lib<name>-<hash>.so`` unless it exists, with ``nvcc``, or with
+    ``g++`` when ``host``; the hash also covers the ``includes`` the
+    sources include. Returns (path, compiler log, empty when the library
+    was already built). A failed build raises with the compiler's
+    output."""
+    flags = GXX_FLAGS if host else NVCC_FLAGS
     paths = [CSRC_DIR / s for s in sources]
     digest = hashlib.sha256()
-    for flag in NVCC_FLAGS:
+    for flag in flags:
         digest.update(flag.encode())
     for p in paths + [CSRC_DIR / s for s in includes]:
         digest.update(p.name.encode())
@@ -66,12 +72,14 @@ def build_library(name: str, sources: tuple[str, ...],
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, paths)]
+    compiler = "g++" if host else find_nvcc()
+    cmd = [compiler, *flags, "-o", tmp, *map(str, paths)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{os.path.basename(compiler)} failed ({proc.returncode}): "
+                f"{' '.join(cmd)}\n"
                 f"{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
@@ -82,10 +90,12 @@ def build_library(name: str, sources: tuple[str, ...],
 
 
 def load_library(name: str, sources: tuple[str, ...],
-                 includes: tuple[str, ...] = ()) -> ctypes.CDLL:
+                 includes: tuple[str, ...] = (), *,
+                 host: bool = False) -> ctypes.CDLL:
     """Build (if needed) and load a library; the compiler log is kept as
-    ``lib.build_log``."""
-    path, log = build_library(name, sources, includes)
+    ``lib.build_log`` and the file as ``lib.path``."""
+    path, log = build_library(name, sources, includes, host=host)
     lib = ctypes.CDLL(str(path))
     lib.build_log = log
+    lib.path = path
     return lib

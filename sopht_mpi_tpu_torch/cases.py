@@ -18,6 +18,8 @@ sphere sedimenting under its weight (``examples/3d/sedimenting_sphere.py``).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -32,6 +34,7 @@ from sopht_mpi_tpu_torch.models import (
     Cylinder,
     DynamicRigidBody,
     FixedRigidBody,
+    FlowForces,
     GeneralConstraint,
     GravityForces,
     OneEndFixedBC,
@@ -182,22 +185,32 @@ def sharded_flow_case(grid_size, mesh_shape, *, device, precision="single",
     return step, (init_flow_only_carry(flow_sim),)
 
 
-def flow_past_sphere_fused_case(
-    nondim_time=10.0,
+class SphereDragCase(NamedTuple):
+    """The objects of the flow-past-sphere drag case: the simulator, the
+    sphere's interactor (its ``forcing_grid``), the free stream tensor, the
+    drag force scale ``0.5 rho U^2 pi d^2 / 4`` and the time scale d / U."""
+
+    flow_sim: UnboundedFlowSimulator3D
+    interactor: RigidBodyFlowInteraction
+    free_stream: torch.Tensor
+    drag_scale: float
+    timescale: float
+
+
+def _build_sphere_drag_case(
     grid_size=(128, 128, 128),
     reynolds=100.0,
     coupling_stiffness=-6e5 / 4,
     coupling_damping=-3.5e2 / 4,
     precision="single",
-    window=100,
     *,
     device,
-):
-    """Flow past a fixed sphere at Re = 100 (the drag benchmark): sphere
-    diameter 0.4 of the smaller cross-stream extent, centred at
-    (0.25, 0.5, 0.5) of the domain, unit free stream in x. The coupled
-    loop runs ``window`` steps between host reads of the drag; returns
-    (t* at each window end, Cd at the window's last step)."""
+) -> SphereDragCase:
+    """Flow past a fixed sphere at Re = 100 (the drag benchmark of
+    ``examples/3d/flow_past_sphere.py``): sphere diameter 0.4 of the smaller
+    cross-stream extent, centred at (0.25, 0.5, 0.5) of the domain, unit
+    free stream in x, the sphere's forcing grid with 1.875 d / dx points
+    along its equator."""
     grid_size_z, grid_size_y, grid_size_x = grid_size
     real_t = get_real_t(precision)
     x_range = 1.0
@@ -237,21 +250,58 @@ def flow_past_sphere_fused_case(
     )
     free_stream = torch.tensor([far_field_velocity, 0.0, 0.0], dtype=real_t,
                                device=flow_sim.device)
-    step = build_rigid_fsi_step(
-        flow_sim,
-        interactor,
-        dt_prefac=0.5,
-        free_stream_fn=lambda t: free_stream,
+    return SphereDragCase(
+        flow_sim, interactor, free_stream,
+        drag_scale=0.5 * far_field_velocity**2 * 0.25 * np.pi
+        * sphere_diameter**2,
+        timescale=sphere_diameter / far_field_velocity,
     )
-    carry = init_rigid_fsi_carry(flow_sim, interactor, step)
-    drag_scale = 0.5 * far_field_velocity**2 * 0.25 * np.pi * sphere_diameter**2
-    timescale = sphere_diameter / far_field_velocity
-    t_end = nondim_time * timescale
+
+
+def build_sphere_drag_step(case: SphereDragCase):
+    """(fused rigid FSI step, initial carry) of the drag case, dt_prefac
+    0.5."""
+    step = build_rigid_fsi_step(
+        case.flow_sim,
+        case.interactor,
+        dt_prefac=0.5,
+        free_stream_fn=lambda t: case.free_stream,
+    )
+    return step, init_rigid_fsi_carry(case.flow_sim, case.interactor, step)
+
+
+def sphere_drag_coefficient(case: SphereDragCase, lag_forces) -> float:
+    """Cd of the step diagnostic ``lag_forces`` (the Lagrangian force sum,
+    one row a step): its last row's x force over the drag scale (a host
+    read)."""
+    return float(lag_forces[-1, 0].abs()) / case.drag_scale
+
+
+def flow_past_sphere_fused_case(
+    nondim_time=10.0,
+    grid_size=(128, 128, 128),
+    reynolds=100.0,
+    coupling_stiffness=-6e5 / 4,
+    coupling_damping=-3.5e2 / 4,
+    precision="single",
+    window=100,
+    *,
+    device,
+):
+    """Flow past a fixed sphere at Re = 100 (the drag benchmark,
+    :func:`_build_sphere_drag_case`). The coupled loop runs ``window``
+    steps between host reads of the drag; returns (t* at each window end,
+    Cd at the window's last step)."""
+    case = _build_sphere_drag_case(
+        grid_size, reynolds, coupling_stiffness, coupling_damping, precision,
+        device=device)
+    step, carry = build_sphere_drag_step(case)
+    t_end = nondim_time * case.timescale
     times, drag_coeffs = [], []
     while float(carry.time) < t_end:
         carry, lag_forces = scan_steps(step, carry, window)
-        times.append(float(carry.time) / timescale)
-        drag_coeffs.append(float(lag_forces[-1, 0].abs()) / drag_scale)
+        times.append(float(carry.time) / case.timescale)
+        drag_coeffs.append(sphere_drag_coefficient(case, lag_forces))
     return np.asarray(times), np.asarray(drag_coeffs)
 
 
@@ -587,37 +637,46 @@ def _build_rod_bench_case(grid_size, *, device, sparse_forcing=None,
     return step, (carry,)
 
 
-def _build_freely_rotating_rod_case(
+class FreelyRotatingRodCase(NamedTuple):
+    """The objects of the freely rotating rod case: the simulator, the rod,
+    its system collection (finalized), the rod's interactor, the free
+    stream tensor and the rod's dt."""
+
+    flow_sim: UnboundedFlowSimulator3D
+    rod: CosseratRod
+    collection: BaseSystemCollection
+    interactor: CosseratRodFlowInteraction
+    free_stream: torch.Tensor
+    rod_dt: float
+
+
+def _build_freely_rotating_rod_objects(
         grid_size=(64, 64, 128), *, device, n_elem=16,
-        surface_grid_density_for_largest_element=12, precision="single"):
+        surface_grid_density_for_largest_element=12, cauchy_number=0.2,
+        mass_ratio=10.0, aspect_ratio=10.0, base_length=1.0,
+        poisson_ratio=0.5, reynolds=100.0, coupling_stiffness=-2e5,
+        coupling_damping=-1e2, rod_start_incline_angle=np.pi / 2,
+        precision="single", flow_forces=False) -> FreelyRotatingRodCase:
     """Flow past a rod clamped in translation at its first node but free to
-    turn about its own axis, the fused branch of
-    ``examples/3d/flow_past_freely_rotating_rod.py`` with its values: rod
-    length 1 along x (incline pi / 2) from (0.08, 0.502, 0.502) of the
-    domain, Cauchy 0.2, mass ratio 10, aspect ratio 10, Poisson ratio 0.5;
+    turn about its own axis, as ``examples/3d/flow_past_freely_rotating_rod.py``
+    builds it, with its parameters and defaults: the rod from (0.08, 0.502,
+    0.502) of the domain along (sin a, 0, -cos a) for the incline a;
     ``GeneralConstraint`` at node and element 0 (translation fixed, the
     lab-frame rotation about x free), the linear damper (1e-3) at the rod's
-    dt 0.01 L / n_elem; Re 100 on the diameter, an x range of 5 L, unit free
-    stream in x, the order-5 convolution vorticity filter; coupling stiffness -2e5 and damping -1e2 on
-    the surface forcing grid; dynamic substeps, dt_prefac 0.25, the dense
-    IBM path. The defaults are the example's command line defaults (grid
-    (64, 64, 128), n_elem 16, surface density 12). The rod is float64, the
-    flow ``precision``. Returns (fused step, carry).
-
-    The example's checkpoint IO and restart (``FieldIO``,
-    ``save_rod_state``: ROADMAP A#10) and its host loop (A#11b) are not
-    here."""
+    dt 0.01 L / n_elem; Re on the diameter, an x range of 5 L, unit free
+    stream in x, the order-5 convolution vorticity filter; the surface
+    forcing grid. ``flow_forces`` adds the host-coupled ``FlowForces`` to
+    the collection, as the example's host loop does. The rod is float64,
+    the flow ``precision``."""
     grid_size_z, grid_size_y, grid_size_x = grid_size
     real_t = get_real_t(precision)
-    rho_f, u_free_stream, base_length = 1.0, 1.0, 1.0
-    cauchy_number, mass_ratio, aspect_ratio = 0.2, 10.0, 10.0
-    poisson_ratio, reynolds = 0.5, 100.0
-    incline = np.pi / 2
+    rho_f, u_free_stream = 1.0, 1.0
     x_range = 5.0 * base_length
     y_range = grid_size_y / grid_size_x * x_range
     z_range = grid_size_z / grid_size_x * x_range
     start = np.array([0.08 * x_range, 0.502 * y_range, 0.502 * z_range])
-    direction = np.array([np.sin(incline), 0.0, -np.cos(incline)])
+    direction = np.array([np.sin(rod_start_incline_angle), 0.0,
+                          -np.cos(rod_start_incline_angle)])
     normal = np.array([0.0, 1.0, 0.0])
     base_diameter = base_length / aspect_ratio
     base_radius = base_diameter / 2.0
@@ -653,7 +712,6 @@ def _build_freely_rotating_rod_case(
     collection.dampen(rod).using(
         AnalyticalLinearDamper, damping_constant=1e-3, time_step=rod_dt
     )
-    collection.finalize()
 
     flow_sim = UnboundedFlowSimulator3D(
         grid_size=grid_size,
@@ -673,21 +731,49 @@ def _build_freely_rotating_rod_case(
     interactor = CosseratRodFlowInteraction(
         flow_sim=flow_sim,
         cosserat_rod=rod,
-        virtual_boundary_stiffness_coeff=-2e5,
-        virtual_boundary_damping_coeff=-1e2,
+        virtual_boundary_stiffness_coeff=coupling_stiffness,
+        virtual_boundary_damping_coeff=coupling_damping,
         forcing_grid_cls=CosseratRodSurfaceForcingGrid,
         surface_grid_density_for_largest_element=(
             surface_grid_density_for_largest_element),
     )
+    if flow_forces:
+        collection.add_forcing_to(rod).using(FlowForces, interactor)
+    collection.finalize()
+    return FreelyRotatingRodCase(flow_sim, rod, collection, interactor,
+                                 free_stream, rod_dt)
+
+
+def build_freely_rotating_rod_step(case: FreelyRotatingRodCase):
+    """(fused rod FSI step, carry from the objects' current state) of the
+    freely rotating rod: dynamic substeps, dt_prefac 0.25, the dense IBM
+    path."""
     step = build_rod_fsi_step(
-        flow_sim,
-        interactor,
-        collection,
+        case.flow_sim,
+        case.interactor,
+        case.collection,
         dt_prefac=0.25,
-        free_stream_fn=lambda t: free_stream,
-        rod_dt=rod_dt,
+        free_stream_fn=lambda t: case.free_stream,
+        rod_dt=case.rod_dt,
     )
-    return step, init_rod_fsi_carry(flow_sim, interactor, rod, step)
+    return step, init_rod_fsi_carry(case.flow_sim, case.interactor, case.rod,
+                                    step)
+
+
+def _build_freely_rotating_rod_case(
+        grid_size=(64, 64, 128), *, device, n_elem=16,
+        surface_grid_density_for_largest_element=12, precision="single"):
+    """The fused branch of ``examples/3d/flow_past_freely_rotating_rod.py``
+    at the example's values (:func:`_build_freely_rotating_rod_objects`;
+    the defaults are its command line's: grid (64, 64, 128), n_elem 16,
+    surface density 12). Returns (fused step, carry). The example's
+    checkpoint IO, restart and host loop are in
+    ``examples_torch/3d/flow_past_freely_rotating_rod.py``."""
+    return build_freely_rotating_rod_step(_build_freely_rotating_rod_objects(
+        grid_size, device=device, n_elem=n_elem,
+        surface_grid_density_for_largest_element=(
+            surface_grid_density_for_largest_element),
+        precision=precision))
 
 
 def _build_multibody_bench_case(grid_size, *, device, sparse_forcing=None,
@@ -970,22 +1056,25 @@ def run_point_source_case(step, carry, *, window=100):
     """Run the point source of :func:`point_source_advection_diffusion_case`
     to t = 5.4 as the example's fused branch does: ``window`` steps
     between host reads of the time, so the run ends up to ``window - 1``
-    steps past t = 5.4. Returns (final carry, L2, Linf): the primary
-    field's errors against the analytic field at the final time, L2 =
-    ``||err||_2 dx^1.5``."""
+    steps past t = 5.4. Returns (final carry, L2, Linf) of
+    :func:`point_source_errors`."""
     while float(carry.time) < POINT_SOURCE_T_END - 1e-10:
         carry, _ = scan_steps(step, carry, window)
-    flow_sim = step.flow_sim
-    t_final = float(carry.time)
+    return (carry, *point_source_errors(
+        step.flow_sim, carry.flow_state.primary_field, float(carry.time)))
+
+
+def point_source_errors(flow_sim, field, t_final):
+    """(L2, Linf) of the point source's primary ``field`` against the
+    analytic field at ``t_final``: L2 = ``||err||_2 dx^1.5``."""
     cm_final = (POINT_SOURCE_START
                 + POINT_SOURCE_VELOCITY * (t_final - POINT_SOURCE_T_START))
     x, y, z = _grid_positions(flow_sim)
     ref = compute_diffused_point_source_field(
         x, y, z, cm_final, POINT_SOURCE_NU, POINT_SOURCE_MAG, t_final)
-    field = unshard_vector_field(carry.flow_state.primary_field,
-                                 flow_sim.mesh).cpu().numpy()
+    field = unshard_vector_field(field, flow_sim.mesh).cpu().numpy()
     error = np.abs(field - ref)
-    return (carry, float(np.linalg.norm(error) * flow_sim.dx**1.5),
+    return (float(np.linalg.norm(error) * flow_sim.dx**1.5),
             float(error.max()))
 
 

@@ -394,3 +394,21 @@ class CosseratRod:
     @property
     def tangents(self):
         return compute_geometry(self.state, self.params)[1]
+
+    # -- checkpointing (parity with ea.save_state/load_state) ---------------
+
+    def get_state_arrays(self) -> dict:
+        """The dynamic state as numpy arrays (one host copy each), keyed
+        ``position``, ``velocity``, ``director``, ``omega``."""
+        return {name: getattr(self.state, name).detach().cpu().numpy()
+                for name in CosseratRodState._fields}
+
+    def set_state_arrays(self, arrays: dict):
+        """Set the dynamic state from arrays keyed as
+        :meth:`get_state_arrays`' result, on the rod's device and dtype."""
+        like = self.state.position
+        self.state = CosseratRodState(**{
+            name: torch.tensor(np.asarray(arrays[name]), dtype=like.dtype,
+                               device=like.device)
+            for name in CosseratRodState._fields
+        })

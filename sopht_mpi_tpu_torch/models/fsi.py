@@ -14,7 +14,6 @@ its substep count once per step (see :func:`build_rod_fsi_step`).
 
 from __future__ import annotations
 
-import logging
 import math
 from typing import Callable, NamedTuple
 
@@ -38,9 +37,8 @@ from sopht_mpi_tpu_torch.ops.virtual_boundary import (
     compute_penalty_force,
     virtual_boundary_time_step,
 )
+from sopht_mpi_tpu_torch.utils.logging_utils import logger
 from sopht_mpi_tpu_torch.utils.types import get_test_tol
-
-logger = logging.getLogger("sopht_mpi_tpu_torch")
 
 # substep_interp="auto" crossover of the JAX package (its fsi.py): the
 # substeps' E->L takes the full-field gather instead of the windowed

@@ -13,8 +13,6 @@ virtual-boundary forcing::
 
 from __future__ import annotations
 
-import logging
-
 import numpy as np
 import torch
 
@@ -25,8 +23,7 @@ from sopht_mpi_tpu_torch.ops.virtual_boundary import (
     init_virtual_boundary_state,
     virtual_boundary_time_step,
 )
-
-logger = logging.getLogger("sopht_mpi_tpu_torch")
+from sopht_mpi_tpu_torch.utils.logging_utils import logger
 
 
 class ImmersedBodyFlowInteraction:

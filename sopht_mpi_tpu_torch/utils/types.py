@@ -25,3 +25,10 @@ def get_test_tol(precision: str = "single") -> float:
     elif precision == "double":
         return float(1e6 * np.finfo(np.float64).eps)
     raise ValueError(f"Invalid precision: {precision}")
+
+
+def get_dtype_eps(real_t) -> float:
+    """Machine epsilon of a torch or a numpy floating dtype."""
+    if isinstance(real_t, torch.dtype):
+        return float(torch.finfo(real_t).eps)
+    return float(np.finfo(np.dtype(real_t)).eps)

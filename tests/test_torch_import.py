@@ -34,10 +34,20 @@ def test_port_imports_without_jax():
         "import sopht_mpi_tpu_torch.tools.probe_sharded\n"
         "import bench_torch\n"
         "from sopht_mpi_tpu_torch.parallel import cuda_fft\n"
+        "import sopht_mpi_tpu_torch.utils as u\n"
+        "from sopht_mpi_tpu_torch.utils import checkpoint, io, native_io\n"
+        "from sopht_mpi_tpu_torch.utils import plotting, profiling, snapshots\n"
+        "import importlib.util, glob\n"
+        "paths = sorted(glob.glob('examples_torch/*/*.py'))\n"
+        "assert len(paths) >= 3, paths\n"
+        "for path in paths:\n"
+        "    spec = importlib.util.spec_from_file_location('ex', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'sopht_mpi_tpu' not in sys.modules, 'JAX package imported'\n"
         "assert cuda_stencils_3d.library.cache_info().currsize == 0\n"
         "assert cuda_fft.library.cache_info().currsize == 0\n"
+        "assert native_io.library.cache_info().currsize == 0\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
@@ -50,15 +60,17 @@ def test_port_imports_without_jax():
 def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "bench_torch.py")
-    for dirpath, _, files in os.walk(os.path.join(REPO, "sopht_mpi_tpu_torch")):
-        for name in files:
-            if name.endswith(".py"):
-                yield os.path.join(dirpath, name)
+    for top in ("sopht_mpi_tpu_torch", "examples_torch"):
+        for dirpath, _, files in os.walk(os.path.join(REPO, top)):
+            for name in files:
+                if name.endswith(".py"):
+                    yield os.path.join(dirpath, name)
 
 
 def test_port_sources_name_no_jax():
-    """No module of the port, nor ``chip_smoke.py`` or ``bench_torch.py``,
-    imports JAX or the JAX package, lazily or not."""
+    """No module of the port or of ``examples_torch/``, nor
+    ``chip_smoke.py`` or ``bench_torch.py``, imports JAX or the JAX
+    package, lazily or not."""
     offenders = []
     for path in _port_sources():
         with open(path) as f:
