@@ -181,9 +181,37 @@ raises and exits non-zero, and nothing falls back to the CPU:
     flow_past_freely_rotating_rod.py``'s fused loop at the example's
     default (64, 64, 128) with the ``carry`` checkpoint backend, run to t =
     0.02 and restarted in fresh objects to 0.04, against an unbroken run to
-    0.04, gated at the gap between two unbroken runs as in phase 28; the
+    0.04: the two unbroken runs and the restarted run bit-equal; the
     restarted run launches ``conv_filter_zmarch_kernel`` once a step (order
-    5). The phases run in ``build/`` and remove what they write.
+    5);
+31. 3D rod driver: ``examples_torch/3d/flow_past_rod.py``'s fused loop at
+    the example's default (128, 32, 128) (n_elem 40, float64 rod, the
+    sparse window, the order-1 multiplicative filter) in windows of 10
+    steps to t = 0.02, first with ``suggest_rod_forcing_window`` wrapped to
+    give a window too small for the rod (it trips in the first window, is
+    regrown and the window replayed), then twice with the grown window from
+    the start: the replayed run equals the grown-window run bit for bit,
+    and the two grown-window runs each other; every kernel of the rod path
+    at least once a step;
+32. rod and sphere driver: ``rod_and_sphere.py`` at its default (32, 32,
+    64) to t = 0.05 in windows of 20, the rod path's kernels at least once a
+    step;
+33. sedimenting sphere driver: ``sedimenting_sphere.py`` at 64^3 float64 to
+    one relaxation time, the sphere path's three stencils at least once a
+    step and no FFT pass (the float64 solve takes ``torch.fft``);
+34. Lamb-Oseen driver: ``examples_torch/2d/lamb_oseen_vortex.py`` at 256^2,
+    the fused loop and the host loop from t = 1.0 to 1.4, their L2 errors
+    within 5% of each other, the 2D route's three passes launched;
+35. cylinder driver: ``flow_past_cylinder.py`` at (256, 512), the fused
+    loop in windows of 100 to t* = 2 (each of the 2D route's passes once a
+    step) and the host loop to t* = 1 with its drag file;
+36. 2D rod driver: ``flow_past_rod.py`` at (256, 512), the fused loop in
+    windows of 20 to t* = 0.05 (each of the 2D route's passes once a step)
+    and the host loop to t* = 0.025 (without ``--save-flow-data``: the
+    script does not need h5py; the CPU tests write and check those files).
+
+Phases 31-36 print s/step (the windows after the first) and a window's
+wall. The phases from 28 on run in ``build/`` and remove what they write.
 
 Phase 3 also checks the fused-curl pair against its plain versions at the
 256^3 sphere's, the (128, 128, 256) multi-body case's, the 64^3 drag run's
@@ -266,6 +294,19 @@ SPHERE_DRIVER_GRID = (128, 128, 128)
 SPHERE_DRIVER_T = 0.5
 # phase 30: the freely rotating rod driver restarted at t = 0.02, run to 0.04
 FREE_ROD_RESTART_T = (0.02, 0.04)
+# phases 31-36, the drivers at their examples' default grids: the 3D rod's
+# grid, final time and scan window; rod and sphere's final time; the
+# sedimenting sphere's run in relaxation times; the cylinder's and the 2D
+# rod's final t* (their host loops run half as long); the bound on the
+# Lamb-Oseen L2 error of the fused loop against the host loop's
+ROD_DRIVER_GRID = (128, 32, 128)
+ROD_DRIVER_T = 0.02
+ROD_DRIVER_WINDOW = 10
+ROD_SPHERE_DRIVER_T = 0.05
+SEDIMENT_DRIVER_N_TAU = 1.0
+CYLINDER_DRIVER_T = 2.0
+ROD_2D_DRIVER_T = 0.05
+LAMB_OSEEN_LOOP_RTOL = 0.05
 # the convolution filter's row of the kernel table: its TPU kernel
 CONV_REPLACES = "sopht_mpi_tpu/ops/pallas_stencils_3d.py:825"
 # the rod tip against the JAX package's trajectory: the bound to which
@@ -2839,11 +2880,11 @@ def main():
         os.makedirs(path)
         return path
 
-    def load_example(name):
-        """``examples_torch/3d/<name>.py`` as a module."""
+    def load_example(name, dim="3d"):
+        """``examples_torch/<dim>/<name>.py`` as a module."""
         spec = importlib.util.spec_from_file_location(
-            f"examples_torch_{name}",
-            os.path.join(REPO, "examples_torch", "3d", f"{name}.py"))
+            f"examples_torch_{dim}_{name}",
+            os.path.join(REPO, "examples_torch", dim, f"{name}.py"))
         module = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(module)
         return module
@@ -3083,9 +3124,9 @@ def main():
             for what, t in out.items():
                 check(bool(torch.isfinite(t).all()), f"non-finite {what}")
             gap = carry_gap(out, ref_a)
-            check(gap <= restart_bound(floor),
-                  f"restarted run differs by {gap} from the unbroken one (two "
-                  f"unbroken runs: {floor})")
+            check(floor == 0.0, f"two unbroken runs differ by {floor}")
+            check(gap == 0.0, f"restarted run differs by {gap} from the "
+                  f"unbroken one")
             files = sorted(os.listdir(os.path.join(base, "restart", "carry")))
         finally:
             shutil.rmtree(base, ignore_errors=True)
@@ -3095,11 +3136,293 @@ def main():
             f"{wall_a:.2f} s; restarted at t = {time_1:.6f} after "
             f"{first_steps} steps, {restart_steps} more steps to {time_2!r} "
             f"in {wall_2:.2f} s, {launches} filter launches; "
-            f"checkpoints {files}; restarted vs unbroken max|diff| {gap:.3g}, "
-            f"two unbroken runs {floor:.3g} (bound "
-            f"{restart_bound(floor):.3g}) [{card}]")
+            f"checkpoints {files}; restarted vs unbroken and two unbroken "
+            f"runs bit-equal [{card}]")
 
     free_rod_restart_phase()
+
+    # the paths of the drivers below: the rod paths run the filtered
+    # transport, the sphere paths the fused diffusion; all the exact tier
+    rod_path = (*TRANSPORT_KERNELS, "rotational_curl_add_3d", "curl_3d",
+                *FFT_REPLACES)
+
+    def recording(mod):
+        """Wrap ``mod.scan_steps``: count the steps, time each window to a
+        synchronise, keep the last carry."""
+        rec = {"steps": 0, "walls": [], "windows": [], "last": None}
+        scan = mod.scan_steps
+
+        def wrapped(step, carry, n, **kwargs):
+            t0 = time.perf_counter()
+            carry, diag = scan(step, carry, n, **kwargs)
+            torch.cuda.synchronize()
+            rec["walls"].append(time.perf_counter() - t0)
+            rec["windows"].append(n)
+            rec["steps"] += n
+            rec["last"] = carry
+            return carry, diag
+
+        mod.scan_steps = wrapped
+        return rec
+
+    def window_times(rec):
+        """(s/step over the windows after the first, the median window's
+        wall in ms); the first window holds the step's first-call work."""
+        walls, sizes = rec["walls"], rec["windows"]
+        if len(walls) > 1:
+            walls, sizes = walls[1:], sizes[1:]
+        return sum(walls) / sum(sizes), float(np.median(walls)) * 1e3
+
+    def check_launches(names, steps, where):
+        launches = {n: by_name[n].launches for n in names}
+        for name, count in launches.items():
+            check(count >= steps, f"{name} launched {count} times in {steps} "
+                  f"steps of {where}")
+        return launches
+
+    def check_finite(what, *tensors):
+        for t in tensors:
+            t = torch.as_tensor(t)
+            check(bool(torch.isfinite(t).all()), f"non-finite {what}")
+
+    def in_dir(name, fn):
+        """``fn()`` with the working directory a fresh ``build/<name>``,
+        removed after; returns (fn's result, the files it left)."""
+        path, cwd = fresh_dir(name), os.getcwd()
+        try:
+            os.chdir(path)
+            out = fn()
+            return out, sorted(os.listdir(path))
+        finally:
+            os.chdir(cwd)
+            shutil.rmtree(path, ignore_errors=True)
+
+    @phase("3d rod driver")
+    def rod_driver_phase():
+        """The 3D rod driver's fused loop at the example's default: a first
+        window too small for the rod, tripped, regrown and replayed, against
+        the run with the grown window from the start, bit for bit, and
+        that run again."""
+        mod = load_example("flow_past_rod")
+        suggest = mod.suggest_rod_forcing_window
+        rec = recording(mod)
+        calls, windows = [], []
+
+        def small_first(interactor, rod, grid_size, margin=1.1, **kwargs):
+            calls.append(margin)
+            windows.append(suggest(interactor, rod, grid_size,
+                                   margin=0.5 if len(calls) == 1 else 1.1,
+                                   **kwargs))
+            return windows[-1]
+
+        nx = ROD_DRIVER_GRID[-1]
+        kwargs = dict(n_elem=5 * nx // 16, grid_size=ROD_DRIVER_GRID,
+                      surface_grid_density_for_largest_element=nx // 8,
+                      final_time=ROD_DRIVER_T, window=ROD_DRIVER_WINDOW,
+                      fused=True, device=dev)
+        runs = {}
+        try:
+            for name in ("tripped", "grown", "grown again"):
+                mod.suggest_rod_forcing_window = (
+                    small_first if name == "tripped" else suggest)
+                rec.update(steps=0, walls=[], windows=[], last=None)
+                reset_counts()
+                (times, tips), _ = in_dir(
+                    "rod_driver", lambda: mod.flow_past_rod_case(**kwargs))
+                runs[name] = dict(
+                    times=times, tips=tips, carry=rec["last"],
+                    steps=rec["steps"], timing=window_times(rec),
+                    launches=check_launches(rod_path, rec["steps"],
+                                            f"the 3D rod driver ({name})"))
+        finally:
+            mod.suggest_rod_forcing_window = suggest
+        trip, grown, again = (runs[k] for k in
+                              ("tripped", "grown", "grown again"))
+        check(len(calls) == 2 and calls[0] == 1.1
+              and abs(calls[1] - 1.43) < 1e-9 and windows[1] is not None,
+              f"no trip and regrow on the sparse window: margins {calls}, "
+              f"windows {windows}")
+        check(trip["steps"] == grown["steps"] + ROD_DRIVER_WINDOW,
+              f"{trip['steps']} steps with the replay, {grown['steps']} "
+              f"without: not one window replayed")
+        check(np.array_equal(trip["times"], grown["times"])
+              and np.array_equal(trip["tips"], grown["tips"])
+              and carry_gap(trip["carry"], grown["carry"]) == 0.0,
+              "the replayed run is not the grown-window run bit for bit")
+        check(carry_gap(grown["carry"], again["carry"]) == 0.0
+              and np.array_equal(grown["tips"], again["tips"]),
+              "two runs with the grown window differ")
+        check(len(grown["times"]) >= 2, f"{len(grown['times'])} windows")
+        check_finite("3D rod driver tips", grown["tips"])
+        fs = grown["carry"].flow_state
+        check_finite("3D rod driver fields", fs.primary_field,
+                     fs.velocity_field, grown["carry"].rod_state.position)
+        s_step, win_ms = grown["timing"]
+        return None, (
+            f"{ROD_DRIVER_GRID} f32 flow, f64 rod of {kwargs['n_elem']} "
+            f"elements, windows of {ROD_DRIVER_WINDOW}: window "
+            f"{windows[0]} tripped in the first window, regrown to "
+            f"{windows[1]} and replayed; {len(grown['times'])} windows to "
+            f"t = {grown['times'][-1]:.5f}, tip {grown['tips'][-1]}; the "
+            f"replayed run equals the grown-window run bit for bit "
+            f"({trip['steps']} and {grown['steps']} steps), two grown-window "
+            f"runs bit-equal; {s_step:.6f} s/step, a window {win_ms:.3f} ms; "
+            f"launches {grown['launches']} in {grown['steps']} steps [{card}]")
+
+    rod_driver_phase()
+
+    @phase("rod and sphere driver")
+    def rod_and_sphere_driver_phase():
+        mod = load_example("rod_and_sphere")
+        rec = recording(mod)
+        reset_counts()
+        (times, tips, cds), _ = in_dir(
+            "rod_and_sphere_driver", lambda: mod.rod_and_sphere_case(
+                final_time=ROD_SPHERE_DRIVER_T, device=dev))
+        launches = check_launches(rod_path, rec["steps"],
+                                  "the rod and sphere driver")
+        check(len(times) >= 2, f"{len(times)} windows")
+        check_finite("rod and sphere outputs", times, tips, cds)
+        fs = rec["last"].flow_state
+        check_finite("rod and sphere fields", fs.primary_field,
+                     fs.velocity_field)
+        s_step, win_ms = window_times(rec)
+        return None, (
+            f"(32, 32, 64) f32 flow, f64 rod of 8 elements and a fixed "
+            f"sphere, windows of 20: {len(times)} windows to t = "
+            f"{times[-1]:.5f}, tip {tips[-1]}, sphere Cd {cds[-1]:.5f}; "
+            f"{s_step:.6f} s/step, a window {win_ms:.3f} ms; launches "
+            f"{launches} in {rec['steps']} steps [{card}]")
+
+    rod_and_sphere_driver_phase()
+
+    @phase("sedimenting sphere driver")
+    def sedimenting_driver_phase():
+        mod = load_example("sedimenting_sphere")
+        rec = recording(mod)
+        reset_counts()
+        (times, vz, v_t), _ = in_dir(
+            "sedimenting_driver", lambda: mod.sedimenting_sphere_case(
+                n_tau=SEDIMENT_DRIVER_N_TAU, device=dev))
+        launches = check_launches(SPHERE_KERNELS, rec["steps"],
+                                  "the sedimenting sphere driver")
+        check_not_launched(FFT_REPLACES, "the float64 sedimenting driver")
+        check(len(times) >= 2, f"{len(times)} windows")
+        check_finite("sedimenting sphere outputs", times, vz)
+        s_step, win_ms = window_times(rec)
+        return None, (
+            f"{SEDIMENT_GRID} f64, windows of 10: {len(times)} windows to "
+            f"{SEDIMENT_DRIVER_N_TAU} tau, v_z / v_t {vz[-1] / -v_t:.5f}; "
+            f"{s_step:.6f} s/step, a window {win_ms:.3f} ms; launches "
+            f"{launches} in {rec['steps']} steps [{card}]")
+
+    sedimenting_driver_phase()
+
+    @phase("lamb oseen driver")
+    def lamb_oseen_driver_phase():
+        mod = load_example("lamb_oseen_vortex", "2d")
+        rec = recording(mod)
+        out = {}
+        for fused in (True, False):
+            reset_counts()
+            t0 = time.perf_counter()
+            errs, _ = in_dir("lamb_oseen_driver",
+                             lambda: mod.lamb_oseen_vortex_flow_case(
+                                 fused=fused, device=dev))
+            wall = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in route_2d}
+            check(min(launches.values()) > 0, f"2D route launches {launches}")
+            check_finite("Lamb-Oseen errors", errs)
+            out[fused] = (errs, launches, wall)
+        fused_steps = rec["steps"]
+        l2_f, l2_h = out[True][0][0], out[False][0][0]
+        check(abs(l2_f - l2_h) <= LAMB_OSEEN_LOOP_RTOL * l2_h,
+              f"fused L2 {l2_f} against the host loop's {l2_h}")
+        s_step, win_ms = window_times(rec)
+        return None, (
+            f"(256, 256) f32 to t = 1.4: fused (windows of 100) L2 / Linf "
+            f"{out[True][0][0]:.6g} / {out[True][0][1]:.6g}, host loop "
+            f"{out[False][0][0]:.6g} / {out[False][0][1]:.6g} (bound "
+            f"{LAMB_OSEEN_LOOP_RTOL} relative between the loops); fused "
+            f"{fused_steps} steps, {s_step:.6f} s/step, a window "
+            f"{win_ms:.3f} ms, launches {out[True][1]}; host loop "
+            f"{out[False][2]:.2f} s, launches {out[False][1]} [{card}]")
+
+    lamb_oseen_driver_phase()
+
+    @phase("cylinder driver")
+    def cylinder_driver_phase():
+        mod = load_example("flow_past_cylinder", "2d")
+        rec = recording(mod)
+        reset_counts()
+        (times, cds), files = in_dir(
+            "cylinder_driver", lambda: mod.flow_past_cylinder_fused_case(
+                nondim_final_time=CYLINDER_DRIVER_T, window=100,
+                device=dev))
+        check("drag_vs_time.csv" in files, f"files {files}")
+        check_2d_route(rec["steps"], "the fused cylinder driver")
+        check(len(times) >= 2, f"{len(times)} windows")
+        check_finite("cylinder drag", times, cds)
+        s_step, win_ms = window_times(rec)
+        reset_counts()
+        t0 = time.perf_counter()
+        (htimes, hcds), hfiles = in_dir(
+            "cylinder_driver", lambda: mod.
+            flow_past_cylinder_boundary_forcing_case(
+                nondim_final_time=CYLINDER_DRIVER_T / 2,
+                save_diagnostic=True, device=dev))
+        host_wall = time.perf_counter() - t0
+        host = {fn.__name__: fn.launches for fn in route_2d}
+        check(min(host.values()) > 0 and "drag_vs_time.csv" in hfiles,
+              f"host loop: launches {host}, files {hfiles}")
+        check_finite("cylinder host-loop drag", htimes, hcds)
+        return None, (
+            f"{CYLINDER_GRID} f32: fused (windows of 100) {len(times)} "
+            f"windows to t* = {times[-1]:.4f}, Cd {cds[-1]:.5f}, "
+            f"{s_step:.6f} s/step, a window {win_ms:.3f} ms, "
+            f"{rec['steps']} launches each of the 2D route's three passes "
+            f"in {rec['steps']} steps; host loop to t* = "
+            f"{CYLINDER_DRIVER_T / 2}: {len(htimes)} drag reads, Cd "
+            f"{hcds[-1]:.5f}, {host_wall:.2f} s, launches {host} [{card}]")
+
+    cylinder_driver_phase()
+
+    @phase("2d rod driver")
+    def rod_2d_driver_phase():
+        mod = load_example("flow_past_rod", "2d")
+        rec = recording(mod)
+        reset_counts()
+        (times, tips), files = in_dir(
+            "rod_2d_driver", lambda: mod.flow_past_rod_case(
+                nondim_final_time=ROD_2D_DRIVER_T, window=20, fused=True,
+                device=dev))
+        check_2d_route(rec["steps"], "the fused 2D rod driver")
+        check("rod_tip_position_vs_time.csv" in files, f"files {files}")
+        check(len(times) >= 2, f"{len(times)} windows")
+        check_finite("2D rod tips", times, tips)
+        s_step, win_ms = window_times(rec)
+        reset_counts()
+        t0 = time.perf_counter()
+        (htimes, htips), hfiles = in_dir(
+            "rod_2d_driver", lambda: mod.flow_past_rod_case(
+                nondim_final_time=ROD_2D_DRIVER_T / 2, fused=False,
+                device=dev))
+        host_wall = time.perf_counter() - t0
+        host = {fn.__name__: fn.launches for fn in route_2d}
+        check(min(host.values()) > 0
+              and "rod_tip_position_vs_time.csv" in hfiles,
+              f"host loop: launches {host}, files {hfiles}")
+        check_finite("2D rod host-loop tips", htimes, htips)
+        return None, (
+            f"{ROD_2D_GRID} f32 flow, f64 rod: fused (windows of 20) "
+            f"{len(times)} windows to t* = {times[-1]:.5f}, tip "
+            f"({tips[-1][0]:+.6f}, {tips[-1][1]:+.6f}) L, {s_step:.6f} "
+            f"s/step, a window {win_ms:.3f} ms, {rec['steps']} launches each "
+            f"of the 2D route's passes in {rec['steps']} steps; host loop to "
+            f"t* = {ROD_2D_DRIVER_T / 2}: {len(htimes)} tip reads, "
+            f"{host_wall:.2f} s, launches {host} [{card}]")
+
+    rod_2d_driver_phase()
 
     for row in table.values():
         check(row["launches"], f"{row['name']} was launched on no path")

@@ -14,6 +14,10 @@ of shards (:func:`sharded_flow_case`), a point source advected and diffused
 as a passive vector (``examples/3d/point_source_advect_diffuse.py``), a
 flexible rod in a 2D flow (``examples/2d/flow_past_rod.py``) and a rigid
 sphere sedimenting under its weight (``examples/3d/sedimenting_sphere.py``).
+
+The ``_build_*_objects`` functions build an example's objects from its
+keywords; the example drivers under ``examples_torch/`` and the benchmark
+cases here both call them, so a case is set up in one place.
 """
 
 from __future__ import annotations
@@ -384,13 +388,23 @@ def lamb_oseen_vortex_case(grid_size=(256, 256), precision="single",
     return float(np.linalg.norm(error) * flow_sim.dx), float(error.max())
 
 
-def _build_cylinder_fsi_case(grid_size=(256, 512), *, device, reynolds=200.0,
-                             coupling_stiffness=-5e4, coupling_damping=-20.0,
-                             precision="single"):
-    """Flow past a fixed circular cylinder: radius 0.03 of a unit x range,
-    centred 2.5 radii from the inflow wall at mid height, unit free stream
-    in x, Re on the radius, 60 forcing points, the dense IBM path. Returns
-    (fused step fn, (initial carry,))."""
+class CylinderCase(NamedTuple):
+    """The objects of the cylinder case: the simulator, the cylinder, its
+    interactor and the free stream tensor."""
+
+    flow_sim: UnboundedFlowSimulator2D
+    cylinder: Cylinder
+    interactor: RigidBodyFlowInteraction
+    free_stream: torch.Tensor
+
+
+def _build_cylinder_objects(grid_size=(256, 512), *, device, reynolds=200.0,
+                            coupling_stiffness=-5e4, coupling_damping=-20.0,
+                            precision="single") -> CylinderCase:
+    """Flow past a fixed circular cylinder, as
+    ``examples/2d/flow_past_cylinder.py`` builds it: radius 0.03 of a unit
+    x range, centred 2.5 radii from the inflow wall at mid height, unit
+    free stream in x, Re on the radius, 60 forcing points."""
     real_t = get_real_t(precision)
     velocity_scale = 1.0
     cyl_radius = 0.03
@@ -418,11 +432,24 @@ def _build_cylinder_fsi_case(grid_size=(256, 512), *, device, reynolds=200.0,
     )
     free_stream = torch.tensor([velocity_scale, 0.0], dtype=real_t,
                                device=flow_sim.device)
+    return CylinderCase(flow_sim, cylinder, interactor, free_stream)
+
+
+def _build_cylinder_fsi_case(grid_size=(256, 512), *, device, reynolds=200.0,
+                             coupling_stiffness=-5e4, coupling_damping=-20.0,
+                             precision="single"):
+    """Flow past a fixed circular cylinder (:func:`_build_cylinder_objects`)
+    on the dense IBM path. Returns (fused step fn, (initial carry,))."""
+    case = _build_cylinder_objects(
+        grid_size, device=device, reynolds=reynolds,
+        coupling_stiffness=coupling_stiffness,
+        coupling_damping=coupling_damping, precision=precision)
     step = build_rigid_fsi_step(
-        flow_sim, interactor, dt_prefac=1.0,
-        free_stream_fn=lambda t: free_stream,
+        case.flow_sim, case.interactor, dt_prefac=1.0,
+        free_stream_fn=lambda t: case.free_stream,
     )
-    return step, (init_rigid_fsi_carry(flow_sim, interactor, step),)
+    return step, (init_rigid_fsi_carry(case.flow_sim, case.interactor,
+                                       step),)
 
 
 def flow_past_cylinder_fused_case(
@@ -521,32 +548,51 @@ def _build_rod_fsi_case(grid_size, *, device, surface_density=4,
     return step, init_rod_fsi_carry(flow_sim, interactor, rod)
 
 
-def _build_rod_bench_case(grid_size, *, device, sparse_forcing=None,
-                          precision="single", substep_load_refresh="every",
-                          sim_kwargs=None):
-    """The flexible-rod FSI benchmark case, sized as the reference's own
-    driver (flow_past_rod_case.py): grid (nx, nx/4, nx), n_elem = 5 nx / 16,
-    surface grid density nx / 8, Cauchy 0.1, mass ratio 100, Re 100,
-    stretch stiffening of the experimental filament, gravity, the linear
-    damper, dynamic substeps from the rod's dt, and the multiplicative
-    order-1 vorticity filter. The rod is float64, the flow float32
-    (``precision="single"``). Returns (fused step, (carry,)).
+class RodCase(NamedTuple):
+    """The objects of a 3D rod case: the simulator, the rod, its system
+    collection (finalized), the rod's interactor, the free stream tensor
+    and the rod's dt."""
 
-    ``sparse_forcing=False`` forces the dense IBM path; None takes the
-    moving sparse window that :func:`suggest_rod_forcing_window` gives.
-    ``sim_kwargs`` are extra :class:`UnboundedFlowSimulator3D` options."""
+    flow_sim: UnboundedFlowSimulator3D
+    rod: CosseratRod
+    collection: BaseSystemCollection
+    interactor: CosseratRodFlowInteraction
+    free_stream: torch.Tensor
+    rod_dt: float
+
+
+def _build_flow_past_rod_objects(
+        grid_size=(128, 32, 128), *, device, n_elem=40,
+        surface_grid_density_for_largest_element=16, cauchy_number=0.1,
+        mass_ratio=100.0, froude_number=0.5, stretch_bending_ratio=None,
+        poisson_ratio=0.5, reynolds=100.0, coupling_stiffness=-2e5,
+        coupling_damping=-1e2, rod_start_incline_angle=0.0,
+        precision="single", flow_forces=False,
+        sim_kwargs=None) -> RodCase:
+    """A flexible rod hanging into a free stream, as
+    ``examples/3d/flow_past_rod.py`` builds it, with its parameters and
+    defaults: the rod from (0.2, 0.5, 0.75) of the domain along (sin a, 0,
+    -cos a) for the incline a, diameter y_range / 5, Young's modulus from
+    the Cauchy number, shear stiffened by the stretch-to-bending ratio
+    (default: the experimental filament's, 25 mm x 0.4 mm), gravity from
+    the Froude number, ``OneEndFixedBC``, the linear damper (1e-3) at the
+    rod's dt (0.01 dl, capped by the axial wave speed); Re on the
+    diameter, an x range of 1.8 L, unit free stream in x, the order-1
+    multiplicative vorticity filter; the surface forcing grid.
+    ``flow_forces`` adds the host-coupled ``FlowForces`` to the collection,
+    as the example's host loop does. ``sim_kwargs`` are extra
+    :class:`UnboundedFlowSimulator3D` options. The rod is float64, the flow
+    ``precision``."""
     grid_size_z, grid_size_y, grid_size_x = grid_size
     real_t = get_real_t(precision)
-    n_elem = 5 * grid_size_x // 16
-    surface_density = max(4, grid_size_x // 8)
     rho_f, u_free_stream, base_length = 1.0, 1.0, 1.0
-    cauchy_number, mass_ratio, froude_number, reynolds = 0.1, 100.0, 0.5, 100.0
     x_range = 1.8 * base_length
     y_range = grid_size_y / grid_size_x * x_range
     z_range = grid_size_z / grid_size_x * x_range
 
     start = np.array([0.2 * x_range, 0.5 * y_range, 0.75 * z_range])
-    direction = np.array([0.0, 0.0, -1.0])
+    direction = np.array([np.sin(rod_start_incline_angle), 0.0,
+                          -np.cos(rod_start_incline_angle)])
     normal = np.array([0.0, 1.0, 0.0])
     base_diameter = y_range / 5.0
     base_radius = base_diameter / 2.0
@@ -557,10 +603,13 @@ def _build_rod_bench_case(grid_size, *, device, sparse_forcing=None,
         rho_f * u_free_stream**2 * base_length**3 * base_diameter
     ) / (cauchy_number * moment_of_inertia)
     gravitational_acc = froude_number * u_free_stream**2 / base_diameter
-    exp_radius, exp_length = 0.2e-3, 25e-3
-    stretch_bending_ratio = (
-        np.pi * exp_radius**2 * exp_length**2 / (np.pi / 4 * exp_radius**4)
-    )
+    # stretch-to-bending ratio EAL^2/EI of the experimental filament (25 mm x
+    # 0.4 mm), stiffer axially and in shear than the simulated thick rod
+    if stretch_bending_ratio is None:
+        exp_radius, exp_length = 0.2e-3, 25e-3
+        exp_area = np.pi * exp_radius**2
+        exp_moi = np.pi / 4 * exp_radius**4
+        stretch_bending_ratio = exp_area * exp_length**2 / exp_moi
     es_eb = stretch_bending_ratio * moment_of_inertia / (
         base_area * base_length**2
     )
@@ -576,7 +625,7 @@ def _build_rod_bench_case(grid_size, *, device, sparse_forcing=None,
         base_radius,
         rho_s,
         youngs_modulus=youngs_modulus,
-        shear_modulus=youngs_modulus / 1.5,
+        shear_modulus=youngs_modulus / (poisson_ratio + 1.0),
         device=device,
     )
     shear_diag = rod.params.shear_diag.clone()
@@ -592,12 +641,13 @@ def _build_rod_bench_case(grid_size, *, device, sparse_forcing=None,
         GravityForces, acc_gravity=np.array([0.0, 0.0, -gravitational_acc])
     )
     dl = base_length / n_elem
+    # the rod's dt: 0.01 dl, capped by the axial wave speed of the
+    # stretch-stiffened rod, c = sqrt(E es_eb / rho)
     axial_wave_speed = np.sqrt(youngs_modulus * es_eb / rho_s)
     rod_dt = min(0.01 * dl, 0.3 * dl / axial_wave_speed)
     collection.dampen(rod).using(
         AnalyticalLinearDamper, damping_constant=1e-3, time_step=rod_dt
     )
-    collection.finalize()
 
     flow_sim = UnboundedFlowSimulator3D(
         grid_size=grid_size,
@@ -614,40 +664,56 @@ def _build_rod_bench_case(grid_size, *, device, sparse_forcing=None,
     interactor = CosseratRodFlowInteraction(
         flow_sim=flow_sim,
         cosserat_rod=rod,
-        virtual_boundary_stiffness_coeff=-2e5,
-        virtual_boundary_damping_coeff=-1e2,
+        virtual_boundary_stiffness_coeff=coupling_stiffness,
+        virtual_boundary_damping_coeff=coupling_damping,
         forcing_grid_cls=CosseratRodSurfaceForcingGrid,
-        surface_grid_density_for_largest_element=surface_density,
+        surface_grid_density_for_largest_element=(
+            surface_grid_density_for_largest_element),
     )
+    if flow_forces:
+        collection.add_forcing_to(rod).using(FlowForces, interactor)
+    collection.finalize()
+    free_stream = torch.tensor([u_free_stream, 0.0, 0.0], dtype=real_t,
+                               device=device)
+    return RodCase(flow_sim, rod, collection, interactor, free_stream, rod_dt)
+
+
+def _build_rod_bench_case(grid_size, *, device, sparse_forcing=None,
+                          precision="single", substep_load_refresh="every",
+                          sim_kwargs=None):
+    """The flexible-rod FSI benchmark case, sized as the reference's own
+    driver (flow_past_rod_case.py): grid (nx, nx/4, nx), n_elem = 5 nx / 16,
+    surface grid density nx / 8 (at least 4), the rest
+    :func:`_build_flow_past_rod_objects` at its defaults (Cauchy 0.1, mass
+    ratio 100, Re 100, stretch stiffening, gravity, the linear damper, the
+    order-1 multiplicative filter), dynamic substeps from the rod's dt. The
+    rod is float64, the flow float32 (``precision="single"``). Returns
+    (fused step, (carry,)).
+
+    ``sparse_forcing=False`` forces the dense IBM path; None takes the
+    moving sparse window that :func:`suggest_rod_forcing_window` gives.
+    ``sim_kwargs`` are extra :class:`UnboundedFlowSimulator3D` options."""
+    grid_size_x = grid_size[2]
+    case = _build_flow_past_rod_objects(
+        grid_size, device=device, n_elem=5 * grid_size_x // 16,
+        surface_grid_density_for_largest_element=max(4, grid_size_x // 8),
+        precision=precision, sim_kwargs=sim_kwargs)
     sparse_window = None
     if sparse_forcing is not False:
-        sparse_window = suggest_rod_forcing_window(interactor, rod, grid_size)
-    free_stream = torch.tensor([1.0, 0.0, 0.0], dtype=real_t, device=device)
+        sparse_window = suggest_rod_forcing_window(case.interactor, case.rod,
+                                                   grid_size)
     step = build_rod_fsi_step(
-        flow_sim,
-        interactor,
-        collection,
+        case.flow_sim,
+        case.interactor,
+        case.collection,
         dt_prefac=0.25,
-        free_stream_fn=lambda t: free_stream,
-        rod_dt=rod_dt,
+        free_stream_fn=lambda t: case.free_stream,
+        rod_dt=case.rod_dt,
         sparse_forcing_window=sparse_window,
         substep_load_refresh=substep_load_refresh,
     )
-    carry = init_rod_fsi_carry(flow_sim, interactor, rod, step)
+    carry = init_rod_fsi_carry(case.flow_sim, case.interactor, case.rod, step)
     return step, (carry,)
-
-
-class FreelyRotatingRodCase(NamedTuple):
-    """The objects of the freely rotating rod case: the simulator, the rod,
-    its system collection (finalized), the rod's interactor, the free
-    stream tensor and the rod's dt."""
-
-    flow_sim: UnboundedFlowSimulator3D
-    rod: CosseratRod
-    collection: BaseSystemCollection
-    interactor: CosseratRodFlowInteraction
-    free_stream: torch.Tensor
-    rod_dt: float
 
 
 def _build_freely_rotating_rod_objects(
@@ -656,7 +722,7 @@ def _build_freely_rotating_rod_objects(
         mass_ratio=10.0, aspect_ratio=10.0, base_length=1.0,
         poisson_ratio=0.5, reynolds=100.0, coupling_stiffness=-2e5,
         coupling_damping=-1e2, rod_start_incline_angle=np.pi / 2,
-        precision="single", flow_forces=False) -> FreelyRotatingRodCase:
+        precision="single", flow_forces=False) -> RodCase:
     """Flow past a rod clamped in translation at its first node but free to
     turn about its own axis, as ``examples/3d/flow_past_freely_rotating_rod.py``
     builds it, with its parameters and defaults: the rod from (0.08, 0.502,
@@ -740,11 +806,10 @@ def _build_freely_rotating_rod_objects(
     if flow_forces:
         collection.add_forcing_to(rod).using(FlowForces, interactor)
     collection.finalize()
-    return FreelyRotatingRodCase(flow_sim, rod, collection, interactor,
-                                 free_stream, rod_dt)
+    return RodCase(flow_sim, rod, collection, interactor, free_stream, rod_dt)
 
 
-def build_freely_rotating_rod_step(case: FreelyRotatingRodCase):
+def build_freely_rotating_rod_step(case: RodCase):
     """(fused rod FSI step, carry from the objects' current state) of the
     freely rotating rod: dynamic substeps, dt_prefac 0.25, the dense IBM
     path."""
@@ -776,34 +841,43 @@ def _build_freely_rotating_rod_case(
         precision=precision))
 
 
-def _build_multibody_bench_case(grid_size, *, device, sparse_forcing=None,
-                                precision="single",
-                                substep_load_refresh="every",
-                                fast_spectral=None, sim_kwargs=None):
-    """The mixed rod + rigid-sphere FSI benchmark case
-    (``__graft_entry__._build_multibody_bench_case``, BASELINE config 5, the
-    physics of ``examples/3d/rod_and_sphere.py``): a Cosserat rod hanging
-    from 0.85 of the height, half the height long, n_elem = max(8,
-    5 nx / 16), surface grid density max(4, nx / 8), Cauchy 0.1, mass ratio
-    100, Re 100, stretch stiffening, the linear damper, no gravity; a fixed
-    sphere of 0.4 rod lengths in its wake at (0.65, 0.5, 0.5) of the
-    domain; both bodies sharing the forcing, dynamic substeps from the
-    rod's dt, the order-1 multiplicative filter. Float64 rod, float32 flow
-    (``precision="single"``). Meant for (nx/2, nx/2, nx) grids. Returns
-    (fused step, (carry,)).
+class RodAndSphereCase(NamedTuple):
+    """The objects of the rod and sphere case: the simulator, the two
+    bodies (the rod's, the sphere's), the free stream tensor, the rod's dt
+    and the sphere's diameter."""
 
-    ``sparse_forcing`` is the step's (None: per-body moving windows where
-    they fit); ``fast_spectral`` the simulator's; ``sim_kwargs`` are extra
-    :class:`UnboundedFlowSimulator3D` options."""
+    flow_sim: UnboundedFlowSimulator3D
+    bodies: tuple
+    free_stream: torch.Tensor
+    rod_dt: float
+    sphere_diameter: float
+
+
+def _build_rod_and_sphere_objects(
+        grid_size=(32, 32, 64), *, device, n_elem=8,
+        surface_grid_density_for_largest_element=8, cauchy_number=0.1,
+        mass_ratio=100.0, reynolds=100.0, coupling_stiffness=-2e5,
+        coupling_damping=-1e2, precision="single", fast_spectral=None,
+        sim_kwargs=None) -> RodAndSphereCase:
+    """A flexible rod and a fixed sphere in its wake, as
+    ``examples/3d/rod_and_sphere.py`` builds them, with its parameters and
+    defaults: a Cosserat rod hanging from 0.85 of the height, half the
+    height long, Young's modulus from the Cauchy number, stretch
+    stiffening of the experimental filament, ``OneEndFixedBC``, the linear
+    damper (1e-3) at the rod's dt, no gravity; a sphere of 0.4 rod lengths
+    at (0.65, 0.5, 0.5) of the domain; Re on the rod's diameter, an x range
+    of 1.8, unit free stream in x, the order-1 multiplicative filter.
+    ``fast_spectral`` is the simulator's, ``sim_kwargs`` are extra
+    :class:`UnboundedFlowSimulator3D` options. The rod is float64, the flow
+    ``precision``."""
     grid_size_z, grid_size_y, grid_size_x = grid_size
     real_t = get_real_t(precision)
-    n_elem = max(8, 5 * grid_size_x // 16)
-    surface_density = max(4, grid_size_x // 8)
     rho_f, u_free_stream = 1.0, 1.0
-    cauchy_number, mass_ratio, reynolds = 0.1, 100.0, 100.0
     x_range = 1.8
     y_range = grid_size_y / grid_size_x * x_range
     z_range = grid_size_z / grid_size_x * x_range
+    # the rod hangs from 0.85 of the height and is half the height long, so
+    # its tip stays inside the domain at any grid aspect
     base_length = 0.5 * z_range
 
     device = torch.device(device)
@@ -819,6 +893,7 @@ def _build_multibody_bench_case(grid_size, *, device, sparse_forcing=None,
     youngs_modulus = (
         rho_f * u_free_stream**2 * base_length**3 * base_diameter
     ) / (cauchy_number * moment_of_inertia)
+    # stretch stiffening of the experimental filament, as in flow_past_rod
     exp_radius, exp_length = 0.2e-3, 25e-3
     stretch_bending_ratio = (
         np.pi * exp_radius**2 * exp_length**2 / (np.pi / 4 * exp_radius**4)
@@ -871,10 +946,11 @@ def _build_multibody_bench_case(grid_size, *, device, sparse_forcing=None,
     rod_interactor = CosseratRodFlowInteraction(
         flow_sim=flow_sim,
         cosserat_rod=rod,
-        virtual_boundary_stiffness_coeff=-2e5,
-        virtual_boundary_damping_coeff=-1e2,
+        virtual_boundary_stiffness_coeff=coupling_stiffness,
+        virtual_boundary_damping_coeff=coupling_damping,
         forcing_grid_cls=CosseratRodSurfaceForcingGrid,
-        surface_grid_density_for_largest_element=surface_density,
+        surface_grid_density_for_largest_element=(
+            surface_grid_density_for_largest_element),
     )
     sphere_diameter = 0.4 * base_length
     sphere = Sphere(
@@ -893,8 +969,8 @@ def _build_multibody_bench_case(grid_size, *, device, sparse_forcing=None,
         flow_sim=flow_sim,
         rigid_body=sphere,
         forcing_grid=sphere_grid,
-        virtual_boundary_stiffness_coeff=-2e5,
-        virtual_boundary_damping_coeff=-1e2,
+        virtual_boundary_stiffness_coeff=coupling_stiffness,
+        virtual_boundary_damping_coeff=coupling_damping,
     )
     bodies = (
         RodBody(rod_interactor, collection),
@@ -902,16 +978,42 @@ def _build_multibody_bench_case(grid_size, *, device, sparse_forcing=None,
     )
     free_stream = torch.tensor([u_free_stream, 0.0, 0.0], dtype=real_t,
                                device=device)
+    return RodAndSphereCase(flow_sim, bodies, free_stream, rod_dt,
+                            sphere_diameter)
+
+
+def _build_multibody_bench_case(grid_size, *, device, sparse_forcing=None,
+                                precision="single",
+                                substep_load_refresh="every",
+                                fast_spectral=None, sim_kwargs=None):
+    """The mixed rod + rigid-sphere FSI benchmark case
+    (``__graft_entry__._build_multibody_bench_case``, BASELINE config 5, the
+    physics of ``examples/3d/rod_and_sphere.py``): n_elem = max(8, 5 nx /
+    16), surface grid density max(4, nx / 8), the rest
+    :func:`_build_rod_and_sphere_objects` at its defaults (Cauchy 0.1, mass
+    ratio 100, Re 100); both bodies sharing the forcing, dynamic substeps
+    from the rod's dt. Float64 rod, float32 flow (``precision="single"``).
+    Meant for (nx/2, nx/2, nx) grids. Returns (fused step, (carry,)).
+
+    ``sparse_forcing`` is the step's (None: per-body moving windows where
+    they fit); ``fast_spectral`` the simulator's; ``sim_kwargs`` are extra
+    :class:`UnboundedFlowSimulator3D` options."""
+    grid_size_x = grid_size[2]
+    case = _build_rod_and_sphere_objects(
+        grid_size, device=device, n_elem=max(8, 5 * grid_size_x // 16),
+        surface_grid_density_for_largest_element=max(4, grid_size_x // 8),
+        precision=precision, fast_spectral=fast_spectral,
+        sim_kwargs=sim_kwargs)
     step = build_multi_body_fsi_step(
-        flow_sim,
-        bodies,
+        case.flow_sim,
+        case.bodies,
         dt_prefac=0.25,
-        free_stream_fn=lambda t: free_stream,
-        sub_dt=rod_dt,
+        free_stream_fn=lambda t: case.free_stream,
+        sub_dt=case.rod_dt,
         sparse_forcing=sparse_forcing,
         substep_load_refresh=substep_load_refresh,
     )
-    carry = init_multi_body_fsi_carry(flow_sim, bodies, step)
+    carry = init_multi_body_fsi_carry(case.flow_sim, case.bodies, step)
     return step, (carry,)
 
 
@@ -1078,25 +1180,40 @@ def point_source_errors(flow_sim, field, t_final):
             float(error.max()))
 
 
-def flow_past_rod_2d_case(grid_size=(256, 512), *, device,
-                          precision="single"):
-    """A flexible rod clamped at one end in a 2D flow, the fused branch of
-    ``examples/2d/flow_past_rod.py`` with its values: Re 200, bending
-    stiffness 1.5e-3, mass ratio 1.5, Froude 0.5, an x range of 6 rod
-    lengths, the rod from (1, 0.501 y_range) along x with n_elem = nx / 8,
-    ``OneEndFixedBC``, gravity along x, the linear damper (5e-4) at the
-    rod's dt 0.01 L / n_elem; the element-centric forcing grid, coupling
-    stiffness -8e4 and damping -30; a free stream ramping up to 1 in x with
-    a decaying 0.5 perturbation in y; dynamic substeps, dt_prefac 0.5, the
-    dense IBM path. The rod is float64, the flow ``precision``. Returns
-    (fused step, carry, the tip's start (x, y) as numpy); the tip
-    trajectory of the example is ``(carry.rod_state.position[:2, -1] -
-    tip start) / L``. The example's IO and host loop are not here."""
+class Rod2DCase(NamedTuple):
+    """The objects of the 2D rod case: the simulator, the rod, its system
+    collection (finalized), the rod's interactor, the fused step's free
+    stream as a function of the time (a tensor), the rod's dt and the tip's
+    start (x, y) as numpy."""
+
+    flow_sim: UnboundedFlowSimulator2D
+    rod: CosseratRod
+    collection: BaseSystemCollection
+    interactor: CosseratRodFlowInteraction
+    free_stream_fn: object
+    rod_dt: float
+    tip_start: np.ndarray
+
+
+def _build_flow_past_rod_2d_objects(
+        grid_size=(256, 512), *, device, reynolds=200.0,
+        nondim_bending_stiffness=1.5e-3, nondim_mass_ratio=1.5, froude=0.5,
+        rod_start_incline_angle=0.0, coupling_stiffness=-8e4,
+        coupling_damping=-30.0, precision="single",
+        flow_forces=False) -> Rod2DCase:
+    """A flexible rod clamped at one end in a 2D flow, as
+    ``examples/2d/flow_past_rod.py`` builds it, with its parameters and
+    defaults: an x range of 6 rod lengths, the rod from (1, 0.501 y_range)
+    along (cos a, sin a) for the incline a with n_elem = nx / 8,
+    ``OneEndFixedBC``, gravity along x from the Froude number, the linear
+    damper (5e-4) at the rod's dt 0.01 L / n_elem; the element-centric
+    forcing grid; a free stream ramping up to 1 in x with a decaying 0.5
+    perturbation in y. ``flow_forces`` adds the host-coupled
+    ``FlowForces`` to the collection, as the example's host loop does. The
+    rod is float64, the flow ``precision``."""
     grid_size_y, grid_size_x = grid_size
     real_t = get_real_t(precision)
     velocity_free_stream, rho_f, base_length = 1.0, 1.0, 1.0
-    reynolds, nondim_bending_stiffness = 200.0, 1.5e-3
-    nondim_mass_ratio, froude = 1.5, 0.5
     x_range = 6.0 * base_length
     y_range = grid_size_y / grid_size_x * x_range
     n_elem = grid_size_x // 8
@@ -1118,7 +1235,8 @@ def flow_past_rod_2d_case(grid_size=(256, 512), *, device,
     rod = CosseratRod.straight_rod(
         n_elem,
         np.array([base_length, 0.501 * y_range, 0.0]),
-        np.array([1.0, 0.0, 0.0]),
+        np.array([np.cos(rod_start_incline_angle),
+                  np.sin(rod_start_incline_angle), 0.0]),
         np.array([0.0, 0.0, 1.0]),
         base_length,
         base_radius,
@@ -1143,7 +1261,6 @@ def flow_past_rod_2d_case(grid_size=(256, 512), *, device,
     collection.dampen(rod).using(
         AnalyticalLinearDamper, damping_constant=0.5e-3, time_step=rod_dt
     )
-    collection.finalize()
 
     flow_sim = UnboundedFlowSimulator2D(
         grid_size=grid_size,
@@ -1157,10 +1274,13 @@ def flow_past_rod_2d_case(grid_size=(256, 512), *, device,
     interactor = CosseratRodFlowInteraction(
         flow_sim=flow_sim,
         cosserat_rod=rod,
-        virtual_boundary_stiffness_coeff=-8e4,
-        virtual_boundary_damping_coeff=-30.0,
+        virtual_boundary_stiffness_coeff=coupling_stiffness,
+        virtual_boundary_damping_coeff=coupling_damping,
         forcing_grid_cls=CosseratRodElementCentricForcingGrid,
     )
+    if flow_forces:
+        collection.add_forcing_to(rod).using(FlowForces, interactor)
+    collection.finalize()
     timescale = base_length / velocity_free_stream
 
     def free_stream(t):
@@ -1169,15 +1289,32 @@ def flow_past_rod_2d_case(grid_size=(256, 512), *, device,
         return torch.stack([velocity_free_stream * (1.0 - ramp),
                             0.5 * velocity_free_stream * ramp])
 
+    return Rod2DCase(flow_sim, rod, collection, interactor, free_stream,
+                     rod_dt, tip_start)
+
+
+def flow_past_rod_2d_case(grid_size=(256, 512), *, device,
+                          precision="single"):
+    """The fused branch of ``examples/2d/flow_past_rod.py`` at the example's
+    values (:func:`_build_flow_past_rod_2d_objects`: Re 200, bending
+    stiffness 1.5e-3, mass ratio 1.5, Froude 0.5, coupling stiffness -8e4
+    and damping -30): dynamic substeps, dt_prefac 0.5, the dense IBM path.
+    Returns (fused step, carry, the tip's start (x, y) as numpy); the tip
+    trajectory of the example is ``(carry.rod_state.position[:2, -1] -
+    tip start) / L``. The example's IO and host loop are in
+    ``examples_torch/2d/flow_past_rod.py``."""
+    case = _build_flow_past_rod_2d_objects(grid_size, device=device,
+                                           precision=precision)
     step = build_rod_fsi_step(
-        flow_sim,
-        interactor,
-        collection,
+        case.flow_sim,
+        case.interactor,
+        case.collection,
         dt_prefac=0.5,
-        free_stream_fn=free_stream,
-        rod_dt=rod_dt,
+        free_stream_fn=case.free_stream_fn,
+        rod_dt=case.rod_dt,
     )
-    return step, init_rod_fsi_carry(flow_sim, interactor, rod), tip_start
+    return (step, init_rod_fsi_carry(case.flow_sim, case.interactor, case.rod),
+            case.tip_start)
 
 
 def sedimenting_sphere_case(grid_size=(64, 64, 64), *, device,

@@ -3,10 +3,12 @@
 
 All marker kinematics are tensor expressions on the rod state. The
 surface grid's per-marker element index and angle are built once on the
-host (radii are time-invariant), leaving gathers and one ``index_add_``
-per transfer at call time. ``index_add_`` on a CUDA tensor adds with
-atomics in no fixed order, so a marker sum on the card can differ from
-the CPU's in its last bits.
+host (radii are time-invariant), leaving gathers and a marker-to-element
+sum per transfer at call time. That sum gathers each element's markers
+into a row of an (elements, largest ring) table built on the host, padded
+with zeros, and adds along the row: its order is fixed, so it gives the
+same bits on every run (an ``index_add_`` on a CUDA tensor adds with
+atomics in no fixed order).
 
 Marker-side tensors may carry another float dtype than the rod (a float64
 rod coupled to a float32 flow gives float64 markers and forcing, as JAX's
@@ -206,6 +208,13 @@ class CosseratRodSurfaceForcingGrid(ImmersedBodyForcingGrid):
         self.num_lag_nodes = len(elem_idx)
 
         ring_counts = np.bincount(np_elem_idx, minlength=n_elems)
+        # each element's markers in a row, padded with the index of a zero
+        # column past the last marker (the markers come element by element)
+        starts = np.concatenate(([0], np.cumsum(ring_counts)[:-1]))
+        cols = np.arange(max(1, ring_counts.max()))
+        table = np.where(cols < ring_counts[:, None], starts[:, None] + cols,
+                         len(np_elem_idx))
+        self._elem_rows = torch.tensor(table, device=device)
         lengths = cosserat_rod.params.rest_lengths.cpu().numpy()
         self._max_spacing = float(
             max(
@@ -248,21 +257,21 @@ class CosseratRodSurfaceForcingGrid(ImmersedBodyForcingGrid):
         arm = self._radius * (self._cos_t * d1 + self._sin_t * d2)
         return vels + torch.linalg.cross(omega_lab, arm, dim=0)
 
+    def _element_sums(self, marker_values):
+        """(3, markers) -> (3, elements): each element's markers summed
+        in the fixed order of its row of ``_elem_rows``."""
+        padded = F.pad(marker_values, (0, 1))
+        return padded[:, self._elem_rows].sum(dim=-1)
+
     def body_loads(self, rod_state, lag_grid_forcing_field):
-        n = rod_state.omega.shape[1]
         dtype = lag_grid_forcing_field.dtype
         body_force = -lag_grid_forcing_field  # Newton's third law
         # per-element force, split half-half to the adjacent nodes
-        elem_force = body_force.new_zeros((3, n)).index_add_(
-            1, self._elem_idx, body_force
-        )
-        forces = _split_to_nodes(elem_force)
+        forces = _split_to_nodes(self._element_sums(body_force))
         # material-frame torque about the element centers
         arm, force = _promoted(self._moment_arms(rod_state), body_force)
         torque_lab = torch.linalg.cross(arm, force, dim=0).to(dtype)
-        elem_torque_lab = body_force.new_zeros((3, n)).index_add_(
-            1, self._elem_idx, torque_lab
-        )
+        elem_torque_lab = self._element_sums(torque_lab)
         director, elem_torque_lab = _promoted(
             rod_state.director, elem_torque_lab
         )

@@ -110,7 +110,8 @@ def brinkmann_penalise_2d(velocity, penalty_factor, char_field,
 def char_func_from_level_set_via_sine_heaviside_2d(level_set, blend_width):
     """Smooth characteristic function from a signed-distance level set
     (positive inside the body), blended over ``blend_width``:
-    ``H = 0.5 (1 + phi/w + sin(pi phi/w)/pi)`` clipped to [0, 1]."""
+    ``H = 0.5 (1 + phi/w + sin(pi phi/w)/pi)`` clipped to [0, 1], the sine
+    term as ``x sinc(x)`` for the reason the 3D op gives."""
     phi = level_set / blend_width
-    h = 0.5 * (1.0 + phi + torch.sin(math.pi * phi) / math.pi)
+    h = 0.5 * (1.0 + phi + phi * torch.sinc(phi))
     return torch.clamp(h, 0.0, 1.0)

@@ -124,9 +124,15 @@ def brinkmann_penalise_3d(velocity, penalty_factor, char_field,
 def char_func_from_level_set_via_sine_heaviside_3d(level_set, blend_width):
     """Smooth characteristic function from a signed-distance level set
     (positive inside the body), blended over ``blend_width``:
-    ``H = 0.5 (1 + phi/w + sin(pi phi/w)/pi)`` clipped to [0, 1]."""
+    ``H = 0.5 (1 + phi/w + sin(pi phi/w)/pi)`` clipped to [0, 1].
+
+    The sine term is written ``x sinc(x)`` (x = phi/w), which is
+    ``sin(pi x)/pi``: on the CPU ``torch.sin`` goes to MKL's vector math,
+    split over threads in chunks of 2048 values, and the first such call in
+    a process has returned values off by up to 1.5e-4 in a worker thread's
+    chunk; ``torch.sinc`` takes the C library's scalar ``sin``."""
     phi = level_set / blend_width
-    h = 0.5 * (1.0 + phi + torch.sin(math.pi * phi) / math.pi)
+    h = 0.5 * (1.0 + phi + phi * torch.sinc(phi))
     return torch.clamp(h, 0.0, 1.0)
 
 
