@@ -42,8 +42,9 @@ raises and exits non-zero, and nothing falls back to the CPU:
    timed steps with every kernel's launch count, 3 steps with their host
    syncs counted, then a profiled window for the device busy share and the
    time by kernel (written to ``build/rod_profile.txt``);
-9. rod physics: the (128, 32, 128) rod case to t = 0.2, its tip against
-   the JAX package's CPU trajectory
+9. rod physics: the (128, 32, 128) rod case to t = 0.1 (the reference
+   runs to 0.2; the depth was cut to keep the script near 650 s), its tip
+   against the JAX package's CPU trajectory
    (``sopht_mpi_tpu_torch/data/rod_tip_reference.json``);
 10. rod card vs CPU: 3 steps of the (64, 16, 64) rod case from one
     numpy-seeded state;
@@ -59,9 +60,10 @@ raises and exits non-zero, and nothing falls back to the CPU:
     counted, a profiled window (written to
     ``build/multibody_profile.txt``), and the exact tier in turns;
 13. multibody physics: the same case at (64, 64, 128), the grid of
-    ``doc/validation_rod_and_sphere_64x64x128.csv``, for the reference's
-    320 steps on the fast tier, the rod tip and the sphere's x-force
-    against the JAX package's CPU trajectory
+    ``doc/validation_rod_and_sphere_64x64x128.csv``, for 160 of the
+    reference's 320 steps (cut to keep the script near 650 s) on the fast
+    tier, the rod tip and the sphere's x-force against the JAX package's
+    CPU trajectory
     (``sopht_mpi_tpu_torch/data/multibody_reference.json``);
 14. multibody card vs CPU: 3 steps of the (32, 32, 64) case from one
     numpy-seeded state, the fast tier on the card against the plain passes
@@ -208,7 +210,32 @@ raises and exits non-zero, and nothing falls back to the CPU:
 36. 2D rod driver: ``flow_past_rod.py`` at (256, 512), the fused loop in
     windows of 20 to t* = 0.05 (each of the 2D route's passes once a step)
     and the host loop to t* = 0.025 (without ``--save-flow-data``: the
-    script does not need h5py; the CPU tests write and check those files).
+    script does not need h5py; the CPU tests write and check those files);
+37. kernel gradients: each of the 21 wrappers' gradient through its
+    ``torch.autograd.Function`` (the kernel's forward, the JAX package's
+    rule as the backward, plain torch) against torch autograd through its
+    plain version, every tensor input differentiated (prefactors,
+    ``add_vector``, ``fsv``, ``greens``, the curl symbols), at the kernel
+    table's shapes (the stencils also at 64^3 float64,
+    ``ifft_pass_truncated`` with its Green's fold at a (48, 32, 64) grid's
+    shapes), with the forward gates' tolerances; the backward's time (CUDA
+    events, median of 20) goes into each kernel row as ``backward_ms``;
+38. adjoint driver: ``examples_torch/2d/adjoint_viscosity_inversion.py``
+    at the example's (64, 64) and 160 steps, float32: the first value and
+    gradient on the 2D kernel route within 1e-3 relative of the dense
+    route's, each of the route's three passes launched once a rollout step
+    (the backward launches none); an inversion at the JAX smoke test's
+    settings on the kernels recovering nu to 5%; the float64 driver's
+    history on the card over 4 iterations of those settings within 1e-8
+    relative of the CPU's; s/iteration and
+    peak memory;
+39. sphere gradient: the gradient of ``sum u^2`` after 2 steps of the
+    256^3 sphere case w.r.t. the initial vorticity, the kernel path
+    (exact tier) against the plain path (plain stencils, dense solve) to
+    1e-3 relative L2, run twice (bit-equal or not, peak memory, forward
+    launches only); 1 step each on the fast tier and with
+    ``USE_FUSED_EDGE_PASSES``; the flow-only step on a (2, 2) mesh at
+    128^3 against one device.
 
 Phases 31-36 print s/step (the windows after the first) and a window's
 wall. The phases from 28 on run in ``build/`` and remove what they write.
@@ -230,12 +257,13 @@ z conv (``fft_greens_ifft_pass``) on ``ZCONV_CASES``: ragged column counts,
 storage-offset inputs, A = 1, the 2D route's shape and every length class
 (m = 64 ... 512 on the ring kernel, 96, 544, 1024 on the four-step one). The
 line before the last is the kernel table as JSON (each kernel's launches on
-a main path, error, kernel / plain / one-PyTorch-call times and its bound at
-the main path's shape); the last line is
+a main path, error, kernel / plain / one-PyTorch-call times, its bound at
+the main path's shape and its backward's time, phase 37); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -312,6 +340,10 @@ CONV_REPLACES = "sopht_mpi_tpu/ops/pallas_stencils_3d.py:825"
 # the rod tip against the JAX package's trajectory: the bound to which
 # doc/validation_rod_sparse_vs_dense.json holds sparse against dense
 TIP_TOL = 2e-5
+# how far phases 9 and 13 follow the JAX trajectories (t = 0.2 and 320
+# steps in the references): cut in half to keep the script near 650 s
+ROD_PHYSICS_T = 0.1
+MULTIBODY_PHYSICS_STEPS = 160
 FFT_REPLACES = {
     "rfft_pass_padded_split": "sopht_mpi_tpu/parallel/pallas_fft.py:730",
     "fft_pass_padded": "sopht_mpi_tpu/parallel/pallas_fft.py:260",
@@ -389,6 +421,28 @@ FP32_OPS_PER_S = 67e12
 # factored length-m DFTs grows like log m; the JAX package holds its passes
 # to 2e-6 of numpy's at m <= 128, and m = 512 here
 FFT_TOL = 5e-6
+# the grid of the kernel table's 256^3 shapes (phase 37's gradients)
+TABLE_GRID = (256, 256, 256)
+# phases 38-39, reverse mode: the adjoint driver at the example's defaults
+# (grid, rollout steps) and at the JAX smoke test's settings; the gates on
+# the float32 kernel route's first value and gradient against the dense
+# route's, on the recovered nu, and on the card's float64 history against
+# the CPU's; the 256^3 sphere gradient of the kernels against the plain
+# path's (relative L2), and the sharded flow step's at 128^3 against one
+# device's (of the largest value)
+ADJOINT_GRID = (64, 64)
+ADJOINT_STEPS = 160
+ADJOINT_SMOKE = dict(grid_size=(32, 32), n_steps=60, iters=16,
+                     learning_rate=0.2)
+ADJOINT_ROUTE_TOL = 1e-3
+ADJOINT_NU_TOL = 0.05
+ADJOINT_F64_TOL = 1e-8
+# the float64 card-vs-CPU histories: the smoke settings, fewer iterations
+ADJOINT_F64_ITERS = 4
+SPHERE_GRAD_GRID = (256, 256, 256)
+SPHERE_GRAD_TOL = 1e-3
+SHARDED_GRAD_GRID = (128, 128, 128)
+SHARDED_GRAD_TOL = 1e-4
 # Cd at t* = 2 of the 64^3 fused sphere case
 # (doc/validation_sphere_cd_convergence.json, grids["64"]["cd_t2"])
 CD_T2_64 = 1.34141910580261
@@ -1389,7 +1443,7 @@ def main():
         check(step.sparse_forcing_window is not None, "no sparse window")
         times = [float(carry.time)]
         tips = [carry.rod_state.position[:, -1].cpu().numpy()]
-        while times[-1] < ref["t_end"]:
+        while times[-1] < ROD_PHYSICS_T:
             carry, _ = step(carry)
             times.append(float(carry.time))
             tips.append(carry.rod_state.position[:, -1].cpu().numpy())
@@ -1408,7 +1462,9 @@ def main():
         moved = float(np.abs(tips[-1] - tips[0]).max())
         return None, (
             f"{grid} rod case to t = {times[-1]:.5f} in {len(times) - 1} steps "
-            f"(JAX CPU: {len(ref_t) - 1}), {step.stats['substeps']} substeps; "
+            f"(JAX CPU: {int(np.searchsorted(ref_t, times[-1]))} to there, "
+            f"{len(ref_t) - 1} to {ref['t_end']}), "
+            f"{step.stats['substeps']} substeps; "
             f"tip moved {moved:.6g}, max deviation from the JAX trajectory "
             f"{dev_max:.3g} = {rel:.3g} L (bound {TIP_TOL} L)")
 
@@ -1615,7 +1671,7 @@ def main():
         with open(os.path.join(REPO, "sopht_mpi_tpu_torch", "data",
                                "multibody_reference.json")) as f:
             ref = json.load(f)
-        grid, n_steps = tuple(ref["grid_size"]), ref["n_steps"]
+        grid, n_steps = tuple(ref["grid_size"]), MULTIBODY_PHYSICS_STEPS
         step, (carry,) = cases._build_multibody_bench_case(
             grid, device=dev, fast_spectral=True)
         check(step.uses_sparse_forcing, "no sparse windows")
@@ -1662,7 +1718,8 @@ def main():
                         f"{cd_csv:.3f} (card {cd:.3f})")
         return None, (
             f"{grid} fast tier, {n_steps} steps to t = {times[-1]:.5f} (JAX "
-            f"CPU: {ref_t[-1]:.5f}), {step.stats['substeps']} substeps; tip "
+            f"CPU: {ref_t[n_steps]:.5f}), {step.stats['substeps']} "
+            f"substeps; tip "
             f"moved {float(np.abs(tips[-1] - tips[0]).max()):.6g}, max "
             f"deviation from the JAX trajectory {dev_max:.3g} = {rel:.3g} L "
             f"(bound {TIP_TOL} L); sphere x-force at the last step "
@@ -3423,6 +3480,363 @@ def main():
             f"{host_wall:.2f} s, launches {host} [{card}]")
 
     rod_2d_driver_phase()
+
+    @phase("kernel gradients")
+    def kernel_gradients_phase():
+        """Each wrapper's gradient through its ``torch.autograd.Function``
+        (the kernel's forward, the JAX package's rule as the backward)
+        against torch autograd through the plain version, at the kernel
+        table's shapes; the backward's time (CUDA events, median of 20)
+        goes into the table's row as ``backward_ms``."""
+        gen = torch.Generator(device=dev).manual_seed(37)
+
+        def r(*shape, dtype=torch.float32):
+            return torch.randn(shape, dtype=dtype, device=dev, generator=gen)
+
+        def as_tuple(out):
+            return out if isinstance(out, tuple) else (out,)
+
+        def grads_of(fn, args, wrt, cts=None):
+            leaves = [a.detach().clone().requires_grad_(i in wrt)
+                      if torch.is_tensor(a) else a
+                      for i, a in enumerate(args)]
+            outs = as_tuple(fn(*leaves))
+            if cts is None:
+                cts = [r(*o.shape, dtype=o.dtype) for o in outs]
+            inputs = [leaves[i] for i in wrt]
+            got = torch.autograd.grad(outs, inputs, cts, retain_graph=True)
+            return got, outs, inputs, cts
+
+        def grad_check(name, fn, ref_fn, args, wrt, fft_pass):
+            got, outs, inputs, cts = grads_of(fn, args, wrt)
+            want, *_ = grads_of(ref_fn, args, wrt, cts)
+            err = 0.0
+            for i, g, w in zip(wrt, got, want):
+                e, scale = max_err(g, w)
+                tol = (FFT_TOL * scale if fft_pass else 1e-12
+                       if w.dtype == torch.float64 else 1e-5 * max(1.0, scale))
+                check(e <= tol, f"{name}: gradient of argument {i}: "
+                      f"max|diff| {e} > {tol} against the plain version")
+                err = max(err, e)
+            ms = median_ms(torch, lambda: torch.autograd.grad(
+                outs, inputs, cts, retain_graph=True))
+            return err, ms
+
+        results = {}
+
+        def run(name, fn, ref_fn, args, wrt, fft_pass=False, row=None):
+            err, ms = grad_check(name, fn, ref_fn, args, wrt, fft_pass)
+            results[name] = (err, ms)
+            if row is not None:
+                table[row]["backward_ms"] = ms
+                table[row]["backward_max_abs_err"] = err
+            torch.cuda.empty_cache()
+
+        # the single-device stencils at their rows' shapes, float32, and at
+        # 64^3 float64
+        for shape, dtype in ((TABLE_GRID, torch.float32),
+                             ((64, 64, 64), torch.float64)):
+            keep = dtype == torch.float32
+            w, u = r(3, *shape, dtype=dtype), r(3, *shape, dtype=dtype)
+            p = torch.tensor(0.05, dtype=dtype, device=dev)
+            add = torch.tensor([1.0, -0.5, 0.25], dtype=dtype, device=dev)
+            tag = "" if keep else " f64"
+            run("rotational_curl_add_3d" + tag, kernels.rotational_curl_add_3d,
+                kernels.rotational_curl_add_3d_ref, (w, u, p), (0, 1, 2),
+                row="rotational_curl_add_3d" if keep else None)
+            run("diffusion_penalise_vector_3d" + tag,
+                kernels.diffusion_penalise_vector_3d,
+                kernels.diffusion_penalise_vector_3d_ref, (w, p, 2), (0, 1),
+                row="diffusion_penalise_vector_3d" if keep else None)
+            run("curl_3d" + tag, kernels.curl_3d, kernels.curl_3d_ref,
+                (w, p, add, True), (0, 1, 2),
+                row="curl_3d" if keep else None)
+            del w, u
+        for shape, dtype in ((ROD_SHAPE, torch.float32),
+                             ((3, 64, 64, 64), torch.float64)):
+            keep = dtype == torch.float32
+            tag = "" if keep else " f64"
+            w = r(*shape, dtype=dtype)
+            p = torch.tensor(0.13, dtype=dtype, device=dev)
+            run("diffusion_timestep_vector_3d" + tag,
+                kernels.diffusion_timestep_vector_3d,
+                kernels.diffusion_timestep_vector_3d_ref, (w, p), (0, 1),
+                row="diffusion_timestep_vector_3d" if keep else None)
+            run("laplacian_filter_vector_3d" + tag,
+                kernels.laplacian_filter_vector_3d,
+                kernels.laplacian_filter_vector_3d_ref,
+                (w, 1, "multiplicative"), (0,),
+                row="laplacian_filter_vector_3d" if keep else None)
+            run("penalise_field_boundary_vector_3d" + tag,
+                kernels.penalise_field_boundary_vector_3d,
+                kernels.penalise_field_boundary_vector_3d_ref, (w, 2), (0,),
+                row="penalise_field_boundary_vector_3d" if keep else None)
+            del w
+        w = r(*FREE_ROD_SHAPE)
+        run("laplacian_filter_vector_3d convolution",
+            kernels.laplacian_filter_vector_3d,
+            kernels.laplacian_filter_vector_3d_ref,
+            (w, FREE_ROD_ORDER, "convolution"), (0,),
+            row="laplacian_filter_vector_3d convolution")
+        # the FFT passes at their rows' shapes, every tensor input a
+        # gradient; the optional Green's fold of ifft_pass_truncated, shared
+        # and not, at a (48, 32, 64) grid's shapes
+        args = fft_pass_args(TABLE_GRID, gen)
+        for name in FFT_REPLACES:
+            a = args[name]
+            run(name, getattr(cuda_fft, name),
+                getattr(cuda_fft, name + "_ref"), a,
+                tuple(i for i, t in enumerate(a) if torch.is_tensor(t)),
+                fft_pass=True, row=name)
+        del args
+        grid = (48, 32, 64)
+        a, m, b = 3 * grid[0], 2 * grid[1], grid[2]
+        for lead in (1, a):
+            run(f"ifft_pass_truncated greens ({lead}, m, B)",
+                cuda_fft.ifft_pass_truncated, cuda_fft.ifft_pass_truncated_ref,
+                (r(a, m, b), r(a, m, b), r(lead, m, b)), (0, 1, 2),
+                fft_pass=True)
+        args = fused_pair_args(MULTIBODY_GRID, gen)
+        for name, a in args.items():
+            run(name, getattr(cuda_fft, name),
+                getattr(cuda_fft, name + "_ref"), a,
+                tuple(i for i, t in enumerate(a) if torch.is_tensor(t)),
+                fft_pass=True, row=name)
+        del args
+        args = edge_pass_args(TABLE_GRID, gen)
+        for name, a in args.items():
+            run(name, getattr(cuda_fft, name),
+                getattr(cuda_fft, name + "_ref"), a,
+                tuple(i for i, t in enumerate(a) if torch.is_tensor(t)),
+                fft_pass=True, row=name)
+        del args
+        # the sharded four on SHARDED_MESH at the table's shape
+        mesh = create_mesh(3, SHARDED_MESH, device=dev)
+        ws = shard_vector_field(r(3, *SHARDED_GRID), mesh)
+        us = shard_vector_field(r(3, *SHARDED_GRID), mesh)
+        p = torch.tensor(0.05, device=dev)
+        add = torch.tensor([1.0, -0.5, 0.25], device=dev)
+        sharded_args = {
+            "diffusion_timestep_vector_3d_sharded": ((ws, p, mesh), (0, 1)),
+            "curl_3d_sharded": ((ws, p, mesh, add, True), (0, 1, 3)),
+            "rotational_curl_add_3d_sharded": ((ws, us, p, mesh), (0, 1, 2)),
+            "diffusion_penalise_vector_3d_sharded": ((ws, p, 2, mesh),
+                                                     (0, 1)),
+        }
+        for name, (a, wrt) in sharded_args.items():
+            fn = getattr(sharded, name)
+            if name == "curl_3d_sharded":
+                fn = lambda f, q, m, v, l1: sharded.curl_3d_sharded(
+                    f, q, m, v, compute_l1_max=l1)
+            run(name, fn, getattr(sharded, name + "_ref"), a, wrt, row=name)
+        del ws, us
+        missing = [k for k, v in table.items() if "backward_ms" not in v]
+        check(not missing, f"no backward time for {missing}")
+        return None, "; ".join(
+            f"{k}: gradient max|diff| {e:.3g}, backward {ms:.4f} ms"
+            for k, (e, ms) in results.items()) + f" [{card}]"
+
+    kernel_gradients_phase()
+
+    @phase("adjoint driver")
+    def adjoint_driver_phase():
+        """``examples_torch/2d/adjoint_viscosity_inversion.py``: the first
+        value and gradient at the example's defaults in float32 on the 2D
+        kernel route against the dense route, an inversion at the smoke
+        settings on the kernels, the float64 driver on the card against the
+        CPU's."""
+        import math
+
+        mod = load_example("adjoint_viscosity_inversion", "2d")
+
+        def first(dense):
+            with (dense_route() if dense else contextlib.nullcontext()):
+                loss_fn, real_t = mod.build_inversion(
+                    ADJOINT_GRID, 1e-3, ADJOINT_STEPS, "single", device=dev)
+                log_nu = torch.tensor(math.log(2e-3), dtype=real_t,
+                                      device=dev, requires_grad=True)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                reset_counts()
+                t0 = time.perf_counter()
+                val = loss_fn(log_nu)
+                (grad,) = torch.autograd.grad(val, log_nu)
+                val, grad = float(val.detach()), float(grad)
+                wall = time.perf_counter() - t0
+                launches = {fn.__name__: fn.launches for fn in route_2d}
+                peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            return val, grad, wall, launches, peak
+
+        val, grad, wall, launches, peak = first(False)
+        # the backward launches no kernel: each pass once a rollout step
+        for name, count in launches.items():
+            check(count == ADJOINT_STEPS, f"{name} launched {count} times in "
+                  f"a value and gradient of {ADJOINT_STEPS} steps")
+        check_not_launched(
+            [fn.__name__ for fn in by_name.values() if fn not in route_2d],
+            "the adjoint rollout")
+        dval, dgrad, dwall, dlaunch, dpeak = first(True)
+        check(not any(dlaunch.values()), f"the dense route launched {dlaunch}")
+        gap_val = abs(val - dval) / abs(dval)
+        gap_grad = abs(grad - dgrad) / abs(dgrad)
+        check(max(gap_val, gap_grad) <= ADJOINT_ROUTE_TOL,
+              f"kernel route value / gradient {val} / {grad} against the "
+              f"dense route's {dval} / {dgrad}")
+        smoke = ADJOINT_SMOKE
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        nu, nu_true, rel, hist = mod.adjoint_viscosity_inversion_case(
+            **smoke, precision="single", device=dev)
+        s_iter = (time.perf_counter() - t0) / smoke["iters"]
+        smoke_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        solves = smoke["n_steps"] * (smoke["iters"] + 2)
+        check_2d_route(solves, "the float32 inversion")
+        check(rel < ADJOINT_NU_TOL, f"float32 kernel route recovered nu "
+              f"{nu} against {nu_true}")
+        t0 = time.perf_counter()
+        short = dict(smoke, iters=ADJOINT_F64_ITERS)
+        *_, card64 = mod.adjoint_viscosity_inversion_case(**short,
+                                                          device=dev)
+        s_iter64 = (time.perf_counter() - t0) / short["iters"]
+        *_, cpu64 = mod.adjoint_viscosity_inversion_case(**short,
+                                                         device="cpu")
+        gap64 = float(np.max(np.abs(np.asarray(card64) - np.asarray(cpu64))
+                             / np.abs(np.asarray(cpu64))))
+        check(gap64 <= ADJOINT_F64_TOL, f"float64 history on the card parts "
+              f"from the CPU's by {gap64} relative")
+        return None, (
+            f"{ADJOINT_GRID} f32, {ADJOINT_STEPS} steps: loss {val:.10g}, "
+            f"d loss / d log nu {grad:.10g} on the kernel route against "
+            f"{dval:.10g} / {dgrad:.10g} dense (relative {gap_val:.3g} / "
+            f"{gap_grad:.3g}); a value and gradient {wall:.3f} s (dense "
+            f"{dwall:.3f} s), peak {peak:.3f} GiB (dense {dpeak:.3f}), "
+            f"launches {launches}; smoke settings {smoke}: f32 kernels nu "
+            f"{nu:.6e} ({rel:.3%} from {nu_true}), {s_iter:.4f} s/iteration, "
+            f"peak {smoke_peak:.3f} GiB, each pass {solves} launches; f64 "
+            f"{s_iter64:.4f} s/iteration, the {ADJOINT_F64_ITERS}-iteration "
+            f"history within {gap64:.3g} relative of the CPU's [{card}]")
+
+    adjoint_driver_phase()
+
+    @phase("sphere gradient")
+    def sphere_gradient_phase():
+        """The gradient of ``sum u^2`` after the 256^3 sphere step w.r.t.
+        the initial vorticity: kernels (exact tier, twice; fast tier; fused
+        edge passes) against the plain path (plain stencils, the dense
+        ``torch.fft`` solve); the (2, 2) sharded flow step's at 128^3
+        against one device's."""
+        def rel_l2(a, b):
+            return float((a.double() - b.double()).norm() / b.double().norm())
+
+        def gradient(step, carry, steps):
+            omega0 = carry.flow_state.primary_field.detach().clone() \
+                .requires_grad_()
+            c = carry._replace(
+                flow_state=carry.flow_state._replace(primary_field=omega0))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            c2, _ = scan_steps(step, c, steps)
+            loss = (c2.flow_state.velocity_field ** 2).sum()
+            (g,) = torch.autograd.grad(loss, omega0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(bool(torch.isfinite(g).all()) and float(g.norm()) > 0,
+                  "a non-finite or zero gradient")
+            return g, wall, torch.cuda.max_memory_allocated(dev) / 2**30
+
+        with dense_route():
+            step, (carry,) = cases._build_fsi_case(
+                SPHERE_GRAD_GRID, device=dev,
+                sim_kwargs={"use_kernels": False})
+            check(not isinstance(carry.greens, tuple), "the plain path's "
+                  "solve is not dense")
+            reset_counts()
+            plain = {n: gradient(step, carry, n) for n in (2, 1)}
+            check(not any(fn.launches for fn in by_name.values()),
+                  "the plain path launched a kernel")
+        del step, carry
+        _, plain_wall, plain_peak = plain[2]
+        step, (carry,) = cases._build_fsi_case(SPHERE_GRAD_GRID, device=dev)
+        check(isinstance(carry.greens, tuple), "the kernel path's solve is "
+              "not on the kernel route")
+        reset_counts()
+        g1, wall, peak = gradient(step, carry, 2)
+        launches = {fn.__name__: fn.launches
+                    for fn in list(kernels.KERNELS) + exact_fft
+                    if fn.__name__ in SPHERE_KERNELS or fn in exact_fft}
+        # forward launches only: the z conv and the c2r once a step
+        for name, count in launches.items():
+            check(count >= 2, f"{name} launched {count} times in 2 steps")
+        for name in ("fft_greens_ifft_pass", "irfft_pass_merge"):
+            check(launches[name] == 2, f"{name} launched {launches[name]} "
+                  "times in 2 steps and their gradient")
+        check_not_launched(FUSED_REPLACES, "the exact-tier sphere gradient")
+        g2, wall2, _ = gradient(step, carry, 2)
+        bit_equal = bool(torch.equal(g1, g2))
+        err = rel_l2(g1, plain[2][0])
+        check(err <= SPHERE_GRAD_TOL, f"exact tier: relative L2 {err} from "
+              "the plain path's gradient")
+        del g2
+        cuda_fft.USE_FUSED_EDGE_PASSES = True
+        try:
+            reset_counts()
+            gf, wall_fused, _ = gradient(step, carry, 1)
+            check(all(by_name[n].launches == 1 for n in FUSED_EDGE_PASSES),
+                  "the fused edge passes did not run once")
+            check_not_launched(UNFUSED_EDGE_PASSES, "the fused-edge gradient")
+        finally:
+            cuda_fft.USE_FUSED_EDGE_PASSES = False
+        err_fused = rel_l2(gf, plain[1][0])
+        check(err_fused <= SPHERE_GRAD_TOL, f"fused edges: relative L2 "
+              f"{err_fused} from the plain path's gradient")
+        del step, carry, gf
+        step, (carry,) = cases._build_fsi_case(
+            SPHERE_GRAD_GRID, device=dev, sim_kwargs={"fast_spectral": True})
+        reset_counts()
+        gfast, wall_fast, _ = gradient(step, carry, 1)
+        check(all(by_name[n].launches == 1 for n in FUSED_REPLACES),
+              "the fast tier's pair did not run once")
+        check_not_launched(EXACT_ONLY, "the fast-tier gradient")
+        err_fast = rel_l2(gfast, plain[1][0])
+        check(err_fast <= SPHERE_GRAD_TOL, f"fast tier: relative L2 "
+              f"{err_fast} from the plain path's gradient")
+        del step, carry, gfast, plain
+        torch.cuda.empty_cache()
+        grads = []
+        for mesh_shape in (SHARDED_MESH, None):
+            step, (carry,) = cases.sharded_flow_case(SHARDED_GRAD_GRID,
+                                                     mesh_shape, device=dev)
+            reset_counts()
+            g, wall_sh, _ = gradient(step, carry, 1)
+            if mesh_shape is not None:
+                g = unshard_vector_field(g, step.flow_sim.mesh)
+                sh_launches = {fn.__name__: fn.launches
+                               for fn in sharded.KERNELS}
+            grads.append(g)
+        check(all(sh_launches[n] >= 1 for n in (
+            "rotational_curl_add_3d_sharded", "curl_3d_sharded",
+            "diffusion_penalise_vector_3d_sharded")),
+            f"sharded launches {sh_launches}")
+        sh_err, scale = max_err(grads[0], grads[1])
+        check(sh_err <= SHARDED_GRAD_TOL * scale, f"sharded gradient: "
+              f"max|diff| {sh_err} > {SHARDED_GRAD_TOL} * {scale}")
+        del grads
+        torch.cuda.empty_cache()
+        return None, (
+            f"{SPHERE_GRAD_GRID} f32, loss sum u^2, d/d initial vorticity: "
+            f"exact tier 2 steps relative L2 {err:.3g} from the plain path, "
+            f"{wall:.3f} s (second run {wall2:.3f} s, plain "
+            f"{plain_wall:.3f} s), peak {peak:.2f} GiB (plain "
+            f"{plain_peak:.2f}), two runs bit-equal: {bit_equal}, launches "
+            f"{launches}; 1 step: fused edges {err_fused:.3g} "
+            f"({wall_fused:.3f} s), fast tier {err_fast:.3g} "
+            f"({wall_fast:.3f} s); sharded {SHARDED_GRAD_GRID} on "
+            f"{SHARDED_MESH} against one device max|diff| {sh_err:.3g} of "
+            f"{scale:.3g}, launches {sh_launches} [{card}]")
+
+    sphere_gradient_phase()
 
     for row in table.values():
         check(row["launches"], f"{row['name']} was launched on no path")

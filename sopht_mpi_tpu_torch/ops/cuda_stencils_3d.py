@@ -10,8 +10,13 @@ Each wrapper takes (3, nz, ny, nx) float32 or float64 fields and:
   the JAX package uses as the kernel's VJP reference.
 
 Prefactors may be numbers or 0-d tensors on the field's device; the kernels
-read them from device memory, so a step needs no host sync. Forward only:
-no ``torch.autograd.Function`` wraps these yet.
+read them from device memory, so a step needs no host sync.
+
+Reverse mode: where autograd records a call (a tensor argument requires a
+gradient), the wrapper goes through ``_autograd.PlainVJP``, whose backward
+is the VJP of the plain version on the saved inputs, the JAX package's rule
+for these kernels. Tensor prefactors and ``add_vector`` receive gradients.
+The backward launches no kernel: ``launches`` counts forward launches.
 
 Replaced TPU kernels (``sopht_mpi_tpu/ops/pallas_stencils_3d.py``):
 :func:`rotational_curl_add_3d` <- ``rotational_curl_add_3d_pallas``,
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from sopht_mpi_tpu_torch.ops import stencils_3d as _plain
+from sopht_mpi_tpu_torch.ops._autograd import kernel_or_plain_vjp
 from sopht_mpi_tpu_torch.ops.elementwise import cross_product_3d
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -206,10 +212,16 @@ def _launch(fn_base, field, *args):
 
 def rotational_curl_add_3d(vorticity, velocity, prefactor):
     """Fused rotational-form transport ``w + prefactor * curl(u x w)``
-    (``prefactor = dt/(2 dx)``), the wall ring of ``w`` unchanged.
-    Forward only."""
+    (``prefactor = dt/(2 dx)``), the wall ring of ``w`` unchanged;
+    differentiable in all three arguments."""
     _check_field("vorticity", vorticity)
     _check_field("velocity", velocity, like=vorticity)
+    return kernel_or_plain_vjp(_rotational_curl_add_3d,
+                               rotational_curl_add_3d_ref, vorticity,
+                               velocity, prefactor)
+
+
+def _rotational_curl_add_3d(vorticity, velocity, prefactor):
     if vorticity.device.type == "cpu":
         return rotational_curl_add_3d_ref(vorticity, velocity, prefactor)
     pref = _device_tensor(vorticity, prefactor, 1, "prefactor")
@@ -228,7 +240,7 @@ def diffusion_penalise_vector_3d(vector_field, nu_dt_by_dx2, width: int):
     """Fused diffusion Euler step and wall sponge:
     ``penalise_field_boundary_vector_3d(diffusion_timestep_vector_3d(f,
     nu_dt_by_dx2), width)``. Needs :func:`diffusion_penalise_supported`.
-    Forward only."""
+    Differentiable in the field and the prefactor."""
     _check_field("vector_field", vector_field)
     width = int(width)
     if not diffusion_penalise_supported(vector_field.shape, width):
@@ -237,6 +249,12 @@ def diffusion_penalise_vector_3d(vector_field, nu_dt_by_dx2, width: int):
             f"2 * width cells per axis; got width {width}, shape "
             f"{tuple(vector_field.shape)}"
         )
+    return kernel_or_plain_vjp(_diffusion_penalise_vector_3d,
+                               diffusion_penalise_vector_3d_ref, vector_field,
+                               nu_dt_by_dx2, width)
+
+
+def _diffusion_penalise_vector_3d(vector_field, nu_dt_by_dx2, width):
     if vector_field.device.type == "cpu":
         return diffusion_penalise_vector_3d_ref(vector_field, nu_dt_by_dx2, width)
     pref = _device_tensor(vector_field, nu_dt_by_dx2, 1, "nu_dt_by_dx2")
@@ -255,11 +273,18 @@ def curl_3d(field, prefactor, add_vector=None, compute_l1_max=False):
     """``prefactor * 2 * curl(field)`` (``prefactor = 0.5/dx``, zero on
     the wall ring) plus the optional (3,) ``add_vector`` on every cell;
     with ``compute_l1_max`` returns ``(u, max |u_x|+|u_y|+|u_z|)``, the
-    maximum a 0-d tensor on the field's device. Forward only."""
+    maximum a 0-d tensor on the field's device. Differentiable in the field,
+    the prefactor and the add vector, both outputs."""
     _check_field("field", field)
+    if add_vector is not None and not torch.is_tensor(add_vector):
+        add_vector = torch.tensor(add_vector, dtype=field.dtype,
+                                  device=field.device)
+    return kernel_or_plain_vjp(_curl_3d, curl_3d_ref, field, prefactor,
+                               add_vector, bool(compute_l1_max))
+
+
+def _curl_3d(field, prefactor, add_vector, compute_l1_max):
     if field.device.type == "cpu":
-        if add_vector is not None and not torch.is_tensor(add_vector):
-            add_vector = torch.tensor(add_vector, dtype=field.dtype)
         return curl_3d_ref(field, prefactor, add_vector, compute_l1_max)
     pref = _device_tensor(field, prefactor, 1, "prefactor")
     add = (
@@ -284,8 +309,14 @@ def curl_3d(field, prefactor, add_vector=None, compute_l1_max=False):
 
 def diffusion_timestep_vector_3d(vector_field, nu_dt_by_dx2):
     """Diffusion Euler step ``f + nu_dt_by_dx2 * lap7(f)``, the wall ring
-    unchanged. Forward only."""
+    unchanged. Differentiable in the field and the prefactor."""
     _check_field("vector_field", vector_field)
+    return kernel_or_plain_vjp(_diffusion_timestep_vector_3d,
+                               diffusion_timestep_vector_3d_ref, vector_field,
+                               nu_dt_by_dx2)
+
+
+def _diffusion_timestep_vector_3d(vector_field, nu_dt_by_dx2):
     if vector_field.device.type == "cpu":
         return diffusion_timestep_vector_3d_ref(vector_field, nu_dt_by_dx2)
     pref = _device_tensor(vector_field, nu_dt_by_dx2, 1, "nu_dt_by_dx2")
@@ -415,7 +446,8 @@ def laplacian_filter_vector_3d(vector_field, filter_order: int,
     plain version's values for a finite field); above
     that the line route, one launch of ``conv_filter_line_kernel`` for each
     in-plane axis and ``order`` of ``conv_filter_z_pass_kernel`` for z.
-    ``launches`` counts every launch. Forward only."""
+    ``launches`` counts every launch. Differentiable in the field: one
+    backward over all the passes, the VJP of the plain filter."""
     _check_field("vector_field", vector_field)
     if not isinstance(filter_order, int) or filter_order < 0:
         raise ValueError("Invalid filter order")
@@ -423,6 +455,12 @@ def laplacian_filter_vector_3d(vector_field, filter_order: int,
         raise ValueError("Invalid filter type")
     if filter_order == 0:
         return vector_field
+    return kernel_or_plain_vjp(_laplacian_filter_vector_3d,
+                               laplacian_filter_vector_3d_ref, vector_field,
+                               filter_order, filter_type)
+
+
+def _laplacian_filter_vector_3d(vector_field, filter_order, filter_type):
     if vector_field.device.type == "cpu":
         return laplacian_filter_vector_3d_ref(
             vector_field, filter_order, filter_type
@@ -499,12 +537,18 @@ def penalise_field_boundary_vector_3d(vector_field, width: int):
     the clamp to ``[width - 1, n - width]`` and the sine ramp over the
     ``width`` cells next to each wall. Where :func:`penalise_supported` is
     False it returns the plain version on any device, as the JAX function
-    does (the identity at ``width == 0``). Forward only."""
+    does (the identity at ``width == 0``). Differentiable in the field."""
     _check_field("vector_field", vector_field)
     width = int(width)
-    if vector_field.device.type == "cpu" or not penalise_supported(
-        vector_field.shape, width
-    ):
+    if not penalise_supported(vector_field.shape, width):
+        return penalise_field_boundary_vector_3d_ref(vector_field, width)
+    return kernel_or_plain_vjp(_penalise_field_boundary_vector_3d,
+                               penalise_field_boundary_vector_3d_ref,
+                               vector_field, width)
+
+
+def _penalise_field_boundary_vector_3d(vector_field, width):
+    if vector_field.device.type == "cpu":
         return penalise_field_boundary_vector_3d_ref(vector_field, width)
     ramp = _sponge_ramp(width, vector_field.dtype, vector_field.device)
     out = torch.empty_like(vector_field)

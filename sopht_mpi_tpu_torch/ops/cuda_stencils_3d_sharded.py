@@ -30,7 +30,12 @@ Beside each op stands its plain version ``*_sharded_ref``: the
 single-device plain op on the assembled field, sharded again. It serves
 the tests and the comparison on the card, and nothing on a path.
 
-Forward only: no ``torch.autograd.Function`` wraps these yet.
+Reverse mode: where autograd records a call, each op goes through
+``_autograd.PlainVJP``, whose backward is the VJP of its ``*_sharded_ref``
+on the saved inputs (the JAX package's rule: the VJP of the global op on
+the sharded layout); tensor prefactors and ``add_vector`` receive
+gradients. The forward exchanges halos and launches as above; the backward
+launches no kernel and counts no collective.
 
 Replaced TPU kernels: :func:`diffusion_timestep_vector_3d_sharded` <-
 ``_diffusion_sharded_impl``, :func:`curl_3d_sharded` <-
@@ -53,6 +58,7 @@ import torch
 
 from sopht_mpi_tpu_torch.ops import cuda_stencils_3d as _single
 from sopht_mpi_tpu_torch.ops import stencils_3d as _plain
+from sopht_mpi_tpu_torch.ops._autograd import kernel_or_plain_vjp
 from sopht_mpi_tpu_torch.parallel import collectives
 from sopht_mpi_tpu_torch.parallel.cuda_fft import (
     BLOCK_SHARED_MAX,
@@ -465,8 +471,15 @@ def _zmarch_plan(kind, fields):
 def diffusion_timestep_vector_3d_sharded(vector_field, nu_dt_by_dx2,
                                          mesh: Mesh):
     """Diffusion Euler step ``f + nu_dt_by_dx2 * lap7(f)`` of a sharded
-    field, the global wall ring unchanged. Forward only."""
+    field, the global wall ring unchanged. Differentiable in the field and
+    the prefactor."""
     _check_sharded("vector_field", vector_field, mesh)
+    return kernel_or_plain_vjp(_diffusion_sharded,
+                               diffusion_timestep_vector_3d_sharded_ref,
+                               vector_field, nu_dt_by_dx2, mesh)
+
+
+def _diffusion_sharded(vector_field, nu_dt_by_dx2, mesh):
     f = vector_field.contiguous()
     halos = _halos(f, mesh)
     if f.device.type == "cpu":
@@ -490,13 +503,21 @@ def curl_3d_sharded(field, prefactor, mesh: Mesh, add_vector=None, *,
     global wall ring) plus the optional (3,) ``add_vector`` on every cell;
     with ``compute_l1_max`` returns ``(u, max |u|_1)``: each shard's
     maximum, then :func:`~sopht_mpi_tpu_torch.parallel.collectives.pmax`
-    over the mesh, a 0-d tensor on the field's device. Forward only."""
+    over the mesh, a 0-d tensor on the field's device. Differentiable in
+    the field, the prefactor and the add vector, both outputs."""
     _check_sharded("field", field, mesh)
+    if add_vector is not None and not torch.is_tensor(add_vector):
+        add_vector = torch.tensor(add_vector, dtype=field.dtype,
+                                  device=field.device)
+    return kernel_or_plain_vjp(_curl_sharded, curl_3d_sharded_ref, field,
+                               prefactor, mesh, add_vector,
+                               bool(compute_l1_max))
+
+
+def _curl_sharded(field, prefactor, mesh, add_vector, compute_l1_max):
     f = field.contiguous()
     halos = _halos(f, mesh)
     if f.device.type == "cpu":
-        if add_vector is not None and not torch.is_tensor(add_vector):
-            add_vector = torch.tensor(add_vector, dtype=f.dtype)
         out = _curl_on_halos(f, halos, prefactor, add_vector, mesh)
         if compute_l1_max:
             shard_max = out.abs().sum(dim=2).amax(dim=(2, 3, 4))
@@ -530,9 +551,15 @@ def curl_3d_sharded(field, prefactor, mesh: Mesh, add_vector=None, *,
 def rotational_curl_add_3d_sharded(vorticity, velocity, prefactor, mesh: Mesh):
     """Fused rotational-form transport ``w + prefactor * curl(u x w)`` of
     sharded fields, the global wall ring of ``w`` unchanged; halos of both
-    fields are exchanged. Forward only."""
+    fields are exchanged. Differentiable in all three arguments."""
     _check_sharded("vorticity", vorticity, mesh)
     _check_sharded("velocity", velocity, mesh, like=vorticity)
+    return kernel_or_plain_vjp(_rotational_sharded,
+                               rotational_curl_add_3d_sharded_ref, vorticity,
+                               velocity, prefactor, mesh)
+
+
+def _rotational_sharded(vorticity, velocity, prefactor, mesh):
     w, u = vorticity.contiguous(), velocity.contiguous()
     w_halos, u_halos = _halos(w, mesh), _halos(u, mesh)
     if w.device.type == "cpu":
@@ -583,7 +610,7 @@ def diffusion_penalise_vector_3d_sharded(vector_field, nu_dt_by_dx2,
     nu_dt_by_dx2), width)`` on the global grid. Where
     :func:`diffusion_penalise_sharded_supported` is False it runs the
     sharded diffusion kernel and then the single-device sponge on the
-    assembled field. Forward only."""
+    assembled field. Differentiable in the field and the prefactor."""
     _check_sharded("vector_field", vector_field, mesh)
     width = int(width)
     if not diffusion_penalise_sharded_supported(
@@ -595,6 +622,12 @@ def diffusion_penalise_vector_3d_sharded(vector_field, nu_dt_by_dx2,
         return apply_assembled(
             lambda f: _single.penalise_field_boundary_vector_3d(f, width),
             mesh, out)
+    return kernel_or_plain_vjp(_diffpen_sharded,
+                               diffusion_penalise_vector_3d_sharded_ref,
+                               vector_field, nu_dt_by_dx2, width, mesh)
+
+
+def _diffpen_sharded(vector_field, nu_dt_by_dx2, width, mesh):
     f = vector_field.contiguous()
     halos = _halos(f, mesh)
     if f.device.type == "cpu":

@@ -17,8 +17,17 @@ wrapper:
   pass's VJP reference.
 
 Every pass takes float32 only, and lengths ``m`` with
-:func:`kernel_fft_supported`. Forward only: no ``torch.autograd.Function``
-wraps these yet.
+:func:`kernel_fft_supported`.
+
+Reverse mode: where autograd records a call (an input requires a gradient)
+the wrapper goes through a ``torch.autograd.Function`` whose backward is the
+JAX package's rule in ``torch.fft``: the analytic adjoint for the five
+exact-tier passes and the unsplit x passes (``*Fn`` classes below; they
+save only what the rule reads, the Green's multiplier and, where the
+Green's multiplier needs a gradient, the input), and the VJP of the plain
+version for the fast tier's pair and the fused edge passes
+(``_autograd.PlainVJP``). The backward launches no kernel: ``launches``
+counts forward launches.
 
 Replaced TPU kernels (``sopht_mpi_tpu/parallel/pallas_fft.py``):
 :func:`rfft_pass_padded_split` <- ``_rfft_pass_padded_split_impl``,
@@ -65,6 +74,9 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
+
+from sopht_mpi_tpu_torch.ops._autograd import kernel_or_plain_vjp, needs_grad
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -880,6 +892,174 @@ def irfft_pass_merge_velocity_ref(br, bi, sr, si, fsv, m: int, n_out: int,
 
 
 # ---------------------------------------------------------------------------
+# reverse-mode rules: the JAX package's analytic adjoints
+# (``sopht_mpi_tpu/parallel/pallas_fft.py``, "reverse-mode rules"), real
+# inner product, adjoint of zero-padding = truncation and vice versa
+# ---------------------------------------------------------------------------
+
+
+def _c2r_ct_weights(m: int, like) -> torch.Tensor:
+    """The c2r adjoint's Hermitian weights over the m/2 + 1 columns: 1/m at
+    DC and Nyquist, 2/m elsewhere."""
+    w = torch.full((m // 2 + 1,), 2.0 / m, dtype=like.dtype,
+                   device=like.device)
+    w[0] = w[-1] = 1.0 / m
+    return w
+
+
+def _c2r_adjoint(ct, m: int):
+    """``(w Re F, w Im F)`` with ``F`` the first m/2 + 1 DFT outputs of the
+    real cotangent zero-padded to ``m``: the adjoint of the truncated c2r."""
+    f = torch.fft.rfft(ct, n=m, dim=-1)
+    w = _c2r_ct_weights(m, ct)
+    return (w * f.real).contiguous(), (w * f.imag).contiguous()
+
+
+def _greens_ct(s, q, greens):
+    """``Re(conj(s) q)``, summed over the leading axis where one Green's
+    multiplier is shared by all of it."""
+    g = (s.conj() * q).real
+    if greens.shape[0] == 1 and s.shape[0] != 1:
+        g = g.sum(dim=0, keepdim=True)
+    return g.to(greens.dtype)
+
+
+class FftPassPaddedFn(torch.autograd.Function):
+    """:func:`fft_pass_padded`; backward ``m ifft(ct)`` truncated to m/2
+    (nothing saved)."""
+
+    @staticmethod
+    def forward(ctx, xr, xi, m):
+        ctx.m = m
+        return _fft_pass_padded(xr, xi, m)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ctr, cti):
+        m = ctx.m
+        x = m * torch.fft.ifft(torch.complex(ctr, cti), dim=1)[:, : m // 2]
+        return (*_split(x), None)
+
+
+class IfftPassTruncatedFn(torch.autograd.Function):
+    """:func:`ifft_pass_truncated`; backward ``q = fft(pad(ct)) / m``,
+    ``x_ct = q greens``, ``greens_ct = Re(conj(x) q)`` (summed over the
+    broadcast axis of a shared multiplier)."""
+
+    @staticmethod
+    def forward(ctx, xr, xi, greens):
+        ctx.m = xr.shape[1]
+        want_g = greens is not None and ctx.needs_input_grad[2]
+        ctx.save_for_backward(
+            xr if want_g else None, xi if want_g else None, greens)
+        return _ifft_pass_truncated(xr, xi, greens)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ctr, cti):
+        xr, xi, greens = ctx.saved_tensors
+        q = torch.fft.fft(torch.complex(ctr, cti), n=ctx.m, dim=1) / ctx.m
+        if greens is None:
+            return (*_split(q), None)
+        g_ct = (_greens_ct(torch.complex(xr, xi), q, greens)
+                if ctx.needs_input_grad[2] else None)
+        return (*_split(q * greens), g_ct)
+
+
+class FftGreensIfftPassFn(torch.autograd.Function):
+    """:func:`fft_greens_ifft_pass`; backward ``x_ct = trunc(ifft(greens
+    fft(pad(ct))))`` (the pass is self-adjoint up to the same composition)
+    and ``greens_ct = Re(conj(fft(pad(x))) fft(pad(ct))) / m``."""
+
+    @staticmethod
+    def forward(ctx, xr, xi, greens):
+        want_g = ctx.needs_input_grad[2]
+        ctx.save_for_backward(
+            xr if want_g else None, xi if want_g else None, greens)
+        return _fft_greens_ifft_pass(xr, xi, greens)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ctr, cti):
+        xr, xi, greens = ctx.saved_tensors
+        half = ctr.shape[1]
+        m = 2 * half
+        ctf = torch.fft.fft(torch.complex(ctr, cti), n=m, dim=1)
+        x_ct = torch.fft.ifft(greens * ctf, dim=1)[:, :half]
+        g_ct = None
+        if ctx.needs_input_grad[2]:
+            s = torch.fft.fft(torch.complex(xr, xi), n=m, dim=1)
+            g_ct = _greens_ct(s, ctf / m, greens)
+        return (*_split(x_ct), g_ct)
+
+
+class RfftPassPaddedFn(torch.autograd.Function):
+    """:func:`rfft_pass_padded`; backward ``Re(m ifft(pad(ct)))`` truncated
+    to the input's length (only that length saved)."""
+
+    @staticmethod
+    def forward(ctx, x, m):
+        ctx.m, ctx.n_in = m, x.shape[1]
+        return _rfft_pass_padded(x, m)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ctr, cti):
+        z = torch.fft.ifft(torch.complex(ctr, cti), n=ctx.m, dim=1)
+        return (ctx.m * z.real[:, : ctx.n_in]).contiguous(), None
+
+
+class RfftPassPaddedSplitFn(torch.autograd.Function):
+    """:func:`rfft_pass_padded_split`; the unsplit pass's backward on the
+    bulk and Nyquist columns put back together."""
+
+    @staticmethod
+    def forward(ctx, x, m):
+        ctx.m, ctx.n_in = m, x.shape[1]
+        return _rfft_pass_padded_split(x, m)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, br, bi, sr, si):
+        z = torch.complex(torch.cat([br, sr], dim=1), torch.cat([bi, si], dim=1))
+        z = torch.fft.ifft(z, n=ctx.m, dim=1)
+        return (ctx.m * z.real[:, : ctx.n_in]).contiguous(), None
+
+
+class IrfftPassTruncatedFn(torch.autograd.Function):
+    """:func:`irfft_pass_truncated`; backward the Hermitian-weighted DFT of
+    the zero-padded cotangent (nothing saved)."""
+
+    @staticmethod
+    def forward(ctx, xr, xi, m, n_out):
+        ctx.m = m
+        return _irfft_pass_truncated(xr, xi, m, n_out)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        return (*_c2r_adjoint(ct, ctx.m), None, None)
+
+
+class IrfftPassMergeFn(torch.autograd.Function):
+    """:func:`irfft_pass_merge`; the unsplit c2r's backward, split into the
+    bulk and Nyquist columns (nothing saved)."""
+
+    @staticmethod
+    def forward(ctx, br, bi, sr, si, m, n_out):
+        ctx.m = m
+        return _irfft_pass_merge(br, bi, sr, si, m, n_out)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        xr, xi = _c2r_adjoint(ct, ctx.m)
+        h = ctx.m // 2
+        return (xr[:, :h].contiguous(), xi[:, :h].contiguous(),
+                xr[:, h:].contiguous(), xi[:, h:].contiguous(), None, None)
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
@@ -954,6 +1134,12 @@ def rfft_pass_padded_split(x, m: int):
     rows, n_in = x.shape
     if n_in > m // 2:
         raise ValueError(f"rows of {n_in} do not fit the padded half of {m}")
+    if needs_grad(x):
+        return RfftPassPaddedSplitFn.apply(x, m)
+    return _rfft_pass_padded_split(x, m)
+
+
+def _rfft_pass_padded_split(x, m):
     if x.device.type == "cpu":
         return rfft_pass_padded_split_ref(x, m)
     out = _k_rfft_pass_padded_split(x, m)
@@ -982,6 +1168,12 @@ def fft_pass_padded(xr, xi, axis_len_out: int):
     _check_shape("xi", xi, xr.shape)
     _check_length(m)
     _check_shape("xr", xr, (xr.shape[0], m // 2, xr.shape[2]))
+    if needs_grad(xr, xi):
+        return FftPassPaddedFn.apply(xr, xi, m)
+    return _fft_pass_padded(xr, xi, m)
+
+
+def _fft_pass_padded(xr, xi, m):
     if xr.device.type == "cpu":
         return fft_pass_padded_ref(xr, xi, m)
     out = _k_fft_pass_padded(xr, xi, m)
@@ -1010,6 +1202,12 @@ def fft_greens_ifft_pass(xr, xi, greens):
     m = 2 * half
     _check_length(m)
     _check_shape("greens", greens, (1, m, b))
+    if needs_grad(xr, xi, greens):
+        return FftGreensIfftPassFn.apply(xr, xi, greens)
+    return _fft_greens_ifft_pass(xr, xi, greens)
+
+
+def _fft_greens_ifft_pass(xr, xi, greens):
     if xr.device.type == "cpu":
         return fft_greens_ifft_pass_ref(xr, xi, greens)
     out = _k_fft_greens_ifft_pass(xr, xi, greens)
@@ -1045,6 +1243,12 @@ def ifft_pass_truncated(xr, xi, greens=None):
             raise ValueError(f"greens: leading axis {greens.shape[0]} is "
                              f"neither 1 nor {a}")
         _check_shape("greens", greens, (greens.shape[0], m, b))
+    if needs_grad(xr, xi, greens):
+        return IfftPassTruncatedFn.apply(xr, xi, greens)
+    return _ifft_pass_truncated(xr, xi, greens)
+
+
+def _ifft_pass_truncated(xr, xi, greens):
     if xr.device.type == "cpu":
         return ifft_pass_truncated_ref(xr, xi, greens)
     out = _k_ifft_pass_truncated(xr, xi, greens)
@@ -1077,6 +1281,12 @@ def irfft_pass_merge(br, bi, sr, si, m: int, n_out: int):
     _check_shape("si", si, (rows, 1))
     if not 0 < n_out <= m // 2:
         raise ValueError(f"n_out {n_out} is not in (0, {m // 2}]")
+    if needs_grad(br, bi, sr, si):
+        return IrfftPassMergeFn.apply(br, bi, sr, si, m, n_out)
+    return _irfft_pass_merge(br, bi, sr, si, m, n_out)
+
+
+def _irfft_pass_merge(br, bi, sr, si, m, n_out):
     if br.device.type == "cpu":
         return irfft_pass_merge_ref(br, bi, sr, si, m, n_out)
     out = _k_irfft_pass_merge(br, bi, sr, si, m, n_out)
@@ -1118,6 +1328,12 @@ def fft_greens_curl_ifft_pass(xr, xi, greens, sym_z, sym_yx):
     _check_shape("greens", greens, (1, m, b))
     _check_shape("sym_z", sym_z, (m,))
     _check_shape("sym_yx", sym_yx, (2, b))
+    return kernel_or_plain_vjp(_fft_greens_curl_ifft_pass,
+                               fft_greens_curl_ifft_pass_ref, xr, xi, greens,
+                               sym_z, sym_yx)
+
+
+def _fft_greens_curl_ifft_pass(xr, xi, greens, sym_z, sym_yx):
     if xr.device.type == "cpu":
         return fft_greens_curl_ifft_pass_ref(xr, xi, greens, sym_z, sym_yx)
     out = _k_fft_greens_curl_ifft_pass(xr, xi, greens, sym_z, sym_yx)
@@ -1161,6 +1377,12 @@ def irfft_pass_merge_velocity(br, bi, sr, si, fsv, m: int, n_out: int,
     _check_shape("fsv", fsv, (3,))
     if not 0 < n_out <= m // 2:
         raise ValueError(f"n_out {n_out} is not in (0, {m // 2}]")
+    return kernel_or_plain_vjp(_irfft_pass_merge_velocity,
+                               irfft_pass_merge_velocity_ref, br, bi, sr, si,
+                               fsv, m, n_out, ny, nz)
+
+
+def _irfft_pass_merge_velocity(br, bi, sr, si, fsv, m, n_out, ny, nz):
     if br.device.type == "cpu":
         return irfft_pass_merge_velocity_ref(br, bi, sr, si, fsv, m, n_out,
                                              ny, nz)
@@ -1193,6 +1415,12 @@ def rfft_pass_padded(x, m: int):
     rows, n_in = x.shape
     if n_in > m // 2:
         raise ValueError(f"rows of {n_in} do not fit the padded half of {m}")
+    if needs_grad(x):
+        return RfftPassPaddedFn.apply(x, m)
+    return _rfft_pass_padded(x, m)
+
+
+def _rfft_pass_padded(x, m):
     if x.device.type == "cpu":
         return rfft_pass_padded_ref(x, m)
     out = _k_rfft_pass_padded(x, m)
@@ -1222,6 +1450,12 @@ def irfft_pass_truncated(xr, xi, m: int, n_out: int):
     _check_shape("xi", xi, (rows, m // 2 + 1))
     if not 0 < n_out <= m // 2:
         raise ValueError(f"n_out {n_out} is not in (0, {m // 2}]")
+    if needs_grad(xr, xi):
+        return IrfftPassTruncatedFn.apply(xr, xi, m, n_out)
+    return _irfft_pass_truncated(xr, xi, m, n_out)
+
+
+def _irfft_pass_truncated(xr, xi, m, n_out):
     if xr.device.type == "cpu":
         return irfft_pass_truncated_ref(xr, xi, m, n_out)
     out = _k_irfft_pass_truncated(xr, xi, m, n_out)
@@ -1275,6 +1509,11 @@ def rfft_fft_pass_fused(x, mx: int, my: int):
     _check("x", x, 3)
     a, ny, nx = x.shape
     _check_fused_sizes(ny, nx, my, mx)
+    return kernel_or_plain_vjp(_rfft_fft_pass_fused, rfft_fft_pass_fused_ref,
+                               x, mx, my)
+
+
+def _rfft_fft_pass_fused(x, mx, my):
     if x.device.type == "cpu":
         return rfft_fft_pass_fused_ref(x, mx, my)
     out = _k_rfft_fft_pass_fused(x, mx, my)
@@ -1312,6 +1551,12 @@ def ifft_irfft_pass_fused(br, bi, sr, si, mx: int, nx: int):
     _check_shape("bi", bi, (a, my, mx // 2))
     _check_shape("sr", sr, (a, my // 2, 1))
     _check_shape("si", si, (a, my // 2, 1))
+    return kernel_or_plain_vjp(_ifft_irfft_pass_fused,
+                               ifft_irfft_pass_fused_ref, br, bi, sr, si, mx,
+                               nx)
+
+
+def _ifft_irfft_pass_fused(br, bi, sr, si, mx, nx):
     if br.device.type == "cpu":
         return ifft_irfft_pass_fused_ref(br, bi, sr, si, mx, nx)
     out = _k_ifft_irfft_pass_fused(br, bi, sr, mx, nx)

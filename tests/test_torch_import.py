@@ -8,7 +8,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # every driver of examples_torch/, the JAX examples' but the adjoint one
 DRIVERS = sorted(
     [f"examples_torch/2d/{name}.py" for name in
-     ("flow_past_cylinder", "flow_past_rod", "lamb_oseen_vortex")]
+     ("adjoint_viscosity_inversion", "flow_past_cylinder", "flow_past_rod",
+      "lamb_oseen_vortex")]
     + [f"examples_torch/3d/{name}.py" for name in
        ("flow_past_freely_rotating_rod", "flow_past_rod",
         "flow_past_sphere", "point_source_advect_diffuse",
