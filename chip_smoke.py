@@ -235,7 +235,24 @@ raises and exits non-zero, and nothing falls back to the CPU:
     1e-3 relative L2, run twice (bit-equal or not, peak memory, forward
     launches only); 1 step each on the fast tier and with
     ``USE_FUSED_EDGE_PASSES``; the flow-only step on a (2, 2) mesh at
-    128^3 against one device.
+    128^3 against one device;
+40. mesh dryrun: ``cases.dryrun_multichip((4, 2))`` on the card, the eight
+    rows of the JAX package's multi-device gate (the rigid sphere, the rod's
+    vorticity and tip, the rod's sparse window against the dense path on
+    the mesh, the rod and sphere, the bit-exact checkpoint restart, the
+    kernel fork against the plain fork) on an in-process (4, 2) mesh
+    against one device, and the (4, 2) sparse rod case's vorticity after 3
+    steps on the card against the same case on the CPU;
+41. sharded sphere fsi: the main path's case, ``cases._build_fsi_case`` at
+    256^3 on an in-process (2, 2) mesh (the sparse 72^3 window, float32,
+    exact tier) against the same case on one device: vorticity, velocity
+    and the summed marker force after 3 steps; 5 warm-up + 20 timed steps
+    of each that must not synchronise with the host, the four sharded
+    kernels' and the z conv's launches at least once a step, the step's
+    collectives exactly those of its flow step plus one ``psum`` (the
+    windowed E->L) and no assembled-field call, s/step against one device,
+    device ms and kernels a step (3 profiled steps,
+    ``build/sharded_sphere_profile.txt``) and peak memory.
 
 Phases 31-36 print s/step (the windows after the first) and a window's
 wall. The phases from 28 on run in ``build/`` and remove what they write.
@@ -381,6 +398,11 @@ SHARDED_REPLACES = {
 }
 SHARDED_GRID = (256, 256, 256)
 SHARDED_MESH = (2, 2)
+# phase 41: the main path's sparse window at SHARDED_GRID (cells an axis)
+SHARDED_SPHERE_WINDOW = (72, 72, 72)
+# phase 40: the mesh and base grid of cases.dryrun_multichip
+DRYRUN_MESH = (4, 2)
+DRYRUN_GRID = (32, 32, 32)
 # the distributed convolve's three per-shard passes and their launches a
 # vector solve on SHARDED_MESH: the y passes fold every shard into one
 # launch, the z pass is launched once a shard with that shard's Green's block
@@ -3837,6 +3859,143 @@ def main():
             f"{scale:.3g}, launches {sh_launches} [{card}]")
 
     sphere_gradient_phase()
+
+    @phase("mesh dryrun")
+    def mesh_dryrun_phase():
+        reset_counts()
+        collectives.reset_counts()
+        rows = cases.dryrun_multichip(DRYRUN_MESH, device=dev)
+        check(len(rows) == 8 and all(ok for *_, ok in rows),
+              f"dryrun_multichip rows {rows}")
+        launches = {name: by_name[name].launches for name in
+                    (*SHARDED_REPLACES, *SHARDED_FFT_LAUNCHES)}
+        check(all(launches[name] > 0 for name in (
+            "rotational_curl_add_3d_sharded", "curl_3d_sharded",
+            "diffusion_penalise_vector_3d_sharded")),
+            f"the mesh cases launched the sharded kernels {launches}")
+        counts = collectives.counts()
+        # the sparse rod case on the mesh, card against the CPU
+        finals = []
+        for device in (dev, torch.device("cpu")):
+            mesh = create_mesh(3, DRYRUN_MESH, device=device)
+            step, carry = cases._build_rod_fsi_case(
+                DRYRUN_GRID, device=device, mesh=mesh, sparse_forcing=True)
+            carry, diag = scan_steps(step, carry, 3)
+            check(bool(diag[1].all()), f"the rod's window tripped on {device}")
+            finals.append(unshard_vector_field(
+                carry.flow_state.primary_field, mesh).cpu())
+        err, scale = max_err(*finals)
+        check(err <= 1e-4 * max(1.0, scale), f"sparse rod on {DRYRUN_MESH}: "
+              f"card vs cpu {err} (|ref| max {scale})")
+        table_rows = "; ".join(f"{name} {d:.3e} (tol {tol:.1e})"
+                               for name, d, tol, _ in rows)
+        return None, (f"{DRYRUN_GRID} on {DRYRUN_MESH}: {table_rows}; sparse "
+                      f"rod x3 card vs cpu max|diff| {err:.3e} of {scale:.3g};"
+                      f" launches {launches}, collectives {counts} "
+                      f"[{card}]")
+
+    mesh_dryrun_phase()
+
+    @phase("sharded sphere fsi")
+    def sharded_sphere_phase():
+        from sopht_mpi_tpu_torch.models.flow.simulator_3d import flow_step_3d
+
+        n_steps = 20
+        out = {}
+        for mesh_shape in (None, SHARDED_MESH):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            mesh = (None if mesh_shape is None
+                    else create_mesh(3, mesh_shape, device=dev))
+            step, (carry,) = cases._build_fsi_case(SHARDED_GRID, device=dev,
+                                                   mesh=mesh)
+            window = tuple(b - a for a, b in zip(step.window[::2],
+                                                 step.window[1::2]))
+            check(step.uses_sparse_forcing
+                  and window == SHARDED_SPHERE_WINDOW, f"window {window}")
+            check(isinstance(carry.greens, tuple) == (mesh is None),
+                  "the sphere's solve is not on its kernel route")
+            carry, forces = scan_steps(step, carry, 3)
+            fs = carry.flow_state
+            fields = {what: unshard_vector_field(getattr(fs, what), mesh)
+                      for what in ("primary_field", "velocity_field")}
+            flow_counts = None
+            if mesh is not None:
+                # the collectives of the flow step alone (the no-forcing
+                # step the sparse path advances through), once
+                collectives.reset_counts()
+                flow_step_3d(fs, torch.tensor(1e-4, device=dev),
+                             torch.zeros(3, device=dev),
+                             poisson_greens=carry.greens,
+                             return_velocity_l1_max=True,
+                             **step.flow_sim.step_config("navier_stokes"))
+                flow_counts = collectives.counts()
+            carry, _ = scan_steps(step, carry, 5)
+            reset_counts()
+            collectives.reset_counts()
+            carry, timed_forces, s_step = timed_steps(step, carry, n_steps)
+            launches = {name: fn.launches for name, fn in by_name.items()
+                        if fn.launches}
+            counts = collectives.counts()
+            for what, t in (("vorticity", carry.flow_state.primary_field),
+                            ("velocity", carry.flow_state.velocity_field),
+                            ("forces", timed_forces)):
+                check(bool(torch.isfinite(t).all()), f"non-finite {what}")
+            peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+            name = "one" if mesh is None else "mesh"
+            carry, *prof = profile_steps(
+                step, carry, 3,
+                os.path.join(REPO, "build", f"sharded_sphere_{name}_profile"
+                             ".txt"),
+                f"{SHARDED_GRID} sphere FSI step"
+                + ("" if mesh is None else
+                   f" on an in-process {SHARDED_MESH} mesh"))
+            out[mesh_shape] = dict(fields=fields, forces=forces, s=s_step,
+                                   launches=launches, counts=counts,
+                                   flow_counts=flow_counts, peak=peak,
+                                   prof=prof)
+            del step, carry, fs
+        one, many = out[None], out[SHARDED_MESH]
+        errs = {}
+        for what, ref in one["fields"].items():
+            err, scale = max_err(many["fields"][what], ref)
+            check(err <= 1e-4 * max(1.0, scale), f"{what} after 3 steps: "
+                  f"sharded vs single-device {err} (|ref| max {scale})")
+            errs[what] = err
+        f_err, f_scale = max_err(many["forces"], one["forces"])
+        check(f_err <= 1e-4 * f_scale, f"summed marker force after 3 steps: "
+              f"sharded vs single-device {f_err} (|ref| max {f_scale})")
+        errs["force (relative)"] = f_err / f_scale
+        launches = many["launches"]
+        for name in ("rotational_curl_add_3d_sharded",
+                     "diffusion_penalise_vector_3d_sharded",
+                     "curl_3d_sharded", "fft_greens_ifft_pass"):
+            check(launches.get(name, 0) >= n_steps,
+                  f"{name} launched {launches.get(name, 0)} times in "
+                  f"{n_steps} sharded sphere steps")
+        per_step = {k: v / n_steps for k, v in many["counts"].items()}
+        flow_counts = many["flow_counts"]
+        expected = dict(flow_counts, psum=flow_counts["psum"] + 1)
+        check(per_step == expected and per_step["apply_assembled"] == 0,
+              f"collectives a step {per_step}, expected the flow step's "
+              f"{flow_counts} and one psum")
+        del out
+        torch.cuda.empty_cache()
+        return None, (
+            f"256^3 f32 sphere, sparse {SHARDED_SPHERE_WINDOW} window, exact "
+            f"tier, on an in-process {SHARDED_MESH} mesh: {many['s']:.6f} "
+            f"s/step against {one['s']:.6f} on one device, no host sync in "
+            f"either; device {many['prof'][1] / 3:.3f} ms/step and "
+            f"{many['prof'][2]:.0f} kernels/step against "
+            f"{one['prof'][1] / 3:.3f} ms and {one['prof'][2]:.0f} on one "
+            f"device; after 3 steps max|diff| {errs}; launches over "
+            f"{n_steps} steps {launches}; collectives a step {per_step} (the "
+            f"flow step alone {flow_counts}); peak {many['peak']:.2f} GiB "
+            f"above the phase's start (one device {one['peak']:.2f} GiB); "
+            + profile_detail(*many["prof"], many["s"]) + f" [{card}]")
+
+    sharded_sphere_phase()
 
     for row in table.values():
         check(row["launches"], f"{row['name']} was launched on no path")

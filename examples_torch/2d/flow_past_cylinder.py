@@ -30,7 +30,7 @@ from sopht_mpi_tpu_torch.utils import compile_video, logger
 def _refuse_mesh(mesh):
     if mesh is not None:
         raise NotImplementedError(
-            "mesh: the 2D mesh is not ported yet (ROADMAP.md queue A #11d)")
+            "mesh: the 2D mesh is not ported yet (ROADMAP.md queue A #11f)")
 
 
 def flow_past_cylinder_boundary_forcing_case(
@@ -51,7 +51,7 @@ def flow_past_cylinder_boundary_forcing_case(
     drag every 0.25 time scales; with ``save_diagnostic`` the drag history
     goes to ``drag_vs_time.csv``, with ``plot`` the frames to a movie
     (``compile_video``: ffmpeg, else a GIF). Returns (t*, Cd) lists.
-    ``mesh`` is refused (the 2D mesh: ROADMAP.md queue A #11d)."""
+    ``mesh`` is refused (the 2D mesh: ROADMAP.md queue A #11f)."""
     _refuse_mesh(mesh)
     case = cases._build_cylinder_objects(
         grid_size, device=device, reynolds=reynolds,
@@ -153,7 +153,7 @@ def flow_past_cylinder_fused_case(
     scan windows of ``window`` steps (``cases._build_cylinder_fsi_case``);
     the drag of each window's last step is logged and written to
     ``drag_vs_time.csv``. Returns (t*, Cd) lists. ``mesh`` is refused (the
-    2D mesh: ROADMAP.md queue A #11d)."""
+    2D mesh: ROADMAP.md queue A #11f)."""
     _refuse_mesh(mesh)
     step, (carry,) = cases._build_cylinder_fsi_case(
         grid_size, device=device, reynolds=reynolds,
@@ -182,7 +182,7 @@ if __name__ == "__main__":
     p.add_argument("--reynolds", type=float, default=200.0)
     p.add_argument(
         "--n-devices", type=int, default=1,
-        help="shards of a mesh; only 1 is ported (ROADMAP.md queue A #11d)",
+        help="shards of a mesh; only 1 is ported (ROADMAP.md queue A #11f)",
     )
     p.add_argument(
         "--device", default="cuda",
@@ -206,7 +206,7 @@ if __name__ == "__main__":
     if args.n_devices > 1:
         raise NotImplementedError(
             "--n-devices > 1: the 2D mesh is not ported yet (ROADMAP.md "
-            "queue A #11d)")
+            "queue A #11f)")
     grid = (args.grid_size_x // 2, args.grid_size_x)
     if args.fused:
         flow_past_cylinder_fused_case(

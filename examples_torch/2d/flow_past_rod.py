@@ -63,10 +63,10 @@ def flow_past_rod_case(
     substeps and the flow step one at a time, reads the tip every 0.1 time
     scales and logs every 1/60 of the run, and with ``save_flow_data``
     writes ``FieldIO`` flow and ``CosseratRodIO`` rod files there. ``mesh``
-    is refused (the 2D mesh: ROADMAP.md queue A #11d)."""
+    is refused (the 2D mesh: ROADMAP.md queue A #11f)."""
     if mesh is not None:
         raise NotImplementedError(
-            "mesh: the 2D mesh is not ported yet (ROADMAP.md queue A #11d)")
+            "mesh: the 2D mesh is not ported yet (ROADMAP.md queue A #11f)")
     if fused and save_flow_data:
         raise ValueError("save_flow_data is not supported with fused=True")
     case = cases._build_flow_past_rod_2d_objects(
@@ -226,7 +226,7 @@ if __name__ == "__main__":
     parser.add_argument("--grid-size-x", type=int, default=512)
     parser.add_argument(
         "--n-devices", type=int, default=1,
-        help="shards of a mesh; only 1 is ported (ROADMAP.md queue A #11d)",
+        help="shards of a mesh; only 1 is ported (ROADMAP.md queue A #11f)",
     )
     parser.add_argument("--precision", default="single")
     parser.add_argument(
@@ -252,7 +252,7 @@ if __name__ == "__main__":
     if args.n_devices > 1:
         raise NotImplementedError(
             "--n-devices > 1: the 2D mesh is not ported yet (ROADMAP.md "
-            "queue A #11d)")
+            "queue A #11f)")
     flow_past_rod_case(
         nondim_final_time=args.final_time,
         grid_size=(args.grid_size_x // 2, args.grid_size_x),

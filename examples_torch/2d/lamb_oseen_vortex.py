@@ -40,10 +40,10 @@ def lamb_oseen_vortex_flow_case(
     (the windows overshoot t = 1.4 by less than a window); otherwise the
     host loop takes the stable timestep capped at the time left, and with
     ``plot`` saves a vorticity frame every 1/25 of the run. ``mesh`` is
-    refused (the 2D mesh: ROADMAP.md queue A #11d)."""
+    refused (the 2D mesh: ROADMAP.md queue A #11f)."""
     if mesh is not None:
         raise NotImplementedError(
-            "mesh: the 2D mesh is not ported yet (ROADMAP.md queue A #11d)")
+            "mesh: the 2D mesh is not ported yet (ROADMAP.md queue A #11f)")
     if fused and plot:
         raise ValueError(
             "plot is not supported with fused=True (snapshots live in the "
@@ -105,7 +105,7 @@ if __name__ == "__main__":
     parser.add_argument("--grid-size", type=int, default=256)
     parser.add_argument(
         "--n-devices", type=int, default=1,
-        help="shards of a mesh; only 1 is ported (ROADMAP.md queue A #11d)",
+        help="shards of a mesh; only 1 is ported (ROADMAP.md queue A #11f)",
     )
     parser.add_argument("--precision", default="single")
     parser.add_argument(
@@ -130,7 +130,7 @@ if __name__ == "__main__":
     if args.n_devices > 1:
         raise NotImplementedError(
             "--n-devices > 1: the 2D mesh is not ported yet (ROADMAP.md "
-            "queue A #11d)")
+            "queue A #11f)")
     lamb_oseen_vortex_flow_case(
         grid_size=(args.grid_size, args.grid_size),
         precision=args.precision,

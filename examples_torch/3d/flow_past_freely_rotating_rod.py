@@ -18,6 +18,11 @@ Run (on the card; ``--device cpu`` runs on the CPU):
     python examples_torch/3d/flow_past_freely_rotating_rod.py --final-time 0.5
     python examples_torch/3d/flow_past_freely_rotating_rod.py --final-time 1.0 --restart
     python examples_torch/3d/flow_past_freely_rotating_rod.py --checkpoint-backend carry
+    python examples_torch/3d/flow_past_freely_rotating_rod.py --n-devices 2
+
+``--n-devices N`` shards the flow over an in-process (N, 1) mesh on the one
+device; both checkpoint backends then hold the sharded state (the h5 files
+the assembled fields).
 """
 
 import argparse
@@ -36,6 +41,7 @@ from sopht_mpi_tpu_torch.models import (
     extend_stepper_interface,
     scan_steps,
 )
+from sopht_mpi_tpu_torch.parallel.mesh import unshard_vector_field
 from sopht_mpi_tpu_torch.utils import (
     CarryCheckpointer,
     FieldBinding,
@@ -67,6 +73,7 @@ def flow_past_freely_rotating_rod_case(
     fused=False,
     window=50,
     checkpoint_backend="h5",
+    mesh=None,
     *,
     device,
 ):
@@ -75,8 +82,9 @@ def flow_past_freely_rotating_rod_case(
     at the end. ``fused`` runs the fused coupled step in windows of
     ``window`` steps, checkpointing at window ends through
     ``checkpoint_backend`` ("h5" or "carry"); otherwise the host loop runs
-    the rod's substeps and the flow step one at a time. Returns (rod,
-    flow simulator) in the final state."""
+    the rod's substeps and the flow step one at a time. ``mesh``
+    (``create_mesh(3, (pz, py), device=...)``) shards the flow over an
+    in-process mesh. Returns (rod, flow simulator) in the final state."""
     if checkpoint_backend not in ("h5", "carry"):
         raise ValueError(f"checkpoint_backend {checkpoint_backend!r}: h5 or "
                          "carry")
@@ -94,6 +102,7 @@ def flow_past_freely_rotating_rod_case(
         precision=precision,
         # the fused step computes the flow forces itself
         flow_forces=not fused,
+        mesh=mesh,
     )
     flow_sim, rod, interactor = case.flow_sim, case.rod, case.interactor
 
@@ -101,12 +110,14 @@ def flow_past_freely_rotating_rod_case(
     os.makedirs(restart_dir, exist_ok=True)
     if not use_carry:
         io = FieldIO(dim=3, real_dtype=flow_sim.real_t)
+        position = unshard_vector_field(flow_sim.position_field,
+                                        flow_sim.mesh)
         io.define_eulerian_grid(
             origin=np.array(
                 [
-                    float(flow_sim.position_field[2].min()),
-                    float(flow_sim.position_field[1].min()),
-                    float(flow_sim.position_field[0].min()),
+                    float(position[2].min()),
+                    float(position[1].min()),
+                    float(position[0].min()),
                 ]
             ),
             dx=flow_sim.dx * np.ones(3),
@@ -264,7 +275,7 @@ if __name__ == "__main__":
     parser.add_argument("--grid-size-x", type=int, default=128)
     parser.add_argument(
         "--n-devices", type=int, default=1,
-        help="shards of a mesh; only 1 is ported (ROADMAP.md queue A #11d)",
+        help="z shards of an in-process mesh on the one device",
     )
     parser.add_argument("--precision", default="single")
     parser.add_argument(
@@ -301,10 +312,11 @@ if __name__ == "__main__":
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA device; run with --device cpu for the CPU")
+    mesh = None
     if args.n_devices > 1:
-        raise NotImplementedError(
-            "--n-devices > 1: immersed bodies on a mesh are not ported yet "
-            "(ROADMAP.md queue A #11d)")
+        from sopht_mpi_tpu_torch.parallel.mesh import create_mesh
+
+        mesh = create_mesh(3, (args.n_devices, 1), device=device)
     if args.no_fast:
         import sopht_mpi_tpu_torch
 
@@ -324,5 +336,6 @@ if __name__ == "__main__":
         restart_simulation=args.restart,
         fused=args.fused,
         checkpoint_backend=args.checkpoint_backend,
+        mesh=mesh,
         device=device,
     )

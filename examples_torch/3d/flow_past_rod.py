@@ -14,6 +14,10 @@ it is given, so that carry survives the window). The case is built by
 Run (on the card; ``--device cpu`` runs on the CPU):
     python examples_torch/3d/flow_past_rod.py --grid-size-x 64 --final-time 1
     python examples_torch/3d/flow_past_rod.py --host-loop --save-data
+    python examples_torch/3d/flow_past_rod.py --n-devices 2
+
+``--n-devices N`` shards the flow over an in-process (N, 1) mesh on the one
+device.
 """
 
 import argparse
@@ -34,6 +38,7 @@ from sopht_mpi_tpu_torch.models import (
     scan_steps,
     suggest_rod_forcing_window,
 )
+from sopht_mpi_tpu_torch.parallel.mesh import unshard_vector_field
 from sopht_mpi_tpu_torch.utils import (
     CosseratRodIO,
     FieldBinding,
@@ -75,8 +80,9 @@ def flow_past_rod_case(
     path. Otherwise the host loop runs the rod's substeps and the flow step
     one at a time and logs every ``final_time / 50``. ``save_data`` writes
     ``FieldIO`` vorticity and ``CosseratRodIO`` files in the host loop and
-    ``SnapshotWriter`` snapshots in the fused loop. ``mesh`` is refused
-    (immersed bodies on a mesh: ROADMAP.md queue A #11d)."""
+    ``SnapshotWriter`` snapshots in the fused loop, the assembled fields
+    on a ``mesh`` (``create_mesh(3, (pz, py), device=...)``, which shards
+    the flow over an in-process mesh)."""
     case = cases._build_flow_past_rod_objects(
         grid_size, device=device, n_elem=n_elem,
         surface_grid_density_for_largest_element=(
@@ -91,7 +97,7 @@ def flow_past_rod_case(
         precision=precision,
         # the fused step computes the flow forces itself
         flow_forces=not fused,
-        sim_kwargs={"mesh": mesh},
+        mesh=mesh,
     )
     flow_sim, flow_past_rod = case.flow_sim, case.rod
     flow_past_sim = case.collection
@@ -100,12 +106,14 @@ def flow_past_rod_case(
 
     if save_data and not fused:
         io = FieldIO(dim=3, real_dtype=real_t)
+        position = unshard_vector_field(flow_sim.position_field,
+                                        flow_sim.mesh)
         io.define_eulerian_grid(
             origin=np.array(
                 [
-                    float(flow_sim.position_field[2].min()),
-                    float(flow_sim.position_field[1].min()),
-                    float(flow_sim.position_field[0].min()),
+                    float(position[2].min()),
+                    float(position[1].min()),
+                    float(position[0].min()),
                 ]
             ),
             dx=flow_sim.dx * np.ones(3),
@@ -226,7 +234,8 @@ def flow_past_rod_case(
             if snaps is not None:
                 snaps.maybe_save(
                     float(carry.time),
-                    vorticity=carry.flow_state.primary_field,
+                    vorticity=unshard_vector_field(
+                        carry.flow_state.primary_field, flow_sim.mesh),
                     rod_position=carry.rod_state.position,
                 )
             tip_times.append(float(carry.time))
@@ -300,7 +309,7 @@ if __name__ == "__main__":
     parser.add_argument("--n-elem", type=int, default=None)
     parser.add_argument(
         "--n-devices", type=int, default=1,
-        help="shards of a mesh; only 1 is ported (ROADMAP.md queue A #11d)",
+        help="z shards of an in-process mesh on the one device",
     )
     parser.add_argument("--precision", default="single")
     parser.add_argument(
@@ -345,10 +354,11 @@ if __name__ == "__main__":
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA device; run with --device cpu for the CPU")
+    mesh = None
     if args.n_devices > 1:
-        raise NotImplementedError(
-            "--n-devices > 1: immersed bodies on a mesh are not ported yet "
-            "(ROADMAP.md queue A #11d)")
+        from sopht_mpi_tpu_torch.parallel.mesh import create_mesh
+
+        mesh = create_mesh(3, (args.n_devices, 1), device=device)
     if args.no_fast:
         import sopht_mpi_tpu_torch
 
@@ -370,5 +380,6 @@ if __name__ == "__main__":
         save_data=args.save_data,
         fused=args.fused,
         sparse_forcing=args.sparse_forcing,
+        mesh=mesh,
         device=device,
     )

@@ -10,6 +10,10 @@ Run (on the card; ``--device cpu`` runs on the CPU):
     python examples_torch/3d/flow_past_sphere.py --save-interval 0.5
     python examples_torch/3d/flow_past_sphere.py --device cpu --grid-size-x 32 \\
         --nondim-time 0.5 --host-loop --save-flow-data
+    python examples_torch/3d/flow_past_sphere.py --n-devices 2  # (2, 1) mesh
+
+``--n-devices N`` shards the flow over an in-process (N, 1) mesh on the one
+device.
 """
 
 import argparse
@@ -23,6 +27,7 @@ import torch
 
 from sopht_mpi_tpu_torch import cases
 from sopht_mpi_tpu_torch.models import scan_steps
+from sopht_mpi_tpu_torch.parallel.mesh import unshard_vector_field
 from sopht_mpi_tpu_torch.utils import (
     FieldBinding,
     FieldIO,
@@ -39,26 +44,31 @@ def flow_past_sphere_case(
     coupling_damping=-3.5e2 / 4,
     precision="single",
     save_flow_data=False,
+    mesh=None,
     *,
     device,
 ):
     """The host-driven loop: one interaction and one flow step at a time,
     every t*/10 a drag read and log line (and, with ``save_flow_data``,
     ``FieldIO`` saves of the flow and of the sphere's forcing grid).
-    Returns (times, Cd), also written to ``drag_vs_time.csv``."""
+    Returns (times, Cd), also written to ``drag_vs_time.csv``. ``mesh``
+    (``create_mesh(3, (pz, py), device=...)``) shards the flow over an
+    in-process mesh; the saves write the assembled fields."""
     case = cases._build_sphere_drag_case(
         grid_size, reynolds, coupling_stiffness, coupling_damping, precision,
-        device=device)
+        device=device, mesh=mesh)
     flow_sim, interactor = case.flow_sim, case.interactor
 
     if save_flow_data:
         io = FieldIO(dim=3, real_dtype=flow_sim.real_t)
+        position = unshard_vector_field(flow_sim.position_field,
+                                        flow_sim.mesh)
         io.define_eulerian_grid(
             origin=np.array(
                 [
-                    float(flow_sim.position_field[2].min()),
-                    float(flow_sim.position_field[1].min()),
-                    float(flow_sim.position_field[0].min()),
+                    float(position[2].min()),
+                    float(position[1].min()),
+                    float(position[0].min()),
                 ]
             ),
             dx=flow_sim.dx * np.ones(3),
@@ -131,6 +141,7 @@ def flow_past_sphere_fused_case(
     precision="single",
     window=100,
     save_interval=None,
+    mesh=None,
     *,
     device,
 ):
@@ -142,10 +153,11 @@ def flow_past_sphere_fused_case(
     ``save_interval`` (in t*) snapshots the vorticity and velocity fields
     at window ends through the native async writer (``SnapshotWriter``,
     ``snapshots/``): each field is copied to the host once and written on
-    the writer's own thread."""
+    the writer's own thread (assembled on a ``mesh``, which shards the flow
+    over an in-process mesh)."""
     case = cases._build_sphere_drag_case(
         grid_size, reynolds, coupling_stiffness, coupling_damping, precision,
-        device=device)
+        device=device, mesh=mesh)
     step, carry = cases.build_sphere_drag_step(case)
     t_end = nondim_time * case.timescale
     snaps = None
@@ -163,8 +175,10 @@ def flow_past_sphere_fused_case(
         if snaps is not None:
             snaps.maybe_save(
                 float(carry.time),
-                vorticity=carry.flow_state.primary_field,
-                velocity=carry.flow_state.velocity_field,
+                vorticity=unshard_vector_field(
+                    carry.flow_state.primary_field, mesh),
+                velocity=unshard_vector_field(
+                    carry.flow_state.velocity_field, mesh),
             )
         np.savetxt(
             "drag_vs_time.csv", np.c_[times, drag_coeffs], delimiter=","
@@ -185,7 +199,7 @@ if __name__ == "__main__":
     parser.add_argument("--grid-size-x", type=int, default=128)
     parser.add_argument(
         "--n-devices", type=int, default=1,
-        help="shards of a mesh; only 1 is ported (ROADMAP.md queue A #11d)",
+        help="z shards of an in-process mesh on the one device",
     )
     parser.add_argument("--precision", default="single")
     parser.add_argument(
@@ -221,10 +235,11 @@ if __name__ == "__main__":
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA device; run with --device cpu for the CPU")
+    mesh = None
     if args.n_devices > 1:
-        raise NotImplementedError(
-            "--n-devices > 1: immersed bodies on a mesh are not ported yet "
-            "(ROADMAP.md queue A #11d)")
+        from sopht_mpi_tpu_torch.parallel.mesh import create_mesh
+
+        mesh = create_mesh(3, (args.n_devices, 1), device=device)
     if args.no_fast:
         import sopht_mpi_tpu_torch
 
@@ -241,6 +256,7 @@ if __name__ == "__main__":
             grid_size=(n, n, n),
             precision=args.precision,
             save_interval=args.save_interval,
+            mesh=mesh,
             device=device,
         )
         raise SystemExit(0)
@@ -249,5 +265,6 @@ if __name__ == "__main__":
         grid_size=(n, n, n),
         precision=args.precision,
         save_flow_data=args.save_flow_data,
+        mesh=mesh,
         device=device,
     )

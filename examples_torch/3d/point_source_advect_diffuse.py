@@ -36,7 +36,7 @@ def point_source_advection_diffusion_case(
     the flow-only step in windows of ``window`` steps, ending up to
     ``window - 1`` steps past 5.4. ``mesh`` (``create_mesh(3, (pz, py),
     device=...)``) shards the fields over an in-process mesh; ``save_data``
-    on a mesh waits for sharded field IO (ROADMAP.md queue A #11d)."""
+    then writes the assembled field."""
     step, carry = cases.point_source_advection_diffusion_case(
         grid_size, device=device, precision=precision, mesh=mesh)
     flow_sim = step.flow_sim

@@ -11,6 +11,10 @@ by ``sopht_mpi_tpu_torch.cases._build_rod_and_sphere_objects``.
 
 Run (on the card; ``--device cpu`` runs on the CPU):
     python examples_torch/3d/rod_and_sphere.py --grid-size-x 64 --final-time 1
+    python examples_torch/3d/rod_and_sphere.py --n-devices 2
+
+``--n-devices N`` shards the flow over an in-process (N, 1) mesh on the one
+device.
 """
 
 import argparse
@@ -49,8 +53,9 @@ def rod_and_sphere_case(
 ):
     """Returns (times, rod tip positions, sphere drag coefficients), one of
     each a scan window of ``window`` steps. Raises where a body's sparse
-    window failed to cover its support. ``mesh`` is refused (immersed
-    bodies on a mesh: ROADMAP.md queue A #11d)."""
+    window failed to cover its support. ``mesh``
+    (``create_mesh(3, (pz, py), device=...)``) shards the flow over an
+    in-process mesh."""
     case = cases._build_rod_and_sphere_objects(
         grid_size, device=device, n_elem=n_elem,
         surface_grid_density_for_largest_element=(
@@ -58,7 +63,7 @@ def rod_and_sphere_case(
         cauchy_number=cauchy_number, mass_ratio=mass_ratio,
         reynolds=reynolds, coupling_stiffness=coupling_stiffness,
         coupling_damping=coupling_damping, precision=precision,
-        sim_kwargs={"mesh": mesh},
+        mesh=mesh,
     )
     rho_f, u_free_stream = 1.0, 1.0
 
@@ -113,7 +118,7 @@ if __name__ == "__main__":
     parser.add_argument("--n-elem", type=int, default=None)
     parser.add_argument(
         "--n-devices", type=int, default=1,
-        help="shards of a mesh; only 1 is ported (ROADMAP.md queue A #11d)",
+        help="z shards of an in-process mesh on the one device",
     )
     parser.add_argument("--precision", default="single")
     parser.add_argument(
@@ -134,10 +139,11 @@ if __name__ == "__main__":
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA device; run with --device cpu for the CPU")
+    mesh = None
     if args.n_devices > 1:
-        raise NotImplementedError(
-            "--n-devices > 1: immersed bodies on a mesh are not ported yet "
-            "(ROADMAP.md queue A #11d)")
+        from sopht_mpi_tpu_torch.parallel.mesh import create_mesh
+
+        mesh = create_mesh(3, (args.n_devices, 1), device=device)
     if args.no_fast:
         import sopht_mpi_tpu_torch
 
@@ -154,5 +160,6 @@ if __name__ == "__main__":
         surface_grid_density_for_largest_element=nx // 8,
         final_time=args.final_time,
         precision=args.precision,
+        mesh=mesh,
         device=device,
     )

@@ -15,6 +15,10 @@ dense ``torch.fft`` route.
 
 Run (on the card; ``--device cpu`` runs on the CPU):
     python examples_torch/3d/sedimenting_sphere.py --grid-size 64
+    python examples_torch/3d/sedimenting_sphere.py --n-devices 2
+
+``--n-devices N`` shards the flow over an in-process (N, 1) mesh on the one
+device.
 """
 
 import argparse
@@ -50,18 +54,15 @@ def sedimenting_sphere_case(
     """Returns (times, z velocities, Stokes terminal velocity), one time and
     velocity a scan window of ``window`` steps, to ``n_tau * tau``. Raises
     where the sphere's sparse window failed to cover its support. ``mesh``
-    is refused (immersed bodies on a mesh: ROADMAP.md queue A #11d)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: immersed bodies on a mesh are not ported yet "
-            "(ROADMAP.md queue A #11d)")
+    (``create_mesh(3, (pz, py), device=...)``) shards the flow over an
+    in-process mesh."""
     step, carry, v_t, tau = cases.sedimenting_sphere_case(
         grid_size, device=device, precision=precision,
         sphere_radius=sphere_radius, density_ratio=density_ratio,
         kinematic_viscosity=kinematic_viscosity,
         terminal_velocity_target=terminal_velocity_target,
         coupling_stiffness=coupling_stiffness,
-        coupling_damping=coupling_damping, substeps=substeps)
+        coupling_damping=coupling_damping, substeps=substeps, mesh=mesh)
     sparse = step.uses_sparse_forcing
 
     final_time = n_tau * tau
@@ -88,6 +89,10 @@ if __name__ == "__main__":
     parser.add_argument("--precision", default="double")
     parser.add_argument("--n-tau", type=float, default=6.0)
     parser.add_argument(
+        "--n-devices", type=int, default=1,
+        help="z shards of an in-process mesh on the one device",
+    )
+    parser.add_argument(
         "--device", default="cuda",
         help="torch device (default cuda, which needs a card; cpu runs on "
         "the CPU)",
@@ -113,10 +118,16 @@ if __name__ == "__main__":
         import sopht_mpi_tpu_torch
 
         sopht_mpi_tpu_torch.enable_fast_spectral()
+    mesh = None
+    if args.n_devices > 1:
+        from sopht_mpi_tpu_torch.parallel.mesh import create_mesh
+
+        mesh = create_mesh(3, (args.n_devices, 1), device=device)
     times, vels, v_t = sedimenting_sphere_case(
         grid_size=(args.grid_size,) * 3,
         precision=args.precision,
         n_tau=args.n_tau,
+        mesh=mesh,
         device=device,
     )
     print(

@@ -14,6 +14,10 @@ of shards (:func:`sharded_flow_case`), a point source advected and diffused
 as a passive vector (``examples/3d/point_source_advect_diffuse.py``), a
 flexible rod in a 2D flow (``examples/2d/flow_past_rod.py``) and a rigid
 sphere sedimenting under its weight (``examples/3d/sedimenting_sphere.py``).
+The 3D body cases take a ``mesh`` (``create_mesh(3, (pz, py),
+device=...)``) that shards the flow over an in-process mesh;
+:func:`dryrun_multichip` holds them on a mesh against one device
+(``__graft_entry__.dryrun_multichip``).
 
 The ``_build_*_objects`` functions build an example's objects from its
 keywords; the example drivers under ``examples_torch/`` and the benchmark
@@ -22,6 +26,7 @@ cases here both call them, so a case is set up in one place.
 
 from __future__ import annotations
 
+import tempfile
 from typing import NamedTuple
 
 import numpy as np
@@ -67,11 +72,11 @@ from sopht_mpi_tpu_torch.parallel.mesh import (
     shard_vector_field,
     unshard_vector_field,
 )
-from sopht_mpi_tpu_torch.utils import get_real_t
+from sopht_mpi_tpu_torch.utils import CarryCheckpointer, get_real_t
 
 
 def _build_fsi_case(grid_size, *, device, precision="single",
-                    sparse_forcing=None, sim_kwargs=None):
+                    sparse_forcing=None, sim_kwargs=None, mesh=None):
     """A 3D flow-past-sphere FSI case (the benchmark's sphere case: sphere
     of radius 0.125 at the domain centre, Re = 100 on its diameter, unit
     free stream in x, a weak random vorticity blob from seed 0); returns
@@ -79,7 +84,10 @@ def _build_fsi_case(grid_size, *, device, precision="single",
 
     ``sparse_forcing=False`` forces the dense IBM path; the default
     engages the sparse-window matmul path where the window is interior.
-    ``sim_kwargs`` are extra :class:`UnboundedFlowSimulator3D` options."""
+    ``sim_kwargs`` are extra :class:`UnboundedFlowSimulator3D` options;
+    ``mesh`` (``create_mesh(3, (pz, py), device=...)``) shards the flow over
+    an in-process mesh, from the same seeded field. ``step.flow_sim`` is
+    the simulator."""
     real_t = get_real_t(precision)
     x_range = 1.0
     sphere_radius = 0.125 * x_range
@@ -91,6 +99,7 @@ def _build_fsi_case(grid_size, *, device, precision="single",
         with_free_stream_flow=True,
         real_t=real_t,
         device=device,
+        mesh=mesh,
         **(sim_kwargs or {}),
     )
     sphere = Sphere(
@@ -113,10 +122,11 @@ def _build_fsi_case(grid_size, *, device, precision="single",
         virtual_boundary_damping_coeff=-1e1,
     )
     gen = torch.Generator(device=flow_sim.device).manual_seed(0)
-    flow_sim.primary_field = flow_sim.primary_field + 0.1 * torch.randn(
-        flow_sim.primary_field.shape, generator=gen, dtype=real_t,
-        device=flow_sim.device,
-    )
+    # drawn on the global grid, then sharded: one field on any mesh
+    flow_sim.primary_field = flow_sim.primary_field + shard_vector_field(
+        0.1 * torch.randn((3, *flow_sim.grid_size), generator=gen,
+                          dtype=real_t, device=flow_sim.device),
+        flow_sim.mesh)
     free_stream = torch.tensor([1.0, 0.0, 0.0], dtype=real_t,
                                device=flow_sim.device)
     fsi_step = build_rigid_fsi_step(
@@ -126,6 +136,7 @@ def _build_fsi_case(grid_size, *, device, precision="single",
         free_stream_fn=lambda t: free_stream,
         sparse_forcing=sparse_forcing,
     )
+    fsi_step.flow_sim = flow_sim
     carry = init_rigid_fsi_carry(flow_sim, interactor, fsi_step)
     return fsi_step, (carry,)
 
@@ -209,12 +220,14 @@ def _build_sphere_drag_case(
     precision="single",
     *,
     device,
+    mesh=None,
 ) -> SphereDragCase:
     """Flow past a fixed sphere at Re = 100 (the drag benchmark of
     ``examples/3d/flow_past_sphere.py``): sphere diameter 0.4 of the smaller
     cross-stream extent, centred at (0.25, 0.5, 0.5) of the domain, unit
     free stream in x, the sphere's forcing grid with 1.875 d / dx points
-    along its equator."""
+    along its equator. ``mesh`` shards the flow over an in-process
+    mesh."""
     grid_size_z, grid_size_y, grid_size_x = grid_size
     real_t = get_real_t(precision)
     x_range = 1.0
@@ -229,6 +242,7 @@ def _build_sphere_drag_case(
         flow_type="navier_stokes_with_forcing",
         with_free_stream_flow=True,
         device=device,
+        mesh=mesh,
     )
     sphere = Sphere(
         center=np.array(
@@ -485,11 +499,12 @@ def flow_past_cylinder_fused_case(
 
 
 def _build_rod_fsi_case(grid_size, *, device, surface_density=4,
-                        sparse_forcing=False):
+                        sparse_forcing=False, mesh=None):
     """A small 3D flexible-rod FSI case (float32 flow, float64 rod,
     surface forcing grid, one rod substep per flow step); returns (fused
     step, carry). ``sparse_forcing=True`` takes the moving-window sparse
-    IBM path; the step's diagnostics then include the window_ok flag."""
+    IBM path; the step's diagnostics then include the window_ok flag.
+    ``mesh`` shards the flow over an in-process mesh."""
     real_t = torch.float32
     flow_sim = UnboundedFlowSimulator3D(
         grid_size=grid_size,
@@ -499,6 +514,7 @@ def _build_rod_fsi_case(grid_size, *, device, surface_density=4,
         with_free_stream_flow=True,
         real_t=real_t,
         device=device,
+        mesh=mesh,
     )
     flow_sim.velocity_field = flow_sim.velocity_field + 1.0
     rod = CosseratRod.straight_rod(
@@ -568,7 +584,7 @@ def _build_flow_past_rod_objects(
         poisson_ratio=0.5, reynolds=100.0, coupling_stiffness=-2e5,
         coupling_damping=-1e2, rod_start_incline_angle=0.0,
         precision="single", flow_forces=False,
-        sim_kwargs=None) -> RodCase:
+        sim_kwargs=None, mesh=None) -> RodCase:
     """A flexible rod hanging into a free stream, as
     ``examples/3d/flow_past_rod.py`` builds it, with its parameters and
     defaults: the rod from (0.2, 0.5, 0.75) of the domain along (sin a, 0,
@@ -581,8 +597,8 @@ def _build_flow_past_rod_objects(
     multiplicative vorticity filter; the surface forcing grid.
     ``flow_forces`` adds the host-coupled ``FlowForces`` to the collection,
     as the example's host loop does. ``sim_kwargs`` are extra
-    :class:`UnboundedFlowSimulator3D` options. The rod is float64, the flow
-    ``precision``."""
+    :class:`UnboundedFlowSimulator3D` options; ``mesh`` shards the flow
+    over an in-process mesh. The rod is float64, the flow ``precision``."""
     grid_size_z, grid_size_y, grid_size_x = grid_size
     real_t = get_real_t(precision)
     rho_f, u_free_stream, base_length = 1.0, 1.0, 1.0
@@ -659,6 +675,7 @@ def _build_flow_past_rod_objects(
         device=device,
         filter_vorticity=True,
         filter_setting_dict={"order": 1, "type": "multiplicative"},
+        mesh=mesh,
         **(sim_kwargs or {}),
     )
     interactor = CosseratRodFlowInteraction(
@@ -680,7 +697,7 @@ def _build_flow_past_rod_objects(
 
 def _build_rod_bench_case(grid_size, *, device, sparse_forcing=None,
                           precision="single", substep_load_refresh="every",
-                          sim_kwargs=None):
+                          sim_kwargs=None, mesh=None):
     """The flexible-rod FSI benchmark case, sized as the reference's own
     driver (flow_past_rod_case.py): grid (nx, nx/4, nx), n_elem = 5 nx / 16,
     surface grid density nx / 8 (at least 4), the rest
@@ -692,12 +709,13 @@ def _build_rod_bench_case(grid_size, *, device, sparse_forcing=None,
 
     ``sparse_forcing=False`` forces the dense IBM path; None takes the
     moving sparse window that :func:`suggest_rod_forcing_window` gives.
-    ``sim_kwargs`` are extra :class:`UnboundedFlowSimulator3D` options."""
+    ``sim_kwargs`` are extra :class:`UnboundedFlowSimulator3D` options;
+    ``mesh`` shards the flow over an in-process mesh."""
     grid_size_x = grid_size[2]
     case = _build_flow_past_rod_objects(
         grid_size, device=device, n_elem=5 * grid_size_x // 16,
         surface_grid_density_for_largest_element=max(4, grid_size_x // 8),
-        precision=precision, sim_kwargs=sim_kwargs)
+        precision=precision, sim_kwargs=sim_kwargs, mesh=mesh)
     sparse_window = None
     if sparse_forcing is not False:
         sparse_window = suggest_rod_forcing_window(case.interactor, case.rod,
@@ -722,7 +740,7 @@ def _build_freely_rotating_rod_objects(
         mass_ratio=10.0, aspect_ratio=10.0, base_length=1.0,
         poisson_ratio=0.5, reynolds=100.0, coupling_stiffness=-2e5,
         coupling_damping=-1e2, rod_start_incline_angle=np.pi / 2,
-        precision="single", flow_forces=False) -> RodCase:
+        precision="single", flow_forces=False, mesh=None) -> RodCase:
     """Flow past a rod clamped in translation at its first node but free to
     turn about its own axis, as ``examples/3d/flow_past_freely_rotating_rod.py``
     builds it, with its parameters and defaults: the rod from (0.08, 0.502,
@@ -732,8 +750,9 @@ def _build_freely_rotating_rod_objects(
     dt 0.01 L / n_elem; Re on the diameter, an x range of 5 L, unit free
     stream in x, the order-5 convolution vorticity filter; the surface
     forcing grid. ``flow_forces`` adds the host-coupled ``FlowForces`` to
-    the collection, as the example's host loop does. The rod is float64,
-    the flow ``precision``."""
+    the collection, as the example's host loop does; ``mesh`` shards the
+    flow over an in-process mesh. The rod is float64, the flow
+    ``precision``."""
     grid_size_z, grid_size_y, grid_size_x = grid_size
     real_t = get_real_t(precision)
     rho_f, u_free_stream = 1.0, 1.0
@@ -789,6 +808,7 @@ def _build_freely_rotating_rod_objects(
         device=device,
         filter_vorticity=True,
         filter_setting_dict={"order": 5, "type": "convolution"},
+        mesh=mesh,
     )
     free_stream = torch.tensor([u_free_stream, 0.0, 0.0], dtype=real_t,
                                device=device)
@@ -858,7 +878,7 @@ def _build_rod_and_sphere_objects(
         surface_grid_density_for_largest_element=8, cauchy_number=0.1,
         mass_ratio=100.0, reynolds=100.0, coupling_stiffness=-2e5,
         coupling_damping=-1e2, precision="single", fast_spectral=None,
-        sim_kwargs=None) -> RodAndSphereCase:
+        sim_kwargs=None, mesh=None) -> RodAndSphereCase:
     """A flexible rod and a fixed sphere in its wake, as
     ``examples/3d/rod_and_sphere.py`` builds them, with its parameters and
     defaults: a Cosserat rod hanging from 0.85 of the height, half the
@@ -868,8 +888,8 @@ def _build_rod_and_sphere_objects(
     at (0.65, 0.5, 0.5) of the domain; Re on the rod's diameter, an x range
     of 1.8, unit free stream in x, the order-1 multiplicative filter.
     ``fast_spectral`` is the simulator's, ``sim_kwargs`` are extra
-    :class:`UnboundedFlowSimulator3D` options. The rod is float64, the flow
-    ``precision``."""
+    :class:`UnboundedFlowSimulator3D` options, ``mesh`` shards the flow over
+    an in-process mesh. The rod is float64, the flow ``precision``."""
     grid_size_z, grid_size_y, grid_size_x = grid_size
     real_t = get_real_t(precision)
     rho_f, u_free_stream = 1.0, 1.0
@@ -941,6 +961,7 @@ def _build_rod_and_sphere_objects(
         filter_vorticity=True,
         filter_setting_dict={"order": 1, "type": "multiplicative"},
         fast_spectral=fast_spectral,
+        mesh=mesh,
         **(sim_kwargs or {}),
     )
     rod_interactor = CosseratRodFlowInteraction(
@@ -985,7 +1006,8 @@ def _build_rod_and_sphere_objects(
 def _build_multibody_bench_case(grid_size, *, device, sparse_forcing=None,
                                 precision="single",
                                 substep_load_refresh="every",
-                                fast_spectral=None, sim_kwargs=None):
+                                fast_spectral=None, sim_kwargs=None,
+                                mesh=None):
     """The mixed rod + rigid-sphere FSI benchmark case
     (``__graft_entry__._build_multibody_bench_case``, BASELINE config 5, the
     physics of ``examples/3d/rod_and_sphere.py``): n_elem = max(8, 5 nx /
@@ -997,13 +1019,14 @@ def _build_multibody_bench_case(grid_size, *, device, sparse_forcing=None,
 
     ``sparse_forcing`` is the step's (None: per-body moving windows where
     they fit); ``fast_spectral`` the simulator's; ``sim_kwargs`` are extra
-    :class:`UnboundedFlowSimulator3D` options."""
+    :class:`UnboundedFlowSimulator3D` options; ``mesh`` shards the flow over
+    an in-process mesh."""
     grid_size_x = grid_size[2]
     case = _build_rod_and_sphere_objects(
         grid_size, device=device, n_elem=max(8, 5 * grid_size_x // 16),
         surface_grid_density_for_largest_element=max(4, grid_size_x // 8),
         precision=precision, fast_spectral=fast_spectral,
-        sim_kwargs=sim_kwargs)
+        sim_kwargs=sim_kwargs, mesh=mesh)
     step = build_multi_body_fsi_step(
         case.flow_sim,
         case.bodies,
@@ -1017,12 +1040,13 @@ def _build_multibody_bench_case(grid_size, *, device, sparse_forcing=None,
     return step, (carry,)
 
 
-def _build_multibody_case(grid_size, *, device, fast_spectral=None):
+def _build_multibody_case(grid_size, *, device, fast_spectral=None,
+                          mesh=None):
     """A small mixed rod + rigid-sphere case
     (``__graft_entry__._build_multibody_case``): a clamped 5-element rod
     and a fixed sphere sharing the forcing, a unit-velocity flow, float32
     flow, float64 rod, one substep a flow step; returns (fused step,
-    carry)."""
+    carry). ``mesh`` shards the flow over an in-process mesh."""
     real_t = torch.float32
     flow_sim = UnboundedFlowSimulator3D(
         grid_size=grid_size,
@@ -1033,6 +1057,7 @@ def _build_multibody_case(grid_size, *, device, fast_spectral=None):
         real_t=real_t,
         device=device,
         fast_spectral=fast_spectral,
+        mesh=mesh,
     )
     flow_sim.velocity_field = flow_sim.velocity_field + 1.0
     rod = CosseratRod.straight_rod(
@@ -1322,7 +1347,7 @@ def sedimenting_sphere_case(grid_size=(64, 64, 64), *, device,
                             density_ratio=2.0, kinematic_viscosity=1.0,
                             terminal_velocity_target=0.05,
                             coupling_stiffness=-5e5, coupling_damping=-2e2,
-                            substeps=1):
+                            substeps=1, mesh=None):
     """A rigid sphere sedimenting under its net weight, the step of
     ``examples/3d/sedimenting_sphere.py`` with its defaults: a unit box,
     the sphere of radius 0.06 and density 2 (fluid 1) at (0.5, 0.5, 0.65),
@@ -1334,7 +1359,8 @@ def sedimenting_sphere_case(grid_size=(64, 64, 64), *, device,
     ``substeps`` rigid substeps a flow step, the sparse window where it
     fits (the step's default). Returns (fused step, carry, v_t, tau) with
     the relaxation time ``tau = 2 rho_s R^2 / (9 mu)``; ``step.flow_sim``
-    is the simulator. The example's host loop is not here."""
+    is the simulator. ``mesh`` shards the flow over an in-process mesh. The
+    example's host loop is not here."""
     real_t = get_real_t(precision)
     grid_size = tuple(grid_size)
     x_range, rho_f = 1.0, 1.0
@@ -1355,6 +1381,7 @@ def sedimenting_sphere_case(grid_size=(64, 64, 64), *, device,
         with_free_stream_flow=False,
         real_t=real_t,
         device=device,
+        mesh=mesh,
     )
     sphere = Sphere(
         center=np.array([0.5, 0.5, 0.65]) * x_range,
@@ -1386,3 +1413,148 @@ def sedimenting_sphere_case(grid_size=(64, 64, 64), *, device,
     step.flow_sim = flow_sim
     carry = init_multi_body_fsi_carry(flow_sim, bodies, step)
     return step, carry, v_t, tau
+
+
+# ---------------------------------------------------------------------------
+# the multi-device gate
+# ---------------------------------------------------------------------------
+
+
+def _case_row(results, name, diff, tol):
+    ok = diff <= tol
+    results.append((name, diff, tol, ok))
+    print(
+        f"  case {name:<26s} |delta|_max={diff:10.3e}  tol={tol:7.1e}  "
+        f"{'PASS' if ok else 'FAIL'}",
+        flush=True,
+    )
+
+
+def dryrun_multichip(mesh_shape=(4, 2), *, device):
+    """The multi-device gate of ``__graft_entry__.dryrun_multichip`` on an
+    in-process ``mesh_shape`` mesh on ``device``: the coupled steps on the
+    mesh against one device, each case a row of the printed table:
+
+    - the rigid sphere (:func:`_build_fsi_case`), 3 steps;
+    - the rod (:func:`_build_rod_fsi_case`), 3 steps: vorticity and tip;
+    - the rod's sparse window against the dense path, both on the mesh:
+      vorticity and tip;
+    - the rod and sphere (:func:`_build_multibody_case`, per-body sparse
+      windows), 2 steps;
+    - a checkpoint after 2 steps on the mesh, restored
+      (``CarryCheckpointer``) and run 2 more, bit-exact against 4 straight
+      steps;
+    - the flow step with ``use_kernels`` on against off on the same mesh
+      (the sharded kernels on a card, their per-shard plain versions on the
+      CPU; the JAX package's Pallas fork) at its (16, 16, 128)-based grid.
+
+    The base grid is (32, 32, 32), each sharded axis rounded up to a
+    multiple of its shards; the tolerances are the JAX function's
+    (``3e-5 max(1, |ref|)`` for fields, ``1e-5`` for the tip, 0 for the
+    restart). Prints the table; returns its rows (name, |delta|, tol, ok);
+    raises if any row fails."""
+    mesh = create_mesh(3, mesh_shape, device=device)
+    pz, py = mesh.axis_sizes
+
+    def lcm_grid(base, per):
+        return max(base, per * ((base + per - 1) // per))
+
+    grid = (lcm_grid(32, pz), lcm_grid(32, py), 32)
+    print(f"dryrun_multichip: mesh={mesh.shape} base grid={grid} "
+          f"device={mesh.device}", flush=True)
+    results = []
+    field = lambda f, m: unshard_vector_field(f, m).double().cpu()  # noqa
+    scale = lambda a: max(1.0, float(a.abs().max()))  # noqa: E731
+    diff = lambda a, b: float((a - b).abs().max())  # noqa: E731
+
+    # -- the rigid sphere, 3 steps
+    def rigid_final(m):
+        step, (carry,) = _build_fsi_case(grid, device=device, mesh=m)
+        carry, _ = scan_steps(step, carry, 3)
+        return field(carry.flow_state.primary_field, m)
+
+    w_single, w_sharded = rigid_final(None), rigid_final(mesh)
+    _case_row(results, "rigid-sphere FSI x3", diff(w_sharded, w_single),
+              3e-5 * scale(w_single))
+
+    # -- the rod, 3 steps
+    def rod_final(m, sparse=False):
+        step, carry = _build_rod_fsi_case(grid, device=device, mesh=m,
+                                          sparse_forcing=sparse)
+        carry, diag = scan_steps(step, carry, 3)
+        if sparse and not bool(diag[1].all()):
+            raise RuntimeError("rod forcing window tripped")
+        return (field(carry.flow_state.primary_field, m),
+                carry.rod_state.position[:, -1].double().cpu())
+
+    wr_single, tip_single = rod_final(None)
+    wr_sharded, tip_sharded = rod_final(mesh)
+    _case_row(results, "rod FSI x3 (vorticity)", diff(wr_sharded, wr_single),
+              3e-5 * scale(wr_single))
+    _case_row(results, "rod FSI x3 (tip)", diff(tip_sharded, tip_single),
+              1e-5)
+
+    # -- the rod's sparse window against the dense path, both on the mesh
+    wr_sp, tip_sp = rod_final(mesh, sparse=True)
+    _case_row(results, "rod sparse-vs-dense (mesh)", diff(wr_sp, wr_sharded),
+              3e-5 * scale(wr_sharded))
+    _case_row(results, "rod sparse-vs-dense (tip)", diff(tip_sp, tip_sharded),
+              1e-5)
+
+    # -- the rod and sphere, 2 steps
+    def multi_final(m):
+        step, carry = _build_multibody_case(grid, device=device, mesh=m)
+        carry, _ = scan_steps(step, carry, 2)
+        return field(carry.flow_state.primary_field, m)
+
+    wm_single, wm_sharded = multi_final(None), multi_final(mesh)
+    _case_row(results, "multi-body FSI x2", diff(wm_sharded, wm_single),
+              3e-5 * scale(wm_single))
+
+    # -- checkpoint -> restore -> resume on the mesh, bit-exact
+    step, (carry0,) = _build_fsi_case(grid, device=device, mesh=mesh)
+    straight, _ = scan_steps(step, carry0, 4)
+    mid, _ = scan_steps(step, carry0, 2)
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = CarryCheckpointer(d)
+        ckpt.save(2, mid, wait=True)
+        restored = ckpt.restore(template=mid)
+        ckpt.close()
+    resumed, _ = scan_steps(step, restored, 2)
+    _case_row(results, "checkpoint-restart x(2+2)",
+              diff(field(resumed.flow_state.primary_field, mesh),
+                   field(straight.flow_state.primary_field, mesh)), 0.0)
+
+    # -- the kernel fork against the plain fork on the same mesh
+    kernel_grid = (lcm_grid(16, pz), lcm_grid(16, py), 128)
+    start = np.random.default_rng(3).standard_normal((3, *kernel_grid))
+
+    def kernel_fork_final(use_kernels):
+        sim = UnboundedFlowSimulator3D(
+            grid_size=kernel_grid, x_range=1.0, kinematic_viscosity=1e-3,
+            flow_type="navier_stokes", with_free_stream_flow=True,
+            real_t=torch.float32, device=device, mesh=mesh,
+            use_kernels=use_kernels)
+        sim.primary_field = shard_vector_field(
+            torch.as_tensor(0.1 * start, dtype=torch.float32,
+                            device=sim.device), mesh)
+        sim.time_step(1e-3, free_stream_velocity=(1.0, 0.0, 0.0))
+        return field(sim.primary_field, mesh)
+
+    wp_plain = kernel_fork_final(False)
+    wp_kernels = kernel_fork_final(True)
+    _case_row(results, "sharded kernel fork x1", diff(wp_kernels, wp_plain),
+              3e-5 * scale(wp_plain))
+
+    print("dryrun_multichip results:", flush=True)
+    for name, d, tol, ok in results:
+        print(f"  case {name:<26s} |delta|_max={d:10.3e}  tol={tol:7.1e}  "
+              f"{'PASS' if ok else 'FAIL'}", flush=True)
+    failed = [r for r in results if not r[3]]
+    if failed:
+        raise AssertionError(
+            f"dryrun_multichip: {len(failed)}/{len(results)} cases FAILED: "
+            + ", ".join(r[0] for r in failed))
+    print(f"dryrun_multichip OK: {len(results)} cases parity-asserted on "
+          f"mesh={mesh.shape}", flush=True)
+    return results

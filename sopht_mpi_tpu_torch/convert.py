@@ -49,12 +49,20 @@ def _tensor(leaf, device, dtype):
     return torch.tensor(np.asarray(leaf), dtype=dtype, device=device)
 
 
-def _greens(leaf, device, dtype):
+def _greens(leaf, device, dtype, mesh=None):
     """The dense Green's spectrum, or the (bulk, side) pair a JAX solver
-    stores when it takes the Pallas route."""
+    stores when it takes the Pallas route; on a ``mesh`` of more than one
+    shard the dense spectrum in the sharded Fourier layout."""
     if isinstance(leaf, (tuple, list)):
         return tuple(_tensor(v, device, dtype) for v in leaf)
+    if _sharded(mesh):
+        return sharded_greens_from_numpy(leaf, mesh, device=device,
+                                         dtype=dtype)
     return _tensor(leaf, device, dtype)
+
+
+def _sharded(mesh) -> bool:
+    return mesh is not None and mesh.size > 1
 
 
 def flow_state_from_numpy(tree, *, device, dtype, mesh=None):
@@ -71,11 +79,11 @@ def flow_state_from_numpy(tree, *, device, dtype, mesh=None):
         two_d = np.asarray(list(tree)[0]).ndim == 2
     cls = FlowState2D if two_d else FlowState3D
     leaves = [_tensor(v, device, dtype) for v in _fields(tree, cls._fields)]
-    if mesh is not None and mesh.size > 1:
+    if _sharded(mesh):
         if two_d:
             raise NotImplementedError(
                 "a sharded 2D flow state is not ported yet (ROADMAP.md "
-                "queue A #11d)")
+                "queue A #11f)")
         leaves = [None if v is None
                   else (shard_vector_field if v.ndim == 4
                         else shard_scalar_field)(v, mesh)
@@ -91,21 +99,27 @@ def sharded_greens_from_numpy(greens, mesh, *, device, dtype):
                       FOURIER_SHARDED_DIMS)
 
 
-def rigid_fsi_carry_from_numpy(tree, *, device, dtype) -> RigidFSICarry:
+def rigid_fsi_carry_from_numpy(tree, *, device, dtype, mesh=None
+                               ) -> RigidFSICarry:
     """A JAX ``RigidFSICarry`` (2D or 3D) as numpy arrays -> the port's
     :class:`RigidFSICarry`: the flow state, ``vb_state``, the velocity
     mismatch, time, the Fourier Green's function (dense, or the split
     (bulk, side) pair), ``velocity_l1_max`` and
-    ``ibm_mats`` (None on the dense path)."""
+    ``ibm_mats`` (None on the dense path). A carry taken on a 3D ``mesh``
+    (its arrays global, as ``np.asarray`` gives them) converts onto the
+    port's ``mesh`` of the same shape: the flow state and the Green's
+    function sharded as :func:`flow_state_from_numpy` and
+    :func:`sharded_greens_from_numpy` shard them."""
     (flow, vb, mismatch, time, greens, l1_max, mats) = _fields(
         tree, RigidFSICarry._fields
     )
     return RigidFSICarry(
-        flow_state=flow_state_from_numpy(flow, device=device, dtype=dtype),
+        flow_state=flow_state_from_numpy(flow, device=device, dtype=dtype,
+                                         mesh=mesh),
         vb_state=_vb_state(vb, device, dtype),
         velocity_mismatch=_tensor(mismatch, device, dtype),
         time=_tensor(time, device, dtype),
-        greens=_greens(greens, device, dtype),
+        greens=_greens(greens, device, dtype, mesh),
         velocity_l1_max=_tensor(l1_max, device, dtype),
         ibm_mats=(
             None if mats is None
@@ -141,24 +155,26 @@ def rod_params_from_numpy(tree, *, device, dtype=torch.float64
     )
 
 
-def rod_fsi_carry_from_numpy(tree, *, device, dtype, rod_dtype=torch.float64
-                             ) -> RodFSICarry:
+def rod_fsi_carry_from_numpy(tree, *, device, dtype, rod_dtype=torch.float64,
+                             mesh=None) -> RodFSICarry:
     """A JAX ``RodFSICarry`` as numpy arrays -> the port's
     :class:`RodFSICarry`: the flow state, ``vb_state``, time, the Green's
     function (dense, or the split (bulk, side) pair) and
     ``velocity_l1_max`` in the flow's ``dtype``; the rod state in
     ``rod_dtype``; the frozen loads (None unless the step freezes them) in
-    the promotion of the two, the dtype the markers' math runs in."""
+    the promotion of the two, the dtype the markers' math runs in. On a
+    ``mesh`` as :func:`rigid_fsi_carry_from_numpy`."""
     (flow, vb, rod, time, greens, l1_max, frozen) = _fields(
         tree, RodFSICarry._fields
     )
     marker_dtype = torch.promote_types(dtype, rod_dtype)
     return RodFSICarry(
-        flow_state=flow_state_from_numpy(flow, device=device, dtype=dtype),
+        flow_state=flow_state_from_numpy(flow, device=device, dtype=dtype,
+                                         mesh=mesh),
         vb_state=_vb_state(vb, device, dtype),
         rod_state=rod_state_from_numpy(rod, device=device, dtype=rod_dtype),
         time=_tensor(time, device, dtype),
-        greens=_greens(greens, device, dtype),
+        greens=_greens(greens, device, dtype, mesh),
         velocity_l1_max=_tensor(l1_max, device, dtype),
         frozen_loads=(
             None if frozen is None
@@ -183,7 +199,7 @@ def _is_rigid_state(tree) -> bool:
 
 
 def multi_body_fsi_carry_from_numpy(tree, *, device, dtype,
-                                    rod_dtype=torch.float64
+                                    rod_dtype=torch.float64, mesh=None
                                     ) -> MultiBodyFSICarry:
     """A JAX ``MultiBodyFSICarry`` as numpy arrays -> the port's
     :class:`MultiBodyFSICarry`. Per body: a rod state in ``rod_dtype``, a
@@ -191,7 +207,8 @@ def multi_body_fsi_carry_from_numpy(tree, *, device, dtype,
     the virtual-boundary states, the previous mismatches, time, the Green's
     function and ``velocity_l1_max`` in ``dtype``; the frozen loads (None
     unless the step freezes them; None entries for fixed bodies) in the
-    promotion of ``dtype`` and the body's dtype."""
+    promotion of ``dtype`` and the body's dtype. On a ``mesh`` as
+    :func:`rigid_fsi_carry_from_numpy`."""
     (flow, bodies, vbs, prev, time, greens, l1_max, frozen) = _fields(
         tree, MultiBodyFSICarry._fields
     )
@@ -216,12 +233,13 @@ def multi_body_fsi_carry_from_numpy(tree, *, device, dtype,
             for loads, body_dtype in zip(frozen, body_dtypes)
         )
     return MultiBodyFSICarry(
-        flow_state=flow_state_from_numpy(flow, device=device, dtype=dtype),
+        flow_state=flow_state_from_numpy(flow, device=device, dtype=dtype,
+                                         mesh=mesh),
         body_states=tuple(states),
         vb_states=tuple(_vb_state(vb, device, dtype) for vb in vbs),
         prev_mismatches=tuple(_tensor(v, device, dtype) for v in prev),
         time=_tensor(time, device, dtype),
-        greens=_greens(greens, device, dtype),
+        greens=_greens(greens, device, dtype, mesh),
         velocity_l1_max=_tensor(l1_max, device, dtype),
         frozen_loads=frozen,
     )

@@ -99,8 +99,8 @@ class UnboundedFlowSimulator2D:
             )
         if mesh is not None:
             raise NotImplementedError(
-                "mesh: multi-device runs are not ported yet "
-                "(ROADMAP.md queue A #11)"
+                "mesh: the 2D mesh is not ported yet "
+                "(ROADMAP.md queue A #11f)"
             )
         self.penalty_zone_width = kwargs.get("penalty_zone_width", 2)
         self.fast_spectral = kwargs.get("fast_spectral")

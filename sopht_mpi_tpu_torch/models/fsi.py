@@ -10,6 +10,16 @@ only) and the flow step - is a pure function of the carry;
 step (dt, time, ``max |u|_1``) stays a 0-d tensor on the device. The rigid
 step never waits for the device; the rod step with dynamic substeps reads
 its substep count once per step (see :func:`build_rod_fsi_step`).
+
+On a 3D simulator's in-process mesh the flow state is sharded and the
+steps take the JAX package's mesh branches: the flow step is the sharded
+one; the sparse-window paths touch the grid only through
+:mod:`sopht_mpi_tpu_torch.parallel.windows` (the E->L a shard-local
+contraction and one ``psum`` of the (3, n_markers) result, the windowed
+vorticity add collective-free), the marker math replicated; the dense
+interpolation and spreading run on the assembled fields
+(``apply_assembled``, counted), as the JAX package leaves them to its
+partitioner.
 """
 
 from __future__ import annotations
@@ -36,6 +46,11 @@ from sopht_mpi_tpu_torch.ops.virtual_boundary import (
     compute_interaction_force_on_lag_grid,
     compute_penalty_force,
     virtual_boundary_time_step,
+)
+from sopht_mpi_tpu_torch.parallel.mesh import shard_vector_field
+from sopht_mpi_tpu_torch.parallel.windows import (
+    add_window_into_field,
+    windowed_e2l_mm_sharded,
 )
 from sopht_mpi_tpu_torch.utils.logging_utils import logger
 from sopht_mpi_tpu_torch.utils.types import get_test_tol
@@ -78,6 +93,25 @@ class RodFSICarry(NamedTuple):
 def velocity_l1_max(velocity_field):
     """The CFL control quantity ``max(sum_c |u_c|)``."""
     return velocity_field.abs().sum(dim=0).max()
+
+
+def _carry_l1_max(flow_sim):
+    """``max |u|_1`` of the simulator's velocity for a fresh carry (over
+    the mesh on a sharded 3D simulator)."""
+    if flow_sim.grid_dim == 3:
+        return velocity_l1_max_3d(flow_sim.velocity_field, flow_sim.mesh)
+    return velocity_l1_max(flow_sim.velocity_field)
+
+
+def _without_forcing_field(flow_sim, flow_state):
+    """``flow_state`` with its never-read full-field forcing leaf shrunk to
+    a zero-size placeholder, (3, 0, 0, 0) in the simulator's layout."""
+    forcing = flow_state.eul_grid_forcing_field
+    placeholder = forcing.new_zeros(
+        (flow_sim.grid_dim,) + (0,) * flow_sim.grid_dim)
+    if getattr(flow_sim, "mesh", None) is not None:
+        placeholder = shard_vector_field(placeholder, flow_sim.mesh)
+    return flow_state._replace(eul_grid_forcing_field=placeholder)
 
 
 def _flow_dt_fn(flow_sim, dt_prefac):
@@ -208,6 +242,7 @@ def build_rigid_fsi_step(
         )
 
     flow_step_l1 = _flow_step_l1(flow_sim)
+    mesh = getattr(flow_sim, "mesh", None)
 
     def step(carry: RigidFSICarry):
         """Integrate the mismatch with the PREVIOUS interaction's velocity
@@ -223,6 +258,7 @@ def build_rigid_fsi_step(
             lag_vel,
             params,
             reset_eul_grid_forcing_field=True,
+            mesh=mesh,
         )
         flow_state = flow_state._replace(eul_grid_forcing_field=eul_forcing)
         flow_state, new_l1 = flow_step_l1(
@@ -249,7 +285,8 @@ def _build_rigid_fsi_step_sparse(
     construction). Both transfer directions run on the separable-matmul
     path (``axis_delta_weight_matrices`` + ``*_mm``); for fixed markers
     the per-axis weight matrices are built once here and ride in the
-    carry."""
+    carry. On a mesh the E->L and the add go through
+    :mod:`sopht_mpi_tpu_torch.parallel.windows`."""
     params = interactor.params
     flow_step_l1 = _flow_step_l1(flow_sim, "navier_stokes")
     z0, z1, y0, y1, x0, x1 = window
@@ -267,6 +304,24 @@ def _build_rigid_fsi_step_sparse(
         support_idx - start.reshape(3, 1, 1), support_disp, dx, wshape,
         params.delta_kind,
     )
+    mesh = flow_sim.mesh
+    if mesh is not None:
+        def e2l(velocity_field, mats):
+            return windowed_e2l_mm_sharded(
+                velocity_field, mats, start, wshape, dx, mesh)
+
+        def windowed_add(field, curl_win):
+            return add_window_into_field(field, curl_win, start, mesh)
+    else:
+        def e2l(velocity_field, mats):
+            return eulerian_to_lagrangian_interpolation_mm(
+                velocity_field[win_slice], mats, dx)
+
+        def windowed_add(field, curl_win):
+            # the carry stays pure: the add goes into a copy of the vorticity
+            field = field.clone()
+            field[win_slice] += curl_win
+            return field
 
     def step(carry: RigidFSICarry):
         flow_state, vb_state, prev_mismatch, time, greens, u_l1, mats = carry
@@ -278,9 +333,7 @@ def _build_rigid_fsi_step_sparse(
             )
         dt = flow_dt(u_l1)
         vb_state = virtual_boundary_time_step(vb_state, prev_mismatch, dt)
-        flow_velocity = eulerian_to_lagrangian_interpolation_mm(
-            flow_state.velocity_field[win_slice], mats, dx
-        )
+        flow_velocity = e2l(flow_state.velocity_field, mats)
         velocity_mismatch = flow_velocity - lag_vel
         lag_forcing = compute_penalty_force(
             vb_state.position_mismatch, velocity_mismatch, params
@@ -290,10 +343,8 @@ def _build_rigid_fsi_step_sparse(
         win = torch.zeros((3,) + wshape, dtype=field.dtype, device=field.device)
         win = lagrangian_to_eulerian_spread_mm(win, lag_forcing, mats)
         curl_win = curl_3d(win, dt / (2.0 * dx))
-        # the carry stays pure: the add goes into a copy of the vorticity
-        field = field.clone()
-        field[win_slice] += curl_win
-        flow_state = flow_state._replace(primary_field=field)
+        flow_state = flow_state._replace(
+            primary_field=windowed_add(field, curl_win))
         flow_state, new_l1 = flow_step_l1(
             flow_state, dt, free_stream(time), greens
         )
@@ -317,13 +368,8 @@ def init_rigid_fsi_carry(flow_sim, interactor, step=None) -> RigidFSICarry:
     matrices, and the never-read full-field forcing leaf shrinks to a
     zero-size placeholder."""
     flow_state = flow_sim._get_state()
-    forcing = flow_state.eul_grid_forcing_field
     if getattr(step, "uses_sparse_forcing", False):
-        flow_state = flow_state._replace(
-            eul_grid_forcing_field=forcing.new_zeros(
-                (forcing.shape[0],) + (0,) * (forcing.ndim - 1)
-            )
-        )
+        flow_state = _without_forcing_field(flow_sim, flow_state)
     return RigidFSICarry(
         flow_state=flow_state,
         vb_state=interactor.state,
@@ -332,7 +378,7 @@ def init_rigid_fsi_carry(flow_sim, interactor, step=None) -> RigidFSICarry:
             flow_sim.time, dtype=flow_sim.real_t, device=flow_sim.device
         ),
         greens=flow_sim._poisson_greens,
-        velocity_l1_max=velocity_l1_max(flow_sim.velocity_field),
+        velocity_l1_max=_carry_l1_max(flow_sim),
         ibm_mats=getattr(step, "ibm_mats", None),
     )
 
@@ -353,7 +399,10 @@ def _sparse_window_tools(flow_sim, params, wshape):
 
     The JAX package slices with ``dynamic_slice`` at the device start; here
     the window is a gather (and its add an ``index_put_``) at index tensors
-    built on the device from the start, so nothing reads it on the host.
+    built on the device from the start, so nothing reads it on the host. On
+    a mesh both go through :mod:`sopht_mpi_tpu_torch.parallel.windows`: a
+    shard-local contraction and one ``psum`` of the (3, n_markers) result,
+    and a collective-free add.
     """
     Wz, Wy, Wx = (int(w) for w in wshape)
     nz, ny, nx = flow_sim.grid_size
@@ -384,6 +433,17 @@ def _sparse_window_tools(flow_sim, params, wshape):
             shifted, support_disp, params.dx, (Wz, Wy, Wx), params.delta_kind
         )
         return start, mats, ok
+
+    mesh = flow_sim.mesh
+    if mesh is not None:
+        def e2l_interp(field, start, mats):
+            return windowed_e2l_mm_sharded(
+                field, mats, start, (Wz, Wy, Wx), params.dx, mesh)
+
+        def windowed_add(field, win, start):
+            return add_window_into_field(field, win, start, mesh)
+
+        return window_mats, e2l_interp, windowed_add
 
     def window_index(start):
         z = (start[2] + ranges[0])[:, None, None]
@@ -441,6 +501,10 @@ def build_rod_fsi_step(
     ``ceil(flow_sim.diffusion_limited_timestep(dt_prefac) / rod_dt) + 2``,
     a bound the count can never reach, as in the JAX package.
 
+    On a simulator's mesh the sparse path runs on the sharded field through
+    :mod:`sopht_mpi_tpu_torch.parallel.windows`, and the dense loads and
+    spreading on the assembled fields (see the module's docstring).
+
     ``sparse_forcing_window`` (3D ``navier_stokes_with_forcing``): static
     ``(Wz, Wy, Wx)`` cell counts of a moving window tracking the marker
     support (see :func:`suggest_rod_forcing_window`); the IBM spread and
@@ -451,9 +515,10 @@ def build_rod_fsi_step(
 
     ``substep_interp`` (sparse path only) picks the substeps' E->L:
     ``"window_mm"`` (the windowed separable matmul), ``"gather"`` (the
-    full-field support gather), ``"auto"`` (gather from
-    ``_GATHER_SUBSTEP_WINDOW_CELLS`` window cells). The JAX package ignores
-    a non-default value without a sparse window; the port raises.
+    full-field support gather; refused on a mesh, as in the JAX package),
+    ``"auto"`` (gather from ``_GATHER_SUBSTEP_WINDOW_CELLS`` window cells,
+    and always the matmul on a mesh). The JAX package ignores a non-default
+    value without a sparse window; the port raises.
 
     The rod must be the only system in ``rod_collection``, already
     finalized, with the ``FlowForces`` coupling not registered.
@@ -501,6 +566,7 @@ def build_rod_fsi_step(
     flow_dt = _flow_dt_fn(flow_sim, dt_prefac)
     free_stream = _free_stream(free_stream_fn, flow_sim)
     real_t = flow_sim.real_t
+    mesh = getattr(flow_sim, "mesh", None)
 
     if sparse:
         if flow_sim.flow_type != "navier_stokes_with_forcing":
@@ -510,8 +576,10 @@ def build_rod_fsi_step(
             )
         Wz, Wy, Wx = (int(w) for w in sparse_forcing_window)
         flow_step_l1 = _flow_step_l1(flow_sim, "navier_stokes")
+        _refuse_gather_on_a_mesh(flow_sim, substep_interp)
         gather_substeps = substep_interp == "gather" or (
             substep_interp == "auto"
+            and mesh is None
             and Wz * Wy * Wx >= _GATHER_SUBSTEP_WINDOW_CELLS
         )
         window_mats, e2l_interp, windowed_add = _sparse_window_tools(
@@ -528,6 +596,7 @@ def build_rod_fsi_step(
             grid.lag_positions(rod_state),
             grid.lag_velocities(rod_state),
             params,
+            mesh=mesh,
         )
         forces, torques = grid.body_loads(rod_state, interaction.lag_forcing)
         return forces, torques, interaction.velocity_mismatch
@@ -622,6 +691,7 @@ def build_rod_fsi_step(
                 grid.lag_velocities(rod_state),
                 params,
                 reset_eul_grid_forcing_field=True,
+                mesh=mesh,
             )
             lag_forcing = interaction.lag_forcing
             if frozen_mode:
@@ -643,6 +713,16 @@ def build_rod_fsi_step(
     step.gather_substeps = gather_substeps
     step.stats = stats
     return step
+
+
+def _refuse_gather_on_a_mesh(flow_sim, substep_interp):
+    if (substep_interp == "gather"
+            and getattr(flow_sim, "mesh", None) is not None):
+        raise ValueError(
+            "substep_interp='gather' needs an unsharded simulator (it "
+            "would gather the sharded velocity field at every substep); use "
+            "'window_mm' or 'auto' under a mesh"
+        )
 
 
 def suggest_rod_forcing_window(
@@ -694,7 +774,7 @@ def init_rod_fsi_carry(flow_sim, interactor, rod, step=None) -> RodFSICarry:
             flow_sim.time, dtype=flow_sim.real_t, device=flow_sim.device
         ),
         greens=flow_sim._poisson_greens,
-        velocity_l1_max=velocity_l1_max(flow_sim.velocity_field),
+        velocity_l1_max=_carry_l1_max(flow_sim),
         frozen_loads=frozen,
     )
 
@@ -878,10 +958,14 @@ def build_multi_body_fsi_step(
             f"substep_interp={substep_interp!r} picks the sparse windows' "
             "substep interpolation and needs sparse forcing"
         )
+    mesh = getattr(flow_sim, "mesh", None)
+    if sparse:
+        _refuse_gather_on_a_mesh(flow_sim, substep_interp)
     gather_sub = tuple(
         sparse and (
             substep_interp == "gather"
             or (substep_interp == "auto"
+                and mesh is None
                 and math.prod(body_windows[i]) >= _GATHER_SUBSTEP_WINDOW_CELLS)
         )
         for i in range(len(bodies))
@@ -929,7 +1013,8 @@ def build_multi_body_fsi_step(
                 i, vb, velocity_field, pos, vel)
             return lag_forcing, mismatch, ok
         interaction = compute_interaction_force_on_lag_grid(
-            vb, velocity_field, pos, vel, bodies[i].interactor.params
+            vb, velocity_field, pos, vel, bodies[i].interactor.params,
+            mesh=mesh,
         )
         return interaction.lag_forcing, interaction.velocity_mismatch, None
 
@@ -1044,7 +1129,8 @@ def build_multi_body_fsi_step(
             else:
                 eul_forcing, interaction = (
                     compute_interaction_force_on_eul_and_lag_grid(
-                        vb, eul_forcing, velocity_field, pos, vel, params)
+                        vb, eul_forcing, velocity_field, pos, vel, params,
+                        mesh=mesh)
                 )
                 lag_forcing = interaction.lag_forcing
                 mismatch = interaction.velocity_mismatch
@@ -1117,12 +1203,7 @@ def init_multi_body_fsi_carry(flow_sim, bodies, step=None) -> MultiBodyFSICarry:
         prev.append(torch.zeros_like(spec.interactor.state.position_mismatch))
     flow_state = flow_sim._get_state()
     if getattr(step, "uses_sparse_forcing", False):
-        forcing = flow_state.eul_grid_forcing_field
-        flow_state = flow_state._replace(
-            eul_grid_forcing_field=forcing.new_zeros(
-                (forcing.shape[0],) + (0,) * (forcing.ndim - 1)
-            )
-        )
+        flow_state = _without_forcing_field(flow_sim, flow_state)
     frozen = None
     if getattr(step, "uses_frozen_loads", False):
         loads = step.frozen_loads_template(
@@ -1140,7 +1221,7 @@ def init_multi_body_fsi_carry(flow_sim, bodies, step=None) -> MultiBodyFSICarry:
             flow_sim.time, dtype=flow_sim.real_t, device=flow_sim.device
         ),
         greens=flow_sim._poisson_greens,
-        velocity_l1_max=velocity_l1_max(flow_sim.velocity_field),
+        velocity_l1_max=_carry_l1_max(flow_sim),
         frozen_loads=frozen,
     )
 

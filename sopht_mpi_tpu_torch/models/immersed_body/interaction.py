@@ -9,6 +9,10 @@ virtual-boundary forcing::
     interactor.time_step(dt)   # integrate position mismatch
     interactor()               # penalty force -> flow_sim.eul_grid_forcing_field
     flow_sim.time_step(dt)
+
+On a 3D simulator's mesh the dense interpolation and spreading run on the
+assembled fields (``parallel.mesh.apply_assembled``, counted), the ops the
+JAX package leaves to its partitioner there.
 """
 
 from __future__ import annotations
@@ -41,10 +45,6 @@ class ImmersedBodyFlowInteraction:
         start_time=0.0,
         body_dim=3,
     ):
-        if getattr(flow_sim, "mesh", None) is not None:
-            raise NotImplementedError(
-                "immersed bodies on a sharded simulator are not ported yet "
-                "(ROADMAP.md queue A #11d)")
         self.flow_sim = flow_sim
         self.forcing_grid = forcing_grid
         grid_dim = forcing_grid.grid_dim
@@ -101,7 +101,8 @@ class ImmersedBodyFlowInteraction:
         pos = self.forcing_grid.compute_lag_grid_position_field()
         vel = self.forcing_grid.compute_lag_grid_velocity_field()
         interaction = compute_interaction_force_on_lag_grid(
-            self.state, self.flow_sim.velocity_field, pos, vel, self.params
+            self.state, self.flow_sim.velocity_field, pos, vel, self.params,
+            mesh=getattr(self.flow_sim, "mesh", None),
         )
         self.global_lag_grid_forcing_field = interaction.lag_forcing
         self._velocity_mismatch = interaction.velocity_mismatch
@@ -118,6 +119,7 @@ class ImmersedBodyFlowInteraction:
             pos,
             vel,
             self.params,
+            mesh=getattr(self.flow_sim, "mesh", None),
         )
         self.flow_sim.eul_grid_forcing_field = eul_forcing
         self.global_lag_grid_forcing_field = interaction.lag_forcing

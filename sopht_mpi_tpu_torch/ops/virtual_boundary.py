@@ -24,6 +24,7 @@ from sopht_mpi_tpu_torch.ops.ibm import (
     lagrangian_to_eulerian_spread,
     nearest_grid_index_and_support,
 )
+from sopht_mpi_tpu_torch.parallel.mesh import apply_assembled
 
 
 class VirtualBoundaryState(NamedTuple):
@@ -110,9 +111,19 @@ def compute_interaction_force_on_lag_grid(
     lag_grid_position_field,
     lag_grid_velocity_field,
     params: VirtualBoundaryForcingParams,
+    mesh=None,
 ) -> LagGridInteraction:
     """Penalty force on the Lagrangian markers: grid support -> delta
-    weights -> interpolate flow velocity -> mismatch -> ``k dx + c dv``."""
+    weights -> interpolate flow velocity -> mismatch -> ``k dx + c dv``.
+    With a ``mesh`` the velocity is sharded and the interpolation reads the
+    assembled field (one counted ``apply_assembled``), the op the JAX
+    package leaves to its partitioner there."""
+    if mesh is not None:
+        return apply_assembled(
+            lambda velocity: (None, compute_interaction_force_on_lag_grid(
+                state, velocity, lag_grid_position_field,
+                lag_grid_velocity_field, params)),
+            mesh, eul_grid_velocity_field, aux=True)[1]
     support_idx, weights = _support_and_weights(lag_grid_position_field, params)
     flow_velocity = eulerian_to_lagrangian_interpolation(
         eul_grid_velocity_field, weights, support_idx, params.dx
@@ -132,10 +143,21 @@ def compute_interaction_force_on_eul_and_lag_grid(
     lag_grid_velocity_field,
     params: VirtualBoundaryForcingParams,
     reset_eul_grid_forcing_field: bool = False,
+    mesh=None,
 ):
     """Penalty force on the markers plus its spreading onto the Eulerian
     forcing field. Returns (updated eul_grid_forcing_field,
-    LagGridInteraction)."""
+    LagGridInteraction). With a ``mesh`` both fields are sharded, and the
+    interpolation and the spreading run on the assembled fields in one
+    counted ``apply_assembled``."""
+    if mesh is not None:
+        return apply_assembled(
+            lambda forcing, velocity:
+                compute_interaction_force_on_eul_and_lag_grid(
+                    state, forcing, velocity, lag_grid_position_field,
+                    lag_grid_velocity_field, params,
+                    reset_eul_grid_forcing_field),
+            mesh, eul_grid_forcing_field, eul_grid_velocity_field, aux=True)
     if reset_eul_grid_forcing_field:
         eul_grid_forcing_field = torch.zeros_like(eul_grid_forcing_field)
     support_idx, weights = _support_and_weights(lag_grid_position_field, params)

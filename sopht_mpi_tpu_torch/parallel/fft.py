@@ -58,7 +58,7 @@ def padded_rfft_size(nx: int, mesh: Mesh | None, grid_dim: int = 3) -> int:
     if grid_dim != 3:
         raise NotImplementedError(
             "the 2D distributed transforms are not ported yet "
-            "(ROADMAP.md queue A #11d)")
+            "(ROADMAP.md queue A #11f)")
     nxf = nx // 2 + 1
     if mesh is None or mesh.size == 1:
         return nxf
@@ -100,7 +100,7 @@ def _check_3d_mesh(mesh: Mesh):
     if mesh.axis_names != ("z", "y"):
         raise NotImplementedError(
             "the 2D distributed transforms are not ported yet "
-            "(ROADMAP.md queue A #11d)")
+            "(ROADMAP.md queue A #11f)")
 
 
 def distributed_rfftn(field, mesh: Mesh | None):

@@ -175,30 +175,41 @@ def _is_vector(field, mesh: Mesh, sharded: bool) -> bool:
                           + (len(mesh.axis_names) if sharded else 0))
 
 
-def on_assembled(fn, mesh: Mesh, *fields):
-    """``fn`` of the assembled (global) fields, scalar or vector, sharded
-    again, uncounted: for plain versions and tests. ``fn`` gets contiguous
-    fields (on one-plane or one-row shards the assembled field is a strided
-    view), as the single-device kernels need."""
-    out = fn(*(
-        (unshard_vector_field if _is_vector(f, mesh, True)
-         else unshard_scalar_field)(f, mesh).contiguous()
-        for f in fields))
+def _reshard(out, mesh: Mesh):
+    if out is None:
+        return None
     if _is_vector(out, mesh, False):
         return shard_vector_field(out, mesh)
     return shard_scalar_field(out, mesh)
 
 
-def apply_assembled(fn, mesh: Mesh, *fields):
+def on_assembled(fn, mesh: Mesh, *fields, aux: bool = False):
+    """``fn`` of the assembled (global) fields, scalar or vector, sharded
+    again, uncounted: for plain versions and tests. ``fn`` gets contiguous
+    fields (on one-plane or one-row shards the assembled field is a strided
+    view), as the single-device kernels need. With ``aux`` ``fn`` returns
+    ``(field or None, other)``: the field is sharded again, ``other`` (the
+    marker arrays of an IBM interaction) returned as it is."""
+    out = fn(*(
+        (unshard_vector_field if _is_vector(f, mesh, True)
+         else unshard_scalar_field)(f, mesh).contiguous()
+        for f in fields))
+    if aux:
+        out, other = out
+        return _reshard(out, mesh), other
+    return _reshard(out, mesh)
+
+
+def apply_assembled(fn, mesh: Mesh, *fields, aux: bool = False):
     """:func:`on_assembled` on a path of the port: for the ops the JAX
     package leaves to its SPMD partitioner under a mesh (the Laplacian
     filter, the wall sponge outside the fused kernel, the forcing update,
-    the passive transport), which have no sharded kernel. It gathers every
-    shard, so it counts its calls like a collective
-    (``apply_assembled.calls``); the four ops that have a sharded kernel
-    never come here."""
+    the passive transport, the dense IBM interpolation and spreading),
+    which have no sharded kernel. It gathers every shard, so it counts its
+    calls like a collective (``apply_assembled.calls``); the four ops that
+    have a sharded kernel never come here."""
     apply_assembled.calls += 1
-    return on_assembled(fn, mesh, *fields)
+    return on_assembled(fn, mesh, *fields, aux=aux)
 
 
 apply_assembled.calls = 0

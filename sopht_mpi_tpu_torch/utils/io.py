@@ -20,25 +20,34 @@ puts each array back on the bound tensor's device and dtype. ``load``
 validates origin, dx and grid size against the defined grid (restart
 consistency, mpi_io.py:483-494) and returns the saved time.
 
+A binding to a field of an in-process mesh (an object with a ``mesh``, as
+a 3D simulator built with one) reads and writes the
+sharded layout of :mod:`sopht_mpi_tpu_torch.parallel.mesh`: ``save``
+writes the assembled field, ``load`` shards it again, and
+:meth:`FieldIO.save_eulerian_sharded` / :meth:`FieldIO.load_eulerian_sharded`
+write and read one block a shard in the JAX package's per-shard layout.
+
 ``h5py`` is imported at first use, so the package imports without it
-(``HAS_H5PY`` says whether it is there). The per-shard sharded dumps and
-fields in a mesh simulator's sharded layout wait for the rest of the mesh
-(ROADMAP.md queue A #11d).
+(``HAS_H5PY`` says whether it is there).
 """
 
 from __future__ import annotations
 
+import glob
 import importlib.util
 
 import numpy as np
 import torch
 
+from sopht_mpi_tpu_torch.parallel.mesh import (
+    shard_scalar_field,
+    shard_vector_field,
+    unshard_scalar_field,
+    unshard_vector_field,
+)
 from sopht_mpi_tpu_torch.utils.native_io import to_host
 
 HAS_H5PY = importlib.util.find_spec("h5py") is not None
-
-_SHARDED_IO = ("sharded field IO is not ported yet (ROADMAP.md queue A "
-               "#11d)")
 
 
 def _h5py():
@@ -64,22 +73,55 @@ def _numpy_dtype(dtype) -> np.dtype:
 
 
 class FieldBinding:
-    """Binds a field to ``getattr(obj, attr)`` for save and load."""
+    """Binds a field to ``getattr(obj, attr)`` for save and load.
+
+    Where ``obj`` has a ``mesh`` (a mesh simulator, or any object given
+    one), a bound field may be sharded over it: ``get`` then assembles it
+    and ``set`` shards the global value."""
 
     def __init__(self, obj, attr: str):
         self.obj = obj
         self.attr = attr
 
+    @property
+    def mesh(self):
+        return getattr(self.obj, "mesh", None)
+
+    def get_raw(self):
+        """The bound value as it is (sharded on a mesh), no host copy."""
+        return getattr(self.obj, self.attr)
+
+    def sharded_kind(self):
+        """``"Scalar"`` or ``"Vector"`` for a field sharded over the
+        binding's mesh, else None."""
+        current = self.get_raw()
+        mesh = self.mesh
+        if (mesh is None or mesh.size == 1
+                or not isinstance(current, torch.Tensor)):
+            return None
+        extra = current.ndim - mesh.grid_dim - len(mesh.axis_names)
+        return {0: "Scalar", 1: "Vector"}.get(extra)
+
     def get(self) -> np.ndarray:
-        return to_host(getattr(self.obj, self.attr))
+        current = self.get_raw()
+        kind = self.sharded_kind()
+        if kind is not None:
+            current = (unshard_scalar_field if kind == "Scalar"
+                       else unshard_vector_field)(current, self.mesh)
+        return to_host(current)
 
     def set(self, value):
         """Set the attribute to ``value``, on the current tensor's device
-        and in its dtype (a numpy attribute stays numpy, in its dtype)."""
-        current = getattr(self.obj, self.attr)
+        and in its dtype, sharded where the current field is (a numpy
+        attribute stays numpy, in its dtype)."""
+        current = self.get_raw()
         if isinstance(current, torch.Tensor):
+            kind = self.sharded_kind()
             value = torch.tensor(np.asarray(value), dtype=current.dtype,
                                  device=current.device)
+            if kind is not None:
+                value = (shard_scalar_field if kind == "Scalar"
+                         else shard_vector_field)(value, self.mesh)
         else:
             value = np.asarray(value, dtype=np.asarray(current).dtype)
         setattr(self.obj, self.attr, value)
@@ -109,9 +151,6 @@ class _Getter:
 
 def _as_binding(value):
     if isinstance(value, FieldBinding):
-        if getattr(value.obj, "mesh", None) is not None:
-            raise NotImplementedError(
-                f"FieldIO on a mesh simulator's fields: {_SHARDED_IO}")
         return value
     if callable(value):
         return _Getter(value)
@@ -279,13 +318,105 @@ class FieldIO:
         gs = tuple(int(s) for s in self.eulerian_grid_size)
         return (1, *gs) if self.dim == 2 else gs
 
+    # -- per-shard Eulerian dumps -----------------------------------------
+    #
+    # The JAX package's layout: every process writes one file,
+    # ``<name>.proc<rank>.h5``, holding the shards it addresses, one block
+    # at a time (a host copy of one block, never the global field), each
+    # with its global offsets; the process's ``Parameters`` group holds the
+    # grid. The port is one process, so it writes ``.proc0.h5`` with every
+    # shard of the in-process mesh, shard (i, j) as ``shard_d<i py + j>``,
+    # the name of the device at that place of a JAX mesh.
+
     def save_eulerian_sharded(self, h5_file_name: str, time=0.0):
-        """Per-shard Eulerian dump: not ported yet (queue A #11d)."""
-        raise NotImplementedError(_SHARDED_IO)
+        """Per-shard Eulerian dump to ``<h5_file_name>.proc0.h5``: one
+        dataset a shard with its global ``start``, and the field's
+        ``ftype`` and ``global_shape`` on its group. A field that is not
+        sharded is one block at the origin. Only Eulerian fields are
+        written (Lagrangian state is marker-sized; :meth:`save` has it)."""
+        h5py = _h5py()
+        with h5py.File(f"{h5_file_name}.proc0.h5", "w") as f:
+            f.attrs["time"] = _host_scalar(time)
+            f.attrs["process"] = 0
+            f.attrs["n_processes"] = 1
+            pgrp = f.create_group("Parameters")
+            pgrp.attrs["origin"] = self.eulerian_origin
+            pgrp.attrs["dx"] = self.eulerian_dx
+            pgrp.attrs["grid_size"] = self.eulerian_grid_size
+            for name, binding in self.eulerian_fields.items():
+                grp = f.create_group(name)
+                grp.attrs["ftype"] = self.eulerian_fields_type[name]
+                for key, start, block in _blocks(binding):
+                    d = grp.create_dataset(
+                        key, data=np.asarray(block, dtype=self.real_dtype))
+                    d.attrs["start"] = np.asarray(start, np.int64)
+                grp.attrs["global_shape"] = np.asarray(
+                    _global_shape(binding), np.int64)
 
     def load_eulerian_sharded(self, h5_file_name: str):
-        """Restore per-shard dumps: not ported yet (queue A #11d)."""
-        raise NotImplementedError(_SHARDED_IO)
+        """Restore from per-shard files (the port's or the JAX package's,
+        every ``<h5_file_name>.proc*.h5``). A field sharded over the same
+        mesh takes each stored block straight into its shard; a block
+        missing at a shard's offsets (files written under another layout)
+        raises. A field that is not sharded is assembled from the blocks.
+        Validates the grid parameters; returns the saved time."""
+        h5py = _h5py()
+        files = sorted(glob.glob(f"{h5_file_name}.proc*.h5"))
+        if not files:
+            raise FileNotFoundError(f"{h5_file_name}.proc*.h5")
+        blocks: dict[str, dict[tuple, np.ndarray]] = {}
+        time = None
+        for path in files:
+            with h5py.File(path, "r") as f:
+                if "Parameters" in f:
+                    time = f.attrs["time"]
+                    params = f["Parameters"].attrs
+                    np.testing.assert_allclose(self.eulerian_origin,
+                                               params["origin"])
+                    np.testing.assert_allclose(self.eulerian_dx,
+                                               params["dx"])
+                    np.testing.assert_allclose(self.eulerian_grid_size,
+                                               params["grid_size"])
+                for name in self.eulerian_fields:
+                    if name not in f:
+                        continue
+                    for d in f[name].values():
+                        blocks.setdefault(name, {})[
+                            tuple(int(v) for v in d.attrs["start"])
+                        ] = np.asarray(d)
+        if time is None:
+            raise ValueError("no Parameters group in any shard file")
+        for name, binding in self.eulerian_fields.items():
+            stored = blocks[name]
+            current = _raw(binding)
+            if _kind(binding) is None:
+                out = np.zeros(np.shape(current), self.real_dtype)
+                for start, blk in stored.items():
+                    out[tuple(slice(s, s + n)
+                              for s, n in zip(start, blk.shape))] = blk
+                binding.set(out)
+                self.loaded_fields[name] = out
+                continue
+            parts = np.empty(tuple(current.shape), dtype=self.real_dtype)
+            for key, start, shard in _blocks(binding, read=False):
+                if start not in stored:
+                    raise ValueError(
+                        f"sharded restart of '{name}': no stored block at "
+                        f"offsets {start} - the files were written under a "
+                        "different mesh/layout (reload via the gathered "
+                        "FieldIO.save/load path instead)")
+                if stored[start].shape != parts[shard].shape:
+                    raise ValueError(
+                        f"sharded restart of '{name}': the block at {start} "
+                        f"is {stored[start].shape}, the shard "
+                        f"{parts[shard].shape} - the files were written "
+                        "under a different mesh/layout")
+                parts[shard] = stored[start]
+            value = torch.tensor(parts, dtype=current.dtype,
+                                 device=current.device)
+            setattr(binding.obj, binding.attr, value)
+            self.loaded_fields[name] = value
+        return time
 
     # -- load ---------------------------------------------------------------
 
@@ -449,6 +580,53 @@ class FieldIO:
                 h5_file_name.replace(".h5", f"_{grid_name}.xmf"), "w"
             ) as f:
                 f.write(xmf)
+
+
+def _raw(binding):
+    """The bound value as it is: sharded for a mesh's field; the host
+    array of a snapshot or save-only binding."""
+    return getattr(binding, "get_raw", binding.get)()
+
+
+def _kind(binding):
+    """``"Scalar"`` / ``"Vector"`` for a field sharded over its binding's
+    mesh, else None."""
+    return getattr(binding, "sharded_kind", lambda: None)()
+
+
+def _global_shape(binding) -> tuple:
+    current = _raw(binding)
+    kind = _kind(binding)
+    if kind is None:
+        return tuple(np.shape(current))
+    pz, py = current.shape[:2]
+    local = list(current.shape[2:])
+    lead = 1 if kind == "Vector" else 0
+    local[lead] *= pz
+    local[lead + 1] *= py
+    return tuple(local)
+
+
+def _blocks(binding, read=True):
+    """``(dataset name, global start, block)`` for each shard of a bound
+    field (one host copy of one block at a time); with ``read=False`` the
+    shard's index into the sharded tensor in place of the block. A field
+    that is not sharded is one block at the origin."""
+    current = _raw(binding)
+    kind = _kind(binding)
+    if kind is None:
+        yield "shard_d0", (0,) * np.ndim(current), (
+            binding.get() if read else ...)
+        return
+    pz, py = current.shape[:2]
+    lead = 1 if kind == "Vector" else 0
+    nzl, nyl = current.shape[2 + lead:4 + lead]
+    for i in range(pz):
+        for j in range(py):
+            start = [0] * (current.ndim - 2)
+            start[lead], start[lead + 1] = i * nzl, j * nyl
+            yield (f"shard_d{i * py + j}", tuple(start),
+                   to_host(current[i, j]) if read else (i, j))
 
 
 class CosseratRodIO(FieldIO):

@@ -11,7 +11,9 @@ package's (``examples/3d/``), at small sizes on the CPU.
 - The freely rotating rod's checkpoint and restart: in
   ``test_torch_examples_rod.py``.
 - The 32^3 point source: the L2 and Linf errors of both loops against the
-  JAX example's, 1e-5 relative.
+  JAX example's, 1e-5 relative; on an in-process (2, 1) mesh against one
+  device, 1e-6 relative (the saved fields 1e-6 absolute, float32).
+- The sphere's command line: ``--n-devices 2`` runs on a (2, 1) mesh.
 """
 
 import importlib.util
@@ -166,9 +168,10 @@ def test_host_loop_sphere_files_load_in_jax(tmp_path, monkeypatch,
             assert open(side).read() == text, side
 
 
-def test_sphere_command_line_needs_a_card_and_one_device():
-    """``--device`` defaults to cuda and fails without a card; more than one
-    device raises and names queue A #11d."""
+def test_sphere_command_line_needs_a_card_and_one_device(tmp_path):
+    """``--device`` defaults to cuda and fails without a card; ``--n-devices
+    2 --device cpu`` runs the fused loop on an in-process (2, 1) mesh at a
+    tiny grid and writes its drags."""
     import subprocess
     import sys
 
@@ -179,10 +182,14 @@ def test_sphere_command_line_needs_a_card_and_one_device():
                           timeout=120)
     assert proc.returncode != 0 and "no CUDA device" in proc.stderr
     proc = subprocess.run([sys.executable, script, "--device", "cpu",
-                           "--n-devices", "2"],
+                           "--n-devices", "2", "--grid-size-x", "16",
+                           "--nondim-time", "0.01"],
                           capture_output=True, text=True, env=env,
-                          timeout=120)
-    assert proc.returncode != 0 and "#11d" in proc.stderr
+                          timeout=300, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    drags = np.loadtxt(tmp_path / "drag_vs_time.csv", delimiter=",",
+                       ndmin=2)
+    assert drags.shape == (1, 2) and np.isfinite(drags).all()
 
 
 # ---------------------------------------------------------------------------
@@ -210,9 +217,10 @@ def test_point_source_errors_match_jax(tmp_path, monkeypatch, fused):
             assert f["Eulerian/Vector/vorticity_0"].shape == grid
 
 
-def test_point_source_on_a_mesh():
+def test_point_source_on_a_mesh(tmp_path, monkeypatch):
     """The driver on an in-process (2, 1) mesh gives one device's errors;
-    its FieldIO saves on a mesh wait for sharded IO (queue A #11d)."""
+    its host loop's ``FieldIO`` saves on the mesh write the assembled
+    field, the same files one device writes."""
     from sopht_mpi_tpu_torch.parallel.mesh import create_mesh
 
     port = _load("examples_torch", "point_source_advect_diffuse")
@@ -223,6 +231,20 @@ def test_point_source_on_a_mesh():
     sharded = port.point_source_advection_diffusion_case(
         grid_size=grid, fused=True, mesh=mesh, device="cpu")
     assert sharded == pytest.approx(one, rel=1e-6)
-    with pytest.raises(NotImplementedError, match="#11d"):
-        port.point_source_advection_diffusion_case(
-            grid_size=grid, save_data=True, mesh=mesh, device="cpu")
+    saved = {}
+    for name, m in (("one", None), ("mesh", mesh)):
+        os.makedirs(tmp_path / name)
+        monkeypatch.chdir(tmp_path / name)
+        errors = port.point_source_advection_diffusion_case(
+            grid_size=grid, save_data=True, mesh=m, device="cpu")
+        files = sorted(f for f in os.listdir() if f.endswith(".h5"))
+        assert len(files) >= 20
+        with h5py.File(files[-1], "r") as f:
+            assert f["Eulerian/Vector/vorticity_0"].shape == grid
+            saved[name] = (errors, files, np.stack(
+                [np.asarray(f[f"Eulerian/Vector/vorticity_{c}"])
+                 for c in range(3)]))
+    assert saved["mesh"][0] == pytest.approx(saved["one"][0], rel=1e-6)
+    assert saved["mesh"][1] == saved["one"][1]
+    np.testing.assert_allclose(saved["mesh"][2], saved["one"][2], rtol=0,
+                               atol=1e-6)

@@ -17,7 +17,7 @@ both.
   package's 2D ``FieldIO``, and the flow and rod files hold the JAX
   example's datasets, to 1e-4 of the largest value.
 - The command lines: ``--device`` defaults to cuda and fails without a
-  card; ``--n-devices`` above 1 is refused, naming queue A #11d.
+  card; ``--n-devices`` above 1 is refused, naming queue A #11f.
 """
 
 import importlib.util
@@ -210,4 +210,4 @@ def test_command_line_needs_a_card_and_one_device(name):
                            "--n-devices", "2"])]
     errs = [p.communicate(timeout=120)[1] for p in procs]
     assert procs[0].returncode != 0 and "no CUDA device" in errs[0]
-    assert procs[1].returncode != 0 and "#11d" in errs[1]
+    assert procs[1].returncode != 0 and "#11f" in errs[1]

@@ -20,8 +20,10 @@ both, float64 flow.
   as ``test_torch_sedimenting_sphere.py``.
 - No port step writes into the carry it is given (the rod driver replays a
   window from that carry).
+- The sedimenting sphere on an in-process (2, 1) mesh against one device,
+  1e-9 relative.
 - The command lines: ``--device`` defaults to cuda and fails without a
-  card; ``--n-devices`` above 1 is refused, naming queue A #11d.
+  card; ``--n-devices 2`` runs a tiny case on an in-process (2, 1) mesh.
 """
 
 import importlib.util
@@ -220,9 +222,15 @@ def test_sedimenting_sphere_matches_jax():
     assert len(times) >= 2 and v_t == jv_t
     np.testing.assert_allclose(times, jtimes, rtol=F64_RTOL, atol=0)
     np.testing.assert_allclose(vz, jvz, rtol=F64_RTOL, atol=0)
-    with pytest.raises(NotImplementedError, match="#11d"):
-        _load("examples_torch", "sedimenting_sphere").sedimenting_sphere_case(
-            mesh=object(), device="cpu")
+    # the same run on an in-process (2, 1) mesh gives one device's
+    from sopht_mpi_tpu_torch.parallel.mesh import create_mesh
+
+    mtimes, mvz, mv_t = _load("examples_torch", "sedimenting_sphere"
+                              ).sedimenting_sphere_case(
+        **run, mesh=create_mesh(3, (2, 1), device="cpu"), device="cpu")
+    assert mv_t == v_t
+    np.testing.assert_allclose(mtimes, times, rtol=F64_RTOL, atol=0)
+    np.testing.assert_allclose(mvz, vz, rtol=F64_RTOL, atol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -230,20 +238,32 @@ def test_sedimenting_sphere_matches_jax():
 # ---------------------------------------------------------------------------
 
 
-def _command_line_refusals(script, mesh_args):
-    """Run the script without a card (``--device`` left at cuda) and, where
-    ``mesh_args`` is given, with it on the CPU; both must fail."""
+# a tiny run of each driver on the CPU: grid, final time
+TINY_RUN = {
+    "flow_past_rod": ["--grid-size-x", "32", "--final-time", "0.005"],
+    "rod_and_sphere": ["--grid-size-x", "16", "--final-time", "0.01"],
+}
+
+
+def _command_line_refusals(script, mesh_args, cwd):
+    """Run the script without a card (``--device`` left at cuda), which
+    must fail, and, where ``mesh_args`` is given, on the CPU with them at a
+    tiny grid, which must run."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     argv = [[sys.executable, script]]
     if mesh_args:
-        argv.append([sys.executable, script, "--device", "cpu", *mesh_args])
+        name = os.path.splitext(os.path.basename(script))[0]
+        argv.append([sys.executable, script, "--device", "cpu", *mesh_args,
+                     *TINY_RUN[name]])
     procs = [subprocess.Popen(a, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True, env=env)
+                              stderr=subprocess.PIPE, text=True, env=env,
+                              cwd=cwd)
              for a in argv]
-    errs = [p.communicate(timeout=120)[1] for p in procs]
+    errs = [p.communicate(timeout=300)[1] for p in procs]
     assert procs[0].returncode != 0 and "no CUDA device" in errs[0]
     if mesh_args:
-        assert procs[1].returncode != 0 and "#11d" in errs[1]
+        assert procs[1].returncode == 0, errs[1][-2000:]
+        assert "time:" in errs[1]  # a window's log line
 
 
 @pytest.mark.parametrize("name, mesh_args", [
@@ -251,6 +271,7 @@ def _command_line_refusals(script, mesh_args):
     ("rod_and_sphere", ["--n-devices", "2"]),
     ("sedimenting_sphere", None),
 ])
-def test_command_line_needs_a_card_and_one_device(name, mesh_args):
+def test_command_line_needs_a_card_and_one_device(name, mesh_args, tmp_path):
     _command_line_refusals(
-        os.path.join(REPO, "examples_torch", "3d", f"{name}.py"), mesh_args)
+        os.path.join(REPO, "examples_torch", "3d", f"{name}.py"), mesh_args,
+        tmp_path)

@@ -20,6 +20,8 @@ from sopht_mpi_tpu_torch import cases
 from sopht_mpi_tpu_torch.convert import flow_state_from_numpy
 from sopht_mpi_tpu_torch.models import (
     ImmersedBodyFlowInteraction,
+    Sphere,
+    SphereForcingGrid,
     scan_steps,
 )
 from sopht_mpi_tpu_torch.models.flow.simulator_3d import (
@@ -234,12 +236,32 @@ def test_sharded_flow_case_runs_and_matches_the_single_device_case():
 
 
 def test_mesh_refusals():
-    mesh = create_mesh(3, (2, 2), device="cpu")
-    sim = UnboundedFlowSimulator3D(
-        grid_size=(8, 8, 8), x_range=1.0, kinematic_viscosity=1e-3,
-        flow_type="navier_stokes", device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ImmersedBodyFlowInteraction(sim, None, 1.0, 1.0)
+    """An immersed body on a 3D mesh is taken (its interaction reads the
+    assembled fields, one counted ``apply_assembled`` a call, and equals
+    one device's); a sharded 2D flow state is still refused."""
+    vel = np.random.default_rng(15).standard_normal((3, 8, 8, 8))
+    interactions = []
+    for mesh in (create_mesh(3, (2, 2), device="cpu"), None):
+        sim = UnboundedFlowSimulator3D(
+            grid_size=(8, 8, 8), x_range=1.0, kinematic_viscosity=1e-3,
+            flow_type="navier_stokes_with_forcing", device="cpu", mesh=mesh,
+            real_t=torch.float64)
+        sim.velocity_field = shard_vector_field(torch.tensor(vel), mesh)
+        sphere = Sphere(center=np.array([0.5, 0.5, 0.5]), radius=0.2,
+                        device="cpu", dtype=torch.float64)
+        interactor = ImmersedBodyFlowInteraction(
+            sim, SphereForcingGrid(rigid_body=sphere,
+                                   num_forcing_points_along_equator=8),
+            -1e3, -1e0)
+        collectives.reset_counts()
+        interactor()
+        assert collectives.counts()["apply_assembled"] == (
+            0 if mesh is None else 1)
+        interactions.append((
+            interactor.global_lag_grid_forcing_field,
+            unshard_vector_field(sim.eul_grid_forcing_field, mesh)))
+    for out, ref in zip(*interactions):
+        assert torch.allclose(out, ref, rtol=0, atol=1e-12)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         flow_state_from_numpy(
             {"primary_scalar_field": np.zeros((4, 4)),

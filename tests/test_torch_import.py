@@ -39,6 +39,8 @@ def test_port_imports_without_jax():
         "from sopht_mpi_tpu_torch.ops import cuda_stencils_3d_sharded\n"
         "from sopht_mpi_tpu_torch.parallel import mesh, collectives\n"
         "from sopht_mpi_tpu_torch.parallel import distributed, fft\n"
+        "from sopht_mpi_tpu_torch.parallel import windows\n"
+        "from sopht_mpi_tpu_torch.cases import dryrun_multichip\n"
         "from sopht_mpi_tpu_torch.cases import sharded_flow_case\n"
         "import sopht_mpi_tpu_torch.tools.probe_sharded\n"
         "import bench_torch\n"

@@ -2,7 +2,8 @@
 package's (``sopht_mpi_tpu.utils.io``).
 
 The JAX package's own IO cases (``tests/test_utils/test_io.py``), on
-tensors, but the per-shard sharded dumps (not ported: queue A #11d). Files
+tensors; the per-shard dumps of a mesh's fields are in
+``test_torch_mesh_io.py``. Files
 written by either package load in the other with equal arrays and time, and
 the XDMF sidecars' text is identical. The arrays go through the file
 unchanged, so every comparison is exact.
@@ -311,24 +312,52 @@ def test_xdmf_sidecars_reference_h5_and_dims(tmp_path):
 
 
 def test_sharded_io_waits_for_the_mesh(tmp_path):
-    """The per-shard dumps and a mesh simulator's fields raise and name
-    queue A #11d."""
+    """The per-shard dumps of a field that is not sharded write one block
+    at the origin and load it back, in a file the JAX package reads; a
+    mesh simulator's fields save and load through ``FieldIO`` and the
+    per-shard dumps (one dataset a shard)."""
     from sopht_mpi_tpu_torch.models import UnboundedFlowSimulator3D
     from sopht_mpi_tpu_torch.parallel.mesh import create_mesh
 
     holder = Holder()
-    holder.s = torch.zeros((4, 4, 4))
+    field = torch.tensor(np.random.default_rng(3).standard_normal((4, 4, 4)),
+                         dtype=torch.float32)
+    holder.s = field.clone()
     io = _io(3, torch.float32, (4, 4, 4), s=FieldBinding(holder, "s"))
-    with pytest.raises(NotImplementedError, match="#11d"):
-        io.save_eulerian_sharded(str(tmp_path / "x"))
-    with pytest.raises(NotImplementedError, match="#11d"):
-        io.load_eulerian_sharded(str(tmp_path / "x"))
+    io.save_eulerian_sharded(str(tmp_path / "x"), time=0.5)
+    with h5py.File(str(tmp_path / "x") + ".proc0.h5", "r") as f:
+        assert list(f["s"]) == ["shard_d0"]
+        assert list(f["s/shard_d0"].attrs["start"]) == [0, 0, 0]
+        assert list(f["s"].attrs["global_shape"]) == [4, 4, 4]
+    holder.s = torch.zeros_like(field)
+    assert io.load_eulerian_sharded(str(tmp_path / "x")) == 0.5
+    assert torch.equal(holder.s, field)
+    jholder = Holder()
+    jholder.s = jnp.zeros((4, 4, 4), jnp.float32)
+    jio = jutils.FieldIO(dim=3, real_dtype=np.float32)
+    jio.define_eulerian_grid(origin=np.zeros(3), dx=np.full(3, 0.1),
+                             grid_size=np.array((4, 4, 4)))
+    jio.add_as_eulerian_fields_for_io(s=jutils.FieldBinding(jholder, "s"))
+    assert jio.load_eulerian_sharded(str(tmp_path / "x")) == 0.5
+    np.testing.assert_array_equal(np.asarray(jholder.s), field.numpy())
+
+    mesh = create_mesh(3, (2, 1), device="cpu")
     sim = UnboundedFlowSimulator3D(
         (8, 8, 8), 1.0, 1e-3, flow_type="navier_stokes", device="cpu",
-        mesh=create_mesh(3, (2, 1), device="cpu"))
-    with pytest.raises(NotImplementedError, match="#11d"):
-        _io(3, torch.float32, (8, 8, 8),
-            vorticity=FieldBinding(sim, "vorticity_field"))
+        mesh=mesh)
+    sim.vorticity_field = torch.randn(sim.vorticity_field.shape)
+    kept = sim.vorticity_field.clone()
+    vio = _io(3, torch.float32, (8, 8, 8),
+              vorticity=FieldBinding(sim, "vorticity_field"))
+    vio.save(str(tmp_path / "v.h5"), time=1.0)
+    vio.save_eulerian_sharded(str(tmp_path / "v"), time=1.0)
+    with h5py.File(str(tmp_path / "v") + ".proc0.h5", "r") as f:
+        assert sorted(f["vorticity"]) == ["shard_d0", "shard_d1"]
+        assert list(f["vorticity/shard_d1"].attrs["start"]) == [0, 4, 0, 0]
+    for load, name in ((vio.load, "v.h5"), (vio.load_eulerian_sharded, "v")):
+        sim.vorticity_field = torch.zeros_like(kept)
+        assert load(str(tmp_path / name)) == 1.0
+        assert torch.equal(sim.vorticity_field, kept)
 
 
 # ---------------------------------------------------------------------------
