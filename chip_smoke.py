@@ -252,7 +252,29 @@ raises and exits non-zero, and nothing falls back to the CPU:
     collectives exactly those of its flow step plus one ``psum`` (the
     windowed E->L) and no assembled-field call, s/step against one device,
     device ms and kernels a step (3 profiled steps,
-    ``build/sharded_sphere_profile.txt``) and peak memory.
+    ``build/sharded_sphere_profile.txt``) and peak memory;
+42. 2d mesh: the 2D mesh (``create_mesh(2, (py, px))``): the (256, 512)
+    cylinder's sharded Poisson solve on (4, 1) and (2, 2) against the same
+    solve with the y step on ``torch.fft`` and against the single-device
+    kernel route, ``fft_greens_ifft_pass`` launched once a shard a solve and
+    no other kernel, and the z conv at the shard shape (1, 256, 129)
+    against its plain version on each shard's Green's block with its time
+    (a call, and in a batch of 20), plain time and bound (its device time
+    at that shape: ``tools/probe_edge_passes.py --json``, key ``2d mesh
+    shard``; the profiler keeps no kernel record this late in the script);
+    the fused cylinder case
+    (``cases._build_cylinder_fsi_case(mesh=)``) for 5 + 20 steps on one
+    device, (4, 1) and (2, 2) from rest: vorticity and velocity within
+    1e-4 max(1, |ref|) and Cd within 1e-3 (relative) of one device's, the z
+    conv once a shard a step, no host sync in the 20 timed steps, s/step,
+    device ms and kernels a step (3 profiled steps,
+    ``build/cylinder_mesh_<py>x<px>_profile.txt``) against one device; the
+    Lamb-Oseen vortex at 256^2 on (4, 1) to t = 1.1 (the references run to
+    1.2; cut to keep the script near 450 s), L2 <= 2e-3 and Linf <= 2.6e-2;
+    and the cylinder driver's command line run as ``--n-devices 4`` and
+    ``--n-devices 1`` with ``--final-time 2`` (the driver runs whole fused
+    windows of 500 steps until t* passes 2: two windows, 1000 steps, to
+    t* ~ 3.38), Cd of the last step within 1e-3 (relative).
 
 Phases 31-36 print s/step (the windows after the first) and a window's
 wall. The phases from 28 on run in ``build/`` and remove what they write.
@@ -284,6 +306,7 @@ import contextlib
 import importlib.util
 import json
 import os
+import runpy
 import shutil
 import subprocess
 import sys
@@ -403,6 +426,11 @@ SHARDED_SPHERE_WINDOW = (72, 72, 72)
 # phase 40: the mesh and base grid of cases.dryrun_multichip
 DRYRUN_MESH = (4, 2)
 DRYRUN_GRID = (32, 32, 32)
+# phase 42: the 2D meshes of the cylinder grid, and the Lamb-Oseen run's
+# mesh and end time (the references run to t = 1.2)
+MESH_2D_SHAPES = ((4, 1), (2, 2))
+LAMB_OSEEN_MESH = (4, 1)
+LAMB_OSEEN_MESH_T = 1.1
 # the distributed convolve's three per-shard passes and their launches a
 # vector solve on SHARDED_MESH: the y passes fold every shard into one
 # launch, the z pass is launched once a shard with that shard's Green's block
@@ -3996,6 +4024,223 @@ def main():
             + profile_detail(*many["prof"], many["s"]) + f" [{card}]")
 
     sharded_sphere_phase()
+
+    @phase("2d mesh")
+    def mesh_2d_phase():
+        from sopht_mpi_tpu_torch.parallel import fft as dist
+        from sopht_mpi_tpu_torch.parallel.mesh import (
+            shard_scalar_field,
+            unshard_scalar_field,
+            unshard_vector_field,
+        )
+
+        zconv = by_name["fft_greens_ifft_pass"]
+        others = [name for name in by_name if name != zconv.__name__]
+        lines = []
+        # -- the sharded solve: the z conv once a shard, against the same
+        # solve with the y step on torch.fft and the single-device route
+        ny, nx = CYLINDER_GRID
+        gen = torch.Generator(device=dev).manual_seed(24)
+        rhs = torch.randn((ny, nx), device=dev, generator=gen)
+        single = poisson.UnboundedPoissonSolver2D(ny, nx, device=dev)
+        ref_single = single.solve(rhs)
+        zrow = table["fft_greens_ifft_pass"]
+        for shape in MESH_2D_SHAPES:
+            mesh = create_mesh(2, shape, device=dev)
+            solver = poisson.UnboundedPoissonSolver2D(ny, nx, device=dev,
+                                                      mesh=mesh)
+            greens = solver.fourier_greens_times_dx_pow_dim
+            rhs_s = shard_scalar_field(rhs, mesh)
+            reset_counts()
+            out = solver.solve(rhs_s)
+            torch.cuda.synchronize()
+            check(zconv.launches == mesh.size, f"{shape}: the z conv "
+                  f"launched {zconv.launches} times in a solve of "
+                  f"{mesh.size} shards")
+            check_not_launched(others, f"the 2D mesh solve on {shape}")
+            plain = dist.distributed_free_space_convolve(
+                rhs_s, greens, mesh, force_kernels=False)
+            check(zconv.launches == mesh.size, "the plain solve launched the "
+                  "z conv")
+            err, scale = max_err(out, plain)
+            check(err <= FFT_TOL * scale, f"{shape} sharded solve against "
+                  f"its plain y step: {err} (|ref| max {scale})")
+            err1, scale1 = max_err(unshard_scalar_field(out, mesh),
+                                   ref_single)
+            check(err1 <= FFT_TOL * scale1, f"{shape} sharded solve against "
+                  f"one device: {err1} (|ref| max {scale1})")
+            solve_ms = median_ms(torch, lambda: solver.solve(rhs_s))
+            plain_ms = median_ms(torch, lambda: dist.
+                                 distributed_free_space_convolve(
+                                     rhs_s, greens, mesh,
+                                     force_kernels=False))
+            # the z conv alone at the shard shape, each shard's Green's block
+            py, px = shape
+            b = greens.shape[-1]
+            xr = torch.randn((1, ny, b), device=dev, generator=gen)
+            xi = torch.randn((1, ny, b), device=dev, generator=gen)
+            k_err = 0.0
+            for j in range(py):
+                for i in range(px):
+                    g = greens[j, i][None]
+                    kr, ki = zconv(xr, xi, g)
+                    pr, pi = cuda_fft.fft_greens_ifft_pass_ref(xr, xi, g)
+                    e, sc = max_err(torch.stack([kr, ki]),
+                                    torch.stack([pr, pi]))
+                    check(e <= FFT_TOL * sc, f"z conv at (1, {ny}, {b}) on "
+                          f"shard {(j, i)}: {e} (|ref| max {sc})")
+                    k_err = max(k_err, e)
+            g = greens[0, 0][None]
+            k_ms = median_ms(torch, lambda: zconv(xr, xi, g))
+            k_batch = sharded_batched_ms(lambda: zconv(xr, xi, g))
+            p_ms = median_ms(torch,
+                             lambda: cuda_fft.fft_greens_ifft_pass_ref(
+                                 xr, xi, g))
+            b_ms, b_by = bound(*fft_work("fft_greens_ifft_pass",
+                                         (xr, xi, g)))
+            key = f"{py}x{px}"
+            zrow[f"mesh_2d_{key}_shape"] = [1, ny, b]
+            zrow[f"mesh_2d_{key}_ms"] = k_ms
+            zrow[f"mesh_2d_{key}_batch_ms"] = k_batch
+            zrow[f"mesh_2d_{key}_plain_ms"] = p_ms
+            zrow[f"mesh_2d_{key}_bound_ms"] = b_ms
+            zrow[f"mesh_2d_{key}_bound_by"] = b_by
+            zrow[f"mesh_2d_{key}_max_abs_err"] = k_err
+            lines.append(
+                f"solve on {shape}: {mesh.size} z conv launches, against the "
+                f"torch.fft y step {err:.3e} and one device {err1:.3e} (of "
+                f"{scale1:.3g}), {solve_ms:.4f} ms against {plain_ms:.4f}; "
+                f"the z conv at (1, {ny}, {b}) {k_ms:.4f} ms a call "
+                f"(in a batch of 20 {k_batch:.4f}), "
+                f"plain {p_ms:.4f}, bound {b_ms:.5f} ({b_by}), max|diff| "
+                f"{k_err:.3e}")
+        # -- the fused cylinder case from rest on one device and the meshes:
+        # 5 + 20 steps, the last 20 timed
+        n_steps, radius = 20, 0.03
+        runs = {}
+        for shape in (None, *MESH_2D_SHAPES):
+            mesh = None if shape is None else create_mesh(2, shape, device=dev)
+            step, (carry,) = cases._build_cylinder_fsi_case(
+                CYLINDER_GRID, device=dev, mesh=mesh)
+            # 5 warm-up steps hold each run's first-call work
+            carry, _ = scan_steps(step, carry, 5)
+            reset_counts()
+            collectives.reset_counts()
+            # the step never waits for the device: a synchronising call
+            # raises
+            carry, forces, s_step = timed_steps(step, carry, n_steps)
+            launches = {name: fn.launches for name, fn in by_name.items()
+                        if fn.launches}
+            counts = {k: v / n_steps
+                      for k, v in collectives.counts().items()}
+            if mesh is None:
+                check_2d_route(n_steps, "the one-device cylinder steps")
+            else:
+                check(zconv.launches == n_steps * mesh.size,
+                      f"{shape}: the z conv launched {zconv.launches} times "
+                      f"in {n_steps} steps of {mesh.size} shards")
+                check_not_launched(others, f"the cylinder on {shape}")
+                zrow[f"mesh_2d_{shape[0]}x{shape[1]}_launches"] = (
+                    zconv.launches)
+            fs = carry.flow_state
+            fields = {
+                "vorticity": unshard_scalar_field(fs.primary_scalar_field,
+                                                  mesh),
+                "velocity": unshard_vector_field(fs.velocity_field, mesh)}
+            check_finite("cylinder fields", *fields.values(), forces)
+            cd = float(forces[-1, 0].abs()) / radius
+            key = "one device" if mesh is None else str(shape)
+            carry, *prof = profile_steps(
+                step, carry, 3, os.path.join(
+                    REPO, "build", "cylinder_mesh_"
+                    + ("1x1" if mesh is None else f"{shape[0]}x{shape[1]}")
+                    + "_profile.txt"),
+                f"{CYLINDER_GRID} cylinder step on {key}")
+            runs[key] = dict(fields=fields, cd=cd, s=s_step,
+                             launches=launches, counts=counts, prof=prof)
+            del step, carry, fs
+        one = runs["one device"]
+        for shape in MESH_2D_SHAPES:
+            run = runs[str(shape)]
+            errs = {}
+            for what, ref in one["fields"].items():
+                err, scale = max_err(run["fields"][what], ref)
+                gate = 1e-4 * max(1.0, scale)
+                check(err <= gate, f"{what} on {shape} "
+                      f"after {n_steps + 5} steps: {err} (|ref| max {scale})")
+                errs[what] = (f"{err:.3e} (|ref| max {scale:.4g}, "
+                              f"{err / gate:.3f} of the gate)")
+            cd_rel = abs(run["cd"] - one["cd"]) / abs(one["cd"])
+            check(cd_rel <= 1e-3, f"Cd on {shape} {run['cd']} against one "
+                  f"device's {one['cd']}")
+            lines.append(
+                f"cylinder {CYLINDER_GRID} on {shape}, 5 + {n_steps} steps: "
+                f"{run['s']:.6f} s/step against {one['s']:.6f} on one device, "
+                f"no host sync; device {run['prof'][1] / 3:.3f} ms/step and "
+                f"{run['prof'][2]:.0f} kernels/step against "
+                f"{one['prof'][1] / 3:.3f} ms and {one['prof'][2]:.0f}; Cd "
+                f"{run['cd']:.6f} against {one['cd']:.6f} (relative "
+                f"{cd_rel:.2e}, {cd_rel / 1e-3:.3g} of the gate); max|diff| "
+                f"{errs}; launches "
+                f"{run['launches']}; collectives a step {run['counts']}; "
+                + profile_detail(*run["prof"], run["s"]))
+        lines.append(f"cylinder on one device: launches {one['launches']}; "
+                     + profile_detail(*one["prof"], one["s"]))
+        del runs
+        # -- Lamb-Oseen on the slab
+        mesh = create_mesh(2, LAMB_OSEEN_MESH, device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        l2, linf = cases.lamb_oseen_vortex_case(
+            (256, 256), t_end=LAMB_OSEEN_MESH_T, device=dev, mesh=mesh)
+        lo_wall = time.perf_counter() - t0
+        check(np.isfinite([l2, linf]).all(), "non-finite Lamb-Oseen error")
+        check(l2 <= 2e-3 and linf <= 2.6e-2, f"Lamb-Oseen 256^2 on "
+              f"{LAMB_OSEEN_MESH}: L2 {l2}, Linf {linf}")
+        check(zconv.launches > 0 and zconv.launches % mesh.size == 0,
+              f"Lamb-Oseen on the mesh: z conv launches {zconv.launches}")
+        lines.append(
+            f"Lamb-Oseen 256^2 on {LAMB_OSEEN_MESH} to t = "
+            f"{LAMB_OSEEN_MESH_T}: L2 {l2:.6g}, Linf {linf:.6g}, "
+            f"{zconv.launches // mesh.size} solves in {lo_wall:.2f} s")
+        # -- the cylinder driver's command line on 4 shards and on one
+        script = os.path.join(REPO, "examples_torch", "2d",
+                              "flow_past_cylinder.py")
+        cds = {}
+        for n_dev in ("4", "1"):
+            argv = sys.argv
+            sys.argv = [script, "--n-devices", n_dev, "--final-time",
+                        str(CYLINDER_DRIVER_T)]
+            reset_counts()
+            t0 = time.perf_counter()
+            try:
+                def run_cli():
+                    try:
+                        runpy.run_path(script, run_name="__main__")
+                    except SystemExit as stop:
+                        check(stop.code in (0, None), f"exit {stop.code}")
+                    return np.loadtxt("drag_vs_time.csv", delimiter=",",
+                                      ndmin=2)
+                csv, files = in_dir("cylinder_mesh_driver", run_cli)
+            finally:
+                sys.argv = argv
+            wall = time.perf_counter() - t0
+            check_finite("driver drag", csv)
+            cds[n_dev] = (csv[-1, 1], csv[-1, 0], zconv.launches, wall)
+        cd_rel = abs(cds["4"][0] - cds["1"][0]) / abs(cds["1"][0])
+        check(cd_rel <= 1e-3, f"driver Cd --n-devices 4 {cds['4']} against "
+              f"1 {cds['1']}")
+        check(cds["4"][2] == 4 * cds["1"][2], f"driver z conv launches "
+              f"{cds['4'][2]} on 4 shards against {cds['1'][2]} on one")
+        lines.append(
+            f"cylinder driver --n-devices 4 to t* = {cds['4'][1]:.4f}: Cd "
+            f"{cds['4'][0]:.6f} against {cds['1'][0]:.6f} with --n-devices 1 "
+            f"(relative {cd_rel:.2e}), {cds['4'][2]} z conv launches against "
+            f"{cds['1'][2]}, {cds['4'][3]:.2f} s against {cds['1'][3]:.2f} s")
+        torch.cuda.empty_cache()
+        return None, "; ".join(lines) + f" [{card}]"
+
+    mesh_2d_phase()
 
     for row in table.values():
         check(row["launches"], f"{row['name']} was launched on no path")

@@ -11,6 +11,10 @@ Both build the case with ``sopht_mpi_tpu_torch.cases._build_cylinder_objects``.
 Run (on the card; ``--device cpu`` runs on the CPU):
     python examples_torch/2d/flow_past_cylinder.py --grid-size-x 512 --final-time 200
     python examples_torch/2d/flow_past_cylinder.py --host-loop --plot --final-time 5
+    python examples_torch/2d/flow_past_cylinder.py --n-devices 4  # (4, 1) mesh
+
+``--n-devices N`` shards the flow over an in-process (N, 1) mesh on the one
+device, as the JAX example's flag builds a mesh of N devices.
 """
 
 import argparse
@@ -24,13 +28,11 @@ import torch
 
 from sopht_mpi_tpu_torch import cases
 from sopht_mpi_tpu_torch.models import scan_steps
+from sopht_mpi_tpu_torch.parallel.mesh import (
+    unshard_scalar_field,
+    unshard_vector_field,
+)
 from sopht_mpi_tpu_torch.utils import compile_video, logger
-
-
-def _refuse_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the 2D mesh is not ported yet (ROADMAP.md queue A #11f)")
 
 
 def flow_past_cylinder_boundary_forcing_case(
@@ -51,12 +53,12 @@ def flow_past_cylinder_boundary_forcing_case(
     drag every 0.25 time scales; with ``save_diagnostic`` the drag history
     goes to ``drag_vs_time.csv``, with ``plot`` the frames to a movie
     (``compile_video``: ffmpeg, else a GIF). Returns (t*, Cd) lists.
-    ``mesh`` is refused (the 2D mesh: ROADMAP.md queue A #11f)."""
-    _refuse_mesh(mesh)
+    ``mesh`` (``create_mesh(2, (py, px), device=...)``) shards the flow over
+    an in-process mesh; the frames take the assembled field."""
     case = cases._build_cylinder_objects(
         grid_size, device=device, reynolds=reynolds,
         coupling_stiffness=coupling_stiffness,
-        coupling_damping=coupling_damping, precision=precision)
+        coupling_damping=coupling_damping, precision=precision, mesh=mesh)
     flow_sim = case.flow_sim
     cylinder_flow_interactor = case.interactor
     velocity_scale = 1.0
@@ -123,10 +125,13 @@ def _plot_fields(flow_sim, interactor, timescale):
     from sopht_mpi_tpu_torch.utils import lab_cmap
 
     fig, ax = plt.subplots(figsize=(8, 4))
-    x = flow_sim.position_field[0].cpu().numpy()
-    y = flow_sim.position_field[1].cpu().numpy()
+    position = unshard_vector_field(flow_sim.position_field, flow_sim.mesh)
+    x = position[0].cpu().numpy()
+    y = position[1].cpu().numpy()
     ax.contourf(
-        x, y, flow_sim.vorticity_field.cpu().numpy(),
+        x, y,
+        unshard_scalar_field(flow_sim.vorticity_field,
+                             flow_sim.mesh).cpu().numpy(),
         levels=np.linspace(-25, 25, 100), extend="both", cmap=lab_cmap,
     )
     pos = interactor.forcing_grid.compute_lag_grid_position_field().cpu().numpy()
@@ -152,13 +157,12 @@ def flow_past_cylinder_fused_case(
     """The same physics, the coupled step (CFL dt, IBM, flow step) run in
     scan windows of ``window`` steps (``cases._build_cylinder_fsi_case``);
     the drag of each window's last step is logged and written to
-    ``drag_vs_time.csv``. Returns (t*, Cd) lists. ``mesh`` is refused (the
-    2D mesh: ROADMAP.md queue A #11f)."""
-    _refuse_mesh(mesh)
+    ``drag_vs_time.csv``. Returns (t*, Cd) lists. ``mesh`` shards the flow
+    over an in-process mesh."""
     step, (carry,) = cases._build_cylinder_fsi_case(
         grid_size, device=device, reynolds=reynolds,
         coupling_stiffness=coupling_stiffness,
-        coupling_damping=coupling_damping, precision=precision)
+        coupling_damping=coupling_damping, precision=precision, mesh=mesh)
     velocity_scale, cyl_radius = 1.0, 0.03
     timescale = cyl_radius / velocity_scale
     t_end = nondim_final_time * timescale
@@ -182,7 +186,7 @@ if __name__ == "__main__":
     p.add_argument("--reynolds", type=float, default=200.0)
     p.add_argument(
         "--n-devices", type=int, default=1,
-        help="shards of a mesh; only 1 is ported (ROADMAP.md queue A #11f)",
+        help="y shards of an in-process mesh on the one device",
     )
     p.add_argument(
         "--device", default="cuda",
@@ -203,16 +207,18 @@ if __name__ == "__main__":
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         p.error("no CUDA device; run with --device cpu for the CPU")
+    mesh = None
     if args.n_devices > 1:
-        raise NotImplementedError(
-            "--n-devices > 1: the 2D mesh is not ported yet (ROADMAP.md "
-            "queue A #11f)")
+        from sopht_mpi_tpu_torch.parallel.mesh import create_mesh
+
+        mesh = create_mesh(2, (args.n_devices, 1), device=device)
     grid = (args.grid_size_x // 2, args.grid_size_x)
     if args.fused:
         flow_past_cylinder_fused_case(
             nondim_final_time=args.final_time,
             grid_size=grid,
             reynolds=args.reynolds,
+            mesh=mesh,
             device=device,
         )
         raise SystemExit(0)
@@ -220,6 +226,7 @@ if __name__ == "__main__":
         nondim_final_time=args.final_time,
         grid_size=grid,
         reynolds=args.reynolds,
+        mesh=mesh,
         save_diagnostic=True,
         plot=args.plot,
         device=device,

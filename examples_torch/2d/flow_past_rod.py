@@ -9,6 +9,10 @@ is built by ``sopht_mpi_tpu_torch.cases._build_flow_past_rod_2d_objects``.
 Run (on the card; ``--device cpu`` runs on the CPU):
     python examples_torch/2d/flow_past_rod.py --final-time 5 --grid-size-x 256
     python examples_torch/2d/flow_past_rod.py --host-loop --save-flow-data
+    python examples_torch/2d/flow_past_rod.py --n-devices 4  # (4, 1) mesh
+
+``--n-devices N`` shards the flow over an in-process (N, 1) mesh on the one
+device, as the JAX example's flag builds a mesh of N devices.
 """
 
 import argparse
@@ -28,6 +32,7 @@ from sopht_mpi_tpu_torch.models import (
     init_rod_fsi_carry,
     scan_steps,
 )
+from sopht_mpi_tpu_torch.parallel.mesh import unshard_vector_field
 from sopht_mpi_tpu_torch.utils import (
     CosseratRodIO,
     FieldBinding,
@@ -62,11 +67,9 @@ def flow_past_rod_case(
     reading the tip once a window; otherwise the host loop runs the rod's
     substeps and the flow step one at a time, reads the tip every 0.1 time
     scales and logs every 1/60 of the run, and with ``save_flow_data``
-    writes ``FieldIO`` flow and ``CosseratRodIO`` rod files there. ``mesh``
-    is refused (the 2D mesh: ROADMAP.md queue A #11f)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the 2D mesh is not ported yet (ROADMAP.md queue A #11f)")
+    writes ``FieldIO`` flow and ``CosseratRodIO`` rod files there (the
+    assembled fields on a ``mesh``, ``create_mesh(2, (py, px),
+    device=...)``, which shards the flow over an in-process mesh)."""
     if fused and save_flow_data:
         raise ValueError("save_flow_data is not supported with fused=True")
     case = cases._build_flow_past_rod_2d_objects(
@@ -77,7 +80,7 @@ def flow_past_rod_case(
         coupling_stiffness=coupling_stiffness,
         coupling_damping=coupling_damping, precision=precision,
         # the fused step computes the flow forces itself
-        flow_forces=not fused,
+        flow_forces=not fused, mesh=mesh,
     )
     flow_sim, flow_past_rod = case.flow_sim, case.rod
     flow_past_sim = case.collection
@@ -89,11 +92,10 @@ def flow_past_rod_case(
 
     if save_flow_data:
         io = FieldIO(dim=2, real_dtype=real_t)
+        position = unshard_vector_field(flow_sim.position_field,
+                                        flow_sim.mesh)
         origin = np.asarray(
-            [
-                float(flow_sim.position_field[1].min()),
-                float(flow_sim.position_field[0].min()),
-            ]
+            [float(position[1].min()), float(position[0].min())]
         )
         io.define_eulerian_grid(
             origin=origin,
@@ -226,7 +228,7 @@ if __name__ == "__main__":
     parser.add_argument("--grid-size-x", type=int, default=512)
     parser.add_argument(
         "--n-devices", type=int, default=1,
-        help="shards of a mesh; only 1 is ported (ROADMAP.md queue A #11f)",
+        help="y shards of an in-process mesh on the one device",
     )
     parser.add_argument("--precision", default="single")
     parser.add_argument(
@@ -249,14 +251,16 @@ if __name__ == "__main__":
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA device; run with --device cpu for the CPU")
+    mesh = None
     if args.n_devices > 1:
-        raise NotImplementedError(
-            "--n-devices > 1: the 2D mesh is not ported yet (ROADMAP.md "
-            "queue A #11f)")
+        from sopht_mpi_tpu_torch.parallel.mesh import create_mesh
+
+        mesh = create_mesh(2, (args.n_devices, 1), device=device)
     flow_past_rod_case(
         nondim_final_time=args.final_time,
         grid_size=(args.grid_size_x // 2, args.grid_size_x),
         precision=args.precision,
+        mesh=mesh,
         save_flow_data=args.save_flow_data,
         fused=args.fused,
         device=device,

@@ -9,6 +9,10 @@ its initial state are ``cases._build_lamb_oseen_sim``.
 Run (on the card; ``--device cpu`` runs on the CPU):
     python examples_torch/2d/lamb_oseen_vortex.py
     python examples_torch/2d/lamb_oseen_vortex.py --host-loop --plot
+    python examples_torch/2d/lamb_oseen_vortex.py --n-devices 4  # (4, 1) mesh
+
+``--n-devices N`` shards the flow over an in-process (N, 1) mesh on the one
+device, as the JAX example's flag builds a mesh of N devices.
 """
 
 import argparse
@@ -26,6 +30,10 @@ from sopht_mpi_tpu_torch.models import (
     init_flow_only_carry,
     scan_steps,
 )
+from sopht_mpi_tpu_torch.parallel.mesh import (
+    unshard_scalar_field,
+    unshard_vector_field,
+)
 from sopht_mpi_tpu_torch.utils import Plotter2D, logger
 
 
@@ -39,11 +47,9 @@ def lamb_oseen_vortex_flow_case(
     ``fused`` runs the flow-only step in scan windows of ``window`` steps
     (the windows overshoot t = 1.4 by less than a window); otherwise the
     host loop takes the stable timestep capped at the time left, and with
-    ``plot`` saves a vorticity frame every 1/25 of the run. ``mesh`` is
-    refused (the 2D mesh: ROADMAP.md queue A #11f)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the 2D mesh is not ported yet (ROADMAP.md queue A #11f)")
+    ``plot`` saves a vorticity frame every 1/25 of the run. ``mesh``
+    (``create_mesh(2, (py, px), device=...)``) shards the flow over an
+    in-process mesh; the frames and the errors take the assembled field."""
     if fused and plot:
         raise ValueError(
             "plot is not supported with fused=True (snapshots live in the "
@@ -52,9 +58,15 @@ def lamb_oseen_vortex_flow_case(
     t_start, t_end = 1.0, 1.4
     flow_sim, velocity_free_stream, analytic_vorticity = (
         cases._build_lamb_oseen_sim(grid_size, device=device,
-                                    precision=precision, t_start=t_start))
-    x = flow_sim.position_field[0].cpu().numpy()
-    y = flow_sim.position_field[1].cpu().numpy()
+                                    precision=precision, t_start=t_start,
+                                    mesh=mesh))
+    position = unshard_vector_field(flow_sim.position_field, flow_sim.mesh)
+    x = position[0].cpu().numpy()
+    y = position[1].cpu().numpy()
+
+    def vorticity():
+        return unshard_scalar_field(flow_sim.vorticity_field, flow_sim.mesh)
+
     if plot:
         plotter = Plotter2D()
 
@@ -76,7 +88,7 @@ def lamb_oseen_vortex_flow_case(
     while flow_sim.time < t_end - 1e-10:
         if plot and (foto_timer >= foto_timer_limit or foto_timer == 0):
             foto_timer = 0.0
-            plotter.contourf(x, y, flow_sim.vorticity_field)
+            plotter.contourf(x, y, vorticity())
             plotter.savefig(f"snap_{int(flow_sim.time * 100):04d}.png")
             plotter.clearfig()
         if int(flow_sim.time * 100) % 10 == 0:
@@ -90,7 +102,7 @@ def lamb_oseen_vortex_flow_case(
 
     # the final error against the advected, diffused analytic vortex
     error = np.abs(
-        flow_sim.vorticity_field.cpu().numpy().astype(np.float64)
+        vorticity().cpu().numpy().astype(np.float64)
         - analytic_vorticity(flow_sim.time)
     )
     l2 = np.linalg.norm(error) * flow_sim.dx
@@ -105,7 +117,7 @@ if __name__ == "__main__":
     parser.add_argument("--grid-size", type=int, default=256)
     parser.add_argument(
         "--n-devices", type=int, default=1,
-        help="shards of a mesh; only 1 is ported (ROADMAP.md queue A #11f)",
+        help="y shards of an in-process mesh on the one device",
     )
     parser.add_argument("--precision", default="single")
     parser.add_argument(
@@ -127,13 +139,15 @@ if __name__ == "__main__":
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA device; run with --device cpu for the CPU")
+    mesh = None
     if args.n_devices > 1:
-        raise NotImplementedError(
-            "--n-devices > 1: the 2D mesh is not ported yet (ROADMAP.md "
-            "queue A #11f)")
+        from sopht_mpi_tpu_torch.parallel.mesh import create_mesh
+
+        mesh = create_mesh(2, (args.n_devices, 1), device=device)
     lamb_oseen_vortex_flow_case(
         grid_size=(args.grid_size, args.grid_size),
         precision=args.precision,
+        mesh=mesh,
         plot=args.plot,
         fused=args.fused,
         device=device,

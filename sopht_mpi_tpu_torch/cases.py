@@ -14,8 +14,10 @@ of shards (:func:`sharded_flow_case`), a point source advected and diffused
 as a passive vector (``examples/3d/point_source_advect_diffuse.py``), a
 flexible rod in a 2D flow (``examples/2d/flow_past_rod.py``) and a rigid
 sphere sedimenting under its weight (``examples/3d/sedimenting_sphere.py``).
-The 3D body cases take a ``mesh`` (``create_mesh(3, (pz, py),
-device=...)``) that shards the flow over an in-process mesh;
+The body cases and the Lamb-Oseen vortex take a ``mesh``
+(``create_mesh(3, (pz, py), device=...)``, or ``create_mesh(2, (py, px),
+device=...)`` for the 2D ones) that shards the flow over an in-process
+mesh;
 :func:`dryrun_multichip` holds them on a mesh against one device
 (``__graft_entry__.dryrun_multichip``).
 
@@ -69,7 +71,9 @@ from sopht_mpi_tpu_torch.models.flow.simulator_3d import (
 )
 from sopht_mpi_tpu_torch.parallel.mesh import (
     create_mesh,
+    shard_scalar_field,
     shard_vector_field,
+    unshard_scalar_field,
     unshard_vector_field,
 )
 from sopht_mpi_tpu_torch.utils import CarryCheckpointer, get_real_t
@@ -342,12 +346,13 @@ def compute_lamb_oseen_velocity(x, y, x_cm, y_cm, nu, gamma, t):
 
 
 def _build_lamb_oseen_sim(grid_size, *, device, precision="single",
-                          t_start=1.0):
+                          t_start=1.0, mesh=None):
     """The Lamb-Oseen simulator at ``t_start``: nu = 1e-3, circulation
     ``4 pi nu t_start`` (maximum vorticity 1), the vortex at (0.3, 0.3), a
-    unit free stream in x and y. Returns (simulator, free stream (2,)
-    numpy, analytic vorticity ``t -> (ny, nx) numpy`` of the advected,
-    diffused vortex)."""
+    unit free stream in x and y; ``mesh`` shards the flow over an
+    in-process 2D mesh. Returns (simulator, free stream (2,) numpy,
+    analytic vorticity ``t -> (ny, nx) numpy`` of the advected, diffused
+    vortex)."""
     real_t = get_real_t(precision)
     nu = 1e-3
     x_cm_start = y_cm_start = 0.3
@@ -361,20 +366,24 @@ def _build_lamb_oseen_sim(grid_size, *, device, precision="single",
         real_t=real_t,
         time=t_start,
         device=device,
+        mesh=mesh,
     )
-    x = flow_sim.position_field[0].cpu().numpy().astype(np.float64)
-    y = flow_sim.position_field[1].cpu().numpy().astype(np.float64)
+    pos = unshard_vector_field(flow_sim.position_field, flow_sim.mesh)
+    x = pos[0].cpu().numpy().astype(np.float64)
+    y = pos[1].cpu().numpy().astype(np.float64)
     free_stream = np.ones(2)
 
     def to_field(a):
         return torch.as_tensor(a, dtype=real_t, device=flow_sim.device)
 
-    flow_sim.vorticity_field = to_field(compute_lamb_oseen_vorticity(
-        x, y, x_cm_start, y_cm_start, nu, gamma, t_start))
-    flow_sim.velocity_field = to_field(
+    flow_sim.vorticity_field = shard_scalar_field(to_field(
+        compute_lamb_oseen_vorticity(
+            x, y, x_cm_start, y_cm_start, nu, gamma, t_start)),
+        flow_sim.mesh)
+    flow_sim.velocity_field = shard_vector_field(to_field(
         compute_lamb_oseen_velocity(
             x, y, x_cm_start, y_cm_start, nu, gamma, t_start)
-        + free_stream[:, None, None])
+        + free_stream[:, None, None]), flow_sim.mesh)
 
     def analytic_vorticity(t):
         return compute_lamb_oseen_vorticity(
@@ -385,18 +394,20 @@ def _build_lamb_oseen_sim(grid_size, *, device, precision="single",
 
 
 def lamb_oseen_vortex_case(grid_size=(256, 256), precision="single",
-                           t_end=1.4, *, device):
+                           t_end=1.4, *, device, mesh=None):
     """Lamb-Oseen vortex against its analytic solution: the vortex advects
     with the free stream and diffuses from t = 1.0 to ``t_end``, the
-    timestep the stable one capped at the time left. Returns the (L2, Linf)
-    vorticity errors, L2 = ||err||_2 dx."""
+    timestep the stable one capped at the time left; ``mesh`` shards the
+    flow over an in-process 2D mesh. Returns the (L2, Linf) vorticity
+    errors, L2 = ||err||_2 dx."""
     flow_sim, free_stream, analytic_vorticity = _build_lamb_oseen_sim(
-        grid_size, device=device, precision=precision)
+        grid_size, device=device, precision=precision, mesh=mesh)
     while flow_sim.time < t_end - 1e-10:
         dt = min(flow_sim.compute_stable_timestep(), t_end - flow_sim.time)
         flow_sim.time_step(dt=dt, free_stream_velocity=free_stream)
+    vorticity = unshard_scalar_field(flow_sim.vorticity_field, flow_sim.mesh)
     error = np.abs(
-        flow_sim.vorticity_field.cpu().numpy().astype(np.float64)
+        vorticity.cpu().numpy().astype(np.float64)
         - analytic_vorticity(flow_sim.time)
     )
     return float(np.linalg.norm(error) * flow_sim.dx), float(error.max())
@@ -414,11 +425,12 @@ class CylinderCase(NamedTuple):
 
 def _build_cylinder_objects(grid_size=(256, 512), *, device, reynolds=200.0,
                             coupling_stiffness=-5e4, coupling_damping=-20.0,
-                            precision="single") -> CylinderCase:
+                            precision="single", mesh=None) -> CylinderCase:
     """Flow past a fixed circular cylinder, as
     ``examples/2d/flow_past_cylinder.py`` builds it: radius 0.03 of a unit
     x range, centred 2.5 radii from the inflow wall at mid height, unit
-    free stream in x, Re on the radius, 60 forcing points."""
+    free stream in x, Re on the radius, 60 forcing points; ``mesh`` shards
+    the flow over an in-process 2D mesh."""
     real_t = get_real_t(precision)
     velocity_scale = 1.0
     cyl_radius = 0.03
@@ -430,6 +442,7 @@ def _build_cylinder_objects(grid_size=(256, 512), *, device, reynolds=200.0,
         with_free_stream_flow=True,
         real_t=real_t,
         device=device,
+        mesh=mesh,
     )
     cylinder = Cylinder(
         center=(2.5 * cyl_radius, 0.5 * grid_size[0] / grid_size[1]),
@@ -451,13 +464,14 @@ def _build_cylinder_objects(grid_size=(256, 512), *, device, reynolds=200.0,
 
 def _build_cylinder_fsi_case(grid_size=(256, 512), *, device, reynolds=200.0,
                              coupling_stiffness=-5e4, coupling_damping=-20.0,
-                             precision="single"):
-    """Flow past a fixed circular cylinder (:func:`_build_cylinder_objects`)
-    on the dense IBM path. Returns (fused step fn, (initial carry,))."""
+                             precision="single", mesh=None):
+    """Flow past a fixed circular cylinder (:func:`_build_cylinder_objects`,
+    ``mesh`` as there) on the dense IBM path. Returns (fused step fn,
+    (initial carry,))."""
     case = _build_cylinder_objects(
         grid_size, device=device, reynolds=reynolds,
         coupling_stiffness=coupling_stiffness,
-        coupling_damping=coupling_damping, precision=precision)
+        coupling_damping=coupling_damping, precision=precision, mesh=mesh)
     step = build_rigid_fsi_step(
         case.flow_sim, case.interactor, dt_prefac=1.0,
         free_stream_fn=lambda t: case.free_stream,
@@ -476,15 +490,17 @@ def flow_past_cylinder_fused_case(
     window=500,
     *,
     device,
+    mesh=None,
 ):
     """Flow past a fixed cylinder at Re = 200 (vortex shedding and drag,
-    :func:`_build_cylinder_fsi_case`). The coupled loop runs ``window``
-    steps between host reads of the drag; returns (t* = t U / r at each
-    window end, Cd = |F_x| / (U^2 r) at the window's last step)."""
+    :func:`_build_cylinder_fsi_case`; ``mesh`` shards the flow over an
+    in-process 2D mesh). The coupled loop runs ``window`` steps between
+    host reads of the drag; returns (t* = t U / r at each window end,
+    Cd = |F_x| / (U^2 r) at the window's last step)."""
     step, (carry,) = _build_cylinder_fsi_case(
         grid_size, device=device, reynolds=reynolds,
         coupling_stiffness=coupling_stiffness,
-        coupling_damping=coupling_damping, precision=precision,
+        coupling_damping=coupling_damping, precision=precision, mesh=mesh,
     )
     velocity_scale, cyl_radius = 1.0, 0.03
     timescale = cyl_radius / velocity_scale
@@ -1225,7 +1241,7 @@ def _build_flow_past_rod_2d_objects(
         nondim_bending_stiffness=1.5e-3, nondim_mass_ratio=1.5, froude=0.5,
         rod_start_incline_angle=0.0, coupling_stiffness=-8e4,
         coupling_damping=-30.0, precision="single",
-        flow_forces=False) -> Rod2DCase:
+        flow_forces=False, mesh=None) -> Rod2DCase:
     """A flexible rod clamped at one end in a 2D flow, as
     ``examples/2d/flow_past_rod.py`` builds it, with its parameters and
     defaults: an x range of 6 rod lengths, the rod from (1, 0.501 y_range)
@@ -1234,8 +1250,9 @@ def _build_flow_past_rod_2d_objects(
     damper (5e-4) at the rod's dt 0.01 L / n_elem; the element-centric
     forcing grid; a free stream ramping up to 1 in x with a decaying 0.5
     perturbation in y. ``flow_forces`` adds the host-coupled
-    ``FlowForces`` to the collection, as the example's host loop does. The
-    rod is float64, the flow ``precision``."""
+    ``FlowForces`` to the collection, as the example's host loop does;
+    ``mesh`` shards the flow over an in-process 2D mesh. The rod is
+    float64, the flow ``precision``."""
     grid_size_y, grid_size_x = grid_size
     real_t = get_real_t(precision)
     velocity_free_stream, rho_f, base_length = 1.0, 1.0, 1.0
@@ -1295,6 +1312,7 @@ def _build_flow_past_rod_2d_objects(
         with_free_stream_flow=True,
         real_t=real_t,
         device=device,
+        mesh=mesh,
     )
     interactor = CosseratRodFlowInteraction(
         flow_sim=flow_sim,
@@ -1319,17 +1337,18 @@ def _build_flow_past_rod_2d_objects(
 
 
 def flow_past_rod_2d_case(grid_size=(256, 512), *, device,
-                          precision="single"):
+                          precision="single", mesh=None):
     """The fused branch of ``examples/2d/flow_past_rod.py`` at the example's
     values (:func:`_build_flow_past_rod_2d_objects`: Re 200, bending
     stiffness 1.5e-3, mass ratio 1.5, Froude 0.5, coupling stiffness -8e4
     and damping -30): dynamic substeps, dt_prefac 0.5, the dense IBM path.
     Returns (fused step, carry, the tip's start (x, y) as numpy); the tip
     trajectory of the example is ``(carry.rod_state.position[:2, -1] -
-    tip start) / L``. The example's IO and host loop are in
+    tip start) / L``; ``mesh`` shards the flow over an in-process 2D
+    mesh. The example's IO and host loop are in
     ``examples_torch/2d/flow_past_rod.py``."""
     case = _build_flow_past_rod_2d_objects(grid_size, device=device,
-                                           precision=precision)
+                                           precision=precision, mesh=mesh)
     step = build_rod_fsi_step(
         case.flow_sim,
         case.interactor,

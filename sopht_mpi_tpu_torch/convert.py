@@ -25,9 +25,8 @@ from sopht_mpi_tpu_torch.models.fsi import (
 )
 from sopht_mpi_tpu_torch.models.rigid_body import RigidBodyState
 from sopht_mpi_tpu_torch.ops.virtual_boundary import VirtualBoundaryState
-from sopht_mpi_tpu_torch.parallel.fft import FOURIER_SHARDED_DIMS
+from sopht_mpi_tpu_torch.parallel.fft import shard_fourier
 from sopht_mpi_tpu_torch.parallel.mesh import (
-    shard_dims,
     shard_scalar_field,
     shard_vector_field,
 )
@@ -71,8 +70,9 @@ def flow_state_from_numpy(tree, *, device, dtype, mesh=None):
     is a 2D scalar (a dict names it ``primary_scalar_field``), on ``device``
     in ``dtype``. A 3D primary field is the vorticity or passive vector
     (3, nz, ny, nx), or a passive scalar (nz, ny, nx); the forcing field may
-    be None. With a 3D ``mesh`` of more than one shard the global arrays
-    are sharded over it, as a simulator on that mesh holds them."""
+    be None. With a ``mesh`` of the state's dimension and more than one
+    shard the global arrays are sharded over it, as a simulator on that mesh
+    holds them."""
     if isinstance(tree, dict):
         two_d = "primary_scalar_field" in tree
     else:
@@ -80,12 +80,13 @@ def flow_state_from_numpy(tree, *, device, dtype, mesh=None):
     cls = FlowState2D if two_d else FlowState3D
     leaves = [_tensor(v, device, dtype) for v in _fields(tree, cls._fields)]
     if _sharded(mesh):
-        if two_d:
-            raise NotImplementedError(
-                "a sharded 2D flow state is not ported yet (ROADMAP.md "
-                "queue A #11f)")
+        if mesh.grid_dim != (2 if two_d else 3):
+            raise ValueError(
+                f"a {2 if two_d else 3}D flow state on a {mesh.grid_dim}D "
+                "mesh")
+        vector_ndim = mesh.grid_dim + 1
         leaves = [None if v is None
-                  else (shard_vector_field if v.ndim == 4
+                  else (shard_vector_field if v.ndim == vector_ndim
                         else shard_scalar_field)(v, mesh)
                   for v in leaves]
     return cls(*leaves)
@@ -93,10 +94,12 @@ def flow_state_from_numpy(tree, *, device, dtype, mesh=None):
 
 def sharded_greens_from_numpy(greens, mesh, *, device, dtype):
     """A JAX solver's dense Fourier-layout Green's function on a mesh, as
-    one global numpy array (2 nz, 2 ny, fxp), -> the port's sharded one,
-    (pz, py, 2 nz, 2 ny/pz, fxp/py), on ``device`` in ``dtype``."""
-    return shard_dims(_tensor(greens, device, dtype), mesh,
-                      FOURIER_SHARDED_DIMS)
+    one global numpy array ((2 nz, 2 ny, fxp) in 3D, (2 ny, fxp) in 2D),
+    -> the port's sharded one (:func:`~sopht_mpi_tpu_torch.parallel.fft.
+    shard_fourier`: (pz, py, 2 nz, 2 ny/pz, fxp/py), or (py, px, 2 ny,
+    fxp/(py px)) with the 2D pencil's x-major chunk order), on ``device``
+    in ``dtype``."""
+    return shard_fourier(_tensor(greens, device, dtype), mesh)
 
 
 def rigid_fsi_carry_from_numpy(tree, *, device, dtype, mesh=None
@@ -105,9 +108,9 @@ def rigid_fsi_carry_from_numpy(tree, *, device, dtype, mesh=None
     :class:`RigidFSICarry`: the flow state, ``vb_state``, the velocity
     mismatch, time, the Fourier Green's function (dense, or the split
     (bulk, side) pair), ``velocity_l1_max`` and
-    ``ibm_mats`` (None on the dense path). A carry taken on a 3D ``mesh``
-    (its arrays global, as ``np.asarray`` gives them) converts onto the
-    port's ``mesh`` of the same shape: the flow state and the Green's
+    ``ibm_mats`` (None on the dense path). A carry taken on a ``mesh`` (its
+    arrays global, as ``np.asarray`` gives them) converts onto the port's
+    ``mesh`` of the same shape: the flow state and the Green's
     function sharded as :func:`flow_state_from_numpy` and
     :func:`sharded_greens_from_numpy` shard them."""
     (flow, vb, mismatch, time, greens, l1_max, mats) = _fields(

@@ -1,8 +1,8 @@
 """2D unbounded flow simulator, vorticity formulation (counterpart of
-``sopht_mpi_tpu/models/flow/simulator_2d.py``, single device): flow types
-``passive_scalar``, ``navier_stokes`` and ``navier_stokes_with_forcing``,
-free-stream flow, the wall sponge, stable-timestep control and the
-max-vorticity diagnostic.
+``sopht_mpi_tpu/models/flow/simulator_2d.py``), on one device or on an
+in-process (py, px) mesh of shards: flow types ``passive_scalar``,
+``navier_stokes`` and ``navier_stokes_with_forcing``, free-stream flow, the
+wall sponge, stable-timestep control and the max-vorticity diagnostic.
 
 One step is ENO3 advection and Euler-forward diffusion of the scalar, then
 (Navier-Stokes) the wall sponge, the Poisson solve for the streamfunction
@@ -11,6 +11,15 @@ kernel for them); the Poisson solve takes the solver's kernel route on a
 CUDA device (three FFT-pass kernels of
 :mod:`sopht_mpi_tpu_torch.parallel.cuda_fft`). The step keeps dt and its
 prefactors as 0-d tensors on the device: nothing in it waits for the device.
+
+With a mesh (``mesh=create_mesh(2, (py, px), device=...)``, a slab (n, 1)
+or a pencil) every field is sharded, (py, px, [2,] ny/py, nx/px)
+(:mod:`sopht_mpi_tpu_torch.parallel.mesh`), as the JAX package shards its
+fields under a mesh. The stencils run shard by shard after halo exchanges
+and the sponge on the assembled field (the ``mesh`` of
+:mod:`sopht_mpi_tpu_torch.ops.stencils_2d`), the Poisson solve is the
+distributed convolve, and ``max |u|_1`` is each shard's maximum reduced
+over the mesh.
 """
 
 from __future__ import annotations
@@ -20,7 +29,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from sopht_mpi_tpu_torch.ops.elementwise import add_fixed_val
 from sopht_mpi_tpu_torch.ops.poisson import UnboundedPoissonSolver2D
 from sopht_mpi_tpu_torch.ops.stencils_2d import (
     advection_timestep_eno3_2d,
@@ -29,12 +37,20 @@ from sopht_mpi_tpu_torch.ops.stencils_2d import (
     penalise_field_boundary_2d,
     update_vorticity_from_velocity_forcing_2d,
 )
+from sopht_mpi_tpu_torch.parallel import collectives
+from sopht_mpi_tpu_torch.parallel.mesh import (
+    MESH_AXES_2D,
+    check_grid_divisibility,
+    shard_scalar_field,
+    shard_vector_field,
+)
 from sopht_mpi_tpu_torch.utils.types import get_test_tol
 
 
 class FlowState2D(NamedTuple):
     """``primary_scalar_field`` is the advected scalar for passive flows and
-    the vorticity for Navier-Stokes."""
+    the vorticity for Navier-Stokes; on a mesh every field is sharded,
+    (py, px, ny/py, nx/px) or (py, px, 2, ny/py, nx/px)."""
 
     primary_scalar_field: torch.Tensor
     velocity_field: torch.Tensor
@@ -42,7 +58,7 @@ class FlowState2D(NamedTuple):
 
 
 class UnboundedFlowSimulator2D:
-    """2D unbounded flow simulator on one device.
+    """2D unbounded flow simulator.
 
     :param grid_size: (ny, nx).
     :param x_range: physical length of the x side of the domain.
@@ -50,6 +66,10 @@ class UnboundedFlowSimulator2D:
         default is taken from the environment.
     :param flow_type: "passive_scalar" | "navier_stokes" |
         "navier_stokes_with_forcing".
+    :param mesh: a mesh from ``parallel.create_mesh(2, (py, px),
+        device=...)`` on the same device: the fields are sharded over it
+        and the step takes its mesh branch. A mesh of one shard is the
+        single-device simulator.
     :param penalty_zone_width: keyword option, wall sponge width in cells
         (default 2).
     :param fast_spectral: keyword option handed to the Poisson solver, where
@@ -98,10 +118,16 @@ class UnboundedFlowSimulator2D:
                 "Free stream flow not defined for passive advection diffusion!"
             )
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh: the 2D mesh is not ported yet "
-                "(ROADMAP.md queue A #11f)"
-            )
+            if getattr(mesh, "axis_names", None) != MESH_AXES_2D:
+                raise ValueError(
+                    "mesh: the 2D simulator needs a mesh from "
+                    "create_mesh(2, (py, px), device=...)")
+            if mesh.device != self.device:
+                raise ValueError(
+                    f"mesh lies on {mesh.device}, the simulator on "
+                    f"{self.device}")
+            check_grid_divisibility(self.grid_size, mesh)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.penalty_zone_width = kwargs.get("penalty_zone_width", 2)
         self.fast_spectral = kwargs.get("fast_spectral")
         unknown = set(kwargs) - {"penalty_zone_width", "fast_spectral"}
@@ -122,15 +148,17 @@ class UnboundedFlowSimulator2D:
         x = np.linspace(shift, self.x_range - shift, self.grid_size_x)
         y = np.linspace(shift, self.y_range - shift, self.grid_size_y)
         # position_field[0] = x grid, [1] = y grid
-        self.position_field = torch.as_tensor(
+        self.position_field = shard_vector_field(torch.as_tensor(
             np.stack(np.meshgrid(x, y, indexing="xy")), dtype=self.real_t,
             device=self.device,
-        )
+        ), self.mesh)
 
     def _zeros(self, *lead):
-        return torch.zeros(
+        field = torch.zeros(
             (*lead, *self.grid_size), dtype=self.real_t, device=self.device
         )
+        return (shard_vector_field if lead else shard_scalar_field)(
+            field, self.mesh)
 
     def _init_fields(self):
         self.primary_scalar_field = self._zeros()
@@ -148,6 +176,7 @@ class UnboundedFlowSimulator2D:
                 real_t=self.real_t,
                 device=self.device,
                 fast_spectral=self.fast_spectral,
+                mesh=self.mesh,
             )
 
     # vorticity is an alias of the primary scalar for NS flows
@@ -169,12 +198,14 @@ class UnboundedFlowSimulator2D:
             with_free_stream=self.with_free_stream_flow,
             penalty_zone_width=self.penalty_zone_width,
             poisson_solver=self.unbounded_poisson_solver,
+            mesh=self.mesh,
         )
 
     @property
     def _poisson_greens(self):
-        """The solver's stored spectrum (dense, or the kernel route's
-        (bulk, side) pair); None for a passive scalar."""
+        """The solver's stored spectrum (dense, on a mesh in the sharded
+        Fourier layout, or the kernel route's (bulk, side) pair); None for a
+        passive scalar."""
         solver = self.unbounded_poisson_solver
         return None if solver is None else solver.fourier_greens_times_dx_pow_dim
 
@@ -197,7 +228,7 @@ class UnboundedFlowSimulator2D:
             state, dt, free_stream_velocity, poisson_greens=poisson_greens,
             **self.step_config(),
         )
-        return new, new.velocity_field.abs().sum(dim=0).max()
+        return new, velocity_l1_max_2d(new.velocity_field, self.mesh)
 
     # -- public API ----------------------------------------------------------
 
@@ -223,6 +254,7 @@ class UnboundedFlowSimulator2D:
             dx=self.dx,
             nu=self.kinematic_viscosity,
             tol=get_test_tol(precision),
+            mesh=self.mesh,
         )
         return float(dt) * dt_prefac
 
@@ -247,6 +279,7 @@ class UnboundedFlowSimulator2D:
             dx=self.dx,
             penalty_zone_width=self.penalty_zone_width,
             poisson_solver=self.unbounded_poisson_solver,
+            mesh=self.mesh,
         )
         self.vorticity_field = vorticity
         self.velocity_field = velocity
@@ -257,21 +290,24 @@ class UnboundedFlowSimulator2D:
 # ---------------------------------------------------------------------------
 
 
-def advection_and_diffusion_timestep_2d(field, velocity, dt, *, dx, nu):
+def advection_and_diffusion_timestep_2d(field, velocity, dt, *, dx, nu,
+                                        mesh=None):
     """ENO3 advection + Euler-forward diffusion."""
-    field = advection_timestep_eno3_2d(field, velocity, dt / dx)
-    return diffusion_timestep_2d(field, nu * dt / dx / dx)
+    field = advection_timestep_eno3_2d(field, velocity, dt / dx, mesh)
+    return diffusion_timestep_2d(field, nu * dt / dx / dx, mesh)
 
 
 def compute_velocity_from_vorticity_2d(
-    vorticity, *, dx, penalty_zone_width, poisson_solver, poisson_greens=None
+    vorticity, *, dx, penalty_zone_width, poisson_solver, poisson_greens=None,
+    mesh=None,
 ):
     """Penalise vorticity toward the walls, solve for the streamfunction,
     curl it into the velocity; returns (vorticity, velocity,
     streamfunction)."""
-    vorticity = penalise_field_boundary_2d(vorticity, penalty_zone_width)
+    vorticity = penalise_field_boundary_2d(vorticity, penalty_zone_width,
+                                           mesh)
     stream_func = poisson_solver.solve(vorticity, poisson_greens)
-    velocity = outplane_field_curl_2d(stream_func, 0.5 / dx)
+    velocity = outplane_field_curl_2d(stream_func, 0.5 / dx, mesh)
     return vorticity, velocity, stream_func
 
 
@@ -287,9 +323,10 @@ def flow_step_2d(
     penalty_zone_width,
     poisson_solver,
     poisson_greens=None,
+    mesh=None,
 ) -> FlowState2D:
     """One full flow timestep (pure); ``dt`` a 0-d tensor on the fields'
-    device or a number.
+    device or a number. On a ``mesh`` the state's fields are sharded.
 
     [forcing: vorticity += dt/(2dx) curl(f)] -> advect+diffuse ->
     [NS: penalise walls -> Poisson -> curl -> free stream] ->
@@ -300,10 +337,11 @@ def flow_step_2d(
 
     if flow_type == "navier_stokes_with_forcing":
         field = update_vorticity_from_velocity_forcing_2d(
-            field, forcing, dt / (2.0 * dx)
+            field, forcing, dt / (2.0 * dx), mesh
         )
 
-    field = advection_and_diffusion_timestep_2d(field, velocity, dt, dx=dx, nu=nu)
+    field = advection_and_diffusion_timestep_2d(field, velocity, dt, dx=dx,
+                                                nu=nu, mesh=mesh)
 
     if flow_type in ("navier_stokes", "navier_stokes_with_forcing"):
         field, velocity, _ = compute_velocity_from_vorticity_2d(
@@ -312,9 +350,13 @@ def flow_step_2d(
             penalty_zone_width=penalty_zone_width,
             poisson_solver=poisson_solver,
             poisson_greens=poisson_greens,
+            mesh=mesh,
         )
         if with_free_stream:
-            velocity = add_fixed_val(velocity, free_stream_velocity)
+            # the components axis is -3 on one device and on a mesh
+            velocity = velocity + torch.as_tensor(
+                free_stream_velocity, dtype=velocity.dtype,
+                device=velocity.device).reshape(-1, 1, 1)
 
     if flow_type == "navier_stokes_with_forcing":
         forcing = torch.zeros_like(forcing)
@@ -322,12 +364,22 @@ def flow_step_2d(
     return FlowState2D(field, velocity, forcing)
 
 
-def compute_stable_timestep_2d(velocity_field, *, CFL, dx, nu, tol):
+def velocity_l1_max_2d(velocity_field, mesh=None):
+    """``max |u_x| + |u_y|`` over the grid, a 0-d tensor: on a mesh each
+    shard's maximum, then the maximum over the mesh."""
+    magnitude = velocity_field.abs().sum(dim=-3)
+    if mesh is None:
+        return magnitude.max()
+    return collectives.pmax(magnitude.amax(dim=(-2, -1)), mesh)
+
+
+def compute_stable_timestep_2d(velocity_field, *, CFL, dx, nu, tol,
+                               mesh=None):
     """``min(CFL dx / max|u|_1, 0.9 dx^2 / (2 dim nu))``, a 0-d tensor on the
-    field's device."""
-    velocity_mag = velocity_field.abs().sum(dim=0)
+    field's device; with a ``mesh`` the velocity is sharded and its maximum
+    reduced over the mesh."""
     num = torch.full((), CFL * dx, dtype=velocity_field.dtype,
                      device=velocity_field.device)
-    dt_advection = num / (velocity_mag.max() + tol)
+    dt_advection = num / (velocity_l1_max_2d(velocity_field, mesh) + tol)
     dt_diffusion = 0.9 * dx**2 / (2 * 2) / (nu + tol)
     return torch.clamp(dt_advection, max=dt_diffusion)

@@ -11,9 +11,9 @@ step (dt, time, ``max |u|_1``) stays a 0-d tensor on the device. The rigid
 step never waits for the device; the rod step with dynamic substeps reads
 its substep count once per step (see :func:`build_rod_fsi_step`).
 
-On a 3D simulator's in-process mesh the flow state is sharded and the
-steps take the JAX package's mesh branches: the flow step is the sharded
-one; the sparse-window paths touch the grid only through
+On a simulator's in-process mesh (2D or 3D) the flow state is sharded
+and the steps take the JAX package's mesh branches: the flow step is the
+sharded one; the sparse-window paths touch the grid only through
 :mod:`sopht_mpi_tpu_torch.parallel.windows` (the E->L a shard-local
 contraction and one ``psum`` of the (3, n_markers) result, the windowed
 vorticity add collective-free), the marker math replicated; the dense
@@ -30,6 +30,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from sopht_mpi_tpu_torch.models.flow.simulator_2d import velocity_l1_max_2d
 from sopht_mpi_tpu_torch.models.flow.simulator_3d import (
     flow_step_3d,
     velocity_l1_max_3d,
@@ -90,17 +91,12 @@ class RodFSICarry(NamedTuple):
     frozen_loads: tuple | None = None
 
 
-def velocity_l1_max(velocity_field):
-    """The CFL control quantity ``max(sum_c |u_c|)``."""
-    return velocity_field.abs().sum(dim=0).max()
-
-
 def _carry_l1_max(flow_sim):
-    """``max |u|_1`` of the simulator's velocity for a fresh carry (over
-    the mesh on a sharded 3D simulator)."""
-    if flow_sim.grid_dim == 3:
-        return velocity_l1_max_3d(flow_sim.velocity_field, flow_sim.mesh)
-    return velocity_l1_max(flow_sim.velocity_field)
+    """``max |u|_1`` of the simulator's velocity for a fresh carry, the CFL
+    control quantity (over the mesh on a sharded simulator)."""
+    l1_max = (velocity_l1_max_3d if flow_sim.grid_dim == 3
+              else velocity_l1_max_2d)
+    return l1_max(flow_sim.velocity_field, flow_sim.mesh)
 
 
 def _without_forcing_field(flow_sim, flow_state):
@@ -1290,15 +1286,12 @@ def build_flow_only_step(
 
 
 def init_flow_only_carry(flow_sim) -> FlowOnlyCarry:
-    velocity = flow_sim.velocity_field
     return FlowOnlyCarry(
         flow_state=flow_sim._get_state(),
         time=torch.as_tensor(flow_sim.time, dtype=flow_sim.real_t,
                              device=flow_sim.device),
         greens=flow_sim._poisson_greens,
-        velocity_l1_max=(
-            velocity_l1_max(velocity) if flow_sim.grid_dim == 2
-            else velocity_l1_max_3d(velocity, flow_sim.mesh)),
+        velocity_l1_max=_carry_l1_max(flow_sim),
     )
 
 

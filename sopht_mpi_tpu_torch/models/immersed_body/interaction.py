@@ -10,9 +10,9 @@ virtual-boundary forcing::
     interactor()               # penalty force -> flow_sim.eul_grid_forcing_field
     flow_sim.time_step(dt)
 
-On a 3D simulator's mesh the dense interpolation and spreading run on the
-assembled fields (``parallel.mesh.apply_assembled``, counted), the ops the
-JAX package leaves to its partitioner there.
+On a simulator's mesh (2D or 3D) the dense interpolation and spreading run
+on the assembled fields (``parallel.mesh.apply_assembled``, counted), the
+ops the JAX package leaves to its partitioner there.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Unbounded (free-space) 2D and 3D Poisson solvers via Green's-function
 convolution (counterparts of ``UnboundedPoissonSolver2D`` and
 ``UnboundedPoissonSolver3D`` in ``sopht_mpi_tpu/ops/poisson.py``; single
-device, and the 3D solver also on a (pz, py) mesh of shards).
+device, or on a (py, px) / (pz, py) mesh of shards).
 
 Hockney-Eastwood domain doubling: the right-hand side is zero-padded to
 (2nz, 2ny, 2nx), multiplied in Fourier space by the real spectrum of the
@@ -37,11 +37,11 @@ kernel in float64 on the host, then per-axis symmetric DFTs (DCT-I) -
 contracted here in float64 on the target device and cast - giving the
 dense (2nz, 2ny, nx+1) real spectrum.
 
-On a mesh of more than one shard (``mesh=``, 3D only) fields and the
-Green's spectrum are sharded (:mod:`sopht_mpi_tpu_torch.parallel.mesh`):
-the full doubled kernel goes through
+On a mesh of more than one shard (``mesh=``) fields and the Green's
+spectrum are sharded (:mod:`sopht_mpi_tpu_torch.parallel.mesh`): the full
+doubled kernel, built on the host in float64, goes through
 :func:`~sopht_mpi_tpu_torch.parallel.fft.distributed_rfftn` once, its real
-part times dx^3 is stored dense in the Fourier layout, and the solves are
+part times dx^dim is stored dense in the Fourier layout, and the solves are
 :func:`~sopht_mpi_tpu_torch.parallel.fft.distributed_free_space_convolve`.
 
 The fast spectral tier (``fast_spectral=True``, counterpart of the JAX
@@ -311,11 +311,41 @@ def _fourier_greens_from_half(greens_half: np.ndarray, scale: float,
 
 class _UnboundedPoissonSolver:
     """What the 2D and 3D solvers share: the stored Green's spectrum (dense,
-    or the kernel route's (bulk, side) pair), the route choice and the two
-    convolutions. Subclasses give ``grid_dim``, ``grid_size`` (slow axis
-    first) and build the half-grid Green's kernel."""
+    or the kernel route's (bulk, side) pair, or on a mesh dense in the
+    sharded Fourier layout), the route choice and the two convolutions.
+    Subclasses give ``grid_dim``, ``grid_size`` (slow axis first) and the
+    Green's kernel."""
 
     grid_dim: int
+    mesh = None  # the single-device solver, unless the constructor is given one
+    overlap_chunks = None  # the 3D solver's pipelining request
+
+    def _set_mesh(self, mesh):
+        if mesh is not None and mesh.grid_dim != self.grid_dim:
+            raise ValueError(
+                f"mesh: the {self.grid_dim}D solver needs a mesh from "
+                f"create_mesh({self.grid_dim}, ...)")
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+
+    def _init_greens_of(self, axis_dists, compute, origin):
+        """The Green's spectrum of the kernel ``compute(xp, r)`` (``origin``
+        at r = 0) on the doubled grid of the per-axis distances
+        ``axis_dists``: from the half-grid kernel on one device; on a mesh
+        the full doubled kernel through the distributed transform, in
+        float64, then cast (the single-device spectrum is contracted in
+        float64 too)."""
+        if self.mesh is None:
+            self._init_greens(_build_greens_kernel(
+                [d[: n + 1] for d, n in zip(axis_dists, self.grid_size)],
+                compute, origin, np.float64))
+            return
+        kernel = torch.as_tensor(
+            _build_greens_kernel(axis_dists, compute, origin, np.float64),
+            device=self.device)
+        ghat = _dist.distributed_rfftn(
+            shard_scalar_field(kernel, self.mesh), self.mesh)
+        self.fourier_greens_times_dx_pow_dim = (
+            ghat.real * self.dx**self.grid_dim).to(self.real_t).contiguous()
 
     def _init_greens(self, greens_half: np.ndarray):
         dense = _fourier_greens_from_half(
@@ -341,17 +371,26 @@ class _UnboundedPoissonSolver:
         return greens
 
     def uses_kernel_route(self, rhs_field) -> bool:
-        """Whether a solve of ``rhs_field`` takes the kernel route."""
-        return _kernel_convolve_supported(
+        """Whether a solve of ``rhs_field`` takes the single-device kernel
+        route (never on a mesh: the distributed convolve chooses its passes
+        itself)."""
+        return self.mesh is None and _kernel_convolve_supported(
             self.doubled, rhs_field.dtype, rhs_field.device)
 
     def solve(self, rhs_field, greens=None):
         """Solve ``-del^2(solution) = rhs`` for a field on the grid, or for
         each component of a field with a leading component axis. ``greens``
         defaults to ``self.fourier_greens_times_dx_pow_dim``, dense or
-        split. Returns a contiguous tensor of the input's shape."""
+        split. Returns a contiguous tensor of the input's shape. On a mesh
+        the field is sharded and the solve is
+        :func:`~sopht_mpi_tpu_torch.parallel.fft.distributed_free_space_convolve`
+        (``greens`` then in the sharded Fourier layout)."""
         if greens is None:
             greens = self.fourier_greens_times_dx_pow_dim
+        if self.mesh is not None:
+            return _dist.distributed_free_space_convolve(
+                rhs_field, greens, self.mesh, fast=self.fast_spectral,
+                overlap_chunks=self.overlap_chunks)
         if self.uses_kernel_route(rhs_field):
             if not isinstance(greens, tuple):
                 greens = split_kernel_greens(greens)
@@ -366,7 +405,7 @@ class _UnboundedPoissonSolver:
 
 
 class UnboundedPoissonSolver2D(_UnboundedPoissonSolver):
-    """Free-space Poisson solver on a 2D (ny, nx) grid on one device.
+    """Free-space Poisson solver on a 2D (ny, nx) grid.
 
     Green's function ``-log(r)/(2 pi)`` with the origin regularization
     ``-(2 log(dx/sqrt(pi)) - 1)/(4 pi)``.
@@ -375,13 +414,19 @@ class UnboundedPoissonSolver2D(_UnboundedPoissonSolver):
         default is taken from the environment.
     :param fast_spectral: accepted and stored; it changes nothing in 2D
         (the JAX tier's only 2D effect is the precision of its matmuls).
+    :param mesh: a 2D mesh from ``parallel.create_mesh(2, (py, px))``, slab
+        (n, 1) or pencil. With more than one shard the solver takes and
+        returns sharded fields, (py, px, ny/py, nx/px), and stores the
+        Green's spectrum dense in the sharded Fourier layout, (py, px, 2 ny,
+        fxp/(py px)); a mesh of one shard is the single-device solver.
     """
 
     grid_dim = 2
 
     def __init__(self, grid_size_y, grid_size_x, x_range=1.0,
                  real_t=torch.float32, *, device,
-                 fast_spectral: bool | None = None):
+                 fast_spectral: bool | None = None, mesh=None):
+        self._set_mesh(mesh)
         self.grid_size_y = grid_size_y
         self.grid_size_x = grid_size_x
         self.fast_spectral = resolve_fast_spectral(fast_spectral)
@@ -397,12 +442,9 @@ class UnboundedPoissonSolver2D(_UnboundedPoissonSolver):
         dxs = _even_reflected_axis_dist(
             2 * grid_size_x, self.dx, self.x_range, np.float64
         )
-        self._init_greens(_build_greens_kernel(
-            (dy[: grid_size_y + 1], dxs[: grid_size_x + 1]),
-            lambda xp, r: -xp.log(r) / (2.0 * np.pi),
-            -(2.0 * np.log(self.dx / np.sqrt(np.pi)) - 1.0) / (4.0 * np.pi),
-            np.float64,
-        ))
+        self._init_greens_of(
+            (dy, dxs), lambda xp, r: -xp.log(r) / (2.0 * np.pi),
+            -(2.0 * np.log(self.dx / np.sqrt(np.pi)) - 1.0) / (4.0 * np.pi))
 
     @property
     def grid_size(self) -> tuple[int, int]:
@@ -410,7 +452,7 @@ class UnboundedPoissonSolver2D(_UnboundedPoissonSolver):
 
 
 class UnboundedPoissonSolver3D(_UnboundedPoissonSolver):
-    """Free-space Poisson solver on a 3D (nz, ny, nx) grid on one device.
+    """Free-space Poisson solver on a 3D (nz, ny, nx) grid.
 
     Green's function ``1/(4 pi r)`` with origin regularization
     ``1/(4 pi dx)``.
@@ -434,7 +476,6 @@ class UnboundedPoissonSolver3D(_UnboundedPoissonSolver):
     """
 
     grid_dim = 3
-    mesh = None  # the single-device solver, unless the constructor is given one
 
     def __init__(self, grid_size_z, grid_size_y, grid_size_x, x_range=1.0,
                  real_t=torch.float32, *, device,
@@ -449,7 +490,7 @@ class UnboundedPoissonSolver3D(_UnboundedPoissonSolver):
                 f"overlap_chunks must be >= 1 (got {overlap_chunks}); "
                 "pass 1 to disable the comm/compute pipeline")
         self.overlap_chunks = overlap_chunks
-        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._set_mesh(mesh)
         self.grid_size_z = grid_size_z
         self.grid_size_y = grid_size_y
         self.grid_size_x = grid_size_x
@@ -471,48 +512,13 @@ class UnboundedPoissonSolver3D(_UnboundedPoissonSolver):
         dxs = _even_reflected_axis_dist(
             2 * grid_size_x, self.dx, self.x_range, np.float64
         )
-        compute = lambda xp, r: 1.0 / (4.0 * np.pi * r)
-        origin = 1.0 / (4.0 * np.pi * self.dx)
-        if self.mesh is None:
-            self._init_greens(_build_greens_kernel(
-                (dz[: grid_size_z + 1], dy[: grid_size_y + 1],
-                 dxs[: grid_size_x + 1]), compute, origin, np.float64,
-            ))
-        else:
-            # the full doubled kernel, built on the host in float64, feeds
-            # the distributed transform (in float64, then cast: the
-            # single-device spectrum is contracted in float64 too)
-            kernel = torch.as_tensor(
-                _build_greens_kernel((dz, dy, dxs), compute, origin,
-                                     np.float64),
-                device=self.device)
-            ghat = _dist.distributed_rfftn(
-                shard_scalar_field(kernel, self.mesh), self.mesh)
-            self.fourier_greens_times_dx_pow_dim = (
-                ghat.real * self.dx**3).to(self.real_t).contiguous()
+        self._init_greens_of(
+            (dz, dy, dxs), lambda xp, r: 1.0 / (4.0 * np.pi * r),
+            1.0 / (4.0 * np.pi * self.dx))
 
     @property
     def grid_size(self) -> tuple[int, int, int]:
         return (self.grid_size_z, self.grid_size_y, self.grid_size_x)
-
-    def uses_kernel_route(self, rhs_field) -> bool:
-        """Whether a solve of ``rhs_field`` takes the single-device kernel
-        route (never on a mesh: the distributed convolve chooses its passes
-        itself)."""
-        return self.mesh is None and super().uses_kernel_route(rhs_field)
-
-    def solve(self, rhs_field, greens=None):
-        """Solve ``-del^2(solution) = rhs``; on a mesh for a sharded field
-        (pz, py, [c,] nz/pz, ny/py, nx) through
-        :func:`~sopht_mpi_tpu_torch.parallel.fft.distributed_free_space_convolve`
-        (``greens`` then in the sharded Fourier layout)."""
-        if self.mesh is None:
-            return super().solve(rhs_field, greens)
-        if greens is None:
-            greens = self.fourier_greens_times_dx_pow_dim
-        return _dist.distributed_free_space_convolve(
-            rhs_field, greens, self.mesh, fast=self.fast_spectral,
-            overlap_chunks=self.overlap_chunks)
 
     def vector_field_solve(self, rhs_vector_field, greens=None):
         """Component-wise solve for a (3, nz, ny, nx) vector field: the

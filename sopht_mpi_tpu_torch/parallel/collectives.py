@@ -7,13 +7,21 @@ collective is a roll, a permutation or a reduction over a shard axis.
 Every collective adds one to its ``calls`` count, as the kernel wrappers
 count their launches, so a run can pin the halo exchanges and transposes a
 step makes.
+
+:func:`halo_apply_2d` runs a single-device 2D stencil op on a 2D mesh's
+sharded fields: the ops the JAX package leaves to its SPMD partitioner
+there, which it serves with halo exchanges of its own.
 """
 
 from __future__ import annotations
 
 import torch
 
-from sopht_mpi_tpu_torch.parallel.mesh import Mesh, apply_assembled
+from sopht_mpi_tpu_torch.parallel.mesh import (
+    MESH_AXES_2D,
+    Mesh,
+    apply_assembled,
+)
 
 
 def _axis_dims(mesh: Mesh, axes):
@@ -73,6 +81,70 @@ def psum(x, mesh: Mesh, axes=None):
     """The sum over the shards along ``axes``, as :func:`pmax`."""
     psum.calls += 1
     return torch.sum(x, dim=_axis_dims(mesh, axes))
+
+
+def _ghost_axis(x, mesh: Mesh, axis: str, dim: int, width: int):
+    """``x`` (p0, p1, c, ...) with ``width`` ghost cells on both sides of
+    the local array axis ``dim``, along mesh axis ``axis``: the
+    neighbours' edge cells through two counted :func:`ppermute`, zero
+    beyond the physical walls; zeros alone where the axis has one shard."""
+    p = mesh.shape[axis]
+    if p == 1:
+        pad = [0, 0] * (x.ndim - 1 - dim) + [width, width]
+        return torch.nn.functional.pad(x, pad)
+    shard_dim = mesh.axis_names.index(axis)
+    # shard i receives the last rows of shard i - 1 and the first of i + 1
+    lo = ppermute(x.narrow(dim, x.shape[dim] - width, width), mesh, axis, 1)
+    hi = ppermute(x.narrow(dim, 0, width), mesh, axis, -1)
+    lo.select(shard_dim, 0).zero_()
+    hi.select(shard_dim, p - 1).zero_()
+    return torch.cat([lo, x, hi], dim=dim)
+
+
+def halo_apply_2d(fn, mesh: Mesh, *fields, width: int, band: int = 0):
+    """``fn`` of the assembled 2D fields, computed shard by shard: the
+    sharded ``fields`` (scalar (py, px, nyl, nxl) or vector (py, px, c,
+    nyl, nxl)) get ghost cells ``width`` deep on every side (the
+    neighbours' cells through :func:`ppermute` along "y" and, on a pencil,
+    "x", the corners with them; zero beyond the physical walls), ``fn``
+    (the single-device op, reading at most ``width`` cells away) runs on
+    every ghosted block at once (``torch.vmap`` over the shards), the
+    blocks are cropped to the shard, and the op's zero band ``band`` cells
+    deep at the physical walls is set again on the shards that touch a
+    wall (inside a block, the wall cells were computed as interior ones).
+
+    Where a sharded axis is thinner than ``width`` (a neighbour's cells
+    would not be enough) the op runs on the assembled fields instead
+    (:func:`~sopht_mpi_tpu_torch.parallel.mesh.apply_assembled`, counted),
+    as the JAX package's partitioner takes any shard size."""
+    if mesh.axis_names != MESH_AXES_2D:
+        raise ValueError("halo_apply_2d needs a mesh from create_mesh(2, ...)")
+    nyl, nxl = fields[0].shape[-2:]
+    py, px = mesh.axis_sizes
+    if (py > 1 and nyl < width) or (px > 1 and nxl < width):
+        return apply_assembled(fn, mesh, *fields)
+    vector = [f.ndim == 5 for f in fields]
+    # every field's components in one stack: one exchange for all of them
+    stacked = torch.cat([f if v else f[:, :, None]
+                         for f, v in zip(fields, vector)], dim=2)
+    ghosted = _ghost_axis(stacked, mesh, "y", 3, width)
+    ghosted = _ghost_axis(ghosted, mesh, "x", 4, width)
+    blocks, at = [], 0
+    for v, f in zip(vector, fields):
+        c = f.shape[2] if v else 1
+        b = ghosted[:, :, at:at + c]
+        blocks.append((b if v else b[:, :, 0]).flatten(0, 1))
+        at += c
+    out = torch.vmap(fn)(*blocks)
+    out = out.reshape(py, px, *out.shape[1:])
+    out = out[..., width:width + nyl, width:width + nxl]
+    if band:
+        out = out.clone()
+        out[0, :, ..., :band, :] = 0
+        out[py - 1, :, ..., nyl - band:, :] = 0
+        out[:, 0, ..., :, :band] = 0
+        out[:, px - 1, ..., :, nxl - band:] = 0
+    return out.contiguous()
 
 
 #: everything that moves data between shards, for code that resets or reads

@@ -1,5 +1,5 @@
-"""The (pz, py) mesh of shards and the sharded-field layout (counterpart of
-``sopht_mpi_tpu/parallel/mesh.py``).
+"""The (py, px) and (pz, py) meshes of shards and the sharded-field layout
+(counterpart of ``sopht_mpi_tpu/parallel/mesh.py``).
 
 The mesh is in-process: every shard of a mesh lives on the mesh's one
 device, as the JAX package's tests run eight virtual devices in one
@@ -14,6 +14,7 @@ Conventions, as in the JAX package:
 
 A sharded field is ONE tensor with the two shard axes leading: a 3D vector
 field (3, nz, ny, nx) on a (pz, py) mesh is (pz, py, 3, nz/pz, ny/py, nx),
+and a 2D one (2, ny, nx) on a (py, px) mesh (py, px, 2, ny/py, nx/px),
 contiguous, so shard (i, j) is the contiguous block ``field[i, j]`` with
 storage of its own: no shard's block holds a neighbour's cell, and what a
 shard needs of its neighbours it gets from a halo exchange. The JAX
@@ -77,8 +78,8 @@ class Mesh:
 def create_mesh(grid_dim: int, mesh_shape=None, *, device) -> Mesh:
     """A mesh for a ``grid_dim``-dimensional flow domain.
 
-    :param mesh_shape: shards per mesh axis, (pz, py) in 3D: a slab
-        ``(n, 1)`` or a pencil ``(pz, py)``. None is the single shard.
+    :param mesh_shape: shards per mesh axis, (pz, py) in 3D, (py, px) in
+        2D: a slab ``(n, 1)`` or a pencil. None is the single shard.
     :param device: the one torch device every shard lives on.
     """
     axes = mesh_axis_names(grid_dim)
@@ -141,16 +142,16 @@ def _grid_dims(mesh: Mesh, offset: int):
 
 
 def shard_scalar_field(field, mesh: Mesh | None):
-    """(nz, ny, nx) -> (pz, py, nz/pz, ny/py, nx); the field itself without
-    a mesh."""
+    """(nz, ny, nx) -> (pz, py, nz/pz, ny/py, nx), (ny, nx) -> (py, px,
+    ny/py, nx/px); the field itself without a mesh."""
     if mesh is None:
         return field
     return shard_dims(field, mesh, _grid_dims(mesh, 0))
 
 
 def shard_vector_field(field, mesh: Mesh | None):
-    """(3, nz, ny, nx) -> (pz, py, 3, nz/pz, ny/py, nx); the field itself
-    without a mesh."""
+    """(3, nz, ny, nx) -> (pz, py, 3, nz/pz, ny/py, nx), (2, ny, nx) ->
+    (py, px, 2, ny/py, nx/px); the field itself without a mesh."""
     if mesh is None:
         return field
     return shard_dims(field, mesh, _grid_dims(mesh, 1))

@@ -25,7 +25,8 @@ timed calls of both (CUDA events), and ends with the JSON line below.
 the median of 20 calls (CUDA events, after 3 warm-up calls) of each of the
 eleven FFT-pass kernels at the 256^3 vector solve's shapes, of the forward
 r2c and the c2r pairs at the 2D route's (256, 512) shape (m = 1024), of the
-z conv at the 2D route's (1, 256, 512) shape (m = 512), and of
+z conv at the 2D route's (1, 256, 512) shape (m = 512) and at a 2D mesh
+shard's (1, 256, 129) (key ``2d mesh shard``), and of
 ``torch.fft.rfft`` and ``torch.fft.irfft`` on the x edges' inputs, with the
 edge passes' and the z conv's relative errors; and the fast tier's z pass's
 and c2r's ``device_ms``, ``host_us`` and relative errors (``curl_rel_err``,
@@ -105,9 +106,11 @@ EDGE_SHAPES = (("256^3", 3 * 256 * 256, 256), ("2d", 256, 512))
 EDGE_CASES = ((203, 256, 512, 0), (61, 255, 512, 1), (9, 3, 64, 0),
               (256, 512, 1024, 0), (37, 48, 96, 0), (40, 272, 544, 3),
               (5, 511, 1024, 1))
-# the z conv's (A, m/2, B) shapes: the 256^3 vector solve's and the 2D
-# route's y pass
-ZCONV_INPUTS = (("256^3", (3, 256, 512 * 256)), ("2d", (1, 256, 512)))
+# the z conv's (A, m/2, B) shapes: the 256^3 vector solve's, the 2D
+# route's y pass and a shard's y step of the (256, 512) grid's 2D mesh
+# solve on 4 shards (fxp = 516: 129 columns)
+ZCONV_INPUTS = (("256^3", (3, 256, 512 * 256)), ("2d", (1, 256, 512)),
+                ("2d mesh shard", (1, 256, 129)))
 # its extra checks (A, m/2, B, storage offset in floats): ragged last tiles,
 # inputs 4 bytes off 16-byte alignment, A = 1, and the four-step kernel's
 # lengths (m = 96, 544, 1024)
@@ -303,10 +306,10 @@ def timing(tag, rand, dev):
     torch.fft.rfft and torch.fft.irfft at 256^3 and at the 2D shape, and of
     the other seven at 256^3."""
     out = {"tag": tag, "module": cuda_fft.__file__, "card": card(),
-           "ms": {"256^3": {}, "2d": {}}, "torch_fft_rfft_ms": {},
-           "torch_fft_irfft_ms": {},
-           "device_ms": {"256^3": {}, "2d": {}},
-           "host_us": {"256^3": {}, "2d": {}},
+           "ms": {"256^3": {}, "2d": {}, "2d mesh shard": {}},
+           "torch_fft_rfft_ms": {}, "torch_fft_irfft_ms": {},
+           "device_ms": {"256^3": {}, "2d": {}, "2d mesh shard": {}},
+           "host_us": {"256^3": {}, "2d": {}, "2d mesh shard": {}},
            "r2c_rel_err": {"256^3": {}, "2d": {}},
            "c2r_rel_err": {"256^3": {}, "2d": {}}}
 

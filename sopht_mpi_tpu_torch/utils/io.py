@@ -21,7 +21,7 @@ validates origin, dx and grid size against the defined grid (restart
 consistency, mpi_io.py:483-494) and returns the saved time.
 
 A binding to a field of an in-process mesh (an object with a ``mesh``, as
-a 3D simulator built with one) reads and writes the
+a 2D or 3D simulator built with one) reads and writes the
 sharded layout of :mod:`sopht_mpi_tpu_torch.parallel.mesh`: ``save``
 writes the assembled field, ``load`` shards it again, and
 :meth:`FieldIO.save_eulerian_sharded` / :meth:`FieldIO.load_eulerian_sharded`
@@ -325,8 +325,10 @@ class FieldIO:
     # at a time (a host copy of one block, never the global field), each
     # with its global offsets; the process's ``Parameters`` group holds the
     # grid. The port is one process, so it writes ``.proc0.h5`` with every
-    # shard of the in-process mesh, shard (i, j) as ``shard_d<i py + j>``,
-    # the name of the device at that place of a JAX mesh.
+    # shard of the in-process mesh, shard (i, j) as ``shard_d<i p1 + j>``
+    # (p1 the size of the mesh's second axis: py of a 3D mesh ("z", "y"),
+    # px of a 2D mesh ("y", "x")), the name of the device at that place of a
+    # JAX mesh.
 
     def save_eulerian_sharded(self, h5_file_name: str, time=0.0):
         """Per-shard Eulerian dump to ``<h5_file_name>.proc0.h5``: one
@@ -599,11 +601,11 @@ def _global_shape(binding) -> tuple:
     kind = _kind(binding)
     if kind is None:
         return tuple(np.shape(current))
-    pz, py = current.shape[:2]
+    p0, p1 = current.shape[:2]
     local = list(current.shape[2:])
     lead = 1 if kind == "Vector" else 0
-    local[lead] *= pz
-    local[lead + 1] *= py
+    local[lead] *= p0
+    local[lead + 1] *= p1
     return tuple(local)
 
 
@@ -618,14 +620,14 @@ def _blocks(binding, read=True):
         yield "shard_d0", (0,) * np.ndim(current), (
             binding.get() if read else ...)
         return
-    pz, py = current.shape[:2]
+    p0, p1 = current.shape[:2]
     lead = 1 if kind == "Vector" else 0
-    nzl, nyl = current.shape[2 + lead:4 + lead]
-    for i in range(pz):
-        for j in range(py):
+    n0, n1 = current.shape[2 + lead:4 + lead]
+    for i in range(p0):
+        for j in range(p1):
             start = [0] * (current.ndim - 2)
-            start[lead], start[lead + 1] = i * nzl, j * nyl
-            yield (f"shard_d{i * py + j}", tuple(start),
+            start[lead], start[lead + 1] = i * n0, j * n1
+            yield (f"shard_d{i * p1 + j}", tuple(start),
                    to_host(current[i, j]) if read else (i, j))
 
 

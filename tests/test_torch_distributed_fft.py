@@ -101,11 +101,19 @@ def test_transforms_without_a_mesh_and_2d_refusal():
         _close(fhat.numpy(), np.fft.rfftn(field), 1e-12, "meshless spectrum")
         _close(dist.distributed_irfftn(fhat, 10, mesh).numpy(), field, 1e-12,
                "meshless round trip")
+    # a 2D mesh takes the 2D transforms (tests/test_torch_mesh_2d.py holds
+    # them against the JAX package)
     flat = create_mesh(2, (2, 1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dist.distributed_rfftn(torch.zeros(2, 1, 4, 8), flat)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dist.padded_rfft_size(8, flat, grid_dim=2)
+    plane = field[0]
+    fhat = dist.distributed_rfftn(shard_scalar_field(torch.tensor(plane),
+                                                     flat), flat)
+    _close(dist.unshard_fourier(fhat, flat).numpy()[:, :6],
+           np.fft.rfft2(plane), 1e-12, "2D mesh spectrum")
+    _close(unshard_scalar_field(dist.distributed_irfftn(fhat, 10, flat),
+                                flat).numpy(), plane, 1e-12,
+           "2D mesh round trip")
+    assert dist.padded_rfft_size(8, flat) == (
+        jax_fft.padded_rfft_size(8, jax_mesh.create_mesh(2, (2, 1)), 2))
 
 
 def _convolve_inputs(grid, precision, seed=11):

@@ -17,7 +17,8 @@ both.
   package's 2D ``FieldIO``, and the flow and rod files hold the JAX
   example's datasets, to 1e-4 of the largest value.
 - The command lines: ``--device`` defaults to cuda and fails without a
-  card; ``--n-devices`` above 1 is refused, naming queue A #11f.
+  card; ``--n-devices 2`` runs the flow on an in-process (2, 1) mesh and
+  matches one device.
 """
 
 import importlib.util
@@ -198,16 +199,51 @@ def test_rod_host_loop_files_load_in_jax(tmp_path, monkeypatch):
                         1.0, np.abs(ref).max()), (name, key)
 
 
+#: small host-loop runs of each driver's command line, and what a run leaves
+#: to compare: the L2 error it logs, or the CSV it writes
+CLI_RUNS = {
+    "lamb_oseen_vortex": (["--grid-size", "16", "--host-loop",
+                           "--precision", "double"], None),
+    "flow_past_cylinder": (["--grid-size-x", "32", "--final-time", "1",
+                            "--reynolds", "2", "--host-loop"],
+                           "drag_vs_time.csv"),
+    "flow_past_rod": (["--grid-size-x", "32", "--final-time", "0.8",
+                       "--host-loop", "--precision", "double"],
+                      "rod_tip_position_vs_time.csv"),
+}
+
+
 @pytest.mark.parametrize("name", ["lamb_oseen_vortex", "flow_past_cylinder",
                                   "flow_past_rod"])
-def test_command_line_needs_a_card_and_one_device(name):
+def test_command_line_needs_a_card_and_one_device(name, tmp_path):
+    """Without ``--device cpu`` the example needs a card; with it,
+    ``--n-devices 2`` runs the flow on an in-process (2, 1) mesh and gives
+    one device's result (the logged L2 error, or the CSV; float64 to
+    1e-9, the float32 cylinder to ``F32_TOL``, relative)."""
     script = os.path.join(REPO, "examples_torch", "2d", f"{name}.py")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    procs = [subprocess.Popen(argv, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True, env=env)
-             for argv in ([sys.executable, script],
-                          [sys.executable, script, "--device", "cpu",
-                           "--n-devices", "2"])]
-    errs = [p.communicate(timeout=120)[1] for p in procs]
+    env["OMP_NUM_THREADS"] = "1"
+    args, csv = CLI_RUNS[name]
+    dirs = [tmp_path / "card", tmp_path / "one", tmp_path / "two"]
+    argvs = [[sys.executable, script]] + [
+        [sys.executable, script, "--device", "cpu", *args, "--n-devices", n]
+        for n in ("1", "2")]
+    procs = []
+    for d, argv in zip(dirs, argvs):
+        d.mkdir()
+        procs.append(subprocess.Popen(argv, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True,
+                                      env=env, cwd=d))
+    errs = [p.communicate(timeout=180)[1] for p in procs]
     assert procs[0].returncode != 0 and "no CUDA device" in errs[0]
-    assert procs[1].returncode != 0 and "#11f" in errs[1]
+    assert procs[1].returncode == 0, errs[1]
+    assert procs[2].returncode == 0, errs[2]
+    if csv is None:
+        one, two = (float(e.split("vorticity L2 error:")[1].split()[0])
+                    for e in errs[1:])
+        assert two == pytest.approx(one, rel=F64_TOL)
+        return
+    one, two = (np.loadtxt(d / csv, delimiter=",") for d in dirs[1:])
+    assert one.shape == two.shape and one.shape[0] >= 2
+    tol = F32_TOL if name == "flow_past_cylinder" else F64_TOL
+    np.testing.assert_allclose(two, one, rtol=tol, atol=0)

@@ -155,7 +155,7 @@ def test_simulator_refuses_bad_options():
         UnboundedFlowSimulator2D(with_free_stream_flow=True, **kw)
     with pytest.raises(TypeError, match="penalty_zone_widht"):
         UnboundedFlowSimulator2D(penalty_zone_widht=3, **kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="create_mesh"):
         UnboundedFlowSimulator2D(mesh=object(), **kw)
     with pytest.raises(TypeError):  # device is required
         UnboundedFlowSimulator2D((16, 16), 1.0, 1e-3)

@@ -238,7 +238,7 @@ def test_sharded_flow_case_runs_and_matches_the_single_device_case():
 def test_mesh_refusals():
     """An immersed body on a 3D mesh is taken (its interaction reads the
     assembled fields, one counted ``apply_assembled`` a call, and equals
-    one device's); a sharded 2D flow state is still refused."""
+    one device's); a 2D flow state shards over a 2D mesh."""
     vel = np.random.default_rng(15).standard_normal((3, 8, 8, 8))
     interactions = []
     for mesh in (create_mesh(3, (2, 2), device="cpu"), None):
@@ -262,13 +262,17 @@ def test_mesh_refusals():
             unshard_vector_field(sim.eul_grid_forcing_field, mesh)))
     for out, ref in zip(*interactions):
         assert torch.allclose(out, ref, rtol=0, atol=1e-12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flow_state_from_numpy(
-            {"primary_scalar_field": np.zeros((4, 4)),
-             "velocity_field": np.zeros((2, 4, 4)),
-             "eul_grid_forcing_field": None},
-            device="cpu", dtype=torch.float32,
-            mesh=create_mesh(2, (2, 1), device="cpu"))
+    # a 2D state shards over a 2D mesh
+    state = flow_state_from_numpy(
+        {"primary_scalar_field": np.arange(16.0).reshape(4, 4),
+         "velocity_field": np.zeros((2, 4, 4)),
+         "eul_grid_forcing_field": None},
+        device="cpu", dtype=torch.float32,
+        mesh=create_mesh(2, (2, 1), device="cpu"))
+    assert state.primary_scalar_field.shape == (2, 1, 2, 4)
+    assert state.velocity_field.shape == (2, 1, 2, 2, 4)
+    assert torch.equal(state.primary_scalar_field[1, 0],
+                       torch.arange(8.0, 16.0).reshape(2, 4))
 
 
 def test_scan_steps_accepts_and_ignores_donate():
