@@ -274,7 +274,22 @@ raises and exits non-zero, and nothing falls back to the CPU:
     and the cylinder driver's command line run as ``--n-devices 4`` and
     ``--n-devices 1`` with ``--final-time 2`` (the driver runs whole fused
     windows of 500 steps until t* passes 2: two windows, 1000 steps, to
-    t* ~ 3.38), Cd of the last step within 1e-3 (relative).
+    t* ~ 3.38), Cd of the last step within 1e-3 (relative);
+43. distributed sphere: the 256^3 sphere FSI step on a distributed (2, 1)
+    mesh, two gloo processes sharing the card
+    (``sopht_mpi_tpu_torch/tools/dist_sphere.py``, which loads the
+    libraries this script built): each rank's vorticity and velocity blocks
+    after 3 steps within 1e-4 max(1, |ref|) of the in-process (2, 1) run's
+    and Cd within 1e-6 (relative), then 10 timed steps (s/step, device ms a
+    step over 2 profiled steps, collectives, bytes staged through the host,
+    launches) and 3 steps of the order-1 filtered flow-only case; every
+    rank launches each of the seven kernels of the mesh path. Then the pod
+    driver (``examples_torch/3d/pod_flow_past_sphere.py``) under
+    ``torch.distributed.run --nproc-per-node 1`` (NCCL) at 64^3 to t* =
+    0.5, its last Cd within 1e-6 (relative) of the single-device sphere
+    driver's. A rank's nonzero exit (any error of a step or of the
+    profiler), a rank without device time or a run past its time limit
+    fails the phase.
 
 Phases 31-36 print s/step (the windows after the first) and a window's
 wall. The phases from 28 on run in ``build/`` and remove what they write.
@@ -431,6 +446,23 @@ DRYRUN_GRID = (32, 32, 32)
 MESH_2D_SHAPES = ((4, 1), (2, 2))
 LAMB_OSEEN_MESH = (4, 1)
 LAMB_OSEEN_MESH_T = 1.1
+# phase 43: the distributed mesh, the warm-up and timed steps of the sphere
+# step on it, the flow-only filtered arm's steps, the world's time limit;
+# the pod driver's grid, end time and window, and its time limit
+DIST_MESH = (2, 1)
+DIST_WARMUP = 3
+DIST_STEPS = 10
+DIST_FLOW_STEPS = 3
+DIST_TIMEOUT_S = 420
+POD_GRID = 64
+POD_T = 0.5
+POD_WINDOW = 50
+POD_TIMEOUT_S = 240
+# the seven kernels the distributed mesh's path launches on each process
+DIST_KERNELS = ("rotational_curl_add_3d_sharded",
+                "diffusion_penalise_vector_3d_sharded", "curl_3d_sharded",
+                "diffusion_timestep_vector_3d_sharded", "fft_pass_padded",
+                "fft_greens_ifft_pass", "ifft_pass_truncated")
 # the distributed convolve's three per-shard passes and their launches a
 # vector solve on SHARDED_MESH: the y passes fold every shard into one
 # launch, the z pass is launched once a shard with that shard's Green's block
@@ -4241,6 +4273,157 @@ def main():
         return None, "; ".join(lines) + f" [{card}]"
 
     mesh_2d_phase()
+
+    @phase("distributed sphere")
+    def distributed_sphere_phase():
+        """The 256^3 sphere FSI step on a distributed (2, 1) mesh: two gloo
+        processes sharing the card (``tools/dist_sphere.py``), against the
+        in-process (2, 1) run here; then the pod driver on one NCCL process
+        against the single-device sphere driver."""
+        import socket
+
+        names = DIST_KERNELS
+        # -- the in-process reference: the warm-up steps of the same case
+        mesh = create_mesh(3, DIST_MESH, device=dev)
+        step, (carry,) = cases._build_fsi_case(SHARDED_GRID, device=dev,
+                                               mesh=mesh)
+        carry, ref_forces = scan_steps(step, carry, DIST_WARMUP)
+        ref = {"vorticity": carry.flow_state.primary_field,
+               "velocity": carry.flow_state.velocity_field}
+        radius = 0.125  # the case's sphere, unit free stream and density
+
+        def cd_of(forces):
+            return float(forces[-1, 0].abs()) / (0.5 * np.pi * radius**2)
+
+        del step, carry
+        torch.cuda.empty_cache()
+        # -- the world: one process a shard, both on this card
+        out_dir = fresh_dir("dist_sphere")
+        world = DIST_MESH[0] * DIST_MESH[1]
+        cmd = [sys.executable, "-m", "sopht_mpi_tpu_torch.tools.dist_sphere",
+               "--world", str(world), "--init-file",
+               os.path.join(out_dir, "store"), "--out", out_dir, "--grid",
+               str(SHARDED_GRID[0]), "--mesh", *map(str, DIST_MESH),
+               "--warmup", str(DIST_WARMUP), "--steps", str(DIST_STEPS),
+               "--flow-steps", str(DIST_FLOW_STEPS), "--device", "cuda:0"]
+        env = dict(os.environ, PYTHONPATH=REPO)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=REPO,
+                                  env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(world)]
+        try:
+            logs = []
+            for p in procs:
+                left = DIST_TIMEOUT_S - (time.perf_counter() - t0)
+                try:
+                    logs.append(p.communicate(timeout=max(1.0, left))[0])
+                except subprocess.TimeoutExpired:
+                    check(False, f"a rank ran past {DIST_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        world_s = time.perf_counter() - t0
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"rank {r} exited {p.returncode}:\n"
+                  + log[-4000:])
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                info = json.load(f)
+            check(info["finite"] and info["flow"]["finite"],
+                  f"rank {r}: non-finite state")
+            check(info["device_ms_step"] is not None
+                  and info["device_ms_step"] > 0,
+                  f"rank {r}: the profiler read no device time "
+                  f"({info['device_ms_step']})")
+            i, j = info["coords"]
+            blocks = torch.load(os.path.join(out_dir, f"rank{r}_fields.pt"))
+            errs = {}
+            for what, full in ref.items():
+                err, scale = max_err(blocks[what].to(dev), full[i, j])
+                check(err <= 1e-4 * max(1.0, scale), f"rank {r} {what} after "
+                      f"{DIST_WARMUP} steps: {err} (|ref| max {scale})")
+                errs[what] = f"{err:.3e} of |ref| max {scale:.4g}"
+            cd, cd_ref = cd_of(blocks["forces"]), cd_of(ref_forces)
+            cd_rel = abs(cd - cd_ref) / abs(cd_ref)
+            check(cd_rel <= 1e-6, f"rank {r} Cd {cd} against the in-process "
+                  f"run's {cd_ref}")
+            both = {n: info["launches"].get(n, 0)
+                    + info["flow"]["launches"].get(n, 0)
+                    for n in {*info["launches"], *info["flow"]["launches"],
+                              *names}}
+            for n in names:
+                check(both[n] > 0, f"rank {r} never launched {n}")
+            for n, count in both.items():
+                if n in table and count:
+                    table[n].setdefault("distributed_launches", {})[
+                        f"rank{r}"] = count
+            ranks.append(dict(info, errs=errs, cd=cd, cd_rel=cd_rel))
+        shutil.rmtree(out_dir, ignore_errors=True)
+        del ref
+        torch.cuda.empty_cache()
+        # -- the pod driver on one NCCL process against the sphere driver
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        pod_dir = fresh_dir("dist_pod")
+        args = ["--grid-size-x", str(POD_GRID), "--nondim-time", str(POD_T),
+                "--window", str(POD_WINDOW)]
+        t0 = time.perf_counter()
+        try:
+            run = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--nproc-per-node", "1", "--master-port", str(port),
+                 os.path.join(REPO, "examples_torch", "3d",
+                              "pod_flow_past_sphere.py"), *args],
+                cwd=pod_dir, env=env, capture_output=True, text=True,
+                timeout=POD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            check(False, f"the pod driver ran past {POD_TIMEOUT_S} s")
+        pod_s = time.perf_counter() - t0
+        check(run.returncode == 0, f"the pod driver exited {run.returncode}:"
+              f"\n{(run.stdout + run.stderr)[-4000:]}")
+        pod = np.loadtxt(os.path.join(pod_dir, "drag_vs_time.csv"),
+                         delimiter=",", ndmin=2)
+        shutil.rmtree(pod_dir, ignore_errors=True)
+        mod = load_example("flow_past_sphere")
+        (times, cds), _ = in_dir("dist_pod_ref", lambda: (
+            mod.flow_past_sphere_fused_case(
+                nondim_time=POD_T, grid_size=(POD_GRID,) * 3,
+                window=POD_WINDOW, device=dev)))
+        check(pod.shape == (len(cds), 2) and len(cds) >= 2,
+              f"pod CSV {pod.shape}, {len(cds)} windows on one device")
+        pod_rel = abs(pod[-1, 1] - cds[-1]) / abs(cds[-1])
+        check(pod_rel <= 1e-6, f"pod driver Cd {pod[-1, 1]} against the "
+              f"single-device driver's {cds[-1]}")
+        per_rank = "; ".join(
+            f"rank {x['rank']} at {tuple(x['coords'])}: {x['s_step']:.4f} "
+            f"s/step, device "
+            f"{x['device_ms_step']:.3f} ms/step ({x['copy_ms_step']:.3f} "
+            "of it copies), staged "
+            f"{x['transfers']['staged_bytes'] / DIST_STEPS:.0f} B/step, "
+            f"collectives {x['counts']} over {DIST_STEPS} steps, launches "
+            f"{x['launches']}; flow-only filtered arm "
+            f"{x['flow']['s_step']:.4f} s/step, staged "
+            f"{x['flow']['transfers']['staged_bytes'] / DIST_FLOW_STEPS:.0f}"
+            f" B/step, launches {x['flow']['launches']}; set-up "
+            f"{x['setup_s']:.2f} s; after {DIST_WARMUP} steps max|diff| "
+            f"{x['errs']}, Cd {x['cd']:.8f} (relative {x['cd_rel']:.2e})"
+            for x in ranks)
+        return None, (
+            f"{SHARDED_GRID} f32 sphere on a distributed {DIST_MESH} mesh, "
+            f"gloo, {world} processes on one card, {DIST_WARMUP} + "
+            f"{DIST_STEPS} steps ({world_s:.1f} s for the world): {per_rank}"
+            f"; the in-process run's Cd {cd_of(ref_forces):.8f}; pod driver "
+            f"on one NCCL process ({POD_GRID}^3 to t* = {pod[-1, 0]:.4f}, "
+            f"{len(cds)} windows of {POD_WINDOW}) Cd {pod[-1, 1]:.8f} against "
+            f"{cds[-1]:.8f} on one device (relative {pod_rel:.2e}), "
+            f"{pod_s:.1f} s [{card}]")
+
+    distributed_sphere_phase()
 
     for row in table.values():
         check(row["launches"], f"{row['name']} was launched on no path")

@@ -27,7 +27,10 @@ import torch
 
 from sopht_mpi_tpu_torch import cases
 from sopht_mpi_tpu_torch.models import scan_steps
-from sopht_mpi_tpu_torch.parallel.mesh import unshard_vector_field
+from sopht_mpi_tpu_torch.parallel.mesh import (
+    is_distributed,
+    unshard_vector_field,
+)
 from sopht_mpi_tpu_torch.utils import (
     FieldBinding,
     FieldIO,
@@ -142,6 +145,7 @@ def flow_past_sphere_fused_case(
     window=100,
     save_interval=None,
     mesh=None,
+    overlap_chunks=None,
     *,
     device,
 ):
@@ -154,14 +158,17 @@ def flow_past_sphere_fused_case(
     at window ends through the native async writer (``SnapshotWriter``,
     ``snapshots/``): each field is copied to the host once and written on
     the writer's own thread (assembled on a ``mesh``, which shards the flow
-    over an in-process mesh)."""
+    over an in-process or a distributed mesh). On a distributed mesh every
+    process runs the loop and only rank 0 logs and writes the CSV and the
+    snapshots. ``overlap_chunks`` is the simulator's option."""
     case = cases._build_sphere_drag_case(
         grid_size, reynolds, coupling_stiffness, coupling_damping, precision,
-        device=device, mesh=mesh)
+        device=device, mesh=mesh, overlap_chunks=overlap_chunks)
     step, carry = cases.build_sphere_drag_step(case)
     t_end = nondim_time * case.timescale
+    writes = not is_distributed(mesh) or mesh.rank == 0
     snaps = None
-    if save_interval is not None:
+    if save_interval is not None and writes:
         snaps = SnapshotWriter(
             interval=save_interval * case.timescale, out_dir="snapshots"
         )
@@ -171,15 +178,19 @@ def flow_past_sphere_fused_case(
         cd = cases.sphere_drag_coefficient(case, lag_forces)
         times.append(float(carry.time) / case.timescale)
         drag_coeffs.append(cd)
-        logger.info(f"t*={times[-1]:.2f} Cd={cd:.4f}")
-        if snaps is not None:
-            snaps.maybe_save(
-                float(carry.time),
+        if save_interval is not None:
+            # every process joins the gathers; rank 0 writes
+            fields = dict(
                 vorticity=unshard_vector_field(
                     carry.flow_state.primary_field, mesh),
                 velocity=unshard_vector_field(
                     carry.flow_state.velocity_field, mesh),
             )
+        if not writes:
+            continue
+        logger.info(f"t*={times[-1]:.2f} Cd={cd:.4f}")
+        if snaps is not None:
+            snaps.maybe_save(float(carry.time), **fields)
         np.savetxt(
             "drag_vs_time.csv", np.c_[times, drag_coeffs], delimiter=","
         )
@@ -202,6 +213,10 @@ if __name__ == "__main__":
         help="z shards of an in-process mesh on the one device",
     )
     parser.add_argument("--precision", default="single")
+    parser.add_argument(
+        "--window", type=int, default=100,
+        help="fused steps between host reads of the drag",
+    )
     parser.add_argument(
         "--device", default="cuda",
         help="torch device (default cuda, which needs a card; cpu runs on "
@@ -255,6 +270,7 @@ if __name__ == "__main__":
             nondim_time=args.nondim_time,
             grid_size=(n, n, n),
             precision=args.precision,
+            window=args.window,
             save_interval=args.save_interval,
             mesh=mesh,
             device=device,

@@ -70,6 +70,7 @@ from sopht_mpi_tpu_torch.models.flow.simulator_3d import (
     compute_flow_velocity_3d,
 )
 from sopht_mpi_tpu_torch.parallel.mesh import (
+    Mesh,
     create_mesh,
     shard_scalar_field,
     shard_vector_field,
@@ -89,8 +90,9 @@ def _build_fsi_case(grid_size, *, device, precision="single",
     ``sparse_forcing=False`` forces the dense IBM path; the default
     engages the sparse-window matmul path where the window is interior.
     ``sim_kwargs`` are extra :class:`UnboundedFlowSimulator3D` options;
-    ``mesh`` (``create_mesh(3, (pz, py), device=...)``) shards the flow over
-    an in-process mesh, from the same seeded field. ``step.flow_sim`` is
+    ``mesh`` (``create_mesh(3, (pz, py), device=...)``, in-process or
+    ``distributed=True``) shards the flow over the mesh, from the same
+    seeded field. ``step.flow_sim`` is
     the simulator."""
     real_t = get_real_t(precision)
     x_range = 1.0
@@ -145,19 +147,22 @@ def _build_fsi_case(grid_size, *, device, precision="single",
     return fsi_step, (carry,)
 
 
-def sharded_flow_case(grid_size, mesh_shape, *, device, precision="single",
+def sharded_flow_case(grid_size, mesh=None, *, device, precision="single",
                       seed=0, sim_kwargs=None):
-    """A flow-only 3D case on an in-process (pz, py) mesh: the sphere
-    case's flow (``navier_stokes_with_forcing`` with a zero forcing field,
-    unit free stream in x, viscosity 0.0025, sponge width 2, no filter)
-    from a smooth seeded vorticity field, three Gaussian blobs of random
-    centre, width and orientation. ``mesh_shape=None`` builds the same case
-    on one device. Returns (flow-only step fn, (initial carry,)); the step
-    is :func:`~sopht_mpi_tpu_torch.models.build_flow_only_step` with
+    """A flow-only 3D case on a mesh: the sphere case's flow
+    (``navier_stokes_with_forcing`` with a zero forcing field, unit free
+    stream in x, viscosity 0.0025, sponge width 2, no filter) from a smooth
+    seeded vorticity field, three Gaussian blobs of random centre, width
+    and orientation. ``mesh`` is a (pz, py) shape (an in-process mesh on
+    ``device``) or a mesh as it is, as a distributed one (``create_mesh(3,
+    (pz, py), device=..., distributed=True)``, every process from the same
+    field); ``None`` builds the same case on one device. Returns
+    (flow-only step fn, (initial carry,)); the step is
+    :func:`~sopht_mpi_tpu_torch.models.build_flow_only_step` with
     ``dt_prefac`` 0.5."""
     real_t = get_real_t(precision)
-    mesh = (None if mesh_shape is None
-            else create_mesh(3, mesh_shape, device=device))
+    if mesh is not None and not isinstance(mesh, Mesh):
+        mesh = create_mesh(3, mesh, device=device)
     flow_sim = UnboundedFlowSimulator3D(
         grid_size=grid_size,
         x_range=1.0,
@@ -225,13 +230,15 @@ def _build_sphere_drag_case(
     *,
     device,
     mesh=None,
+    overlap_chunks=None,
 ) -> SphereDragCase:
     """Flow past a fixed sphere at Re = 100 (the drag benchmark of
     ``examples/3d/flow_past_sphere.py``): sphere diameter 0.4 of the smaller
     cross-stream extent, centred at (0.25, 0.5, 0.5) of the domain, unit
     free stream in x, the sphere's forcing grid with 1.875 d / dx points
-    along its equator. ``mesh`` shards the flow over an in-process
-    mesh."""
+    along its equator. ``mesh`` shards the flow over a mesh (in-process or
+    distributed); ``overlap_chunks`` is the simulator's option of that
+    name."""
     grid_size_z, grid_size_y, grid_size_x = grid_size
     real_t = get_real_t(precision)
     x_range = 1.0
@@ -247,6 +254,7 @@ def _build_sphere_drag_case(
         with_free_stream_flow=True,
         device=device,
         mesh=mesh,
+        overlap_chunks=overlap_chunks,
     )
     sphere = Sphere(
         center=np.array(

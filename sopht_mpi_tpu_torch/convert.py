@@ -5,6 +5,10 @@ A JAX carry becomes numpy with ``jax.tree_util.tree_map(np.asarray,
 carry)`` (done by the caller; this module never sees a JAX array). Each
 node may be a tuple/NamedTuple (read by position, in the JAX package's
 field order, which the port keeps) or a dict (read by field name).
+
+With a ``mesh`` the global arrays are sharded over it: every shard on an
+in-process mesh, this process's block on a distributed one (every process
+converts the same global carry).
 """
 
 from __future__ import annotations

@@ -41,6 +41,7 @@ from sopht_mpi_tpu_torch.parallel import collectives
 from sopht_mpi_tpu_torch.parallel.mesh import (
     MESH_AXES_2D,
     check_grid_divisibility,
+    refuse_distributed,
     shard_scalar_field,
     shard_vector_field,
 )
@@ -122,6 +123,7 @@ class UnboundedFlowSimulator2D:
                 raise ValueError(
                     "mesh: the 2D simulator needs a mesh from "
                     "create_mesh(2, (py, px), device=...)")
+            refuse_distributed(mesh, "the 2D flow simulator")
             if mesh.device != self.device:
                 raise ValueError(
                     f"mesh lies on {mesh.device}, the simulator on "

@@ -45,6 +45,10 @@ Laplacian filter with the sponge after it, and the sponge where the fused
 sharded kernel does not apply. The forcing update ``omega + dt/(2dx)
 curl(f)`` is the sharded curl kernel and an add. With ``use_kernels`` off
 the whole transport and the curl are the plain ops on the assembled fields.
+On a distributed mesh (``create_mesh(3, (pz, py), device=...,
+distributed=True)``) each process holds its own shard, (1, 1, 3, nz/pz,
+ny/py, nx), and runs the same step on it; every reduction that feeds a
+host read (the CFL ``max |u|_1``) is the same on every process.
 """
 
 from __future__ import annotations
@@ -69,11 +73,12 @@ from sopht_mpi_tpu_torch.ops.stencils_3d import (
     penalise_field_boundary_vector_3d,
     update_vorticity_from_velocity_forcing_3d,
 )
-from sopht_mpi_tpu_torch.parallel import collectives
+from sopht_mpi_tpu_torch.parallel import collectives, transport
 from sopht_mpi_tpu_torch.parallel.mesh import (
     MESH_AXES_3D,
     apply_assembled,
     check_grid_divisibility,
+    is_distributed,
     shard_scalar_field,
     shard_vector_field,
     unshard_vector_field,
@@ -109,9 +114,10 @@ class UnboundedFlowSimulator3D:
     :param device: the torch device every field lives on; required, no
         default is taken from the environment.
     :param mesh: a mesh from ``parallel.create_mesh(3, (pz, py),
-        device=...)``, slab (n, 1) or pencil (pz, py), on the same device:
-        the fields are sharded over it and the step takes its mesh branch.
-        A mesh of one shard is the single-device simulator.
+        device=...)``, slab (n, 1) or pencil (pz, py), on the same device
+        (in-process or distributed): the fields are sharded over it and the
+        step takes its mesh branch. A mesh of one shard is the
+        single-device simulator.
     :param overlap_chunks: keyword option, the JAX package's pipelining
         request of the sharded Poisson solve: any value >= 1 (or None) is
         accepted and one chunk is realised.
@@ -358,8 +364,12 @@ class UnboundedFlowSimulator3D:
         )
 
     def get_max_vorticity(self) -> float:
-        """The largest value of the primary field (a host read)."""
-        return float(self.vorticity_field.max())
+        """The largest value of the primary field (a host read; over every
+        process on a distributed mesh)."""
+        top = self.vorticity_field.max()
+        if is_distributed(self.mesh):
+            top = transport.all_reduce_max(top, self.mesh.group)
+        return float(top)
 
     def compute_flow_velocity(self):
         """Recompute the velocity from the current vorticity: the wall

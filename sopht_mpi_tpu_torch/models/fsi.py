@@ -11,8 +11,10 @@ step (dt, time, ``max |u|_1``) stays a 0-d tensor on the device. The rigid
 step never waits for the device; the rod step with dynamic substeps reads
 its substep count once per step (see :func:`build_rod_fsi_step`).
 
-On a simulator's in-process mesh (2D or 3D) the flow state is sharded
-and the steps take the JAX package's mesh branches: the flow step is the
+On a simulator's mesh (in-process, 2D or 3D; or distributed, 3D, for
+the rigid step and the flow-only step: the rod and multi-body steps
+refuse it) the flow state is sharded and the steps take the JAX package's
+mesh branches: the flow step is the
 sharded one; the sparse-window paths touch the grid only through
 :mod:`sopht_mpi_tpu_torch.parallel.windows` (the E->L a shard-local
 contraction and one ``psum`` of the (3, n_markers) result, the windowed
@@ -48,7 +50,10 @@ from sopht_mpi_tpu_torch.ops.virtual_boundary import (
     compute_penalty_force,
     virtual_boundary_time_step,
 )
-from sopht_mpi_tpu_torch.parallel.mesh import shard_vector_field
+from sopht_mpi_tpu_torch.parallel.mesh import (
+    refuse_distributed,
+    shard_vector_field,
+)
 from sopht_mpi_tpu_torch.parallel.windows import (
     add_window_into_field,
     windowed_e2l_mm_sharded,
@@ -563,6 +568,7 @@ def build_rod_fsi_step(
     free_stream = _free_stream(free_stream_fn, flow_sim)
     real_t = flow_sim.real_t
     mesh = getattr(flow_sim, "mesh", None)
+    refuse_distributed(mesh, "the rod FSI step")
 
     if sparse:
         if flow_sim.flow_type != "navier_stokes_with_forcing":
@@ -955,6 +961,7 @@ def build_multi_body_fsi_step(
             "substep interpolation and needs sparse forcing"
         )
     mesh = getattr(flow_sim, "mesh", None)
+    refuse_distributed(mesh, "the multi-body FSI step")
     if sparse:
         _refuse_gather_on_a_mesh(flow_sim, substep_interp)
     gather_sub = tuple(

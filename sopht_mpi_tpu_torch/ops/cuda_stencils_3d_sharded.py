@@ -105,11 +105,14 @@ def _halo_y_rows(f, mesh: Mesh):
 
 
 @functools.cache
-def _shard_coords(mesh_shape, nzl: int, nyl: int, device):
-    """(pz, py, 2) int32 [z0 plane, y0 row]: each shard's global offsets."""
-    pz, py = mesh_shape
-    z0 = torch.arange(pz, dtype=torch.int32).view(pz, 1) * nzl
-    y0 = torch.arange(py, dtype=torch.int32).view(1, py) * nyl
+def _shard_coords(local_shape, nzl: int, nyl: int, device, first=(0, 0)):
+    """(pz, py, 2) int32 [z0 plane, y0 row]: the global offsets of each
+    shard a process holds, ``local_shape`` of them from the mesh
+    coordinates ``first`` on (every shard from (0, 0) in-process, one on a
+    distributed mesh)."""
+    pz, py = local_shape
+    z0 = (torch.arange(pz, dtype=torch.int32).view(pz, 1) + first[0]) * nzl
+    y0 = (torch.arange(py, dtype=torch.int32).view(1, py) + first[1]) * nyl
     return torch.stack(
         [z0.expand(pz, py), y0.expand(pz, py)], dim=-1
     ).contiguous().to(device)
@@ -162,11 +165,13 @@ def diffusion_penalise_vector_3d_sharded_ref(vector_field, nu_dt_by_dx2,
 
 
 def _global_index(mesh, nzl, nyl, device):
-    """((pz, 1, nzl, 1) gz, (1, py, 1, nyl) gy): every shard cell's global
-    z plane and y row."""
-    pz, py = mesh.axis_sizes
-    gz = torch.arange(pz * nzl, device=device).view(pz, 1, nzl, 1)
-    gy = torch.arange(py * nyl, device=device).view(1, py, 1, nyl)
+    """((pz, 1, nzl, 1) gz, (1, py, 1, nyl) gy): every local shard cell's
+    global z plane and y row."""
+    pz, py = mesh.local_axis_sizes
+    gz = (mesh.shard_starts(0, nzl, device).view(pz, 1)
+          + torch.arange(nzl, device=device)).view(pz, 1, nzl, 1)
+    gy = (mesh.shard_starts(1, nyl, device).view(py, 1)
+          + torch.arange(nyl, device=device)).view(1, py, 1, nyl)
     return gz, gy
 
 
@@ -174,10 +179,9 @@ def _zy_wall(mesh, nzl, nyl, device):
     """(pz, py, 1, nzl, nyl, 1) bool: the cell lies on a global z or y
     wall."""
     gz, gy = _global_index(mesh, nzl, nyl, device)
-    pz, py = mesh.axis_sizes
-    wall = ((gz == 0) | (gz == pz * nzl - 1) | (gy == 0)
-            | (gy == py * nyl - 1))
-    return wall.view(pz, py, 1, nzl, nyl, 1)
+    nz, ny = mesh.shape["z"] * nzl, mesh.shape["y"] * nyl
+    wall = (gz == 0) | (gz == nz - 1) | (gy == 0) | (gy == ny - 1)
+    return wall.view(*mesh.local_axis_sizes, 1, nzl, nyl, 1)
 
 
 def _per_shard(op, *extended):
@@ -242,13 +246,13 @@ def _sponge_in_shards(d, width, mesh):
         return src, torch.where(k < width, ramp, torch.ones_like(ramp))
 
     d = _plain._penalise_axes(d, width, (5,))
-    ys, ry = clamp_and_ramp(gy, py * nyl)           # (1, py, 1, nyl)
-    yl = (ys - ys.new_tensor(range(0, py * nyl, nyl)).view(1, py, 1, 1))
+    ys, ry = clamp_and_ramp(gy, mesh.shape["y"] * nyl)  # (1, py, 1, nyl)
+    yl = ys - mesh.shard_starts(1, nyl, d.device).view(1, py, 1, 1)
     d = torch.gather(
         d, 4, yl.view(1, py, 1, 1, nyl, 1).expand(pz, py, 3, nzl, nyl, nx))
     d = d * ry.view(1, py, 1, 1, nyl, 1)
-    zs, rz = clamp_and_ramp(gz, pz * nzl)           # (pz, 1, nzl, 1)
-    zl = (zs - zs.new_tensor(range(0, pz * nzl, nzl)).view(pz, 1, 1, 1))
+    zs, rz = clamp_and_ramp(gz, mesh.shape["z"] * nzl)  # (pz, 1, nzl, 1)
+    zl = zs - mesh.shard_starts(0, nzl, d.device).view(pz, 1, 1, 1)
     d = torch.gather(
         d, 3, zl.view(pz, 1, 1, nzl, 1, 1).expand(pz, py, 3, nzl, nyl, nx))
     return d * rz.view(pz, 1, 1, nzl, 1, 1)
@@ -418,10 +422,10 @@ def _check_sharded(name, t, mesh: Mesh, like=None):
     if mesh.axis_names != ("z", "y"):
         raise ValueError(f"{name}: the sharded stencils need a 3D (z, y) mesh")
     if not torch.is_tensor(t) or t.ndim != 6 or t.shape[2] != 3 \
-            or tuple(t.shape[:2]) != mesh.axis_sizes:
+            or tuple(t.shape[:2]) != mesh.local_axis_sizes:
         raise ValueError(
-            f"{name}: expected a (pz, py, 3, nzl, nyl, nx) tensor on the "
-            f"mesh {mesh.shape}, got "
+            f"{name}: expected a {mesh.local_axis_sizes + (3,)} + (nzl, "
+            f"nyl, nx) tensor on the mesh {mesh.shape}, got "
             f"{tuple(t.shape) if torch.is_tensor(t) else type(t)}")
     if t.dtype not in _single._SUFFIX:
         raise TypeError(f"{name}: dtype {t.dtype} is not float32/float64")
@@ -439,16 +443,20 @@ def _check_sharded(name, t, mesh: Mesh, like=None):
             f"{like.device}")
 
 
-def _geometry(f):
-    """The kernels' integer arguments: shards, a shard's (nzl, nyl, nx) and
-    the grid's (NZ, NY)."""
+def _geometry(f, mesh: Mesh | None = None):
+    """The kernels' integer arguments: the shards in ``f``, a shard's (nzl,
+    nyl, nx) and the global grid's (NZ, NY) (``f`` holds every shard where
+    no mesh is given)."""
     pz, py, _, nzl, nyl, nx = f.shape
-    return pz * py, nzl, nyl, nx, pz * nzl, py * nyl
+    gz, gy = (pz, py) if mesh is None else mesh.axis_sizes
+    return pz * py, nzl, nyl, nx, gz * nzl, gy * nyl
 
 
-def _coords(f):
+def _coords(f, mesh: Mesh | None = None):
     pz, py, _, nzl, nyl, _ = f.shape
-    return _shard_coords((pz, py), nzl, nyl, f.device)
+    first = (0, 0) if mesh is None else (mesh.first_shard(0),
+                                         mesh.first_shard(1))
+    return _shard_coords((pz, py), nzl, nyl, f.device, first)
 
 
 def _halos(f, mesh: Mesh):
@@ -490,7 +498,8 @@ def _diffusion_sharded(vector_field, nu_dt_by_dx2, mesh):
     _single._launch(
         "sopht_diffusion_vector_3d_sharded_zmarch", f,
         f.data_ptr(), *(t.data_ptr() for t in halos),
-        _coords(f).data_ptr(), pref.data_ptr(), out.data_ptr(), *_geometry(f),
+        _coords(f, mesh).data_ptr(), pref.data_ptr(), out.data_ptr(),
+        *_geometry(f, mesh),
         *plan.args(),
     )
     diffusion_timestep_vector_3d_sharded.launches += 1
@@ -530,16 +539,17 @@ def _curl_sharded(field, prefactor, mesh, add_vector, compute_l1_max):
     )
     out = torch.empty_like(f)
     shard_max = (
-        torch.zeros(mesh.axis_sizes, dtype=f.dtype, device=f.device)
+        torch.zeros(mesh.local_axis_sizes, dtype=f.dtype, device=f.device)
         if compute_l1_max else None
     )
     plan = _zmarch_plan("curl", [(f, *halos)])
     _single._launch(
         "sopht_curl_3d_sharded_zmarch", f,
         f.data_ptr(), *(t.data_ptr() for t in halos),
-        _coords(f).data_ptr(), pref.data_ptr(),
+        _coords(f, mesh).data_ptr(), pref.data_ptr(),
         None if add is None else add.data_ptr(), out.data_ptr(),
-        None if shard_max is None else shard_max.data_ptr(), *_geometry(f),
+        None if shard_max is None else shard_max.data_ptr(),
+        *_geometry(f, mesh),
         *plan.args(),
     )
     curl_3d_sharded.launches += 1
@@ -570,7 +580,8 @@ def _rotational_sharded(vorticity, velocity, prefactor, mesh):
     _single._launch(
         "sopht_rotational_curl_add_3d_sharded_zmarch", w,
         *(t.data_ptr() for t in (w, *w_halos, u, *u_halos)),
-        _coords(w).data_ptr(), pref.data_ptr(), out.data_ptr(), *_geometry(w),
+        _coords(w, mesh).data_ptr(), pref.data_ptr(), out.data_ptr(),
+        *_geometry(w, mesh),
         *plan.args(),
     )
     rotational_curl_add_3d_sharded.launches += 1
@@ -598,9 +609,9 @@ def diffusion_penalise_sharded_supported(global_shape, mesh: Mesh,
     return nz // pz >= 2 * width and ny // py >= 2 * width
 
 
-def _global_shape(f):
-    pz, py, _, nzl, nyl, nx = f.shape
-    return (3, pz * nzl, py * nyl, nx)
+def _global_shape(f, mesh: Mesh):
+    _, _, _, nzl, nyl, nx = f.shape
+    return (3, mesh.shape["z"] * nzl, mesh.shape["y"] * nyl, nx)
 
 
 def diffusion_penalise_vector_3d_sharded(vector_field, nu_dt_by_dx2,
@@ -614,7 +625,7 @@ def diffusion_penalise_vector_3d_sharded(vector_field, nu_dt_by_dx2,
     _check_sharded("vector_field", vector_field, mesh)
     width = int(width)
     if not diffusion_penalise_sharded_supported(
-            _global_shape(vector_field), mesh, width):
+            _global_shape(vector_field, mesh), mesh, width):
         out = diffusion_timestep_vector_3d_sharded(
             vector_field, nu_dt_by_dx2, mesh)
         if width == 0:
@@ -640,8 +651,8 @@ def _diffpen_sharded(vector_field, nu_dt_by_dx2, width, mesh):
     _single._launch(
         "sopht_diffusion_penalise_vector_3d_sharded_zmarch", f,
         f.data_ptr(), *(t.data_ptr() for t in halos),
-        _coords(f).data_ptr(), pref.data_ptr(), ramp.data_ptr(),
-        out.data_ptr(), *_geometry(f), width, *plan.args(),
+        _coords(f, mesh).data_ptr(), pref.data_ptr(), ramp.data_ptr(),
+        out.data_ptr(), *_geometry(f, mesh), width, *plan.args(),
     )
     diffusion_penalise_vector_3d_sharded.launches += 1
     return out

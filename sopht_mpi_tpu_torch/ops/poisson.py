@@ -64,7 +64,10 @@ import torch
 
 from sopht_mpi_tpu_torch.parallel import cuda_fft
 from sopht_mpi_tpu_torch.parallel import fft as _dist
-from sopht_mpi_tpu_torch.parallel.mesh import shard_scalar_field
+from sopht_mpi_tpu_torch.parallel.mesh import (
+    refuse_distributed,
+    shard_scalar_field,
+)
 
 # Tests force the kernel route on CPU tensors (the passes then run their
 # plain versions): None = auto (on for a CUDA device), True/False = override.
@@ -325,6 +328,8 @@ class _UnboundedPoissonSolver:
             raise ValueError(
                 f"mesh: the {self.grid_dim}D solver needs a mesh from "
                 f"create_mesh({self.grid_dim}, ...)")
+        if self.grid_dim == 2:
+            refuse_distributed(mesh, "the 2D Poisson solver")
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
 
     def _init_greens_of(self, axis_dists, compute, origin):

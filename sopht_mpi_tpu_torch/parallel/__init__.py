@@ -1,6 +1,7 @@
-"""Spectral passes of the doubled-domain Poisson solve: Hopper kernels and
-their plain ``torch.fft`` versions (counterpart of
-``sopht_mpi_tpu/parallel/pallas_fft.py``)."""
+"""The spectral passes of the doubled-domain Poisson solve (Hopper kernels
+and their plain ``torch.fft`` versions, counterpart of
+``sopht_mpi_tpu/parallel/pallas_fft.py``), the mesh and the multi-process
+bootstrap (``create_mesh``, ``auto_mesh``, ``initialize_distributed``)."""
 
 from sopht_mpi_tpu_torch.parallel.cuda_fft import (
     KERNELS,
@@ -16,3 +17,9 @@ from sopht_mpi_tpu_torch.parallel.cuda_fft import (
     rfft_pass_padded,
     rfft_pass_padded_split,
 )
+from sopht_mpi_tpu_torch.parallel.distributed import (
+    auto_mesh,
+    compute_mesh_dims,
+    initialize_distributed,
+)
+from sopht_mpi_tpu_torch.parallel.mesh import create_mesh

@@ -31,6 +31,11 @@ The x-frequency axis is zero-padded from ``Nx//2 + 1`` to
 stay exactly zero through every (linear) stage and are cut off on the way
 back. Forward transforms are unnormalised, inverses normalised.
 
+On a distributed mesh (one shard a process) the same steps run on each
+process's block, (1, 1, ...) where the shapes below say (pz, py, ...), and
+the all_to_all goes through ``torch.distributed``; the 2D transforms take
+an in-process mesh only.
+
 The x transforms are ``torch.fft.rfft`` / ``irfft`` (the JAX package's are
 ``jnp.fft`` outside any Pallas kernel). The middle passes of the convolve
 are the Hopper kernels of :mod:`sopht_mpi_tpu_torch.parallel.cuda_fft`
@@ -54,6 +59,7 @@ from sopht_mpi_tpu_torch.parallel.mesh import (
     MESH_AXES_2D,
     MESH_AXES_3D,
     Mesh,
+    refuse_distributed,
     shard_dims,
     unshard_dims,
 )
@@ -170,6 +176,8 @@ def _check_mesh(mesh: Mesh):
             f"mesh axes {mesh.axis_names}: the distributed transforms take "
             "a mesh from create_mesh(2, (py, px)) or create_mesh(3, "
             "(pz, py))")
+    if mesh.grid_dim == 2:
+        refuse_distributed(mesh, "the 2D distributed transforms")
 
 
 def distributed_rfftn(field, mesh: Mesh | None):
@@ -309,11 +317,13 @@ def _convolve3_local_batched(field, greens, mesh: Mesh, *, nz: int, ny: int,
                              kernels_z: bool):
     """The convolve of (pz, py, c, nzl, nyl, nx) with the sharded Green's
     (pz, py, 2 nz, 2 ny/pz, fxp/py): the components fold into each
-    segment's batch rows, so every all_to_all moves all of them at once."""
+    segment's batch rows, so every all_to_all moves all of them at once.
+    (pz, py) are the shards in ``field``: (1, 1) on a distributed mesh."""
     pz, py = mesh.shape["z"], mesh.shape["y"]
+    lz, ly = field.shape[:2]
     c, nzl = field.shape[2], field.shape[3]
     # x r2c of the doubled rows, then the y segment: (.., c*nzl, ny/py, nx)
-    f = torch.fft.rfft(field.reshape(pz, py, c * nzl, ny // py, nx),
+    f = torch.fft.rfft(field.reshape(lz, ly, c * nzl, ny // py, nx),
                        n=2 * nx, dim=-1)
     f = _pad_last(f, fxp)
     if py > 1:
@@ -321,7 +331,7 @@ def _convolve3_local_batched(field, greens, mesh: Mesh, *, nz: int, ny: int,
     f = _fwd_y_local(f, 2 * ny, kernels_y)  # (.., c*nzl, 2ny, fxp/py)
     bxl = f.shape[-1]
     # the z segment, on the (c, nzl, 2ny, bxl) view
-    f = f.reshape(pz, py, c, nzl, 2 * ny, bxl)
+    f = f.reshape(lz, ly, c, nzl, 2 * ny, bxl)
     if pz > 1:
         f = all_to_all(f, mesh, "z", 2, 1)  # (.., c, nz, 2ny/pz, bxl)
     # fused z-forward * greens -> z-inverse on each shard: the doubled
@@ -329,16 +339,16 @@ def _convolve3_local_batched(field, greens, mesh: Mesh, *, nz: int, ny: int,
     f = torch.stack([
         torch.stack([
             _conv_z_local_batched(f[i, j], greens[i, j], nz, kernels_z)
-            for j in range(py)])
-        for i in range(pz)])
+            for j in range(ly)])
+        for i in range(lz)])
     if pz > 1:
         f = all_to_all(f, mesh, "z", 1, 2)  # (.., c, nzl, 2ny, bxl)
     # the inverse y segment and the x c2r
-    f = _inv_y_local(f.reshape(pz, py, c * nzl, 2 * ny, bxl), ny, kernels_y)
+    f = _inv_y_local(f.reshape(lz, ly, c * nzl, 2 * ny, bxl), ny, kernels_y)
     if py > 1:
         f = all_to_all(f, mesh, "y", 1, 2)  # (.., c*nzl, ny/py, fxp)
     out = torch.fft.irfft(f[..., : nx + 1], n=2 * nx, dim=-1)[..., :nx]
-    return out.reshape(pz, py, c, nzl, ny // py, nx).contiguous()
+    return out.reshape(lz, ly, c, nzl, ny // py, nx).contiguous()
 
 
 def _convolve3_local(field, greens, mesh: Mesh, **kw):
@@ -410,7 +420,8 @@ def distributed_free_space_convolve(rhs, greens, mesh: Mesh,
     nzl, nyl, nx = rhs.shape[-3:]
     nz, ny = nzl * p0, nyl * p1
     fxp = padded_rfft_size(2 * nx, mesh)
-    _check_greens(greens, (p0, p1, 2 * nz, 2 * ny // p0, fxp // p1))
+    _check_greens(greens, (*mesh.local_axis_sizes, 2 * nz, 2 * ny // p0,
+                           fxp // p1))
     fn = _convolve3_local_batched if batched else _convolve3_local
     return fn(
         rhs, greens, mesh, nz=nz, ny=ny, nx=nx, fxp=fxp,

@@ -19,7 +19,10 @@ tensor (pz, py, c, nz/pz, ny/py, nx)):
   overlap summed by one ``psum``.
 
 Every shard is handled in the same batched tensor ops on the one sharded
-tensor (no loop over shards), nothing assembles the field, and the window
+tensor (no loop over shards): all of them in-process, a process's own on a
+distributed mesh, where the ``psum`` goes through ``torch.distributed``
+and the add touches only the cells the process owns. Nothing assembles
+the field, and the window
 start is a ``(3,)`` integer tensor on the device in marker component order
 (x, y, z) that is never read on the host. For any start inside the domain
 the results equal the meshless ``field[window]`` / ``index_put_`` pair of
@@ -67,16 +70,17 @@ def _masked_rows_per_shard(mat, start, length: int):
 
 
 def _shard_grid(field, mesh: Mesh):
-    """(pz, py, nz/pz, ny/py, nx) of a sharded vector field, and the global
-    z and y offset of each shard's first plane and row, (pz,) and (py,)."""
-    pz, py = mesh.axis_sizes
+    """(pz, py, nz/pz, ny/py, nx) of a sharded vector field, (pz, py) the
+    shards in it ((1, 1) on a distributed mesh), and the global z and y
+    offset of each of their first planes and rows, (pz,) and (py,)."""
+    pz, py = mesh.local_axis_sizes
     if field.ndim != 6 or tuple(field.shape[:2]) != (pz, py):
         raise ValueError(
-            f"a sharded 3D vector field on a {pz} x {py} mesh is (pz, py, c, "
-            f"nz/pz, ny/py, nx), got {tuple(field.shape)}")
+            f"a sharded 3D vector field on the mesh {mesh.shape} is "
+            f"({pz}, {py}, c, nz/pz, ny/py, nx), got {tuple(field.shape)}")
     nzl, nyl, nx = field.shape[3:]
-    ar = lambda p: torch.arange(p, device=field.device)  # noqa: E731
-    return (pz, py, nzl, nyl, nx), ar(pz) * nzl, ar(py) * nyl
+    return ((pz, py, nzl, nyl, nx), mesh.shard_starts(0, nzl, field.device),
+            mesh.shard_starts(1, nyl, field.device))
 
 
 def _shard_index(pz: int, py: int, device):
@@ -165,24 +169,29 @@ def add_window_into_field(field, window, start_xyz, mesh: Mesh):
     component order). Each shard adds its overlap with the window: every
     window cell goes to the one shard that owns it, at its local index, in
     one batched indexed add; cells outside the domain add nothing. No
-    collective."""
+    collective; on a distributed mesh a process adds the cells it owns."""
     (pz, py, nzl, nyl, nx), _, _ = _shard_grid(field, mesh)
     wz, wy, wx = window.shape[1:]
     start = start_xyz.to(torch.int64)
-    gz, zv = _window_rows(start[2], wz, pz * nzl)
-    gy, yv = _window_rows(start[1], wy, py * nyl)
+    gz, zv = _window_rows(start[2], wz, mesh.shape["z"] * nzl)
+    gy, yv = _window_rows(start[1], wy, mesh.shape["y"] * nyl)
     gx, xv = _window_rows(start[0], wx, nx)
+    # the owning shard's place among the shards in ``field``
+    sz, sy = gz // nzl - mesh.first_shard(0), gy // nyl - mesh.first_shard(1)
+    zv = zv & (sz >= 0) & (sz < pz)
+    yv = yv & (sy >= 0) & (sy < py)
     valid = (zv.reshape(wz, 1, 1) & yv.reshape(1, wy, 1)
              & xv.reshape(1, 1, wx))
     add = torch.where(valid, window.to(field.dtype),
                       torch.zeros((), dtype=field.dtype, device=field.device))
     comp = torch.arange(window.shape[0], device=field.device)
-    idx = (comp.reshape(-1, 1, 1, 1), (gz // nzl).reshape(wz, 1, 1),
-           (gy // nyl).reshape(1, wy, 1), (gz % nzl).reshape(wz, 1, 1),
+    idx = (comp.reshape(-1, 1, 1, 1), sz.clamp(0, pz - 1).reshape(wz, 1, 1),
+           sy.clamp(0, py - 1).reshape(1, wy, 1), (gz % nzl).reshape(wz, 1, 1),
            (gy % nyl).reshape(1, wy, 1), gx.reshape(1, 1, wx))
     out = field.clone()
     # (c, pz, py, ...) view of the copy, so every index is a tensor; the
-    # clamped duplicates of cells outside the domain add zeros
+    # clamped duplicates of cells outside the domain (or another process's
+    # shards) add zeros
     out.permute(2, 0, 1, 3, 4, 5).index_put_(
         tuple(torch.broadcast_to(k, add.shape) for k in idx), add,
         accumulate=True)

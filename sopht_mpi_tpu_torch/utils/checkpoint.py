@@ -15,6 +15,17 @@ step may write into the carry's tensors, the port's form of the JAX
 package's donation hazard. The file is then written on a background thread
 to ``<dir>/<step>.tmp`` and renamed into place with ``os.replace``, so a
 checkpoint file is whole or absent.
+
+On a distributed mesh (``CarryCheckpointer(dir, mesh=mesh)``) every process
+writes its own file, ``<dir>/<step>.rank<r>.pt``, holding its blocks of the
+sharded fields and its copy of the replicated leaves, with the mesh shape
+and its coordinates; a restore reads the process's own file and refuses
+one written at another place of another mesh. The ranks rename their files
+each on its own, so a job cut between two renames leaves ranks whose newest
+files differ: the latest step of a distributed checkpointer is the newest
+that every process has finished (an all-reduce over the world), and a
+restart resumes all ranks from the same step. (The JAX package writes one
+collective orbax checkpoint.)
 """
 
 from __future__ import annotations
@@ -25,7 +36,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-_STEP_FILE = re.compile(r"^(\d+)\.pt$")
+from sopht_mpi_tpu_torch.parallel.mesh import is_distributed
+
+_MESH_KEY = "__mesh__"
 
 
 def _flatten(tree, prefix="", out=None) -> dict:
@@ -85,20 +98,31 @@ class CarryCheckpointer:
     >>> ckpt = CarryCheckpointer("ckpts")
     >>> ckpt.save(step_index, carry)            # host copy, then async write
     >>> carry = ckpt.restore(template=carry0)   # devices from the template
+
+    :param mesh: the carry's mesh; a distributed one gives each process a
+        file of its own.
     """
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, mesh=None):
         self._dir = os.path.abspath(directory)
         os.makedirs(self._dir, exist_ok=True)
         self._writer = ThreadPoolExecutor(max_workers=1)
         self._pending = []
+        self._mesh = mesh if is_distributed(mesh) else None
+        suffix = "" if self._mesh is None else rf"\.rank{self._mesh.rank}"
+        self._pattern = re.compile(rf"^(\d+){suffix}\.pt$")
 
     @property
     def directory(self) -> str:
         return self._dir
 
-    def _path(self, step: int) -> str:
-        return os.path.join(self._dir, f"{int(step)}.pt")
+    def _mesh_tag(self):
+        mesh = self._mesh
+        return torch.tensor([*mesh.axis_sizes, *mesh.coords])
+
+    def _path(self, step: int, ext: str = "pt") -> str:
+        rank = "" if self._mesh is None else f".rank{self._mesh.rank}"
+        return os.path.join(self._dir, f"{int(step)}{rank}.{ext}")
 
     def save(self, step: int, carry, wait: bool = False) -> None:
         """Checkpoint ``step``: every tensor of ``carry`` is copied to the
@@ -106,8 +130,10 @@ class CarryCheckpointer:
         thread unless ``wait``."""
         host = {path: t.detach().to("cpu", copy=True)
                 for path, t in _flatten(carry).items()}
+        if self._mesh is not None:
+            host[_MESH_KEY] = self._mesh_tag()
         final = self._path(step)
-        tmp = os.path.join(self._dir, f"{int(step)}.tmp")
+        tmp = self._path(step, "tmp")
 
         def write():
             torch.save(host, tmp)
@@ -119,13 +145,25 @@ class CarryCheckpointer:
 
     def latest_step(self) -> int | None:
         """The largest step with a finished checkpoint file (``.tmp`` files
-        of writes still under way are not counted)."""
-        steps = [int(m.group(1)) for m in map(_STEP_FILE.match,
+        of writes still under way are not counted). On a distributed mesh
+        every process calls it together, and it is the smallest of the
+        processes' latest steps (None if any process has none)."""
+        steps = [int(m.group(1)) for m in map(self._pattern.match,
                                               os.listdir(self._dir)) if m]
-        return max(steps, default=None)
+        latest = max(steps, default=None)
+        if self._mesh is None:
+            return latest
+        from sopht_mpi_tpu_torch.parallel import transport
+
+        # the maximum of -step is minus the minimum; -1 stands for none
+        mine = torch.tensor([-(-1 if latest is None else latest)],
+                            dtype=torch.int64, device=self._mesh.device)
+        common = -int(transport.all_reduce_max(mine, self._mesh.group)[0])
+        return None if common < 0 else common
 
     def restore(self, template, step: int | None = None):
-        """The checkpoint ``step`` (default: the latest) in the structure of
+        """The checkpoint ``step`` (default: :meth:`latest_step`, on a
+        distributed mesh the newest every process has) in the structure of
         ``template`` (typically the freshly initialised carry), each tensor
         on its template leaf's device. Refuses a missing leaf, a leaf of
         another shape or dtype, and a leaf the template lacks."""
@@ -136,6 +174,13 @@ class CarryCheckpointer:
             raise FileNotFoundError(f"no checkpoints in {self._dir}")
         saved = torch.load(self._path(step), map_location="cpu",
                            weights_only=True)
+        if self._mesh is not None:
+            tag = saved.pop(_MESH_KEY, None)
+            if tag is None or not torch.equal(tag, self._mesh_tag()):
+                raise ValueError(
+                    f"checkpoint {self._path(step)} was written on mesh "
+                    f"(shape, place) {None if tag is None else tag.tolist()}"
+                    f", this process is {self._mesh_tag().tolist()}")
         extra = set(saved) - set(_flatten(template))
         if extra:
             raise KeyError(f"checkpoint leaves {sorted(extra)} are not in the "

@@ -20,12 +20,15 @@ puts each array back on the bound tensor's device and dtype. ``load``
 validates origin, dx and grid size against the defined grid (restart
 consistency, mpi_io.py:483-494) and returns the saved time.
 
-A binding to a field of an in-process mesh (an object with a ``mesh``, as
-a 2D or 3D simulator built with one) reads and writes the
-sharded layout of :mod:`sopht_mpi_tpu_torch.parallel.mesh`: ``save``
-writes the assembled field, ``load`` shards it again, and
+A binding to a field of a mesh (an object with a ``mesh``, as a 2D or 3D
+simulator built with one) reads and writes the sharded layout of
+:mod:`sopht_mpi_tpu_torch.parallel.mesh`: ``save`` writes the assembled
+field, ``load`` shards it again, and
 :meth:`FieldIO.save_eulerian_sharded` / :meth:`FieldIO.load_eulerian_sharded`
 write and read one block a shard in the JAX package's per-shard layout.
+On a distributed mesh every process calls ``save`` (the fields are
+gathered) and rank 0 writes the file; ``save_eulerian_sharded`` writes one
+file a process, as the JAX package does.
 
 ``h5py`` is imported at first use, so the package imports without it
 (``HAS_H5PY`` says whether it is there).
@@ -40,6 +43,7 @@ import numpy as np
 import torch
 
 from sopht_mpi_tpu_torch.parallel.mesh import (
+    is_distributed,
     shard_scalar_field,
     shard_vector_field,
     unshard_scalar_field,
@@ -256,9 +260,30 @@ class FieldIO:
 
     # -- save -------------------------------------------------------------------
 
+    def _mesh(self):
+        """The distributed mesh of a bound Eulerian field, or None."""
+        for binding in self.eulerian_fields.values():
+            mesh = getattr(binding, "mesh", None)
+            if is_distributed(mesh):
+                return mesh
+        return None
+
     def save(self, h5_file_name: str, time=0.0):
         """Write every registered field (one host copy each) and the XDMF
-        sidecars."""
+        sidecars. On a distributed mesh every process gathers the fields,
+        rank 0 writes, and no process returns before the file is whole."""
+        mesh = self._mesh()
+        if mesh is None:
+            self._save(h5_file_name, time)
+            return
+        if mesh.rank == 0:
+            self._save(h5_file_name, time)
+        else:
+            for binding in self.eulerian_fields.values():
+                binding.get()  # join the gathers
+        _barrier(mesh)
+
+    def _save(self, h5_file_name: str, time):
         h5py = _h5py()
         time = _host_scalar(time)
         with h5py.File(h5_file_name, "w") as f:
@@ -323,28 +348,34 @@ class FieldIO:
     # The JAX package's layout: every process writes one file,
     # ``<name>.proc<rank>.h5``, holding the shards it addresses, one block
     # at a time (a host copy of one block, never the global field), each
-    # with its global offsets; the process's ``Parameters`` group holds the
-    # grid. The port is one process, so it writes ``.proc0.h5`` with every
-    # shard of the in-process mesh, shard (i, j) as ``shard_d<i p1 + j>``
-    # (p1 the size of the mesh's second axis: py of a 3D mesh ("z", "y"),
-    # px of a 2D mesh ("y", "x")), the name of the device at that place of a
-    # JAX mesh.
+    # with its global offsets; process 0's ``Parameters`` group holds the
+    # grid. On an in-process mesh the port is one process and writes
+    # ``.proc0.h5`` with every shard; on a distributed mesh process r
+    # writes ``.proc<r>.h5`` with its own. Shard (i, j) is
+    # ``shard_d<i p1 + j>`` (p1 the size of the mesh's second axis: py of a
+    # 3D mesh ("z", "y"), px of a 2D mesh ("y", "x")), the name of the
+    # device at that place of a JAX mesh.
 
     def save_eulerian_sharded(self, h5_file_name: str, time=0.0):
-        """Per-shard Eulerian dump to ``<h5_file_name>.proc0.h5``: one
-        dataset a shard with its global ``start``, and the field's
-        ``ftype`` and ``global_shape`` on its group. A field that is not
-        sharded is one block at the origin. Only Eulerian fields are
-        written (Lagrangian state is marker-sized; :meth:`save` has it)."""
+        """Per-shard Eulerian dump to ``<h5_file_name>.proc<r>.h5``, r this
+        process's rank (0 without a distributed mesh): one dataset a shard
+        with its global ``start``, and the field's ``ftype`` and
+        ``global_shape`` on its group. A field that is not sharded is one
+        block at the origin. Only Eulerian fields are written (Lagrangian
+        state is marker-sized; :meth:`save` has it)."""
         h5py = _h5py()
-        with h5py.File(f"{h5_file_name}.proc0.h5", "w") as f:
+        mesh = self._mesh()
+        rank, n_processes = (0, 1) if mesh is None else (mesh.rank,
+                                                         mesh.size)
+        with h5py.File(f"{h5_file_name}.proc{rank}.h5", "w") as f:
             f.attrs["time"] = _host_scalar(time)
-            f.attrs["process"] = 0
-            f.attrs["n_processes"] = 1
-            pgrp = f.create_group("Parameters")
-            pgrp.attrs["origin"] = self.eulerian_origin
-            pgrp.attrs["dx"] = self.eulerian_dx
-            pgrp.attrs["grid_size"] = self.eulerian_grid_size
+            f.attrs["process"] = rank
+            f.attrs["n_processes"] = n_processes
+            if rank == 0:
+                pgrp = f.create_group("Parameters")
+                pgrp.attrs["origin"] = self.eulerian_origin
+                pgrp.attrs["dx"] = self.eulerian_dx
+                pgrp.attrs["grid_size"] = self.eulerian_grid_size
             for name, binding in self.eulerian_fields.items():
                 grp = f.create_group(name)
                 grp.attrs["ftype"] = self.eulerian_fields_type[name]
@@ -354,11 +385,14 @@ class FieldIO:
                     d.attrs["start"] = np.asarray(start, np.int64)
                 grp.attrs["global_shape"] = np.asarray(
                     _global_shape(binding), np.int64)
+        if mesh is not None:
+            _barrier(mesh)  # every process's file is whole on return
 
     def load_eulerian_sharded(self, h5_file_name: str):
         """Restore from per-shard files (the port's or the JAX package's,
-        every ``<h5_file_name>.proc*.h5``). A field sharded over the same
-        mesh takes each stored block straight into its shard; a block
+        every ``<h5_file_name>.proc*.h5``, read by every process). A field
+        sharded over the same mesh takes each stored block straight into
+        its shard (a process's own shard on a distributed mesh); a block
         missing at a shard's offsets (files written under another layout)
         raises. A field that is not sharded is assembled from the blocks.
         Validates the grid parameters; returns the saved time."""
@@ -584,6 +618,12 @@ class FieldIO:
                 f.write(xmf)
 
 
+def _barrier(mesh):
+    import torch.distributed as dist
+
+    dist.barrier(group=mesh.group)
+
+
 def _raw(binding):
     """The bound value as it is: sharded for a mesh's field; the host
     array of a snapshot or save-only binding."""
@@ -601,7 +641,7 @@ def _global_shape(binding) -> tuple:
     kind = _kind(binding)
     if kind is None:
         return tuple(np.shape(current))
-    p0, p1 = current.shape[:2]
+    p0, p1 = binding.mesh.axis_sizes
     local = list(current.shape[2:])
     lead = 1 if kind == "Vector" else 0
     local[lead] *= p0
@@ -611,23 +651,25 @@ def _global_shape(binding) -> tuple:
 
 def _blocks(binding, read=True):
     """``(dataset name, global start, block)`` for each shard of a bound
-    field (one host copy of one block at a time); with ``read=False`` the
-    shard's index into the sharded tensor in place of the block. A field
-    that is not sharded is one block at the origin."""
+    field in this process (one host copy of one block at a time); with
+    ``read=False`` the shard's index into the sharded tensor in place of
+    the block. A field that is not sharded is one block at the origin."""
     current = _raw(binding)
     kind = _kind(binding)
     if kind is None:
         yield "shard_d0", (0,) * np.ndim(current), (
             binding.get() if read else ...)
         return
-    p0, p1 = current.shape[:2]
+    mesh = binding.mesh
+    p1 = mesh.axis_sizes[1]
     lead = 1 if kind == "Vector" else 0
     n0, n1 = current.shape[2 + lead:4 + lead]
-    for i in range(p0):
-        for j in range(p1):
+    for i in range(current.shape[0]):
+        for j in range(current.shape[1]):
+            gi, gj = mesh.first_shard(0) + i, mesh.first_shard(1) + j
             start = [0] * (current.ndim - 2)
-            start[lead], start[lead + 1] = i * n0, j * n1
-            yield (f"shard_d{i * p1 + j}", tuple(start),
+            start[lead], start[lead + 1] = gi * n0, gj * n1
+            yield (f"shard_d{gi * p1 + gj}", tuple(start),
                    to_host(current[i, j]) if read else (i, j))
 
 

@@ -5,15 +5,17 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# every driver of examples_torch/, the JAX examples' but the adjoint one
+# every driver of examples_torch/, the JAX examples' but the adjoint one,
+# and the pod driver of doc/tpu/
 DRIVERS = sorted(
     [f"examples_torch/2d/{name}.py" for name in
      ("adjoint_viscosity_inversion", "flow_past_cylinder", "flow_past_rod",
       "lamb_oseen_vortex")]
     + [f"examples_torch/3d/{name}.py" for name in
        ("flow_past_freely_rotating_rod", "flow_past_rod",
-        "flow_past_sphere", "point_source_advect_diffuse",
-        "rod_and_sphere", "sedimenting_sphere")])
+        "flow_past_sphere", "pod_flow_past_sphere",
+        "point_source_advect_diffuse", "rod_and_sphere",
+        "sedimenting_sphere")])
 
 
 def test_port_imports_without_jax():
@@ -43,6 +45,9 @@ def test_port_imports_without_jax():
         "from sopht_mpi_tpu_torch.cases import dryrun_multichip\n"
         "from sopht_mpi_tpu_torch.cases import sharded_flow_case\n"
         "import sopht_mpi_tpu_torch.tools.probe_sharded\n"
+        "import sopht_mpi_tpu_torch.tools.dist_sphere\n"
+        "import sopht_mpi_tpu_torch.tools.probe_shard_batch\n"
+        "from sopht_mpi_tpu_torch.parallel import transport\n"
         "import bench_torch\n"
         "from sopht_mpi_tpu_torch.parallel import cuda_fft\n"
         "import sopht_mpi_tpu_torch.utils as u\n"
